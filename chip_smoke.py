@@ -5,19 +5,41 @@
 Phases (any failure exits non-zero):
   1. environment: torch/CUDA versions, the card's name and power limit,
      TF32 off for matmul and cuDNN;
-  2. build: nvcc compiles the tile kernel from `src/repro_torch/.../csrc`;
+  2. build: the four kernels (`src/repro_torch/kernels/*/csrc/*.cu`),
+     one nvcc each, started together, with build times;
   3. kernel vs plain: the CUDA tile kernel (`fused_tile_call`) against
      its plain PyTorch version (`matrix_tile_conv`) on the card, at every
      conv shape of the served nets, max rel err < 1e-5 (both fp32, with
      different summation orders);
-  4. serve: `vgg_mixed_channel` and `fft_fewchannel` through `Engine` +
-     `ConvServer` on the H100 hardware model, five requests cold and warm;
-     every output finite, of the expected shape and within rel 1e-3 of
-     the all-direct `run_direct` (cuDNN, TF32 off); the kernel's launch
-     counter is zeroed before each net is served and must grow;
-  5. times: kernel, plain and `F.conv2d` (library yardstick) per phase-3
-     shape, median of CUDA-event-timed runs, beside the roofline bound;
-     per-stage profile of a warm 64-bucket wave.
+  4. LM kernels vs plain: conv1d_fused, flash_attention and decode_mlp
+     against `conv1d_ref`, `attention_ref` and `decode_mlp_ref` on the
+     same card tensors, at the served shapes and at edge cases (ragged
+     lengths, window on and off, GQA g=4 and g=1, non-causal, a temporal
+     `ConvSpec` through the registry), max rel err < 1e-5;
+  5. serve ConvNets: `vgg_mixed_channel` and `fft_fewchannel` through
+     `Engine` + `ConvServer` on the H100 hardware model, five requests
+     cold and warm; every output finite, of the expected shape and within
+     rel 1e-3 of the all-direct `run_direct` (cuDNN, TF32 off); the tile
+     kernel's launch counter is zeroed before each net is served and must
+     grow;
+  6. serve LMs: gemma3-1b and mamba2-1.3b at full width and depth, fp32,
+     random weights from seed 0, six requests (prompts 17..700 tokens) in
+     waves of 4, 16 new tokens; prefill ms per wave, decode ms per step,
+     tokens/s; every kernel count zeroed before each model and read
+     after: flash launches = attention layers x waves, decode_mlp =
+     MLP layers x decode steps, conv1d = mamba layers x waves;
+  7. card vs CPU: each model's weights cut to one period of depth (6 / 4
+     layers), one wave of two prompts (600 and 40 tokens) on the card and
+     on the CPU through the port: prefill and teacher-forced decode logits
+     within rel 1e-3, and equal greedy tokens;
+  8. LM profile: one warm prefill of wave 1 and one decode step per
+     model, host wall time beside `torch.profiler`'s device busy time,
+     the idle share, and the top kernels by device time;
+  9. times: kernel, plain and library yardstick per phase-3 and phase-4
+     case (`F.conv2d`; `F.scaled_dot_product_attention` on kv heads
+     repeated beforehand; grouped `F.conv1d` with bias, SiLU outside it;
+     none for the decode MLP), median of CUDA-event-timed runs, beside
+     the bound; per-stage profile of a warm ConvNet 64-bucket wave.
 
 The line before the last is a JSON object listing the ported kernels; the
 last line is {"ok": true, "device": {...}}.  Imports nothing of JAX and
@@ -91,13 +113,43 @@ def phase_environment() -> str:
     return smi
 
 
-def phase_build() -> None:
-    from repro_torch.kernels.fused_tile import kernel
+def kernel_libraries():
+    """name -> (CudaLibrary, wrapper module) for every kernel of the port."""
+    from repro_torch.kernels.conv1d_fused import kernel as conv1d_kernel
+    from repro_torch.kernels.decode_mlp import kernel as mlp_kernel
+    from repro_torch.kernels.flash_attention import kernel as flash_kernel
+    from repro_torch.kernels.fused_tile import kernel as tile_kernel
 
+    return {
+        "fused_tile": tile_kernel,
+        "conv1d_fused": conv1d_kernel,
+        "flash_attention": flash_kernel,
+        "decode_mlp": mlp_kernel,
+    }
+
+
+def phase_build() -> None:
+    """Every kernel built from the checkout's sources, one nvcc per
+    source, all started together."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from repro_torch.kernels import _build
+
+    def timed(mod):
+        t0 = time.perf_counter()
+        lib = mod.LIB.build()
+        return lib, time.perf_counter() - t0
+
+    mods = kernel_libraries()
     t0 = time.perf_counter()
-    lib = kernel.build()
-    print(f"build: nvcc {' '.join(kernel.NVCC_FLAGS)} -> "
-          f"{os.path.relpath(lib, ROOT)} in {time.perf_counter() - t0:.2f} s")
+    with ThreadPoolExecutor(len(mods)) as pool:
+        futs = {name: pool.submit(timed, mod) for name, mod in mods.items()}
+        done = {name: f.result() for name, f in futs.items()}
+    print(f"build: nvcc {' '.join(_build.NVCC_FLAGS)}")
+    for name, (lib, secs) in done.items():
+        print(f"  {name:16s} {os.path.relpath(mods[name].SOURCE, ROOT)} -> "
+              f"{os.path.relpath(lib, ROOT)} in {secs:.2f} s")
+    print(f"  all {len(done)} kernels built in {time.perf_counter() - t0:.2f} s")
 
 
 # ----------------------------------------------------------------- phase 3
@@ -218,7 +270,7 @@ def phase_kernel_vs_plain():
     return made, worst_abs, worst_rel
 
 
-# ----------------------------------------------------------------- phase 4
+# ----------------------------------------------------------------- phase 5
 
 
 def phase_serve():
@@ -291,7 +343,7 @@ def phase_serve():
     return served
 
 
-# ----------------------------------------------------------------- phase 5
+# ----------------------------------------------------------------- phase 9
 
 
 def bound(c) -> tuple:
@@ -345,6 +397,420 @@ def phase_times(cases, served):
     return rows
 
 
+# ----------------------------------------------------------------- phase 4
+
+# the LM path's served requests: prompt lengths (wave 1 = the first four,
+# longer than gemma3's 512 window; its mamba2 prefill pads 700 -> 768)
+LM_PROMPTS = (700, 17, 300, 520, 64, 129)
+LM_NEW = 16
+LM_MAX_LEN = 768
+LM_ARCHS = ("gemma3-1b", "mamba2-1.3b")
+DEV = "cuda"  # every LM phase runs its tensors here
+LM_CUT = {"gemma3-1b": 6, "mamba2-1.3b": 4}  # one period of depth
+REL_TOL_LM_KERNEL = 1e-5  # kernel vs plain, both fp32, other sum orders
+REL_TOL_LM_CPU = 1e-3  # card vs CPU logits, the reference's net tolerance
+LM_KERNELS = {
+    "conv1d_fused": ("src/repro_torch/kernels/conv1d_fused/csrc/conv1d_fused.cu",
+                     "src/repro/kernels/conv1d_fused/kernel.py:24"),
+    "flash_attention": ("src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
+                        "src/repro/kernels/flash_attention/kernel.py:30"),
+    "decode_mlp": ("src/repro_torch/kernels/decode_mlp/csrc/decode_mlp.cu",
+                   "src/repro/kernels/decode_mlp/kernel.py:28"),
+}
+
+
+def _cuda(gen: np.random.Generator, shape, scale: float = 1.0) -> torch.Tensor:
+    return torch.tensor(gen.standard_normal(shape) * scale,
+                        dtype=torch.float32, device=DEV)
+
+
+def _bound(n_bytes: float, ops: float) -> tuple:
+    t_ops, t_bytes = ops / PEAK_FP32 * 1e3, n_bytes / HBM_BW * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def conv1d_cases(gen):
+    """One dict per case: kernel, label, served, run / plain / library
+    callables (library None where no single PyTorch call exists), bound."""
+    import torch.nn.functional as F
+
+    from repro_torch.configs import get_arch
+    from repro_torch.core import analysis, registry
+    from repro_torch.kernels.conv1d_fused import conv1d_fused, conv1d_ref
+
+    cfg = get_arch("mamba2-1.3b")
+    s = cfg.ssm
+    d_inner = s.expand * cfg.d_model
+    d_xbc = d_inner + 2 * s.n_groups * s.d_state  # 4352
+    width = d_inner + d_xbc + d_inner // s.head_dim  # zxbcdt, 8512
+    cases = []
+    for label, b, length, d, k, row, act, served in (
+        ("mamba2 wave1 B4 L768 D4352 (slice of 8512) silu", 4, 768, d_xbc, s.d_conv, width, "silu", True),
+        ("mamba2 wave2 B2 L129 D4352 (slice of 8512) silu", 2, 129, d_xbc, s.d_conv, width, "silu", False),
+        ("ragged L777 D100 K4 none", 2, 777, 100, 4, 100, "none", False),
+        ("L5 < strip D64 K3 silu", 3, 5, 64, 3, 64, "silu", False),
+    ):
+        full = _cuda(gen, (b, length, row))
+        x = full[..., d_inner:d_inner + d] if row > d else full
+        w, bias = _cuda(gen, (k, d), 0.5), _cuda(gen, (d,), 0.1)
+        xt = x.transpose(1, 2).contiguous()  # (B, D, L) for F.conv1d
+        wt = w.t().contiguous()[:, None, :]  # (D, 1, K)
+
+        def library(xt=xt, wt=wt, bias=bias, k=k, length=length):
+            # grouped F.conv1d with bias; the SiLU would be a second call
+            return F.conv1d(xt, wt, bias, padding=k - 1, groups=wt.shape[0])[..., :length]
+
+        cases.append(dict(
+            kernel="conv1d_fused", label=label, served=served,
+            run=lambda x=x, w=w, bias=bias, act=act: conv1d_fused(x, w, bias, activation=act),
+            plain=lambda x=x, w=w, bias=bias, act=act: conv1d_ref(x, w, bias, activation=act),
+            library=library,
+            bound=_bound(4 * (2 * b * length * d + k * d + d), 2 * k * b * length * d),
+        ))
+    # a temporal ConvSpec planned and executed through the registry
+    spec = registry.ConvSpec(h=1, w=300, c_in=48, c_out=48, k=4, pad=3, groups=48)
+    ap = registry.plan_conv(spec, analysis.H100_SXM)
+    if ap.algo != "conv1d_fused":
+        raise AssertionError(f"temporal spec planned {ap.algo}, not conv1d_fused")
+    x4, w4 = _cuda(gen, (2, 1, 300, 48)), _cuda(gen, (1, 4, 1, 48), 0.5)
+    zero = torch.zeros(48, device=DEV)
+    alg = registry.get(ap.algo)
+    cases.append(dict(
+        kernel="conv1d_fused", label="registry temporal ConvSpec L300 D48 K4", served=False,
+        run=lambda: alg.execute(x4, w4, None, ap),
+        plain=lambda: conv1d_ref(x4[:, 0], w4[0, :, 0, :], zero, activation="none")[:, None],
+        library=None,
+        bound=_bound(4 * (2 * 2 * 300 * 48 + 5 * 48), 2 * 4 * 2 * 300 * 48),
+    ))
+    return cases
+
+
+def flash_cases(gen):
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import attention_ref, flash_attention
+
+    cases = []
+    for label, b, hq, hkv, sq, sk, hd, causal, window, model_layout, served in (
+        ("gemma3 wave1 global B4 S700 hd256 g4", 4, 4, 1, 700, 700, 256, True, 0, True, True),
+        ("gemma3 wave1 local w512 B4 S700 hd256 g4", 4, 4, 1, 700, 700, 256, True, 512, True, False),
+        ("gemma3 wave2 local w512 B2 S129 hd256 g4", 2, 4, 1, 129, 129, 256, True, 512, True, False),
+        ("g=1 B2 H4 S100 hd64 causal", 2, 4, 4, 100, 100, 64, True, 0, False, False),
+        ("non-causal Sq77 Sk256 hd128 g2", 1, 2, 1, 77, 256, 128, False, 0, False, False),
+        ("causal w40 Sq50 Sk200 hd32 g4", 2, 8, 2, 50, 200, 32, True, 40, False, False),
+        ("causal w8 S33 hd16 g4", 1, 4, 1, 33, 33, 16, True, 8, False, False),
+    ):
+        if model_layout:  # the model's (B, S, H, hd), viewed as (B, H, S, hd)
+            q = _cuda(gen, (b, sq, hq, hd)).transpose(1, 2)
+            k = _cuda(gen, (b, sk, hkv, hd)).transpose(1, 2)
+            v = _cuda(gen, (b, sk, hkv, hd)).transpose(1, 2)
+        else:
+            q, k, v = (_cuda(gen, (b, hq, sq, hd)), _cuda(gen, (b, hkv, sk, hd)),
+                       _cuda(gen, (b, hkv, sk, hd)))
+        # the SDPA yardstick gets kv heads repeated before the timed call
+        qc = q.contiguous()
+        kr = k.repeat_interleave(hq // hkv, 1).contiguous()
+        vr = v.repeat_interleave(hq // hkv, 1).contiguous()
+        qp = torch.arange(sq, device=DEV)[:, None]
+        kp = torch.arange(sk, device=DEV)[None, :]
+        ok = torch.ones((sq, sk), dtype=torch.bool, device=DEV)
+        if causal:
+            ok &= kp <= qp
+        if window:
+            ok &= qp - kp < window
+        pairs = int(ok.sum())  # (q, key) pairs inside the band, per head
+
+        def library(qc=qc, kr=kr, vr=vr, ok=ok):
+            return F.scaled_dot_product_attention(qc, kr, vr, attn_mask=ok)
+
+        cases.append(dict(
+            kernel="flash_attention", label=label, served=served,
+            run=lambda q=q, k=k, v=v, c=causal, w=window: flash_attention(q, k, v, causal=c, window=w),
+            plain=lambda q=q, k=k, v=v, c=causal, w=window: attention_ref(q, k, v, causal=c, window=w),
+            library=library,
+            bound=_bound(4 * (2 * q.numel() + k.numel() + v.numel()), 4 * hd * pairs * b * hq),
+        ))
+    return cases
+
+
+def decode_mlp_cases(gen):
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels.decode_mlp import decode_mlp, decode_mlp_ref
+
+    cfg = get_arch("gemma3-1b")
+    cases = []
+    for label, b, d, f, served in (
+        (f"gemma3 decode B4 d{cfg.d_model} f{cfg.d_ff}", 4, cfg.d_model, cfg.d_ff, True),
+        (f"gemma3 decode B2 d{cfg.d_model} f{cfg.d_ff}", 2, cfg.d_model, cfg.d_ff, False),
+        ("ragged B11 d200 f700", 11, 200, 700, False),
+        ("B1 d64 f33", 1, 64, 33, False),
+    ):
+        x = _cuda(gen, (b, d))
+        w1, w3 = _cuda(gen, (d, f), d ** -0.5), _cuda(gen, (d, f), d ** -0.5)
+        w2 = _cuda(gen, (f, d), f ** -0.5)
+        cases.append(dict(
+            kernel="decode_mlp", label=label, served=served,
+            run=lambda x=x, w1=w1, w3=w3, w2=w2: decode_mlp(x, w1, w3, w2),
+            plain=lambda x=x, w1=w1, w3=w3, w2=w2: decode_mlp_ref(x, w1, w3, w2),
+            library=None,
+            bound=_bound(4 * (3 * d * f + 2 * b * d), 2 * b * 3 * d * f),
+        ))
+    return cases
+
+
+def phase_lm_kernels_vs_plain():
+    """Each LM kernel against its plain version on the card, on the same
+    inputs, at the served shapes and at the edge cases."""
+    gen = np.random.default_rng(0)
+    cases = conv1d_cases(gen) + flash_cases(gen) + decode_mlp_cases(gen)
+    worst = {}
+    for c in cases:
+        y, ref = c["run"](), c["plain"]()
+        torch.cuda.synchronize()
+        if tuple(y.shape) != tuple(ref.shape) or not torch.isfinite(y).all():
+            raise AssertionError(f"{c['label']}: bad kernel output {tuple(y.shape)}")
+        abs_err = float((y - ref).abs().max())
+        err = rel_err(y, ref)
+        w = worst.setdefault(c["kernel"], [0.0, 0.0])
+        w[0], w[1] = max(w[0], abs_err), max(w[1], err)
+        print(f"kernel-vs-plain {c['kernel']:15s} {c['label']:48s} "
+              f"max_abs_err={abs_err:.3e} max_rel_err={err:.3e} "
+              f"(tol rel {REL_TOL_LM_KERNEL:g})")
+        if not err < REL_TOL_LM_KERNEL:
+            raise AssertionError(
+                f"{c['label']}: kernel vs plain rel err {err:.3e} >= {REL_TOL_LM_KERNEL}"
+            )
+    return cases, worst
+
+
+# ------------------------------------------------------------ phase 6 - 8
+
+
+def lm_requests(cfg, lengths, seed: int = 0):
+    from repro_torch.serve import Request
+
+    rng = np.random.default_rng(seed)
+    return [Request(rid=i, prompt=rng.integers(0, cfg.vocab_size, n).astype(np.int32),
+                    max_new_tokens=LM_NEW) for i, n in enumerate(lengths)]
+
+
+def phase_serve_lm():
+    """gemma3-1b and mamba2-1.3b at full published width and depth, fp32,
+    random weights from seed 0: six requests, max_batch 4 (one full and
+    one partial wave), 16 new tokens each.  Every kernel count is zeroed
+    just before a model is served and read just after."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.models import init_lm
+    from repro_torch.serve import Engine, ServeConfig
+
+    mods = kernel_libraries()
+    served = {}
+    for name in LM_ARCHS:
+        cfg = dataclasses.replace(get_arch(name), dtype="float32")
+        t0 = time.perf_counter()
+        model = init_lm(cfg, seed=0, device=DEV)
+        torch.cuda.synchronize()
+        n_params = sum(p.numel() for p in model.parameters())
+        print(f"model {name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+              f"{n_params / 1e9:.3f} B params fp32, init {time.perf_counter() - t0:.2f} s")
+        reqs = lm_requests(cfg, LM_PROMPTS)
+        engine = Engine(model, ServeConfig(max_batch=MAX_BATCH, max_len=LM_MAX_LEN))
+        for mod in mods.values():
+            mod.LAUNCHES = 0  # main path: count only the served run
+        t0 = time.perf_counter()
+        out = engine.run(reqs, seed=0)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {k: mod.LAUNCHES for k, mod in mods.items()}
+        for r in reqs:
+            toks = out[r.rid]
+            if len(toks) != LM_NEW or not all(0 <= t < cfg.vocab_size for t in toks):
+                raise AssertionError(f"{name} rid {r.rid}: bad tokens {toks}")
+        waves, steps = len(engine.waves), sum(w["decode_steps"] for w in engine.waves)
+        n_tok = sum(w["tokens"] for w in engine.waves)
+        for i, w in enumerate(engine.waves):
+            print(f"  wave {i}: {w['size']} requests, prompt {w['prompt_len']} tokens, "
+                  f"prefill {w['prefill_s'] * 1e3:.2f} ms, decode "
+                  f"{w['decode_s'] / max(w['decode_steps'], 1) * 1e3:.3f} ms/step "
+                  f"over {w['decode_steps']} steps")
+        print(f"  {len(reqs)} requests, {n_tok} tokens in {wall:.3f} s "
+              f"({n_tok / wall:.1f} tokens/s, host clock after synchronize)")
+        specs = model.specs
+        want = {
+            "fused_tile": 0,
+            "flash_attention": sum(s.mixer == "attn" for s in specs) * waves,
+            "decode_mlp": sum(s.has_mlp for s in specs) * steps,
+            "conv1d_fused": sum(s.mixer == "mamba" for s in specs) * waves,
+        }
+        print(f"  launches: {launches} over {waves} waves, {steps} decode steps "
+              f"(per prefill wave: flash {launches['flash_attention'] / waves:g}, "
+              f"conv1d {launches['conv1d_fused'] / waves:g}; per decode step: "
+              f"decode_mlp {launches['decode_mlp'] / steps:g})")
+        for k, n in want.items():
+            if launches[k] != n:
+                raise AssertionError(f"{name}: {k} launched {launches[k]} times, "
+                                     f"expected {n} (layers x waves or steps)")
+        served[name] = dict(model=model, cfg=cfg, launches=launches, waves=waves,
+                            steps=steps)
+    return served
+
+
+def _cut(model, n_layers: int):
+    """The same weights (shared, not copied), cut to the first
+    `n_layers` layers."""
+    import dataclasses
+
+    from repro_torch.models.lm import LM
+
+    cfg = dataclasses.replace(model.cfg, n_layers=n_layers)
+    tree = {k: model[k] for k in ("embed", "final_norm", "lm_head") if k in model}
+    tree["layers"] = list(model.layers[:n_layers])
+    return LM(cfg, tree)
+
+
+def _logits_run(model, toks: np.ndarray, steps: int, forced=None):
+    """Prefill `toks`, then `steps` decode steps fed greedily from this
+    model's own logits, or teacher-forced on `forced`.  Returns the
+    logits (steps + 1, B, V) on the host and the tokens fed."""
+    from repro_torch.models import lm_decode_step, lm_prefill
+
+    dev = model.device
+    logits, state = lm_prefill(model, torch.from_numpy(toks).to(dev), LM_MAX_LEN)
+    out, fed = [logits.float().cpu()], []
+    for t in range(steps):
+        cur = forced[t] if forced is not None else out[-1].argmax(-1).numpy()
+        fed.append(cur)
+        logits, state = lm_decode_step(
+            model, torch.from_numpy(np.asarray(cur, np.int64)).to(dev),
+            toks.shape[1] + t, state)
+        out.append(logits.float().cpu())
+    return torch.stack(out), fed
+
+
+def phase_lm_vs_cpu(served):
+    """The served weights cut to one period of depth, one wave of two
+    requests (one longer than the 512 window), on the card and on the CPU
+    through the port: prefill and teacher-forced decode logits within
+    REL_TOL_LM_CPU, and the same greedy tokens."""
+    import copy
+
+    for name, s in served.items():
+        cut = _cut(s["model"], LM_CUT[name])
+        cpu = copy.deepcopy(cut).to("cpu")
+        reqs = lm_requests(s["cfg"], (600, 40), seed=1)
+        toks = np.zeros((2, 600), np.int64)
+        for i, r in enumerate(reqs):
+            toks[i, 600 - len(r.prompt):] = r.prompt
+        t0 = time.perf_counter()
+        card, fed = _logits_run(cut, toks, LM_NEW)
+        t_card = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        host, _ = _logits_run(cpu, toks, LM_NEW, forced=fed)
+        t_cpu = time.perf_counter() - t0
+        if not (torch.isfinite(card).all() and torch.isfinite(host).all()):
+            raise AssertionError(f"{name}: non-finite logits")
+        scale = float(host.abs().max())
+        errs = [float((card[i] - host[i]).abs().max()) / scale for i in range(len(card))]
+        top2 = card.topk(2, dim=-1).values
+        margin = float((top2[..., 0] - top2[..., 1]).min())
+        same = bool((card.argmax(-1) == host.argmax(-1)).all())
+        print(f"card-vs-cpu {name} cut to {LM_CUT[name]} layers, prompts (600, 40): "
+              f"prefill rel err {errs[0]:.3e}, decode max rel err {max(errs[1:]):.3e} "
+              f"(tol {REL_TOL_LM_CPU:g}); greedy tokens equal: {same} "
+              f"(smallest top-2 logit margin {margin:.3e}); card {t_card:.2f} s, "
+              f"cpu {t_cpu:.2f} s")
+        if not max(errs) < REL_TOL_LM_CPU:
+            raise AssertionError(f"{name}: card vs cpu rel err {max(errs):.3e}")
+        if not same:
+            raise AssertionError(f"{name}: greedy tokens differ between card and cpu")
+
+
+def _kernel_events(prof) -> list:
+    """The profiler's device-side events (kernels, copies, memsets),
+    averaged by name.  Host-side operator events also carry the device
+    time of the kernels they launched, so summing them too would count
+    each kernel twice."""
+    from torch.autograd import DeviceType
+
+    return [e for e in prof.key_averages()
+            if getattr(e, "device_type", None) == DeviceType.CUDA]
+
+
+def _device_ms(event) -> float:
+    """An averaged device event's total time, ms."""
+    us = getattr(event, "self_device_time_total", None)
+    if us is None:
+        us = getattr(event, "self_cuda_time_total", 0)
+    return us / 1e3
+
+
+def phase_lm_profile(served):
+    """Where a wave's time goes: one warm prefill of wave 1's four prompts
+    and one decode step after it, per model.  Wall time on the host clock
+    (after synchronize, without the profiler), device busy time summed
+    over `torch.profiler`'s device events, the idle share between them,
+    and the kernels that take the most device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.models import lm_decode_step, lm_prefill
+
+    for name, s in served.items():
+        model, cfg = s["model"], s["cfg"]
+        reqs = lm_requests(cfg, LM_PROMPTS[:MAX_BATCH])
+        plen = max(len(r.prompt) for r in reqs)
+        toks = np.zeros((len(reqs), plen), np.int64)
+        for i, r in enumerate(reqs):
+            toks[i, plen - len(r.prompt):] = r.prompt
+        toks = torch.from_numpy(toks).to(DEV)
+        _, state = lm_prefill(model, toks, LM_MAX_LEN)
+        tok = toks[:, -1]
+        calls = {
+            f"prefill B{len(reqs)} S{plen}": lambda: lm_prefill(model, toks, LM_MAX_LEN),
+            f"decode step B{len(reqs)}": lambda: lm_decode_step(model, tok, plen, state),
+        }
+        for label, fn in calls.items():
+            fn()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                fn()
+                torch.cuda.synchronize()
+            events = _kernel_events(prof)
+            busy = sum(_device_ms(e) for e in events)
+            if busy <= 0:
+                print(f"profile {name} {label}: wall {wall:.3f} ms; device time not "
+                      "measured (the profiler saw no device events)")
+                continue
+            print(f"profile {name} {label}: wall {wall:.3f} ms, device busy {busy:.3f} ms "
+                  f"in {sum(e.count for e in events)} device events, "
+                  f"idle share {max(0.0, 1 - busy / wall):.3f}")
+            for e in sorted(events, key=_device_ms, reverse=True)[:8]:
+                print(f"  {_device_ms(e):9.3f} ms  x{e.count:<5d} {e.key[:90]}")
+
+
+def phase_lm_times(cases):
+    """Kernel, plain and library times at every LM case (median of CUDA
+    events); the served shape's row goes into the kernels line."""
+    rows = {}
+    for c in cases:
+        k_ms = time_ms(c["run"])
+        p_ms = time_ms(c["plain"])
+        l_ms = time_ms(c["library"]) if c["library"] is not None else None
+        b_ms, b_by = c["bound"]
+        lib = f"{l_ms:.4f} ms" if l_ms is not None else "-"
+        print(f"time {c['kernel']:15s} {c['label']:48s} kernel {k_ms:.4f} ms  "
+              f"plain {p_ms:.4f} ms  library {lib}  bound {b_ms:.4f} ms ({b_by})")
+        if c["served"]:
+            rows[c["kernel"]] = dict(shape=c["label"], ms=k_ms, plain_ms=p_ms,
+                                     library_ms=l_ms, bound_ms=b_ms, bound_by=b_by)
+    return rows
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the GPU only",
@@ -356,8 +822,13 @@ def main() -> int:
     phase_environment()
     phase_build()
     cases, worst_abs, worst_rel = phase_kernel_vs_plain()
+    lm_cases, lm_worst = phase_lm_kernels_vs_plain()
     served = phase_serve()
+    lm_served = phase_serve_lm()
+    phase_lm_vs_cpu(lm_served)
+    phase_lm_profile(lm_served)
     rows = phase_times(cases, served)
+    lm_rows = phase_lm_times(lm_cases)
 
     # headline shape: the widest served vgg layer when vgg reaches the
     # kernel (64->64 at bucket 64), else fft_fewchannel's 8->8
@@ -380,6 +851,19 @@ def main() -> int:
         "bound_by": head["bound_by"],
         "library_ms": head["library_ms"],
     }]}
+    for name, (source, replaces) in LM_KERNELS.items():
+        arch = "mamba2-1.3b" if name == "conv1d_fused" else "gemma3-1b"
+        run = lm_served[arch]
+        per = run["steps"] if name == "decode_mlp" else run["waves"]
+        kernels["kernels"].append(dict(
+            name=name, route="cuda", source=source, replaces=replaces,
+            launches=run["launches"][name],
+            launches_per=(f"{run['launches'][name] / per:g} per "
+                          f"{'decode step' if name == 'decode_mlp' else 'prefill wave'} "
+                          f"of {arch}"),
+            max_abs_err=lm_worst[name][0], max_rel_err=lm_worst[name][1],
+            **lm_rows[name],
+        ))
     print(json.dumps(kernels))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

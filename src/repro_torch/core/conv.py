@@ -36,6 +36,7 @@ from repro_torch.core.device import DeviceLike, resolve_device
 from repro_torch.core.fft_conv import conv2d_fft_fused  # noqa: F401  (re-export +
 from repro_torch.core.fused import conv2d_l3_fused  # noqa: F401      registers the
 from repro_torch.core.three_stage import conv2d_three_stage  # noqa: F401  algos)
+from repro_torch.kernels.conv1d_fused import ops as _conv1d_ops
 
 if TYPE_CHECKING:  # convserve imports core; keep the runtime edge one-way
     from repro_torch.convserve.plan import LayerPlan
@@ -163,3 +164,15 @@ def conv2d(
             "wt=None, or plan an algorithm with consumes_wt=True."
         )
     return alg.execute(x, w, wt, aplan)
+
+
+def conv1d_depthwise_causal(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Depthwise causal conv1d: x (B, L, D), w (K, D) -> (B, L, D).
+
+    The Mamba-family short conv, without bias or activation.  The device
+    decides the path as everywhere in the port: a CUDA tensor launches
+    the fused conv1d kernel, a CPU tensor runs its plain version.  (The
+    reference's ``use_pallas=True`` spelling also applies SiLU, unlike its
+    default path; this is the default path's function.)
+    """
+    return _conv1d_ops.conv1d_fused(x, w, activation="none")

@@ -2,9 +2,9 @@
 
 `csrc/fused_tile.cu` is compiled with nvcc for sm_90a into a shared
 library with a plain C entry point, on first use, into
-``build/repro_torch/`` at the repository root, and bound with ctypes.
-Nothing is built or loaded when this module is imported: the CPU tests
-import it without a CUDA toolkit.
+``build/repro_torch/`` at the repository root, and bound with ctypes
+(`kernels._build`).  Nothing is built or loaded when this module is
+imported: the CPU tests import it without a CUDA toolkit.
 
 `fused_tile_call` takes CUDA tensors only and raises on anything the
 kernel does not take; the plain PyTorch version of the same function is
@@ -14,18 +14,14 @@ kernel does not take; the plain PyTorch version of the same function is
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
 import pathlib
-import shutil
-import subprocess
-import tempfile
-from typing import Optional, Tuple
+from typing import Tuple
 
 import torch
 
 from repro_torch.core import transforms
 from repro_torch.core.sharedbuf import SharedBufferPlan
+from repro_torch.kernels import _build
 from repro_torch.kernels.fused_tile.matrix import basis
 
 LAUNCHES = 0  # kernel launches since import (or since a caller reset it)
@@ -36,11 +32,6 @@ _MAX_EP_OPS = 16  # the epilogue rides in one 64-bit word, 4 bits per op
 _RELU = 15
 
 SOURCE = pathlib.Path(__file__).parent / "csrc" / "fused_tile.cu"
-BUILD_DIR = pathlib.Path(__file__).resolve().parents[4] / "build" / "repro_torch"
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-)
 
 # `fused_tile_launch`'s C signature, in order
 ARGTYPES = (
@@ -50,59 +41,7 @@ ARGTYPES = (
     + [ctypes.c_ulonglong, ctypes.c_int, ctypes.c_void_p]  # ep_code, smem, stream
 )
 
-_LIB: Optional[ctypes.CDLL] = None
-
-
-def _nvcc() -> str:
-    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
-    if home:
-        return str(pathlib.Path(home) / "bin" / "nvcc")
-    return shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
-
-
-def library_path() -> pathlib.Path:
-    """Build output, named by the source's content hash so an edited
-    source never loads a stale library."""
-    digest = hashlib.sha1(SOURCE.read_bytes() + " ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"libfused_tile-{digest.hexdigest()[:12]}.so"
-
-
-def build() -> pathlib.Path:
-    """Compile the kernel (once per source version); returns the .so.
-    Writes to a temporary name and renames, so concurrent builds never
-    load a half-written library."""
-    lib = library_path()
-    if lib.exists():
-        return lib
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(dir=BUILD_DIR, suffix=".so")
-    os.close(fd)
-    try:
-        proc = subprocess.run(
-            [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(SOURCE)],
-            capture_output=True, text=True,
-        )
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}) on {SOURCE}:\n"
-                f"{proc.stdout}{proc.stderr}"
-            )
-        os.replace(tmp, lib)
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
-    return lib
-
-
-def _load() -> ctypes.CDLL:
-    global _LIB
-    if _LIB is None:
-        lib = ctypes.CDLL(str(build()))
-        fn = lib.fused_tile_launch
-        fn.argtypes = ARGTYPES
-        fn.restype = ctypes.c_int
-        _LIB = lib
-    return _LIB
+LIB = _build.CudaLibrary(SOURCE, "fused_tile", {"fused_tile_launch": ARGTYPES})
 
 
 def buffer_bytes(spec: transforms.TileKernelSpec, r: int, c_in: int, c_out: int) -> int:
@@ -202,15 +141,12 @@ def fused_tile_call(
         (b, n_tiles_h * t_out, n_tiles_w * t_out, c_out),
         dtype=torch.float32, device=xp.device,
     )
-    with torch.cuda.device(xp.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = _load().fused_tile_launch(
-            xp.data_ptr(), rhs.data_ptr(), kf.data_ptr(), ki.data_ptr(),
-            biases.data_ptr(), out.data_ptr(),
-            b, h_pad, w_pad, c_in, c_out, t, t_out, p, s, groups, r,
-            n_ops, word, smem, stream,
-        )
-    if err != 0:
-        raise RuntimeError(f"fused_tile kernel launch failed: CUDA error {err}")
+    LIB.launch(
+        "fused_tile_launch", xp.device,
+        xp.data_ptr(), rhs.data_ptr(), kf.data_ptr(), ki.data_ptr(),
+        biases.data_ptr(), out.data_ptr(),
+        b, h_pad, w_pad, c_in, c_out, t, t_out, p, s, groups, r,
+        n_ops, word, smem,
+    )
     LAUNCHES += 1
     return out

@@ -34,7 +34,8 @@ def test_no_jax_or_reference_imports(path):
 def test_importing_the_port_loads_no_jax():
     env = dict(os.environ, JAX_PLATFORMS="cpu", PYTHONPATH=str(ROOT / "src"))
     code = (
-        "import repro_torch.convserve, repro_torch.core; import sys; "
+        "import repro_torch.convserve, repro_torch.core, repro_torch.models, "
+        "repro_torch.serve, repro_torch.launch.serve; import sys; "
         "assert not any(m == 'jax' or m.startswith(('jax.', 'repro.')) "
         "or m == 'repro' for m in sys.modules), sorted(sys.modules)"
     )

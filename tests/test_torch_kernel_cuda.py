@@ -1,6 +1,8 @@
-"""The CUDA tile kernel on the card, against its plain PyTorch version.
+"""The CUDA kernels on the card, against their plain PyTorch versions:
+the tile kernel, and the LM path's conv1d, flash-attention and decode-MLP
+kernels.
 
-Skips on a host without a CUDA card (the kernel has no CPU mode).  It
+Skips on a host without a CUDA card (the kernels have no CPU mode).  It
 imports neither JAX nor the reference package, so on the GPU machine it
 runs without them:
 
@@ -70,3 +72,65 @@ def test_cuda_kernel_matches_plain(cuda_device, case, monkeypatch):
     assert tile_kernel.LAUNCHES == before + 1
     assert y.device.type == "cuda" and tuple(y.shape) == tuple(plain.shape)
     assert _rel(y.cpu(), plain) < 1e-5
+
+
+# --------------------------------------------------------- the LM kernels
+
+
+def _counted(kernel_mod, fn):
+    """Run `fn`, synchronize, and return (result, launches it made)."""
+    before = kernel_mod.LAUNCHES
+    y = fn()
+    torch.cuda.synchronize()
+    return y, kernel_mod.LAUNCHES - before
+
+
+def test_cuda_conv1d_matches_plain(cuda_device):
+    """A column slice of a wider activation (Mamba's xBC), L not a multiple
+    of the strip, SiLU: one launch, rel < 1e-5 against the plain version."""
+    from repro_torch.kernels.conv1d_fused import conv1d_fused, conv1d_ref
+    from repro_torch.kernels.conv1d_fused import kernel as conv1d_kernel
+
+    rng = np.random.default_rng(3)
+    wide = torch.tensor(rng.standard_normal((3, 300, 200)), dtype=torch.float32)
+    w = torch.tensor(rng.standard_normal((4, 72)) * 0.5, dtype=torch.float32)
+    b = torch.tensor(rng.standard_normal(72) * 0.1, dtype=torch.float32)
+    ref = conv1d_ref(wide[..., 64:136], w, b)
+    wide_d, w_d, b_d = (t.to(cuda_device) for t in (wide, w, b))
+    y, n = _counted(conv1d_kernel, lambda: conv1d_fused(wide_d[..., 64:136], w_d, b_d, lb=128))
+    assert n == 1 and y.device.type == "cuda"
+    assert _rel(y.cpu(), ref) < 1e-5
+
+
+@pytest.mark.parametrize("hkv,window", [(1, 0), (1, 24), (4, 0), (2, 7)])
+def test_cuda_flash_attention_matches_plain(cuda_device, hkv, window):
+    """The model's (B, S, H, hd) layout passed as (B, H, S, hd) views, S not
+    a multiple of the kernel's tiles, GQA g = 4 / 2 / 1, window on and off."""
+    from repro_torch.kernels.flash_attention import attention_ref, flash_attention
+    from repro_torch.kernels.flash_attention import kernel as flash_kernel
+
+    rng = np.random.default_rng(4)
+    mk = lambda h: torch.tensor(rng.standard_normal((2, 97, h, 64)), dtype=torch.float32)
+    q, k, v = mk(4), mk(hkv), mk(hkv)
+    views = lambda *ts: [t.transpose(1, 2) for t in ts]
+    ref = attention_ref(*views(q, k, v), window=window)
+    qd, kd, vd = views(*(t.to(cuda_device) for t in (q, k, v)))
+    y, n = _counted(flash_kernel, lambda: flash_attention(qd, kd, vd, window=window))
+    assert n == 1 and tuple(y.shape) == tuple(ref.shape)
+    assert _rel(y.cpu(), ref) < 1e-5
+
+
+def test_cuda_decode_mlp_matches_plain(cuda_device):
+    """B and d_ff not multiples of the kernel's row and column blocks."""
+    from repro_torch.kernels.decode_mlp import decode_mlp, decode_mlp_ref
+    from repro_torch.kernels.decode_mlp import kernel as mlp_kernel
+
+    rng = np.random.default_rng(5)
+    x = torch.tensor(rng.standard_normal((11, 96)), dtype=torch.float32)
+    ws = [torch.tensor(rng.standard_normal(s) * 0.1, dtype=torch.float32)
+          for s in ((96, 300), (96, 300), (300, 96))]
+    ref = decode_mlp_ref(x, *ws)
+    xd, wd = x.to(cuda_device), [w.to(cuda_device) for w in ws]
+    y, n = _counted(mlp_kernel, lambda: decode_mlp(xd, *wd))
+    assert n == 1
+    assert _rel(y.cpu(), ref) < 1e-5
