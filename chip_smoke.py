@@ -7,9 +7,10 @@ Phases (any failure exits non-zero):
      TF32 off for matmul and cuDNN;
   2. build: the four kernels (`src/repro_torch/kernels/*/csrc/*.cu`),
      one nvcc each, started together, with build times;
-  3. kernel vs plain: the CUDA tile kernel (`fused_tile_call`) against
-     its plain PyTorch version (`matrix_tile_conv`) on the card, at every
-     conv shape of the served nets, max rel err < 1e-5 (both fp32, with
+  3. kernel vs plain: the CUDA tile kernel (`fused_tile_call`, at the
+     geometry `launch_geometry` picks for each shape) against its plain
+     PyTorch version (`matrix_tile_conv`) on the card, at every conv
+     shape of the served nets, max rel err < 1e-5 (both fp32, with
      different summation orders);
   4. LM kernels vs plain: conv1d_fused, flash_attention and decode_mlp
      against `conv1d_ref`, `attention_ref` and `decode_mlp_ref` on the
@@ -39,7 +40,9 @@ Phases (any failure exits non-zero):
      case (`F.conv2d`; `F.scaled_dot_product_attention` on kv heads
      repeated beforehand; grouped `F.conv1d` with bias, SiLU outside it;
      none for the decode MLP), median of CUDA-event-timed runs, beside
-     the bound; per-stage profile of a warm ConvNet 64-bucket wave.
+     the bound, and `torch.profiler`'s device time of the tile kernel at
+     vgg 64->64 and fft 8->8; per-stage profile of a warm ConvNet
+     64-bucket wave.
 
 The line before the last is a JSON object listing the ported kernels; the
 last line is {"ok": true, "device": {...}}.  Imports nothing of JAX and
@@ -199,7 +202,7 @@ def make_case(case, gen: np.random.Generator):
     """Device tensors for one case: the kernel's operands and the plain
     version's, built from one seeded draw."""
     from repro_torch.core import registry, tiling
-    from repro_torch.kernels.fused_tile import kernel, matrix
+    from repro_torch.kernels.fused_tile import kernel
 
     label, tr, b, h, w, c_in, c_out, groups, bias_relu, r = case
     dev = torch.device("cuda")
@@ -212,19 +215,20 @@ def make_case(case, gen: np.random.Generator):
                         dtype=torch.float32, device=dev)
     ep = registry.ElementwiseOps((("bias", bvec), ("relu",))) if bias_relu else None
     plan = tiling.TilePlan.build(h, w, tr.k, 1, tr.t)
-    r = kernel.fit_r(spec, min(r, plan.n_tiles_w), c_in, c_out)
-    run_plan = matrix.pallas_block_geometry(plan, r) or plan
+    r = kernel.fit_r(spec, r, c_in, c_out)
+    n_tiles = b * plan.n_tiles_h * plan.n_tiles_w
+    geo = kernel.launch_geometry(spec, n_tiles, c_in, c_out, groups, r)
     rhs = spec.pack_rhs(tr.kernel_transform(wk), groups)
     if ep is not None:
         tags, biases = ep.kernel_form()
     else:
         tags, biases = (), torch.zeros((1, c_out), device=dev)
     return dict(
-        label=label, spec=spec, plan=plan, run_plan=run_plan, r=r,
+        label=label, spec=spec, plan=plan, geo=geo, r=r,
+        blocks=geo.blocks(n_tiles, c_out),
         groups=groups, ep=ep, tags=tags, biases=biases.contiguous(),
         x=x, wk=wk, bvec=bvec, rhs=rhs,
-        xp_kernel=tiling.pad_input(x, run_plan).contiguous(),
-        xp_plain=tiling.pad_input(x, plan),
+        xp=tiling.pad_input(x, plan).contiguous(),
     )
 
 
@@ -232,8 +236,8 @@ def run_kernel(c):
     from repro_torch.kernels.fused_tile import fused_tile_call
 
     y = fused_tile_call(
-        c["xp_kernel"], c["rhs"], c["biases"], spec=c["spec"],
-        n_tiles_h=c["run_plan"].n_tiles_h, n_tiles_w=c["run_plan"].n_tiles_w,
+        c["xp"], c["rhs"], c["biases"], spec=c["spec"],
+        n_tiles_h=c["plan"].n_tiles_h, n_tiles_w=c["plan"].n_tiles_w,
         r=c["r"], groups=c["groups"], ep_ops=c["tags"],
     )
     return y[:, : c["plan"].h_out, : c["plan"].w_out, :]
@@ -243,7 +247,7 @@ def run_plain(c):
     from repro_torch.kernels.fused_tile import matrix_tile_conv
 
     return matrix_tile_conv(
-        c["xp_plain"], c["rhs"], c["plan"], c["spec"],
+        c["xp"], c["rhs"], c["plan"], c["spec"],
         groups=c["groups"], epilogue=c["ep"],
     )
 
@@ -260,7 +264,9 @@ def phase_kernel_vs_plain():
         err = rel_err(y, ref)
         abs_err = float((y - ref).abs().max())
         worst_abs, worst_rel = max(worst_abs, abs_err), max(worst_rel, err)
-        print(f"kernel-vs-plain {c['label']:34s} R={c['r']:2d} "
+        g = c["geo"]
+        print(f"kernel-vs-plain {c['label']:34s} R={g.r} ns={g.ns} sc={g.sc} "
+              f"split={g.n_split} blocks={c['blocks']} "
               f"max_abs_err={abs_err:.3e} max_rel_err={err:.3e}")
         if not err < REL_TOL_KERNEL:
             raise AssertionError(
@@ -355,10 +361,31 @@ def bound(c) -> tuple:
     c_out = c["bvec"].shape[0]
     n_tiles = b * plan.n_tiles_h * plan.n_tiles_w
     ops = 2 * spec.macs_per_tile(c_in, c_out, c["groups"]) * n_tiles
-    n_bytes = 4 * (c["xp_kernel"].numel() + c["rhs"].numel()
+    n_bytes = 4 * (c["xp"].numel() + c["rhs"].numel()
                    + b * plan.h_out * plan.w_out * c_out)
     t_ops, t_bytes = ops / PEAK_FP32 * 1e3, n_bytes / HBM_BW * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+# tile-kernel shapes whose device time phase 9 reads from the profiler
+DEVICE_TIMED = ("vgg b64 64->64@64", "fft b64 8->8@64 +bias+relu")
+
+
+def tile_device_ms(fn, reps: int = 20):
+    """Device time per call of the tile kernel's launches in `fn` (the
+    main kernel and, for an S split, its reduction), from
+    `torch.profiler`'s device events over `reps` calls; None when the
+    profiler saw no such event."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    total = sum(_device_ms(e) for e in _kernel_events(prof) if "tile_" in e.key)
+    return total / reps if total > 0 else None
 
 
 def phase_times(cases, served):
@@ -379,9 +406,11 @@ def phase_times(cases, served):
         p_ms = time_ms(lambda: run_plain(c))
         l_ms = time_ms(library)
         b_ms, b_by = bound(c)
-        rows.append(dict(label=c["label"], ms=k_ms, plain_ms=p_ms,
+        d_ms = tile_device_ms(lambda: run_kernel(c)) if c["label"] in DEVICE_TIMED else None
+        rows.append(dict(label=c["label"], ms=k_ms, device_ms=d_ms, plain_ms=p_ms,
                          library_ms=l_ms, bound_ms=b_ms, bound_by=b_by))
-        print(f"time {c['label']:34s} kernel {k_ms:.4f} ms  plain {p_ms:.4f} ms  "
+        dev = "" if d_ms is None else f" (profiler device time {d_ms:.4f} ms)"
+        print(f"time {c['label']:34s} kernel {k_ms:.4f} ms{dev}  plain {p_ms:.4f} ms  "
               f"F.conv2d {l_ms:.4f} ms  bound {b_ms:.4f} ms ({b_by})")
     gen = np.random.default_rng(1)
     for name, s in served.items():
@@ -846,6 +875,7 @@ def main() -> int:
         "max_rel_err": worst_rel,
         "shape": head_label,
         "ms": head["ms"],
+        "device_ms": head["device_ms"],
         "plain_ms": head["plain_ms"],
         "bound_ms": head["bound_ms"],
         "bound_by": head["bound_by"],

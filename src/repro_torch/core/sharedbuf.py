@@ -8,8 +8,10 @@ S_max = max(4RC, 4RC'), S_min = min(4RC, 4RC') -- almost 2x when C == C',
 which in turn permits an ~2x larger R (paper: "relaxing the upper bound
 almost by a factor of two").
 
-We use a row-granular variant (the layout the CUDA tile kernel keeps in
-shared memory):  buffer shape ((T^2 + 1) * R, W) with W = max(C, C');
+We use a row-granular variant as the planner's model of a task's fast
+memory (the CUDA tile kernel streams S in chunks instead and prices its
+own layout in `kernels/fused_tile/kernel.py::smem_bytes`):  buffer shape
+((T^2 + 1) * R, W) with W = max(C, C');
 left-hand matrix s occupies rows [(s+1)R, (s+2)R) cols [0, C); result s is
 written to rows [sR, (s+1)R) cols [0, C') -- landing exactly on the rows of
 left-hand matrix s-1, which the s-th matmul no longer needs.  Space:

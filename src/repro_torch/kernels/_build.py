@@ -108,7 +108,11 @@ class CudaLibrary:
         a refused launch never runs, and a later synchronize would not
         report it."""
         fn = self.fn(name)
-        with torch.cuda.device(device):
-            err = fn(*args, torch.cuda.current_stream().cuda_stream)
+        index = device.index if device.index is not None else torch.cuda.current_device()
+        if index == torch.cuda.current_device():
+            err = fn(*args, torch.cuda.current_stream(index).cuda_stream)
+        else:
+            with torch.cuda.device(index):
+                err = fn(*args, torch.cuda.current_stream().cuda_stream)
         if err != 0:
             raise RuntimeError(f"{name} failed: CUDA error {err}")

@@ -2,7 +2,6 @@ from repro_torch.kernels.fused_tile.blocks import BlockConfig
 from repro_torch.kernels.fused_tile.kernel import fused_tile_call
 from repro_torch.kernels.fused_tile.matrix import (
     matrix_tile_conv,
-    pallas_block_geometry,
     staged_matrix_fns,
 )
 from repro_torch.kernels.fused_tile.ops import (
@@ -18,6 +17,5 @@ __all__ = [
     "engine_supported",
     "fused_tile_call",
     "matrix_tile_conv",
-    "pallas_block_geometry",
     "staged_matrix_fns",
 ]

@@ -13,7 +13,7 @@ Chunk 0 (the default) runs the whole population in one sweep.
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Tuple
 
 import torch
 
@@ -163,22 +163,3 @@ def staged_matrix_fns(
         return tiling.assemble_tiles(y6, plan)
 
     return stage1, stage2, stage3
-
-
-def pallas_block_geometry(
-    plan: tiling.TilePlan, r: int, tasks_per_program: int = 1
-) -> Optional[tiling.TilePlan]:
-    """Extended plan whose column tile count divides r*tasks_per_program
-    (the tile kernel's grid requirement: every thread block takes whole
-    tasks of R tiles); None when already aligned.  The extra tile
-    columns read zero padding and are cropped after the kernel."""
-    span = r * max(1, tasks_per_program)
-    n_tw = -(-plan.n_tiles_w // span) * span
-    if n_tw == plan.n_tiles_w:
-        return None
-    return tiling.TilePlan(
-        h=plan.h, w=plan.w, k=plan.k, pad=plan.pad, t=plan.t,
-        t_out=plan.t_out, h_out=plan.h_out, w_out=plan.w_out,
-        n_tiles_h=plan.n_tiles_h, n_tiles_w=n_tw,
-        h_pad=plan.h_pad, w_pad=n_tw * plan.t_out + plan.k - 1,
-    )

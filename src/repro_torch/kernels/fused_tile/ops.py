@@ -14,6 +14,7 @@ f64 inputs have no f32 basis matrices and raise `UnsupportedSpec`.
 
 from __future__ import annotations
 
+import weakref
 from typing import Optional
 
 import torch
@@ -33,6 +34,45 @@ def engine_supported(transform: transforms.Transform, dtype) -> bool:
     """Can the parametric engine run this family/dtype?"""
     # the f32 basis matrices would silently downgrade f64 precision
     return dtype != torch.float64
+
+
+# Per-process memos of the kernel path's host-side set-up, so a served
+# layer pays for them once: packed rhs per transformed-kernel tensor (and
+# its version, so an in-place update repacks), R per shape, zero biases.
+_PACKED: dict = {}  # id(wt) -> (weakref to wt, key, packed rhs)
+_FIT_R: dict = {}
+_ZERO_BIAS: dict = {}
+
+
+def _packed_rhs(spec: transforms.TileKernelSpec, wt: torch.Tensor, groups: int):
+    key = (spec.family, spec.t, spec.k, groups, wt._version)
+    hit = _PACKED.get(id(wt))
+    if hit is None or hit[0]() is not wt or hit[1] != key:
+        wid = id(wt)
+        ref = weakref.ref(wt, lambda _, wid=wid: _PACKED.pop(wid, None))
+        hit = (ref, key, spec.pack_rhs(wt, groups))
+        _PACKED[wid] = hit
+    return hit[2]
+
+
+def _fit_r(spec: transforms.TileKernelSpec, r: int, c_in: int, c_out: int) -> int:
+    key = (spec.family, spec.t, spec.k, r, c_in, c_out)
+    if key not in _FIT_R:
+        try:
+            _FIT_R[key] = _kernel.fit_r(spec, r, c_in, c_out)
+        except ValueError as e:
+            _FIT_R[key] = UnsupportedSpec(str(e))
+    hit = _FIT_R[key]
+    if isinstance(hit, UnsupportedSpec):
+        raise hit
+    return hit
+
+
+def _zero_bias(c_out: int, device) -> torch.Tensor:
+    key = (c_out, device)
+    if key not in _ZERO_BIAS:
+        _ZERO_BIAS[key] = torch.zeros((1, c_out), dtype=torch.float32, device=device)
+    return _ZERO_BIAS[key]
 
 
 def conv2d_fused_tile(
@@ -65,7 +105,7 @@ def conv2d_fused_tile(
     spec = transform.kernel_spec()
     if wt is None:
         wt = transform.kernel_transform(torch.as_tensor(w, device=dev))
-    rhs = spec.pack_rhs(wt.to(dev), groups)
+    rhs = _packed_rhs(spec, wt.to(dev), groups)
     blocks = blocks or BlockConfig(r=24)
     plan = tiling.TilePlan.build(x.shape[1], x.shape[2], spec.k, pad, spec.t)
 
@@ -79,22 +119,15 @@ def conv2d_fused_tile(
     if x.device.type != "cuda":
         raise UnsupportedSpec(f"no tile engine for device {x.device}")
 
-    # Kernel path.  One thread block runs one task of R tiles, so R is
-    # lowered to the largest value whose aliased buffer fits a block's
-    # shared memory (the planner's R already fits half of it; the
-    # untuned default of 24 may not) -- R only groups independent
-    # tiles, so the output does not change.  The column tile count is
-    # aligned to R with zero tile columns, cropped after the kernel.
+    # Kernel path.  A block of the kernel takes at most R tiles (R only
+    # groups independent tiles, so the output does not change); `fit_r`
+    # lowers R until a block's buffer fits and raises when no R does.
+    # The kernel splits the flattened tile population itself, so the
+    # padded input needs no extra tile columns.
     c_in = x.shape[-1]
     c_out = rhs.shape[1] * rhs.shape[3] // spec.planes
-    try:
-        r = _kernel.fit_r(
-            spec, min(blocks.r, plan.n_tiles_w), c_in, c_out
-        )
-    except ValueError as e:
-        raise UnsupportedSpec(str(e)) from None
-    run_plan = _matrix.pallas_block_geometry(plan, r) or plan
-    xp = tiling.pad_input(x.to(torch.float32), run_plan).contiguous()
+    r = _fit_r(spec, blocks.r, c_in, c_out)
+    xp = tiling.pad_input(x.to(torch.float32), plan).contiguous()
 
     ep_ops: tuple = ()
     biases = None
@@ -104,13 +137,13 @@ def conv2d_fused_tile(
     elif epilogue is not None:
         post = epilogue  # opaque callable: post-pass on assembled output
     if biases is None:
-        biases = torch.zeros((1, c_out), dtype=torch.float32, device=dev)
+        biases = _zero_bias(c_out, x.device)
 
     y = _kernel.fused_tile_call(
         xp, rhs, biases.to(dev, torch.float32).contiguous(),
         spec=spec,
-        n_tiles_h=run_plan.n_tiles_h,
-        n_tiles_w=run_plan.n_tiles_w,
+        n_tiles_h=plan.n_tiles_h,
+        n_tiles_w=plan.n_tiles_w,
         r=r,
         groups=groups,
         ep_ops=ep_ops,

@@ -121,9 +121,10 @@ def test_kernel_wrapper_takes_cuda_tensors_only():
 
 
 def test_fit_r_lowers_r_to_the_block_buffer():
-    """The untuned default R=24 does not fit at 64 channels; the wrapper
-    lowers it to the largest R whose (S+1, R, P*max(C, C')) buffer fits
-    a block, and raises only when R=1 does not fit."""
+    """The untuned default R=24 does not fit at 64 channels: a block of R
+    tiles holds their R input patches (plus one chunk's operands), so the
+    wrapper lowers R to the largest value whose smallest block fits, and
+    raises only when R=1 does not fit."""
     wino = transforms.WinogradTransform(m=5, k=3).kernel_spec()
     assert tile_kernel.buffer_bytes(wino, 24, 64, 64) > tile_kernel.MAX_SMEM_BYTES
     r = tile_kernel.fit_r(wino, 24, 64, 64)
@@ -132,6 +133,90 @@ def test_fit_r_lowers_r_to_the_block_buffer():
     assert tile_kernel.fit_r(wino, 3, 3, 8) == 3
     with pytest.raises(ValueError, match="R=1"):
         tile_kernel.fit_r(wino, 4, 4096, 4096)
+    # the new accounting: the patches (R*T*T*C floats, padded off a
+    # multiple of 32) dominate, and the smallest block is one slab of one
+    # channel and one point per chunk
+    least = tile_kernel.Geometry(r=r, ns=1, sc=1, n_split=1,
+                                 na=tile_kernel.pick_na(wino, r, 1))
+    assert tile_kernel.buffer_bytes(wino, r, 64, 64) == tile_kernel.smem_bytes(
+        wino, 64, 64, 1, least)
+    assert tile_kernel.buffer_bytes(wino, r, 64, 64) >= 4 * r * 49 * 64
+
+
+# (transform, batch, h, w, c_in, c_out, groups): the served shapes, wide,
+# grouped, ragged and few-channel cases
+GEOMETRY_SHAPES = [
+    (transforms.WinogradTransform(m=5, k=3), 4, 64, 64, 64, 64, 1),
+    (transforms.WinogradTransform(m=5, k=3), 4, 64, 64, 3, 64, 1),
+    (transforms.WinogradTransform(m=5, k=3), 4, 8, 8, 256, 256, 1),
+    (transforms.WinogradTransform(m=5, k=3), 3, 37, 29, 5, 7, 1),
+    (transforms.WinogradTransform(m=3, k=3), 2, 37, 29, 6, 10, 2),
+    (transforms.FFTTransform(t=16, k=3), 4, 64, 64, 8, 8, 1),
+    (transforms.FFTTransform(t=16, k=3), 2, 32, 32, 8, 8, 2),
+    (transforms.FFTTransform(t=8, k=3), 2, 37, 29, 6, 10, 2),
+]
+
+
+@pytest.mark.parametrize("shape", range(len(GEOMETRY_SHAPES)))
+def test_no_geometry_exceeds_the_block_shared_memory(shape):
+    """Every candidate geometry, and the one the wrapper picks, fits the
+    227 KB a block may opt in to, gives each inverse thread an
+    instantiated pixel count that covers T'^2, and keeps the (tile,
+    channel) pairs within one block's threads."""
+    tr, b, h, w, c_in, c_out, groups = GEOMETRY_SHAPES[shape]
+    spec = tr.kernel_spec()
+    plan = tiling.TilePlan.build(h, w, spec.k, 1, spec.t)
+    n_tiles = b * plan.n_tiles_h * plan.n_tiles_w
+    geos = list(tile_kernel.candidate_geometries(spec, n_tiles, c_in, c_out, groups, 8))
+    pick = tile_kernel.launch_geometry(spec, n_tiles, c_in, c_out, groups, 8)
+    assert pick in geos
+    for geo in geos:
+        assert tile_kernel.smem_bytes(spec, c_in, c_out, groups, geo) <= tile_kernel.MAX_SMEM_BYTES
+        assert geo.r * geo.ns <= tile_kernel.THREADS
+        assert geo.na in tile_kernel.NA_CHOICES
+        assert tile_kernel.THREADS // (geo.r * geo.ns) * geo.na >= spec.t_out ** 2
+        assert spec.planes == 2 or geo.n_split == 1  # Winograd keeps one chain
+
+
+@pytest.mark.parametrize("shape", range(len(GEOMETRY_SHAPES)))
+def test_blocks_cover_every_tile_and_channel_once(shape):
+    """The grid's blocks partition (tile, output channel, transform point)
+    exactly: ragged last tasks, ragged last slabs and uneven S splits are
+    masked, never doubled or dropped."""
+    tr, b, h, w, c_in, c_out, groups = GEOMETRY_SHAPES[shape]
+    spec = tr.kernel_spec()
+    plan = tiling.TilePlan.build(h, w, spec.k, 1, spec.t)
+    n_tiles = b * plan.n_tiles_h * plan.n_tiles_w
+    geos = list(tile_kernel.candidate_geometries(spec, n_tiles, c_in, c_out, groups, 8))
+    rng = np.random.default_rng(shape)
+    for i in rng.choice(len(geos), min(6, len(geos)), replace=False):
+        geo = geos[i]
+        seen = np.zeros((n_tiles, c_out, spec.s_mix), np.int32)
+        gx, gy, gz = geo.grid(n_tiles, c_out)
+        for blk in np.ndindex(gx, gy, gz):
+            tiles, chans, points = geo.block_work(blk, n_tiles, c_out, spec.s_mix)
+            assert len(tiles) and len(chans)
+            seen[tiles.start:tiles.stop, chans.start:chans.stop,
+                 points.start:points.stop] += 1
+        assert (seen == 1).all(), geo
+
+
+def test_ragged_slab_and_groups_are_masked():
+    """C' = 20 in slabs of 8: the last slab holds 4 channels; with groups,
+    a slab may straddle two groups, and each of its channels reads its own
+    group's rows (the pairs a slab covers stay within C')."""
+    spec = transforms.WinogradTransform(m=5, k=3).kernel_spec()
+    geo = tile_kernel.Geometry(r=3, ns=8, sc=4, n_split=1, na=tile_kernel.pick_na(spec, 3, 8))
+    assert geo.grid(10, 20) == (4, 3, 1)
+    assert geo.block_work((3, 2, 0), 10, 20, spec.s_mix) == (range(9, 10), range(16, 20),
+                                                             range(0, 49))
+    cgo = 20 // 2  # groups = 2
+    groups_in_slab = {c // cgo for c in geo.block_work((0, 1, 0), 10, 20, spec.s_mix)[1]}
+    assert groups_in_slab == {0, 1}
+    # the smem of a grouped launch prices the per-group rhs rows only
+    grouped = tile_kernel.smem_bytes(spec, 6, 20, 2, geo)
+    dense = tile_kernel.smem_bytes(spec, 6, 20, 1, geo)
+    assert grouped < dense
 
 
 def test_epilogue_encoding_matches_elementwise_ops():
@@ -191,3 +276,18 @@ def test_conv2d_dispatcher_matches_reference(algo, stride, groups):
     ref = ref_conv2d(jnp.asarray(x), jnp.asarray(wk), hw=ref_analysis.SKYLAKE_X, **kw)
     assert tuple(y.shape) == tuple(ref.shape)
     assert _rel(y.numpy(), ref) < TOL
+
+
+def test_packed_rhs_follows_in_place_weight_updates():
+    """The engine packs a transformed kernel once and reuses it, but an
+    in-place update of that kernel (its version moves) repacks."""
+    tr = transforms.WinogradTransform(m=3, k=3)
+    rng = np.random.default_rng(8)
+    x = torch.tensor(rng.standard_normal((1, 9, 9, 4)), dtype=torch.float32)
+    wt = tr.kernel_transform(torch.tensor(rng.standard_normal((3, 3, 4, 5)),
+                                          dtype=torch.float32))
+    y1 = ft.conv2d_fused_tile(x, None, tr, pad=1, wt=wt, device="cpu")
+    assert torch.equal(ft.conv2d_fused_tile(x, None, tr, pad=1, wt=wt, device="cpu"), y1)
+    wt.mul_(2.0)
+    y2 = ft.conv2d_fused_tile(x, None, tr, pad=1, wt=wt, device="cpu")
+    torch.testing.assert_close(y2, 2 * y1)

@@ -16,7 +16,7 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.core import registry, transforms
+from repro_torch.core import registry, tiling, transforms
 from repro_torch.kernels import fused_tile as ft
 from repro_torch.kernels.fused_tile import kernel as tile_kernel
 from repro_torch.kernels.fused_tile import ops as tile_ops
@@ -134,3 +134,69 @@ def test_cuda_decode_mlp_matches_plain(cuda_device):
     y, n = _counted(mlp_kernel, lambda: decode_mlp(xd, *wd))
     assert n == 1
     assert _rel(y.cpu(), ref) < 1e-5
+
+
+# ------------------------------------------- the tile kernel at served shapes
+
+SERVED = {
+    # label: (transform, batch, h, w, c_in, c_out, groups, bias_relu)
+    "vgg-64to64-at64": (transforms.WinogradTransform(m=5, k=3), 4, 64, 64, 64, 64, 1, False),
+    "fft-8to8-at64-bias-relu": (transforms.FFTTransform(t=16, k=3), 4, 64, 64, 8, 8, 1, True),
+    "vgg-256to256-at16": (transforms.WinogradTransform(m=5, k=3), 4, 16, 16, 256, 256, 1, False),
+}
+
+
+def _served_operands(tr, b, h, w, c_in, c_out, groups, bias_relu, dev, seed):
+    rng = np.random.default_rng(seed)
+    x = torch.tensor(rng.standard_normal((b, h, w, c_in)) * 0.1,
+                     dtype=torch.float32, device=dev)
+    wk = torch.tensor(rng.standard_normal((3, 3, c_in // groups, c_out)) * 0.1,
+                      dtype=torch.float32, device=dev)
+    bvec = torch.tensor(rng.standard_normal(c_out) * 0.1, dtype=torch.float32, device=dev)
+    ep = registry.ElementwiseOps((("bias", bvec), ("relu",))) if bias_relu else None
+    return x, wk, ep
+
+
+@pytest.mark.parametrize("case", sorted(SERVED))
+def test_cuda_tile_kernel_at_served_shapes(cuda_device, case):
+    """The served path's entry point at full width: one launch, rel < 1e-5
+    against the plain version on the same card tensors."""
+    tr, b, h, w, c_in, c_out, groups, bias_relu = SERVED[case]
+    x, wk, ep = _served_operands(tr, b, h, w, c_in, c_out, groups, bias_relu,
+                                 cuda_device, seed=6)
+    spec = tr.kernel_spec()
+    plan = tiling.TilePlan.build(h, w, tr.k, 1, tr.t)
+    ref = ft.matrix_tile_conv(
+        tiling.pad_input(x, plan), spec.pack_rhs(tr.kernel_transform(wk), groups),
+        plan, spec, groups=groups, epilogue=ep,
+    )
+    y, n = _counted(tile_kernel, lambda: ft.conv2d_fused_tile(
+        x, wk, tr, pad=1, groups=groups, epilogue=ep, device=cuda_device,
+        blocks=ft.BlockConfig(r=8),
+    ))
+    assert n == 1 and tuple(y.shape) == tuple(ref.shape)
+    assert _rel(y, ref) < 1e-5
+
+
+@pytest.mark.parametrize("family,groups", [("winograd", 1), ("fft", 2)])
+def test_cuda_tile_kernel_ragged_slab_and_width(cuda_device, family, groups):
+    """C' = 20 in slabs of 8 (the last slab masked), W = 29 (a ragged last
+    tile column), R not dividing the tile count; FFT also split over S."""
+    tr = (transforms.WinogradTransform(m=5, k=3) if family == "winograd"
+          else transforms.FFTTransform(t=16, k=3))
+    x, wk, ep = _served_operands(tr, 3, 37, 29, 6, 20, groups, True, cuda_device, seed=7)
+    spec = tr.kernel_spec()
+    plan = tiling.TilePlan.build(37, 29, tr.k, 1, tr.t)
+    rhs = spec.pack_rhs(tr.kernel_transform(wk), groups)
+    xp = tiling.pad_input(x, plan).contiguous()
+    ref = ft.matrix_tile_conv(xp, rhs, plan, spec, groups=groups, epilogue=ep)
+    tags, biases = ep.kernel_form()
+    geo = tile_kernel.Geometry(r=3, ns=8, sc=4, n_split=1 if family == "winograd" else 3,
+                               na=tile_kernel.pick_na(spec, 3, 8))
+    y, n = _counted(tile_kernel, lambda: tile_kernel.fused_tile_call(
+        xp, rhs, biases.contiguous(), spec=spec, n_tiles_h=plan.n_tiles_h,
+        n_tiles_w=plan.n_tiles_w, r=3, groups=groups, ep_ops=tags, geometry=geo,
+    ))
+    y = y[:, : plan.h_out, : plan.w_out]
+    assert n == 1 and tuple(y.shape) == tuple(ref.shape)
+    assert _rel(y, ref) < 1e-5

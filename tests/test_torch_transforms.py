@@ -86,8 +86,9 @@ def test_tiles_and_assembly_bitwise(geom):
 
 def test_h100_model_sizes_r_to_the_kernel_buffer():
     """`H100_SXM` is the card's data sheet: the planner's R bound keeps
-    the tile kernel's aliased buffer within half a block's shared
-    memory, and CMR_fast 4 puts the R lower bound at 8."""
+    the paper's aliased buffer within half a block's shared memory, CMR_fast
+    4 puts the R lower bound at 8, and the tile kernel regroups the
+    planner's R into blocks whose own layout fits a block."""
     hw = analysis.H100_SXM
     assert hw.private_bytes == tile_kernel.MAX_SMEM_BYTES == 232_448
     assert hw.fast_shared_bytes == 50 * 2**20
@@ -98,10 +99,13 @@ def test_h100_model_sizes_r_to_the_kernel_buffer():
         spec = tr.kernel_spec()
         for c_in, c_out in ((3, 64), (64, 64), (8, 8), (4, 8)):
             r = analysis.max_r_ta(hw, c_in, c_out, tr.algebra)
-            assert tile_kernel.buffer_bytes(spec, r, c_in, c_out) <= hw.private_bytes // 2
-            # the kernel buffer is exactly the sharedbuf accounting
             ta = tr.algebra
-            assert tile_kernel.buffer_bytes(spec, r, c_in, c_out) == SharedBufferPlan(
+            assert SharedBufferPlan(
                 r=r, c_in=c_in, c_out=c_out, t2=ta.domain_points,
                 elem_bytes=ta.elem_bytes,
-            ).bytes
+            ).bytes <= hw.private_bytes // 2
+            r_fit = tile_kernel.fit_r(spec, r, c_in, c_out)
+            assert tile_kernel.buffer_bytes(spec, r_fit, c_in, c_out) <= hw.private_bytes
+            geo = tile_kernel.launch_geometry(spec, 4 * 13 * 13, c_in, c_out, 1, r_fit)
+            assert geo.r <= r_fit
+            assert tile_kernel.smem_bytes(spec, c_in, c_out, 1, geo) <= hw.private_bytes
