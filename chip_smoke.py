@@ -15,8 +15,9 @@ Phases (any failure exits non-zero):
   4. LM kernels vs plain: conv1d_fused, flash_attention and decode_mlp
      against `conv1d_ref`, `attention_ref` and `decode_mlp_ref` on the
      same card tensors, at the served shapes and at edge cases (ragged
-     lengths, window on and off, GQA g=4 and g=1, non-causal, a temporal
-     `ConvSpec` through the registry), max rel err < 1e-5;
+     lengths, window on and off, GQA g=4 and g=1, non-causal, rows that
+     see no key, decode B 1-11, a temporal `ConvSpec` through the
+     registry), max rel err < 1e-5;
   5. serve ConvNets: `vgg_mixed_channel` and `fft_fewchannel` through
      `Engine` + `ConvServer` on the H100 hardware model, five requests
      cold and warm; every output finite, of the expected shape and within
@@ -38,11 +39,16 @@ Phases (any failure exits non-zero):
      the idle share, and the top kernels by device time;
   9. times: kernel, plain and library yardstick per phase-3 and phase-4
      case (`F.conv2d`; `F.scaled_dot_product_attention` on kv heads
-     repeated beforehand; grouped `F.conv1d` with bias, SiLU outside it;
-     none for the decode MLP), median of CUDA-event-timed runs, beside
-     the bound, and `torch.profiler`'s device time of the tile kernel at
-     vgg 64->64 and fft 8->8; per-stage profile of a warm ConvNet
-     64-bucket wave.
+     repeated beforehand, with the boolean mask and, for causal cases
+     without a window, also with `is_causal=True`; grouped `F.conv1d` with
+     bias, SiLU outside it; none for the decode MLP), median of
+     CUDA-event-timed runs, beside the bound (fp32 FMA peak; for flash,
+     whose products run on the tensor cores, three TF32 products per
+     FLOP at the TF32 peak, with the fp32 FMA bound beside it), and
+     `torch.profiler`'s device time of the tile kernel at vgg 64->64 and
+     fft 8->8, of flash at the served global layer and of the decode MLP
+     at the served step; per-stage profile of a warm ConvNet 64-bucket
+     wave.
 
 The line before the last is a JSON object listing the ported kernels; the
 last line is {"ok": true, "device": {...}}.  Imports nothing of JAX and
@@ -63,6 +69,7 @@ import torch
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 PEAK_FP32 = 67e12  # H100 SXM fp32 outside the tensor cores (data sheet)
+PEAK_TF32 = 495e12  # H100 SXM TF32 tensor cores, dense (data sheet)
 HBM_BW = 3.35e12  # H100 SXM HBM3 bytes/s (data sheet)
 REL_TOL_KERNEL = 1e-5
 REL_TOL_SERVE = 1e-3  # the reference's own net-level tolerance
@@ -371,9 +378,9 @@ def bound(c) -> tuple:
 DEVICE_TIMED = ("vgg b64 64->64@64", "fft b64 8->8@64 +bias+relu")
 
 
-def tile_device_ms(fn, reps: int = 20):
-    """Device time per call of the tile kernel's launches in `fn` (the
-    main kernel and, for an S split, its reduction), from
+def device_ms(fn, key: str, reps: int = 20):
+    """Device time per call of the kernels whose names hold `key` that
+    `fn` launches (with their second passes, e.g. a reduction), from
     `torch.profiler`'s device events over `reps` calls; None when the
     profiler saw no such event."""
     from torch.profiler import ProfilerActivity, profile
@@ -384,7 +391,7 @@ def tile_device_ms(fn, reps: int = 20):
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    total = sum(_device_ms(e) for e in _kernel_events(prof) if "tile_" in e.key)
+    total = sum(_device_ms(e) for e in _kernel_events(prof) if key in e.key)
     return total / reps if total > 0 else None
 
 
@@ -406,7 +413,7 @@ def phase_times(cases, served):
         p_ms = time_ms(lambda: run_plain(c))
         l_ms = time_ms(library)
         b_ms, b_by = bound(c)
-        d_ms = tile_device_ms(lambda: run_kernel(c)) if c["label"] in DEVICE_TIMED else None
+        d_ms = device_ms(lambda: run_kernel(c), "tile_") if c["label"] in DEVICE_TIMED else None
         rows.append(dict(label=c["label"], ms=k_ms, device_ms=d_ms, plain_ms=p_ms,
                          library_ms=l_ms, bound_ms=b_ms, bound_by=b_by))
         dev = "" if d_ms is None else f" (profiler device time {d_ms:.4f} ms)"
@@ -453,8 +460,8 @@ def _cuda(gen: np.random.Generator, shape, scale: float = 1.0) -> torch.Tensor:
                         dtype=torch.float32, device=DEV)
 
 
-def _bound(n_bytes: float, ops: float) -> tuple:
-    t_ops, t_bytes = ops / PEAK_FP32 * 1e3, n_bytes / HBM_BW * 1e3
+def _bound(n_bytes: float, ops: float, peak: float = PEAK_FP32) -> tuple:
+    t_ops, t_bytes = ops / peak * 1e3, n_bytes / HBM_BW * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
@@ -528,6 +535,7 @@ def flash_cases(gen):
         ("non-causal Sq77 Sk256 hd128 g2", 1, 2, 1, 77, 256, 128, False, 0, False, False),
         ("causal w40 Sq50 Sk200 hd32 g4", 2, 8, 2, 50, 200, 32, True, 40, False, False),
         ("causal w8 S33 hd16 g4", 1, 4, 1, 33, 33, 16, True, 8, False, False),
+        ("causal w40 Sq200 > Sk50 + w hd64 g2", 1, 2, 1, 200, 50, 64, True, 40, False, False),
     ):
         if model_layout:  # the model's (B, S, H, hd), viewed as (B, H, S, hd)
             q = _cuda(gen, (b, sq, hq, hd)).transpose(1, 2)
@@ -552,12 +560,23 @@ def flash_cases(gen):
         def library(qc=qc, kr=kr, vr=vr, ok=ok):
             return F.scaled_dot_product_attention(qc, kr, vr, attn_mask=ok)
 
+        def library_causal(qc=qc, kr=kr, vr=vr):
+            # no mask tensor: SDPA may skip the upper triangle
+            return F.scaled_dot_product_attention(qc, kr, vr, is_causal=True)
+
+        ops = 4 * hd * pairs * b * hq
         cases.append(dict(
             kernel="flash_attention", label=label, served=served,
             run=lambda q=q, k=k, v=v, c=causal, w=window: flash_attention(q, k, v, causal=c, window=w),
             plain=lambda q=q, k=k, v=v, c=causal, w=window: attention_ref(q, k, v, causal=c, window=w),
             library=library,
-            bound=_bound(4 * (2 * q.numel() + k.numel() + v.numel()), 4 * hd * pairs * b * hq),
+            library_causal=library_causal if causal and not window and sq == sk else None,
+            # the kernel's fp32-accurate products run on the tensor cores as
+            # three TF32 products each (split operands): its bound is theirs;
+            # the same FLOPs on the fp32 FMA units are the secondary bound
+            bound=_bound(4 * (2 * q.numel() + k.numel() + v.numel()), 3 * ops, PEAK_TF32),
+            bound_fp32_ms=_bound(4 * (2 * q.numel() + k.numel() + v.numel()), ops)[0],
+            device_key="flash_fwd",
         ))
     return cases
 
@@ -571,6 +590,7 @@ def decode_mlp_cases(gen):
     for label, b, d, f, served in (
         (f"gemma3 decode B4 d{cfg.d_model} f{cfg.d_ff}", 4, cfg.d_model, cfg.d_ff, True),
         (f"gemma3 decode B2 d{cfg.d_model} f{cfg.d_ff}", 2, cfg.d_model, cfg.d_ff, False),
+        (f"gemma3 decode B1 d{cfg.d_model} f{cfg.d_ff}", 1, cfg.d_model, cfg.d_ff, False),
         ("ragged B11 d200 f700", 11, 200, 700, False),
         ("B1 d64 f33", 1, 64, 33, False),
     ):
@@ -583,6 +603,7 @@ def decode_mlp_cases(gen):
             plain=lambda x=x, w1=w1, w3=w3, w2=w2: decode_mlp_ref(x, w1, w3, w2),
             library=None,
             bound=_bound(4 * (3 * d * f + 2 * b * d), 2 * b * 3 * d * f),
+            device_key="decode_mlp",
         ))
     return cases
 
@@ -824,19 +845,34 @@ def phase_lm_profile(served):
 
 def phase_lm_times(cases):
     """Kernel, plain and library times at every LM case (median of CUDA
-    events); the served shape's row goes into the kernels line."""
+    events), beside the bound; at the served flash and decode-MLP shapes
+    also `torch.profiler`'s device time, and for causal flash cases with
+    no window SDPA with `is_causal=True` beside the masked call.  The
+    served shape's row goes into the kernels line."""
     rows = {}
     for c in cases:
         k_ms = time_ms(c["run"])
         p_ms = time_ms(c["plain"])
         l_ms = time_ms(c["library"]) if c["library"] is not None else None
+        lc_ms = time_ms(c["library_causal"]) if c.get("library_causal") else None
+        d_ms = device_ms(c["run"], c["device_key"]) if c["served"] and "device_key" in c else None
         b_ms, b_by = c["bound"]
         lib = f"{l_ms:.4f} ms" if l_ms is not None else "-"
-        print(f"time {c['kernel']:15s} {c['label']:48s} kernel {k_ms:.4f} ms  "
-              f"plain {p_ms:.4f} ms  library {lib}  bound {b_ms:.4f} ms ({b_by})")
+        extra = "" if d_ms is None else f" (profiler device time {d_ms:.4f} ms)"
+        if lc_ms is not None:
+            lib += f", is_causal {lc_ms:.4f} ms"
+        fp32 = c.get("bound_fp32_ms")
+        bounds = f"bound {b_ms:.4f} ms ({b_by}"
+        bounds += ")" if fp32 is None else (
+            f", split-TF32 tensor cores), fp32 FMA bound {fp32:.4f} ms")
+        print(f"time {c['kernel']:15s} {c['label']:48s} kernel {k_ms:.4f} ms{extra}  "
+              f"plain {p_ms:.4f} ms  library {lib}  {bounds}")
         if c["served"]:
-            rows[c["kernel"]] = dict(shape=c["label"], ms=k_ms, plain_ms=p_ms,
-                                     library_ms=l_ms, bound_ms=b_ms, bound_by=b_by)
+            row = dict(shape=c["label"], ms=k_ms, device_ms=d_ms, plain_ms=p_ms,
+                       library_ms=l_ms, bound_ms=b_ms, bound_by=b_by)
+            if c["kernel"] == "flash_attention":
+                row.update(library_is_causal_ms=lc_ms, bound_fp32_ms=fp32)
+            rows[c["kernel"]] = row
     return rows
 
 

@@ -109,10 +109,11 @@ class CudaLibrary:
         report it."""
         fn = self.fn(name)
         index = device.index if device.index is not None else torch.cuda.current_device()
+        # the current stream's cudaStream_t, without building a Stream object
         if index == torch.cuda.current_device():
-            err = fn(*args, torch.cuda.current_stream(index).cuda_stream)
+            err = fn(*args, torch._C._cuda_getCurrentRawStream(index))
         else:
             with torch.cuda.device(index):
-                err = fn(*args, torch.cuda.current_stream().cuda_stream)
+                err = fn(*args, torch._C._cuda_getCurrentRawStream(index))
         if err != 0:
             raise RuntimeError(f"{name} failed: CUDA error {err}")

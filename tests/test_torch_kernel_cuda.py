@@ -136,6 +136,120 @@ def test_cuda_decode_mlp_matches_plain(cuda_device):
     assert _rel(y.cpu(), ref) < 1e-5
 
 
+FLASH_SHAPES = {
+    # name: (B, Hq, Hkv, Sq, Sk, hd, causal, window, model layout)
+    "gemma3-global-B4-S700-hd256": (4, 4, 1, 700, 700, 256, True, 0, True),
+    "gemma3-local-w512-B4-S700-hd256": (4, 4, 1, 700, 700, 256, True, 512, True),
+    "noncausal-hd128-Sq77-Sk256": (1, 2, 1, 77, 256, 128, False, 0, False),
+    "hd16-w8": (1, 4, 1, 33, 33, 16, True, 8, False),
+    "hd32-w40-Sq50-Sk200": (2, 8, 2, 50, 200, 32, True, 40, False),
+    "masked-rows-Sq200-Sk50-w40": (1, 2, 1, 200, 50, 64, True, 40, False),
+}
+
+
+@pytest.mark.parametrize("name", sorted(FLASH_SHAPES))
+def test_cuda_flash_attention_at_served_and_edge_shapes(cuda_device, name):
+    """The served gemma3 layers in the model's layout, a non-causal ragged
+    Sk, the small head dims with a window, and rows past Sk + window that
+    see no key (exactly 0): one launch, rel < 1e-5 against the plain
+    version on the same card tensors."""
+    from repro_torch.kernels.flash_attention import attention_ref, flash_attention
+    from repro_torch.kernels.flash_attention import kernel as flash_kernel
+
+    b, hq, hkv, sq, sk, hd, causal, window, model_layout = FLASH_SHAPES[name]
+    rng = np.random.default_rng(8)
+
+    def mk(h, s):
+        shape = (b, s, h, hd) if model_layout else (b, h, s, hd)
+        t = torch.tensor(rng.standard_normal(shape), dtype=torch.float32, device=cuda_device)
+        return t.transpose(1, 2) if model_layout else t
+
+    q, k, v = mk(hq, sq), mk(hkv, sk), mk(hkv, sk)
+    ref = attention_ref(q, k, v, causal=causal, window=window)
+    y, n = _counted(flash_kernel, lambda: flash_attention(q, k, v, causal=causal, window=window))
+    assert n == 1 and tuple(y.shape) == tuple(ref.shape)
+    assert _rel(y, ref) < 1e-5
+    if sq > sk + window > window:  # rows i >= sk + window - 1 see no key
+        assert torch.equal(y[:, :, sk + window - 1:], torch.zeros_like(y[:, :, sk + window - 1:]))
+
+
+def test_cuda_flash_attention_launches_at_every_head_dim(cuda_device):
+    """Every instantiation's shared memory is accepted by the card (the
+    source also checks it against sm_90's limit when it compiles): one
+    launch per head dim, rel < 1e-5 against the plain version."""
+    from repro_torch.kernels.flash_attention import attention_ref, flash_attention
+    from repro_torch.kernels.flash_attention import kernel as flash_kernel
+
+    rng = np.random.default_rng(11)
+    for hd in flash_kernel.HEAD_DIMS:
+        q, k, v = (torch.tensor(rng.standard_normal((1, 2, 70, hd)), dtype=torch.float32,
+                                device=cuda_device) for _ in range(3))
+        ref = attention_ref(q, k, v, causal=True, window=0)
+        y, n = _counted(flash_kernel, lambda: flash_attention(q, k, v, causal=True, window=0))
+        assert n == 1 and _rel(y, ref) < 1e-5, hd
+
+
+def _mlp_operands(b, d, f, dev, seed):
+    rng = np.random.default_rng(seed)
+    mk = lambda shape, s: torch.tensor(rng.standard_normal(shape) * s, dtype=torch.float32,
+                                       device=dev)
+    return mk((b, d), 1.0), mk((d, f), d ** -0.5), mk((d, f), d ** -0.5), mk((f, d), f ** -0.5)
+
+
+@pytest.mark.parametrize("b,d,f", [(4, 1152, 6912), (1, 1152, 6912), (11, 200, 700), (3, 64, 33)])
+def test_cuda_decode_mlp_at_served_and_ragged_shapes(cuda_device, b, d, f):
+    """gemma3-1b's decode MLP at B 4 and 1, a ragged B and f, and f not a
+    multiple of 4 (single-float units): one launch, rel < 1e-5."""
+    from repro_torch.kernels.decode_mlp import decode_mlp, decode_mlp_ref
+    from repro_torch.kernels.decode_mlp import kernel as mlp_kernel
+
+    x, w1, w3, w2 = _mlp_operands(b, d, f, cuda_device, seed=9)
+    ref = decode_mlp_ref(x, w1, w3, w2)
+    y, n = _counted(mlp_kernel, lambda: decode_mlp(x, w1, w3, w2))
+    assert n == 1 and tuple(y.shape) == (b, d)
+    assert _rel(y, ref) < 1e-5
+
+
+def test_cuda_decode_mlp_is_bitwise_deterministic(cuda_device):
+    """Two calls on the same inputs give the same bits: the partials are
+    summed in a fixed order, never by float atomics."""
+    from repro_torch.kernels.decode_mlp import decode_mlp
+
+    x, w1, w3, w2 = _mlp_operands(4, 1152, 6912, cuda_device, seed=10)
+    y1, y2 = decode_mlp(x, w1, w3, w2), decode_mlp(x, w1, w3, w2)
+    torch.cuda.synchronize()
+    assert torch.equal(y1, y2)
+
+
+def test_cuda_decode_mlp_refuses_a_geometry_that_disagrees_with_the_source(cuda_device):
+    """The wrapper's geometry is accepted as it is; the same geometry with
+    a shared-memory size off the source's layout, or too few blocks to
+    cover d_ff, is refused before anything runs."""
+    import ctypes
+    import dataclasses
+
+    from repro_torch.kernels.decode_mlp import kernel as mlp_kernel
+
+    b, d, f = 4, 1152, 6912
+    x, w1, w3, w2 = _mlp_operands(b, d, f, cuda_device, seed=12)
+    g = mlp_kernel.launch_geometry(b, d, f)
+    part = torch.empty((g.n_blocks, b, d), dtype=torch.float32, device=cuda_device)
+    out = torch.empty((b, d), dtype=torch.float32, device=cuda_device)
+
+    def launch(geo):
+        args = geo.launch_args(b, d, f)
+        mlp_kernel.LIB.launch("decode_mlp_launch", x.device, x.data_ptr(), w1.data_ptr(),
+                              w3.data_ptr(), w2.data_ptr(), part.data_ptr(), out.data_ptr(),
+                              ctypes.addressof(args))
+
+    launch(g)
+    torch.cuda.synchronize()
+    for bad in (dataclasses.replace(g, smem=g.smem + 16),
+                dataclasses.replace(g, n_blocks=g.n_blocks // 2)):
+        with pytest.raises(RuntimeError, match="CUDA error"):
+            launch(bad)
+
+
 # ------------------------------------------- the tile kernel at served shapes
 
 SERVED = {
