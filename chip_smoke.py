@@ -15,9 +15,10 @@ Phases (any failure exits non-zero):
   4. LM kernels vs plain: conv1d_fused, flash_attention and decode_mlp
      against `conv1d_ref`, `attention_ref` and `decode_mlp_ref` on the
      same card tensors, at the served shapes and at edge cases (ragged
-     lengths, window on and off, GQA g=4 and g=1, non-causal, rows that
-     see no key, decode B 1-11, a temporal `ConvSpec` through the
-     registry), max rel err < 1e-5;
+     lengths, a conv1d slice that is not 16-byte aligned, K 1 and K 8,
+     window on and off, GQA g=4 and g=1, non-causal, rows that see no
+     key, decode B 1-11, a temporal `ConvSpec` through the registry), max
+     rel err < 1e-5;
   5. serve ConvNets: `vgg_mixed_channel` and `fft_fewchannel` through
      `Engine` + `ConvServer` on the H100 hardware model, five requests
      cold and warm; every output finite, of the expected shape and within
@@ -36,19 +37,20 @@ Phases (any failure exits non-zero):
      within rel 1e-3, and equal greedy tokens;
   8. LM profile: one warm prefill of wave 1 and one decode step per
      model, host wall time beside `torch.profiler`'s device busy time,
-     the idle share, and the top kernels by device time;
+     the idle share, the top kernels by device time, and the conv1d
+     kernel's device time summed over mamba2's prefill launches;
   9. times: kernel, plain and library yardstick per phase-3 and phase-4
      case (`F.conv2d`; `F.scaled_dot_product_attention` on kv heads
      repeated beforehand, with the boolean mask and, for causal cases
      without a window, also with `is_causal=True`; grouped `F.conv1d` with
-     bias, SiLU outside it; none for the decode MLP), median of
+     bias, and that + `F.silu`; none for the decode MLP), median of
      CUDA-event-timed runs, beside the bound (fp32 FMA peak; for flash,
      whose products run on the tensor cores, three TF32 products per
      FLOP at the TF32 peak, with the fp32 FMA bound beside it), and
      `torch.profiler`'s device time of the tile kernel at vgg 64->64 and
-     fft 8->8, of flash at the served global layer and of the decode MLP
-     at the served step; per-stage profile of a warm ConvNet 64-bucket
-     wave.
+     fft 8->8, of flash at the served global layer, of the decode MLP
+     at the served step and of conv1d at mamba2's first prefill wave;
+     per-stage profile of a warm ConvNet 64-bucket wave.
 
 The line before the last is a JSON object listing the ported kernels; the
 last line is {"ok": true, "device": {...}}.  Imports nothing of JAX and
@@ -480,20 +482,25 @@ def conv1d_cases(gen):
     d_xbc = d_inner + 2 * s.n_groups * s.d_state  # 4352
     width = d_inner + d_xbc + d_inner // s.head_dim  # zxbcdt, 8512
     cases = []
-    for label, b, length, d, k, row, act, served in (
-        ("mamba2 wave1 B4 L768 D4352 (slice of 8512) silu", 4, 768, d_xbc, s.d_conv, width, "silu", True),
-        ("mamba2 wave2 B2 L129 D4352 (slice of 8512) silu", 2, 129, d_xbc, s.d_conv, width, "silu", False),
-        ("ragged L777 D100 K4 none", 2, 777, 100, 4, 100, "none", False),
-        ("L5 < strip D64 K3 silu", 3, 5, 64, 3, 64, "silu", False),
+    for label, b, length, d, k, row, offset, act, served in (
+        ("mamba2 wave1 B4 L768 D4352 (slice of 8512) silu", 4, 768, d_xbc, s.d_conv, width,
+         d_inner, "silu", True),
+        ("mamba2 wave2 B2 L129 D4352 (slice of 8512) silu", 2, 129, d_xbc, s.d_conv, width,
+         d_inner, "silu", False),
+        ("ragged L777 D100 K4 none", 2, 777, 100, 4, 100, 0, "none", False),
+        ("L5 < strip D64 K3 silu", 3, 5, 64, 3, 64, 0, "silu", False),
+        # not 16-byte aligned: one channel per thread
+        ("slice at column 65 D71 K4 silu", 2, 300, 71, 4, 200, 65, "silu", False),
+        ("K1 L300 D256 none", 2, 300, 256, 1, 256, 0, "none", False),
+        ("K8 L300 D256 silu", 2, 300, 256, 8, 256, 0, "silu", False),
     ):
-        full = _cuda(gen, (b, length, row))
-        x = full[..., d_inner:d_inner + d] if row > d else full
+        x = _cuda(gen, (b, length, row))[..., offset:offset + d]
         w, bias = _cuda(gen, (k, d), 0.5), _cuda(gen, (d,), 0.1)
         xt = x.transpose(1, 2).contiguous()  # (B, D, L) for F.conv1d
         wt = w.t().contiguous()[:, None, :]  # (D, 1, K)
 
         def library(xt=xt, wt=wt, bias=bias, k=k, length=length):
-            # grouped F.conv1d with bias; the SiLU would be a second call
+            # grouped F.conv1d with bias; the SiLU is a second call
             return F.conv1d(xt, wt, bias, padding=k - 1, groups=wt.shape[0])[..., :length]
 
         cases.append(dict(
@@ -501,7 +508,9 @@ def conv1d_cases(gen):
             run=lambda x=x, w=w, bias=bias, act=act: conv1d_fused(x, w, bias, activation=act),
             plain=lambda x=x, w=w, bias=bias, act=act: conv1d_ref(x, w, bias, activation=act),
             library=library,
+            library_silu=lambda library=library: F.silu(library()),
             bound=_bound(4 * (2 * b * length * d + k * d + d), 2 * k * b * length * d),
+            device_key="conv1d_fused_kernel",
         ))
     # a temporal ConvSpec planned and executed through the registry
     spec = registry.ConvSpec(h=1, w=300, c_in=48, c_out=48, k=4, pad=3, groups=48)
@@ -801,11 +810,14 @@ def phase_lm_profile(served):
     and one decode step after it, per model.  Wall time on the host clock
     (after synchronize, without the profiler), device busy time summed
     over `torch.profiler`'s device events, the idle share between them,
-    and the kernels that take the most device time."""
+    and the kernels that take the most device time.  Returns, per model
+    whose prefill launches the conv1d kernel, its device time summed over
+    those launches."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.models import lm_decode_step, lm_prefill
 
+    totals = {}  # conv1d's device time in a prefill, per model that launches it
     for name, s in served.items():
         model, cfg = s["model"], s["cfg"]
         reqs = lm_requests(cfg, LM_PROMPTS[:MAX_BATCH])
@@ -841,26 +853,38 @@ def phase_lm_profile(served):
                   f"idle share {max(0.0, 1 - busy / wall):.3f}")
             for e in sorted(events, key=_device_ms, reverse=True)[:8]:
                 print(f"  {_device_ms(e):9.3f} ms  x{e.count:<5d} {e.key[:90]}")
+            conv = [e for e in events if "conv1d_fused_kernel" in e.key]
+            if conv:
+                conv_ms = sum(_device_ms(e) for e in conv)
+                n = sum(e.count for e in conv)
+                print(f"  conv1d kernel: {conv_ms:.4f} ms device time in {n} launches "
+                      f"({conv_ms / n:.4f} ms each)")
+                totals[name] = dict(prefill_wave_device_ms=conv_ms, prefill_wave_launches=n)
+    return totals
 
 
 def phase_lm_times(cases):
     """Kernel, plain and library times at every LM case (median of CUDA
-    events), beside the bound; at the served flash and decode-MLP shapes
-    also `torch.profiler`'s device time, and for causal flash cases with
-    no window SDPA with `is_causal=True` beside the masked call.  The
-    served shape's row goes into the kernels line."""
+    events), beside the bound; at each kernel's served shape also
+    `torch.profiler`'s device time; for causal flash cases with no window
+    SDPA with `is_causal=True` beside the masked call; for conv1d,
+    `F.conv1d` + `F.silu` beside `F.conv1d`.  The served shape's row goes
+    into the kernels line."""
     rows = {}
     for c in cases:
         k_ms = time_ms(c["run"])
         p_ms = time_ms(c["plain"])
         l_ms = time_ms(c["library"]) if c["library"] is not None else None
         lc_ms = time_ms(c["library_causal"]) if c.get("library_causal") else None
+        ls_ms = time_ms(c["library_silu"]) if c.get("library_silu") else None
         d_ms = device_ms(c["run"], c["device_key"]) if c["served"] and "device_key" in c else None
         b_ms, b_by = c["bound"]
         lib = f"{l_ms:.4f} ms" if l_ms is not None else "-"
         extra = "" if d_ms is None else f" (profiler device time {d_ms:.4f} ms)"
         if lc_ms is not None:
             lib += f", is_causal {lc_ms:.4f} ms"
+        if ls_ms is not None:
+            lib += f", + F.silu {ls_ms:.4f} ms"
         fp32 = c.get("bound_fp32_ms")
         bounds = f"bound {b_ms:.4f} ms ({b_by}"
         bounds += ")" if fp32 is None else (
@@ -872,6 +896,11 @@ def phase_lm_times(cases):
                        library_ms=l_ms, bound_ms=b_ms, bound_by=b_by)
             if c["kernel"] == "flash_attention":
                 row.update(library_is_causal_ms=lc_ms, bound_fp32_ms=fp32)
+            if c["kernel"] == "conv1d_fused":
+                row.update(library_silu_ms=ls_ms, library_note=(
+                    "library_ms is grouped F.conv1d with bias, without the SiLU; "
+                    "library_silu_ms adds F.silu; no single PyTorch call computes "
+                    "the fused function"))
             rows[c["kernel"]] = row
     return rows
 
@@ -891,7 +920,7 @@ def main() -> int:
     served = phase_serve()
     lm_served = phase_serve_lm()
     phase_lm_vs_cpu(lm_served)
-    phase_lm_profile(lm_served)
+    conv1d_prefill = phase_lm_profile(lm_served)
     rows = phase_times(cases, served)
     lm_rows = phase_lm_times(lm_cases)
 
@@ -929,6 +958,7 @@ def main() -> int:
                           f"of {arch}"),
             max_abs_err=lm_worst[name][0], max_rel_err=lm_worst[name][1],
             **lm_rows[name],
+            **(conv1d_prefill.get(arch, {}) if name == "conv1d_fused" else {}),
         ))
     print(json.dumps(kernels))
     print(json.dumps({"ok": True, "device": {

@@ -5,11 +5,18 @@
 raises on anything the kernel does not take; the plain version of the
 same function is `ref.conv1d_ref`.  `LAUNCHES` counts the kernel's
 launches.
+
+The launch geometry (`Geometry`: channels per thread, threads per block,
+the grid) is computed here, once per (B, L, D, row stride, alignment),
+and passed to the C entry point as one `LaunchArgs` struct; the source
+refuses a geometry that does not cover the work.
 """
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
+import functools
 import pathlib
 
 import torch
@@ -19,48 +26,104 @@ from repro_torch.kernels import _build
 LAUNCHES = 0  # kernel launches since import (or since a caller reset it)
 
 MAX_TAPS = 8  # the kernel is instantiated for K = 1..8
+MAX_THREADS = 128  # `kMaxThreads` in the source
+ROWS = 8  # `kRows`: rows of a strip, one thread's
 
 SOURCE = pathlib.Path(__file__).parent / "csrc" / "conv1d_fused.cu"
-# `conv1d_fused_launch`'s C signature, in order (the stream is appended)
-ARGTYPES = (
-    [ctypes.c_void_p] * 4  # x, w, b, out
-    + [ctypes.c_int] * 3  # batch, seq, d
-    + [ctypes.c_longlong]  # x_row_stride
-    + [ctypes.c_int] * 3  # k, strip, silu
-    + [ctypes.c_void_p]  # stream
-)
-LIB = _build.CudaLibrary(SOURCE, "conv1d_fused", {"conv1d_fused_launch": ARGTYPES})
+
+
+class LaunchArgs(ctypes.Structure):
+    """`LaunchArgs` in the source: one launch's sizes and geometry."""
+
+    _fields_ = [("x_row_stride", ctypes.c_longlong)] + [
+        (name, ctypes.c_int) for name in (
+            "batch", "seq", "d", "k", "silu", "vec", "threads", "n_cblocks", "n_strips")]
+
+
+LIB = _build.CudaLibrary(SOURCE, "conv1d_fused", {
+    # x, w, b, out, &LaunchArgs, stream
+    "conv1d_fused_launch": [ctypes.c_void_p] * 6,
+})
+
+
+@dataclasses.dataclass(frozen=True)
+class Geometry:
+    """One launch's shape: each thread owns `vec` adjacent channels of one
+    strip of `ROWS` rows of one sequence; a block is `threads` threads
+    along the channels; the grid is (`n_strips`, `n_cblocks`, batch)."""
+
+    vec: int
+    threads: int
+    n_cblocks: int
+    n_strips: int
+    batch: int
+
+    @property
+    def n_blocks(self) -> int:
+        return self.n_strips * self.n_cblocks * self.batch
+
+    def launch_args(self, length: int, d: int, row_stride: int, k: int,
+                    silu: bool) -> LaunchArgs:
+        """The C entry point's `LaunchArgs` for x (batch, length, d) with
+        rows `row_stride` floats apart and K = `k` taps."""
+        return LaunchArgs(row_stride, self.batch, length, d, k, int(silu), self.vec,
+                          self.threads, self.n_cblocks, self.n_strips)
+
+
+@functools.lru_cache(maxsize=None)
+def launch_geometry(batch: int, length: int, d: int, row_stride: int,
+                    aligned: bool = True) -> Geometry:
+    """The geometry for x (batch, length, d), rows `row_stride` floats
+    apart: float4 units when d and the row stride are multiples of 4 and
+    the tensors 16-byte aligned, else single floats; blocks of 128
+    threads (fewer warps for a narrow D); one strip of `ROWS` rows per
+    thread, so every L gives ceil(L / 8) strips.  At mamba2-1.3b's
+    prefill waves that is 3,456 blocks (B 4, L 768) and 306 (B 2, L 129),
+    several per SM.  The reference's L block `lb` is not an input: on
+    the card it changes nothing."""
+    if min(batch, length, d) < 1 or row_stride < d:
+        raise ValueError(f"no geometry for B={batch} L={length} D={d} row={row_stride}")
+    vec = 4 if aligned and d % 4 == 0 and row_stride % 4 == 0 else 1
+    units = -(-d // vec)
+    threads = min(MAX_THREADS, -(-units // 32) * 32)
+    return Geometry(vec, threads, -(-units // threads), -(-length // ROWS), batch)
+
+
+@functools.lru_cache(maxsize=None)
+def _launch_args(batch: int, length: int, d: int, row: int, k: int, silu: bool,
+                 aligned: bool) -> tuple:
+    """(`LaunchArgs`, its address) for a shape, made once: a call passes
+    one pointer, not ten ints (the cache keeps the struct alive at that
+    address)."""
+    args = launch_geometry(batch, length, d, row, aligned).launch_args(length, d, row, k, silu)
+    return args, ctypes.addressof(args)
 
 
 def conv1d_fused_call(
-    x: torch.Tensor,
-    w: torch.Tensor,
-    b: torch.Tensor,
-    *,
-    strip: int,
-    activation: str,
+    x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, *, activation: str
 ) -> torch.Tensor:
     """Launch the kernel on the current stream.
 
     x: (B, L, D) f32 on the card, channels contiguous; its rows may be
        further apart than D (a column slice of a wider activation is read
        in place).
-    w: (K, D), b: (D,) f32 contiguous, K <= 8.  strip: rows per block.
+    w: (K, D), b: (D,) f32 contiguous on the same card, K <= 8.
     returns: (B, L, D) contiguous, act(causal conv + b).
     """
     global LAUNCHES
     if activation not in ("silu", "none"):
         raise ValueError(f"activation must be 'silu' or 'none', got {activation!r}")
-    if x.ndim != 3 or w.ndim != 2 or b.ndim != 1:
-        raise ValueError(f"bad shapes x {tuple(x.shape)} w {tuple(w.shape)} b {tuple(b.shape)}")
+    index = x.get_device()  # -1 on the CPU
+    for name, t, ndim in (("x", x, 3), ("w", w, 2), ("b", b, 1)):
+        if (t.dtype is not torch.float32 or index < 0 or t.get_device() != index
+                or t.dim() != ndim):
+            raise ValueError(
+                f"{name} must be a {ndim}-d float32 tensor on the card beside x "
+                f"({x.device}), got {t.dtype} {tuple(t.shape)} on {t.device}"
+            )
     bsz, length, d = x.shape
     k = w.shape[0]
-    for name, t in (("x", x), ("w", w), ("b", b)):
-        if t.device.type != "cuda" or t.device != x.device:
-            raise ValueError(f"{name} must be a CUDA tensor on {x.device}, got {t.device}")
-        if t.dtype != torch.float32:
-            raise ValueError(f"{name} must be float32, got {t.dtype}")
-    if tuple(w.shape) != (k, d) or tuple(b.shape) != (d,):
+    if w.shape != (k, d) or b.shape != (d,):
         raise ValueError(f"w {tuple(w.shape)} / b {tuple(b.shape)} do not match D={d}")
     if not 1 <= k <= MAX_TAPS:
         raise ValueError(f"K={k} taps; the kernel takes 1..{MAX_TAPS}")
@@ -69,13 +132,10 @@ def conv1d_fused_call(
     row = x.stride(1)
     if x.stride(2) != 1 or row < d or (bsz > 1 and x.stride(0) != length * row):
         raise ValueError(f"x strides {x.stride()} are not (L*R, R, 1) with R >= D")
-    if strip < 1:
-        raise ValueError(f"strip {strip} < 1")
     out = torch.empty((bsz, length, d), dtype=torch.float32, device=x.device)
-    LIB.launch(
-        "conv1d_fused_launch", x.device,
-        x.data_ptr(), w.data_ptr(), b.data_ptr(), out.data_ptr(),
-        bsz, length, d, row, k, strip, int(activation == "silu"),
-    )
+    ptrs = (x.data_ptr(), w.data_ptr(), b.data_ptr(), out.data_ptr())
+    _, args = _launch_args(bsz, length, d, row, k, activation == "silu",
+                           not any(p % 16 for p in ptrs))
+    LIB.launch("conv1d_fused_launch", x.device, *ptrs, args)
     LAUNCHES += 1
     return out

@@ -29,16 +29,16 @@ def conv1d_fused(
     """Causal depthwise conv1d + bias + activation. x (B,L,D), w (K,D).
 
     The reference wrapper's semantics: K-1 zero rows before the sequence
-    (causality), output length L, blocks of `lb` rows (the kernel's
-    L-strip; the last one is ragged, masked in the kernel rather than
-    padded).
+    (causality), output length L.  `lb` is the reference's L block (rows
+    per grid step of its TPU kernel); it changes no result, and it sets
+    nothing here: on the card each thread of the kernel takes a strip of
+    `kernel.ROWS` rows, whatever `lb`.
     """
     if b is None:
         b = torch.zeros((x.shape[-1],), dtype=x.dtype, device=x.device)
     if x.device.type == "cuda":
         return _kernel.conv1d_fused_call(
-            x, w.contiguous(), b.contiguous(),
-            strip=min(lb, x.shape[1]), activation=activation,
+            x, w.contiguous(), b.contiguous(), activation=activation
         )
     return conv1d_ref(x, w, b, activation=activation)
 

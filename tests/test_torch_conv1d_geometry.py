@@ -1,0 +1,118 @@
+"""The causal-conv1d wrapper's launch geometry, on the CPU.
+
+The kernel runs only on the card (`tests/test_torch_kernel_cuda.py`,
+`chip_smoke.py`); what its wrapper computes before a launch, once per
+shape, is checked here: the vector width, the blocks, the strips, and
+that they cover every (b, l, c) of the output exactly once.
+"""
+
+import inspect
+
+import pytest
+import torch
+
+from repro_torch.kernels.conv1d_fused import kernel as conv1d_kernel
+
+D_XBC, WIDTH = 4352, 8512  # mamba2-1.3b's xBC slice of its in-projection
+SHAPES = {
+    # name: (B, L, D, row stride, 16-byte aligned)
+    "mamba2-wave1": (4, 768, D_XBC, WIDTH, True),
+    "mamba2-wave2": (2, 129, D_XBC, WIDTH, True),
+    "D73": (3, 300, 73, 73, True),
+    "slice-at-offset-65": (2, 50, 71, 200, False),
+    "L1": (1, 1, 64, 64, True),
+    "L5-D64": (3, 5, 64, 64, True),
+    "long-narrow": (1, 5000, 16, 16, True),
+    "row-stride-not-multiple-of-4": (2, 40, 64, 66, True),
+}
+
+
+def _cover(g, batch, length, d):
+    """How many (strip, channel-block, sequence, thread) owners each
+    (b, l, c) of the output has, as the kernel maps its grid."""
+    count = torch.zeros((batch, length, d), dtype=torch.int32)
+    rows = conv1d_kernel.ROWS
+    for s in range(g.n_strips):
+        l0, l1 = s * rows, min((s + 1) * rows, length)
+        for cb in range(g.n_cblocks):
+            for t in range(g.threads):
+                c = (cb * g.threads + t) * g.vec
+                if c < d:  # a thread past the edge returns at once
+                    count[:, l0:l1, c:c + g.vec] += 1
+    return count
+
+
+@pytest.mark.parametrize("name", sorted(SHAPES))
+def test_conv1d_geometry_covers_every_output_once(name):
+    b, length, d, row, aligned = SHAPES[name]
+    g = conv1d_kernel.launch_geometry(b, length, d, row, aligned=aligned)
+    assert g.batch == b
+    assert g.threads % 32 == 0 and 32 <= g.threads <= conv1d_kernel.MAX_THREADS
+    assert g.n_blocks == g.n_strips * g.n_cblocks * b
+    assert bool((_cover(g, b, length, d) == 1).all())
+    # no block is empty: the last strip and the last channel block start
+    # inside the tensor
+    assert (g.n_strips - 1) * conv1d_kernel.ROWS < length
+    assert (g.n_cblocks - 1) * g.threads * g.vec < d
+
+
+@pytest.mark.parametrize("name,vec", [
+    ("mamba2-wave1", 4), ("mamba2-wave2", 4), ("D73", 1), ("slice-at-offset-65", 1),
+    ("row-stride-not-multiple-of-4", 1), ("L5-D64", 4),
+])
+def test_conv1d_geometry_vector_width(name, vec):
+    """float4 units only where D, the row stride and every pointer allow
+    16-byte accesses."""
+    b, length, d, row, aligned = SHAPES[name]
+    assert conv1d_kernel.launch_geometry(b, length, d, row, aligned=aligned).vec == vec
+
+
+def test_conv1d_slice_at_offset_65_is_not_aligned():
+    """The alignment the wrapper passes for such a slice: its base pointer
+    is 65 floats past a 16-byte boundary."""
+    wide = torch.zeros((2, 50, 200), dtype=torch.float32)
+    assert wide.data_ptr() % 16 == 0 and wide[..., 65:136].data_ptr() % 16 != 0
+
+
+@pytest.mark.parametrize("name", ["mamba2-wave1", "mamba2-wave2"])
+def test_conv1d_served_waves_fill_the_card(name):
+    """Both served prefill waves launch at least two blocks per SM of the
+    H100's 132: 1088 float4 units of xBC in 9 blocks of 128 threads,
+    strips of 8 rows."""
+    b, length, d, row, aligned = SHAPES[name]
+    g = conv1d_kernel.launch_geometry(b, length, d, row, aligned=aligned)
+    assert g.n_blocks >= 2 * 132
+    assert (g.vec, g.threads, g.n_cblocks) == (4, 128, 9)
+    assert g.n_blocks == {"mamba2-wave1": 4 * 96 * 9, "mamba2-wave2": 2 * 17 * 9}[name]
+
+
+def test_conv1d_geometry_is_memoised():
+    conv1d_kernel.launch_geometry(4, 768, D_XBC, WIDTH)
+    hits = conv1d_kernel.launch_geometry.cache_info().hits
+    g1 = conv1d_kernel.launch_geometry(4, 768, D_XBC, WIDTH)
+    g2 = conv1d_kernel.launch_geometry(4, 768, D_XBC, WIDTH)
+    assert g1 is g2
+    assert conv1d_kernel.launch_geometry.cache_info().hits == hits + 2
+
+
+def test_conv1d_geometry_takes_no_lb():
+    """The reference's L block reaches neither the geometry nor the
+    launch: `lb` changes nothing on the card."""
+    for fn in (conv1d_kernel.launch_geometry, conv1d_kernel.conv1d_fused_call):
+        assert "lb" not in inspect.signature(fn).parameters
+
+
+def test_conv1d_launch_args_mirror_the_geometry():
+    g = conv1d_kernel.launch_geometry(4, 768, D_XBC, WIDTH)
+    a = g.launch_args(768, D_XBC, WIDTH, 4, True)
+    assert (a.x_row_stride, a.batch, a.seq, a.d, a.k, a.silu) == (WIDTH, 4, 768, D_XBC, 4, 1)
+    assert (a.vec, a.threads, a.n_cblocks, a.n_strips) == (
+        g.vec, g.threads, g.n_cblocks, g.n_strips)
+    assert [name for name, _ in conv1d_kernel.LaunchArgs._fields_] == [
+        "x_row_stride", "batch", "seq", "d", "k", "silu", "vec", "threads", "n_cblocks",
+        "n_strips"]
+
+
+def test_conv1d_geometry_refuses_an_impossible_shape():
+    with pytest.raises(ValueError, match="no geometry"):
+        conv1d_kernel.launch_geometry(2, 10, 64, 32)  # rows closer than D

@@ -102,6 +102,96 @@ def test_cuda_conv1d_matches_plain(cuda_device):
     assert _rel(y.cpu(), ref) < 1e-5
 
 
+def _conv1d_operands(b, length, d, k, row, offset, dev, seed):
+    """x (B, L, D) as columns offset..offset+D of a (B, L, row) tensor on
+    `dev`, w (K, D), bias (D,)."""
+    rng = np.random.default_rng(seed)
+    mk = lambda shape, s: torch.tensor(rng.standard_normal(shape) * s, dtype=torch.float32,
+                                       device=dev)
+    wide = mk((b, length, row), 1.0)
+    return wide[..., offset:offset + d], mk((k, d), 0.5), mk((d,), 0.1)
+
+
+CONV1D_SHAPES = {
+    # name: (B, L, D, K, row stride, column offset, activation)
+    "mamba2-wave1-B4-L768": (4, 768, 4352, 4, 8512, 4096, "silu"),
+    "mamba2-wave2-B2-L129": (2, 129, 4352, 4, 8512, 4096, "silu"),
+    "unaligned-offset65-D71": (2, 300, 71, 4, 200, 65, "silu"),
+    "L1": (3, 1, 64, 4, 64, 0, "silu"),
+    "L5-below-a-strip": (3, 5, 64, 3, 64, 0, "none"),
+    "L13-ragged-strip": (2, 13, 100, 4, 100, 0, "none"),
+}
+
+
+@pytest.mark.parametrize("name", sorted(CONV1D_SHAPES))
+def test_cuda_conv1d_at_served_and_edge_shapes(cuda_device, name):
+    """mamba2-1.3b's two prefill waves (the xBC slice of the 8512-wide
+    in-projection, float4 units), a slice at column 65 (not 16-byte
+    aligned: one channel per thread), L 1, L shorter than a strip and L
+    ending inside one: one launch, rel < 1e-5 against the plain version."""
+    from repro_torch.kernels.conv1d_fused import conv1d_fused, conv1d_ref
+    from repro_torch.kernels.conv1d_fused import kernel as conv1d_kernel
+
+    b, length, d, k, row, offset, act = CONV1D_SHAPES[name]
+    x, w, bias = _conv1d_operands(b, length, d, k, row, offset, cuda_device, seed=20)
+    y, n = _counted(conv1d_kernel, lambda: conv1d_fused(x, w, bias, activation=act))
+    assert n == 1 and tuple(y.shape) == (b, length, d)
+    assert _rel(y, conv1d_ref(x, w, bias, activation=act)) < 1e-5
+    geo = conv1d_kernel.launch_geometry(b, length, d, row, aligned=x.data_ptr() % 16 == 0)
+    assert geo.vec == (1 if offset % 4 else 4)
+
+
+@pytest.mark.parametrize("k", range(1, 9))
+def test_cuda_conv1d_every_tap_count(cuda_device, k):
+    """Every instantiated K, float4 units, L ragged against the strips."""
+    from repro_torch.kernels.conv1d_fused import conv1d_fused, conv1d_ref
+    from repro_torch.kernels.conv1d_fused import kernel as conv1d_kernel
+
+    x, w, bias = _conv1d_operands(2, 203, 256, k, 256, 0, cuda_device, seed=21 + k)
+    y, n = _counted(conv1d_kernel, lambda: conv1d_fused(x, w, bias))
+    assert n == 1
+    assert _rel(y, conv1d_ref(x, w, bias)) < 1e-5
+
+
+def test_cuda_conv1d_is_bitwise_deterministic_and_ignores_lb(cuda_device):
+    """Two calls give the same bits, and so does every `lb` (the
+    reference's L block sets nothing on the card)."""
+    from repro_torch.kernels.conv1d_fused import conv1d_fused
+
+    x, w, bias = _conv1d_operands(4, 768, 4352, 4, 8512, 4096, cuda_device, seed=30)
+    y0 = conv1d_fused(x, w, bias)
+    ys = [conv1d_fused(x, w, bias, lb=lb) for lb in (16, 128, 1024)]
+    torch.cuda.synchronize()
+    assert all(torch.equal(y0, y) for y in ys)
+
+
+def test_cuda_conv1d_refuses_a_geometry_that_does_not_cover_the_work(cuda_device):
+    """The wrapper's geometry is accepted as it is; one strip or one
+    channel block short, or float4 units on a slice that is not 16-byte
+    aligned, is refused before anything runs."""
+    import ctypes
+    import dataclasses
+
+    from repro_torch.kernels.conv1d_fused import kernel as conv1d_kernel
+
+    x, w, bias = _conv1d_operands(2, 129, 256, 4, 260, 1, cuda_device, seed=31)
+    out = torch.empty((2, 129, 256), dtype=torch.float32, device=cuda_device)
+    g = conv1d_kernel.launch_geometry(2, 129, 256, 260, aligned=False)
+
+    def launch(geo):
+        args = geo.launch_args(129, 256, 260, 4, True)
+        conv1d_kernel.LIB.launch("conv1d_fused_launch", x.device, x.data_ptr(), w.data_ptr(),
+                                 bias.data_ptr(), out.data_ptr(), ctypes.addressof(args))
+
+    launch(g)
+    torch.cuda.synchronize()
+    for bad in (dataclasses.replace(g, n_strips=g.n_strips - 1),
+                dataclasses.replace(g, n_cblocks=g.n_cblocks - 1),
+                dataclasses.replace(g, vec=4, n_cblocks=1)):
+        with pytest.raises(RuntimeError, match="CUDA error"):
+            launch(bad)
+
+
 @pytest.mark.parametrize("hkv,window", [(1, 0), (1, 24), (4, 0), (2, 7)])
 def test_cuda_flash_attention_matches_plain(cuda_device, hkv, window):
     """The model's (B, S, H, hd) layout passed as (B, H, S, hd) views, S not

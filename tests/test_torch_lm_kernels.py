@@ -67,6 +67,19 @@ def test_conv1d_fused_matches_reference(case):
     assert _rel(y, ref_jnp) < REL_TOL
 
 
+@pytest.mark.parametrize("lb", [16, 128, 1024])
+def test_conv1d_fused_lb_changes_no_result(lb):
+    """The reference's L block, below, at and above L: the port gives the
+    reference's result at each (on the card `lb` sets nothing at all)."""
+    rng = np.random.default_rng(1)
+    x = rng.standard_normal((2, 200, 24)).astype(np.float32)
+    w = (rng.standard_normal((4, 24)) * 0.5).astype(np.float32)
+    bias = (rng.standard_normal(24) * 0.1).astype(np.float32)
+    y = conv1d_fused(_t(x), _t(w), _t(bias), lb=lb).numpy()
+    assert _rel(y, np.asarray(jax_conv1d_fused(x, w, bias, lb=lb))) < REL_TOL
+    assert _rel(y, np.asarray(jax_conv1d_ref(x, w, bias))) < REL_TOL
+
+
 def test_conv1d_fused_reads_a_column_slice_in_place():
     """Mamba hands the conv its xBC columns of the in-projection: a
     strided view, which gives the same result as its contiguous copy."""
