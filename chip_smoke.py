@@ -17,8 +17,11 @@ Phases (any failure exits non-zero):
      same card tensors, at the served shapes and at edge cases (ragged
      lengths, a conv1d slice that is not 16-byte aligned, K 1 and K 8,
      window on and off, GQA g=4 and g=1, non-causal, rows that see no
-     key, decode B 1-11, a temporal `ConvSpec` through the registry), max
-     rel err < 1e-5;
+     key, decode B 1-11, a temporal `ConvSpec` through the registry), and
+     the repaired walls: flash at hd 80 (stablelm-3b, B 4, 32 heads, S
+     700, causal) and hd 112 (32 heads, causal with window 512, and
+     non-causal), conv1d at K 9 and K 16 (B 4, L 768, the D 4352 slice,
+     SiLU on and off); max rel err < 1e-5;
   5. serve ConvNets: `vgg_mixed_channel` and `fft_fewchannel` through
      `Engine` + `ConvServer` on the H100 hardware model, five requests
      cold and warm; every output finite, of the expected shape and within
@@ -32,9 +35,11 @@ Phases (any failure exits non-zero):
      after: flash launches = attention layers x waves, decode_mlp =
      MLP layers x decode steps, conv1d = mamba layers x waves;
   7. card vs CPU: each model's weights cut to one period of depth (6 / 4
-     layers), one wave of two prompts (600 and 40 tokens) on the card and
-     on the CPU through the port: prefill and teacher-forced decode logits
-     within rel 1e-3, and equal greedy tokens;
+     layers), and stablelm-3b (head dim 80) cut to 2 layers at full width
+     from seed 0, one wave of two prompts (600 and 40 tokens) on the card
+     and on the CPU through the port: prefill and teacher-forced decode
+     logits within rel 1e-3, and equal greedy tokens; stablelm's prefill
+     must launch flash once per layer;
   8. LM profile: one warm prefill of wave 1 and one decode step per
      model, host wall time beside `torch.profiler`'s device busy time,
      the idle share, the top kernels by device time, and the conv1d
@@ -50,7 +55,22 @@ Phases (any failure exits non-zero):
      `torch.profiler`'s device time of the tile kernel at vgg 64->64 and
      fft 8->8, of flash at the served global layer, of the decode MLP
      at the served step and of conv1d at mamba2's first prefill wave;
-     per-stage profile of a warm ConvNet 64-bucket wave.
+     per-stage profile of a warm ConvNet 64-bucket wave; flash at the
+     hd-80 shape gets the served row's columns;
+ 10. online: `vgg_mixed_channel` through `ReplicaPool` (two replicas, a
+     CUDA stream per worker) and `ServeRuntime`, replaying
+     `serve_runtime_bench`'s seeded vgg trace (poisson 40 Hz, 120
+     requests, sizes 32/48/64) on `H100_SXM` with roofs calibrated on the
+     card (`tune.measure_calibration`), traced by a `Tracer` and a
+     `FlightRecorder`: prints the calibration, e2e / compute / queue-wait
+     p50 and p95, the makespan, waves and partial waves, each wave's
+     replica, bucket, batch and compute time, the roofline table, the
+     tracer's event and drop counts; fails unless every
+     request is answered within rel 1e-3 of direct with no error or
+     rejection, 0 cache misses after warmup, both replicas served, the
+     tile kernel launched, calibration left the plan unchanged, every
+     stage has a roofline row, no wave was lost and the Chrome trace is
+     valid.
 
 The line before the last is a JSON object listing the ported kernels; the
 last line is {"ok": true, "device": {...}}.  Imports nothing of JAX and
@@ -447,6 +467,8 @@ DEV = "cuda"  # every LM phase runs its tensors here
 LM_CUT = {"gemma3-1b": 6, "mamba2-1.3b": 4}  # one period of depth
 REL_TOL_LM_KERNEL = 1e-5  # kernel vs plain, both fp32, other sum orders
 REL_TOL_LM_CPU = 1e-3  # card vs CPU logits, the reference's net tolerance
+HD80_LABEL = "stablelm-3b hd80 B4 H32 S700 causal"
+STABLELM_CUT = 2  # layers of stablelm-3b at full width in phase 7
 LM_KERNELS = {
     "conv1d_fused": ("src/repro_torch/kernels/conv1d_fused/csrc/conv1d_fused.cu",
                      "src/repro/kernels/conv1d_fused/kernel.py:24"),
@@ -493,6 +515,15 @@ def conv1d_cases(gen):
         ("slice at column 65 D71 K4 silu", 2, 300, 71, 4, 200, 65, "silu", False),
         ("K1 L300 D256 none", 2, 300, 256, 1, 256, 0, "none", False),
         ("K8 L300 D256 silu", 2, 300, 256, 8, 256, 0, "silu", False),
+        # the any-K instance: K-1 halo rows over one and two 8-row strips
+        ("K9 B4 L768 D4352 (slice of 8512) silu", 4, 768, d_xbc, 9, width, d_inner, "silu",
+         False),
+        ("K9 B4 L768 D4352 (slice of 8512) none", 4, 768, d_xbc, 9, width, d_inner, "none",
+         False),
+        ("K16 B4 L768 D4352 (slice of 8512) silu", 4, 768, d_xbc, 16, width, d_inner, "silu",
+         False),
+        ("K16 B4 L768 D4352 (slice of 8512) none", 4, 768, d_xbc, 16, width, d_inner, "none",
+         False),
     ):
         x = _cuda(gen, (b, length, row))[..., offset:offset + d]
         w, bias = _cuda(gen, (k, d), 0.5), _cuda(gen, (d,), 0.1)
@@ -536,6 +567,7 @@ def flash_cases(gen):
     from repro_torch.kernels.flash_attention import attention_ref, flash_attention
 
     cases = []
+    # (the hd-80 row is timed in phase 9 beside the served one)
     for label, b, hq, hkv, sq, sk, hd, causal, window, model_layout, served in (
         ("gemma3 wave1 global B4 S700 hd256 g4", 4, 4, 1, 700, 700, 256, True, 0, True, True),
         ("gemma3 wave1 local w512 B4 S700 hd256 g4", 4, 4, 1, 700, 700, 256, True, 512, True, False),
@@ -545,6 +577,12 @@ def flash_cases(gen):
         ("causal w40 Sq50 Sk200 hd32 g4", 2, 8, 2, 50, 200, 32, True, 40, False, False),
         ("causal w8 S33 hd16 g4", 1, 4, 1, 33, 33, 16, True, 8, False, False),
         ("causal w40 Sq200 > Sk50 + w hd64 g2", 1, 2, 1, 200, 50, 64, True, 40, False, False),
+        # head dims of registered configs in chunks of 8 columns
+        (HD80_LABEL, 4, 32, 32, 700, 700, 80, True, 0, True, False),
+        ("zamba2 hd112 B2 H32 S768 causal w512", 2, 32, 32, 768, 768, 112, True, 512, True,
+         False),
+        ("zamba2 hd112 B2 H32 S768 non-causal", 2, 32, 32, 768, 768, 112, False, 0, False,
+         False),
     ):
         if model_layout:  # the model's (B, S, H, hd), viewed as (B, H, S, hd)
             q = _cuda(gen, (b, sq, hq, hd)).transpose(1, 2)
@@ -748,42 +786,78 @@ def _logits_run(model, toks: np.ndarray, steps: int, forced=None):
     return torch.stack(out), fed
 
 
-def phase_lm_vs_cpu(served):
-    """The served weights cut to one period of depth, one wave of two
-    requests (one longer than the 512 window), on the card and on the CPU
-    through the port: prefill and teacher-forced decode logits within
-    REL_TOL_LM_CPU, and the same greedy tokens."""
+def _card_vs_cpu(name: str, cut, cfg, n_layers: int):
+    """One wave of two requests (600 and 40 tokens, one longer than a
+    512 window) through `cut` on the card and through a copy on the CPU:
+    prefill and teacher-forced decode logits within REL_TOL_LM_CPU, and
+    the same greedy tokens.  Returns the kernel launches of the card run."""
     import copy
 
+    cpu = copy.deepcopy(cut).to("cpu")
+    reqs = lm_requests(cfg, (600, 40), seed=1)
+    toks = np.zeros((2, 600), np.int64)
+    for i, r in enumerate(reqs):
+        toks[i, 600 - len(r.prompt):] = r.prompt
+    mods = kernel_libraries()
+    for mod in mods.values():
+        mod.LAUNCHES = 0  # count only the card run
+    t0 = time.perf_counter()
+    card, fed = _logits_run(cut, toks, LM_NEW)
+    torch.cuda.synchronize()
+    t_card = time.perf_counter() - t0
+    launches = {k: mod.LAUNCHES for k, mod in mods.items()}
+    t0 = time.perf_counter()
+    host, _ = _logits_run(cpu, toks, LM_NEW, forced=fed)
+    t_cpu = time.perf_counter() - t0
+    if not (torch.isfinite(card).all() and torch.isfinite(host).all()):
+        raise AssertionError(f"{name}: non-finite logits")
+    scale = float(host.abs().max())
+    errs = [float((card[i] - host[i]).abs().max()) / scale for i in range(len(card))]
+    top2 = card.topk(2, dim=-1).values
+    margin = float((top2[..., 0] - top2[..., 1]).min())
+    same = bool((card.argmax(-1) == host.argmax(-1)).all())
+    print(f"card-vs-cpu {name} cut to {n_layers} layers, prompts (600, 40): "
+          f"prefill rel err {errs[0]:.3e}, decode max rel err {max(errs[1:]):.3e} "
+          f"(tol {REL_TOL_LM_CPU:g}); greedy tokens equal: {same} "
+          f"(smallest top-2 logit margin {margin:.3e}); card {t_card:.2f} s, "
+          f"cpu {t_cpu:.2f} s; card launches {launches}")
+    if not max(errs) < REL_TOL_LM_CPU:
+        raise AssertionError(f"{name}: card vs cpu rel err {max(errs):.3e}")
+    if not same:
+        raise AssertionError(f"{name}: greedy tokens differ between card and cpu")
+    return launches
+
+
+def phase_lm_vs_cpu(served):
+    """The served weights cut to one period of depth, card against CPU
+    (`_card_vs_cpu`)."""
     for name, s in served.items():
-        cut = _cut(s["model"], LM_CUT[name])
-        cpu = copy.deepcopy(cut).to("cpu")
-        reqs = lm_requests(s["cfg"], (600, 40), seed=1)
-        toks = np.zeros((2, 600), np.int64)
-        for i, r in enumerate(reqs):
-            toks[i, 600 - len(r.prompt):] = r.prompt
-        t0 = time.perf_counter()
-        card, fed = _logits_run(cut, toks, LM_NEW)
-        t_card = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        host, _ = _logits_run(cpu, toks, LM_NEW, forced=fed)
-        t_cpu = time.perf_counter() - t0
-        if not (torch.isfinite(card).all() and torch.isfinite(host).all()):
-            raise AssertionError(f"{name}: non-finite logits")
-        scale = float(host.abs().max())
-        errs = [float((card[i] - host[i]).abs().max()) / scale for i in range(len(card))]
-        top2 = card.topk(2, dim=-1).values
-        margin = float((top2[..., 0] - top2[..., 1]).min())
-        same = bool((card.argmax(-1) == host.argmax(-1)).all())
-        print(f"card-vs-cpu {name} cut to {LM_CUT[name]} layers, prompts (600, 40): "
-              f"prefill rel err {errs[0]:.3e}, decode max rel err {max(errs[1:]):.3e} "
-              f"(tol {REL_TOL_LM_CPU:g}); greedy tokens equal: {same} "
-              f"(smallest top-2 logit margin {margin:.3e}); card {t_card:.2f} s, "
-              f"cpu {t_cpu:.2f} s")
-        if not max(errs) < REL_TOL_LM_CPU:
-            raise AssertionError(f"{name}: card vs cpu rel err {max(errs):.3e}")
-        if not same:
-            raise AssertionError(f"{name}: greedy tokens differ between card and cpu")
+        _card_vs_cpu(name, _cut(s["model"], LM_CUT[name]), s["cfg"], LM_CUT[name])
+
+
+def phase_stablelm_vs_cpu() -> dict:
+    """stablelm-3b, whose head dim 80 the flash kernel takes in chunks of
+    8 columns: STABLELM_CUT layers at full width (d 2560, 32 heads of 80,
+    d_ff 6912, vocab 50304), fp32, random weights from seed 0, card
+    against CPU (`_card_vs_cpu`).  The prefill must launch flash once per
+    attention layer."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.models import init_lm
+
+    cfg = dataclasses.replace(get_arch("stablelm-3b"), dtype="float32",
+                              n_layers=STABLELM_CUT)
+    if (cfg.d_model, cfg.n_heads, cfg.resolved_head_dim, cfg.d_ff, cfg.vocab_size) != (
+            2560, 32, 80, 6912, 50304):
+        raise AssertionError(f"stablelm-3b is not at its published width: {cfg}")
+    model = init_lm(cfg, seed=0, device=DEV)
+    launches = _card_vs_cpu("stablelm-3b", model, cfg, STABLELM_CUT)
+    attn = sum(s.mixer == "attn" for s in model.specs)
+    if launches["flash_attention"] != attn:
+        raise AssertionError(f"stablelm-3b: flash launched {launches['flash_attention']} "
+                             f"times in one prefill, expected {attn} (attention layers)")
+    return launches
 
 
 def _kernel_events(prof) -> list:
@@ -877,7 +951,8 @@ def phase_lm_times(cases):
         l_ms = time_ms(c["library"]) if c["library"] is not None else None
         lc_ms = time_ms(c["library_causal"]) if c.get("library_causal") else None
         ls_ms = time_ms(c["library_silu"]) if c.get("library_silu") else None
-        d_ms = device_ms(c["run"], c["device_key"]) if c["served"] and "device_key" in c else None
+        timed = c["served"] or c["label"] == HD80_LABEL
+        d_ms = device_ms(c["run"], c["device_key"]) if timed and "device_key" in c else None
         b_ms, b_by = c["bound"]
         lib = f"{l_ms:.4f} ms" if l_ms is not None else "-"
         extra = "" if d_ms is None else f" (profiler device time {d_ms:.4f} ms)"
@@ -891,6 +966,11 @@ def phase_lm_times(cases):
             f", split-TF32 tensor cores), fp32 FMA bound {fp32:.4f} ms")
         print(f"time {c['kernel']:15s} {c['label']:48s} kernel {k_ms:.4f} ms{extra}  "
               f"plain {p_ms:.4f} ms  library {lib}  {bounds}")
+        if c["label"] == HD80_LABEL:
+            rows["flash_attention_hd80"] = dict(
+                shape=c["label"], ms=k_ms, device_ms=d_ms, plain_ms=p_ms, library_ms=l_ms,
+                library_is_causal_ms=lc_ms, bound_ms=b_ms, bound_by=b_by,
+                bound_fp32_ms=c.get("bound_fp32_ms"))
         if c["served"]:
             row = dict(shape=c["label"], ms=k_ms, device_ms=d_ms, plain_ms=p_ms,
                        library_ms=l_ms, bound_ms=b_ms, bound_by=b_by)
@@ -905,6 +985,168 @@ def phase_lm_times(cases):
     return rows
 
 
+# ------------------------------------------------------------ phase 10
+
+ONLINE_WISDOM = os.path.join(ROOT, "build", "chip_smoke_wisdom.json")
+ONLINE_RECORDER = os.path.join(ROOT, "build", "chip_smoke_online")
+ONLINE_TRACE = os.path.join(ROOT, "build", "chip_smoke_online.trace.json")
+
+
+TILE_ALGOS = ("l3_fused", "fft_fused")  # the algorithms the tile kernel runs
+
+
+def tile_launches_per_wave(spec, program, bucket: int) -> int:
+    """Tile-kernel launches one wave at `bucket` makes, from the replica's
+    program: one per tile-kernel conv of a single stage, and one per
+    tile-kernel conv per row super-tile of a fusion group."""
+    shapes = spec.infer_shapes(bucket, bucket, spec.conv_layers()[0][1].c_in)
+    n = 0
+    for stage in program.stages:
+        convs = sum(u.plan.algo in TILE_ALGOS for u in stage.units)
+        tiles = 1
+        if stage.fused and stage.tile_rows > 0:
+            rows = shapes[stage.units[-1].layer][0]  # the group's output rows
+            tiles = -(-rows // stage.tile_rows)
+        n += convs * tiles
+    return n
+
+
+def phase_online(smi: str) -> dict:
+    """vgg_mixed_channel served online through `ServeRuntime`, as
+    `benchmarks/serve_runtime_bench.py` serves it: two replicas of one
+    `ReplicaPool` (each worker on its own CUDA stream), RuntimeConfig(
+    max_batch=8, buckets=(32, 64), queue_depth=128, slo_s=1.0,
+    service_est_s=0.05), the seeded trace poisson_trace(40.0, 120, seed=7,
+    sizes=(32, 48, 64)) replayed on the real clock, images from
+    make_images(seed=1).  The engine plans on `H100_SXM` with roofs
+    calibrated on this card (`tune.measure_calibration`, into a wisdom
+    file under build/); a `Tracer` and a `FlightRecorder` ride along.
+    Fails unless every request is answered within REL_TOL_SERVE of the
+    direct oracle with no error and no rejection, the shared cache misses
+    nothing after warmup, both replicas served, the tile kernel launched,
+    the calibrated plan equals the uncalibrated one, the roofline has a
+    row per stage, no wave was lost and the exported trace is valid.
+    These are one run's times, not a metric."""
+    from repro_torch.configs.convnets import vgg_mixed_channel
+    from repro_torch.convserve import Engine, init_weights, plan_net, run_direct
+    from repro_torch.convserve.obs import (
+        TRIP_WAVE_LOSS, FlightRecorder, Tracer, roofline_table, validate_chrome_trace,
+        write_trace,
+    )
+    from repro_torch.convserve.runtime import (
+        ReplicaPool, RuntimeConfig, ServeRuntime, make_images, poisson_trace,
+    )
+    from repro_torch.core import analysis, tune
+    from repro_torch.kernels.fused_tile import kernel as tile_kernel
+
+    if os.path.exists(ONLINE_WISDOM):
+        os.unlink(ONLINE_WISDOM)
+    t0 = time.perf_counter()
+    calib = tune.measure_calibration(ONLINE_WISDOM, device="cuda")
+    print(f"online: calibration on {smi} in {time.perf_counter() - t0:.2f} s: "
+          f"peak_flops {calib['peak_flops']:.6e} FLOP/s (fp32 GEMM n={calib['gemm_n']}, "
+          f"TF32 off), dram_bw {calib['dram_bw']:.6e} B/s ({calib['stream_mb']} MB read + "
+          f"{calib['stream_mb']} MB written); data sheet {analysis.H100_SXM.peak_flops:.3e} "
+          f"FLOP/s, {analysis.H100_SXM.dram_bw:.3e} B/s")
+    hw = analysis.calibrated_hw(analysis.H100_SXM, wisdom_path=ONLINE_WISDOM, device="cuda")
+    spec = vgg_mixed_channel(3)
+    ws = init_weights(spec, seed=0)
+    tracer = Tracer()
+    engine = Engine(hw=hw, device="cuda", tracer=tracer)
+    pool = ReplicaPool.build(engine, spec, ws, n=2, input_hw=(64, 64),
+                             wisdom_path=ONLINE_WISDOM)
+    plain = plan_net(spec, 64, 64, hw=analysis.H100_SXM, wisdom_path=ONLINE_WISDOM,
+                     device="cuda")
+    algos = list(pool.executors[0].plan.algos())
+    print(f"online: plan on {hw.name} (CMR_fast {hw.cmr_fast:g}, min R "
+          f"{analysis.min_r(hw)}): {algos}; uncalibrated {list(plain.algos())}")
+    if algos != list(plain.algos()):
+        raise AssertionError("calibration moved the plan: CMR_fast was not preserved")
+    recorder = FlightRecorder(tracer, path_prefix=ONLINE_RECORDER)
+    cfg = RuntimeConfig(max_batch=8, buckets=(32, 64), queue_depth=128, slo_s=1.0,
+                        service_est_s=0.05)
+    rt = ServeRuntime(pool, cfg, tracer=tracer, recorder=recorder)
+    served_waves = []  # (replica, bucket, padded batch, requests, compute s) per wave
+    rt.add_wave_observer(lambda res: served_waves.append((
+        res.replica, res.wave.bucket, res.wave.batch_size, len(res.wave.requests),
+        res.compute_s)))
+    trace = poisson_trace(40.0, 120, seed=7, sizes=(32, 48, 64))
+    images = make_images(trace, spec.conv_layers()[0][1].c_in, seed=1)
+    try:
+        t0 = time.perf_counter()
+        rt.warmup()
+        print(f"online: warmup {time.perf_counter() - t0:.2f} s")
+        warm_misses = pool.cache.stats()["misses"]
+        tile_kernel.LAUNCHES = 0  # main path: count only the served run
+        t0 = time.perf_counter()
+        results = rt.play(trace, images)
+        torch.cuda.synchronize()
+        makespan = time.perf_counter() - t0
+        launches = tile_kernel.LAUNCHES
+        doc = rt.stats(profile_bucket=64)
+    finally:
+        rt.shutdown()
+    lat = doc["latency"]
+    for name in ("e2e", "compute", "queue_wait"):
+        h = lat.get(name, {})
+        print(f"online: {name:10s} p50 {h.get('p50_s', 0) * 1e3:.3f} ms  p95 "
+              f"{h.get('p95_s', 0) * 1e3:.3f} ms  max {h.get('max_s', 0) * 1e3:.3f} ms  "
+              f"over {h.get('count', 0)}")
+    counters, sched = doc["counters"], doc["scheduler"]
+    print(f"online: {len(results)} of {len(trace)} requests in makespan {makespan:.3f} s "
+          f"({len(results) / makespan:.2f} requests/s); waves {counters.get('waves', 0)}, "
+          f"partial {counters.get('partial_waves', 0)}, cold {counters.get('cold_waves', 0)}; "
+          f"by reason {sched['waves_by_reason']}; dispatched {doc['pool']['dispatched']}")
+    print("online: waves in completion order (replica, bucket, batch, requests, compute ms): "
+          + ", ".join(f"({r}, {b}, {n}, {k}, {c * 1e3:.2f})" for r, b, n, k, c in served_waves))
+    program = pool.executors[0].program
+    per_bucket = {b: tile_launches_per_wave(spec, program, b) for b in cfg.buckets}
+    want_launches = sum(per_bucket[b] for _, b, _, _, _ in served_waves)
+    print(f"online: cache {doc['cache']}; misses after warmup "
+          f"{doc['cache']['misses'] - warm_misses}; tile-kernel launches {launches}, "
+          f"expected {want_launches} (per wave by bucket {per_bucket}, over "
+          f"{len(served_waves)} waves)")
+    print(f"online: counters {counters}")
+    rows = (doc.get("roofline") or {}).get("stages", [])
+    print(roofline_table(rows, hw_name=f"{hw.name} ({smi})"))
+    n_events = write_trace(tracer, ONLINE_TRACE)
+    with open(ONLINE_TRACE) as f:
+        problems = validate_chrome_trace(json.load(f))
+    st = tracer.stats()
+    print(f"online: trace {n_events} Chrome events, {st['recorded']} recorded, "
+          f"{st['dropped']} dropped, {st['open_spans']} open; recorder trips "
+          f"{recorder.stats()['trips']}")
+
+    worst = 0.0
+    for a in trace:
+        y = results.get(a.rid)
+        ref = run_direct(spec, ws, torch.from_numpy(images[a.rid])[None].cuda())[0]
+        want = spec.out_shape(a.h, a.w, images[a.rid].shape[2])
+        if y is None or tuple(y.shape) != want or not np.isfinite(y).all():
+            raise AssertionError(f"online rid {a.rid}: bad or missing output")
+        worst = max(worst, rel_err(torch.from_numpy(y).cuda(), ref))
+    print(f"online: max rel err vs direct (cuDNN, TF32 off) {worst:.3e} (tol {REL_TOL_SERVE:g})")
+    labels = [st_.label for st_ in pool.executors[0].program.stages]
+    checks = {
+        "every request answered": len(results) == len(trace),
+        "no wave error": not rt.errors and counters.get("wave_errors", 0) == 0,
+        "no rejection": not rt.rejections and counters.get("rejected", 0) == 0,
+        "within tolerance of direct": worst < REL_TOL_SERVE,
+        "no cache miss after warmup": doc["cache"]["misses"] == warm_misses,
+        "both replicas dispatched": all(d > 0 for d in doc["pool"]["dispatched"]),
+        "tile kernel launched once per tile conv and wave": launches == want_launches > 0,
+        "a roofline row per stage": [r["stage"] for r in rows] == labels,
+        "no wave lost": TRIP_WAVE_LOSS not in recorder.stats()["trips"],
+        "valid Chrome trace": not problems,
+    }
+    failed = [k for k, ok in checks.items() if not ok]
+    print(f"online: checks {'all pass' if not failed else 'FAILED: ' + ', '.join(failed)}")
+    if failed:
+        raise AssertionError(f"online phase failed: {failed} {problems[:3]}")
+    return dict(launches=launches, calib=calib, makespan_s=makespan,
+                e2e_p50_s=lat["e2e"]["p50_s"], e2e_p95_s=lat["e2e"]["p95_s"])
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the GPU only",
@@ -913,16 +1155,18 @@ def main() -> int:
     sys.path.insert(0, os.path.join(ROOT, "src"))
     import repro_torch  # noqa: F401  -- fail before printing without the repo
 
-    phase_environment()
+    smi = phase_environment()
     phase_build()
     cases, worst_abs, worst_rel = phase_kernel_vs_plain()
     lm_cases, lm_worst = phase_lm_kernels_vs_plain()
     served = phase_serve()
     lm_served = phase_serve_lm()
     phase_lm_vs_cpu(lm_served)
+    stablelm = phase_stablelm_vs_cpu()
     conv1d_prefill = phase_lm_profile(lm_served)
     rows = phase_times(cases, served)
     lm_rows = phase_lm_times(lm_cases)
+    online = phase_online(smi)
 
     # headline shape: the widest served vgg layer when vgg reaches the
     # kernel (64->64 at bucket 64), else fft_fewchannel's 8->8
@@ -934,7 +1178,9 @@ def main() -> int:
         "route": "cuda",
         "source": KERNEL_SOURCE,
         "replaces": REPLACES,
-        "launches": sum(s["launches"] for s in served.values()),
+        "launches": sum(s["launches"] for s in served.values()) + online["launches"],
+        "launches_by_path": {**{k: s["launches"] for k, s in served.items()},
+                             "online vgg-mixed (ServeRuntime)": online["launches"]},
         "launches_per_wave": {k: s["per_wave"] for k, s in served.items()},
         "max_abs_err": worst_abs,
         "max_rel_err": worst_rel,
@@ -960,6 +1206,10 @@ def main() -> int:
             **lm_rows[name],
             **(conv1d_prefill.get(arch, {}) if name == "conv1d_fused" else {}),
         ))
+        if name == "flash_attention":
+            kernels["kernels"][-1].update(
+                launches_stablelm_cut=stablelm["flash_attention"],
+                hd80=lm_rows["flash_attention_hd80"])
     print(json.dumps(kernels))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

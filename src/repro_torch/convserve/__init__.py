@@ -2,7 +2,8 @@
 
 Pipeline:  NetSpec --plan_net--> NetPlan (v3: layer plans + fusion
 groups) --program.lower--> ExecProgram (staged IR, cross-layer fusion
-groups) --Engine.compile--> CompiledNet --ConvServer--> batched serving.
+groups) --Engine.compile--> CompiledNet --ConvServer--> batched serving,
+or --ReplicaPool--> ServeRuntime for continuous traffic.
 
 Everything runs on one device per `Engine`: cuda unless the caller
 passes ``device="cpu"``.
@@ -39,9 +40,12 @@ from repro_torch.convserve.program import (
 from repro_torch.convserve.runtime import (
     RealClock,
     Rejection,
+    ReplicaPool,
     Request,
     RuntimeConfig,
+    ServeRuntime,
     SimClock,
+    Telemetry,
     WaveScheduler,
 )
 from repro_torch.convserve.serving import ConvServeConfig, ConvServer, ImageRequest
@@ -78,9 +82,12 @@ __all__ = [
     "ConvServeConfig",
     "ImageRequest",
     "RuntimeConfig",
+    "ServeRuntime",
+    "ReplicaPool",
     "WaveScheduler",
     "Request",
     "Rejection",
+    "Telemetry",
     "RealClock",
     "SimClock",
 ]

@@ -37,7 +37,7 @@ import torch
 
 from repro_torch.core import registry
 from repro_torch.convserve.plan import LayerPlan
-from repro_torch.core.device import dtype_name
+from repro_torch.core.device import dtype_name, publish
 
 
 def weights_fingerprint(w) -> str:
@@ -108,6 +108,9 @@ class KernelCache:
         # transform outside the lock: kernel prep is the expensive part,
         # and a racing replica at worst duplicates work, never corrupts
         wt = alg.prepare_weights(w.to(dtype), plan.algo_plan())
+        # replicas run on streams of their own: the entry is published only
+        # once the stream that prepared it has finished writing it
+        publish(wt)
         with self._lock:
             if key not in self._store:
                 self._store[key] = wt

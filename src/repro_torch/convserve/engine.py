@@ -94,12 +94,14 @@ class Engine:
         dtype=torch.float32,
         clock: Optional[Clock] = None,
         device: DeviceLike = None,
+        tracer=None,
     ):
         self.device = resolve_device(device)
         self.hw = hw or tune_mod.default_hw(self.device)
         self.cache = cache if cache is not None else KernelCache()
         self.dtype = dtype
         self.clock = clock  # threaded into every executor (None = real)
+        self.tracer = tracer  # likewise (None = NULL_TRACER)
         self.nets_compiled = 0
 
     def compile(
@@ -128,6 +130,7 @@ class Engine:
                 spec, input_hw[0], input_hw[1],
                 hw=self.hw, dtype=dtype_name(self.dtype),
                 fuse=bool(fuse) if fuse is not None else True,
+                device=self.device,
                 **plan_kwargs,
             )
         elif plan_kwargs:
@@ -143,7 +146,7 @@ class Engine:
             plan = dataclasses.replace(plan, groups=())
         executor = NetExecutor(
             spec, weights, plan, cache=self.cache, dtype=self.dtype,
-            clock=self.clock, device=self.device,
+            clock=self.clock, device=self.device, tracer=self.tracer,
         )
         self.nets_compiled += 1
         return CompiledNet(

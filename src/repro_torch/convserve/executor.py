@@ -35,6 +35,12 @@ from repro_torch.core import registry
 from repro_torch.core.device import DeviceLike, resolve_device
 from repro_torch.convserve.cache import KernelCache, weights_fingerprint
 from repro_torch.convserve.graph import NetSpec
+from repro_torch.convserve.obs.trace import (
+    CAT_PROFILE,
+    CAT_STAGE,
+    NULL_TRACER,
+    capture_tile_phases,
+)
 from repro_torch.convserve.runtime.clock import Clock, RealClock
 from repro_torch.convserve.plan import NetPlan
 from repro_torch.convserve.program import EpilogueOp, ExecProgram, Stage, lower
@@ -113,6 +119,7 @@ class NetExecutor:
         dtype=torch.float32,
         clock: Optional[Clock] = None,
         device: DeviceLike = None,
+        tracer=None,
     ):
         missing = [i for i, _ in spec.param_layers() if i not in weights]
         if missing:
@@ -126,6 +133,7 @@ class NetExecutor:
         self.device = resolve_device(device)
         self.cache = cache if cache is not None else KernelCache()
         self.clock = clock or RealClock()
+        self.tracer = tracer if tracer is not None else NULL_TRACER
         self.weights = {
             i: torch.as_tensor(w).to(self.device, dtype)
             for i, w in weights.items()
@@ -308,31 +316,46 @@ class NetExecutor:
         """Per-stage times (seconds), each stage run once untimed and
         then timed: with CUDA events on the card (after a synchronize),
         with the executor's clock on the CPU.  The benchmark surface;
-        serving runs the stages back to back."""
+        serving runs the stages back to back.
+
+        Traced as a ``profile_stages`` span holding one ``stage:<label>``
+        span per stage; the untimed warm call of each stage announces the
+        tile engine's phases as instants inside its stage span (served
+        waves announce none)."""
         x, sizes = self._prepare_call(x, sizes)
         wts = self._fetch_transforms()
         b_h, b_w, b_c = int(x.shape[1]), int(x.shape[2]), int(x.shape[3])
         x, ext = self._prologue(x, sizes)
         cuda = self.device.type == "cuda"
         rows: List[Tuple[str, float]] = []
-        for stage in self.program.stages:
-            run = self._run_fused if stage.fused else self._run_single
-            run(stage, x, self.weights, wts, ext)  # warm, untimed
-            if cuda:
-                torch.cuda.synchronize(self.device)
-                t0 = torch.cuda.Event(enable_timing=True)
-                t1 = torch.cuda.Event(enable_timing=True)
-                t0.record()
-                y, nxt = run(stage, x, self.weights, wts, ext)
-                t1.record()
-                t1.synchronize()
-                dt = t0.elapsed_time(t1) / 1e3
-            else:
-                c0 = self.clock.now()
-                y, nxt = run(stage, x, self.weights, wts, ext)
-                dt = self.clock.now() - c0
-            rows.append((stage.label, dt))
-            x, ext = y, nxt
+        tr = self.tracer
+        with tr.span(
+            "profile_stages", CAT_PROFILE,
+            net=self.plan.net, bucket=b_h, batch=int(x.shape[0]),
+        ):
+            for stage in self.program.stages:
+                run = self._run_fused if stage.fused else self._run_single
+                with tr.span(
+                    f"stage:{stage.label}", CAT_STAGE,
+                    stage=stage.label, fused=stage.fused,
+                ):
+                    with capture_tile_phases(tr, stage=stage.label):
+                        run(stage, x, self.weights, wts, ext)  # warm, untimed
+                    if cuda:
+                        torch.cuda.synchronize(self.device)
+                        t0 = torch.cuda.Event(enable_timing=True)
+                        t1 = torch.cuda.Event(enable_timing=True)
+                        t0.record()
+                        y, nxt = run(stage, x, self.weights, wts, ext)
+                        t1.record()
+                        t1.synchronize()
+                        dt = t0.elapsed_time(t1) / 1e3
+                    else:
+                        c0 = self.clock.now()
+                        y, nxt = run(stage, x, self.weights, wts, ext)
+                        dt = self.clock.now() - c0
+                    rows.append((stage.label, dt))
+                x, ext = y, nxt
         want = self.spec.out_shape(b_h, b_w, b_c)
         if tuple(x.shape[1:]) != want:
             raise AssertionError(

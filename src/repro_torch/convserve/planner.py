@@ -6,8 +6,8 @@ registry (`registry.plan_conv`), which ranks every supporting, feasible
 algorithm by the S5 analytical model -- L3-fused Winograd, L3-fused FFT,
 the vendor 3-stage structure, or the direct convolution when the layer is
 too small to tile.  R comes from the registry's plan step: an explicit
-hint, the wisdom file (`tune.lookup_r`), or the analytic
-`tune.predict_r`.
+hint, the wisdom file (`tune.lookup_r` / the measuring `tune.tuned_r`
+with ``tune_r=True``), or the analytic `tune.predict_r`.
 
 On top of the per-layer decisions, `plan_fusion_groups` walks adjacent
 conv units and charges the same roofline currency at the net level: a
@@ -43,10 +43,13 @@ def plan_layer(
     m: int = 5,
     t_fft: int = 16,
     consider_fft: bool = True,
+    tune_r: bool = False,
     wisdom_path=None,
     allowed: Optional[Sequence[str]] = None,
+    device=None,
 ) -> LayerPlan:
-    """Plan one conv layer posed as a ConvSpec."""
+    """Plan one conv layer posed as a ConvSpec, for `device` (the wisdom
+    file's keys; `tune_r` measures there)."""
     if allowed is None:
         allowed = registry.names()
     if not consider_fft:
@@ -56,7 +59,9 @@ def plan_layer(
         algo="auto",
         hints={"m": m, "t_fft": t_fft},
         allowed=allowed,
+        tune_r=tune_r,
         wisdom_path=wisdom_path,
+        device=device,
     )
     return LayerPlan.from_algo_plan(layer, ap)
 
@@ -70,16 +75,20 @@ def plan_net(
     m: int = 5,
     t_fft: int = 16,
     consider_fft: bool = True,
+    tune_r: bool = False,
     wisdom_path=None,
     dtype: str = "float32",
     fuse: bool = True,
     allowed: Optional[Sequence[str]] = None,
+    device=None,
 ) -> NetPlan:
     """Plan every conv layer of `spec` at reference input (h, w), then
     (``fuse=True``) the cross-layer fusion groups on top.  `allowed`
     restricts the algorithm candidates per layer (e.g. ``("direct",)``
-    for a bitwise-reproducible baseline plan)."""
-    hw = hw or tune_mod.default_hw()
+    for a bitwise-reproducible baseline plan).  `device` is where the
+    plan runs: the wisdom file is read (and, with ``tune_r``, measured)
+    for it."""
+    hw = hw or tune_mod.default_hw(device)
     convs = spec.conv_layers()
     if not convs:
         raise ValueError(f"net {spec.name!r} has no conv layers")
@@ -99,7 +108,8 @@ def plan_net(
                 plan_layer(
                     hw, i, cspec,
                     m=m, t_fft=t_fft, consider_fft=consider_fft,
-                    wisdom_path=wisdom_path, allowed=allowed,
+                    tune_r=tune_r, wisdom_path=wisdom_path, allowed=allowed,
+                    device=device,
                 )
             )
         cur_h, cur_w = shapes[i][0], shapes[i][1]

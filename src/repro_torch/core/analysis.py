@@ -70,6 +70,47 @@ H100_SXM = HardwareModel(
 )
 
 
+def calibrated_hw(
+    base: "HardwareModel | None" = None,
+    wisdom_path=None,
+    *,
+    measure: bool = True,
+    device=None,
+) -> HardwareModel:
+    """`base` with its compute and memory roofs replaced by the one-shot
+    GEMM/stream microbenchmark (`tune.measure_calibration`, cached in the
+    wisdom file per backend) on `device` (the card unless the caller
+    names another; raises without one, as every entry point does).
+
+    Only the absolute roofs change: `fast_shared_bw` is rescaled to
+    preserve the base model's CMR_fast, so the *structure* of planning
+    (min_r, the R bounds, fusion-group thresholds) is untouched while
+    every absolute time prediction is anchored to this device.  With
+    `measure=False` only a cached calibration is consulted (never pays
+    the microbenchmark) and `base` is returned verbatim when none exists.
+    """
+    from repro_torch.core import tune  # deferred: tune imports this module
+    from repro_torch.core.device import resolve_device
+
+    dev = resolve_device(device)
+    base = base or tune.default_hw(dev)
+    entry = (
+        tune.measure_calibration(wisdom_path, device=dev)
+        if measure
+        else tune.lookup_calibration(wisdom_path, dev)
+    )
+    if not entry:
+        return base
+    peak = float(entry["peak_flops"])
+    return dataclasses.replace(
+        base,
+        name=base.name + ":calibrated",
+        peak_flops=peak,
+        dram_bw=float(entry["dram_bw"]),
+        fast_shared_bw=peak / base.cmr_fast,
+    )
+
+
 def kernel_matrix_bytes(c_in: int, c_out: int, t: int) -> int:
     """Right-hand matrices: 4 C C' T^2 bytes (the fp32 Winograd case; the
     family-exact figure -- complex pairs over the rfft half-spectrum for

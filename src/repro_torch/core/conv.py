@@ -83,7 +83,8 @@ class DirectAlgorithm(registry.Algorithm):
         # symmetric-pad 2-D path cannot express
         return not spec.temporal
 
-    def plan(self, spec, hw, *, hints=None, wisdom_path=None):
+    def plan(self, spec, hw, *, hints=None, tune_r=False, wisdom_path=None,
+             device=None):
         return registry.AlgoPlan(
             self.name, spec, {}, predicted_util=1.0, cost=0.0
         )
@@ -154,7 +155,7 @@ def conv2d(
         }
         aplan = registry.plan_conv(
             spec, hw or tune.default_hw(dev), algo=algo, hints=hints,
-            wisdom_path=wisdom_path,
+            wisdom_path=wisdom_path, device=dev,
         )
     alg = registry.get(aplan.algo)
     if wt is not None and not alg.consumes_wt:

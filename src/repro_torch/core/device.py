@@ -27,6 +27,16 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
     return torch.device("cuda")
 
 
+def publish(t):
+    """Make `t`, just computed on the current stream, safe to read from
+    any stream: on the card, wait for the current stream to finish.  Every
+    memo that replica threads share (each on its own stream) calls this on
+    a miss before it stores the entry; on the CPU it does nothing."""
+    if isinstance(t, torch.Tensor) and t.is_cuda:
+        torch.cuda.current_stream(t.device).synchronize()
+    return t
+
+
 def dtype_name(dtype: torch.dtype) -> str:
     """torch.float32 -> "float32" (the plan files' dtype spelling)."""
     return str(dtype).removeprefix("torch.")

@@ -101,22 +101,30 @@ def resolve_r(
     transform: transforms.Transform,
     *,
     hints,
+    tune_r: bool = False,
     wisdom_path=None,
+    device=None,
 ):
-    """R for a transformed plan: explicit hint > wisdom-file lookup >
-    analytic prediction.  Wisdom entries are keyed by transform family +
-    tile size + geometry, so Winograd-R and FFT-T tunes for the same
-    layer never collide.  Returns (r, tuned) where `tuned` marks an R
-    that came from measurement (cached in the wisdom file) rather than
-    the model."""
-    from repro_torch.core import tune
+    """R for a transformed plan on `device`: explicit hint > measured (tune_r) >
+    wisdom-file lookup > analytic prediction.  Wisdom entries are keyed
+    by transform family + tile size + geometry, so Winograd-R and FFT-T
+    tunes for the same layer never collide.  Returns (r, tuned) where
+    `tuned` marks an R that came from measurement (fresh or cached in
+    the wisdom file) rather than the model."""
+    from repro_torch.core import tune  # deferred: tune times this module's conv
 
     r_hint = hints.get("r_tiles")
     if r_hint is not None:
         return int(r_hint), False
+    if tune_r:
+        r = tune.tuned_r(
+            spec.h, spec.w, spec.c_in, spec.c_out,
+            transform=transform, wisdom_path=wisdom_path, device=device,
+        )
+        return int(r), True
     r = tune.lookup_r(
         spec.h, spec.w, spec.c_in, spec.c_out,
-        transform=transform, wisdom_path=wisdom_path,
+        transform=transform, wisdom_path=wisdom_path, device=device,
     )
     if r is not None:
         # clamp a wisdom R measured elsewhere into this hw's feasible range
@@ -161,13 +169,15 @@ class TransformedAlgorithm(registry.Algorithm):
     def r_floor(self, hw: analysis.HardwareModel) -> int:
         return max(self.r_floor_base, analysis.min_r(hw) // 2)
 
-    def plan(self, spec, hw, *, hints=None, wisdom_path=None):
+    def plan(self, spec, hw, *, hints=None, tune_r=False, wisdom_path=None,
+             device=None):
         hints = hints or {}
         tile = int(hints.get(self.tile_param) or self.default_tile)
         params = {self.tile_param: tile}
         tr = self.make_transform(spec, params)
         r, tuned = resolve_r(
-            spec, hw, tr, hints=hints, wisdom_path=wisdom_path
+            spec, hw, tr, hints=hints, tune_r=tune_r, wisdom_path=wisdom_path,
+            device=device,
         )
         ta = tr.algebra
         util = analysis.predicted_utilization(
@@ -179,7 +189,7 @@ class TransformedAlgorithm(registry.Algorithm):
 
         blocks = tune.lookup_blocks(
             spec.h, spec.w, spec.c_in, spec.c_out,
-            transform=tr, wisdom_path=wisdom_path,
+            transform=tr, wisdom_path=wisdom_path, device=device,
         )
         if blocks is not None:
             params["blocks"] = blocks.to_wisdom()

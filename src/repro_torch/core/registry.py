@@ -307,9 +307,14 @@ class Algorithm:
         hw: analysis.HardwareModel,
         *,
         hints: Optional[Mapping[str, Any]] = None,
+        tune_r: bool = False,
         wisdom_path=None,
+        device=None,
     ) -> AlgoPlan:
-        """Resolve algorithm-owned params (and modeled cost) for `spec`."""
+        """Resolve algorithm-owned params (and modeled cost) for `spec`.
+        `tune_r` measures R on `device` (the wisdom-file pass) where the
+        algorithm has an R to tune; the others ignore both.  Wisdom reads
+        and writes are keyed by `device`, the device the plan runs on."""
         raise NotImplementedError
 
     def prepare_weights(self, w: torch.Tensor, plan: AlgoPlan):
@@ -522,15 +527,19 @@ def plan_conv(
     algo: str = "auto",
     hints: Optional[Mapping[str, Any]] = None,
     allowed: Optional[Sequence[str]] = None,
+    tune_r: bool = False,
     wisdom_path=None,
+    device=None,
 ) -> AlgoPlan:
-    """Resolve `spec` to a concrete AlgoPlan.
+    """Resolve `spec` to a concrete AlgoPlan for `device`.
 
     algo="auto" ranks every supporting, feasible algorithm by
     (tier, modeled cost, rank) -- the registry form of the paper's wisdom
     choice.  An explicit algo plans unconditionally (feasibility heuristics
     only gate auto); unsupported specs raise.  R comes from the wisdom
-    file when it holds a tuned one, else from the analytic model.
+    file when it holds a tuned one, else from the analytic model; with
+    `tune_r` it is measured (and stored) for the winner only, never for
+    losing candidates.
     """
     _ensure_registered()
     hints = dict(hints or {})
@@ -542,7 +551,8 @@ def plan_conv(
                 f"(supported here: {supporting(spec)})"
             )
         return alg.plan(
-            spec, hw, hints=hints, wisdom_path=wisdom_path
+            spec, hw, hints=hints, tune_r=tune_r, wisdom_path=wisdom_path,
+            device=device,
         )
     best: Optional[AlgoPlan] = None
     best_key = None
@@ -550,7 +560,9 @@ def plan_conv(
         alg = get(name)
         if not alg.auto_candidate or not alg.supports(spec):
             continue
-        cand = alg.plan(spec, hw, hints=hints, wisdom_path=wisdom_path)
+        cand = alg.plan(
+            spec, hw, hints=hints, wisdom_path=wisdom_path, device=device
+        )
         if not math.isfinite(cand.cost):
             continue  # roofline-infeasible: excluded from auto
         key = (alg.tier, cand.cost, alg.rank)
@@ -563,5 +575,10 @@ def plan_conv(
             f"was restricted to {tuple(allowed) if allowed is not None else names()} "
             "and roofline-infeasible candidates are excluded -- widen "
             "`allowed` or request an algorithm explicitly"
+        )
+    if tune_r:  # measure only the winner (the wisdom-file pass)
+        best = get(best.algo).plan(
+            spec, hw, hints=hints, tune_r=True, wisdom_path=wisdom_path,
+            device=device,
         )
     return best

@@ -73,7 +73,8 @@ class ThreeStageAlgorithm(pipeline.TransformedAlgorithm):
     def make_transform(self, spec, params):
         return transforms.WinogradTransform(m=int(params["m"]), k=spec.k)
 
-    def plan(self, spec, hw, *, hints=None, wisdom_path=None):
+    def plan(self, spec, hw, *, hints=None, tune_r=False, wisdom_path=None,
+             device=None):
         hints = hints or {}
         m = int(hints.get("m") or self.default_tile)
         ta = transforms.WinogradTransform(m=m, k=spec.k).algebra

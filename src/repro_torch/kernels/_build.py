@@ -23,6 +23,11 @@ from typing import Dict, Optional, Sequence
 import torch
 
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "repro_torch"
+# guards every wrapper's `LAUNCHES += 1`: replica threads launch kernels
+# concurrently, and an unguarded read-add-write on a module global can
+# lose counts
+COUNT_LOCK = threading.Lock()
+
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",

@@ -36,6 +36,15 @@
 // of this kernel (acc = 0; acc = fmaf(x, w_i, acc) for i = 0..K-1 in order;
 // acc += bias; silu), so the result is bitwise that of one channel per
 // thread walking the whole sequence, whatever V or the strip.
+//
+// K 1..8 are instantiated with the window in registers.  Any larger K runs
+// one instance whose tap count is a runtime argument: it keeps the strip's
+// kRows accumulators in registers and walks the taps in order, reading tap
+// i's weights once and the kRows rows it meets through the read-only path
+// (a row is read by up to K outputs of the strip, from L1 after the first).
+// Its halo (K-1 rows) may reach back over several strips; the rows before
+// 0 read as zero as above.  Each output's chain of operations is the one
+// above, so it agrees with the templated instances where both apply.
 
 #include <cuda_runtime.h>
 
@@ -53,7 +62,7 @@ struct LaunchArgs {
 
 namespace {
 
-constexpr int kMaxTaps = 8;
+constexpr int kMaxTaps = 8;  // K 1..8 have instances of their own
 constexpr int kMaxThreads = 128;
 constexpr int kRows = 8;  // rows of a strip: one thread's, all loaded before any is used
 
@@ -122,6 +131,58 @@ conv1d_fused_kernel(const float* __restrict__ x, const float* __restrict__ w,
   }
 }
 
+// any K: the taps are the outer loop, acc[j] the chain of output l0 + j
+template <int V>
+__global__ void __launch_bounds__(kMaxThreads)
+conv1d_fused_kernel_any_k(const float* __restrict__ x, const float* __restrict__ w,
+                          const float* __restrict__ bias, float* __restrict__ out,
+                          const LaunchArgs a) {
+  const int c = (blockIdx.y * blockDim.x + threadIdx.x) * V;
+  if (c >= a.d) return;
+  const int l0 = blockIdx.x * kRows;
+  const long long row0 = (long long)blockIdx.z * a.seq;
+  const float* xc = x + row0 * a.x_row_stride + c;
+  float* oc = out + row0 * a.d + c;
+  float acc[kRows][V];
+#pragma unroll
+  for (int j = 0; j < kRows; ++j)
+#pragma unroll
+    for (int v = 0; v < V; ++v) acc[j][v] = 0.f;
+  for (int i = 0; i < a.k; ++i) {
+    float tap[V];
+    load_unit<V>(w + (long long)i * a.d + c, tap);
+#pragma unroll
+    for (int j = 0; j < kRows; ++j) {
+      // output l0 + j meets row l0 + j - (K-1) + i at tap i
+      const int l = l0 + j - (a.k - 1) + i;
+      float xv[V];
+      if (l >= 0 && l < a.seq) {
+        load_unit<V>(xc + l * a.x_row_stride, xv);
+      } else {
+#pragma unroll
+        for (int v = 0; v < V; ++v) xv[v] = 0.f;
+      }
+#pragma unroll
+      for (int v = 0; v < V; ++v) acc[j][v] = fmaf(xv[v], tap[v], acc[j][v]);
+    }
+  }
+  float b[V];
+  load_unit<V>(bias + c, b);
+#pragma unroll
+  for (int j = 0; j < kRows; ++j) {
+    if (l0 + j < a.seq) {
+      float o[V];
+#pragma unroll
+      for (int v = 0; v < V; ++v) {
+        float r = acc[j][v] + b[v];
+        if (a.silu) r = r * (1.f / (1.f + expf(-r)));
+        o[v] = r;
+      }
+      store_unit<V>(oc + (long long)(l0 + j) * a.d, o);
+    }
+  }
+}
+
 template <int K>
 void launch(const float* x, const float* w, const float* b, float* out, const LaunchArgs& a,
             cudaStream_t stream) {
@@ -133,12 +194,22 @@ void launch(const float* x, const float* w, const float* b, float* out, const La
   }
 }
 
+void launch_any_k(const float* x, const float* w, const float* b, float* out,
+                  const LaunchArgs& a, cudaStream_t stream) {
+  const dim3 grid(a.n_strips, a.n_cblocks, a.batch);
+  if (a.vec == 4) {
+    conv1d_fused_kernel_any_k<4><<<grid, a.threads, 0, stream>>>(x, w, b, out, a);
+  } else {
+    conv1d_fused_kernel_any_k<1><<<grid, a.threads, 0, stream>>>(x, w, b, out, a);
+  }
+}
+
 bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
 
 }  // namespace
 
 // x: (batch, seq, d) rows a->x_row_stride floats apart (channels contiguous);
-// w: (k, d); b: (d,); out: (batch, seq, d) contiguous.  k in 1..8.  The
+// w: (k, d); b: (d,); out: (batch, seq, d) contiguous.  k >= 1.  The
 // geometry in `a` comes from the wrapper, which memoises it per shape; a
 // launch whose geometry does not cover the work exactly, or asks for float4
 // accesses the sizes or pointers do not allow, is refused.  Launches on
@@ -151,7 +222,7 @@ extern "C" int conv1d_fused_launch(const float* x, const float* w, const float* 
                       aligned16(w) && aligned16(b) && aligned16(out));
   const bool ok =
       a->batch >= 1 && a->batch <= 65535 && a->seq >= 1 && a->d >= 1 && a->k >= 1 &&
-      a->k <= kMaxTaps && (a->silu == 0 || a->silu == 1) && a->x_row_stride >= a->d && vec_ok &&
+      (a->silu == 0 || a->silu == 1) && a->x_row_stride >= a->d && vec_ok &&
       a->threads >= 32 && a->threads <= kMaxThreads && a->threads % 32 == 0 &&
       a->n_strips == (a->seq + kRows - 1) / kRows && a->n_cblocks >= 1 &&
       a->n_cblocks <= 65535 && a->n_cblocks * span >= a->d && (a->n_cblocks - 1) * span < a->d;
@@ -166,6 +237,7 @@ extern "C" int conv1d_fused_launch(const float* x, const float* w, const float* 
     case 6: launch<6>(x, w, b, out, *a, s); break;
     case 7: launch<7>(x, w, b, out, *a, s); break;
     case 8: launch<8>(x, w, b, out, *a, s); break;
+    default: launch_any_k(x, w, b, out, *a, s); break;  // k > kMaxTaps
   }
   return (int)cudaGetLastError();
 }

@@ -25,7 +25,6 @@ from repro_torch.kernels import _build
 
 LAUNCHES = 0  # kernel launches since import (or since a caller reset it)
 
-MAX_TAPS = 8  # the kernel is instantiated for K = 1..8
 MAX_THREADS = 128  # `kMaxThreads` in the source
 ROWS = 8  # `kRows`: rows of a strip, one thread's
 
@@ -107,7 +106,7 @@ def conv1d_fused_call(
     x: (B, L, D) f32 on the card, channels contiguous; its rows may be
        further apart than D (a column slice of a wider activation is read
        in place).
-    w: (K, D), b: (D,) f32 contiguous on the same card, K <= 8.
+    w: (K, D), b: (D,) f32 contiguous on the same card, any K >= 1.
     returns: (B, L, D) contiguous, act(causal conv + b).
     """
     global LAUNCHES
@@ -125,8 +124,8 @@ def conv1d_fused_call(
     k = w.shape[0]
     if w.shape != (k, d) or b.shape != (d,):
         raise ValueError(f"w {tuple(w.shape)} / b {tuple(b.shape)} do not match D={d}")
-    if not 1 <= k <= MAX_TAPS:
-        raise ValueError(f"K={k} taps; the kernel takes 1..{MAX_TAPS}")
+    if k < 1:
+        raise ValueError(f"K={k} taps; the kernel takes K >= 1")
     if not (w.is_contiguous() and b.is_contiguous()):
         raise ValueError("w and b must be contiguous")
     row = x.stride(1)
@@ -137,5 +136,6 @@ def conv1d_fused_call(
     _, args = _launch_args(bsz, length, d, row, k, activation == "silu",
                            not any(p % 16 for p in ptrs))
     LIB.launch("conv1d_fused_launch", x.device, *ptrs, args)
-    LAUNCHES += 1
+    with _build.COUNT_LOCK:
+        LAUNCHES += 1
     return out

@@ -63,6 +63,10 @@ class Conv1dFusedAlgorithm(registry.Algorithm):
     chain_family = None  # 1-D stages never chain with the 2-D tiling
 
     def supports(self, spec: registry.ConvSpec) -> bool:
+        """Any K, fp32 or bf16, as the reference's kernel takes them.  On
+        the card the CUDA kernel takes fp32 only: a bf16 spec plans here
+        and raises at execute until the bf16 kernels land (ROADMAP §1
+        item 9)."""
         return (
             spec.temporal
             and spec.groups == spec.c_in == spec.c_out
@@ -71,7 +75,8 @@ class Conv1dFusedAlgorithm(registry.Algorithm):
             and spec.dtype in ("float32", "bfloat16")
         )
 
-    def plan(self, spec, hw, *, hints=None, wisdom_path=None):
+    def plan(self, spec, hw, *, hints=None, tune_r=False, wisdom_path=None,
+             device=None):
         hints = dict(hints or {})
         # AI: 2K flops per element against an 8-byte load+store round trip
         ai = 2.0 * spec.k / 8.0

@@ -164,5 +164,6 @@ def decode_mlp_call(
     part = torch.empty((geo.n_blocks, b, d), dtype=torch.float32, device=x.device)
     out = torch.empty((b, d), dtype=torch.float32, device=x.device)
     LIB.launch("decode_mlp_launch", x.device, *ptrs, part.data_ptr(), out.data_ptr(), args)
-    LAUNCHES += 1
+    with _build.COUNT_LOCK:
+        LAUNCHES += 1
     return out

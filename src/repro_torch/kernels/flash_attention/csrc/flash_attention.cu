@@ -28,8 +28,8 @@
 //   - q (64 x hd) is staged once; K and V (32 x hd each) go through a ring of
 //     two stages filled by cp.async, so the next step's tiles load while this
 //     one computes.  Rows are padded by 4 floats and every fragment load is a
-//     float4 free of bank conflicts.  hd 256 takes 216,064 B of shared memory,
-//     so one block runs per SM.
+//     float4 (a float2 where a chunk is 8 columns: hd 16, 80, 112).  hd 256
+//     takes 216,064 B of shared memory, so one block runs per SM.
 //   - 8 warps work in pairs on 16 q rows (one warp of 16 rows alone cannot
 //     hide the latency of its dependent mma chains).  Each warp of a pair sums
 //     QK^T over half of hd; the two halves are added through shared memory
@@ -47,6 +47,16 @@
 //     masked skips its products (which leaves (m, l, acc) exactly unchanged).
 //   - Causal q blocks are scheduled heaviest first (the last q block has the
 //     longest band), so the short blocks fill the card's tail.
+// Numerics.  The split operands alone cost ~1.4e-7 of max |o| against
+// float64; the tensor cores' accumulation into one long chain costs more:
+// at 768 keys with no mask (each output cancelling ~20x) one chain per
+// output reaches 6-9e-6 (`flash_attention/accuracy.py`).  HD 80 and 112
+// therefore sum each chunk's QK^T and each kv step's P.V in a fresh fragment
+// and add it to the running sum in f32 (`Cfg::kFreshAcc`); the power-of-two
+// head dims keep the single chains they were first built with, so their
+// outputs are bitwise those of that first build.  The split is temporary:
+// the fresh fragments are the more accurate scheme, and every head dim is
+// to take them, with a new card measurement of time and error (ROADMAP).
 // GQA is the kv head index h // g: a shared kv head is read by its g q heads
 // from L2, never copied per head.  Tensors are addressed by (batch, head,
 // sequence) strides with hd contiguous, so the model's (B, S, H, hd) layout
@@ -72,13 +82,21 @@ struct Strides {
 template <int HD>
 struct Cfg {
   static constexpr int LD = HD + 4;                  // padded smem row, floats
-  static constexpr int DC = HD / 2 < 32 ? HD / 2 : 32;  // column chunk of a fragment load
+  // column chunk of a fragment load: the largest of 32, 16 and 8 that divides
+  // HD / 2, so that each warp of a pair takes NH whole chunks (HD 80 and 112
+  // take chunks of 8, as HD 16 does)
+  static_assert(HD % 16 == 0, "the head dim must be a multiple of 16");
+  static constexpr int DC = (HD / 2) % 32 == 0 ? 32 : (HD / 2) % 16 == 0 ? 16 : 8;
   static constexpr int E = DC / 4;                   // floats a thread loads per row and chunk
   static constexpr int NT = DC / 8;                  // k-steps (QK^T) / n-tiles (P.V) per chunk
   static constexpr int NH = HD / DC / 2;             // chunks of each warp of a pair
   static constexpr int kQ = kBq * LD;                // floats of the q tile
   static constexpr int kKV = kBk * LD;               // floats of one K or V tile
   static constexpr int kX = kWarps * 16 * 32;        // floats of the score exchange
+  // HD 80 and 112 sum each chunk's QK^T and each kv step's P.V in a fresh
+  // accumulator and add it to the running one in f32; the other head dims
+  // keep their single chains, bit for bit (see Numerics)
+  static constexpr bool kFreshAcc = HD == 80 || HD == 112;
   static constexpr int smem = (int)sizeof(float) * (kQ + 2 * kStages * kKV + kX);
   static_assert(smem <= 232448, "over sm_90's opt-in shared memory per block");
 };
@@ -250,8 +268,16 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
         for (int j = 0; j < 4; ++j) {
           float y[E];
           load_row(y, kb + 8 * j * LD + c * DC);
+          if constexpr (C::kFreshAcc) {
+            float t[4] = {0.f, 0.f, 0.f, 0.f};
 #pragma unroll
-          for (int kk = 0; kk < NT; ++kk) mma3(s[j], ab[kk], as[kk], y[2 * kk], y[2 * kk + 1]);
+            for (int kk = 0; kk < NT; ++kk) mma3(t, ab[kk], as[kk], y[2 * kk], y[2 * kk + 1]);
+#pragma unroll
+            for (int e = 0; e < 4; ++e) s[j][e] += t[e];
+          } else {
+#pragma unroll
+            for (int kk = 0; kk < NT; ++kk) mma3(s[j], ab[kk], as[kk], y[2 * kk], y[2 * kk + 1]);
+          }
         }
       }
       float* mine = xsh + warp * 512 + lane;
@@ -315,6 +341,11 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
       // acc += P V over this warp's half of hd: the A-fragment of k-tile j is
       // s[j] (key 2t -> column t, key 2t + 1 -> column t + 4); V n-tile i of
       // chunk c, column g is hd column c * DC + NT * g + i
+      float step[C::kFreshAcc ? NH * NT : 1][4];  // this kv step's P.V (HD 80, 112)
+      if constexpr (C::kFreshAcc) {
+#pragma unroll
+        for (int n = 0; n < NH * NT; ++n) step[n][0] = step[n][1] = step[n][2] = step[n][3] = 0.f;
+      }
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         uint32_t pb[4], pl[4];
@@ -329,8 +360,20 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
           load_row(y0, v0 + c * DC);
           load_row(y1, v0 + LD + c * DC);
 #pragma unroll
-          for (int i = 0; i < NT; ++i) mma3(acc[c * NT + i], pb, pl, y0[i], y1[i]);
+          for (int i = 0; i < NT; ++i) {
+            if constexpr (C::kFreshAcc) {
+              mma3(step[c * NT + i], pb, pl, y0[i], y1[i]);
+            } else {
+              mma3(acc[c * NT + i], pb, pl, y0[i], y1[i]);
+            }
+          }
         }
+      }
+      if constexpr (C::kFreshAcc) {
+#pragma unroll
+        for (int n = 0; n < NH * NT; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[n][e] += step[n][e];
       }
     }
     __syncthreads();  // every warp is done with stage st and the exchange
@@ -381,7 +424,7 @@ int launch(const float* q, const float* k, const float* v, float* o, int batch, 
 
 // q (batch, hq, sq, hd), k/v (batch, hkv, sk, hd), o like q, each addressed
 // by its (batch, head, sequence) strides in elements with hd contiguous;
-// pointers and strides 16-byte aligned; hd in {16, 32, 64, 128, 256}; hq a
+// pointers and strides 16-byte aligned; hd in {16, 32, 64, 80, 112, 128, 256}; hq a
 // multiple of hkv.  Launches on `stream`; returns cudaGetLastError().
 extern "C" int flash_attention_launch(
     const float* q, const float* k, const float* v, float* o, int batch,
@@ -399,6 +442,8 @@ extern "C" int flash_attention_launch(
     case 16: return launch<16>(q, k, v, o, batch, hq, hkv, sq, sk, qs, ks, vs, os, causal, window, scale, s);
     case 32: return launch<32>(q, k, v, o, batch, hq, hkv, sq, sk, qs, ks, vs, os, causal, window, scale, s);
     case 64: return launch<64>(q, k, v, o, batch, hq, hkv, sq, sk, qs, ks, vs, os, causal, window, scale, s);
+    case 80: return launch<80>(q, k, v, o, batch, hq, hkv, sq, sk, qs, ks, vs, os, causal, window, scale, s);
+    case 112: return launch<112>(q, k, v, o, batch, hq, hkv, sq, sk, qs, ks, vs, os, causal, window, scale, s);
     case 128: return launch<128>(q, k, v, o, batch, hq, hkv, sq, sk, qs, ks, vs, os, causal, window, scale, s);
     case 256: return launch<256>(q, k, v, o, batch, hq, hkv, sq, sk, qs, ks, vs, os, causal, window, scale, s);
     default: return (int)cudaErrorInvalidValue;

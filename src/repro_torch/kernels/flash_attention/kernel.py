@@ -23,7 +23,9 @@ from repro_torch.kernels import _build
 
 LAUNCHES = 0  # kernel launches since import (or since a caller reset it)
 
-HEAD_DIMS = (16, 32, 64, 128, 256)  # the kernel's instantiations
+# the kernel's instantiations: every head dim a registered config uses
+# (stablelm-3b's 80, zamba2-7b's 112) and the powers of two 16..256
+HEAD_DIMS = (16, 32, 64, 80, 112, 128, 256)
 
 SOURCE = pathlib.Path(__file__).parent / "csrc" / "flash_attention.cu"
 # `flash_attention_launch`'s C signature, in order (the stream is appended)
@@ -76,7 +78,8 @@ def flash_attention_call(
     if hq % hkv:
         raise ValueError(f"{hq} q heads are not a multiple of {hkv} kv heads")
     if hd not in HEAD_DIMS:
-        raise ValueError(f"head dim {hd} not in the kernel's {HEAD_DIMS}")
+        raise ValueError(f"head dim {hd} is not one of the kernel's instantiations "
+                         f"{HEAD_DIMS} (the registered configs' head dims)")
     out = torch.empty_like(q)  # q's layout (dense views keep their strides)
     _check("out", out, q.device)
     LIB.launch(
@@ -86,5 +89,6 @@ def flash_attention_call(
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3],
         int(causal), int(window), hd ** -0.5,
     )
-    LAUNCHES += 1
+    with _build.COUNT_LOCK:
+        LAUNCHES += 1
     return out

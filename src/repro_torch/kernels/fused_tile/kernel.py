@@ -21,6 +21,7 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.core import transforms
+from repro_torch.core.device import publish
 from repro_torch.kernels import _build
 from repro_torch.kernels.fused_tile.matrix import basis
 
@@ -306,7 +307,7 @@ def transposed_basis(spec: transforms.TileKernelSpec, device):
     hit = _BASIS_T.get(key)
     if hit is None:
         kf, ki = basis(spec, device)
-        hit = (kf.t().contiguous(), ki.t().contiguous())
+        hit = (kf.t().contiguous(), publish(ki.t().contiguous()))
         _BASIS_T[key] = hit
     return hit
 
@@ -359,6 +360,21 @@ def _launch_plan(xp, rhs, biases, spec, n_tiles_h, n_tiles_w, r, groups, ep_ops,
     )
 
 
+def launch_plan(xp, rhs, biases, *, spec: transforms.TileKernelSpec,
+                n_tiles_h: int, n_tiles_w: int, r: int, groups: int = 1,
+                ep_ops: tuple = (), geometry: Optional[Geometry] = None) -> _LaunchPlan:
+    """The memoised plan `fused_tile_call` launches for these arguments:
+    its `geo` is the geometry the kernel runs with."""
+    key = (xp.shape, rhs.shape, biases.shape, xp.device, spec.family, spec.t,
+           spec.k, n_tiles_h, n_tiles_w, r, groups, ep_ops, geometry)
+    plan = _PLANS.get(key)
+    if plan is None:
+        plan = _launch_plan(xp, rhs, biases, spec, n_tiles_h, n_tiles_w, r,
+                            groups, ep_ops, geometry)
+        _PLANS[key] = plan
+    return plan
+
+
 def fused_tile_call(
     xp: torch.Tensor,
     rhs: torch.Tensor,
@@ -393,13 +409,9 @@ def fused_tile_call(
         _check(name, t)
     if not (xp.device == rhs.device == biases.device):
         raise ValueError("xp, rhs and biases must be on one device")
-    key = (xp.shape, rhs.shape, biases.shape, xp.device, spec.family, spec.t,
-           spec.k, n_tiles_h, n_tiles_w, r, groups, ep_ops, geometry)
-    plan = _PLANS.get(key)
-    if plan is None:
-        plan = _launch_plan(xp, rhs, biases, spec, n_tiles_h, n_tiles_w, r,
-                            groups, ep_ops, geometry)
-        _PLANS[key] = plan
+    plan = launch_plan(xp, rhs, biases, spec=spec, n_tiles_h=n_tiles_h,
+                       n_tiles_w=n_tiles_w, r=r, groups=groups, ep_ops=ep_ops,
+                       geometry=geometry)
     out = torch.empty(plan.out_shape, dtype=torch.float32, device=xp.device)
     part = (torch.empty((plan.part_numel,), dtype=torch.float32, device=xp.device)
             if plan.part_numel else out)
@@ -408,5 +420,6 @@ def fused_tile_call(
         xp.data_ptr(), rhs.data_ptr(), *plan.basis_ptrs, biases.data_ptr(),
         out.data_ptr(), part.data_ptr(), *plan.ints,
     )
-    LAUNCHES += 1
+    with _build.COUNT_LOCK:
+        LAUNCHES += 1
     return out

@@ -18,6 +18,7 @@ from typing import Tuple
 import torch
 
 from repro_torch.core import tiling, transforms
+from repro_torch.core.device import publish
 
 
 _BASIS: dict = {}  # (family, t, k, device) -> (fwd, inv) constants
@@ -33,7 +34,7 @@ def basis(
     if hit is None:
         hit = (
             torch.as_tensor(spec.fwd, device=device),
-            torch.as_tensor(spec.inv, device=device),
+            publish(torch.as_tensor(spec.inv, device=device)),
         )
         _BASIS[key] = hit
     return hit

@@ -20,10 +20,35 @@ from typing import Optional
 import torch
 
 from repro_torch.core import registry, tiling, transforms
-from repro_torch.core.device import DeviceLike, resolve_device
+from repro_torch.core.device import DeviceLike, publish, resolve_device
 from repro_torch.kernels.fused_tile import kernel as _kernel
 from repro_torch.kernels.fused_tile import matrix as _matrix
 from repro_torch.kernels.fused_tile.blocks import BlockConfig
+
+
+# The tile engine's logical phases, in execution order.  One dispatch
+# runs all five inside a single kernel launch (or, on the CPU, one chain
+# of wide GEMMs), so they are announced through the phase hook rather
+# than separately timed; the observability layer splits measured stage
+# time across the GEMM phases by their MAC counts.
+_PHASES = ("gather", "forward_gemm", "mix", "inverse_gemm", "scatter")
+
+# Observability hook: when set (see obs.trace.capture_tile_phases), each
+# conv2d_fused_tile dispatch calls it once per logical phase with
+# (phase, info), where info carries the backend (torch-cuda / torch-cpu),
+# the family and tile geometry, and on the card the geometry of the
+# plan the kernel launches (`kernel.launch_plan`).  Fires on the host at
+# dispatch.
+_PHASE_HOOK = None
+
+
+def set_phase_hook(hook):
+    """Install the phase announcement hook; returns the previous one so
+    callers can restore it (see `obs.trace.capture_tile_phases`)."""
+    global _PHASE_HOOK
+    prev = _PHASE_HOOK
+    _PHASE_HOOK = hook
+    return prev
 
 
 class UnsupportedSpec(Exception):
@@ -50,7 +75,7 @@ def _packed_rhs(spec: transforms.TileKernelSpec, wt: torch.Tensor, groups: int):
     if hit is None or hit[0]() is not wt or hit[1] != key:
         wid = id(wt)
         ref = weakref.ref(wt, lambda _, wid=wid: _PACKED.pop(wid, None))
-        hit = (ref, key, spec.pack_rhs(wt, groups))
+        hit = (ref, key, publish(spec.pack_rhs(wt, groups)))
         _PACKED[wid] = hit
     return hit[2]
 
@@ -71,8 +96,31 @@ def _fit_r(spec: transforms.TileKernelSpec, r: int, c_in: int, c_out: int) -> in
 def _zero_bias(c_out: int, device) -> torch.Tensor:
     key = (c_out, device)
     if key not in _ZERO_BIAS:
-        _ZERO_BIAS[key] = torch.zeros((1, c_out), dtype=torch.float32, device=device)
+        _ZERO_BIAS[key] = publish(torch.zeros((1, c_out), dtype=torch.float32, device=device))
     return _ZERO_BIAS[key]
+
+
+def _announce_phases(spec, family, plan, x, groups, launch=None) -> None:
+    """Fire the phase hook once per phase; on the card `launch` is the
+    `kernel.launch_plan` the dispatch launches, whose geometry `info`
+    reports."""
+    info = {
+        "backend": "torch-cuda" if x.device.type == "cuda" else "torch-cpu",
+        "family": family,
+        "t": spec.t,
+        "t_out": spec.t_out,
+        "planes": spec.planes,
+        "n_tiles_h": plan.n_tiles_h,
+        "n_tiles_w": plan.n_tiles_w,
+        "groups": groups,
+    }
+    if launch is not None:
+        g = launch.geo
+        n_tiles = x.shape[0] * plan.n_tiles_h * plan.n_tiles_w
+        info.update(r=g.r, ns=g.ns, sc=g.sc, n_split=g.n_split, na=g.na,
+                    blocks=g.blocks(n_tiles, launch.out_shape[-1]))
+    for phase in _PHASES:
+        _PHASE_HOOK(phase, info)
 
 
 def conv2d_fused_tile(
@@ -110,6 +158,8 @@ def conv2d_fused_tile(
     plan = tiling.TilePlan.build(x.shape[1], x.shape[2], spec.k, pad, spec.t)
 
     if x.device.type == "cpu":
+        if _PHASE_HOOK is not None:
+            _announce_phases(spec, transform.family, plan, x, groups)
         xp = tiling.pad_input(x, plan)
         y = _matrix.matrix_tile_conv(
             xp, rhs, plan, spec, groups=groups, epilogue=epilogue,
@@ -138,16 +188,14 @@ def conv2d_fused_tile(
         post = epilogue  # opaque callable: post-pass on assembled output
     if biases is None:
         biases = _zero_bias(c_out, x.device)
+    biases = biases.to(dev, torch.float32).contiguous()
 
-    y = _kernel.fused_tile_call(
-        xp, rhs, biases.to(dev, torch.float32).contiguous(),
-        spec=spec,
-        n_tiles_h=plan.n_tiles_h,
-        n_tiles_w=plan.n_tiles_w,
-        r=r,
-        groups=groups,
-        ep_ops=ep_ops,
-    )
+    call = dict(spec=spec, n_tiles_h=plan.n_tiles_h, n_tiles_w=plan.n_tiles_w,
+                r=r, groups=groups, ep_ops=ep_ops)
+    if _PHASE_HOOK is not None:
+        _announce_phases(spec, transform.family, plan, x, groups,
+                         _kernel.launch_plan(xp, rhs, biases, **call))
+    y = _kernel.fused_tile_call(xp, rhs, biases, **call)
     y = y[:, : plan.h_out, : plan.w_out, :]
     if post is not None:
         y = post(y)

@@ -116,3 +116,35 @@ def test_conv1d_launch_args_mirror_the_geometry():
 def test_conv1d_geometry_refuses_an_impossible_shape():
     with pytest.raises(ValueError, match="no geometry"):
         conv1d_kernel.launch_geometry(2, 10, 64, 32)  # rows closer than D
+
+
+@pytest.mark.parametrize("k", [9, 16])
+@pytest.mark.parametrize("name", ["mamba2-wave1", "D73", "L5-D64", "slice-at-offset-65"])
+def test_conv1d_geometry_at_more_taps_than_a_strip(name, k):
+    """K 9 and 16 run the any-K instance with the same geometry: the
+    arguments `_launch_args` memoises carry K, pass the source's own checks
+    (no cap on K), and cover every output once; each output's K-1 halo
+    rows reach back over one or two strips before its own."""
+    b, length, d, row, aligned = SHAPES[name]
+    args, addr = conv1d_kernel._launch_args(b, length, d, row, k, True, aligned)
+    g = conv1d_kernel.launch_geometry(b, length, d, row, aligned=aligned)
+    assert addr and args.k == k and args.silu == 1
+    assert (args.vec, args.threads, args.n_cblocks, args.n_strips) == (
+        g.vec, g.threads, g.n_cblocks, g.n_strips)
+    # the source's acceptance rules (`conv1d_fused_launch`), in order
+    span = args.threads * args.vec
+    assert args.k >= 1 and args.x_row_stride >= args.d
+    assert args.n_strips == -(-args.seq // conv1d_kernel.ROWS)
+    assert args.n_cblocks * span >= args.d > (args.n_cblocks - 1) * span
+    assert bool((_cover(g, b, length, d) == 1).all())
+    rows = conv1d_kernel.ROWS
+    assert -(-(k - 1) // rows) == (1 if k == 9 else 2)  # strips the halo spans
+
+
+@pytest.mark.parametrize("k", [1, 8, 9, 16, 64])
+def test_conv1d_wrapper_takes_any_tap_count(k):
+    """The refusal of K > 8 is gone: the wrapper's memoised launch
+    arguments take any K >= 1 and carry it to the source unchanged."""
+    assert not hasattr(conv1d_kernel, "MAX_TAPS")
+    args, _ = conv1d_kernel._launch_args(2, 40, 64, 64, k, False, True)
+    assert (args.k, args.silu, args.seq, args.d) == (k, 0, 40, 64)

@@ -44,3 +44,39 @@ def test_importing_the_port_loads_no_jax():
         text=True, timeout=120,
     )
     assert proc.returncode == 0, proc.stderr[-2000:]
+
+
+# the online runtime, obs and measuring-tune slice
+NEW_MODULES = (
+    "repro_torch.convserve.obs",
+    "repro_torch.convserve.obs.trace",
+    "repro_torch.convserve.obs.roofline",
+    "repro_torch.convserve.obs.export",
+    "repro_torch.convserve.runtime.telemetry",
+    "repro_torch.convserve.runtime.loadgen",
+    "repro_torch.convserve.runtime.replicas",
+    "repro_torch.convserve.runtime.service",
+    "repro_torch.core.tune",
+    "repro_torch.kernels.bitwise_check",
+)
+
+
+@pytest.mark.parametrize("module", NEW_MODULES)
+def test_new_module_is_checked_file_by_file(module):
+    """Each new module's source is among the files the AST guard reads."""
+    rel = pathlib.Path("src", *module.split("."))
+    assert (ROOT / rel).with_suffix(".py") in FILES or (ROOT / rel / "__init__.py") in FILES
+
+
+def test_importing_the_new_modules_loads_no_jax():
+    env = dict(os.environ, JAX_PLATFORMS="cpu", PYTHONPATH=str(ROOT / "src"))
+    code = (
+        f"import importlib, sys; [importlib.import_module(m) for m in {NEW_MODULES!r}]; "
+        "assert not any(m == 'jax' or m.startswith(('jax.', 'repro.')) "
+        "or m == 'repro' for m in sys.modules), sorted(sys.modules)"
+    )
+    proc = subprocess.run(
+        [sys.executable, "-c", code], env=env, capture_output=True,
+        text=True, timeout=120,
+    )
+    assert proc.returncode == 0, proc.stderr[-2000:]

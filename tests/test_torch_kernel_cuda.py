@@ -141,9 +141,10 @@ def test_cuda_conv1d_at_served_and_edge_shapes(cuda_device, name):
     assert geo.vec == (1 if offset % 4 else 4)
 
 
-@pytest.mark.parametrize("k", range(1, 9))
+@pytest.mark.parametrize("k", [*range(1, 9), 9, 16])
 def test_cuda_conv1d_every_tap_count(cuda_device, k):
-    """Every instantiated K, float4 units, L ragged against the strips."""
+    """Every instantiated K and the any-K instance at K 9 and 16 (a halo
+    over one and two strips), float4 units, L ragged against the strips."""
     from repro_torch.kernels.conv1d_fused import conv1d_fused, conv1d_ref
     from repro_torch.kernels.conv1d_fused import kernel as conv1d_kernel
 
@@ -279,6 +280,60 @@ def test_cuda_flash_attention_launches_at_every_head_dim(cuda_device):
         assert n == 1 and _rel(y, ref) < 1e-5, hd
 
 
+REPAIRED_HEAD_DIMS = {
+    # name: (B, Hq, Hkv, Sq, Sk, hd, causal, window, model layout)
+    "stablelm-3b-hd80-causal": (2, 32, 32, 300, 300, 80, True, 0, True),
+    "hd80-gqa4-w40-ragged": (1, 8, 2, 97, 97, 80, True, 40, False),
+    "zamba2-hd112-causal-w512": (1, 32, 32, 600, 600, 112, True, 512, True),
+    "zamba2-hd112-noncausal": (1, 32, 32, 77, 256, 112, False, 0, False),
+}
+
+
+@pytest.mark.parametrize("name", sorted(REPAIRED_HEAD_DIMS))
+def test_cuda_flash_attention_at_head_dims_80_and_112(cuda_device, name):
+    """stablelm-3b's and zamba2-7b's head dims (chunks of 8 columns, 5 and
+    7 per warp of a pair): one launch, rel < 1e-5 against the plain
+    version."""
+    from repro_torch.kernels.flash_attention import attention_ref, flash_attention
+    from repro_torch.kernels.flash_attention import kernel as flash_kernel
+
+    b, hq, hkv, sq, sk, hd, causal, window, model_layout = REPAIRED_HEAD_DIMS[name]
+    rng = np.random.default_rng(14)
+
+    def mk(h, s):
+        shape = (b, s, h, hd) if model_layout else (b, h, s, hd)
+        t = torch.tensor(rng.standard_normal(shape), dtype=torch.float32, device=cuda_device)
+        return t.transpose(1, 2) if model_layout else t
+
+    q, k, v = mk(hq, sq), mk(hkv, sk), mk(hkv, sk)
+    ref = attention_ref(q, k, v, causal=causal, window=window)
+    y, n = _counted(flash_kernel, lambda: flash_attention(q, k, v, causal=causal, window=window))
+    assert n == 1 and tuple(y.shape) == tuple(ref.shape)
+    assert _rel(y, ref) < 1e-5
+
+
+@pytest.mark.parametrize("hd", [256, 80])
+def test_cuda_flash_attention_is_bitwise_deterministic(cuda_device, hd):
+    """Two calls on the same inputs give the same bits."""
+    from repro_torch.kernels.flash_attention import flash_attention
+
+    rng = np.random.default_rng(15)
+    q, k, v = (torch.tensor(rng.standard_normal((2, 4, 300, hd)), dtype=torch.float32,
+                            device=cuda_device) for _ in range(3))
+    y1 = flash_attention(q, k, v, causal=True, window=0)
+    y2 = flash_attention(q, k, v, causal=True, window=0)
+    torch.cuda.synchronize()
+    assert torch.equal(y1, y2)
+
+
+def test_cuda_flash_attention_refuses_an_unregistered_head_dim(cuda_device):
+    from repro_torch.kernels.flash_attention import flash_attention
+
+    q = torch.zeros((1, 2, 16, 48), device=cuda_device)
+    with pytest.raises(ValueError, match="instantiations"):
+        flash_attention(q, q, q, causal=True, window=0)
+
+
 def _mlp_operands(b, d, f, dev, seed):
     rng = np.random.default_rng(seed)
     mk = lambda shape, s: torch.tensor(rng.standard_normal(shape) * s, dtype=torch.float32,
@@ -404,3 +459,73 @@ def test_cuda_tile_kernel_ragged_slab_and_width(cuda_device, family, groups):
     y = y[:, : plan.h_out, : plan.w_out]
     assert n == 1 and tuple(y.shape) == tuple(ref.shape)
     assert _rel(y, ref) < 1e-5
+
+
+# ------------------------------------------- replicas on streams of their own
+
+
+def test_cuda_phase_hook_reports_the_launched_geometry(cuda_device):
+    """The phase hook's geometry on the card is the one the kernel
+    launched: that of the call's memoised `kernel.launch_plan`."""
+    tr = transforms.WinogradTransform(m=5, k=3)
+    rng = np.random.default_rng(4)
+    x = torch.tensor(rng.standard_normal((2, 37, 29, 6)) * 0.1, dtype=torch.float32)
+    wk = torch.tensor(rng.standard_normal((3, 3, 6, 10)) * 0.1, dtype=torch.float32)
+    seen = []
+    tile_kernel._PLANS.clear()
+    prev = tile_ops.set_phase_hook(lambda phase, info: seen.append((phase, info)))
+    try:
+        ft.conv2d_fused_tile(x, wk, tr, pad=1, device=cuda_device,
+                             blocks=ft.BlockConfig(r=3))
+    finally:
+        tile_ops.set_phase_hook(prev)
+    torch.cuda.synchronize()
+    (launched,) = tile_kernel._PLANS.values()
+    g = launched.geo
+    assert [p for p, _ in seen] == list(tile_ops._PHASES)
+    for _, info in seen:
+        assert info["backend"] == "torch-cuda"
+        assert (info["r"], info["ns"], info["sc"], info["n_split"], info["na"]) == (
+            g.r, g.ns, g.sc, g.n_split, g.na)
+        assert info["blocks"] == g.blocks(2 * info["n_tiles_h"] * info["n_tiles_w"], 10)
+
+
+def test_cuda_replica_streams_are_bitwise_the_serial_replica(cuda_device):
+    """vgg_mixed_channel on two replicas of one `ReplicaPool`, each worker
+    thread on its own CUDA stream, waves in flight together: every output
+    is bitwise the one replica 0 gives running the same waves serially on
+    the default stream, and both replicas served waves."""
+    from repro_torch.configs.convnets import vgg_mixed_channel
+    from repro_torch.convserve import Engine, init_weights
+    from repro_torch.convserve.runtime import (
+        ReplicaPool, Request, RuntimeConfig, WaveScheduler, make_images, poisson_trace,
+    )
+    from repro_torch.core import analysis
+
+    spec = vgg_mixed_channel(3)
+    engine = Engine(hw=analysis.H100_SXM, device=cuda_device)
+    pool = ReplicaPool.build(engine, spec, init_weights(spec, seed=0), n=2, input_hw=(64, 64))
+    pool.warmup((32, 64), (4,))
+    trace = poisson_trace(40.0, 24, seed=7, sizes=(32, 48, 64))
+    images = make_images(trace, 3, seed=8)
+    sched = WaveScheduler(spec, RuntimeConfig(max_batch=4, buckets=(32, 64), queue_depth=64))
+    for a in trace:
+        assert sched.admit(Request(rid=a.rid, image=images[a.rid]), now=0.0) is None
+    waves = []
+    while (w := sched.drain_wave()) is not None:
+        waves.append(w)
+    before = tile_kernel.LAUNCHES
+    results = [f.result() for f in [pool.submit(w) for w in waves]]
+    assert tile_kernel.LAUNCHES > before
+    assert all(d > 0 for d in pool.stats()["dispatched"])
+    ex0 = pool.executors[0]
+    for w, res in zip(waves, results):
+        serial = w.crop(spec, ex0(*w.assemble()).cpu().numpy())
+        assert serial.keys() == res.outputs.keys()
+        for rid, y in serial.items():
+            assert np.array_equal(res.outputs[rid], y), rid
+    from repro_torch.core import registry
+
+    assert pool.cache.stats()["misses"] == sum(  # prepared once, in warmup
+        registry.get(p.algo).consumes_wt for p in pool.executors[0].plan.layers)
+    pool.shutdown()

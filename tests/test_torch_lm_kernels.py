@@ -49,6 +49,9 @@ CONV_CASES = {
     "L-not-multiple-of-lb-none": (2, 100, 24, 4, 32, "none"),
     "short-K3-silu": (3, 5, 16, 3, 128, "silu"),
     "three-blocks-K2-none": (1, 300, 8, 2, 128, "none"),
+    # K > 8: the card's any-K instance; the halo spans one or two strips
+    "K9-silu": (2, 70, 24, 9, 32, "silu"),
+    "K16-halo-over-two-strips-none": (2, 45, 12, 16, 128, "none"),
 }
 
 
@@ -181,6 +184,21 @@ def test_flash_attention_noncausal_ragged_sk_raises_like_reference():
         flash_attention_pallas(q, kv, kv, causal=False)
     with pytest.raises(ValueError, match="non-causal"):
         flash_attention(_t(q), _t(kv), _t(kv), causal=False)
+
+
+def test_flash_head_dims_cover_every_registered_attention_config():
+    """Every dense and hybrid config the port registers has a head dim the
+    card kernel is instantiated for (stablelm-3b's 80, zamba2-7b's 112,
+    the powers of two); the reduced CPU configs (hd 16) do not show it."""
+    from repro_torch.configs import get_arch, list_archs
+    from repro_torch.kernels.flash_attention import kernel as flash_kernel
+
+    dims = {name: get_arch(name).resolved_head_dim for name in list_archs()
+            if get_arch(name).family in ("dense", "hybrid")}
+    assert {dims["stablelm-3b"], dims["zamba2-7b"]} == {80, 112}
+    missing = {n: hd for n, hd in dims.items() if hd not in flash_kernel.HEAD_DIMS}
+    assert not missing, missing
+    assert all(hd % 16 == 0 for hd in flash_kernel.HEAD_DIMS)  # the source's static_assert
 
 
 # ---------------------------------------------------------- decode MLP
