@@ -6,12 +6,20 @@ Phases (any failure exits non-zero):
   1. environment: torch/CUDA versions, the card's name and power limit,
      TF32 off for matmul and cuDNN;
   2. build: the four kernels (`src/repro_torch/kernels/*/csrc/*.cu`),
-     one nvcc each, started together, with build times;
+     one nvcc each, started together, with build times; then the static
+     checks in-process (`python -m repro_torch.convserve.check --strict`:
+     the IR verifier over the benched configs' plans, the lock analyzer,
+     the rule linter over `src/repro_torch`), which must be clean;
   3. kernel vs plain: the CUDA tile kernel (`fused_tile_call`, at the
      geometry `launch_geometry` picks for each shape) against its plain
      PyTorch version (`matrix_tile_conv`) on the card, at every conv
      shape of the served nets, max rel err < 1e-5 (both fp32, with
-     different summation orders);
+     different summation orders); then `l3_fused_pallas` (the tile kernel
+     under the reference's Winograd name) at vgg 64->64 @64 b4 F(5,3)
+     against the plain version (< 1e-5), and the f32 tile kernel against
+     the f64 `scan_tile_conv` oracle on the card at the served vgg and fft
+     shapes (< 5e-5, the reference's tile-engine tolerance against
+     direct);
   4. LM kernels vs plain: conv1d_fused, flash_attention and decode_mlp
      against `conv1d_ref`, `attention_ref` and `decode_mlp_ref` on the
      same card tensors, at the served shapes and at edge cases (ragged
@@ -70,7 +78,31 @@ Phases (any failure exits non-zero):
      rejection, 0 cache misses after warmup, both replicas served, the
      tile kernel launched, calibration left the plan unchanged, every
      stage has a roofline row, no wave was lost and the Chrome trace is
-     valid.
+     valid;
+ 11. adapt: `benchmarks/check_divergence.py`'s scenario on the card:
+     `fft_fewchannel(4)` (seed 0) on phase 10's calibrated H100 model,
+     one inline replica, a SimClock runtime (max_batch 2, bucket 64, SLO
+     10 s), an `AdaptController` (divergence ratio 1.25, every wave
+     shadowed, 2 shadow waves, promote margin 0.05, probes at bucket 64,
+     3 reps) that measures the live stages with CUDA events, probes the
+     unfused and direct alternatives, checks divergence, then serves 32
+     seeded 64x64x4 requests while it shadows, promotes or rolls back.
+     Prints the seed plan, each stage's measured and predicted time and
+     their ratio, the trigger, the shadow's mode, waves and verdict, the
+     audit log, the final plan, how many requests each plan served with
+     its worst error against direct, and the seed-vs-final timing pair
+     beside a seed-vs-seed reading (two compiles of the seed plan in the
+     same turns).  Fails unless all 32 are answered, those served by the
+     seed plan and those served by any later plan each within rel 1e-3
+     of direct (cuDNN), the client e2e histogram counts exactly 32 (no
+     shadow wave leaks in), the final plan is measured no slower than
+     the seed plan (interleaved CUDA-event medians, slack ADAPT_SLACK),
+     the tile-kernel launches
+     equal the count derived from the live and shadow programs and the
+     swap's warm waves, the seed and final plans verify clean, and no f32
+     path reached `scan_tile_conv` (phases 5, 10 and 11).  The phase
+     decides nothing about the outcome: promoting, keeping the fused
+     group or dropping fusion are all valid.
 
 The line before the last is a JSON object listing the ported kernels; the
 last line is {"ok": true, "device": {...}}.  Imports nothing of JAX and
@@ -100,6 +132,10 @@ BUCKETS = (32, 64)
 MAX_BATCH = 4
 REPS = 25
 KERNEL_SOURCE = "src/repro_torch/kernels/fused_tile/csrc/fused_tile.cu"
+REL_TOL_ORACLE = 5e-5  # f32 tile kernel vs the f64 scan (the reference's vs direct)
+# every planner of the run reads its wisdom here, in the checkout's build
+# directory (phase 10 keeps its calibration in a file of its own)
+PLAN_WISDOM = os.path.join(ROOT, "build", "chip_smoke_plan_wisdom.json")
 REPLACES = "src/repro/kernels/fused_tile/kernel.py:53"
 
 
@@ -182,6 +218,17 @@ def phase_build() -> None:
         print(f"  {name:16s} {os.path.relpath(mods[name].SOURCE, ROOT)} -> "
               f"{os.path.relpath(lib, ROOT)} in {secs:.2f} s")
     print(f"  all {len(done)} kernels built in {time.perf_counter() - t0:.2f} s")
+
+
+def phase_check() -> None:
+    """`python -m repro_torch.convserve.check --strict`, in-process."""
+    from repro_torch.convserve.check.__main__ import main as check_main
+
+    t0 = time.perf_counter()
+    rc = check_main(["--strict"])
+    print(f"check: --strict exit {rc} in {time.perf_counter() - t0:.2f} s")
+    if rc != 0:
+        raise AssertionError("python -m repro_torch.convserve.check --strict failed")
 
 
 # ----------------------------------------------------------------- phase 3
@@ -303,6 +350,65 @@ def phase_kernel_vs_plain():
             )
         made.append(c)
     return made, worst_abs, worst_rel
+
+
+def phase_winograd_and_oracle() -> dict:
+    """`l3_fused_pallas` against the plain version at vgg 64->64 @64 b4
+    F(5,3), then the f32 tile kernel against the f64 `scan_tile_conv`
+    oracle at the served vgg and fft shapes.  Comparison launches, outside
+    every counted run."""
+    from repro_torch.core import analysis, pipeline, registry, tiling, transforms, tune
+    from repro_torch.kernels.fused_tile import conv2d_fused_tile, matrix_tile_conv
+    from repro_torch.kernels.fused_winograd import conv2d_fused_pallas
+
+    gen = np.random.default_rng(4)
+    dev = torch.device(DEV)
+    wino = transforms.WinogradTransform(m=5, k=3)
+    x = torch.tensor(gen.standard_normal((MAX_BATCH, 64, 64, 64)) * 0.1,
+                     dtype=torch.float32, device=dev)
+    wk = torch.tensor(gen.standard_normal((3, 3, 64, 64)) * 0.1, dtype=torch.float32, device=dev)
+    r = tune.predict_r(64, 64, transform=wino, hw=analysis.H100_SXM)
+    spec = wino.kernel_spec()
+    plan = tiling.TilePlan.build(64, 64, 3, 1, wino.t)
+    ref = matrix_tile_conv(tiling.pad_input(x, plan), spec.pack_rhs(wino.kernel_transform(wk)),
+                           plan, spec)
+    y = conv2d_fused_pallas(x, wk, pad=1, m=5, r_tiles=r, device=dev)
+    torch.cuda.synchronize()
+    err = rel_err(y, ref)
+    print(f"l3_fused_pallas vgg b4 64->64@64 F(5,3) R={r}: max_abs_err "
+          f"{float((y - ref).abs().max()):.3e} max_rel_err {err:.3e} (tol {REL_TOL_KERNEL:g})")
+    if not err < REL_TOL_KERNEL:
+        raise AssertionError(f"l3_fused_pallas vs plain rel err {err:.3e}")
+    worst = {"l3_fused_pallas": err}
+
+    fft = transforms.FFTTransform(t=16, k=3)
+    for label, tr, c_in, c_out, bias_relu in (
+        ("vgg b4 64->64@64", wino, 64, 64, False),
+        ("fft b4 8->8@64 +bias+relu", fft, 8, 8, True),
+    ):
+        xo = torch.tensor(gen.standard_normal((MAX_BATCH, 64, 64, c_in)) * 0.1,
+                          dtype=torch.float32, device=dev)
+        wo = torch.tensor(gen.standard_normal((3, 3, c_in, c_out)) * 0.1,
+                          dtype=torch.float32, device=dev)
+        bo = torch.tensor(gen.standard_normal(c_out) * 0.1, dtype=torch.float32, device=dev)
+        ep = registry.ElementwiseOps((("bias", bo), ("relu",))) if bias_relu else None
+        ep64 = (registry.ElementwiseOps((("bias", bo.double()), ("relu",)))
+                if bias_relu else None)
+        before = pipeline.SCAN_CALLS
+        y = conv2d_fused_tile(xo, wo, tr, pad=1, epilogue=ep, device=dev)
+        oracle = pipeline.scan_tile_conv(xo.double(), wo.double(), tr, pad=1, r_tiles=64,
+                                         epilogue=ep64)
+        torch.cuda.synchronize()
+        if pipeline.SCAN_CALLS != before + 1 or oracle.dtype != torch.float64:
+            raise AssertionError(f"{label}: the f64 oracle did not run through the scan")
+        err = rel_err(y.double(), oracle)
+        worst[f"oracle {label}"] = err
+        print(f"f32 tile kernel vs f64 scan oracle {label}: max_rel_err {err:.3e} "
+              f"(tol {REL_TOL_ORACLE:g})")
+        if not err < REL_TOL_ORACLE:
+            raise AssertionError(f"{label}: kernel vs f64 oracle rel err {err:.3e}")
+    pipeline.SCAN_CALLS = 0  # from here on only f32 paths run: they must not reach it
+    return worst
 
 
 # ----------------------------------------------------------------- phase 5
@@ -992,7 +1098,8 @@ ONLINE_RECORDER = os.path.join(ROOT, "build", "chip_smoke_online")
 ONLINE_TRACE = os.path.join(ROOT, "build", "chip_smoke_online.trace.json")
 
 
-TILE_ALGOS = ("l3_fused", "fft_fused")  # the algorithms the tile kernel runs
+# the algorithms the tile kernel runs
+TILE_ALGOS = ("l3_fused", "l3_fused_pallas", "fft_fused")
 
 
 def tile_launches_per_wave(spec, program, bucket: int) -> int:
@@ -1143,8 +1250,208 @@ def phase_online(smi: str) -> dict:
     print(f"online: checks {'all pass' if not failed else 'FAILED: ' + ', '.join(failed)}")
     if failed:
         raise AssertionError(f"online phase failed: {failed} {problems[:3]}")
-    return dict(launches=launches, calib=calib, makespan_s=makespan,
+    return dict(launches=launches, calib=calib, makespan_s=makespan, hw=hw,
                 e2e_p50_s=lat["e2e"]["p50_s"], e2e_p95_s=lat["e2e"]["p95_s"])
+
+
+# ------------------------------------------------------------ phase 11
+
+ADAPT_SIDE = 64
+ADAPT_REQUESTS = 32
+# final vs seed plan, interleaved CUDA-event medians: the final plan may
+# read this much slower and still count as no slower.  The phase prints
+# the seed against a second compile of the seed in the same turns, the
+# reading of this noise (PERF.md cites it beside the limit).
+ADAPT_SLACK = 1.10
+ADAPT_PAIRS = 25
+
+
+def interleaved_ms(fns, x, pairs: int = ADAPT_PAIRS) -> list:
+    """Median CUDA-event ms of each of `fns` on `x`, called in turns whose
+    order alternates (a b, b a, ...), after warm-up."""
+    for f in fns:
+        for _ in range(3):
+            f(x)
+    torch.cuda.synchronize()
+    times = [[] for _ in fns]
+    for i in range(pairs):
+        order = range(len(fns)) if i % 2 == 0 else reversed(range(len(fns)))
+        for j in order:
+            t0 = torch.cuda.Event(enable_timing=True)
+            t1 = torch.cuda.Event(enable_timing=True)
+            t0.record()
+            fns[j](x)
+            t1.record()
+            t1.synchronize()
+            times[j].append(t0.elapsed_time(t1))
+    return [statistics.median(t) for t in times]
+
+
+def _plan_text(plan) -> str:
+    groups = ", ".join(f"{list(g.layers)} tile_rows {g.tile_rows}" for g in plan.groups)
+    return f"algos {list(plan.algos())}, groups [{groups}]"
+
+
+def phase_adapt(hw, smi: str) -> dict:
+    """`benchmarks/check_divergence.py`'s scenario on the card (see the
+    module docstring, phase 11).  Every number printed is one run's."""
+    from repro_torch.configs.convnets import fft_fewchannel
+    from repro_torch.convserve import (
+        AdaptConfig, AdaptController, Engine, init_weights, run_direct,
+    )
+    from repro_torch.convserve.check.ir import verify_program
+    from repro_torch.convserve.runtime import ReplicaPool, RuntimeConfig, ServeRuntime, SimClock
+    from repro_torch.core import pipeline
+    from repro_torch.kernels.fused_tile import kernel as tile_kernel
+
+    side = ADAPT_SIDE
+    spec = fft_fewchannel(4)
+    ws = init_weights(spec, seed=0)
+    engine = Engine(hw=hw, device=DEV)
+    pool = ReplicaPool.build(engine, spec, ws, n=1, workers=0, input_hw=(side, side))
+    seed_plan = pool.executors[0].plan
+    print(f"adapt: {spec.name!r} on {hw.name} ({smi}); seed plan {_plan_text(seed_plan)}")
+    cfg = RuntimeConfig(max_batch=2, buckets=(side,), slo_s=10.0, service_est_s=1e-3)
+    rt = ServeRuntime(pool, cfg, clock=SimClock())
+    holder = {}
+    waves = []  # per wave: what served it, and what the controller did after it
+
+    def before_controller(res):
+        ac = holder["ac"]
+        waves.append(dict(
+            bucket=res.wave.bucket, rids=list(res.outputs), live=pool.executors[0].program,
+            cand=ac.candidate[0].program if ac.candidate else None,
+            shadows=ac.shadows_run, promotions=ac.promotions))
+
+    def after_controller(res):
+        ac = holder["ac"]
+        waves[-1].update(shadowed=ac.shadows_run > waves[-1]["shadows"],
+                         promoted=ac.promotions > waves[-1]["promotions"],
+                         sizes=rt.scheduler.compiled_sizes())
+
+    rt.add_wave_observer(before_controller)
+    ac = holder["ac"] = AdaptController(rt, engine, spec, ws, AdaptConfig(
+        divergence_ratio=1.25, shadow_fraction=1.0, shadow_min_waves=2,
+        promote_margin=0.05, probe_bucket=side, probe_reps=3,
+    ))
+    rt.add_wave_observer(after_controller)
+
+    ac.measure()
+    probed = ac.probe_alternatives()
+    reason = ac.check()
+    print(f"adapt: probed {probed}; store scale (median measured/predicted) "
+          f"{ac.store.ratio_scale():.6g}")
+    for row in ac.divergence():
+        alt = row["alternative_s"]
+        print(f"adapt: stage {row['stage']:14s} measured {row['measured_s'] * 1e3:.6f} ms  "
+              f"predicted {row['predicted_s'] * 1e3:.6f} ms  ratio {row['ratio']:.6g}  "
+              f"divergence {row['divergence']:.6g}  best alternative "
+              f"{'-' if alt is None else f'{alt * 1e3:.6f} ms'}  regret "
+              f"{'-' if row['regret'] is None else format(row['regret'], '.6g')}")
+    for key, e in sorted(ac.store.to_json().items()):
+        print(f"adapt: store {key}: measured {e['measured_s'] * 1e3:.6f} ms, predicted "
+              f"{(e['predicted_s'] or 0) * 1e3:.6f} ms, n {e['n']}")
+    print(f"adapt: trigger: {reason or 'within threshold'}")
+    if ac.candidate_plan is not None:
+        print(f"adapt: candidate {_plan_text(ac.candidate_plan)}, shadow mode {ac.verifier.mode}")
+
+    rng = np.random.default_rng(0)
+    imgs = {i: (rng.standard_normal((side, side, 4)) * 0.1).astype(np.float32)
+            for i in range(ADAPT_REQUESTS)}
+    scan_before = pipeline.SCAN_CALLS
+    tile_kernel.LAUNCHES = 0  # main path: count only the served run
+    for i in range(ADAPT_REQUESTS):
+        if rt.submit(imgs[i], rid=i) is not None:
+            raise AssertionError(f"adapt: request {i} rejected")
+        rt.poll()
+    rt.drain()
+    torch.cuda.synchronize()
+    launches = tile_kernel.LAUNCHES
+    snap = rt.stats()
+    final = rt.pool.executors[0]
+    stats = ac.stats()
+    shadow = stats["shadow"]
+    print(f"adapt: shadow {shadow}")
+    for a in ac.audit:
+        detail = {k: v for k, v in a.items() if k not in ("t", "event", "reason")}
+        print(f"adapt: audit t={a['t']:.6f} {a['event']}: {a['reason']} {detail or ''}")
+    print(f"adapt: replans {ac.replans_triggered}, shadows {ac.shadows_run}, promotions "
+          f"{ac.promotions}, rollbacks {ac.rollbacks}; counters "
+          f"{ {k: v for k, v in snap['counters'].items() if k.startswith('adapt.')} }")
+    print(f"adapt: final plan {_plan_text(final.plan)}")
+
+    per_wave = {}
+
+    def tile(program, bucket):
+        key = (id(program), bucket)
+        if key not in per_wave:
+            per_wave[key] = tile_launches_per_wave(spec, program, bucket)
+        return per_wave[key]
+
+    want = 0
+    for w in waves:
+        want += tile(w["live"], w["bucket"])
+        if w["shadowed"]:
+            want += tile(w["cand"], w["bucket"])
+        if w["promoted"]:  # hot_swap warmed the candidate at every compiled shape
+            want += sum(tile(w["cand"], b) * len(sizes) for b, sizes in w["sizes"].items())
+    print(f"adapt: {len(waves)} waves ({sum(w['shadowed'] for w in waves)} shadowed); "
+          f"tile-kernel launches {launches}, expected {want}")
+
+    # each request against direct, grouped by the program that served it
+    served_by = {rid: w["live"] for w in waves for rid in w["rids"]}
+    seed_program, final_program = waves[0]["live"], final.program
+    by_plan = {}  # "seed" / "final" / "between" -> [requests, max rel err]
+    for i, im in imgs.items():
+        y = rt.results.get(i)
+        ref = run_direct(spec, ws, torch.from_numpy(im)[None].to(DEV))[0]
+        if y is None or tuple(y.shape) != spec.out_shape(side, side, 4) or not np.isfinite(y).all():
+            raise AssertionError(f"adapt rid {i}: bad or missing output")
+        prog = served_by.get(i)
+        label = ("seed" if prog is seed_program else
+                 "final" if prog is final_program else "between")
+        row = by_plan.setdefault(label, [0, 0.0])
+        row[0] += 1
+        row[1] = max(row[1], rel_err(torch.from_numpy(y).to(DEV), ref))
+    for label, (n, err) in by_plan.items():
+        print(f"adapt: {n} requests served by the {label} plan: max rel err vs direct "
+              f"(cuDNN, TF32 off) {err:.3e} (tol {REL_TOL_SERVE:g})")
+
+    seed_net = engine.compile(spec, ws, plan=seed_plan, fuse=None)
+    seed_again = engine.compile(spec, ws, plan=seed_plan, fuse=None)
+    x = torch.from_numpy(np.stack([imgs[0], imgs[1]])).to(DEV)
+    t_final, t_seed, t_seed_again = interleaved_ms([final, seed_net, seed_again], x)
+    promoted = final.plan != seed_plan
+    print(f"adapt: timing pair (batch 2, {side}x{side}, median of {ADAPT_PAIRS} interleaved "
+          f"CUDA-event calls): final {t_final:.6f} ms ({'promoted' if promoted else 'seed kept'}), "
+          f"seed {t_seed:.6f} ms, ratio {t_final / t_seed:.6f} (slack {ADAPT_SLACK:g}); "
+          f"seed compiled twice in the same turns: {t_seed_again:.6f} ms, ratio "
+          f"{t_seed_again / t_seed:.6f}")
+    seed_report = verify_program(spec, seed_plan, hw=hw)
+    final_report = verify_program(spec, final.plan, hw=hw)
+    print(f"adapt: verify seed {seed_report.format()}; final {final_report.format()}")
+    checks = {
+        "every request answered": len(rt.results) == ADAPT_REQUESTS and not rt.errors,
+        "every request mapped to the wave that served it": (
+            sum(n for n, _ in by_plan.values()) == ADAPT_REQUESTS
+            and set(served_by) == set(imgs)),
+        "seed plan's requests within tolerance of direct": (
+            "seed" in by_plan and by_plan["seed"][1] < REL_TOL_SERVE),
+        "other plans' requests within tolerance of direct": all(
+            err < REL_TOL_SERVE for label, (_, err) in by_plan.items() if label != "seed"),
+        "no shadow wave in client e2e": snap["latency"]["e2e"]["count"] == ADAPT_REQUESTS,
+        "final plan no slower than seed": t_final <= t_seed * ADAPT_SLACK,
+        "tile launches equal the derived count": launches == want > 0,
+        "no f32 path reached scan_tile_conv": pipeline.SCAN_CALLS == scan_before == 0,
+        "seed and final plans verify clean": seed_report.ok and final_report.ok,
+    }
+    failed = [k for k, ok in checks.items() if not ok]
+    print(f"adapt: checks {'all pass' if not failed else 'FAILED: ' + ', '.join(failed)}")
+    if failed:
+        raise AssertionError(f"adapt phase failed: {failed}")
+    return dict(launches=launches, promoted=promoted, final_algos=list(final.plan.algos()),
+                t_final_ms=t_final, t_seed_ms=t_seed, t_seed_again_ms=t_seed_again,
+                trigger=reason)
 
 
 def main() -> int:
@@ -1155,9 +1462,14 @@ def main() -> int:
     sys.path.insert(0, os.path.join(ROOT, "src"))
     import repro_torch  # noqa: F401  -- fail before printing without the repo
 
+    os.environ["REPRO_WISDOM"] = PLAN_WISDOM  # read and written under build/ only
+    if os.path.exists(PLAN_WISDOM):
+        os.unlink(PLAN_WISDOM)
     smi = phase_environment()
     phase_build()
+    phase_check()
     cases, worst_abs, worst_rel = phase_kernel_vs_plain()
+    oracle = phase_winograd_and_oracle()
     lm_cases, lm_worst = phase_lm_kernels_vs_plain()
     served = phase_serve()
     lm_served = phase_serve_lm()
@@ -1167,6 +1479,7 @@ def main() -> int:
     rows = phase_times(cases, served)
     lm_rows = phase_lm_times(lm_cases)
     online = phase_online(smi)
+    adapt = phase_adapt(online["hw"], smi)
 
     # headline shape: the widest served vgg layer when vgg reaches the
     # kernel (64->64 at bucket 64), else fft_fewchannel's 8->8
@@ -1178,12 +1491,16 @@ def main() -> int:
         "route": "cuda",
         "source": KERNEL_SOURCE,
         "replaces": REPLACES,
-        "launches": sum(s["launches"] for s in served.values()) + online["launches"],
+        "launches": (sum(s["launches"] for s in served.values()) + online["launches"]
+                     + adapt["launches"]),
         "launches_by_path": {**{k: s["launches"] for k, s in served.items()},
-                             "online vgg-mixed (ServeRuntime)": online["launches"]},
+                             "online vgg-mixed (ServeRuntime)": online["launches"],
+                             "adapt fft-fewchannel (AdaptController)": adapt["launches"]},
         "launches_per_wave": {k: s["per_wave"] for k, s in served.items()},
         "max_abs_err": worst_abs,
         "max_rel_err": worst_rel,
+        "max_rel_err_l3_fused_pallas": oracle["l3_fused_pallas"],
+        "max_rel_err_vs_f64_scan": {k: v for k, v in oracle.items() if k.startswith("oracle")},
         "shape": head_label,
         "ms": head["ms"],
         "device_ms": head["device_ms"],

@@ -6,10 +6,20 @@ groups) --Engine.compile--> CompiledNet --ConvServer--> batched serving,
 or --ReplicaPool--> ServeRuntime for continuous traffic.
 
 Everything runs on one device per `Engine`: cuda unless the caller
-passes ``device="cpu"``.
+passes ``device="cpu"``.  `repro_torch.convserve.adapt` closes the loop:
+measured stage costs replace the roofline when it mispredicts, with
+shadow A/B verification and zero-downtime plan hot swap
+(`AdaptController` / `MeasuredCostStore`, re-exported here).
 """
 
 from repro_torch.core.registry import ConvSpec
+from repro_torch.convserve.adapt import (
+    AdaptConfig,
+    AdaptController,
+    MeasuredCostStore,
+    ShadowVerifier,
+    hot_swap,
+)
 from repro_torch.convserve.cache import KernelCache
 from repro_torch.convserve.engine import CompiledNet, Engine
 from repro_torch.convserve.executor import NetExecutor
@@ -90,4 +100,9 @@ __all__ = [
     "Telemetry",
     "RealClock",
     "SimClock",
+    "AdaptConfig",
+    "AdaptController",
+    "MeasuredCostStore",
+    "ShadowVerifier",
+    "hot_swap",
 ]

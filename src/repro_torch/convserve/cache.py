@@ -147,6 +147,34 @@ class KernelCache:
                 for k in [k for k in self._store if k[0] == net]:
                     self._nbytes -= self._store.pop(k).nbytes
 
+    def invalidate_keys(self, keys) -> int:
+        """Drop an explicit key set (see `KernelCache.key`); returns the
+        number actually evicted.  This is the hot-swap path's surgical
+        variant of `invalidate`: dropping only the keys the outgoing
+        program used -- minus those the incoming one still needs -- so a
+        swap never cold-starts the new program's transforms.  Counts once
+        in `invalidations` when anything was dropped.
+
+        On the card an evicted transform's device memory goes back to the
+        allocator, so call this only once no wave can still read it: after
+        `ReplicaPool.swap` has drained the in-flight waves, whose worker
+        streams are synchronized before a wave completes."""
+        dropped = 0
+        with self._lock:
+            for k in keys:
+                wt = self._store.pop(k, None)
+                if wt is not None:
+                    self._nbytes -= wt.nbytes
+                    dropped += 1
+            if dropped:
+                self.invalidations += 1
+        return dropped
+
+    def keys(self) -> list:
+        """Snapshot of resident keys, most-recently-used last."""
+        with self._lock:
+            return list(self._store)
+
     @property
     def nbytes(self) -> int:
         return self._nbytes

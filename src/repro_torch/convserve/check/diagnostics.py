@@ -61,8 +61,9 @@ HINTS = {
     "CVK304": "fix the syntax error so the linter can parse the file",
     "CVK310": "declare supports() before execute() on the Algorithm",
     "CVK311": "this algorithm does not consume wt=: drop the argument",
-    "CVK320": "move the pallas_call into a kernels/ package (or call "
-              "the tile engine, repro_torch.kernels.fused_tile)",
+    "CVK320": "launch through the kernel's wrapper in "
+              "repro_torch.kernels (it checks operands and counts "
+              "launches); keep CUDA library and Triton calls there",
     "CVK330": "mutate metrics through the Telemetry/Tracer API "
               "(inc/set_gauge/observe, begin/end/instant) -- direct "
               "store pokes skip the lock and the freshness stamp",

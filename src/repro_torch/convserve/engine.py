@@ -26,12 +26,16 @@ from repro_torch.core import analysis
 from repro_torch.core import tune as tune_mod
 from repro_torch.core.device import DeviceLike, dtype_name, resolve_device
 from repro_torch.convserve.cache import KernelCache
+from repro_torch.convserve.check.diagnostics import CheckReport, VerificationError
 from repro_torch.convserve.executor import NetExecutor
 from repro_torch.convserve.graph import NetSpec
 from repro_torch.convserve.plan import NetPlan
 from repro_torch.convserve.planner import plan_net, upgrade_plan
 from repro_torch.convserve.program import ExecProgram
 from repro_torch.convserve.runtime.clock import Clock
+
+VERIFY_MODES = ("strict", "warn", "off")
+
 
 @dataclasses.dataclass
 class CompiledNet:
@@ -46,10 +50,10 @@ class CompiledNet:
     plan: NetPlan
     program: ExecProgram
     executor: NetExecutor
-    # the hardware model the plan was derived for; `report` stays None
-    # until the static IR verifier is ported
+    # the hardware model the plan was verified against and the verifier's
+    # report -- the hot-swap path re-verifies candidates through these
     hw: Optional[analysis.HardwareModel] = None
-    report: Optional[object] = None
+    report: Optional[CheckReport] = None
 
     def __call__(self, x, sizes=None):
         return self.executor(x, sizes)
@@ -76,6 +80,9 @@ class CompiledNet:
 
     def stats(self) -> dict:
         return self.executor.stats()
+
+    def cache_keys(self) -> list:
+        return self.executor.cache_keys()
 
 
 class Engine:
@@ -112,6 +119,7 @@ class Engine:
         input_hw: Tuple[int, int] = (64, 64),
         plan: Optional[NetPlan] = None,
         fuse: Optional[bool] = True,
+        verify: str = "strict",
         **plan_kwargs,
     ) -> CompiledNet:
         """NetSpec (+ weights) -> CompiledNet.
@@ -124,6 +132,12 @@ class Engine:
         ``fuse=None`` to take the plan's groups exactly as given -- the
         adapt loop needs this to compile a deliberately-unfused
         candidate without the upgrade path re-deriving groups for it.
+
+        `verify` runs the static IR verifier (`check.ir.verify_program`)
+        on the lowered program before any weights bind: ``"strict"``
+        (default) raises `VerificationError` on any finding, ``"warn"``
+        prints findings and serves anyway, ``"off"`` skips the pass.
+        The report rides on the returned net as `CompiledNet.report`.
         """
         if plan is None:
             plan = plan_net(
@@ -144,6 +158,19 @@ class Engine:
             plan = upgrade_plan(spec, plan, self.hw)
         else:
             plan = dataclasses.replace(plan, groups=())
+        if verify not in VERIFY_MODES:
+            raise ValueError(
+                f"verify must be one of {VERIFY_MODES}, got {verify!r}"
+            )
+        report = None
+        if verify != "off":
+            from repro_torch.convserve.check.ir import verify_program
+
+            report = verify_program(spec, plan, hw=self.hw)
+            if report.errors and verify == "strict":
+                raise VerificationError(report)
+            if report.diagnostics and verify == "warn":
+                print(report.format())
         executor = NetExecutor(
             spec, weights, plan, cache=self.cache, dtype=self.dtype,
             clock=self.clock, device=self.device, tracer=self.tracer,
@@ -151,7 +178,7 @@ class Engine:
         self.nets_compiled += 1
         return CompiledNet(
             spec=spec, plan=plan, program=executor.program,
-            executor=executor, hw=self.hw,
+            executor=executor, hw=self.hw, report=report,
         )
 
     def invalidate(self, net: Optional[str] = None) -> None:

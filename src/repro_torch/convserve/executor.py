@@ -162,6 +162,19 @@ class NetExecutor:
             out[shape[1]] = out.get(shape[1], 0) + 1
         return out
 
+    def cache_keys(self) -> list:
+        """Every `KernelCache` key this executor's plan can touch (one
+        per transform-consuming layer).  The hot-swap path diffs the
+        outgoing and incoming executors' key sets to invalidate only
+        what the new program no longer needs."""
+        return [
+            KernelCache.key(
+                self.plan.net, p, self.dtype, self._weights_fp[i]
+            )
+            for i, p in self._plans.items()
+            if registry.get(p.algo).consumes_wt
+        ]
+
     def stats(self) -> dict:
         """Program counts + kernel-cache counters, one dict -- the single
         source the engine and serving front-ends extend."""

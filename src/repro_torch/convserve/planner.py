@@ -47,9 +47,17 @@ def plan_layer(
     wisdom_path=None,
     allowed: Optional[Sequence[str]] = None,
     device=None,
+    costs=None,
 ) -> LayerPlan:
     """Plan one conv layer posed as a ConvSpec, for `device` (the wisdom
-    file's keys; `tune_r` measures there)."""
+    file's keys; `tune_r` measures there).
+
+    With `costs` (a measured-cost view, see `convserve.adapt.costs`), the
+    roofline's tier-ranked choice can be overridden by measurement: when
+    the model's winner has a measured time for this geometry and another
+    supporting algorithm measured strictly faster, the faster one is
+    planned instead -- ranked purely by seconds, ignoring the registry
+    tier order that the analytic path uses."""
     if allowed is None:
         allowed = registry.names()
     if not consider_fft:
@@ -63,6 +71,27 @@ def plan_layer(
         wisdom_path=wisdom_path,
         device=device,
     )
+    if costs is not None:
+        measured = {}
+        for name in allowed:
+            alg = registry.get(name)
+            if not (alg.auto_candidate and alg.supports(spec)):
+                continue
+            t = costs.algo_time_s(name, spec)
+            if t is not None:
+                measured[name] = t
+        t_model = measured.get(ap.algo)
+        if t_model is not None and measured:
+            best = min(measured, key=measured.get)
+            if best != ap.algo and measured[best] < t_model:
+                ap = registry.plan_conv(
+                    spec, hw,
+                    algo=best,
+                    hints={"m": m, "t_fft": t_fft},
+                    tune_r=tune_r,
+                    wisdom_path=wisdom_path,
+                    device=device,
+                )
     return LayerPlan.from_algo_plan(layer, ap)
 
 
@@ -81,13 +110,16 @@ def plan_net(
     fuse: bool = True,
     allowed: Optional[Sequence[str]] = None,
     device=None,
+    costs=None,
 ) -> NetPlan:
     """Plan every conv layer of `spec` at reference input (h, w), then
     (``fuse=True``) the cross-layer fusion groups on top.  `allowed`
     restricts the algorithm candidates per layer (e.g. ``("direct",)``
     for a bitwise-reproducible baseline plan).  `device` is where the
     plan runs: the wisdom file is read (and, with ``tune_r``, measured)
-    for it."""
+    for it.  `costs` threads a measured-cost view through both the
+    per-layer choice and the fusion verdict (see `plan_layer` /
+    `_group_decision`)."""
     hw = hw or tune_mod.default_hw(device)
     convs = spec.conv_layers()
     if not convs:
@@ -109,7 +141,7 @@ def plan_net(
                     hw, i, cspec,
                     m=m, t_fft=t_fft, consider_fft=consider_fft,
                     tune_r=tune_r, wisdom_path=wisdom_path, allowed=allowed,
-                    device=device,
+                    device=device, costs=costs,
                 )
             )
         cur_h, cur_w = shapes[i][0], shapes[i][1]
@@ -118,7 +150,7 @@ def plan_net(
         input_hw=(h, w), layers=tuple(plans),
     )
     return (
-        plan_fusion_groups(spec, plan, hw) if fuse else plan
+        plan_fusion_groups(spec, plan, hw, costs=costs) if fuse else plan
     )
 
 
@@ -162,8 +194,9 @@ def predict_stage_times(program, hw: analysis.HardwareModel) -> list:
     """Roofline prediction per ExecProgram stage: ``[(label, seconds)]``.
     A fused stage is priced as the sum of its members' modeled conv
     times (the model's fusion benefit lives in the group *decision*, not
-    in the per-conv time) -- the prediction to hold measured stage
-    timings (`CompiledNet.profile_stages`) against."""
+    in the per-conv time) -- the prediction side that `convserve.adapt`
+    compares measured stage timings (`CompiledNet.profile_stages`)
+    against."""
     return [
         (
             stage.label,
@@ -178,11 +211,16 @@ def _group_decision(
     hw: analysis.HardwareModel,
     *,
     max_tiles: int,
+    costs=None,
 ) -> Optional[int]:
     """Roofline verdict on fusing `members` into one stage.
 
     Returns the super-tile row count (0 == untiled) when fusing wins,
-    None when it does not.  Charged model:
+    None when it does not.  With `costs`, a measured verdict replaces
+    the saved-vs-extra model when both sides have been measured: fuse
+    iff the measured group time beats the sum of the members' measured
+    single-stage times.  Structural gates (chain family, matrix
+    residency, slab feasibility) still apply either way.  Charged model:
 
       saved  = sum over interior boundaries of 2 x H x W x C x 4 bytes
                at dram_bw        (the skipped write+read round trip)
@@ -216,6 +254,13 @@ def _group_decision(
         n_tiles = math.ceil(h_final / tile_rows)
         if n_tiles > max_tiles:
             return None  # seam recompute (and trace size) out of hand
+    if costs is not None:
+        t_group = costs.group_time_s(members)
+        singles = [costs.algo_time_s(p.algo, p.spec) for p in members]
+        if t_group is not None and all(t is not None for t in singles):
+            if t_group >= sum(singles):
+                return None
+            return 0 if n_tiles == 1 else tile_rows
     saved_s = sum(2 * h * w * c * 4 for h, w, c in inter) / hw.dram_bw
     extra_s = 0.0
     for j, p in enumerate(members[:-1]):
@@ -233,6 +278,7 @@ def plan_fusion_groups(
     hw: Optional[analysis.HardwareModel] = None,
     *,
     max_tiles: int = 8,
+    costs=None,
 ) -> NetPlan:
     """Derive the cross-layer fusion groups for an already layer-planned
     net: greedy extension over adjacent conv units, gated by algorithm
@@ -271,7 +317,7 @@ def plan_fusion_groups(
             )
             if chainable:
                 verdict = _group_decision(
-                    members + [p], hw, max_tiles=max_tiles
+                    members + [p], hw, max_tiles=max_tiles, costs=costs
                 )
                 if verdict is not None:
                     members.append(p)

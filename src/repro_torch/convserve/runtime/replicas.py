@@ -243,7 +243,18 @@ class ReplicaPool:
         cards = {dev for dev in cards if dev.type == "cuda"}
         for dev in cards:
             torch.cuda.synchronize(dev)
-        if self._pool is None or not cards:
+        self.warm_workers(self.executors, waves)
+
+    def warm_workers(self, executors: Sequence, waves: Sequence) -> None:
+        """Run `waves` ((batch, sizes) pairs) once on every worker thread
+        of a threaded pool on the card, each on its own stream, through
+        `executors` (worker i takes executor i mod n): a thread's first
+        waves on its stream pay for the stream, its library handles and
+        its allocator pool.  Their shared memo entries must already be
+        made and synchronized by the caller.  Does nothing for an inline
+        pool or off the card."""
+        cards = {replica_device(ex) for ex in executors} - {None}
+        if self._pool is None or not any(d.type == "cuda" for d in cards):
             return
         # one task per worker thread: each waits at the barrier until all
         # are running, so no thread takes two
@@ -251,7 +262,7 @@ class ReplicaPool:
 
         def warm(i: int) -> None:
             barrier.wait(timeout=60.0)
-            ex = self.executors[i % len(self.executors)]
+            ex = executors[i % len(executors)]
             for x, sizes in waves:
                 self._forward(ex, x, sizes)
 

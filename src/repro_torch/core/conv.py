@@ -37,6 +37,7 @@ from repro_torch.core.fft_conv import conv2d_fft_fused  # noqa: F401  (re-export
 from repro_torch.core.fused import conv2d_l3_fused  # noqa: F401      registers the
 from repro_torch.core.three_stage import conv2d_three_stage  # noqa: F401  algos)
 from repro_torch.kernels.conv1d_fused import ops as _conv1d_ops
+from repro_torch.kernels.fused_winograd import ops as _winograd_ops  # noqa: F401  (registers l3_fused_pallas)
 
 if TYPE_CHECKING:  # convserve imports core; keep the runtime edge one-way
     from repro_torch.convserve.plan import LayerPlan

@@ -12,6 +12,11 @@ instead of inlined math:
     tiles are still task-resident.  The per-task working set follows
     the shared-buffer layout of `core.sharedbuf`; the R bound the
     planner derives from it is family-exact through `TileAlgebra`.
+  * `scan_tile_conv` -- the interpreting task scan: the same task
+    structure in plain torch through each family's own forward /
+    multiply / inverse, in the input's dtype.  It is the oracle the
+    kernel is held against, and the path f64 takes on the CPU: the
+    kernel's basis matrices are f32.
   * `staged_tile_conv` -- the vendor 3-stage structure: every stage runs
     over ALL tiles before the next begins, materializing the transformed
     tensors (what DNNL/ZNN/LIBXSMM do, and the paper's baseline), through
@@ -30,11 +35,17 @@ transform factory, so a concrete algorithm (`l3_fused`, `fft_fused`,
 
 from __future__ import annotations
 
+import threading
 from typing import Optional
 
 import torch
 
 from repro_torch.core import analysis, registry, tiling, transforms
+
+# calls of `scan_tile_conv`: f64 inputs on the CPU and direct oracle
+# calls, never an f32 served path (a run reads it to show that)
+SCAN_CALLS = 0
+_SCAN_LOCK = threading.Lock()  # replica threads call concurrently
 
 
 def fused_tile_conv(
@@ -54,17 +65,72 @@ def fused_tile_conv(
     matrix version for a CPU tensor (`kernels.fused_tile`).
 
     `blocks` (a `kernels.fused_tile.BlockConfig`) carries the autotuned
-    block shape; `r_tiles` alone seeds an unchunked default.  f64 inputs
-    raise `UnsupportedSpec` (the basis matrices are f32).
+    block shape; `r_tiles` alone seeds an unchunked default.  f64 inputs,
+    which the f32 basis matrices would downgrade, run the interpreting
+    `scan_tile_conv` (counted in `SCAN_CALLS`) on the CPU; on the card
+    they reach the kernel wrapper, which raises `UnsupportedSpec` (call
+    `scan_tile_conv` by name for the f64 oracle there).  Every other
+    dtype goes to the tile engine, whose errors propagate.
     """
     from repro_torch.kernels import fused_tile as _ft
 
+    if x.device.type == "cpu" and not _ft.engine_supported(transform, x.dtype):
+        return scan_tile_conv(
+            x, w, transform,
+            pad=pad, r_tiles=r_tiles, wt=wt, groups=groups, epilogue=epilogue,
+        )
     return _ft.conv2d_fused_tile(
         x, w, transform,
         pad=pad,
         blocks=blocks or _ft.BlockConfig(r=int(r_tiles)),
         wt=wt, groups=groups, epilogue=epilogue, device=x.device,
     )
+
+
+def scan_tile_conv(
+    x: torch.Tensor,
+    w: Optional[torch.Tensor],
+    transform: transforms.Transform,
+    *,
+    pad: int = 0,
+    r_tiles: int = 24,
+    wt: Optional[torch.Tensor] = None,
+    groups: int = 1,
+    epilogue=None,
+) -> torch.Tensor:
+    """The interpreting task-scan engine, in plain torch on `x`'s device
+    and in `x`'s dtype (the oracle the tile kernel is held against, and
+    the path for f64 on the CPU, which the kernel cannot take).
+
+    Tiles are processed in N_task = ceil(N_tile / R) independent tasks;
+    each task forward-transforms its R tiles, mixes channels against the
+    right-hand matrices and inverse-transforms, through the family's own
+    `forward` / `multiply` / `inverse`.  `epilogue`, when given, is an
+    elementwise callable applied to each task's (R, T', T', C') output
+    tiles: output tiles abut, so this equals applying it to the
+    assembled output.
+    """
+    global SCAN_CALLS
+    with _SCAN_LOCK:
+        SCAN_CALLS += 1
+    plan = tiling.TilePlan.build(
+        x.shape[1], x.shape[2], transform.k, pad, transform.t
+    )
+    if wt is None:
+        wt = transform.kernel_transform(w)
+    batch, t = x.shape[0], transform.t
+    tiles = tiling.extract_tiles(tiling.pad_input(x, plan), plan)
+    tiles = tiles.reshape(-1, t, t, x.shape[3])  # (N_tile, T, T, C)
+    r = min(r_tiles, tiles.shape[0])
+    out = []
+    for a in range(0, tiles.shape[0], r):  # one task of R tiles
+        u = transform.forward(tiles[a : a + r])  # step 1: basis change
+        y = transform.inverse(transform.multiply(u, wt, groups))
+        out.append(y if epilogue is None else epilogue(y))
+    y_tiles = torch.cat(out).reshape(
+        batch, plan.n_tiles_h, plan.n_tiles_w, plan.t_out, plan.t_out, -1
+    )
+    return tiling.assemble_tiles(y_tiles, plan).to(x.dtype)
 
 
 def staged_tile_conv(

@@ -359,7 +359,12 @@ class Transform:
     (`TileKernelSpec`: forward/inverse basis matrices and the mix
     layout); `kernel_transform` is the ahead-of-time HWIO -> right-hand
     matrix step whose output the kernel cache stores; `algebra` feeds
-    the cost model.
+    the cost model.  `forward` / `multiply` / `inverse` are the family's
+    own spelling of the same three steps, in the input's dtype (f64
+    included): tiles flow (N, T, T, C) -> forward -> domain -> multiply
+    (channel mix against `kernel_transform`'s matrices) -> inverse ->
+    (N, T', T', C').  The interpreting task scan
+    (`pipeline.scan_tile_conv`) runs them.
     """
 
     family: ClassVar[str] = ""
@@ -381,6 +386,31 @@ class Transform:
     def kernel_transform(self, w: torch.Tensor) -> torch.Tensor:
         """HWIO kernels -> right-hand matrices (the ahead-of-time step)."""
         raise NotImplementedError
+
+    def forward(self, tiles: torch.Tensor) -> torch.Tensor:
+        """(N, T, T, C) spatial tiles -> transform-domain tiles."""
+        raise NotImplementedError
+
+    def multiply(
+        self, u: torch.Tensor, wt: torch.Tensor, groups: int = 1
+    ) -> torch.Tensor:
+        """Channel mix in the transform domain; block-diagonal over groups."""
+        raise NotImplementedError
+
+    def inverse(self, u: torch.Tensor) -> torch.Tensor:
+        """Domain tiles -> (N, T', T', C') output tiles."""
+        raise NotImplementedError
+
+
+def _grouped_mix(u2, wt, groups, sub):
+    """Block-diagonal channel mix: u2 (N, S, C), wt (S, C/g, C') where
+    output channel j belongs to group j // (C'/g).  `sub` is the einsum
+    over one group's channels."""
+    n, s, c = u2.shape
+    c_out = wt.shape[-1]
+    ug = u2.reshape(n, s, groups, c // groups)
+    wg = wt.reshape(s, c // groups, groups, c_out // groups)
+    return torch.einsum(sub, ug, wg).reshape(n, s, c_out)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -412,6 +442,28 @@ class WinogradTransform(Transform):
         wt = torch.einsum("xi,ijcd,yj->xycd", g, w, g)
         return wt.reshape(self.t * self.t, w.shape[2], w.shape[3])
 
+    def _mats(self, x: torch.Tensor):
+        at, _, bt = winograd_matrices(self.m, self.k)
+        return (torch.as_tensor(at, dtype=x.dtype, device=x.device),
+                torch.as_tensor(bt, dtype=x.dtype, device=x.device))
+
+    def forward(self, tiles):
+        _, bt = self._mats(tiles)
+        return torch.einsum("xi,nijc,yj->nxyc", bt, tiles, bt)
+
+    def multiply(self, u, wt, groups: int = 1):
+        n, t = u.shape[0], self.t
+        u2 = u.reshape(n, t * t, -1)
+        if groups == 1:
+            mm = torch.einsum("nsc,scd->nsd", u2, wt)
+        else:
+            mm = _grouped_mix(u2, wt, groups, "nsgc,scgd->nsgd")
+        return mm.reshape(n, t, t, -1)
+
+    def inverse(self, u):
+        at, _ = self._mats(u)
+        return torch.einsum("xi,nijc,yj->nxyc", at, u, at)
+
 
 @dataclasses.dataclass(frozen=True)
 class FFTTransform(Transform):
@@ -438,7 +490,26 @@ class FFTTransform(Transform):
         return _fft_kernel_spec(self.t, self.k)
 
     def kernel_transform(self, w):
-        if w.dtype not in (torch.float32, torch.float64):
-            w = w.to(torch.float32)
-        wf = torch.fft.rfft2(w, s=(self.t, self.t), dim=(0, 1))
+        wf = torch.fft.rfft2(self._lift(w), s=(self.t, self.t), dim=(0, 1))
         return wf.conj().resolve_conj()  # (T, F, C, C')
+
+    @staticmethod
+    def _lift(x):
+        return x if x.dtype in (torch.float32, torch.float64) else x.to(torch.float32)
+
+    def forward(self, tiles):
+        return torch.fft.rfft2(self._lift(tiles), dim=(1, 2))  # (N, T, F, C)
+
+    def multiply(self, u, wt, groups: int = 1):
+        if groups == 1:
+            return torch.einsum("nxfc,xfcd->nxfd", u, wt)
+        n, x, f, _ = u.shape
+        mm = _grouped_mix(
+            u.reshape(n, x * f, -1), wt.reshape(x * f, *wt.shape[2:]),
+            groups, "nsgc,scgd->nsgd",
+        )
+        return mm.reshape(n, x, f, -1)
+
+    def inverse(self, u):
+        y = torch.fft.irfft2(u, s=(self.t, self.t), dim=(1, 2))
+        return y[:, : self.t_out, : self.t_out, :]

@@ -58,7 +58,7 @@ class CudaLibrary:
         self.source = pathlib.Path(source)
         self.stem = stem
         self.entry_points = dict(entry_points)
-        self._lib: Optional[ctypes.CDLL] = None
+        self._lib: Optional[ctypes.CDLL] = None  # guarded-by: _lock
         self._lock = threading.Lock()
 
     def library_path(self) -> pathlib.Path:

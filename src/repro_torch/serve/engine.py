@@ -9,7 +9,8 @@ on its own device; sampling reads the logits back every step, so each
 step's host time is device time plus the host's own.
 
 `waves` records, per wave: its size, prompt length, prefill and decode
-seconds (host clock, after the logits reached the host) and decode steps.
+seconds (the host's monotonic clock, after the logits reached the
+host) and decode steps.
 """
 
 from __future__ import annotations
@@ -73,12 +74,12 @@ class Engine:
         for i, r in enumerate(wave):  # left-pad-free: right-align prompts
             toks[i, plen - len(r.prompt) :] = r.prompt
         dev = self.model.device
-        t0 = time.perf_counter()
+        t0 = time.monotonic()
         logits, state = lm_mod.lm_prefill(
             self.model, torch.from_numpy(toks).to(dev), self.scfg.max_len
         )
         cur = self._sample(logits, rng)
-        t1 = time.perf_counter()
+        t1 = time.monotonic()
         outs: Dict[int, List[int]] = {r.rid: [] for r in wave}
         done = np.zeros(b, bool)
         steps = 0
@@ -99,7 +100,7 @@ class Engine:
             steps += 1
         self.waves.append(dict(
             size=b, prompt_len=plen, prefill_s=t1 - t0,
-            decode_s=time.perf_counter() - t1, decode_steps=steps,
+            decode_s=time.monotonic() - t1, decode_steps=steps,
             tokens=sum(len(v) for v in outs.values()),
         ))
         return outs

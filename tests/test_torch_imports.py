@@ -46,7 +46,8 @@ def test_importing_the_port_loads_no_jax():
     assert proc.returncode == 0, proc.stderr[-2000:]
 
 
-# the online runtime, obs and measuring-tune slice
+# the modules of the later slices: the online runtime, obs and the
+# measuring tune; then the adapt loop, check and fused Winograd
 NEW_MODULES = (
     "repro_torch.convserve.obs",
     "repro_torch.convserve.obs.trace",
@@ -58,6 +59,20 @@ NEW_MODULES = (
     "repro_torch.convserve.runtime.service",
     "repro_torch.core.tune",
     "repro_torch.kernels.bitwise_check",
+    # the adapt loop, static verification and the fused Winograd slice
+    "repro_torch.convserve.adapt",
+    "repro_torch.convserve.adapt.costs",
+    "repro_torch.convserve.adapt.shadow",
+    "repro_torch.convserve.adapt.swap",
+    "repro_torch.convserve.adapt.replanner",
+    "repro_torch.convserve.check.ir",
+    "repro_torch.convserve.check.locks",
+    "repro_torch.convserve.check.rules",
+    "repro_torch.convserve.check.__main__",
+    "repro_torch.kernels.fused_winograd",
+    "repro_torch.kernels.fused_winograd.ops",
+    "repro_torch.kernels.fused_winograd.ref",
+    "repro_torch.core.pipeline",
 )
 
 

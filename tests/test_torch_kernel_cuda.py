@@ -529,3 +529,146 @@ def test_cuda_replica_streams_are_bitwise_the_serial_replica(cuda_device):
     assert pool.cache.stats()["misses"] == sum(  # prepared once, in warmup
         registry.get(p.algo).consumes_wt for p in pool.executors[0].plan.layers)
     pool.shutdown()
+
+
+# ------------------------------ l3_fused_pallas and the f64 scan oracle
+
+
+def test_cuda_l3_fused_pallas_matches_plain(cuda_device):
+    """`l3_fused_pallas` (the tile kernel under the reference's Winograd
+    name) at vgg 64->64 @64 b4 F(5,3): one tile-kernel launch, rel <
+    1e-5 against the plain version on the same card tensors."""
+    from repro_torch.kernels.fused_winograd import conv2d_fused_pallas
+
+    tr = transforms.WinogradTransform(m=5, k=3)
+    x, wk, _ = _served_operands(tr, 4, 64, 64, 64, 64, 1, False, cuda_device, seed=9)
+    spec = tr.kernel_spec()
+    plan = tiling.TilePlan.build(64, 64, 3, 1, tr.t)
+    ref = ft.matrix_tile_conv(tiling.pad_input(x, plan), spec.pack_rhs(tr.kernel_transform(wk)),
+                              plan, spec)
+    y, n = _counted(tile_kernel, lambda: conv2d_fused_pallas(
+        x, wk, pad=1, m=5, r_tiles=8, device=cuda_device))
+    assert n == 1 and tuple(y.shape) == tuple(ref.shape)
+    assert _rel(y, ref) < 1e-5
+
+
+@pytest.mark.parametrize("case", sorted(SERVED))
+def test_cuda_tile_kernel_against_the_f64_scan_oracle(cuda_device, case):
+    """The f32 tile kernel against `scan_tile_conv` in f64 on the card
+    (the oracle use the reference built it for, called by name): rel <
+    5e-5, the reference's tile-engine tolerance against direct.  Only the
+    oracle call reaches the scan; an f64 tile conv on the card raises
+    instead of turning to it."""
+    from repro_torch.core import pipeline
+
+    tr, b, h, w, c_in, c_out, groups, bias_relu = SERVED[case]
+    x, wk, ep = _served_operands(tr, b, h, w, c_in, c_out, groups, bias_relu,
+                                 cuda_device, seed=7)
+    before = pipeline.SCAN_CALLS
+    y, n = _counted(tile_kernel, lambda: pipeline.fused_tile_conv(
+        x, wk, tr, pad=1, r_tiles=8, groups=groups, epilogue=ep))
+    assert n == 1 and pipeline.SCAN_CALLS == before
+    ep64 = None
+    if ep is not None:
+        ep64 = registry.ElementwiseOps(
+            [(op[0], op[1].double()) if op[0] == "bias" else op for op in ep.ops])
+    with pytest.raises(ft.UnsupportedSpec, match="f64"):
+        pipeline.fused_tile_conv(x.double(), wk.double(), tr, pad=1, r_tiles=8,
+                                 groups=groups, epilogue=ep64)
+    assert pipeline.SCAN_CALLS == before
+    oracle = pipeline.scan_tile_conv(
+        x.double(), wk.double(), tr, pad=1, r_tiles=64, groups=groups, epilogue=ep64)
+    torch.cuda.synchronize()
+    assert pipeline.SCAN_CALLS == before + 1 and oracle.dtype == torch.float64
+    assert _rel(y.double(), oracle) < 5e-5
+
+
+# ------------------------- fused vs unfused, and the hot swap on streams
+
+
+def _fft_fewchannel(cuda_device):
+    from repro_torch.configs.convnets import fft_fewchannel
+    from repro_torch.convserve import Engine, init_weights
+    from repro_torch.core import analysis
+
+    spec = fft_fewchannel(4)
+    return spec, Engine(hw=analysis.H100_SXM, device=cuda_device), init_weights(spec, seed=0)
+
+
+def test_cuda_fused_and_unfused_fft_fewchannel_are_bitwise_equal(cuda_device):
+    """The adapt loop shadows a fusion-only candidate in bitwise mode: the
+    seed plan's fused group (one super-tile, through `execute_staged`)
+    and the same algorithms unfused must give the same bits on the card,
+    on a ragged wave, with the same tile-kernel launches."""
+    spec, engine, ws = _fft_fewchannel(cuda_device)
+    fused = engine.compile(spec, ws, input_hw=(64, 64))
+    assert fused.plan.groups and all(p.algo == "fft_fused" for p in fused.plan.layers)
+    unfused = engine.compile(spec, ws, plan=fused.plan, fuse=False)
+    assert not unfused.plan.groups and unfused.plan.algos() == fused.plan.algos()
+    rng = np.random.default_rng(3)
+    x = (rng.standard_normal((2, 64, 64, 4)) * 0.1).astype(np.float32)
+    sizes = np.array([[64, 64], [48, 48]], np.int32)
+    ya, na = _counted(tile_kernel, lambda: fused(x, sizes))
+    yb, nb = _counted(tile_kernel, lambda: unfused(x, sizes))
+    assert na == nb == 3
+    assert torch.equal(ya, yb)
+
+
+def test_cuda_hot_swap_on_two_streams(cuda_device):
+    """fft_fewchannel on two replicas, each worker on its own stream, hot
+    swapped mid-traffic to a candidate that keeps two layers' transforms
+    and drops one: every request answered, the dropped layer's cache key
+    gone and no other, and every wave dispatched after the swap (any wave
+    holding a request submitted after it) bitwise what a fresh compile of
+    the candidate gives on the same wave."""
+    import dataclasses
+
+    from repro_torch.convserve import Engine, hot_swap
+    from repro_torch.convserve.plan import LayerPlan
+    from repro_torch.convserve.runtime import (
+        ReplicaPool, RuntimeConfig, ServeRuntime, make_images, poisson_trace,
+    )
+
+    spec, engine, ws = _fft_fewchannel(cuda_device)
+    pool = ReplicaPool.build(engine, spec, ws, n=2, input_hw=(64, 64))
+    assert pool.workers == 2
+    rt = ServeRuntime(pool, RuntimeConfig(max_batch=4, buckets=(64,), queue_depth=64,
+                                          slo_s=10.0, service_est_s=1e-3))
+    rt.warmup()
+    served = []
+    rt.add_wave_observer(lambda res: served.append(res.wave))
+    seed = pool.executors[0].plan
+    l0 = seed.layers[0]
+    direct = LayerPlan.from_algo_plan(
+        l0.layer, registry.plan_conv(l0.spec, engine.hw, algo="direct"))
+    cand_plan = dataclasses.replace(seed, layers=(direct,) + seed.layers[1:], groups=())
+    cands = [engine.compile(spec, ws, plan=cand_plan, fuse=None) for _ in range(2)]
+    old_keys = set(pool.executors[0].cache_keys())
+    stale = old_keys - set(cands[0].cache_keys())
+    assert len(stale) == 1 and old_keys - stale
+
+    trace = poisson_trace(1000.0, 24, seed=5, sizes=(64,))
+    images = make_images(trace, 4, seed=6)
+    try:
+        for a in trace[:12]:
+            assert rt.submit(images[a.rid], rid=a.rid) is None
+            rt.poll()
+        old = hot_swap(pool, cands, scheduler=rt.scheduler, timeout_s=30.0)
+        assert pool.executors == cands and len(old) == 2
+        assert not stale & set(pool.cache.keys())
+        assert old_keys - stale <= set(pool.cache.keys())
+        for a in trace[12:]:
+            assert rt.submit(images[a.rid], rid=a.rid) is None
+            rt.poll()
+        rt.drain()
+    finally:
+        rt.shutdown()
+    assert sorted(rt.results) == [a.rid for a in trace] and not rt.errors
+    fresh = Engine(hw=engine.hw, device=cuda_device).compile(spec, ws, plan=cand_plan, fuse=None)
+    late = {a.rid for a in trace[12:]}
+    after = [w for w in served if late & {r.rid for r in w.requests}]
+    assert after
+    for w in after:
+        want = w.crop(spec, fresh(*w.assemble()).cpu().numpy())
+        for rid, y in want.items():
+            assert np.array_equal(rt.results[rid], y), rid
