@@ -103,6 +103,37 @@ Phases (any failure exits non-zero):
      path reached `scan_tile_conv` (phases 5, 10 and 11).  The phase
      decides nothing about the outcome: promoting, keeping the fused
      group or dropping fusion are all valid.
+ 12. fleet: `benchmarks/fleet_bench.py`'s --smoke scenarios through
+     `ElasticPool` + `FleetRuntime` + `Autoscaler` on the card, at
+     `vgg_mixed_channel(3)`'s full widths (weights from seed 0) on phase
+     10's calibrated H100 model; the bench's tiny net and 12/16 px become
+     vgg and 32-64 px, nothing else changes.  The day: 6,000 diurnal
+     requests (depth 0.8, sizes 48/64, seed 11) plus 600 in bursts of 120
+     every 7.5 s over 60 simulated seconds, two replicas growing to at
+     most six (startup 0.6 s, probes every 3 s), a crash of replica 0 at
+     18 s, cache corruption at 30 s and replica 1 slowed x8 at 39 s (the
+     trace ends first, so the fleet runs on, idle, to 42 s), simulated
+     service `FixedServiceModel(0.004, 0.002)`, bucket 64, max_batch 8,
+     SLO 0.5 s, the bench's autoscaler.  Scale-out: 480 requests at 5 kHz
+     on 1, 2 and 4 replicas.  Exactness: 60 requests (45 Hz, sizes
+     32/48/64, deadline 0.08 s, max_batch 4) on 3 replicas x 4 shards
+     against 1 x 1, then once on a RealClock on two inline replicas.
+     Every wave's outputs come from the card; latencies, makespans and
+     throughputs are on the SIMULATED clock (the RealClock run's compute
+     times are the host clock's after the output reached the host).
+     Prints the plan, the weight-placement table, accounting, the pool's
+     counters, quarantines by why, the autoscaler's events, the scale-out
+     curve, the exactness figures and the tile-kernel launches.  Fails
+     unless admitted == served + lost and total == admitted + rejected,
+     every loss and rejection is reason-coded, the crash fired, the
+     corruption was repaired once with mismatches only at the first probe
+     after it, replica 1 was quarantined as slow, the fleet scaled up or
+     replaced, SLO attainment >= 0.95, T(4) >= 2.5 T(1), every exactness
+     request is within rel 1e-5 of the oracle with a partial wave among
+     them, every served request is within rel 1e-3 of direct (cuDNN),
+     no wave or observer error, the tile-kernel launches equal the count
+     derived from every replica's executor calls (waves, shards, warm-ups
+     and probes), and the plan verifies clean.
 
 The line before the last is a JSON object listing the ported kernels; the
 last line is {"ok": true, "device": {...}}.  Imports nothing of JAX and
@@ -1454,6 +1485,337 @@ def phase_adapt(hw, smi: str) -> dict:
                 trigger=reason)
 
 
+# ------------------------------------------------------------ phase 12
+
+FLEET_SIDE = 64
+FLEET_SEED = 11  # fleet_bench's default --seed
+FLEET_DAY_S = 60.0  # the --smoke day
+FLEET_REQUESTS = 6000  # the --smoke day's base trace
+FLEET_SERVICE = dict(base_s=0.004, per_image_s=0.002)  # simulated service model
+FLEET_SCALEOUT = 480  # requests per fleet size, --smoke
+REL_TOL_SHARD = 1e-5  # sharded wave vs the unsharded wave of one plan
+
+
+class ImageBank:
+    """`benchmarks/fleet_bench.py`'s bounded pool of seeded images,
+    cycled by rid (a day of traffic holds a few hundred images)."""
+
+    def __init__(self, trace, c: int, *, seed: int, slots: int = 256):
+        sizes = sorted({(a.h, a.w) for a in trace})
+        rng = np.random.default_rng(seed)
+        per = max(1, slots // max(1, len(sizes)))
+        self._pool = {
+            hw: [(rng.standard_normal((hw[0], hw[1], c)) * 0.1).astype(np.float32)
+                 for _ in range(per)]
+            for hw in sizes
+        }
+
+    def get(self, arrival) -> np.ndarray:
+        bucket = self._pool[(arrival.h, arrival.w)]
+        return bucket[arrival.rid % len(bucket)]
+
+
+class DirectCheck:
+    """Holds every served request against `run_direct` (cuDNN, TF32 off)
+    from a wave observer: the direct output of each distinct input image
+    is computed once and kept; a wave's outputs are compared on the host
+    as the wave lands (the day drops results as it goes)."""
+
+    def __init__(self, spec, ws):
+        from repro_torch.convserve import run_direct
+
+        self._direct = lambda im: run_direct(
+            spec, ws, torch.from_numpy(im)[None].to(DEV))[0].cpu().numpy()
+        self._memo = {}  # id(image) -> (image, direct output)
+        self.spec = spec
+        self.checked = 0
+        self.worst = 0.0
+        self.bad = []  # rids with a missing, misshapen or non-finite output
+
+    def watch(self, rt, image_of) -> None:
+        """Check every wave `rt` serves; `image_of(rid)` is its input."""
+        def observe(res):
+            for rid, y in res.outputs.items():
+                im = image_of(rid)
+                hit = self._memo.get(id(im))
+                if hit is None:
+                    hit = self._memo[id(im)] = (im, self._direct(im))
+                ref = hit[1]
+                want = self.spec.out_shape(im.shape[0], im.shape[1], im.shape[2])
+                if tuple(y.shape) != want or not np.isfinite(y).all():
+                    self.bad.append(rid)
+                    continue
+                err = float(np.abs(y.astype(np.float64) - ref).max()
+                            / (np.abs(ref).max() + 1e-30))
+                self.worst = max(self.worst, err)
+                self.checked += 1
+
+        rt.add_wave_observer(observe)
+
+
+def fleet_calls(pool) -> int:
+    """Executor calls of every replica the pool ever held (failed, retired
+    and grown ones included): waves, shards, warm-ups and probes."""
+    return sum(r.executor.net.executor.calls for r in pool.replicas)
+
+
+def phase_fleet(hw, smi: str) -> dict:
+    """The elastic fleet on the card (module docstring, phase 12):
+    `benchmarks/fleet_bench.py`'s --smoke scenarios at vgg's full width.
+    Latencies, makespans and throughputs are on the SIMULATED clock of
+    the fleet's service model, not the card's; the card computes every
+    output.  Every number printed is one run's."""
+    from repro_torch.configs.convnets import vgg_mixed_channel
+    from repro_torch.convserve import Engine, init_weights
+    from repro_torch.convserve.check.ir import verify_program
+    from repro_torch.convserve.fleet import (
+        LOSS_REASONS, AutoscalerConfig, ElasticPool, FixedServiceModel, FleetRuntime,
+        apply_placement, plan_weight_placement,
+    )
+    from repro_torch.convserve.obs import Tracer
+    from repro_torch.convserve.runtime import (
+        REJECT_REASONS, RealClock, RuntimeConfig, SimClock, burst_trace, diurnal_trace,
+        make_images, merge_traces, poisson_trace,
+    )
+    from repro_torch.kernels.fused_tile import kernel as tile_kernel
+    from repro_torch.runtime.fault import FaultPlan, ReplicaFault
+
+    t_phase = time.perf_counter()
+    side = FLEET_SIDE
+    spec = vgg_mixed_channel(3)
+    ws = init_weights(spec, seed=0)
+    c0 = spec.conv_layers()[0][1].c_in
+    service = FixedServiceModel(**FLEET_SERVICE)
+    direct = DirectCheck(spec, ws)
+    runs = {}  # scenario -> dict(launches=, calls=, want=)
+    runtimes = []  # every FleetRuntime of the phase
+    per_call = {}
+
+    def build(n, clock, **kw):
+        engine = Engine(hw=hw, device=DEV)
+        return ElasticPool.build(engine, spec, ws, n=n, clock=clock,
+                                 input_hw=(side, side), service_model=service, **kw)
+
+    def account(rt, total):
+        c = rt.stats()["counters"]
+        served, lost = c.get("images", 0), c.get("lost_images", 0)
+        admitted, rejected = c.get("admitted", 0), c.get("rejected", 0)
+        return dict(total=total, admitted=admitted, served=served, lost=lost,
+                    rejected=rejected, deadline_miss=c.get("deadline_miss", 0),
+                    slo_attainment=1.0 - c.get("deadline_miss", 0) / served if served else 0.0)
+
+    def close(name, pool, launches):
+        if "n" not in per_call:  # every replica of every pool runs one plan
+            per_call["n"] = tile_launches_per_wave(
+                spec, pool.replicas[0].executor.program, side)
+        calls = fleet_calls(pool)
+        runs[name] = dict(launches=launches, calls=calls, want=calls * per_call["n"])
+
+    def replay(rt, trace, image_of):
+        t0 = rt.clock.now()
+        for a in trace:
+            rt.run_until(t0 + a.t)
+            rt.submit(image_of(a.rid), rid=a.rid, priority=a.priority,
+                      deadline_s=a.deadline_s)
+            if len(rt.results) > 4096:
+                rt.results.clear()
+        rt.drain()
+        return rt.clock.now() - t0
+
+    # -- the day: diurnal base + bursts, autoscaling, the fault drill
+    day_s, requests = FLEET_DAY_S, FLEET_REQUESTS
+    base = diurnal_trace(requests / (day_s * 0.72), requests, seed=FLEET_SEED, depth=0.8,
+                         period_s=day_s, sizes=(48, 64), deadline_s=None)
+    bursts = burst_trace(max(requests // 10, 40), burst=max(requests // 50, 20),
+                         period_s=day_s / 8, seed=FLEET_SEED + 1, sizes=(64,))
+    trace = [a for a in merge_traces(base, bursts) if a.t <= day_s * 1.5]
+    by_rid = {a.rid: a for a in trace}
+    clock = SimClock()
+    drill = [ReplicaFault(t=day_s * 0.30, kind="crash", replica=0),
+             ReplicaFault(t=day_s * 0.50, kind="cache_corrupt"),
+             ReplicaFault(t=day_s * 0.65, kind="slow", replica=1, factor=8.0)]
+    tracer = Tracer(clock=clock)  # the pool's lifecycle, fault and probe instants
+    tile_kernel.LAUNCHES = 0  # main path: the day, warm-ups and probes included
+    t_wall = time.perf_counter()
+    pool = build(2, clock, fault_plan=FaultPlan(drill, clock=clock),
+                 startup_s=day_s / 100, probe_interval_s=day_s / 20, max_replicas=6,
+                 tracer=tracer)
+    cfg = RuntimeConfig(max_batch=8, buckets=(side,), queue_depth=512, slo_s=0.5,
+                        service_est_s=service.base_s + 8 * service.per_image_s)
+    auto = AutoscalerConfig(min_replicas=2, max_replicas=6, tick_interval_s=day_s / 200,
+                            cooldown_s=day_s / 50, queue_high=6.0, queue_low=0.5,
+                            slack_min_s=0.05, admission_queue_per_replica=256.0)
+    rt = FleetRuntime(pool, cfg, clock=clock, autoscaler=auto)
+    runtimes.append(rt)
+    rt.warmup()
+    bank = ImageBank(trace, c0, seed=1)
+    direct.watch(rt, lambda rid: bank.get(by_rid[rid]))
+    plan = pool.executors[0].plan
+    report = verify_program(spec, plan, hw=hw)
+    placement = plan_weight_placement(pool.executors[0])
+    placed = apply_placement(pool.executors[0].net, None, placement)
+    print(f"fleet: {spec.name!r} on {hw.name} ({smi}); plan {list(plan.algos())}, groups "
+          f"{[tuple(g.layers) for g in plan.groups]}; verify {report.format()}")
+    print("fleet: weight placement (plan_weight_placement, threshold 1 MiB; one card: "
+          f"apply_placement {placed}):")
+    algo_of = {p.layer: p.algo for p in plan.layers}
+    for layer, d in sorted(placement.items()):
+        print(f"  layer {layer:2d} {algo_of[layer]:14s} {d['bytes']:10d} B  "
+              f"{d['placement']:9s}  {d['why']}")
+    makespan = replay(rt, trace, lambda rid: bank.get(by_rid[rid]))
+    # the day's trace ends before the drill's last fault: run the fleet on,
+    # idle, through it and the probe that sees it
+    t_end = max(f.t for f in drill) + day_s / 20
+    rt.run_until(t_end)
+    wall = time.perf_counter() - t_wall
+    launches = tile_kernel.LAUNCHES
+    doc = rt.stats()
+    acct = account(rt, len(trace))
+    p, a_st = doc["pool"], doc["autoscaler"]
+    instants = [e for e in tracer.events() if not hasattr(e, "sid")]
+    quarantines = [(round(e.t, 6), e.args.get("replica"), e.args.get("why"))
+                   for e in instants if e.name == "fleet.quarantine"]
+    repairs = [(round(e.t, 6), e.args.get("probed"))
+               for e in instants if e.name == "fleet.cache_repair"]
+    corrupt_t = drill[1].t
+    close("day", pool, launches)
+    print(f"fleet: day (simulated {day_s:g} s, {len(trace)} requests, seed {FLEET_SEED}): "
+          f"{wall:.2f} s of wall time; simulated makespan {makespan:.6f} s, run on to "
+          f"{t_end:g} s for the drill")
+    print(f"fleet: accounting {acct}; lost by reason {doc['losses']['by_reason']}; rejected "
+          f"by reason { {k: v for k, v in doc['counters'].items() if k.startswith('rejected.')} }")
+    print(f"fleet: pool failures {p['failures']}, retries {p['retries']}, orphaned "
+          f"{p['orphaned']}, quarantines {p['quarantines']} (by why "
+          f"{ {w: sum(q[2] == w for q in quarantines) for w in {q[2] for q in quarantines}} }: "
+          f"{quarantines}), cache repairs {p['cache_repairs']} {repairs}, probe mismatches "
+          f"{p['probe_mismatches']}, grown {p['grown']}, retired {p['retired']}; states "
+          f"{p['states']}; faults fired {p['faults']['fired']}")
+    print(f"fleet: autoscaler ticks {a_st['ticks']}, ups {a_st['scale_ups']}, downs "
+          f"{a_st['scale_downs']}, replacements {a_st['replacements']}")
+    for ev in a_st["events"]:
+        print(f"fleet: autoscaler t={ev['t']:.6f} {ev['action']} n={ev['n']} "
+              f"({ev['why']}; queue ewma {ev['queue_ewma']}, slack ewma {ev['slack_ewma']})")
+    lat = doc["latency"]
+    print("fleet: SIMULATED e2e " + "  ".join(
+        f"{q} {lat['e2e'][q + '_s'] * 1e3:.6f} ms" for q in ("p50", "p95", "p99"))
+        + f"; queue wait p95 {lat['queue_wait']['p95_s'] * 1e3:.6f} ms "
+        f"(service model {FLEET_SERVICE}, not the card's time)")
+
+    # -- scale-out: one saturating trace at fleet sizes 1, 2, 4
+    curve = {}
+    so_trace = poisson_trace(5000.0, FLEET_SCALEOUT, seed=FLEET_SEED, sizes=(side,))
+    so_by = {a.rid: a for a in so_trace}
+    so_bank = ImageBank(so_trace, c0, seed=1)
+    for n in (1, 2, 4):
+        clock = SimClock()
+        tile_kernel.LAUNCHES = 0
+        so_pool = build(n, clock, startup_s=1.0, max_replicas=n)
+        so_rt = FleetRuntime(so_pool, RuntimeConfig(
+            max_batch=8, buckets=(side,), queue_depth=FLEET_SCALEOUT, slo_s=None,
+            service_est_s=0.02), clock=clock)
+        runtimes.append(so_rt)
+        so_rt.warmup()
+        direct.watch(so_rt, lambda rid: so_bank.get(so_by[rid]))
+        span = replay(so_rt, so_trace, lambda rid: so_bank.get(so_by[rid]))
+        so_acct = account(so_rt, len(so_trace))
+        close(f"scale-out N={n}", so_pool, tile_kernel.LAUNCHES)
+        curve[n] = dict(served=so_acct["served"], makespan=span,
+                        rps=so_acct["served"] / span,
+                        p95=so_rt.stats()["latency"]["e2e"]["p95_s"])
+    print("fleet: SIMULATED scale-out (poisson 5000 Hz, 480 requests): " + "; ".join(
+        f"N={n} makespan {c['makespan']:.6f} s, {c['rps']:.3f} requests/s, e2e p95 "
+        f"{c['p95'] * 1e3:.6f} ms" for n, c in curve.items())
+        + f"; T(4)/T(1) {curve[4]['rps'] / curve[1]['rps']:.6f}")
+
+    # -- exactness: 3 replicas x 4 shards against 1 replica x 1 shard
+    ex_trace = poisson_trace(45.0, 60, seed=FLEET_SEED, sizes=(32, 48, 64), deadline_s=0.08)
+    ex_images = make_images(ex_trace, c0, seed=1)
+    ex_cfg = dict(max_batch=4, buckets=(side,), queue_depth=128, slo_s=0.1,
+                  service_est_s=0.01)
+
+    def serve(n, shards, clock):
+        tile_kernel.LAUNCHES = 0
+        pool_ = build(n, clock, startup_s=1.0, shards=shards, max_replicas=n)
+        rt_ = FleetRuntime(pool_, RuntimeConfig(**ex_cfg), clock=clock)
+        runtimes.append(rt_)
+        rt_.warmup([2, 4])
+        direct.watch(rt_, ex_images.__getitem__)
+        out = rt_.play(ex_trace, ex_images)
+        return out, rt_.stats(), pool_, tile_kernel.LAUNCHES
+
+    fleet_out, fleet_doc, fleet_pool, fleet_launches = serve(3, 4, SimClock())
+    close("exactness 3x4 shards", fleet_pool, fleet_launches)
+    oracle_out, _, oracle_pool, oracle_launches = serve(1, 1, SimClock())
+    close("exactness oracle 1x1", oracle_pool, oracle_launches)
+    worst_shard, bitwise = 0.0, 0
+    for rid, ref in oracle_out.items():
+        y = fleet_out.get(rid)
+        if y is None:
+            worst_shard = float("inf")
+            continue
+        bitwise += bool(np.array_equal(y, ref))
+        worst_shard = max(worst_shard, float(
+            np.abs(y.astype(np.float64) - ref).max() / (np.abs(ref).max() + 1e-30)))
+    partial = fleet_doc["scheduler"]["partial_waves"]
+    print(f"fleet: exactness ({len(ex_trace)} requests, poisson 45 Hz, sizes 32/48/64, "
+          f"bucket {side}): 3 replicas x 4 shards vs 1 replica x 1 shard: worst rel "
+          f"{worst_shard:.3e} (tol {REL_TOL_SHARD:g}), bitwise {bitwise} of {len(oracle_out)}, "
+          f"partial waves {partial}")
+
+    # -- one RealClock run of the exactness trace on two replicas
+    real_out, real_doc, real_pool, real_launches = serve(2, 1, RealClock())
+    close("exactness RealClock 2x1", real_pool, real_launches)
+    comp = real_doc["latency"].get("compute", {})
+    print(f"fleet: RealClock, 2 inline replicas on {smi}: compute (host clock after the "
+          f"output reached the host) p50 {comp.get('p50_s', 0) * 1e3:.3f} ms, p95 "
+          f"{comp.get('p95_s', 0) * 1e3:.3f} ms over {comp.get('count', 0)} warm waves; "
+          f"{len(real_out)} of {len(ex_trace)} served")
+
+    launches = sum(r["launches"] for r in runs.values())
+    want = sum(r["want"] for r in runs.values())
+    print(f"fleet: tile-kernel launches {launches}, derived {want} ({per_call['n']} per "
+          f"executor call at bucket {side} x " + ", ".join(
+              f"{k} {r['calls']}" for k, r in runs.items()) + " calls)")
+    print(f"fleet: {direct.checked} served outputs within rel {direct.worst:.3e} of direct "
+          f"(cuDNN, TF32 off; tol {REL_TOL_SERVE:g})")
+    loss_reasons = set(rt.losses.values()) | set(p["losses"])
+    rej_reasons = {k.split(".", 1)[1] for k in doc["counters"] if k.startswith("rejected.")}
+    replica1_slow = any(q[1] == 1 and q[2] == "slow" for q in quarantines)
+    checks = {
+        "admitted == served + lost": acct["admitted"] == acct["served"] + acct["lost"],
+        "total == admitted + rejected": acct["total"] == acct["admitted"] + acct["rejected"],
+        "losses and rejections reason-coded": (loss_reasons <= set(LOSS_REASONS)
+                                               and rej_reasons <= set(REJECT_REASONS)),
+        "the crash fired": p["failures"] >= 1,
+        "corruption repaired once, at the first probe after it": (
+            p["cache_repairs"] == 1 and len(repairs) == 1 and repairs[0][0] == corrupt_t
+            and p["probe_mismatches"] == repairs[0][1]),
+        "slowed replica quarantined as slow": replica1_slow,
+        "a scale-up or replacement": a_st["scale_ups"] + a_st["replacements"] >= 1,
+        "SLO attainment >= 0.95": acct["slo_attainment"] >= 0.95,
+        "T(4) >= 2.5 T(1)": curve[4]["rps"] >= 2.5 * curve[1]["rps"],
+        "every scale-out request served": all(c["served"] == FLEET_SCALEOUT
+                                              for c in curve.values()),
+        "exactness within 1e-5 of the oracle": (
+            fleet_out.keys() == oracle_out.keys() == {a.rid for a in ex_trace}
+            and worst_shard <= REL_TOL_SHARD),
+        "exactness with partial waves": partial >= 1,
+        "RealClock run served every request": len(real_out) == len(ex_trace),
+        "every served request within 1e-3 of direct": (
+            not direct.bad and direct.checked > 0 and direct.worst < REL_TOL_SERVE),
+        "no wave or observer error": not any(
+            r_.errors or r_.telemetry.counter("wave_observer_errors") for r_ in runtimes),
+        "tile launches equal the derived count": launches == want > 0,
+        "the plan verifies clean": report.ok,
+    }
+    failed = [k for k, ok in checks.items() if not ok]
+    print(f"fleet: phase wall time {time.perf_counter() - t_phase:.2f} s; checks "
+          f"{'all pass' if not failed else 'FAILED: ' + ', '.join(failed)}")
+    if failed:
+        raise AssertionError(f"fleet phase failed: {failed}")
+    return dict(launches=launches)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the GPU only",
@@ -1480,6 +1842,7 @@ def main() -> int:
     lm_rows = phase_lm_times(lm_cases)
     online = phase_online(smi)
     adapt = phase_adapt(online["hw"], smi)
+    fleet = phase_fleet(online["hw"], smi)
 
     # headline shape: the widest served vgg layer when vgg reaches the
     # kernel (64->64 at bucket 64), else fft_fewchannel's 8->8
@@ -1492,10 +1855,11 @@ def main() -> int:
         "source": KERNEL_SOURCE,
         "replaces": REPLACES,
         "launches": (sum(s["launches"] for s in served.values()) + online["launches"]
-                     + adapt["launches"]),
+                     + adapt["launches"] + fleet["launches"]),
         "launches_by_path": {**{k: s["launches"] for k, s in served.items()},
                              "online vgg-mixed (ServeRuntime)": online["launches"],
-                             "adapt fft-fewchannel (AdaptController)": adapt["launches"]},
+                             "adapt fft-fewchannel (AdaptController)": adapt["launches"],
+                             "fleet vgg-mixed (ElasticPool)": fleet["launches"]},
         "launches_per_wave": {k: s["per_wave"] for k, s in served.items()},
         "max_abs_err": worst_abs,
         "max_rel_err": worst_rel,

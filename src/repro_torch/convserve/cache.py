@@ -179,6 +179,53 @@ class KernelCache:
     def nbytes(self) -> int:
         return self._nbytes
 
+    def entry_nbytes(self, key: Tuple) -> Optional[int]:
+        """Resident bytes of one transform (None when not resident) --
+        the fleet's replicate-vs-shard placement decision reads this."""
+        with self._lock:
+            wt = self._store.get(key)
+            return None if wt is None else int(wt.nbytes)
+
+    def place(self, key: Tuple, put_fn) -> bool:
+        """Re-store one resident transform through ``put_fn(wt) -> wt``.
+        The placed tensor must be value-identical: placement decides
+        where bytes live, never what is served, so a change of shape,
+        dtype or device is refused (on one card placement never moves
+        bytes).  Returns False when the key is not resident."""
+        with self._lock:
+            wt = self._store.get(key)
+            if wt is None:
+                return False
+            placed = put_fn(wt)
+            if (placed.shape != wt.shape or placed.dtype != wt.dtype
+                    or placed.device != wt.device):
+                raise ValueError(
+                    f"placement changed entry {key}: {tuple(wt.shape)}/"
+                    f"{wt.dtype}/{wt.device} -> {tuple(placed.shape)}/"
+                    f"{placed.dtype}/{placed.device}"
+                )
+            self._store[key] = placed
+            return True
+
+    def corrupt_entry(self, key: Optional[Tuple] = None) -> Optional[Tuple]:
+        """FAULT-INJECTION surface (fleet drills / tests only): replace
+        one resident transform by its negation, silently poisoning every
+        future fetch of it -- the failure mode a bit-flipped shared cache
+        would produce.  Targets the least-recently-used entry when no key
+        is given.  Returns the corrupted key (None when the cache is
+        empty).  The negation is a new tensor, published like every other
+        memo write (`invalidate_keys` says why: an entry must not change
+        under a stream that may still read it).  Detection and repair are
+        the fleet pool's health-probe job; the cache itself stays silent,
+        which is the point."""
+        with self._lock:
+            if key is None:
+                key = next(iter(self._store), None)
+            if key is None or key not in self._store:
+                return None
+            self._store[key] = publish(-self._store[key])
+            return key
+
     def stats(self) -> dict:
         with self._lock:
             return {

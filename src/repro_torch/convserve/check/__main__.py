@@ -57,8 +57,12 @@ def run_locks(src: Path) -> CheckReport:
     return analyze_locks([
         convserve / "runtime",
         convserve / "adapt",
+        convserve / "fleet",
         convserve / "obs",
         convserve / "cache.py",
+        # the fleet's fault schedule lives outside convserve but is
+        # consulted from replica completion paths: same discipline
+        src / "repro_torch" / "runtime" / "fault.py",
         # replica threads build, load and launch kernels concurrently
         src / "repro_torch" / "kernels" / "_build.py",
     ])

@@ -29,7 +29,7 @@ from repro_torch.models import mamba as mamba_mod
 from repro_torch.models import mlp as mlp_mod
 from repro_torch.models.common import rms_norm
 
-NOT_PORTED = "ROADMAP queue item 1 (the remaining LM families)"
+NOT_PORTED = "ROADMAP §1, the remaining LM families"
 
 
 @dataclasses.dataclass(frozen=True)

@@ -672,6 +672,30 @@ def test_committed_port_tree_has_clean_lock_discipline():
     assert rep.ok, rep.format()
 
 
+def test_lock_scope_covers_the_fleet_and_the_fault_schedule(monkeypatch):
+    """`check`'s lock analyzer reads the fleet and `runtime/fault.py`,
+    as the reference's scope does (`repro.convserve.check.__main__`),
+    beside the port's own `kernels/_build.py`; both are clean."""
+    from repro.convserve.check import __main__ as ref_cli
+    from repro_torch.convserve.check import __main__ as cli
+
+    def scope(mod, pkg):
+        seen = []
+        monkeypatch.setattr(mod, "analyze_locks", lambda paths: seen.extend(paths))
+        mod.run_locks(Path("src"))
+        monkeypatch.undo()
+        return {p.relative_to(Path("src") / pkg).as_posix() for p in seen}
+
+    got, want = scope(cli, "repro_torch"), scope(ref_cli, "repro")
+    assert {"convserve/fleet", "runtime/fault.py"} <= got
+    assert got == want | {"kernels/_build.py"}
+    import repro_torch
+
+    root = Path(repro_torch.__file__).parent
+    rep = analyze_locks([root / "convserve" / "fleet", root / "runtime" / "fault.py"])
+    assert rep.ok, rep.format()
+
+
 # ------------------------------------------------------- CLI
 
 

@@ -47,7 +47,8 @@ def test_importing_the_port_loads_no_jax():
 
 
 # the modules of the later slices: the online runtime, obs and the
-# measuring tune; then the adapt loop, check and fused Winograd
+# measuring tune; then the adapt loop, check and fused Winograd; then
+# the fleet
 NEW_MODULES = (
     "repro_torch.convserve.obs",
     "repro_torch.convserve.obs.trace",
@@ -73,6 +74,16 @@ NEW_MODULES = (
     "repro_torch.kernels.fused_winograd.ops",
     "repro_torch.kernels.fused_winograd.ref",
     "repro_torch.core.pipeline",
+    # the elastic fleet, the fault schedule and the sharding rule engine
+    "repro_torch.convserve.fleet",
+    "repro_torch.convserve.fleet.sharding",
+    "repro_torch.convserve.fleet.pool",
+    "repro_torch.convserve.fleet.autoscaler",
+    "repro_torch.convserve.fleet.service",
+    "repro_torch.runtime",
+    "repro_torch.runtime.fault",
+    "repro_torch.distributed",
+    "repro_torch.distributed.sharding",
 )
 
 

@@ -672,3 +672,89 @@ def test_cuda_hot_swap_on_two_streams(cuda_device):
         want = w.crop(spec, fresh(*w.assemble()).cpu().numpy())
         for rid, y in want.items():
             assert np.array_equal(rt.results[rid], y), rid
+
+
+# ------------------------------------------------------------- the fleet
+
+
+def _vgg_fleet(cuda_device, n=2, **kw):
+    """vgg_mixed_channel on an ElasticPool at the served shapes (bucket
+    64, waves of 8), warmed, under a SimClock."""
+    from repro_torch.configs.convnets import vgg_mixed_channel
+    from repro_torch.convserve import Engine, init_weights
+    from repro_torch.convserve.fleet import ElasticPool
+    from repro_torch.convserve.runtime import SimClock
+    from repro_torch.core import analysis
+
+    torch.backends.cudnn.allow_tf32 = False
+    spec = vgg_mixed_channel(3)
+    pool = ElasticPool.build(
+        Engine(hw=analysis.H100_SXM, device=cuda_device), spec,
+        init_weights(spec, seed=0), n=n, clock=SimClock(), input_hw=(64, 64),
+        startup_s=0.0, **kw)
+    pool.warmup([64], [8])
+    return spec, pool
+
+
+def _probe_output(pool, ex):
+    x, ext = pool._probe_batch(64)
+    return ex(x, ext)[0].cpu().numpy()
+
+
+def test_cuda_fleet_probe_sees_corruption_and_the_repair_is_bitwise(cuda_device):
+    """On vgg at the served shapes, `corrupt_entry` changes the probe's
+    output; `invalidate()` and a fresh fetch give back the golden probe
+    bit for bit (otherwise every later probe would repair again), and
+    the pool's own probe repairs exactly once."""
+    spec, pool = _vgg_fleet(cuda_device)
+    golden = pool._golden[64]
+    ex = pool.executors[0]
+    assert np.array_equal(_probe_output(pool, ex), golden)
+    key = pool.cache.corrupt_entry()
+    assert key is not None
+    assert not np.array_equal(_probe_output(pool, ex), golden)
+    doc = pool.probe()
+    assert doc == {"probed": 2, "quarantined": 0, "cache_repaired": True}
+    assert np.array_equal(_probe_output(pool, ex), golden)
+    assert pool.probe() == {"probed": 2, "quarantined": 0, "cache_repaired": False}
+    st = pool.stats()
+    assert st["cache_repairs"] == 1 and st["probe_mismatches"] == 2
+
+
+def test_cuda_fleet_replicas_and_a_grown_newcomer_probe_bitwise(cuda_device):
+    """Two replicas and one grown later run the probe at the same shape
+    with the same plan, shared cache and launch geometry: the same bits
+    as the golden output, and the same tile-kernel launches each."""
+    spec, pool = _vgg_fleet(cuda_device)
+    golden = pool._golden[64]
+    born = pool.grow(1)
+    pool.advance(pool.clock.now())  # startup 0: the newcomer is READY
+    assert born == [2] and pool.ready_count() == 3
+    counts = []
+    for ex in pool.executors:
+        y, n = _counted(tile_kernel, lambda ex=ex: _probe_output(pool, ex))
+        assert np.array_equal(y, golden)
+        counts.append(n)
+    assert len(set(counts)) == 1 and counts[0] > 0
+    assert pool.probe()["probed"] == 3 and pool.stats()["probe_mismatches"] == 0
+
+
+def test_cuda_sharded_vgg_wave_within_tolerance_of_the_unsharded(cuda_device):
+    """A ragged vgg wave of 8 split into 4 shards on the logical path:
+    within rel 1e-5 of the unsharded wave of the same plan (a shard may
+    take another kernel geometry or GEMM algorithm)."""
+    from repro_torch.convserve.fleet import ShardedWaveExecutor
+
+    spec, pool = _vgg_fleet(cuda_device, n=1)
+    net = pool.executors[0].net
+    sharded = ShardedWaveExecutor(net, shards=4)
+    rng = np.random.default_rng(4)
+    x = (rng.standard_normal((8, 64, 64, 3)) * 0.1).astype(np.float32)
+    sizes = np.array([[64, 64], [48, 48], [64, 64], [32, 32], [48, 48], [64, 64],
+                      [64, 48], [0, 0]], np.int32)
+    y, n1 = _counted(tile_kernel, lambda: net(x, sizes))
+    ys, n = _counted(tile_kernel, lambda: sharded(x, sizes))
+    assert n == 4 * n1 > 0  # every shard runs the whole program
+    assert ys.device.type == "cuda" and ys.shape == y.shape
+    assert _rel(ys, y) <= 1e-5
+    assert not ys[7].any()

@@ -6,8 +6,9 @@ signatures in both packages (names, categories, nesting, simulated
 times; the backend/geometry args of tile-phase instants are each
 package's own); `attribute_stage`'s FLOP and byte terms must equal the
 reference's exactly for the same program, hardware model and seconds.
-Tests that need the reference's autoscaler, adapt loop or fleet wait for
-those modules.
+The autoscaler's stale-telemetry guard and the acceptance drill (one
+tracer across a faulted fleet run and an adapt hot swap) give the same
+decisions, audit events and span trees as the reference's.
 """
 
 import json
@@ -382,3 +383,207 @@ def test_runtime_trips_the_recorder_on_a_deadline_miss(tmp_path):
     rt.drain()
     assert rt.telemetry.counter("deadline_miss") == 1
     assert rec.stats()["trips"] == {"slo_breach": 1} and len(rec.stats()["dumps"]) == 1
+
+
+# ------------------------------------------ the autoscaler's stale guard
+
+
+class _PoolStub:
+    """The minimal pool surface `Autoscaler.tick` touches."""
+
+    startup_s = 0.0
+
+    def __init__(self, clock, n=2):
+        self.clock = clock
+        self.n = n
+
+    def ready_count(self):
+        return self.n
+
+    def live_count(self):
+        return self.n
+
+    def grow(self, k, now=None):
+        self.n += k
+        return list(range(k))
+
+    def retire(self, k, now=None):
+        self.n -= k
+        return [0]
+
+    def counts(self):
+        return {}
+
+
+def _fleet_mod(side):
+    from repro.convserve import fleet as ref_fleet
+    from repro_torch.convserve import fleet
+
+    return (fleet, rt_mod) if side == "port" else (ref_fleet, ref_rt)
+
+
+def _stale_up(side):
+    f, m = _fleet_mod(side)
+    clock = m.SimClock()
+    tel = m.Telemetry(clock=clock)
+    a = f.Autoscaler(
+        _PoolStub(clock),
+        f.AutoscalerConfig(max_replicas=8, tick_interval_s=1.0, cooldown_s=0.0,
+                           queue_high=2.0, queue_low=1.0, require_fresh_telemetry=True),
+        clock=clock, queue_depth_fn=lambda: 100, telemetry=tel,
+    )
+    tel.inc("traffic")  # fresh stamp before the first decision
+    acts = []
+    for _ in range(3):
+        clock.advance(1.1)
+        acts.append(a.tick(clock.now()))
+    return acts, a.stats(), tel.snapshot()["counters"], list(a.events)
+
+
+def test_autoscaler_blocks_stale_snapshot_scale_up():
+    """A scale-up on a snapshot whose stamp has not advanced since the
+    last decision is counted, audited and vetoed; the stale counter
+    itself advances the stamp, so the guard clears on the next tick."""
+    acts, st, counters, events = got = _stale_up("port")
+    assert got == _stale_up("reference")
+    assert acts == ["up", None, "up"]
+    assert st["scale_ups"] == 2 and st["stale_decisions"] == 1
+    assert counters["autoscaler.stale_snapshot"] == 1
+    assert [e["action"] for e in events] == ["up", "stale:up", "up"]
+
+
+def _replace_on_stale(side):
+    f, m = _fleet_mod(side)
+    clock = m.SimClock()
+    tel = m.Telemetry(clock=clock)
+    a = f.Autoscaler(
+        _PoolStub(clock, n=0),  # total fleet loss
+        f.AutoscalerConfig(min_replicas=1, tick_interval_s=1.0,
+                           require_fresh_telemetry=True),
+        clock=clock, telemetry=tel,
+    )
+    clock.advance(1.1)
+    return a.tick(clock.now()), a.stats()
+
+
+def test_autoscaler_replacement_is_exempt_from_stale_guard():
+    act, st = got = _replace_on_stale("port")
+    assert got == _replace_on_stale("reference")
+    # stamp seq 0 never advanced, but replacement must act anyway
+    assert act == "replace" and st["stale_decisions"] == 0 and st["replacements"] == 1
+
+
+# ------------------------------------------------------------ acceptance
+
+
+def _acceptance(side, tmp_path):
+    """The reference's acceptance drill in one package: one tracer over
+    (A) a SimClock fleet run through two replica crashes with retries
+    exhausted (the recorder trips on the WaveLoss) and (B) an adapt
+    controller's hot swap plus a stage profile."""
+    import importlib
+
+    port = side == "port"
+    o, m, pkg = (obs, rt_mod, cs) if port else (ref_obs, ref_rt, ref_cs)
+    f, _ = _fleet_mod(side)
+    fault = importlib.import_module("repro_torch.runtime.fault" if port else "repro.runtime.fault")
+    pl = importlib.import_module(
+        "repro_torch.convserve.planner" if port else "repro.convserve.planner")
+    spec = SPEC if port else REF_SPEC
+    hw = (analysis if port else ref_analysis).HardwareModel(**_BIG)
+    engine = pkg.Engine(hw=hw, device="cpu") if port else pkg.Engine(hw=hw)
+    ws = pkg.init_weights(spec, seed=5)
+    clock = m.SimClock()
+    tracer = o.Tracer(clock=clock)
+    recorder = o.FlightRecorder(tracer, path_prefix=str(tmp_path / f"{side}-drill"),
+                                max_dumps=1)
+
+    # (A) fleet drill: both replicas crash, retries exhausted -> losses
+    fp = fault.FaultPlan([
+        fault.ReplicaFault(t=0.010, kind=fault.FAULT_CRASH, replica=0),
+        fault.ReplicaFault(t=0.012, kind=fault.FAULT_CRASH, replica=1),
+    ], clock=clock)
+    pool = f.ElasticPool.build(
+        engine, spec, ws, n=2, clock=clock, input_hw=(16, 16), shards=1,
+        service_model=f.FixedServiceModel(base_s=0.004, per_image_s=0.002),
+        fault_plan=fp, max_retries=0,
+    )
+    cfg = m.RuntimeConfig(buckets=(16,), max_batch=4, queue_depth=256, slo_s=0.25,
+                          service_est_s=0.012)
+    frt = f.FleetRuntime(pool, cfg, clock=clock, tracer=tracer, recorder=recorder)
+    frt.warmup()
+    trace = m.poisson_trace(400.0, 24, seed=3, sizes=(16,), deadline_s=1.0)
+    frt.play(trace, m.make_images(trace, 4, seed=1))
+    fleet_doc = frt.stats()
+
+    # (B) adapt hot swap + stage profile on the SAME tracer
+    pool2 = m.ReplicaPool.build(engine, spec, ws, n=1, workers=0, input_hw=(16, 16))
+    srt = m.ServeRuntime(pool2, m.RuntimeConfig(max_batch=2, buckets=(16,), slo_s=1.0,
+                                                service_est_s=1e-4),
+                         clock=clock, tracer=tracer)
+
+    def probe(net, bucket, batch):
+        preds = pl.predict_stage_times(net.program, engine.hw)
+        return [(label, pred * (10.0 if st.fused else
+                                1000.0 if st.units[0].plan.algo == "direct" else 1.0))
+                for st, (label, pred) in zip(net.program.stages, preds)]
+
+    ac = pkg.AdaptController(
+        srt, engine, spec, ws,
+        pkg.AdaptConfig(divergence_ratio=2.0, shadow_fraction=1.0, shadow_min_waves=2,
+                        cooldown_s=0.5),
+        probe=probe, shadow_timer=lambda res, cand_s: (0.010, 0.004),
+    )
+    ac.measure()
+    ac.probe_alternatives()
+    trigger = ac.check()
+    rng = np.random.default_rng(3)
+    for i in range(1000, 1008):
+        srt.submit((rng.standard_normal((16, 16, 4)) * 0.1).astype(np.float32), rid=i)
+        srt.poll()
+    srt.drain()
+    doc = srt.stats(profile_bucket=16)
+    srt.pool.shutdown()
+    out = tmp_path / f"{side}-acceptance.trace.json"
+    n = o.write_trace(tracer, str(out))
+    return dict(tracer=tracer, recorder=recorder.stats(), fleet=fleet_doc, trigger=trigger,
+                promotions=ac.promotions, audit=[(a["event"], a["reason"]) for a in ac.audit],
+                losses=dict(frt.losses), roof=doc["roofline"], n=n,
+                events=json.loads(out.read_text()), o=o)
+
+
+def test_acceptance_faulted_fleet_plus_hot_swap_trace(tmp_path):
+    """One tracer follows a faulted fleet and a hot swap, then exports
+    one valid Chrome trace with request->wave flows and a roofline
+    verdict per stage -- the same story, span tree and instants as the
+    reference's."""
+    got, want = _acceptance("port", tmp_path), _acceptance("reference", tmp_path)
+    assert got["recorder"]["trips"] == want["recorder"]["trips"]
+    assert got["recorder"]["trips"].get("wave_loss", 0) >= 1
+    assert len(got["recorder"]["dumps"]) == len(want["recorder"]["dumps"]) == 1
+    assert got["losses"] == want["losses"] and got["losses"]
+    assert got["fleet"]["counters"] == want["fleet"]["counters"]
+    assert got["fleet"]["pool"]["faults"] == want["fleet"]["pool"]["faults"]
+    assert got["trigger"] is not None and want["trigger"] is not None
+    assert got["audit"] == want["audit"] and got["promotions"] == want["promotions"] == 1
+    sig = obs.span_tree_signature(got["tracer"].events())
+    assert sig == ref_obs.span_tree_signature(want["tracer"].events()) and sig
+    assert _instants(got["tracer"].events()) == _instants(want["tracer"].events())
+    roof = got["roof"]
+    assert roof is not None and roof["schema_version"] == want["roof"]["schema_version"]
+    assert [r["stage"] for r in roof["stages"]] == [r["stage"] for r in want["roof"]["stages"]]
+    for row in roof["stages"]:
+        assert row["achieved_gflops"] > 0
+        assert row["binding_level"] in ("dram", "shared_l3", "fast_private")
+        assert row["verdict"] in ("above_model", "at_roof", "below_roof", "far_below_roof")
+    assert got["tracer"].open_count() == 0
+    events = got["events"]
+    assert obs.validate_chrome_trace(events) == []
+    assert len(events) == got["n"] > 0
+    assert {"X", "s", "f", "i"} <= {e["ph"] for e in events}
+    names = {e["name"] for e in events}
+    assert names == {e["name"] for e in want["events"]}
+    assert any(nm.startswith("request:") for nm in names)
+    assert any(nm.startswith("wave:") for nm in names)
+    assert {"fleet.fault", "flight.trip", "adapt.promote", "roofline.stage"} <= names
+    assert "profile_stages" in names

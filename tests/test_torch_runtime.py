@@ -6,8 +6,8 @@ traffic under one `SimClock` must form the same waves (bucket, padded
 batch, rids, flush reason) and count the same counters and telemetry
 keys in both packages; served outputs agree within rel 1e-4 (both fp32,
 different summation orders) and stay within rel 1e-3 of the direct-conv
-oracle (the reference's own net tolerance).  Tests that need the
-reference's autoscaler, adapt loop or fleet wait for those modules.
+oracle (the reference's own net tolerance).  The fleet built on this
+runtime is held in `tests/test_torch_fleet.py`.
 """
 
 import dataclasses
