@@ -5,7 +5,7 @@
 Phases (any failure exits non-zero):
   1. environment: torch/CUDA versions, the card's name and power limit,
      TF32 off for matmul and cuDNN;
-  2. build: the four kernels (`src/repro_torch/kernels/*/csrc/*.cu`),
+  2. build: the five kernel sources (`src/repro_torch/kernels/*/csrc/*.cu`),
      one nvcc each, started together, with build times; then the static
      checks in-process (`python -m repro_torch.convserve.check --strict`:
      the IR verifier over the benched configs' plans, the lock analyzer,
@@ -135,6 +135,35 @@ Phases (any failure exits non-zero):
      derived from every replica's executor calls (waves, shards, warm-ups
      and probes), and the plan verifies clean.
 
+ 13. train: gemma3-1b's training path.  (a) The flash forward with its
+     log-sum-exp and the flash backward kernel against their plain
+     versions on the same card tensors, at gemma3's training layers (B 4,
+     Hq 4, Hkv 1, S 1024, hd 256, window 512 / 0, the model's layout),
+     every head dim at g 1 and g 4 on S 700, non-causal, and rows that
+     see no key: dq, dk, dv each within rel 5e-5 of
+     `flash_attention_bwd_ref` fed the same o and lse (the reference's
+     gradient tolerance), lse within rel 1e-5, o bitwise with and without
+     lse, two backward runs bitwise equal, each printed beside its error
+     against a float64 backward; o against the recorded outputs of the
+     earlier flash source (`kernels/bitwise_check.py`, compared only
+     under the nvcc release that recorded them).  (b)
+     `launch.train.main(["--arch", "gemma3-1b", "--steps", "6", "--batch",
+     "4", "--seq", "1024"])`: full width and depth, fp32, TF32 off, seed
+     0; per step loss, grad norm, ms and tokens/s, peak
+     `max_memory_allocated`; every count zeroed before and read after:
+     flash forward = 26 x 2 (remat) x 6, backward = 26 x 6, the others 0;
+     every loss and grad norm finite.  (c) gemma3-1b cut to one period (6
+     layers) at full width, seed 0, B 1, S 576: `lm_loss` and every
+     gradient on the card against the CPU (loss rel 1e-4, every leaf rel
+     1e-3).  (d) the loop on `cfg.reduced()` on the card: 30 steps,
+     checkpoints every 5, injected failures at steps 12 and 21 restored
+     from disk, loss at step 29 below step 0's, then a resume from disk to
+     step 34.  Then one warm full-width step under `torch.profiler` (wall,
+     device busy, idle share, top kernels) and the backward's times at
+     the global layer (CUDA events, profiler device time, the plain
+     backward, SDPA's fp32 backward as the library yardstick, the bound:
+     2.5x the forward's FLOPs at the fp32 FMA peak).
+
 The line before the last is a JSON object listing the ported kernels; the
 last line is {"ok": true, "device": {...}}.  Imports nothing of JAX and
 nothing of the reference package.
@@ -216,6 +245,7 @@ def kernel_libraries():
     """name -> (CudaLibrary, wrapper module) for every kernel of the port."""
     from repro_torch.kernels.conv1d_fused import kernel as conv1d_kernel
     from repro_torch.kernels.decode_mlp import kernel as mlp_kernel
+    from repro_torch.kernels.flash_attention import backward as flash_bwd_kernel
     from repro_torch.kernels.flash_attention import kernel as flash_kernel
     from repro_torch.kernels.fused_tile import kernel as tile_kernel
 
@@ -224,6 +254,7 @@ def kernel_libraries():
         "conv1d_fused": conv1d_kernel,
         "flash_attention": flash_kernel,
         "decode_mlp": mlp_kernel,
+        "flash_attention_bwd": flash_bwd_kernel,
     }
 
 
@@ -1816,6 +1847,367 @@ def phase_fleet(hw, smi: str) -> dict:
     return dict(launches=launches)
 
 
+# ------------------------------------------------------------ phase 13
+
+TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ = 6, 4, 1024
+TRAIN_ARGS = ["--arch", "gemma3-1b", "--steps", str(TRAIN_STEPS), "--batch", str(TRAIN_BATCH),
+              "--seq", str(TRAIN_SEQ)]
+TRAIN_CUT = 6  # layers of gemma3-1b (one period) in the card-vs-CPU part
+TRAIN_CUT_S = 576  # above the 512 window: the local band skip shows
+REL_TOL_BWD = 5e-5  # the reference's gradient tolerance (tests/test_flash_attention.py)
+REL_TOL_LSE = 1e-5
+REL_TOL_TRAIN_LOSS = 1e-4  # card vs CPU loss
+REL_TOL_TRAIN_GRAD = 1e-3  # card vs CPU gradient leaves, the reference's net tolerance
+FLASH_BWD_SOURCE = "src/repro_torch/kernels/flash_attention/csrc/flash_attention_bwd.cu"
+FLASH_BWD_REPLACES = "src/repro/models/flash_attention.py:142"
+DRILL_FAULTS = (12, 21)
+TRAIN_CKPT = os.path.join(ROOT, "build", "chip_smoke_ckpt")
+
+
+def flash_bwd_cases(gen):
+    """(label, B, Hq, Hkv, S_q, S_k, hd, causal, window, model layout,
+    served): gemma3-1b's two training layers, every head dim at g 1 and
+    g 4 on a ragged S, non-causal, and rows that see no key."""
+    from repro_torch.kernels.flash_attention.kernel import HEAD_DIMS
+
+    cases = [
+        ("gemma3 train global B4 S1024 hd256 g4", 4, 4, 1, 1024, 1024, 256, True, 0, True, True),
+        ("gemma3 train local w512 B4 S1024 hd256 g4", 4, 4, 1, 1024, 1024, 256, True, 512,
+         True, False),
+        ("non-causal Sq77 Sk256 hd128 g2", 1, 2, 1, 77, 256, 128, False, 0, False, False),
+        ("rows that see no key Sq200 Sk50 w40 hd64 g2", 1, 2, 1, 200, 50, 64, True, 40, False,
+         False),
+    ]
+    for hd in HEAD_DIMS:
+        for hkv in (4, 1):
+            cases.append((f"hd{hd} g{4 // hkv} B2 S700 causal w300", 2, 4, hkv, 700, 700, hd,
+                          True, 300, False, False))
+    out = []
+    for label, b, hq, hkv, sq, sk, hd, causal, window, model_layout, served in cases:
+        def mk(bb, h, s, d):
+            if model_layout:
+                return _cuda(gen, (bb, s, h, d)).transpose(1, 2)
+            return _cuda(gen, (bb, h, s, d))
+        q, k, v, do = mk(b, hq, sq, hd), mk(b, hkv, sk, hd), mk(b, hkv, sk, hd), mk(b, hq, sq, hd)
+        out.append(dict(label=label, q=q, k=k, v=v, do=do, causal=causal, window=window,
+                        served=served))
+    return out
+
+
+def _f64_backward(c):
+    """dq, dk, dv in float64 from float64 forward statistics: the error
+    the kernel and the f32 plain backward each carry."""
+    from repro_torch.kernels.flash_attention import attention_ref, flash_attention_bwd_ref, lse_ref
+
+    q, k, v, do = (c[n].double() for n in ("q", "k", "v", "do"))
+    kw = dict(causal=c["causal"], window=c["window"])
+    return flash_attention_bwd_ref(q, k, v, attention_ref(q, k, v, **kw), lse_ref(q, k, **kw),
+                                   do, **kw)
+
+
+def train_kernels_vs_plain():
+    """Part 1: the forward with lse and the backward kernel against their
+    plain versions on the same card tensors; o bitwise without and with
+    lse, and against the recorded outputs of the earlier source."""
+    from repro_torch.kernels import bitwise_check
+    from repro_torch.kernels.flash_attention import backward as bwd_kernel
+    from repro_torch.kernels.flash_attention import flash_attention_bwd_ref, lse_ref
+    from repro_torch.kernels.flash_attention import kernel as flash_kernel
+
+    gen = np.random.default_rng(13)
+    cases = flash_bwd_cases(gen)
+    worst = dict(abs=0.0, rel=0.0, lse=0.0, f64_kernel=0.0, f64_plain=0.0)
+    for c in cases:
+        q, k, v, do, kw = c["q"], c["k"], c["v"], c["do"], dict(causal=c["causal"],
+                                                                 window=c["window"])
+        o0 = flash_kernel.flash_attention_call(q, k, v, **kw)
+        o, lse = flash_kernel.flash_attention_call(q, k, v, return_lse=True, **kw)
+        grads = bwd_kernel.flash_attention_bwd_call(q, k, v, o, lse, do, **kw)
+        again = bwd_kernel.flash_attention_bwd_call(q, k, v, o, lse, do, **kw)
+        torch.cuda.synchronize()
+        plain = flash_attention_bwd_ref(q, k, v, o, lse, do, **kw)
+        lse_want = lse_ref(q, k, **kw)
+        f64 = _f64_backward(c)
+        if not all(torch.isfinite(g).all() and g.shape == p.shape for g, p in zip(grads, plain)):
+            raise AssertionError(f"{c['label']}: bad backward output")
+        rels = [rel_err(g, p) for g, p in zip(grads, plain)]
+        abs_err = max(float((g - p).abs().max()) for g, p in zip(grads, plain))
+        lse_rel = rel_err(lse, lse_want)
+        k64 = max(rel_err(g.double(), r) for g, r in zip(grads, f64))
+        p64 = max(rel_err(p.double(), r) for p, r in zip(plain, f64))
+        same_o = bool(torch.equal(o0, o))
+        same_bwd = all(torch.equal(a, b) for a, b in zip(grads, again))
+        worst.update(abs=max(worst["abs"], abs_err), rel=max(worst["rel"], *rels),
+                     lse=max(worst["lse"], lse_rel), f64_kernel=max(worst["f64_kernel"], k64),
+                     f64_plain=max(worst["f64_plain"], p64))
+        print(f"train-kernel flash_attention_bwd {c['label']:44s} dq/dk/dv rel "
+              f"{rels[0]:.3e}/{rels[1]:.3e}/{rels[2]:.3e} (tol {REL_TOL_BWD:g}) "
+              f"lse rel {lse_rel:.3e} (tol {REL_TOL_LSE:g}); vs float64: kernel {k64:.3e}, "
+              f"plain {p64:.3e}; o bitwise with lse {same_o}; backward bitwise {same_bwd}")
+        if not (max(rels) < REL_TOL_BWD and lse_rel < REL_TOL_LSE and same_o and same_bwd):
+            raise AssertionError(f"{c['label']}: flash training kernels vs plain failed")
+    rec = bitwise_check.check_recorded()
+    if rec["comparable"]:
+        print(f"train-kernel flash o vs the recorded outputs of {rec['source']}: "
+              f"{rec['cases'] - len(rec['mismatched'])}/{rec['cases']} cases bitwise equal "
+              f"without and with lse ({rec['nvcc']})")
+        if rec["mismatched"]:
+            raise AssertionError(f"flash o differs from {rec['source']}: {rec['mismatched']}")
+    else:
+        print(f"train-kernel flash o vs the recorded outputs of {rec['source']}: not "
+              f"comparable (recorded with {rec['recorded_nvcc']}, this run has {rec['nvcc']}; "
+              "or the case list changed)")
+    return cases, worst
+
+
+def train_full_width(smi: str):
+    """Part 2: `launch.train.main` at gemma3-1b's full width and depth,
+    fp32; per-step loss, grad norm, time and tokens/s; the flash forward
+    and backward launch counts of the run."""
+    from repro_torch.launch import train as launch_train
+
+    mods = kernel_libraries()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for mod in mods.values():
+        mod.LAUNCHES = 0  # main path: count only the training run
+    t0 = time.perf_counter()
+    state, history = launch_train.main(TRAIN_ARGS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: mod.LAUNCHES for k, mod in mods.items()}
+    peak = torch.cuda.max_memory_allocated()
+    model = state["params"]
+    steps, batch, seq = len(history), TRAIN_BATCH, TRAIN_SEQ
+    for h in history:
+        print(f"  train step {h['step']}: loss {h['loss']:.6f} grad_norm {h['grad_norm']:.6f} "
+              f"{h['seconds'] * 1e3:.2f} ms {batch * seq / h['seconds']:.1f} tokens/s")
+    attn = sum(s.mixer == "attn" for s in model.specs)
+    want = {"flash_attention": attn * 2 * steps, "flash_attention_bwd": attn * steps,
+            "fused_tile": 0, "conv1d_fused": 0, "decode_mlp": 0}
+    print(f"train {model.cfg.name}: {len(model.specs)} layers, d_model {model.cfg.d_model}, "
+          f"vocab {model.cfg.vocab_size}, {sum(p.numel() for p in model.parameters()) / 1e9:.4f} "
+          f"B params fp32, {steps} steps of {batch}x{seq} in {wall:.2f} s (with init); peak "
+          f"max_memory_allocated {peak / 2**30:.2f} GiB; launches {launches} (want {want}); "
+          f"card {smi}")
+    if steps != TRAIN_STEPS:
+        raise AssertionError(f"train: {steps} steps recorded")
+    if not all(np.isfinite(h["loss"]) and np.isfinite(h["grad_norm"]) for h in history):
+        raise AssertionError("train: a loss or grad norm is not finite")
+    for k, n in want.items():
+        if launches[k] != n:
+            raise AssertionError(f"train: {k} launched {launches[k]} times, expected {n}")
+    return dict(state=state, history=history, launches=launches, peak_bytes=peak,
+                tokens=batch * seq)
+
+
+def train_card_vs_cpu():
+    """Part 3: gemma3-1b cut to one period at full width, seed 0, B 1,
+    S 576: `lm_loss` and every gradient on the card and on the CPU."""
+    import copy
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.models import init_lm, lm_loss
+
+    cfg = dataclasses.replace(get_arch("gemma3-1b"), dtype="float32", n_layers=TRAIN_CUT)
+    card = init_lm(cfg, seed=0, device=DEV)
+    cpu = copy.deepcopy(card).to("cpu")
+    card.requires_grad_(True)
+    cpu.requires_grad_(True)
+    toks = torch.from_numpy(np.random.default_rng(2).integers(
+        0, cfg.vocab_size, (1, TRAIN_CUT_S + 1)))
+    batch = {"tokens": toks[:, :-1], "targets": toks[:, 1:]}
+    out = {}
+    for name, model in (("card", card), ("cpu", cpu)):
+        t0 = time.perf_counter()
+        dev = model.device
+        loss, _ = lm_loss(model, {k: t.to(dev) for k, t in batch.items()})
+        grads = torch.autograd.grad(loss, [p for _, p in model.named_parameters()])
+        out[name] = (float(loss.detach()), [g.cpu() for g in grads], time.perf_counter() - t0)
+    names = [n for n, _ in card.named_parameters()]
+    (l_card, g_card, t_card), (l_cpu, g_cpu, t_cpu) = out["card"], out["cpu"]
+    loss_rel = abs(l_card - l_cpu) / abs(l_cpu)
+    errs = {n: rel_err(a, b) for n, a, b in zip(names, g_card, g_cpu)}
+    worst = max(errs, key=errs.get)
+    print(f"train card-vs-cpu gemma3-1b cut to {TRAIN_CUT} layers, B1 S{TRAIN_CUT_S}: loss "
+          f"{l_card:.6f} vs {l_cpu:.6f} rel {loss_rel:.3e} (tol {REL_TOL_TRAIN_LOSS:g}); "
+          f"{len(errs)} gradient leaves, worst rel {errs[worst]:.3e} at {worst} "
+          f"(tol {REL_TOL_TRAIN_GRAD:g}); card {t_card:.2f} s, cpu {t_cpu:.2f} s")
+    if not loss_rel < REL_TOL_TRAIN_LOSS or not errs[worst] < REL_TOL_TRAIN_GRAD:
+        raise AssertionError("train: card vs cpu loss or gradients out of tolerance")
+
+
+def train_loop_drill():
+    """Part 4: the loop on `cfg.reduced()` on the card: 30 steps,
+    checkpoints every 5, injected failures at steps 12 and 21 restored
+    from disk, then a resume from disk to step 34."""
+    import dataclasses
+    import shutil
+
+    from repro_torch.configs import get_arch
+    from repro_torch.data import DataConfig, TokenStream
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.runtime.fault import FailureInjector
+    from repro_torch.train.loop import LoopConfig, train_loop
+    from repro_torch.train.step import TrainConfig, init_train_state, make_train_step
+
+    shutil.rmtree(TRAIN_CKPT, ignore_errors=True)
+    cfg = dataclasses.replace(get_arch("gemma3-1b").reduced(), dtype="float32")
+    tcfg = TrainConfig(optimizer=AdamWConfig(lr=3e-3), warmup_steps=5, total_steps=30)
+    stream = TokenStream(DataConfig(cfg.vocab_size, 64, 8, seed=0))
+    logs, loss_at = [], {}
+
+    def run(total):
+        state = init_train_state(cfg, tcfg, seed=0, device=DEV)
+        return train_loop(
+            state=state, train_step=make_train_step(cfg, tcfg), next_batch=stream.batch_at,
+            cfg=LoopConfig(total_steps=total, ckpt_dir=TRAIN_CKPT, ckpt_every=5,
+                           log_every=10),
+            injector=injector, log=logs.append,
+            on_step=lambda step, m, dt: loss_at.__setitem__(step, float(m["loss"])))
+
+    t0 = time.perf_counter()
+    injector = FailureInjector(fail_at_steps=DRILL_FAULTS)
+    final = run(30)
+    faults = sum(line.startswith("[fault]") for line in logs)
+    injector = None
+    resumed = run(34)
+    resumes = [line for line in logs if line.startswith("[resume]")]
+    print(f"train loop drill on {cfg.name} reduced (card): 30 steps, faults at {DRILL_FAULTS}, "
+          f"{faults} restored from checkpoints, final step {int(final['step'])}; loss step 0 "
+          f"{loss_at[0]:.4f}, step 29 {loss_at[29]:.4f}; resume: {resumes}, final step "
+          f"{int(resumed['step'])}; {time.perf_counter() - t0:.2f} s")
+    for line in logs:
+        if line.startswith(("[fault]", "[resume]")):
+            print(f"  {line}")
+    ok = (faults == len(DRILL_FAULTS) and int(final["step"]) == 30 and loss_at[29] < loss_at[0]
+          and len(resumes) == 1 and "restored step 29" in resumes[0]
+          and int(resumed["step"]) == 34)
+    if not ok:
+        raise AssertionError("train: the loop drill failed")
+
+
+def train_profile(run: dict) -> dict:
+    """One warm full-width step (after part 2's and one more untimed)
+    timed on the host, then one under `torch.profiler`: host wall time
+    beside device busy time, the idle share and the top kernels; the
+    backward kernels' device time per launch."""
+    import dataclasses
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_arch
+    from repro_torch.data import DataConfig, TokenStream
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.train.step import TrainConfig, make_train_step
+
+    state = run["state"]
+    cfg = dataclasses.replace(get_arch("gemma3-1b"), dtype="float32")
+    tcfg = TrainConfig(optimizer=AdamWConfig(lr=3e-3), warmup_steps=5, total_steps=6)
+    step = make_train_step(cfg, tcfg)
+    batch = TokenStream(DataConfig(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH, seed=0)).batch_at(
+        TRAIN_STEPS)
+    state, m = step(state, batch)  # the allocator warms again after parts 3 and 4
+    float(m["loss"])
+    t0 = time.perf_counter()
+    state, m = step(state, batch)
+    float(m["loss"])
+    wall = (time.perf_counter() - t0) * 1e3
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        state, m = step(state, batch)
+        float(m["loss"])
+    events = _kernel_events(prof)
+    busy = sum(_device_ms(e) for e in events)
+    out = dict(wall_ms=wall, busy_ms=busy or None)
+    if busy <= 0:
+        print(f"profile train step gemma3-1b B{TRAIN_BATCH} S{TRAIN_SEQ}: wall {wall:.3f} ms; "
+              "device time not "
+              "measured (the profiler saw no device events)")
+        return out
+    out["idle_share"] = max(0.0, 1 - busy / wall)
+    print(f"profile train step gemma3-1b B{TRAIN_BATCH} S{TRAIN_SEQ}: wall {wall:.3f} ms, device busy "
+          f"{busy:.3f} ms in {sum(e.count for e in events)} device events, idle share "
+          f"{out['idle_share']:.3f}")
+    for e in sorted(events, key=_device_ms, reverse=True)[:10]:
+        print(f"  {_device_ms(e):9.3f} ms  x{e.count:<5d} {e.key[:90]}")
+    for key in ("flash_fwd", "flash_bwd"):
+        sel = [e for e in events if key in e.key]
+        if sel:
+            n = sum(e.count for e in sel if "delta" in e.key or key == "flash_fwd")
+            out[key] = sum(_device_ms(e) for e in sel)
+            print(f"  {key}: {out[key]:.3f} ms device time in the step "
+                  f"({out[key] / max(n, 1):.4f} ms per launch over {n} launches)")
+    return out
+
+
+def train_times(cases) -> dict:
+    """The backward kernel at gemma3-1b's global training layer: CUDA
+    events and profiler device time beside the plain backward, the
+    library's (the backward of `F.scaled_dot_product_attention`, fp32, kv
+    heads repeated beforehand, the backend torch picked) and the bound
+    (2.5x the forward's FLOPs at the fp32 FMA peak; bytes: q, k, v, o,
+    dO, lse read once, dq, dk, dv written once)."""
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    from repro_torch.kernels.flash_attention import backward as bwd_kernel
+    from repro_torch.kernels.flash_attention import flash_attention_bwd_ref
+    from repro_torch.kernels.flash_attention import kernel as flash_kernel
+    from repro_torch.kernels.flash_attention.ref import band_mask
+
+    c = next(c for c in cases if c["served"])
+    q, k, v, do = c["q"], c["k"], c["v"], c["do"]
+    kw = dict(causal=c["causal"], window=c["window"])
+    o, lse = flash_kernel.flash_attention_call(q, k, v, return_lse=True, **kw)
+    b, hq, sq, hd = q.shape
+    hkv, sk = k.shape[1], k.shape[2]
+    pairs = int(band_mask(sq, sk, device="cpu", **kw).sum())
+    ops = 2.5 * 4 * hd * pairs * b * hq
+    n_bytes = 4 * (3 * q.numel() + 2 * (k.numel() + v.numel()) + lse.numel() + q.numel())
+    b_ms, b_by = _bound(n_bytes, ops)
+    run = lambda: bwd_kernel.flash_attention_bwd_call(q, k, v, o, lse, do, **kw)
+    k_ms = time_ms(run, reps=10)
+    d_ms = device_ms(run, "flash_bwd", reps=5)
+    p_ms = time_ms(lambda: flash_attention_bwd_ref(q, k, v, o, lse, do, **kw), reps=5)
+    qc = q.detach().contiguous().requires_grad_(True)
+    kr = k.repeat_interleave(hq // hkv, 1).contiguous().requires_grad_(True)
+    vr = v.repeat_interleave(hq // hkv, 1).contiguous().requires_grad_(True)
+    l_ms, backend = None, None
+    for bk in (SDPBackend.EFFICIENT_ATTENTION, SDPBackend.MATH):
+        try:
+            with sdpa_kernel([bk]):
+                out = F.scaled_dot_product_attention(qc, kr, vr, is_causal=True)
+                l_ms = time_ms(lambda: torch.autograd.grad(out, (qc, kr, vr), do,
+                                                           retain_graph=True), reps=10)
+            backend = bk.name
+            break
+        except RuntimeError as e:
+            print(f"  SDPA backward with {bk.name}: {str(e).splitlines()[0][:100]}")
+    print(f"time flash_attention_bwd {c['label']:44s} kernel {k_ms:.4f} ms (profiler device "
+          f"time {d_ms if d_ms is None else round(d_ms, 4)} ms)  plain {p_ms:.4f} ms  library "
+          f"(SDPA backward, {backend}) {l_ms if l_ms is None else round(l_ms, 4)} ms  bound "
+          f"{b_ms:.4f} ms ({b_by}, fp32 FMA peak)")
+    return dict(shape=c["label"], ms=k_ms, device_ms=d_ms, plain_ms=p_ms, library_ms=l_ms,
+                library_backend=f"SDPA backward, {backend}", bound_ms=b_ms, bound_by=b_by)
+
+
+def phase_train(smi: str) -> dict:
+    """Phase 13 (module docstring): the flash training kernels against
+    their plain versions, gemma3-1b trained at full width, card against
+    CPU, the loop drill, a profiled step and the backward's times."""
+    t_phase = time.perf_counter()
+    cases, worst = train_kernels_vs_plain()
+    run = train_full_width(smi)
+    train_card_vs_cpu()
+    train_loop_drill()
+    prof = train_profile(run)
+    times = train_times(cases)
+    run.pop("state")
+    print(f"train: phase wall time {time.perf_counter() - t_phase:.2f} s")
+    return dict(worst=worst, run=run, profile=prof, times=times)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the GPU only",
@@ -1843,6 +2235,9 @@ def main() -> int:
     online = phase_online(smi)
     adapt = phase_adapt(online["hw"], smi)
     fleet = phase_fleet(online["hw"], smi)
+    for s in lm_served.values():
+        s.pop("model")  # the served weights: room for training
+    train = phase_train(smi)
 
     # headline shape: the widest served vgg layer when vgg reaches the
     # kernel (64->64 at bucket 64), else fft_fewchannel's 8->8
@@ -1890,7 +2285,22 @@ def main() -> int:
         if name == "flash_attention":
             kernels["kernels"][-1].update(
                 launches_stablelm_cut=stablelm["flash_attention"],
-                hd80=lm_rows["flash_attention_hd80"])
+                hd80=lm_rows["flash_attention_hd80"],
+                launches_by_path={"serve gemma3-1b": run["launches"][name],
+                                  "train gemma3-1b": train["run"]["launches"][name]},
+                launches_per_train_step=train["run"]["launches"][name] / TRAIN_STEPS)
+    tw = train["worst"]
+    kernels["kernels"].append(dict(
+        name="flash_attention_bwd", route="cuda", source=FLASH_BWD_SOURCE,
+        replaces=FLASH_BWD_REPLACES,
+        launches=train["run"]["launches"]["flash_attention_bwd"],
+        launches_per=(f"{train['run']['launches']['flash_attention_bwd'] / TRAIN_STEPS:g} "
+                      "per train step of gemma3-1b"),
+        max_abs_err=tw["abs"], max_rel_err=tw["rel"], max_rel_err_lse=tw["lse"],
+        max_rel_err_vs_f64=tw["f64_kernel"], max_rel_err_plain_vs_f64=tw["f64_plain"],
+        **train["times"],
+        train_step_device_ms=train["profile"].get("flash_bwd"),
+    ))
     print(json.dumps(kernels))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -34,11 +34,30 @@ NVCC_FLAGS = (
 )
 
 
+def refuse_grad(kernel: str, roadmap: str, *tensors: torch.Tensor) -> None:
+    """Raise `NotImplementedError` when grad mode is on and an input of a
+    kernel that has no backward requires grad: its output, written by the
+    kernel into a fresh tensor, would carry no `grad_fn`, and a backward
+    pass would silently leave everything upstream without a gradient.
+    `roadmap` names the item that brings the backward."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise NotImplementedError(
+            f"{kernel} has no autograd backward: under grad its output would "
+            f"carry no gradient ({roadmap})"
+        )
+
+
 def nvcc() -> str:
     home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
     if home:
         return str(pathlib.Path(home) / "bin" / "nvcc")
     return shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+
+
+def nvcc_version() -> str:
+    """The last line of ``nvcc --version`` (the release and build)."""
+    out = subprocess.run([nvcc(), "--version"], capture_output=True, text=True, check=True)
+    return out.stdout.strip().splitlines()[-1]
 
 
 class CudaLibrary:

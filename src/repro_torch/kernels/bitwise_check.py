@@ -6,21 +6,32 @@ earlier version of their sources, on one card.
 
 DIR holds the earlier `flash_attention.cu` and `conv1d_fused.cu`, e.g.
 from `git show <commit>:src/repro_torch/kernels/flash_attention/csrc/
-flash_attention.cu` and the same for the conv1d source.  Both C entry
-points keep their signatures across those versions, so each old source is
-built as a `_build.CudaLibrary` of its own and swapped in as the
-wrapper's `LIB` between calls on the same inputs.  The cases are every
-head dim and every tap count both versions take (flash at hd 16, 32, 64,
-128 and 256, causal with and without a window, non-causal, GQA; conv1d
-at K 1..8 with float4 and single-float units, SiLU on and off).  Every
-output pair must be bitwise equal; the run exits 1 otherwise.  Rows go to
-`--out` as JSON with the card's name and power limit.
+flash_attention.cu` and the same for the conv1d source.  Each old source
+is built as a `_build.CudaLibrary` of its own and swapped in as the
+wrapper's `LIB` between calls on the same inputs.  The flash entry point
+gained an `lse` pointer after those versions (the log-sum-exp that
+training's backward reads): the old source is called without it, and the
+current kernel's output is compared both without and with the lse
+written.  The cases are every head dim and every tap count (flash at hd
+16, 32, 64, 80, 112, 128 and 256, causal with and without a window,
+non-causal, GQA; conv1d at K 1..8 with float4 and single-float units,
+SiLU on and off); an old source that lacks a head dim fails that case.
+Every output pair must be bitwise equal; the run exits 1 otherwise.  Rows
+go to `--out` as JSON with the card's name and power limit.
+
+`--record PATH` also writes the SHA-256 of the old flash source's output
+at every flash case, with the nvcc release that built it, so that a run
+without the old source can hold the current kernel to it
+(`check_recorded`; `chip_smoke.py` does, against `RECORDED`, the outputs
+of the flash source at commit f69b32c).  The digests are comparable only
+under the same nvcc release on the same card.
 """
 
 from __future__ import annotations
 
 import argparse
 import ctypes
+import hashlib
 import json
 import pathlib
 import subprocess
@@ -38,7 +49,7 @@ from repro_torch.kernels.flash_attention import kernel as flash_kernel
 FLASH = [
     # (B, Hq, Hkv, Sq, Sk, hd, causal, window)
     (b, hq, hkv, s, sk, hd, causal, window)
-    for hd in (16, 32, 64, 128, 256)
+    for hd in (16, 32, 64, 80, 112, 128, 256)
     for (b, hq, hkv, s, sk, causal, window) in (
         (2, 4, 1, 300, 300, True, 0),
         (1, 4, 2, 200, 200, True, 64),
@@ -56,11 +67,64 @@ CONV1D = [
 ]
 
 
+RECORDED = pathlib.Path(__file__).parent / "flash_attention" / "recorded_outputs.json"
+
+
+def flash_operands(dev):
+    """(case, q, k, v) for every flash case, from one seeded generator."""
+    gen = np.random.default_rng(0)
+    for case in FLASH:
+        b, hq, hkv, sq, sk, hd = case[:6]
+        yield case, *(torch.tensor(gen.standard_normal(shape), dtype=torch.float32, device=dev)
+                      for shape in ((b, hq, sq, hd), (b, hkv, sk, hd), (b, hkv, sk, hd)))
+
+
+def digest(t: torch.Tensor) -> str:
+    return hashlib.sha256(t.detach().cpu().numpy().tobytes()).hexdigest()
+
+
+def check_recorded(path: pathlib.Path = RECORDED) -> dict:
+    """The current flash kernel's output, without and with the lse
+    written, against the digests `--record` wrote: ``comparable`` is False
+    (and nothing is compared) when this nvcc release or the case list is
+    not the recorded one; ``mismatched`` lists the cases whose bits
+    differ."""
+    rec = json.loads(pathlib.Path(path).read_text())
+    out = dict(nvcc=_build.nvcc_version(), recorded_nvcc=rec["nvcc"], source=rec["source"],
+               cases=len(rec["digests"]), mismatched=[])
+    out["comparable"] = out["nvcc"] == rec["nvcc"] and rec["cases"] == [list(c) for c in FLASH]
+    if not out["comparable"]:
+        return out
+    for (case, q, k, v), want in zip(flash_operands(torch.device("cuda")), rec["digests"],
+                                     strict=True):
+        causal, window = case[6], case[7]
+        y = flash_kernel.flash_attention_call(q, k, v, causal=causal, window=window)
+        y_lse, _ = flash_kernel.flash_attention_call(q, k, v, causal=causal, window=window,
+                                                     return_lse=True)
+        if digest(y) != want or digest(y_lse) != want:
+            out["mismatched"].append(list(case))
+    return out
+
+
 def _card() -> str:
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
     ).stdout.strip().splitlines()[0]
+
+
+class _WithoutLse:
+    """An earlier flash source, whose entry point has no `lse` pointer
+    (argument 4 of the current one): the pointer, which must be null, is
+    dropped."""
+
+    def __init__(self, lib: _build.CudaLibrary):
+        self.lib = lib
+
+    def launch(self, name, device, *args):
+        if args[4] is not None:
+            raise ValueError("an earlier flash source cannot write the lse")
+        self.lib.launch(name, device, *args[:4], *args[5:])
 
 
 def _both(mod, old_lib, fn):
@@ -81,28 +145,36 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--old", required=True, type=pathlib.Path)
     ap.add_argument("--out", type=pathlib.Path, default=None)
+    ap.add_argument("--record", type=pathlib.Path, default=None,
+                    help="write the old flash outputs' digests here")
+    ap.add_argument("--label", default=None,
+                    help="what the old sources are, for --record (default: --old)")
     args = ap.parse_args(argv)
     dev = torch.device("cuda")
-    old_flash = _build.CudaLibrary(
+    old_flash = _WithoutLse(_build.CudaLibrary(
         args.old / "flash_attention.cu", "flash_attention_old",
-        {"flash_attention_launch": flash_kernel.ARGTYPES})
+        {"flash_attention_launch": flash_kernel.ARGTYPES[:4] + flash_kernel.ARGTYPES[5:]}))
     old_conv = _build.CudaLibrary(
         args.old / "conv1d_fused.cu", "conv1d_fused_old",
         {"conv1d_fused_launch": [ctypes.c_void_p] * 6})
-    gen = np.random.default_rng(0)
-    mk = lambda shape, s=1.0: torch.tensor(gen.standard_normal(shape) * s,
-                                           dtype=torch.float32, device=dev)
-    rows, bad = [], 0
-    for b, hq, hkv, sq, sk, hd, causal, window in FLASH:
-        q, k, v = mk((b, hq, sq, hd)), mk((b, hkv, sk, hd)), mk((b, hkv, sk, hd))
+    rows, bad, digests = [], 0, []
+    for (b, hq, hkv, sq, sk, hd, causal, window), q, k, v in flash_operands(dev):
         y, y_old = _both(flash_kernel, old_flash, lambda: flash_attention(
             q, k, v, causal=causal, window=window))
-        same = bool(torch.equal(y, y_old))
-        bad += not same
+        y_lse, _ = flash_kernel.flash_attention_call(q, k, v, causal=causal, window=window,
+                                                     return_lse=True)
+        torch.cuda.synchronize()
+        digests.append(digest(y_old))
+        same, same_lse = bool(torch.equal(y, y_old)), bool(torch.equal(y_lse, y_old))
+        bad += not (same and same_lse)
         rows.append(dict(kernel="flash_attention", hd=hd, shape=[b, hq, hkv, sq, sk],
-                         causal=causal, window=window, bitwise_equal=same))
+                         causal=causal, window=window, bitwise_equal=same,
+                         bitwise_equal_with_lse=same_lse))
         print(f"flash hd {hd:3d} B{b} Hq{hq} Hkv{hkv} Sq{sq} Sk{sk} causal={causal} "
-              f"window={window}: bitwise equal {same}")
+              f"window={window}: bitwise equal {same}, with lse written {same_lse}")
+    gen = np.random.default_rng(1)
+    mk = lambda shape, s=1.0: torch.tensor(gen.standard_normal(shape) * s,
+                                           dtype=torch.float32, device=dev)
     for b, length, d, k, row, off, act in CONV1D:
         x = mk((b, length, row))[..., off:off + d]
         w, bias = mk((k, d), 0.5), mk((d,), 0.1)
@@ -119,6 +191,10 @@ def main(argv=None) -> int:
     if args.out is not None:
         args.out.parent.mkdir(parents=True, exist_ok=True)
         args.out.write_text(json.dumps(dict(card=card, rows=rows), indent=1))
+    if args.record is not None:
+        args.record.write_text(json.dumps(dict(
+            source=args.label or str(args.old), nvcc=_build.nvcc_version(), card=card,
+            cases=[list(c) for c in FLASH], digests=digests), indent=1) + "\n")
     return 1 if bad else 0
 
 

@@ -110,6 +110,7 @@ def conv1d_fused_call(
     returns: (B, L, D) contiguous, act(causal conv + b).
     """
     global LAUNCHES
+    _build.refuse_grad("conv1d_fused", "ROADMAP §1, mamba2 training", x, w, b)
     if activation not in ("silu", "none"):
         raise ValueError(f"activation must be 'silu' or 'none', got {activation!r}")
     index = x.get_device()  # -1 on the CPU

@@ -65,8 +65,8 @@ class Conv1dFusedAlgorithm(registry.Algorithm):
     def supports(self, spec: registry.ConvSpec) -> bool:
         """Any K, fp32 or bf16, as the reference's kernel takes them.  On
         the card the CUDA kernel takes fp32 only: a bf16 spec plans here
-        and raises at execute until the bf16 kernels land (ROADMAP §1
-        item 9)."""
+        and raises at execute until the bf16 kernels land (ROADMAP §1,
+        reduced precision)."""
         return (
             spec.temporal
             and spec.groups == spec.c_in == spec.c_out

@@ -143,6 +143,8 @@ def decode_mlp_call(
     returns: (B, d) = (silu(x W1) * x W3) W2.
     """
     global LAUNCHES
+    _build.refuse_grad("decode_mlp", "ROADMAP §1, training: the gradients still to port",
+                       x, w1, w3, w2)
     index = x.get_device()  # -1 on the CPU
     for name, t in (("x", x), ("w1", w1), ("w3", w3), ("w2", w2)):
         if (t.dtype is not torch.float32 or index < 0 or t.get_device() != index

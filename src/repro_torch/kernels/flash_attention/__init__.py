@@ -1,4 +1,19 @@
-from repro_torch.kernels.flash_attention.ops import flash_attention
-from repro_torch.kernels.flash_attention.ref import attention_ref
+from repro_torch.kernels.flash_attention.ops import (
+    flash_attention,
+    flash_attention_bwd,
+    flash_attention_fwd,
+)
+from repro_torch.kernels.flash_attention.ref import (
+    attention_ref,
+    flash_attention_bwd_ref,
+    lse_ref,
+)
 
-__all__ = ["attention_ref", "flash_attention"]
+__all__ = [
+    "attention_ref",
+    "flash_attention",
+    "flash_attention_bwd",
+    "flash_attention_bwd_ref",
+    "flash_attention_fwd",
+    "lse_ref",
+]

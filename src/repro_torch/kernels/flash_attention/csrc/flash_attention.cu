@@ -177,9 +177,9 @@ __device__ __forceinline__ void pair_sync(int row_warp) {
 template <int HD>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                 const float* __restrict__ v, float* __restrict__ o, int hq, int sq,
-                 int sk, int group, Strides qs, Strides ks, Strides vs, Strides os,
-                 int causal, int window, float scale) {
+                 const float* __restrict__ v, float* __restrict__ o,
+                 float* __restrict__ lse, int hq, int sq, int sk, int group, Strides qs,
+                 Strides ks, Strides vs, Strides os, int causal, int window, float scale) {
   using C = Cfg<HD>;
   constexpr int LD = C::LD, DC = C::DC, E = C::E, NT = C::NT, NH = C::NH;
   extern __shared__ float4 smem4[];
@@ -380,6 +380,20 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
   cp_wait<0>();
 
+  // the log-sum-exp of each row's scaled scores, (batch, hq, sq) contiguous:
+  // log(l) + m, and 0 for a row that sees no key (the reference's lse); both
+  // warps of a pair hold the same (m, l), so the first half's t == 0 lanes
+  // write it.  Nothing here feeds o.
+  if (lse != nullptr && hf == 0 && t == 0) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = r0 + g + 8 * r;
+      if (row >= sq) continue;
+      lse[((long long)bi * hq + h) * sq + row] =
+          (l_run[r] > 0.f ? logf(l_run[r]) : 0.f) + (isfinite(m_run[r]) ? m_run[r] : 0.f);
+    }
+  }
+
   // thread (g, t) holds, per chunk c of its half, hd columns
   // c * DC + 2t * NT + [0, 2 NT)
 #pragma unroll
@@ -402,8 +416,8 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
 }
 
 template <int HD>
-int launch(const float* q, const float* k, const float* v, float* o, int batch, int hq,
-           int hkv, int sq, int sk, Strides qs, Strides ks, Strides vs, Strides os,
+int launch(const float* q, const float* k, const float* v, float* o, float* lse, int batch,
+           int hq, int hkv, int sq, int sk, Strides qs, Strides ks, Strides vs, Strides os,
            int causal, int window, float scale, cudaStream_t stream) {
   constexpr int smem = Cfg<HD>::smem;
   // the opt-in above 48 KB is set once per process and instantiation
@@ -416,18 +430,19 @@ int launch(const float* q, const float* k, const float* v, float* o, int batch, 
   }
   const dim3 grid(batch * hq, (sq + kBq - 1) / kBq);
   flash_fwd_kernel<HD><<<grid, kThreads, smem, stream>>>(
-      q, k, v, o, hq, sq, sk, hq / hkv, qs, ks, vs, os, causal, window, scale);
+      q, k, v, o, lse, hq, sq, sk, hq / hkv, qs, ks, vs, os, causal, window, scale);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // q (batch, hq, sq, hd), k/v (batch, hkv, sk, hd), o like q, each addressed
-// by its (batch, head, sequence) strides in elements with hd contiguous;
+// by its (batch, head, sequence) strides in elements with hd contiguous; lse,
+// when not null, (batch, hq, sq) contiguous f32 (the backward's input);
 // pointers and strides 16-byte aligned; hd in {16, 32, 64, 80, 112, 128, 256}; hq a
 // multiple of hkv.  Launches on `stream`; returns cudaGetLastError().
 extern "C" int flash_attention_launch(
-    const float* q, const float* k, const float* v, float* o, int batch,
+    const float* q, const float* k, const float* v, float* o, float* lse, int batch,
     int hq, int hkv, int sq, int sk, int hd, long long q_sb, long long q_sh,
     long long q_ss, long long k_sb, long long k_sh, long long k_ss,
     long long v_sb, long long v_sh, long long v_ss, long long o_sb,
@@ -439,13 +454,13 @@ extern "C" int flash_attention_launch(
       os{o_sb, o_sh, o_ss};
   cudaStream_t s = (cudaStream_t)stream;
   switch (hd) {
-    case 16: return launch<16>(q, k, v, o, batch, hq, hkv, sq, sk, qs, ks, vs, os, causal, window, scale, s);
-    case 32: return launch<32>(q, k, v, o, batch, hq, hkv, sq, sk, qs, ks, vs, os, causal, window, scale, s);
-    case 64: return launch<64>(q, k, v, o, batch, hq, hkv, sq, sk, qs, ks, vs, os, causal, window, scale, s);
-    case 80: return launch<80>(q, k, v, o, batch, hq, hkv, sq, sk, qs, ks, vs, os, causal, window, scale, s);
-    case 112: return launch<112>(q, k, v, o, batch, hq, hkv, sq, sk, qs, ks, vs, os, causal, window, scale, s);
-    case 128: return launch<128>(q, k, v, o, batch, hq, hkv, sq, sk, qs, ks, vs, os, causal, window, scale, s);
-    case 256: return launch<256>(q, k, v, o, batch, hq, hkv, sq, sk, qs, ks, vs, os, causal, window, scale, s);
+    case 16: return launch<16>(q, k, v, o, lse, batch, hq, hkv, sq, sk, qs, ks, vs, os, causal, window, scale, s);
+    case 32: return launch<32>(q, k, v, o, lse, batch, hq, hkv, sq, sk, qs, ks, vs, os, causal, window, scale, s);
+    case 64: return launch<64>(q, k, v, o, lse, batch, hq, hkv, sq, sk, qs, ks, vs, os, causal, window, scale, s);
+    case 80: return launch<80>(q, k, v, o, lse, batch, hq, hkv, sq, sk, qs, ks, vs, os, causal, window, scale, s);
+    case 112: return launch<112>(q, k, v, o, lse, batch, hq, hkv, sq, sk, qs, ks, vs, os, causal, window, scale, s);
+    case 128: return launch<128>(q, k, v, o, lse, batch, hq, hkv, sq, sk, qs, ks, vs, os, causal, window, scale, s);
+    case 256: return launch<256>(q, k, v, o, lse, batch, hq, hkv, sq, sk, qs, ks, vs, os, causal, window, scale, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -3,8 +3,9 @@
 `csrc/flash_attention.cu` is compiled with nvcc for sm_90a on first use
 (`kernels._build`).  `flash_attention_call` takes CUDA tensors only and
 raises on anything the kernel does not take; the plain version of the
-same function is `ref.attention_ref`.  `LAUNCHES` counts the kernel's
-launches.
+same function is `ref.attention_ref` (and `ref.lse_ref` for the
+log-sum-exp that training's backward reads).  `LAUNCHES` counts the
+kernel's launches.
 
 The kernel addresses q, k, v and the output by (batch, head, sequence)
 strides with the head dim contiguous, so a (B, H, S, hd) view of the
@@ -30,7 +31,7 @@ HEAD_DIMS = (16, 32, 64, 80, 112, 128, 256)
 SOURCE = pathlib.Path(__file__).parent / "csrc" / "flash_attention.cu"
 # `flash_attention_launch`'s C signature, in order (the stream is appended)
 ARGTYPES = (
-    [ctypes.c_void_p] * 4  # q, k, v, o
+    [ctypes.c_void_p] * 5  # q, k, v, o, lse (null: not written)
     + [ctypes.c_int] * 6  # batch, hq, hkv, sq, sk, hd
     + [ctypes.c_longlong] * 12  # (b, h, s) strides of q, k, v, o
     + [ctypes.c_int] * 2  # causal, window
@@ -59,16 +60,22 @@ def flash_attention_call(
     *,
     causal: bool,
     window: int,
-) -> torch.Tensor:
+    return_lse: bool = False,
+):
     """Launch the kernel on the current stream.
 
     q: (B, Hq, Sq, hd), k/v: (B, Hkv, Sk, hd) f32 on the card, any
     (batch, head, sequence) strides with hd contiguous; Hq % Hkv == 0,
     hd in `HEAD_DIMS`.  Sq and Sk need not be multiples of the kernel's
     tiles: the ragged edges are masked in the kernel.
-    returns: (B, Hq, Sq, hd) in q's memory layout.
+    returns: (B, Hq, Sq, hd) in q's memory layout; with `return_lse`
+    also the f32 log-sum-exp of each row's scaled scores, (B, Hq, Sq)
+    contiguous (0 for a row that sees no key).  Writing it changes no
+    bit of the output.
     """
     global LAUNCHES
+    _build.refuse_grad("flash_attention", "training goes through "
+                       "repro_torch.models.flash_attention, which has one", q, k, v)
     for name, t in (("q", q), ("k", k), ("v", v)):
         _check(name, t, q.device)
     b, hq, sq, hd = q.shape
@@ -82,13 +89,15 @@ def flash_attention_call(
                          f"{HEAD_DIMS} (the registered configs' head dims)")
     out = torch.empty_like(q)  # q's layout (dense views keep their strides)
     _check("out", out, q.device)
+    lse = torch.empty((b, hq, sq), dtype=torch.float32, device=q.device) if return_lse else None
     LIB.launch(
         "flash_attention_launch", q.device,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        lse.data_ptr() if return_lse else None,
         b, hq, hkv, sq, sk, hd,
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3],
         int(causal), int(window), hd ** -0.5,
     )
     with _build.COUNT_LOCK:
         LAUNCHES += 1
-    return out
+    return (out, lse) if return_lse else out

@@ -1,16 +1,25 @@
-"""Forward flash attention's entry point.
+"""Flash attention's entry points: the forward (`flash_attention`), the
+forward with its log-sum-exp (`flash_attention_fwd`) and the backward
+(`flash_attention_bwd`) that training reads.
 
 The device decides the path: a CUDA tensor launches the CUDA kernel
-(`kernel.flash_attention_call`) or raises, a CPU tensor runs the plain
-version (`ref.attention_ref`).
+(`kernel.flash_attention_call`, `backward.flash_attention_bwd_call`) or
+raises, a CPU tensor runs the plain version (`ref`).
 """
 
 from __future__ import annotations
 
+from typing import Tuple
+
 import torch
 
+from repro_torch.kernels.flash_attention import backward as _backward
 from repro_torch.kernels.flash_attention import kernel as _kernel
-from repro_torch.kernels.flash_attention.ref import attention_ref
+from repro_torch.kernels.flash_attention.ref import (
+    attention_ref,
+    flash_attention_bwd_ref,
+    lse_ref,
+)
 
 # the reference wrapper's kv block: it pads Sk up to a multiple of it,
 # which only a causal mask keeps harmless
@@ -38,3 +47,27 @@ def flash_attention(
     if q.device.type == "cuda":
         return _kernel.flash_attention_call(q, k, v, causal=causal, window=window)
     return attention_ref(q, k, v, causal=causal, window=window)
+
+
+def flash_attention_fwd(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool, window: int
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(o, lse): the forward's output and the f32 (B, Hq, Sq) log-sum-exp
+    of each row's scaled scores (0 for a row that sees no key)."""
+    if q.device.type == "cuda":
+        return _kernel.flash_attention_call(
+            q, k, v, causal=causal, window=window, return_lse=True)
+    return (attention_ref(q, k, v, causal=causal, window=window),
+            lse_ref(q, k, causal=causal, window=window))
+
+
+def flash_attention_bwd(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor,
+    lse: torch.Tensor, do: torch.Tensor, *, causal: bool, window: int,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(dq, dk, dv) from the forward's q, k, v, o, lse and the gradient
+    dO of o."""
+    if q.device.type == "cuda":
+        return _backward.flash_attention_bwd_call(
+            q, k, v, o, lse, do, causal=causal, window=window)
+    return flash_attention_bwd_ref(q, k, v, o, lse, do, causal=causal, window=window)

@@ -1,9 +1,36 @@
-"""The plain PyTorch version of forward attention (the flash kernel's
-oracle, and what the wrapper runs for a tensor on the CPU)."""
+"""The plain PyTorch versions of flash attention: forward attention, the
+log-sum-exp the forward kernel writes for training, and the backward.
+They are the kernels' oracles, and what the wrappers run for a tensor on
+the CPU."""
 
 from __future__ import annotations
 
+from typing import Tuple
+
 import torch
+
+
+def band_mask(sq: int, sk: int, *, causal: bool, window: int, device) -> torch.Tensor:
+    """(Sq, Sk) boolean: key j visible to query i when j <= i if causal,
+    i - j < window if window > 0 (positions are indices)."""
+    qp = torch.arange(sq, device=device)[:, None]
+    kp = torch.arange(sk, device=device)[None, :]
+    ok = torch.ones((sq, sk), dtype=torch.bool, device=device)
+    if causal:
+        ok &= kp <= qp
+    if window > 0:
+        ok &= qp - kp < window
+    return ok
+
+
+def _scores(q: torch.Tensor, k: torch.Tensor, causal: bool, window: int):
+    """Masked scaled scores (B, Hq, Sq, Sk) in f32 and the mask."""
+    hq, sq, hd = q.shape[1], q.shape[2], q.shape[3]
+    hkv, sk = k.shape[1], k.shape[2]
+    k = k.repeat_interleave(hq // hkv, dim=1)
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * hd ** -0.5
+    ok = band_mask(sq, sk, causal=causal, window=window, device=q.device)
+    return s.masked_fill(~ok, float("-inf")), ok
 
 
 def attention_ref(
@@ -16,22 +43,56 @@ def attention_ref(
 ) -> torch.Tensor:
     """Masked softmax attention in f32 with the flash kernel's semantics:
     kv head = q head // (Hq / Hkv), scale hd^-0.5, positions are indices
-    (key j visible to query i when j <= i if causal, i - j < window if
-    window > 0), and a fully masked row gives 0."""
-    hq, sq, hd = q.shape[1], q.shape[2], q.shape[3]
-    hkv, sk = k.shape[1], k.shape[2]
-    g = hq // hkv
-    k = k.repeat_interleave(g, dim=1)
-    v = v.repeat_interleave(g, dim=1)
-    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * hd ** -0.5
-    qp = torch.arange(sq, device=q.device)[:, None]
-    kp = torch.arange(sk, device=q.device)[None, :]
-    ok = torch.ones((sq, sk), dtype=torch.bool, device=q.device)
-    if causal:
-        ok &= kp <= qp
-    if window > 0:
-        ok &= qp - kp < window
-    s = s.masked_fill(~ok, float("-inf"))
+    (`band_mask`), and a fully masked row gives 0."""
+    s, _ = _scores(q, k, causal, window)
+    v = v.repeat_interleave(q.shape[1] // k.shape[1], dim=1)
     p = torch.softmax(s, dim=-1)
     p = torch.nan_to_num(p, nan=0.0)
     return torch.einsum("bhqk,bhkd->bhqd", p, v.float()).to(q.dtype)
+
+
+def lse_ref(
+    q: torch.Tensor, k: torch.Tensor, *, causal: bool = True, window: int = 0
+) -> torch.Tensor:
+    """The log-sum-exp of each row's masked scaled scores, (B, Hq, Sq) f32,
+    0 for a row that sees no key: the reference's `lse` (`log(l) + m`)."""
+    s, _ = _scores(q, k, causal, window)
+    lse = torch.logsumexp(s, dim=-1)
+    return torch.where(torch.isfinite(lse), lse, torch.zeros_like(lse))
+
+
+def flash_attention_bwd_ref(
+    q: torch.Tensor,  # (B, Hq, Sq, hd)
+    k: torch.Tensor,  # (B, Hkv, Sk, hd)
+    v: torch.Tensor,
+    o: torch.Tensor,  # (B, Hq, Sq, hd), the forward's output
+    lse: torch.Tensor,  # (B, Hq, Sq), the forward's log-sum-exp
+    do: torch.Tensor,  # (B, Hq, Sq, hd), the gradient of o
+    *,
+    causal: bool = True,
+    window: int = 0,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(dq, dk, dv) of attention, after the reference's `_flash_bwd`
+    (`src/repro/models/flash_attention.py`) in one dense pass: P is
+    recomputed from q, k and the forward's `lse` (never from a stored
+    softmax), delta = rowsum(dO o), dS = P (dO v^T - delta); a kv head's
+    gradients sum over its q heads.  f32 throughout."""
+    b, hq, sq, hd = q.shape
+    hkv, sk = k.shape[1], k.shape[2]
+    g = hq // hkv
+    scale = hd ** -0.5
+    qf = (q.float() * scale).reshape(b, hkv, g, sq, hd)
+    kf, vf = k.float(), v.float()
+    dof = do.float().reshape(b, hkv, g, sq, hd)
+    of = o.float().reshape(b, hkv, g, sq, hd)
+    delta = (dof * of).sum(-1)  # (B, Hkv, g, Sq)
+    s = torch.einsum("bhgqd,bhkd->bhgqk", qf, kf)
+    ok = band_mask(sq, sk, causal=causal, window=window, device=q.device)
+    p = torch.where(ok, torch.exp(s - lse.float().reshape(b, hkv, g, sq)[..., None]),
+                    torch.zeros_like(s))
+    dv = torch.einsum("bhgqk,bhgqd->bhkd", p, dof)
+    dp = torch.einsum("bhgqd,bhkd->bhgqk", dof, vf)
+    ds = p * (dp - delta[..., None])
+    dq = torch.einsum("bhgqk,bhkd->bhgqd", ds, kf) * scale
+    dk = torch.einsum("bhgqk,bhgqd->bhkd", ds, qf)
+    return (dq.reshape(b, hq, sq, hd).to(q.dtype), dk.to(k.dtype), dv.to(v.dtype))

@@ -405,6 +405,8 @@ def fused_tile_call(
     call signature; every call checks device, type and contiguity.
     """
     global LAUNCHES
+    _build.refuse_grad("fused_tile", "ROADMAP §1, training: the gradients still to port",
+                       xp, rhs, biases)
     for name, t in (("xp", xp), ("rhs", rhs), ("biases", biases)):
         _check(name, t)
     if not (xp.device == rhs.device == biases.device):

@@ -1,7 +1,9 @@
 """Attention: GQA (+bias, +qk-norm, +sliding window), prefill and decode.
 
 Prefill runs full-sequence attention through the flash-attention kernel
-(its plain version on the CPU).  Decode attends over the cache in one
+(its plain version on the CPU); under grad (training) it goes through
+`models.flash_attention.FlashAttention`, whose backward is the flash
+backward kernel.  Decode attends over the cache in one
 masked pass (the reference's one-shot path of `chunked_attention`), in
 plain torch.  Local layers keep a ring buffer of `window` slots, global
 layers a dense `max_len` cache; `pos < 0` marks an empty slot.
@@ -20,6 +22,7 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.models import flash_attention as flash_grad
 from repro_torch.models.common import apply_rotary, dense_init, rms_norm
 
 Cache = Dict[str, torch.Tensor]
@@ -36,11 +39,16 @@ def full_attention(
     0..S-1 (`lm_prefill` builds them so), so the kernel's index masks are
     the reference's position masks.  The (B, H, S, hd) views handed to the
     kernel are transposes of the model's layout; it reads them in place
-    and writes its output in q's layout."""
-    out = flash_attention(
-        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-        causal=True, window=int(window or 0),
-    )
+    and writes its output in q's layout.  When grad is on and an input
+    needs it, the call is `FlashAttention`'s, which also writes the
+    log-sum-exp for the backward; otherwise (serving) the forward kernel
+    alone runs."""
+    qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+    window = int(window or 0)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        out = flash_grad.flash_attention(qt, kt, vt, causal=True, window=window)
+    else:
+        out = flash_attention(qt, kt, vt, causal=True, window=window)
     return out.transpose(1, 2)
 
 

@@ -8,6 +8,10 @@ super-blocks of 5 local + 1 global attention layers plus a tail group,
 mamba2 is one group of mamba layers.  Where the reference scans over
 stacked layer weights, the port walks a flat list of per-layer modules
 (`plan_layer_specs` gives each layer's spec, in the same order).
+`apply_stack` runs the full-sequence stack for training; with `remat`
+each super-block runs under `torch.utils.checkpoint` (the reference's
+`jax.checkpoint(body)` over one scan step), so the backward recomputes
+a super-block's activations instead of storing them.
 
 Ported mixers: GQA attention ("attn") and "mamba", each layer with its
 dense MLP where the spec has one.  Architectures with MLA, MoE, zamba2's
@@ -22,6 +26,7 @@ import dataclasses
 from typing import Dict, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import attention as attn_mod
@@ -137,6 +142,38 @@ def apply_layer(
     if spec.has_mlp:
         x = x + mlp_mod.mlp_forward(p["mlp"], rms_norm(x, p["ln2"], cfg.norm_eps))
     return x, cache
+
+
+def super_block_spans(plan: Tuple[GroupSpec, ...]) -> Tuple[Tuple[int, int], ...]:
+    """(first layer, layer count) of each super-block, in stack order."""
+    spans, start = [], 0
+    for g in plan:
+        for _ in range(g.n_repeat):
+            spans.append((start, len(g.layers)))
+            start += len(g.layers)
+    return tuple(spans)
+
+
+def apply_stack(
+    layers,
+    specs: Tuple[LayerSpec, ...],
+    spans: Tuple[Tuple[int, int], ...],
+    cfg: ArchConfig,
+    x: torch.Tensor,
+    positions: torch.Tensor,
+    *,
+    remat: bool = False,
+) -> torch.Tensor:
+    """The full-sequence stack (training): every layer in order; with
+    `remat`, one `checkpoint(..., use_reentrant=False)` per super-block."""
+    for start, n in spans:
+        def body(x, start=start, n=n):
+            for i in range(start, start + n):
+                x, _ = apply_layer(layers[i], specs[i], cfg, x, positions)
+            return x
+
+        x = checkpoint(body, x, use_reentrant=False) if remat else body(x)
+    return x
 
 
 def apply_layer_decode(

@@ -1,4 +1,5 @@
-"""Shared model components: norms, rotary embeddings, initialisers."""
+"""Shared model components: norms, rotary embeddings, the loss,
+initialisers."""
 
 from __future__ import annotations
 
@@ -32,6 +33,21 @@ def apply_rotary(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torc
     sin = torch.sin(ang)[:, :, None, :].to(x.dtype)
     x1, x2 = x[..., : hd // 2], x[..., hd // 2 :]
     return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+
+
+def softmax_cross_entropy(
+    logits: torch.Tensor, targets: torch.Tensor, mask: Optional[torch.Tensor] = None
+) -> torch.Tensor:
+    """Mean token NLL with f32 logits; targets (B, S) int; mask optional
+    (the masked mean over max(sum(mask), 1))."""
+    logits = logits.float()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, targets.long()[..., None])[..., 0]
+    nll = logz - gold
+    if mask is None:
+        return nll.mean()
+    mask = mask.float()
+    return (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
 
 
 def pad_vocab(vocab_size: int, multiple: int = 2048) -> int:
@@ -70,7 +86,10 @@ class Params(torch.nn.Module):
     the reference's parameter pytrees.  ``p["wq"]`` and ``"bq" in p`` read
     like the reference's dicts, while `.to()`, `state_dict()` and
     `parameters()` work as on any Module.  Sub-mappings become nested
-    `Params`; the tensors are Parameters that need no gradient."""
+    `Params`.  The tensors are Parameters registered with
+    ``requires_grad=False``: serving (under `inference_mode`) never needs
+    a gradient, and training turns gradients on for its train state's
+    parameters only (`train.step.train_state`)."""
 
     def __init__(self, tree: Mapping[str, Any]):
         super().__init__()

@@ -1,7 +1,8 @@
-"""Model-level API: init / logits / prefill / decode.
+"""Model-level API: init / loss / logits / prefill / decode.
 
     model = init_lm(cfg, seed=0)                        # on the card
     model = init_lm(cfg, seed=0, device="cpu")          # on the CPU
+    loss, metrics = lm_loss(model, batch)               # train step core
     logits = lm_logits(model, tokens)                   # (B, S, vocab)
     logits, state = lm_prefill(model, tokens, max_len)  # last-token logits
     logits, state = lm_decode_step(model, token, pos, state)
@@ -9,6 +10,8 @@
 `tokens` are int tensors on the model's device.  Embedding tables are
 padded to a multiple of 2048 rows; padded logits are cut.  The decode
 state is ``{"layers": [cache per layer]}``; caches are updated in place.
+Serving runs under `inference_mode`; `lm_loss` is the one entry point
+that builds an autograd graph.
 
 Ported: decoder-only stacks of GQA attention (dense SwiGLU MLP) and mamba
 layers, with tied or untied heads -- gemma3-1b and mamba2-1.3b, among
@@ -30,6 +33,7 @@ from repro_torch.models.common import (
     embed_init,
     pad_vocab,
     rms_norm,
+    softmax_cross_entropy,
 )
 
 State = Dict[str, List[Dict[str, torch.Tensor]]]
@@ -44,7 +48,9 @@ class LM(Params):
         layers = tree["layers"]
         super().__init__({k: v for k, v in tree.items() if k != "layers"})
         self.cfg = cfg
-        self.specs = blocks.plan_layer_specs(blocks.build_stack_plan(cfg))
+        plan = blocks.build_stack_plan(cfg)
+        self.specs = blocks.plan_layer_specs(plan)
+        self.spans = blocks.super_block_spans(plan)
         if len(layers) != len(self.specs):
             raise ValueError(f"{len(layers)} layers for a plan of {len(self.specs)}")
         self.layers = torch.nn.ModuleList(
@@ -89,6 +95,26 @@ def _head(model: LM, x: torch.Tensor) -> torch.Tensor:
     else:
         logits = h @ model.lm_head
     return logits[..., : cfg.vocab_size]
+
+
+def lm_loss(
+    model: LM, batch: Dict[str, torch.Tensor], *, remat: bool = True
+) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Mean token NLL of `batch` (``tokens``, ``targets`` (B, S) int, optional
+    ``mask``) and the reference's metrics (``nll``, ``moe_aux``, ``moe_z``,
+    ``loss``; the MoE terms are 0 for the ported families).  With `remat`
+    each super-block's activations are recomputed in the backward."""
+    tokens, targets = batch["tokens"], batch["targets"]
+    x = model.embed[tokens]
+    pos = _positions(tokens.shape[0], tokens.shape[1], tokens.device)
+    x = blocks.apply_stack(
+        model.layers, model.specs, model.spans, model.cfg, x, pos, remat=remat
+    )
+    nll = softmax_cross_entropy(_head(model, x), targets, batch.get("mask"))
+    zero = torch.zeros((), dtype=torch.float32, device=nll.device)
+    aux = {"moe_aux": zero, "moe_z": zero}
+    loss = nll + aux["moe_aux"] + aux["moe_z"]
+    return loss, {"nll": nll, **aux, "loss": loss}
 
 
 @torch.inference_mode()

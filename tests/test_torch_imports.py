@@ -48,7 +48,7 @@ def test_importing_the_port_loads_no_jax():
 
 # the modules of the later slices: the online runtime, obs and the
 # measuring tune; then the adapt loop, check and fused Winograd; then
-# the fleet
+# the fleet; then training
 NEW_MODULES = (
     "repro_torch.convserve.obs",
     "repro_torch.convserve.obs.trace",
@@ -84,6 +84,20 @@ NEW_MODULES = (
     "repro_torch.runtime.fault",
     "repro_torch.distributed",
     "repro_torch.distributed.sharding",
+    # training: the flash backward, AdamW, data, checkpoints, step, loop,
+    # launcher
+    "repro_torch.kernels.flash_attention.backward",
+    "repro_torch.models.flash_attention",
+    "repro_torch.optim",
+    "repro_torch.optim.adamw",
+    "repro_torch.data",
+    "repro_torch.data.pipeline",
+    "repro_torch.checkpoint",
+    "repro_torch.checkpoint.io",
+    "repro_torch.train",
+    "repro_torch.train.step",
+    "repro_torch.train.loop",
+    "repro_torch.launch.train",
 )
 
 

@@ -9,7 +9,10 @@ runs without them:
     PYTHONPATH=src python -m pytest --noconftest -q tests/test_torch_kernel_cuda.py
 
 Tolerance: rel < 1e-5 against the plain version (both fp32, summed in
-different orders).
+different orders); the flash backward's dq, dk, dv rel < 5e-5 against
+the plain backward fed the same o and lse (the reference's gradient
+tolerance), the training loss on the card against the CPU rel 1e-4 and
+its gradients rel 1e-3 (the reference's net-level tolerance).
 """
 
 import numpy as np
@@ -758,3 +761,176 @@ def test_cuda_sharded_vgg_wave_within_tolerance_of_the_unsharded(cuda_device):
     assert ys.device.type == "cuda" and ys.shape == y.shape
     assert _rel(ys, y) <= 1e-5
     assert not ys[7].any()
+
+
+# ------------------------------------------- training: the flash backward
+
+FLASH_BWD_REL = 5e-5  # the reference's gradient tolerance (test_flash_attention.py)
+
+
+def _flash_operands(b, hq, hkv, sq, sk, hd, dev, seed):
+    rng = np.random.default_rng(seed)
+    mk = lambda shape: torch.tensor(rng.standard_normal(shape), dtype=torch.float32, device=dev)
+    return mk((b, hq, sq, hd)), mk((b, hkv, sk, hd)), mk((b, hkv, sk, hd)), mk((b, hq, sq, hd))
+
+
+def _flash_bwd_check(q, k, v, do, causal, window):
+    """Kernel forward (with lse) then kernel backward, against the plain
+    backward fed the same o and lse: (max rel error over dq, dk, dv,
+    launches of the backward)."""
+    from repro_torch.kernels.flash_attention import backward as bwd_kernel
+    from repro_torch.kernels.flash_attention import flash_attention_bwd_ref
+    from repro_torch.kernels.flash_attention import kernel as flash_kernel
+
+    o, lse = flash_kernel.flash_attention_call(q, k, v, causal=causal, window=window,
+                                               return_lse=True)
+    grads, n = _counted(bwd_kernel, lambda: bwd_kernel.flash_attention_bwd_call(
+        q, k, v, o, lse, do, causal=causal, window=window))
+    want = flash_attention_bwd_ref(q, k, v, o, lse, do, causal=causal, window=window)
+    for g, w in zip(grads, want):
+        assert g.shape == w.shape and torch.isfinite(g).all()
+    return max(_rel(g, w) for g, w in zip(grads, want)), n
+
+
+@pytest.mark.parametrize("hd", [16, 32, 64, 80, 112, 128, 256])
+@pytest.mark.parametrize("hkv", [4, 1])
+@pytest.mark.parametrize("causal,window", [(True, 0), (True, 40), (False, 0)])
+def test_cuda_flash_backward_matches_plain(cuda_device, hd, hkv, causal, window):
+    """Every head dim, GQA g 1 and 4, causal with and without a window and
+    non-causal, S 77 (ragged against the 32-row tiles): one launch, dq, dk
+    and dv each within rel 5e-5 of the plain backward."""
+    q, k, v, do = _flash_operands(2, 4, hkv, 77, 77, hd, cuda_device, seed=40 + hd)
+    err, n = _flash_bwd_check(q, k, v, do, causal, window)
+    assert n == 1
+    assert err < FLASH_BWD_REL
+
+
+@pytest.mark.parametrize("name,shape", [
+    ("gemma3-global-B4-S1024-hd256-g4", (4, 4, 1, 1024, 1024, 256, True, 0)),
+    ("gemma3-local-w512-B4-S1024-hd256-g4", (4, 4, 1, 1024, 1024, 256, True, 512)),
+    ("rows-that-see-no-key-Sq200-Sk50-w40", (1, 2, 1, 200, 50, 64, True, 40)),
+    ("non-causal-Sq77-Sk256-hd128", (1, 2, 1, 77, 256, 128, False, 0)),
+])
+def test_cuda_flash_backward_at_training_and_edge_shapes(cuda_device, name, shape):
+    """gemma3-1b's training layers in the model's layout (transposed
+    views), and rows that see no key (their dq must be exactly 0)."""
+    b, hq, hkv, sq, sk, hd, causal, window = shape
+    rng = np.random.default_rng(50)
+    mk = lambda s: torch.tensor(rng.standard_normal(s), dtype=torch.float32,
+                                device=cuda_device).transpose(1, 2)
+    q, do = mk((b, sq, hq, hd)), mk((b, sq, hq, hd))
+    k, v = mk((b, sk, hkv, hd)), mk((b, sk, hkv, hd))
+    err, n = _flash_bwd_check(q, k, v, do, causal, window)
+    assert n == 1 and err < FLASH_BWD_REL, (name, err)
+
+
+def test_cuda_flash_backward_is_bitwise_deterministic(cuda_device):
+    """No atomics: two runs of the backward give the same bits."""
+    from repro_torch.kernels.flash_attention import backward as bwd_kernel
+    from repro_torch.kernels.flash_attention import kernel as flash_kernel
+
+    q, k, v, do = _flash_operands(2, 4, 1, 300, 300, 256, cuda_device, seed=60)
+    o, lse = flash_kernel.flash_attention_call(q, k, v, causal=True, window=100,
+                                               return_lse=True)
+    a = bwd_kernel.flash_attention_bwd_call(q, k, v, o, lse, do, causal=True, window=100)
+    b = bwd_kernel.flash_attention_bwd_call(q, k, v, o, lse, do, causal=True, window=100)
+    torch.cuda.synchronize()
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+@pytest.mark.parametrize("hd", [16, 32, 64, 80, 112, 128, 256])
+def test_cuda_flash_forward_output_is_bitwise_the_same_with_lse(cuda_device, hd):
+    """Writing the log-sum-exp changes no bit of o, and lse is within rel
+    1e-5 of the plain version's (0 for rows that see no key)."""
+    from repro_torch.kernels.flash_attention import kernel as flash_kernel
+    from repro_torch.kernels.flash_attention import lse_ref
+
+    for causal, window, sq, sk in ((True, 0, 130, 130), (True, 24, 200, 50), (False, 0, 77, 96)):
+        q, k, v, _ = _flash_operands(2, 4, 2, sq, sk, hd, cuda_device, seed=70 + hd)
+        o = flash_kernel.flash_attention_call(q, k, v, causal=causal, window=window)
+        o2, lse = flash_kernel.flash_attention_call(q, k, v, causal=causal, window=window,
+                                                    return_lse=True)
+        torch.cuda.synchronize()
+        assert torch.equal(o, o2)
+        want = lse_ref(q, k, causal=causal, window=window)
+        assert float((lse - want).abs().max() / want.abs().max()) < 1e-5
+
+
+def test_cuda_flash_attention_function_launches_forward_and_backward(cuda_device):
+    """Autograd through `FlashAttention` on the card: one forward launch
+    (with lse), one backward launch, gradients within rel 5e-5 of the
+    plain backward on the CPU."""
+    from repro_torch.kernels.flash_attention import backward as bwd_kernel
+    from repro_torch.kernels.flash_attention import kernel as flash_kernel
+    from repro_torch.models.flash_attention import flash_attention as flash_grad
+
+    q, k, v, do = _flash_operands(2, 4, 1, 150, 150, 256, cuda_device, seed=80)
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    f0, b0 = flash_kernel.LAUNCHES, bwd_kernel.LAUNCHES
+    o = flash_grad(*leaves, causal=True, window=64)
+    o.backward(do)
+    torch.cuda.synchronize()
+    assert flash_kernel.LAUNCHES - f0 == 1 and bwd_kernel.LAUNCHES - b0 == 1
+    cpu = [t.detach().cpu().requires_grad_(True) for t in (q, k, v)]
+    flash_grad(*cpu, causal=True, window=64).backward(do.cpu())
+    for t, c in zip(leaves, cpu):
+        assert _rel(t.grad.cpu(), c.grad) < FLASH_BWD_REL
+
+
+def test_cuda_kernels_without_a_backward_refuse_grad(cuda_device):
+    """conv1d, the decode MLP and the tile kernel raise under grad on the
+    card instead of returning an output with no gradient; so does the
+    flash forward called directly (training goes through `FlashAttention`)."""
+    from repro_torch.kernels.conv1d_fused import conv1d_fused
+    from repro_torch.kernels.decode_mlp import decode_mlp
+    from repro_torch.kernels.flash_attention import flash_attention
+
+    dev = cuda_device
+    x = torch.randn(2, 40, 64, device=dev, requires_grad=True)
+    with pytest.raises(NotImplementedError, match="conv1d_fused.*mamba2 training"):
+        conv1d_fused(x, torch.randn(4, 64, device=dev), torch.zeros(64, device=dev))
+    h = torch.randn(2, 64, device=dev, requires_grad=True)
+    w = [torch.randn(*s, device=dev) for s in ((64, 96), (64, 96), (96, 64))]
+    with pytest.raises(NotImplementedError, match="decode_mlp.*ROADMAP"):
+        decode_mlp(h, *w)
+    img = torch.randn(1, 20, 20, 4, requires_grad=True)
+    wk = torch.randn(3, 3, 4, 8)
+    with pytest.raises(NotImplementedError, match="fused_tile.*ROADMAP"):
+        ft.conv2d_fused_tile(img, wk, transforms.WinogradTransform(m=3, k=3), pad=1,
+                             device=dev)
+    q = torch.randn(1, 2, 16, 16, device=dev, requires_grad=True)
+    with pytest.raises(NotImplementedError, match="flash_attention"):
+        flash_attention(q, q, q)
+    with torch.no_grad():  # the same calls without grad run
+        conv1d_fused(x, torch.randn(4, 64, device=dev), torch.zeros(64, device=dev))
+        decode_mlp(h, *w)
+
+
+def test_cuda_lm_loss_gradients_match_the_cpu(cuda_device):
+    """Reduced gemma3-1b: `lm_loss` and every gradient on the card (flash
+    forward and backward kernels, remat) within rel 1e-3 of the CPU."""
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels.flash_attention import backward as bwd_kernel
+    from repro_torch.kernels.flash_attention import kernel as flash_kernel
+    from repro_torch.models import init_lm, lm_loss
+
+    cfg = get_arch("gemma3-1b").reduced()
+    cpu = init_lm(cfg, seed=0, device="cpu")
+    card = init_lm(cfg, seed=0, device="cpu").to(cuda_device)
+    cpu.requires_grad_(True)
+    card.requires_grad_(True)
+    rng = np.random.default_rng(90)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 41)))
+    batch = {"tokens": toks[:, :-1], "targets": toks[:, 1:]}
+    f0, b0 = flash_kernel.LAUNCHES, bwd_kernel.LAUNCHES
+    loss_d, _ = lm_loss(card, {k: t.to(cuda_device) for k, t in batch.items()})
+    loss_d.backward()
+    torch.cuda.synchronize()
+    n_layers = len(card.specs)
+    assert flash_kernel.LAUNCHES - f0 == 2 * n_layers  # remat: forward twice
+    assert bwd_kernel.LAUNCHES - b0 == n_layers
+    loss_c, _ = lm_loss(cpu, batch)
+    loss_c.backward()
+    assert abs(float(loss_d.detach()) - float(loss_c.detach())) < 1e-4 * abs(float(loss_c.detach()))
+    for (n, pd), (_, pc) in zip(card.named_parameters(), cpu.named_parameters()):
+        assert _rel(pd.grad.cpu(), pc.grad) < 1e-3, n
