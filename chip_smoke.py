@@ -149,7 +149,8 @@ Phases (any failure exits non-zero):
      under the nvcc release that recorded them).  (b)
      `launch.train.main(["--arch", "gemma3-1b", "--steps", "6", "--batch",
      "4", "--seq", "1024"])`: full width and depth, fp32, TF32 off, seed
-     0; per step loss, grad norm, ms and tokens/s, peak
+     0; per step loss (beside the run's recorded losses over the first
+     backward kernel, commit 0c64a3e), grad norm, ms and tokens/s, peak
      `max_memory_allocated`; every count zeroed before and read after:
      flash forward = 26 x 2 (remat) x 6, backward = 26 x 6, the others 0;
      every loss and grad norm finite.  (c) gemma3-1b cut to one period (6
@@ -159,10 +160,17 @@ Phases (any failure exits non-zero):
      checkpoints every 5, injected failures at steps 12 and 21 restored
      from disk, loss at step 29 below step 0's, then a resume from disk to
      step 34.  Then one warm full-width step under `torch.profiler` (wall,
-     device busy, idle share, top kernels) and the backward's times at
-     the global layer (CUDA events, profiler device time, the plain
-     backward, SDPA's fp32 backward as the library yardstick, the bound:
-     2.5x the forward's FLOPs at the fp32 FMA peak).
+     device busy, idle share, top kernels, the backward's device time a
+     step) and the backward's times at gemma3-1b's global and local
+     (window 512) training layers: CUDA events, the profiler's device time
+     of each kernel of a call (delta, main) with its launches a call, the
+     wrapper's host time a call and the card's idle time between the
+     call's two kernels, the plain backward, SDPA's fp32 backward
+     as the library yardstick (`is_causal`; the local band as a boolean
+     mask), and the bound both ways (five products of 2 hd FLOPs a band
+     pair: split-TF32 at the TF32 peak, and the fp32 FMA peak).  Phase 2
+     prints the backward source's `nvcc -Xptxas -v` registers and spills
+     per instantiation.
 
 The line before the last is a JSON object listing the ported kernels; the
 last line is {"ok": true, "device": {...}}.  Imports nothing of JAX and
@@ -173,6 +181,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -258,9 +267,37 @@ def kernel_libraries():
     }
 
 
-def phase_build() -> None:
+def ptxas_report(source: str) -> dict:
+    """`nvcc -Xptxas -v` on a kernel source (the build's flags, into a
+    scratch library under build/): {entry function: (registers, stack
+    frame bytes, spill store bytes, spill load bytes)}."""
+    import tempfile
+
+    from repro_torch.kernels import _build
+
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as tmp:
+        out = subprocess.run(
+            [_build.nvcc(), *_build.NVCC_FLAGS, "-Xptxas", "-v", "-o",
+             os.path.join(tmp, "ptxas.so"), os.path.join(ROOT, source)],
+            capture_output=True, text=True, check=True)
+    report, name, frame = {}, None, None
+    for line in (out.stdout + out.stderr).splitlines():
+        if m := re.search(r"Compiling entry function '(\S+)'", line):
+            name = m.group(1)
+        elif m := re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                            r"(\d+) bytes spill loads", line):
+            frame = tuple(int(x) for x in m.groups())
+        elif (m := re.search(r"Used (\d+) registers", line)) and name and frame:
+            report[name] = (int(m.group(1)), *frame)
+            name = frame = None
+    return report
+
+
+def phase_build() -> dict:
     """Every kernel built from the checkout's sources, one nvcc per
-    source, all started together."""
+    source, all started together; beside them the flash backward's
+    ptxas report.  Returns the backward's main kernel's registers and
+    spills at hd 256."""
     from concurrent.futures import ThreadPoolExecutor
 
     from repro_torch.kernels import _build
@@ -272,14 +309,29 @@ def phase_build() -> None:
 
     mods = kernel_libraries()
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(mods)) as pool:
+    with ThreadPoolExecutor(len(mods) + 1) as pool:
         futs = {name: pool.submit(timed, mod) for name, mod in mods.items()}
+        ptxas = pool.submit(ptxas_report, FLASH_BWD_SOURCE)
         done = {name: f.result() for name, f in futs.items()}
+        ptxas = ptxas.result()
     print(f"build: nvcc {' '.join(_build.NVCC_FLAGS)}")
     for name, (lib, secs) in done.items():
         print(f"  {name:16s} {os.path.relpath(mods[name].SOURCE, ROOT)} -> "
               f"{os.path.relpath(lib, ROOT)} in {secs:.2f} s")
     print(f"  all {len(done)} kernels built in {time.perf_counter() - t0:.2f} s")
+    print(f"ptxas -v {FLASH_BWD_SOURCE} (registers, stack frame / spill store / spill load "
+          "bytes):")
+    hd256 = None
+    for fn, (regs, frame, st, ld) in sorted(ptxas.items()):
+        kind = "delta" if "delta" in fn else "main"
+        hd = m.group(1) if (m := re.search(r"ILi(\d+)E", fn)) else "?"
+        print(f"  {kind:5s} hd {hd:>3s}: {regs} registers, {frame} / {st} / {ld} bytes")
+        if kind == "main" and hd == "256":
+            hd256 = dict(registers=regs, stack_frame_bytes=frame, spill_store_bytes=st,
+                         spill_load_bytes=ld)
+    if hd256 is None:
+        raise AssertionError("ptxas reported no hd-256 instance of the backward's main kernel")
+    return hd256
 
 
 def phase_check() -> None:
@@ -568,11 +620,13 @@ def bound(c) -> tuple:
 DEVICE_TIMED = ("vgg b64 64->64@64", "fft b64 8->8@64 +bias+relu")
 
 
-def device_ms(fn, key: str, reps: int = 20):
-    """Device time per call of the kernels whose names hold `key` that
-    `fn` launches (with their second passes, e.g. a reduction), from
-    `torch.profiler`'s device events over `reps` calls; None when the
-    profiler saw no such event."""
+def kernel_breakdown(fn, key: str, reps: int = 20) -> list:
+    """(kernel name, device ms a call, launches a call) of each kernel
+    whose name holds `key` that `fn` launches, from `torch.profiler`'s
+    device events over `reps` calls.  Each kernel counts its mean time a
+    launch times its launches a call (its count over `reps`, rounded): the
+    profiler now and then drops an event, and a total over `reps` would
+    read that as a faster call."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -581,8 +635,19 @@ def device_ms(fn, key: str, reps: int = 20):
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    total = sum(_device_ms(e) for e in _kernel_events(prof) if key in e.key)
-    return total / reps if total > 0 else None
+    rows = []
+    for e in _kernel_events(prof):
+        if key in e.key and e.count:
+            per_call = max(1, round(e.count / reps))
+            rows.append((e.key, _device_ms(e) / e.count * per_call, per_call))
+    return rows
+
+
+def device_ms(fn, key: str, reps: int = 20):
+    """Device time per call of the kernels whose names hold `key` that
+    `fn` launches (with their second passes, e.g. a reduction), summed
+    over `kernel_breakdown`; None when the profiler saw no such event."""
+    return sum(ms for _, ms, _ in kernel_breakdown(fn, key, reps)) or None
 
 
 def phase_times(cases, served):
@@ -1861,36 +1926,38 @@ REL_TOL_TRAIN_GRAD = 1e-3  # card vs CPU gradient leaves, the reference's net to
 FLASH_BWD_SOURCE = "src/repro_torch/kernels/flash_attention/csrc/flash_attention_bwd.cu"
 FLASH_BWD_REPLACES = "src/repro/models/flash_attention.py:142"
 DRILL_FAULTS = (12, 21)
+# the six losses of the same run over the first backward kernel (FMA units,
+# commit 0c64a3e), printed beside this run's: the forward is unchanged, so
+# step 0 matches; later steps carry the backward's other sum order
+RECORDED_TRAIN_LOSSES = (12.893015, 12.801218, 12.848528, 12.843199, 12.788089, 12.800722)
 TRAIN_CKPT = os.path.join(ROOT, "build", "chip_smoke_ckpt")
 
 
 def flash_bwd_cases(gen):
-    """(label, B, Hq, Hkv, S_q, S_k, hd, causal, window, model layout,
-    served): gemma3-1b's two training layers, every head dim at g 1 and
-    g 4 on a ragged S, non-causal, and rows that see no key."""
+    """(label, B, Hq, Hkv, S_q, S_k, hd, causal, window, model layout):
+    gemma3-1b's two training layers, every head dim at g 1 and g 4 on a
+    ragged S, non-causal, and rows that see no key."""
     from repro_torch.kernels.flash_attention.kernel import HEAD_DIMS
 
     cases = [
-        ("gemma3 train global B4 S1024 hd256 g4", 4, 4, 1, 1024, 1024, 256, True, 0, True, True),
+        ("gemma3 train global B4 S1024 hd256 g4", 4, 4, 1, 1024, 1024, 256, True, 0, True),
         ("gemma3 train local w512 B4 S1024 hd256 g4", 4, 4, 1, 1024, 1024, 256, True, 512,
-         True, False),
-        ("non-causal Sq77 Sk256 hd128 g2", 1, 2, 1, 77, 256, 128, False, 0, False, False),
-        ("rows that see no key Sq200 Sk50 w40 hd64 g2", 1, 2, 1, 200, 50, 64, True, 40, False,
-         False),
+         True),
+        ("non-causal Sq77 Sk256 hd128 g2", 1, 2, 1, 77, 256, 128, False, 0, False),
+        ("rows that see no key Sq200 Sk50 w40 hd64 g2", 1, 2, 1, 200, 50, 64, True, 40, False),
     ]
     for hd in HEAD_DIMS:
         for hkv in (4, 1):
             cases.append((f"hd{hd} g{4 // hkv} B2 S700 causal w300", 2, 4, hkv, 700, 700, hd,
-                          True, 300, False, False))
+                          True, 300, False))
     out = []
-    for label, b, hq, hkv, sq, sk, hd, causal, window, model_layout, served in cases:
+    for label, b, hq, hkv, sq, sk, hd, causal, window, model_layout in cases:
         def mk(bb, h, s, d):
             if model_layout:
                 return _cuda(gen, (bb, s, h, d)).transpose(1, 2)
             return _cuda(gen, (bb, h, s, d))
         q, k, v, do = mk(b, hq, sq, hd), mk(b, hkv, sk, hd), mk(b, hkv, sk, hd), mk(b, hq, sq, hd)
-        out.append(dict(label=label, q=q, k=k, v=v, do=do, causal=causal, window=window,
-                        served=served))
+        out.append(dict(label=label, q=q, k=k, v=v, do=do, causal=causal, window=window))
     return out
 
 
@@ -1957,7 +2024,7 @@ def train_kernels_vs_plain():
         print(f"train-kernel flash o vs the recorded outputs of {rec['source']}: not "
               f"comparable (recorded with {rec['recorded_nvcc']}, this run has {rec['nvcc']}; "
               "or the case list changed)")
-    return cases, worst
+    return worst
 
 
 def train_full_width(smi: str):
@@ -1979,9 +2046,10 @@ def train_full_width(smi: str):
     peak = torch.cuda.max_memory_allocated()
     model = state["params"]
     steps, batch, seq = len(history), TRAIN_BATCH, TRAIN_SEQ
-    for h in history:
-        print(f"  train step {h['step']}: loss {h['loss']:.6f} grad_norm {h['grad_norm']:.6f} "
-              f"{h['seconds'] * 1e3:.2f} ms {batch * seq / h['seconds']:.1f} tokens/s")
+    for h, rec in zip(history, RECORDED_TRAIN_LOSSES):
+        print(f"  train step {h['step']}: loss {h['loss']:.6f} (commit 0c64a3e's backward: "
+              f"{rec:.6f}) grad_norm {h['grad_norm']:.6f} {h['seconds'] * 1e3:.2f} ms "
+              f"{batch * seq / h['seconds']:.1f} tokens/s")
     attn = sum(s.mixer == "attn" for s in model.specs)
     want = {"flash_attention": attn * 2 * steps, "flash_attention_bwd": attn * steps,
             "fused_tile": 0, "conv1d_fused": 0, "decode_mlp": 0}
@@ -2141,13 +2209,59 @@ def train_profile(run: dict) -> dict:
     return out
 
 
-def train_times(cases) -> dict:
-    """The backward kernel at gemma3-1b's global training layer: CUDA
-    events and profiler device time beside the plain backward, the
+# gemma3-1b's two training attention layers (B 4, Hq 4, Hkv 1, S 1024, hd
+# 256, causal): (label, window); 4 of its 26 layers are global, 22 local
+TRAIN_ATTN_LAYERS = (("gemma3 train global B4 S1024 hd256 g4", 0),
+                     ("gemma3 train local w512 B4 S1024 hd256 g4", 512))
+
+
+def kernel_gap_us(fn, first: str, then: str, reps: int = 5):
+    """Median idle time on the card, in µs, between the end of a kernel
+    whose name holds `first` and the start of the next one, whose name
+    holds `then`, within one call of `fn` (the profiler's device events of
+    `reps` calls, synchronised after each); None when never seen."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+            torch.cuda.synchronize()
+    ev = sorted((e.time_range.start, e.time_range.end, e.name) for e in prof.events()
+                if e.device_type == DeviceType.CUDA)
+    gaps = [b[0] - a[1] for a, b in zip(ev, ev[1:]) if first in a[2] and then in b[2]]
+    return statistics.median(gaps) if gaps else None
+
+
+def host_ms(fn, reps: int = 20) -> float:
+    """Median host time of one call, `perf_counter` around the call with no
+    synchronize inside (the card idle before it): the wrapper's own path
+    up to its last launch."""
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    return statistics.median(times)
+
+
+def train_times(ptxas: dict) -> dict:
+    """The backward kernel at gemma3-1b's two training attention layers
+    (`TRAIN_ATTN_LAYERS`, the model's layout): CUDA events, the profiler's
+    device time of each kernel of a call (delta, main) with its launches
+    a call, the wrapper's host time a call, the card's idle time between
+    the delta and the main kernel, beside the plain backward, the
     library's (the backward of `F.scaled_dot_product_attention`, fp32, kv
-    heads repeated beforehand, the backend torch picked) and the bound
-    (2.5x the forward's FLOPs at the fp32 FMA peak; bytes: q, k, v, o,
-    dO, lse read once, dq, dk, dv written once)."""
+    heads repeated beforehand, `is_causal` for the global layer and the
+    band as a boolean mask for the local one, the backend torch picked)
+    and the bound both ways (`backward.flops`, five products a band pair:
+    three TF32 products per FLOP at the TF32 peak, and at the fp32 FMA
+    peak; bytes: q, k, v, o, dO, lse read once, dq, dk, dv written once).
+    Returns the global layer's row with the local one's under "local"."""
     import torch.nn.functional as F
     from torch.nn.attention import SDPBackend, sdpa_kernel
 
@@ -2156,53 +2270,77 @@ def train_times(cases) -> dict:
     from repro_torch.kernels.flash_attention import kernel as flash_kernel
     from repro_torch.kernels.flash_attention.ref import band_mask
 
-    c = next(c for c in cases if c["served"])
-    q, k, v, do = c["q"], c["k"], c["v"], c["do"]
-    kw = dict(causal=c["causal"], window=c["window"])
-    o, lse = flash_kernel.flash_attention_call(q, k, v, return_lse=True, **kw)
-    b, hq, sq, hd = q.shape
-    hkv, sk = k.shape[1], k.shape[2]
-    pairs = int(band_mask(sq, sk, device="cpu", **kw).sum())
-    ops = 2.5 * 4 * hd * pairs * b * hq
-    n_bytes = 4 * (3 * q.numel() + 2 * (k.numel() + v.numel()) + lse.numel() + q.numel())
-    b_ms, b_by = _bound(n_bytes, ops)
-    run = lambda: bwd_kernel.flash_attention_bwd_call(q, k, v, o, lse, do, **kw)
-    k_ms = time_ms(run, reps=10)
-    d_ms = device_ms(run, "flash_bwd", reps=5)
-    p_ms = time_ms(lambda: flash_attention_bwd_ref(q, k, v, o, lse, do, **kw), reps=5)
-    qc = q.detach().contiguous().requires_grad_(True)
-    kr = k.repeat_interleave(hq // hkv, 1).contiguous().requires_grad_(True)
-    vr = v.repeat_interleave(hq // hkv, 1).contiguous().requires_grad_(True)
-    l_ms, backend = None, None
-    for bk in (SDPBackend.EFFICIENT_ATTENTION, SDPBackend.MATH):
-        try:
-            with sdpa_kernel([bk]):
-                out = F.scaled_dot_product_attention(qc, kr, vr, is_causal=True)
-                l_ms = time_ms(lambda: torch.autograd.grad(out, (qc, kr, vr), do,
-                                                           retain_graph=True), reps=10)
-            backend = bk.name
-            break
-        except RuntimeError as e:
-            print(f"  SDPA backward with {bk.name}: {str(e).splitlines()[0][:100]}")
-    print(f"time flash_attention_bwd {c['label']:44s} kernel {k_ms:.4f} ms (profiler device "
-          f"time {d_ms if d_ms is None else round(d_ms, 4)} ms)  plain {p_ms:.4f} ms  library "
-          f"(SDPA backward, {backend}) {l_ms if l_ms is None else round(l_ms, 4)} ms  bound "
-          f"{b_ms:.4f} ms ({b_by}, fp32 FMA peak)")
-    return dict(shape=c["label"], ms=k_ms, device_ms=d_ms, plain_ms=p_ms, library_ms=l_ms,
-                library_backend=f"SDPA backward, {backend}", bound_ms=b_ms, bound_by=b_by)
+    b, hq, hkv, s, hd = 4, 4, 1, 1024, 256
+    gen = np.random.default_rng(20)
+    q, do = (_cuda(gen, (b, s, hq, hd)).transpose(1, 2) for _ in range(2))
+    k, v = (_cuda(gen, (b, s, hkv, hd)).transpose(1, 2) for _ in range(2))
+    print(f"ptxas -v flash_bwd_kernel<256>: {ptxas['registers']} registers, "
+          f"{ptxas['stack_frame_bytes']} B stack frame, {ptxas['spill_store_bytes']} B spill "
+          f"stores, {ptxas['spill_load_bytes']} B spill loads")
+    rows = {}
+    for label, window in TRAIN_ATTN_LAYERS:
+        kw = dict(causal=True, window=window)
+        o, lse = flash_kernel.flash_attention_call(q, k, v, return_lse=True, **kw)
+        ops = bwd_kernel.flops(b, hq, s, s, hd, True, window)
+        n_bytes = 4 * (3 * q.numel() + 2 * (k.numel() + v.numel()) + lse.numel() + q.numel())
+        b_ms, b_by = _bound(n_bytes, 3 * ops, PEAK_TF32)
+        fma_ms = _bound(n_bytes, ops)[0]
+        run = lambda: bwd_kernel.flash_attention_bwd_call(q, k, v, o, lse, do, **kw)
+        k_ms = time_ms(run, reps=10)
+        kernels = kernel_breakdown(run, "flash_bwd", reps=5)
+        d_ms = sum(ms for _, ms, _ in kernels) or None
+        h_ms = host_ms(run)
+        gap = kernel_gap_us(run, "flash_bwd_delta_kernel", "flash_bwd_kernel")
+        p_ms = time_ms(lambda: flash_attention_bwd_ref(q, k, v, o, lse, do, **kw), reps=5)
+        qc = q.detach().contiguous().requires_grad_(True)
+        kr = k.repeat_interleave(hq // hkv, 1).contiguous().requires_grad_(True)
+        vr = v.repeat_interleave(hq // hkv, 1).contiguous().requires_grad_(True)
+        mask = None if window == 0 else band_mask(s, s, device=DEV, **kw)
+        l_ms, backend = None, None
+        for bk in (SDPBackend.EFFICIENT_ATTENTION, SDPBackend.MATH):
+            try:
+                with sdpa_kernel([bk]):
+                    out = F.scaled_dot_product_attention(qc, kr, vr, attn_mask=mask,
+                                                         is_causal=mask is None)
+                    l_ms = time_ms(lambda: torch.autograd.grad(out, (qc, kr, vr), do,
+                                                               retain_graph=True), reps=10)
+                backend = bk.name
+                break
+            except RuntimeError as e:
+                print(f"  SDPA backward with {bk.name}: {str(e).splitlines()[0][:100]}")
+        print(f"time flash_attention_bwd {label:44s} kernel {k_ms:.4f} ms (profiler device "
+              f"time {d_ms if d_ms is None else round(d_ms, 4)} ms, host {h_ms:.4f} ms a call, "
+              f"card idle {gap if gap is None else round(gap, 2)} us from delta to main)  "
+              f"plain {p_ms:.4f} ms  library (SDPA backward, {backend}"
+              f"{', boolean band mask' if mask is not None else ', is_causal'}) "
+              f"{l_ms if l_ms is None else round(l_ms, 4)} ms  bound {b_ms:.4f} ms ({b_by}, "
+              f"split-TF32 tensor cores), fp32 FMA bound {fma_ms:.4f} ms; device time below "
+              f"SDPA's: {d_ms is not None and l_ms is not None and d_ms < l_ms}")
+        for name, ms, per_call in kernels:
+            print(f"  {ms:9.4f} ms  x{per_call} a call  {name[:90]}")
+        rows[label] = dict(
+            shape=label, ms=k_ms, device_ms=d_ms, host_ms=h_ms, gap_delta_to_main_us=gap,
+            plain_ms=p_ms, library_ms=l_ms,
+            library_backend=f"SDPA backward, {backend}", bound_ms=b_ms, bound_by=b_by,
+            bound_fp32_ms=fma_ms,
+            kernels_per_call={re.search(r"(\w+<\d+>)", name).group(1): dict(device_ms=ms,
+                                                                              launches=n)
+                              for name, ms, n in kernels})
+    (glob, _), (local, _) = TRAIN_ATTN_LAYERS
+    return dict(rows[glob], local=rows[local], ptxas_hd256=ptxas)
 
 
-def phase_train(smi: str) -> dict:
+def phase_train(smi: str, ptxas: dict) -> dict:
     """Phase 13 (module docstring): the flash training kernels against
     their plain versions, gemma3-1b trained at full width, card against
     CPU, the loop drill, a profiled step and the backward's times."""
     t_phase = time.perf_counter()
-    cases, worst = train_kernels_vs_plain()
+    worst = train_kernels_vs_plain()
     run = train_full_width(smi)
     train_card_vs_cpu()
     train_loop_drill()
     prof = train_profile(run)
-    times = train_times(cases)
+    times = train_times(ptxas)
     run.pop("state")
     print(f"train: phase wall time {time.perf_counter() - t_phase:.2f} s")
     return dict(worst=worst, run=run, profile=prof, times=times)
@@ -2220,7 +2358,7 @@ def main() -> int:
     if os.path.exists(PLAN_WISDOM):
         os.unlink(PLAN_WISDOM)
     smi = phase_environment()
-    phase_build()
+    bwd_ptxas = phase_build()
     phase_check()
     cases, worst_abs, worst_rel = phase_kernel_vs_plain()
     oracle = phase_winograd_and_oracle()
@@ -2237,7 +2375,7 @@ def main() -> int:
     fleet = phase_fleet(online["hw"], smi)
     for s in lm_served.values():
         s.pop("model")  # the served weights: room for training
-    train = phase_train(smi)
+    train = phase_train(smi, bwd_ptxas)
 
     # headline shape: the widest served vgg layer when vgg reaches the
     # kernel (64->64 at bucket 64), else fft_fewchannel's 8->8

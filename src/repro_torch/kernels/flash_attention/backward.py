@@ -1,12 +1,19 @@
 """The CUDA flash-attention backward kernel's wrapper: build, bind,
-validate, launch.
+validate, schedule, launch.
 
 `csrc/flash_attention_bwd.cu` is compiled with nvcc for sm_90a on first
 use (`kernels._build`).  `flash_attention_bwd_call` takes CUDA tensors
 only and raises on anything the kernel does not take; the plain version
 of the same function is `ref.flash_attention_bwd_ref`.  `LAUNCHES`
 counts the wrapper's calls that launched the kernel (each launches the
-source's three kernels: delta, dK/dV, dQ).
+source's two kernels: delta, then the main kernel).
+
+The main kernel runs one block per item of `work_list`: a dK/dV item
+(32 keys of one batch and kv head, over its group's q heads) or a dQ
+item (32 q rows of one batch and q head), each with the band of tiles
+it walks.  The list is built here, in plain Python that the CPU tests
+hold against the band mask, memoised per shape and copied to the card
+once per shape and device.
 
 Like the forward, the kernel addresses every tensor by (batch, head,
 sequence) strides with the head dim contiguous: the model's transposed
@@ -18,6 +25,7 @@ in q's, k's and v's memory layouts.
 from __future__ import annotations
 
 import ctypes
+import functools
 import pathlib
 from typing import Tuple
 
@@ -28,11 +36,16 @@ from repro_torch.kernels.flash_attention.kernel import HEAD_DIMS, _check
 
 LAUNCHES = 0  # wrapper calls that launched the kernel since import (or a reset)
 
+TILE = 32  # the kernel's kB: keys of a dK/dV item and q rows of a dQ item, at every hd
+DKDV, DQ = 0, 1  # item roles
+# products a tile step does: S, dP, dV, dK for a dK/dV item; S, dP, dQ for a dQ item
+PRODUCTS = {DKDV: 4, DQ: 3}
+
 SOURCE = pathlib.Path(__file__).parent / "csrc" / "flash_attention_bwd.cu"
 # `flash_attention_bwd_launch`'s C signature, in order (the stream is appended)
 ARGTYPES = (
-    [ctypes.c_void_p] * 10  # q, k, v, o, lse, dO, dq, dk, dv, delta scratch
-    + [ctypes.c_int] * 6  # batch, hq, hkv, sq, sk, hd
+    [ctypes.c_void_p] * 11  # q, k, v, o, lse, dO, dq, dk, dv, delta scratch, work list
+    + [ctypes.c_int] * 7  # items, batch, hq, hkv, sq, sk, hd
     + [ctypes.c_longlong] * 24  # (b, h, s) strides of q, k, v, o, dO, dq, dk, dv
     + [ctypes.c_int] * 2  # causal, window
     + [ctypes.c_float, ctypes.c_void_p]  # scale, stream
@@ -40,6 +53,87 @@ ARGTYPES = (
 LIB = _build.CudaLibrary(
     SOURCE, "flash_attention_bwd", {"flash_attention_bwd_launch": ARGTYPES}
 )
+
+Item = Tuple[int, int, int, int, int]  # (role, batch * heads + head, block, lo, hi)
+
+
+def _tiles(lo: int, hi: int) -> Tuple[int, int]:
+    """The TILE-row tiles that hold rows [lo, hi), as [first, end); (0, 0)
+    when the range is empty."""
+    return (lo // TILE, -(-hi // TILE)) if hi > lo else (0, 0)
+
+
+def item_steps(item: Item, group: int) -> int:
+    """Tile steps of one item: its band of tiles, once per q head of the
+    group for a dK/dV item."""
+    role, _, _, lo, hi = item
+    return (hi - lo) * (group if role == DKDV else 1)
+
+
+@functools.lru_cache(maxsize=64)
+def work_list(
+    b: int, hq: int, hkv: int, sq: int, sk: int, hd: int, causal: bool, window: int
+) -> Tuple[Item, ...]:
+    """The main kernel's items, longest first.
+
+    A dK/dV item (DKDV, b * hkv + kv head, key block, lo, hi) walks q
+    tiles [lo, hi) of each of its group's q heads; a dQ item (DQ, b * hq
+    + q head, q block, lo, hi) walks kv tiles [lo, hi).  Each range is
+    exactly the tiles whose rows (or keys) can see a key (or row) of the
+    item's block under `ref.band_mask`, so every (q tile, kv tile) pair
+    of the band is one step of exactly one item of each role.  Every
+    block has an item, also when its range is empty (it writes zeros).
+    Sorted by tile steps times `PRODUCTS` a step, longest first, ties in
+    (role, head, block) order; the tile is TILE at every head dim (`hd`
+    is checked, not used).
+    """
+    if hd not in HEAD_DIMS or hq % hkv or min(b, hq, hkv, sq, sk) < 1:
+        raise ValueError(f"no work list for b {b}, hq {hq}, hkv {hkv}, sq {sq}, sk {sk}, hd {hd}")
+    items = []
+    for kb in range(-(-sk // TILE)):
+        k0, k1 = kb * TILE, min(kb * TILE + TILE, sk) - 1  # the block's first and last key
+        r_lo = k0 if causal else 0  # rows that see one of its keys: [r_lo, r_hi)
+        r_hi = min(sq, k1 + window) if window > 0 else sq
+        lo, hi = _tiles(r_lo, r_hi)
+        items += [(DKDV, bh, kb, lo, hi) for bh in range(b * hkv)]
+    for qb in range(-(-sq // TILE)):
+        r0, r1 = qb * TILE, min(qb * TILE + TILE, sq) - 1  # the block's first and last row
+        k_lo = max(0, r0 - window + 1) if window > 0 else 0  # keys it sees: [k_lo, k_hi)
+        k_hi = min(sk, r1 + 1) if causal else sk
+        lo, hi = _tiles(k_lo, k_hi)
+        items += [(DQ, bh, qb, lo, hi) for bh in range(b * hq)]
+    group = hq // hkv
+    items.sort(key=lambda it: (-item_steps(it, group) * PRODUCTS[it[0]], it[:3]))
+    return tuple(items)
+
+
+def band_pairs(sq: int, sk: int, causal: bool, window: int) -> int:
+    """(q row, key) pairs that the masks let through (`ref.band_mask`),
+    counted row by row: row i sees keys [i - window + 1, i] (no lower end
+    without a window, no upper end but Sk without causal), clipped to Sk."""
+    total = 0
+    for i in range(sq):
+        lo = max(0, i - window + 1) if window > 0 else 0
+        hi = min(sk, i + 1) if causal else sk
+        total += max(0, hi - lo)
+    return total
+
+
+def flops(b: int, hq: int, sq: int, sk: int, hd: int, causal: bool, window: int) -> int:
+    """FLOPs of the function the backward computes: five products (S, dP,
+    dV, dK, dQ) of 2 hd FLOPs a band pair, per (batch, q head).  The
+    kernel does seven (S and dP again in its dQ items) and computes whole
+    32 x 32 tiles at the band's edge; a bound counts only these."""
+    return 5 * 2 * hd * b * hq * band_pairs(sq, sk, causal, window)
+
+
+@functools.lru_cache(maxsize=64)
+def _device_items(key: tuple, device: torch.device) -> torch.Tensor:
+    """`work_list(*key)` as the kernel reads it, (n, 4) int32 rows of
+    (role | block << 1, head, lo, hi), copied to `device` once per key
+    (the kernel only reads it)."""
+    rows = [(role | blk << 1, bh, lo, hi) for role, bh, blk, lo, hi in work_list(*key)]
+    return torch.tensor(rows, dtype=torch.int32).to(device)
 
 
 def _aligned(t: torch.Tensor) -> bool:
@@ -88,11 +182,12 @@ def flash_attention_bwd_call(
     for name, t in (("dq", dq), ("dk", dk), ("dv", dv)):
         _check(name, t, dev)
     delta = torch.empty((b, hq, sq), dtype=torch.float32, device=dev)
+    items = _device_items((b, hq, hkv, sq, sk, hd, bool(causal), int(window)), dev)
     LIB.launch(
         "flash_attention_bwd_launch", dev,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
         do.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), delta.data_ptr(),
-        b, hq, hkv, sq, sk, hd,
+        items.data_ptr(), items.shape[0], b, hq, hkv, sq, sk, hd,
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *o.stride()[:3],
         *do.stride()[:3], *dq.stride()[:3], *dk.stride()[:3], *dv.stride()[:3],
         int(causal), int(window), hd ** -0.5,

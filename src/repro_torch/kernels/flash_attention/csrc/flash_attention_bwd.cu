@@ -1,5 +1,5 @@
-// Backward flash attention for Hopper (sm_90a), fp32 in and out, on the FMA
-// units.
+// Backward flash attention for Hopper (sm_90a), fp32 in and out, computed on
+// the tensor cores with split-TF32 operands.
 //
 // Replaces src/repro/models/flash_attention.py::_flash_bwd (the custom VJP
 // that the reference trains through): given q, k, v, the forward's output o,
@@ -13,77 +13,537 @@
 // head's dK and dV sum over its g q heads), and ragged Sq and Sk.
 //
 // What bounds it on this card: operations.  Per (q row, key) pair in the band
-// it does five products of 2 * hd FLOPs (S, dP, dV, dK, dQ) -- 2.5 times the
-// forward's -- plus, in this design, S and dP a second time (below).  On the
-// fp32 FMA units that is 67 TFLOP/s.  This first version is simple and
-// deterministic, not fast: FMA loops fed from shared memory, no tensor cores,
-// no TMA, no overlap of loads with compute.
+// the function needs five products of 2 * hd FLOPs (S, dP, dV, dK, dQ).  Every
+// product here runs on the tensor cores (mma.sync.m16n8k8, TF32 in, f32
+// accumulate) at fp32 accuracy: each operand a is split into big = tf32(a)
+// (round half away) and small = a - big, and every product is small.big +
+// big.small + big.big (CUTLASS's OpMultiplyAddFastF32), so the bound is
+// 3 x 5 x 2 x hd FLOPs a band pair at the 495 TFLOP/s TF32 peak.  This design
+// does seven products a pair, not five (S and dP twice, below).  mma.sync
+// rather than wgmma: TF32 wgmma takes only K-major operands, and dV / dK
+// reduce over the q rows, the outer axis of dO and q.
 //
-// Design: three launches on the caller's stream, and no atomics, so every
-// output element is summed by one thread in one fixed order and two runs are
-// bitwise equal.
-//   1. delta: one warp per (batch, q head, row), rowsum(dO * o) into scratch
-//      the wrapper allocates.
-//   2. dK, dV: one block per (batch, kv head, block of 32 keys).  K and V stay
-//      in shared memory; the block walks the g q heads of its group and, for
-//      each, the 32-row q blocks in the band (the forward's band skip read
-//      from the key side).  dK and dV accumulate in registers.
-//   3. dQ: one block per (batch, q head, block of 32 q rows).  q and dO stay
-//      in shared memory; the block walks the kv blocks in the band, and dQ
-//      accumulates in registers.  It recomputes S and dP (the price of no
-//      atomics).
-// Each step computes the 32 x 32 tiles S = q k^T and dP = dO v^T (a thread
-// owns 2 x 2 entries of each, float4 loads along hd), turns them into P and
-// dS in shared memory, then accumulates P^T dO / dS^T q (or dS k): a thread
-// owns 4 rows x ceil(hd / 32) columns, column d = lane + 32 i, so the loads
-// along hd are conflict-free and the row operands are broadcasts.  Shared
-// memory at hd 256: four 32 x 260 tiles and two 32 x 33 tiles, 141,824 B.
+// Schedule.  Two launches on the caller's stream: delta = rowsum(dO * o), one
+// warp per row, then the main kernel over a work list of items, one item a
+// block, in the list's order (the hardware hands out blocks in blockIdx order
+// as SMs free up, so the list's order is a greedy longest-first schedule).
+// The wrapper builds the list (`backward.work_list`), sorted by tile steps
+// times products a step, longest first.  Two roles:
+//   - a dK/dV item owns 32 keys of one (batch, kv head).  K and V stay in
+//     shared memory; it walks its group's g q heads and, for each, the 32-row
+//     q tiles of the band [lo, hi) that the list gives it, streaming q, dO,
+//     lse and delta through a two-stage cp.async ring.  Per step: S and dP
+//     (32 x 32), P and dS written transposed (key-major), then dV += P^T dO
+//     and dK += dS^T q.
+//   - a dQ item owns 32 q rows of one (batch, q head).  q, dO, lse and delta
+//     stay in shared memory; it walks the band's kv tiles [lo, hi), streaming
+//     K and V through the ring.  Per step: S and dP again (the price of no
+//     atomics), dS written row-major, then dQ += dS k.
+// Determinism: no atomics.  Every output element belongs to exactly one item
+// and is summed by one thread in a fixed order (heads, then q tiles, then
+// the rows of a tile in mma order), whichever block runs the item and
+// whenever; so two runs give the same bits.
+//
+// Warps.  8 warps.  S and dP: warp w sums 16 q rows (16 ((w >> 1) & 1)) x
+// all 32 keys over its half (w & 1) of hd, S for w < 4 and dP for w >= 4; the
+// two halves trade the keys each keeps through shared memory (a 64-thread
+// named barrier), so each warp ends with a 16 x 16 tile, eight mma chains in
+// flight on the way.  The S warp turns its tile into P and hands it to its
+// dP twin (another named barrier), which forms dS.  The products into dK, dV,
+// dQ: warp w owns the 32 rows of the item x DW columns of hd (DW = 32 at hd
+// 256, 16 at 80-128, 8 below), so HD / DW warps take part.
+// The reduction axis of each product is permuted inside each 8-wide k-step
+// (any order of a sum's terms gives the same product): in S and dP, thread
+// (g, t) holds hd columns t E1 .. t E1 + E1 - 1 of a DC-wide chunk (float4
+// loads); in the other three it holds q rows (or keys) 2t, 2t + 1 of a k-step
+// (float2 loads of P / dS), and output column g of n-tile i is hd column
+// E2 g + i of the warp's DW, so dO, q and K fragments are E2-wide loads and
+// each thread writes 2 E2 contiguous outputs a row.
+// Accumulation: S and dP sum big.big and the two cross terms in separate
+// chains over hd (more chains in flight), added once; P is one ex2 a score,
+// 2^(S scale log2 e - lse log2 e).  dV, dK and dQ sum each step's product
+// (one q tile, or one kv tile) in a fresh fragment and add it to the running
+// f32 sum: a dK chain at gemma3's global layer spans 4 heads x 1024 rows, and
+// one tensor-core chain that long loses accuracy.
+// Shared memory at hd 256: six 32 x 260 tiles (two resident, a ring of two
+// stages of two), lse / delta for two stages, two 32 x 40 P / dS tiles, a
+// 4 KB P hand-off and an 8 KB exchange of hd halves: 222,720 B, one block per
+// SM.  `step_clocks.py` measures where a step of the longest item spends its
+// clocks.
 
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kB = 32;  // q rows per q block and keys per kv block
+constexpr int kWarps = 8;
+constexpr int kThreads = 32 * kWarps;
+constexpr int kB = 32;        // keys of a dK/dV item and of a dQ step; q rows of both
+constexpr int LDP = kB + 8;   // P / dS row: float2 fragment loads are conflict-free
 
 struct Strides {
   long long b, h, s;  // elements between batches, heads and sequence rows
 };
 
+struct Params {
+  const float *q, *k, *v, *dout, *lse, *delta;
+  float *dq, *dk, *dv;
+  const int4* items;  // (role | block << 1, batch * heads + head, lo, hi)
+  int hq, hkv, sq, sk, group, causal, window;
+  float scale;
+  Strides qs, ks, vs, dos, dqs, dks, dvs;
+};
+
 template <int HD>
 struct Cfg {
   static_assert(HD % 16 == 0, "the head dim must be a multiple of 16");
-  static constexpr int LD = HD + 4;          // padded tile row, floats (16-byte rows)
-  static constexpr int NC = (HD + 31) / 32;  // accumulator columns per thread
-  static constexpr int LDP = kB + 1;         // P / dS row
+  static constexpr int LD = HD + 4;                   // padded tile row, floats
+  // S and dP: a warp's half of hd in chunks of DC columns (the largest of 32,
+  // 16, 8 that divides HD / 2), E1 floats a thread and row, NK1 k-steps
+  static constexpr int DC = (HD / 2) % 32 == 0 ? 32 : (HD / 2) % 16 == 0 ? 16 : 8;
+  static constexpr int E1 = DC / 4;
+  static constexpr int NK1 = DC / 8;
+  // dV, dK, dQ: a warp's DW output columns, E2 n-tiles; NW2 warps take part
+  static constexpr int DW = HD >= 256 ? 32 : HD >= 80 ? 16 : 8;
+  static constexpr int E2 = DW / 8;
+  static constexpr int NW2 = HD / DW;
+  static_assert(HD % DW == 0 && NW2 <= kWarps, "the output columns must fit the warps");
   static constexpr int kTile = kB * LD;
-  static constexpr int smem = (int)sizeof(float) * (4 * kTile + 2 * kB * LDP + 2 * kB);
+  static constexpr int kPT = kB * LDP;
+  static constexpr int smem =
+      (int)sizeof(float) * (6 * kTile + 4 * kB + 2 * kPT + 4 * 8 * 32 + kWarps * 8 * 32);
   static_assert(smem <= 232448, "over sm_90's opt-in shared memory per block");
+  // two blocks an SM where their shared memory fits (228 KB, 1 KB reserved each)
+  static constexpr int kMinBlocks = 2 * (smem + 1024) <= 233472 ? 2 : 1;
 };
 
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
 __device__ __forceinline__ void cp_async16(float* dst, const float* src, bool valid) {
   // src-size 0 fills the 16 bytes with zeros (rows past Sq / Sk)
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src),
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)), "l"(src),
                "r"(valid ? 16 : 0));
 }
-__device__ __forceinline__ void cp_commit_wait() {
-  asm volatile("cp.async.commit_group;\n" ::);
-  asm volatile("cp.async.wait_group 0;\n" ::);
+__device__ __forceinline__ void cp_async4(float* dst, const float* src, bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_addr(dst)), "l"(src),
+               "r"(valid ? 4 : 0));
+}
+__device__ __forceinline__ void cp_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+__device__ __forceinline__ void cp_wait_all() { asm volatile("cp.async.wait_group 0;\n" ::); }
+
+// a = big + small: big is a rounded to TF32 (half away from zero), small the
+// exact rest, whose low 13 bits the tensor cores ignore
+__device__ __forceinline__ void split(float a, uint32_t& big, uint32_t& small) {
+  big = (__float_as_uint(a) + 0x1000u) & 0xffffe000u;
+  small = __float_as_uint(a - __uint_as_float(big));
+}
+
+__device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                    uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0,%1,%2,%3}, "
+      "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+// c += a b at f32 accuracy: the two small cross terms first, then big.big
+__device__ __forceinline__ void mma3(float (&c)[4], const uint32_t (&ab)[4],
+                                     const uint32_t (&as)[4], float b0, float b1) {
+  uint32_t bb0, bs0, bb1, bs1;
+  split(b0, bb0, bs0);
+  split(b1, bb1, bs1);
+  mma(c, as, bb0, bb1);
+  mma(c, ab, bs0, bs1);
+  mma(c, ab, bb0, bb1);
+}
+
+template <int N>
+__device__ __forceinline__ void load_row(float (&dst)[N], const float* src) {
+#pragma unroll
+  for (int i = 0; i < N; i += 4) {
+    const float4 v = *reinterpret_cast<const float4*>(src + i);
+    dst[i] = v.x; dst[i + 1] = v.y; dst[i + 2] = v.z; dst[i + 3] = v.w;
+  }
+}
+template <>
+__device__ __forceinline__ void load_row<2>(float (&dst)[2], const float* src) {
+  const float2 v = *reinterpret_cast<const float2*>(src);
+  dst[0] = v.x; dst[1] = v.y;
+}
+template <>
+__device__ __forceinline__ void load_row<1>(float (&dst)[1], const float* src) { dst[0] = *src; }
+
+template <int N>
+__device__ __forceinline__ void store_row(float* dst, const float (&src)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; i += 4)
+    *reinterpret_cast<float4*>(dst + i) = make_float4(src[i], src[i + 1], src[i + 2], src[i + 3]);
+}
+template <>
+__device__ __forceinline__ void store_row<2>(float* dst, const float (&src)[2]) {
+  *reinterpret_cast<float2*>(dst) = make_float2(src[0], src[1]);
+}
+
+// two warps meet here: barriers 1-4 join an S warp and its dP twin, 5-8 the
+// two hd halves of one product's 16 rows; barrier 0 is __syncthreads
+__device__ __forceinline__ void pair_sync(int id) {
+  asm volatile("bar.sync %0, 64;\n" ::"r"(id) : "memory");
 }
 
 // rows [r0, r0 + kB) of a (rows, HD) tensor at `base` with row stride `rs`
 // into a (kB, LD) tile; rows at or past `n` are zeros
 template <int HD>
-__device__ __forceinline__ void load_tile(float* tile, const float* base, long long rs,
-                                          int r0, int n) {
+__device__ __forceinline__ void load_tile(float* tile, const float* base, long long rs, int r0,
+                                          int n) {
   constexpr int LD = Cfg<HD>::LD;
   for (int idx = threadIdx.x; idx < kB * HD / 4; idx += kThreads) {
     const int r = idx / (HD / 4), c4 = idx - r * (HD / 4);
     const bool ok = r0 + r < n;
     cp_async16(tile + r * LD + 4 * c4, base + (ok ? r0 + r : 0) * rs + 4 * c4, ok);
   }
+}
+// kB row statistics (lse or delta) from rows [r0, r0 + kB) of `src`; zeros past n
+__device__ __forceinline__ void load_stats(float* dst, const float* src, int r0, int n) {
+  if (threadIdx.x < kB) {
+    const bool ok = r0 + (int)threadIdx.x < n;
+    cp_async4(dst + threadIdx.x, src + (ok ? r0 + threadIdx.x : 0), ok);
+  }
+}
+
+// acc = A B^T for 16 rows of `a` (row stride LD) against 32 rows of `b`,
+// over the HD / 2 columns from each one's first: a half of S = q k^T or of
+// dP = dO v^T.  acc[j] holds rows g, g + 8 and keys 8j + 2t, 8j + 2t + 1.
+template <int HD>
+__device__ __forceinline__ void scores_half(float (&acc)[4][4], const float* a, const float* b,
+                                            int g, int t) {
+  using C = Cfg<HD>;
+  constexpr int LD = C::LD, DC = C::DC, E1 = C::E1, NK1 = C::NK1;
+  float cross[4][4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = cross[j][e] = 0.f;
+  const float* ar = a + g * LD + t * E1;
+  const float* br = b + g * LD + t * E1;
+#pragma unroll
+  for (int c = 0; c < HD / 2 / DC; ++c) {
+    float xa[E1], xb[E1];
+    load_row(xa, ar + c * DC);
+    load_row(xb, ar + 8 * LD + c * DC);
+    uint32_t ab[NK1][4], as[NK1][4];
+#pragma unroll
+    for (int kk = 0; kk < NK1; ++kk) {
+      split(xa[2 * kk], ab[kk][0], as[kk][0]);
+      split(xb[2 * kk], ab[kk][1], as[kk][1]);
+      split(xa[2 * kk + 1], ab[kk][2], as[kk][2]);
+      split(xb[2 * kk + 1], ab[kk][3], as[kk][3]);
+    }
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      float y[E1];
+      load_row(y, br + 8 * j * LD + c * DC);
+#pragma unroll
+      for (int kk = 0; kk < NK1; ++kk) {
+        uint32_t bb0, bs0, bb1, bs1;
+        split(y[2 * kk], bb0, bs0);
+        split(y[2 * kk + 1], bb1, bs1);
+        mma(cross[j], as[kk], bb0, bb1);
+        mma(cross[j], ab[kk], bs0, bs1);
+        mma(acc[j], ab[kk], bb0, bb1);
+      }
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] += cross[j][e];
+}
+
+// acc = A B for A (32 x 32, row stride LDP: P^T, dS^T or dS) and B (32 rows
+// of a (kB, LD) tile, from the warp's first column): acc[m][i] holds rows
+// 16m + g, 16m + g + 8 and, for n-tile i, columns E2 (2t) + i, E2 (2t + 1) + i
+template <int HD>
+__device__ __forceinline__ void product32(float (&acc)[2][Cfg<HD>::E2][4], const float* a,
+                                          const float* b, int g, int t) {
+  using C = Cfg<HD>;
+  constexpr int LD = C::LD, E2 = C::E2;
+#pragma unroll
+  for (int m = 0; m < 2; ++m)
+#pragma unroll
+    for (int i = 0; i < E2; ++i) acc[m][i][0] = acc[m][i][1] = acc[m][i][2] = acc[m][i][3] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < kB / 8; ++kk) {
+    uint32_t ab[2][4], as[2][4];
+#pragma unroll
+    for (int m = 0; m < 2; ++m) {
+      const float2 lo = *reinterpret_cast<const float2*>(a + (16 * m + g) * LDP + 8 * kk + 2 * t);
+      const float2 hi =
+          *reinterpret_cast<const float2*>(a + (16 * m + g + 8) * LDP + 8 * kk + 2 * t);
+      split(lo.x, ab[m][0], as[m][0]);
+      split(hi.x, ab[m][1], as[m][1]);
+      split(lo.y, ab[m][2], as[m][2]);
+      split(hi.y, ab[m][3], as[m][3]);
+    }
+    float y0[E2], y1[E2];
+    load_row(y0, b + (8 * kk + 2 * t) * LD + E2 * g);
+    load_row(y1, b + (8 * kk + 2 * t + 1) * LD + E2 * g);
+#pragma unroll
+    for (int i = 0; i < E2; ++i)
+#pragma unroll
+      for (int m = 0; m < 2; ++m) mma3(acc[m][i], ab[m], as[m], y0[i], y1[i]);
+  }
+}
+
+template <int E2>
+__device__ __forceinline__ void add_into(float (&run)[2][E2][4], const float (&step)[2][E2][4]) {
+#pragma unroll
+  for (int m = 0; m < 2; ++m)
+#pragma unroll
+    for (int i = 0; i < E2; ++i)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) run[m][i][e] += step[m][i][e];
+}
+
+// rows r0 + 16m + g (+ 8) below n of `acc` times `mul`, to `base` (row stride
+// rs) at the thread's 2 E2 contiguous columns
+template <int E2>
+__device__ __forceinline__ void store_rows(float* base, long long rs, int r0, int n,
+                                           const float (&acc)[2][E2][4], float mul, int g) {
+#pragma unroll
+  for (int m = 0; m < 2; ++m)
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = r0 + 16 * m + g + 8 * r;
+      if (row >= n) continue;
+      float out[2 * E2];
+#pragma unroll
+      for (int i = 0; i < E2; ++i) {
+        out[i] = acc[m][i][2 * r] * mul;
+        out[E2 + i] = acc[m][i][2 * r + 1] * mul;
+      }
+      store_row(base + row * rs, out);
+    }
+}
+
+__device__ __forceinline__ bool visible(int row, int key, const Params& p) {
+  bool ok = row < p.sq && key < p.sk;
+  if (p.causal) ok = ok && key <= row;
+  if (p.window > 0) ok = ok && row - key < p.window;
+  return ok;
+}
+
+// S / dP for this warp's 16 x 16 tile of the step (q rows q0 + 16 rh, keys
+// k0 + 16 hf), then P (S warps) and dS (dP warps).  The warp sums its half
+// hf of hd for all 32 keys, hands the half of the keys that its twin (warp ^
+// 1) keeps through `xch`, and adds the twin's half of its own keys.  P goes
+// to the dP twin through `xsh` and, when `pt` is not null, to pt[key][row];
+// dS goes to dst[key][row] (`ds_t`) or dst[row][key].
+template <int HD>
+__device__ __forceinline__ void step_p_ds(const Params& p, const float* qsh, const float* dosh,
+                                          const float* ksh, const float* vsh,
+                                          const float* lse_sh, const float* dl_sh, float* pt,
+                                          float* dst, bool ds_t, float* xsh, float* xch, int q0,
+                                          int k0) {
+  constexpr int LD = Cfg<HD>::LD;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int pair = warp & 3, rh = pair >> 1, hf = pair & 1;
+  const bool is_s = warp < 4;
+  float part[4][4];
+  scores_half<HD>(part, (is_s ? qsh : dosh) + 16 * rh * LD + hf * (HD / 2),
+                  (is_s ? ksh : vsh) + hf * (HD / 2), g, t);
+  float* give = xch + warp * 8 * 32 + lane;
+  const float* take = xch + (warp ^ 1) * 8 * 32 + lane;
+#pragma unroll
+  for (int j = 0; j < 2; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) give[(4 * j + e) * 32] = hf ? part[j][e] : part[2 + j][e];
+  pair_sync(5 + (warp >> 1));
+  float acc[2][4];
+#pragma unroll
+  for (int j = 0; j < 2; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      acc[j][e] = (hf ? part[2 + j][e] : part[j][e]) + take[(4 * j + e) * 32];
+  float* x = xsh + pair * 8 * 32 + lane;
+  if (is_s) {
+    // P = 2^(S scale log2(e) - lse log2(e)): one ex2 a score
+    constexpr float kLog2e = 1.4426950408889634f;
+    const float sl = p.scale * kLog2e;
+    const float nl[2] = {-lse_sh[16 * rh + g] * kLog2e, -lse_sh[16 * rh + g + 8] * kLog2e};
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = 16 * rh + g + 8 * (e >> 1), c = 16 * hf + 8 * j + 2 * t + (e & 1);
+        const float pv =
+            visible(q0 + r, k0 + c, p) ? exp2f(fmaf(acc[j][e], sl, nl[e >> 1])) : 0.f;
+        x[(4 * j + e) * 32] = pv;
+        if (pt != nullptr) pt[c * LDP + r] = pv;
+      }
+  }
+  pair_sync(1 + pair);
+  if (!is_s) {
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = 16 * rh + g + 8 * (e >> 1), c = 16 * hf + 8 * j + 2 * t + (e & 1);
+        const float ds = x[(4 * j + e) * 32] * (acc[j][e] - dl_sh[r]);
+        dst[ds_t ? c * LDP + r : r * LDP + c] = ds;
+      }
+  }
+}
+
+// shared memory: tiles 0-1 resident, 2-5 the ring (stage s: tiles 2 + 2s and
+// 3 + 2s), then lse / delta for two stages, two P / dS tiles, the P hand-off
+// and the hd halves' exchange
+template <int HD>
+struct Smem {
+  float *res0, *res1, *ring, *stats, *pa, *pb, *xsh, *xch;
+  __device__ __forceinline__ explicit Smem(float* s) {
+    using C = Cfg<HD>;
+    res0 = s;
+    res1 = s + C::kTile;
+    ring = s + 2 * C::kTile;
+    stats = s + 6 * C::kTile;
+    pa = stats + 4 * kB;
+    pb = pa + C::kPT;
+    xsh = pb + C::kPT;
+    xch = xsh + 4 * 8 * 32;
+  }
+  __device__ __forceinline__ float* stage(int st) const { return ring + 2 * st * Cfg<HD>::kTile; }
+};
+
+// dK and dV of keys [k0, k0 + kB) of one (batch, kv head): q tiles [lo, hi)
+// of each of the group's q heads
+template <int HD>
+__device__ __forceinline__ void dkdv_item(const Params& p, float* smem, int bh, int kb, int lo,
+                                          int hi) {
+  using C = Cfg<HD>;
+  constexpr int E2 = C::E2;
+  const Smem<HD> sm(smem);
+  const int hk = bh % p.hkv, bi = bh / p.hkv, k0 = kb * kB;
+  load_tile<HD>(sm.res0, p.k + bi * p.ks.b + hk * p.ks.h, p.ks.s, k0, p.sk);
+  load_tile<HD>(sm.res1, p.v + bi * p.vs.b + hk * p.vs.h, p.vs.s, k0, p.sk);
+  const int nq = hi - lo, n = p.group * nq;
+  auto issue = [&](int step, int st) {  // q, dO, lse, delta of step `step` into stage st
+    const int h = hk * p.group + step / nq, q0 = (lo + step % nq) * kB;
+    float* qs = sm.stage(st);
+    load_tile<HD>(qs, p.q + bi * p.qs.b + h * p.qs.h, p.qs.s, q0, p.sq);
+    load_tile<HD>(qs + C::kTile, p.dout + bi * p.dos.b + h * p.dos.h, p.dos.s, q0, p.sq);
+    const long long rows = ((long long)bi * p.hq + h) * p.sq;
+    load_stats(sm.stats + 2 * kB * st, p.lse + rows, q0, p.sq);
+    load_stats(sm.stats + 2 * kB * st + kB, p.delta + rows, q0, p.sq);
+  };
+  if (n > 0) issue(0, 0);
+  cp_commit();
+
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  float adk[2][E2][4], adv[2][E2][4];
+#pragma unroll
+  for (int m = 0; m < 2; ++m)
+#pragma unroll
+    for (int i = 0; i < E2; ++i)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) adk[m][i][e] = adv[m][i][e] = 0.f;
+
+  for (int it = 0; it < n; ++it) {
+    const int st = it & 1;
+    cp_wait_all();
+    __syncthreads();  // step it has landed; every warp is done with step it - 1
+    if (it + 1 < n) issue(it + 1, st ^ 1);
+    cp_commit();
+    const float* qsh = sm.stage(st);
+    const float* dosh = qsh + C::kTile;
+    const float* lse_sh = sm.stats + 2 * kB * st;
+    step_p_ds<HD>(p, qsh, dosh, sm.res0, sm.res1, lse_sh, lse_sh + kB, sm.pa, sm.pb, true,
+                  sm.xsh, sm.xch, (lo + it % nq) * kB, k0);
+    __syncthreads();  // P^T and dS^T are whole
+    if (warp < C::NW2) {
+      float step[2][E2][4];
+      product32<HD>(step, sm.pa, dosh + warp * C::DW, g, t);
+      add_into(adv, step);
+      product32<HD>(step, sm.pb, qsh + warp * C::DW, g, t);
+      add_into(adk, step);
+    }
+  }
+  cp_wait_all();  // where no step ran, the K / V copies are still in flight
+  if (warp < C::NW2) {
+    const int col = warp * C::DW + 2 * t * E2;
+    store_rows(p.dk + bi * p.dks.b + hk * p.dks.h + col, p.dks.s, k0, p.sk, adk, p.scale, g);
+    store_rows(p.dv + bi * p.dvs.b + hk * p.dvs.h + col, p.dvs.s, k0, p.sk, adv, 1.f, g);
+  }
+}
+
+// dQ of q rows [q0, q0 + kB) of one (batch, q head): kv tiles [lo, hi)
+template <int HD>
+__device__ __forceinline__ void dq_item(const Params& p, float* smem, int bh, int qb, int lo,
+                                        int hi) {
+  using C = Cfg<HD>;
+  constexpr int E2 = C::E2;
+  const Smem<HD> sm(smem);
+  const int h = bh % p.hq, bi = bh / p.hq, hk = h / p.group, q0 = qb * kB;
+  const long long rows = ((long long)bi * p.hq + h) * p.sq;
+  load_tile<HD>(sm.res0, p.q + bi * p.qs.b + h * p.qs.h, p.qs.s, q0, p.sq);
+  load_tile<HD>(sm.res1, p.dout + bi * p.dos.b + h * p.dos.h, p.dos.s, q0, p.sq);
+  load_stats(sm.stats, p.lse + rows, q0, p.sq);
+  load_stats(sm.stats + kB, p.delta + rows, q0, p.sq);
+  const int n = hi - lo;
+  auto issue = [&](int step, int st) {  // K and V of kv tile lo + step into stage st
+    const int k0 = (lo + step) * kB;
+    float* ks = sm.stage(st);
+    load_tile<HD>(ks, p.k + bi * p.ks.b + hk * p.ks.h, p.ks.s, k0, p.sk);
+    load_tile<HD>(ks + C::kTile, p.v + bi * p.vs.b + hk * p.vs.h, p.vs.s, k0, p.sk);
+  };
+  if (n > 0) issue(0, 0);
+  cp_commit();
+
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  float adq[2][E2][4];
+#pragma unroll
+  for (int m = 0; m < 2; ++m)
+#pragma unroll
+    for (int i = 0; i < E2; ++i)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) adq[m][i][e] = 0.f;
+
+  for (int it = 0; it < n; ++it) {
+    const int st = it & 1;
+    cp_wait_all();
+    __syncthreads();  // step it has landed; every warp is done with step it - 1
+    if (it + 1 < n) issue(it + 1, st ^ 1);
+    cp_commit();
+    const float* ksh = sm.stage(st);
+    step_p_ds<HD>(p, sm.res0, sm.res1, ksh, ksh + C::kTile, sm.stats, sm.stats + kB, nullptr,
+                  sm.pa, false, sm.xsh, sm.xch, q0, (lo + it) * kB);
+    __syncthreads();  // dS is whole
+    if (warp < C::NW2) {
+      float step[2][E2][4];
+      product32<HD>(step, sm.pa, ksh + warp * C::DW, g, t);
+      add_into(adq, step);
+    }
+  }
+  cp_wait_all();  // where no step ran, the q / dO copies are still in flight
+  if (warp < C::NW2) {
+    const int col = warp * C::DW + 2 * t * E2;
+    store_rows(p.dq + bi * p.dqs.b + h * p.dqs.h + col, p.dqs.s, q0, p.sq, adq, p.scale, g);
+  }
+}
+
+template <int HD>
+__global__ void __launch_bounds__(kThreads, Cfg<HD>::kMinBlocks)
+flash_bwd_kernel(const Params p) {
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  const int4 item = p.items[blockIdx.x];
+  if (item.x & 1)
+    dq_item<HD>(p, smem, item.y, item.x >> 1, item.z, item.w);
+  else
+    dkdv_item<HD>(p, smem, item.y, item.x >> 1, item.z, item.w);
 }
 
 __device__ __forceinline__ float dot4(float4 a, float4 b, float acc) {
@@ -93,62 +553,13 @@ __device__ __forceinline__ float dot4(float4 a, float4 b, float acc) {
   return fmaf(a.w, b.w, acc);
 }
 
-// The 32 x 32 tile of q rows [q0, q0 + kB) against keys [k0, k0 + kB):
-// S = q k^T and dP = dO v^T from the tiles in shared memory, then
-// P = exp(scale * S - lse) where the mask allows (else 0) and
-// dS = P * (dP - delta), stored as (q row, key) with row stride LDP.
-// P is stored only when `psh` is not null.
-template <int HD>
-__device__ __forceinline__ void tile_p_ds(const float* qsh, const float* dosh,
-                                          const float* ksh, const float* vsh,
-                                          const float* lse_sh, const float* dl_sh,
-                                          float* psh, float* dssh, int q0, int k0,
-                                          int sq, int sk, int causal, int window,
-                                          float scale) {
-  constexpr int LD = Cfg<HD>::LD, LDP = Cfg<HD>::LDP;
-  const int tr = threadIdx.x >> 4, tc = threadIdx.x & 15;  // rows tr, tr + 16; keys tc, tc + 16
-  float s[2][2] = {{0.f, 0.f}, {0.f, 0.f}}, dp[2][2] = {{0.f, 0.f}, {0.f, 0.f}};
-#pragma unroll 4
-  for (int d = 0; d < HD; d += 4) {
-    float4 qa[2], oa[2], kb[2], vb[2];
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      qa[i] = *reinterpret_cast<const float4*>(qsh + (tr + 16 * i) * LD + d);
-      oa[i] = *reinterpret_cast<const float4*>(dosh + (tr + 16 * i) * LD + d);
-      kb[i] = *reinterpret_cast<const float4*>(ksh + (tc + 16 * i) * LD + d);
-      vb[i] = *reinterpret_cast<const float4*>(vsh + (tc + 16 * i) * LD + d);
-    }
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        s[i][j] = dot4(qa[i], kb[j], s[i][j]);
-        dp[i][j] = dot4(oa[i], vb[j], dp[i][j]);
-      }
-  }
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int r = tr + 16 * i, row = q0 + r;
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      const int c = tc + 16 * j, key = k0 + c;
-      bool ok = row < sq && key < sk;
-      if (causal) ok = ok && key <= row;
-      if (window > 0) ok = ok && row - key < window;
-      const float p = ok ? expf(s[i][j] * scale - lse_sh[r]) : 0.f;
-      if (psh != nullptr) psh[r * LDP + c] = p;
-      dssh[r * LDP + c] = p * (dp[i][j] - dl_sh[r]);
-    }
-  }
-}
-
 // delta[b, h, i] = sum_d dO[b, h, i, d] * o[b, h, i, d]: one warp per row
 template <int HD>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_delta_kernel(const float* __restrict__ o, const float* __restrict__ dout,
                        float* __restrict__ delta, int hq, int sq, long long rows,
                        Strides os, Strides dos) {
-  const long long row = (long long)blockIdx.x * (kThreads / 32) + (threadIdx.x >> 5);
+  const long long row = (long long)blockIdx.x * kWarps + (threadIdx.x >> 5);
   if (row >= rows) return;
   const int lane = threadIdx.x & 31;
   const long long bh = row / sq;
@@ -164,223 +575,24 @@ flash_bwd_delta_kernel(const float* __restrict__ o, const float* __restrict__ do
   if (lane == 0) delta[row] = acc;
 }
 
-// dK and dV of keys [k0, k0 + kB) of one (batch, kv head)
 template <int HD>
-__global__ void __launch_bounds__(kThreads, 1)
-flash_bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                      const float* __restrict__ v, const float* __restrict__ dout,
-                      const float* __restrict__ lse, const float* __restrict__ delta,
-                      float* __restrict__ dk, float* __restrict__ dv, int hq, int hkv,
-                      int sq, int sk, Strides qs, Strides ks, Strides vs, Strides dos,
-                      Strides dks, Strides dvs, int causal, int window, float scale) {
-  using C = Cfg<HD>;
-  constexpr int LD = C::LD, LDP = C::LDP, NC = C::NC;
-  extern __shared__ float4 smem4[];
-  float* ksh = reinterpret_cast<float*>(smem4);
-  float* vsh = ksh + C::kTile;
-  float* qsh = vsh + C::kTile;
-  float* dosh = qsh + C::kTile;
-  float* psh = dosh + C::kTile;
-  float* dssh = psh + kB * LDP;
-  float* lse_sh = dssh + kB * LDP;
-  float* dl_sh = lse_sh + kB;
-
-  const int hk = blockIdx.x % hkv, bi = blockIdx.x / hkv, group = hq / hkv;
-  const int k0 = blockIdx.y * kB;
-  load_tile<HD>(ksh, k + bi * ks.b + hk * ks.h, ks.s, k0, sk);
-  load_tile<HD>(vsh, v + bi * vs.b + hk * vs.h, vs.s, k0, sk);
-
-  // the q rows that can see a key of this block
-  const int q_begin = causal ? k0 : 0;
-  const int q_end = window > 0 ? min(sq, k0 + kB - 1 + window) : sq;
-  const int qb0 = q_begin / kB, qb1 = q_end > q_begin ? (q_end + kB - 1) / kB : qb0;
-
-  const int rg = threadIdx.x >> 5, lane = threadIdx.x & 31;  // keys 4 rg + j, columns lane + 32 i
-  float adk[4][NC], adv[4][NC];
-#pragma unroll
-  for (int j = 0; j < 4; ++j)
-#pragma unroll
-    for (int i = 0; i < NC; ++i) adk[j][i] = adv[j][i] = 0.f;
-
-  for (int h = hk * group; h < (hk + 1) * group; ++h) {
-    const float* qg = q + bi * qs.b + h * qs.h;
-    const float* dog = dout + bi * dos.b + h * dos.h;
-    const float* lse_g = lse + ((long long)bi * hq + h) * sq;
-    const float* dl_g = delta + ((long long)bi * hq + h) * sq;
-    for (int qb = qb0; qb < qb1; ++qb) {
-      const int q0 = qb * kB;
-      __syncthreads();  // the previous step is done with q, dO, P and dS
-      load_tile<HD>(qsh, qg, qs.s, q0, sq);
-      load_tile<HD>(dosh, dog, dos.s, q0, sq);
-      if (threadIdx.x < kB) {
-        const int row = q0 + threadIdx.x;
-        lse_sh[threadIdx.x] = row < sq ? lse_g[row] : 0.f;
-        dl_sh[threadIdx.x] = row < sq ? dl_g[row] : 0.f;
-      }
-      cp_commit_wait();
-      __syncthreads();
-      tile_p_ds<HD>(qsh, dosh, ksh, vsh, lse_sh, dl_sh, psh, dssh, q0, k0, sq, sk, causal,
-                    window, scale);
-      __syncthreads();
-      // dV += P^T dO, dK += dS^T q over this block's 32 q rows
-      for (int r = 0; r < kB; ++r) {
-        float p[4], ds[4], o_[NC], q_[NC];
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          p[j] = psh[r * LDP + 4 * rg + j];
-          ds[j] = dssh[r * LDP + 4 * rg + j];
-        }
-#pragma unroll
-        for (int i = 0; i < NC; ++i) {
-          const int d = lane + 32 * i;
-          o_[i] = d < HD ? dosh[r * LD + d] : 0.f;
-          q_[i] = d < HD ? qsh[r * LD + d] : 0.f;
-        }
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-#pragma unroll
-          for (int i = 0; i < NC; ++i) {
-            adv[j][i] = fmaf(p[j], o_[i], adv[j][i]);
-            adk[j][i] = fmaf(ds[j], q_[i], adk[j][i]);
-          }
-      }
-    }
-  }
-  cp_commit_wait();  // where no step ran, the K / V copies are still in flight
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    const int key = k0 + 4 * rg + j;
-    if (key >= sk) continue;
-    float* dkrow = dk + bi * dks.b + hk * dks.h + key * dks.s;
-    float* dvrow = dv + bi * dvs.b + hk * dvs.h + key * dvs.s;
-#pragma unroll
-    for (int i = 0; i < NC; ++i) {
-      const int d = lane + 32 * i;
-      if (d < HD) {
-        dkrow[d] = adk[j][i] * scale;
-        dvrow[d] = adv[j][i];
-      }
-    }
-  }
-}
-
-// dQ of q rows [q0, q0 + kB) of one (batch, q head)
-template <int HD>
-__global__ void __launch_bounds__(kThreads, 1)
-flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                    const float* __restrict__ v, const float* __restrict__ dout,
-                    const float* __restrict__ lse, const float* __restrict__ delta,
-                    float* __restrict__ dq, int hq, int hkv, int sq, int sk, Strides qs,
-                    Strides ks, Strides vs, Strides dos, Strides dqs, int causal,
-                    int window, float scale) {
-  using C = Cfg<HD>;
-  constexpr int LD = C::LD, LDP = C::LDP, NC = C::NC;
-  extern __shared__ float4 smem4[];
-  float* qsh = reinterpret_cast<float*>(smem4);
-  float* dosh = qsh + C::kTile;
-  float* ksh = dosh + C::kTile;
-  float* vsh = ksh + C::kTile;
-  float* dssh = vsh + C::kTile;  // (the P tile's room is unused here)
-  float* lse_sh = dssh + 2 * kB * LDP;
-  float* dl_sh = lse_sh + kB;
-
-  const int h = blockIdx.x % hq, bi = blockIdx.x / hq, hk = h / (hq / hkv);
-  const int q0 = blockIdx.y * kB;
-  load_tile<HD>(qsh, q + bi * qs.b + h * qs.h, qs.s, q0, sq);
-  load_tile<HD>(dosh, dout + bi * dos.b + h * dos.h, dos.s, q0, sq);
-  if (threadIdx.x < kB) {
-    const int row = q0 + threadIdx.x;
-    const long long at = ((long long)bi * hq + h) * sq + row;
-    lse_sh[threadIdx.x] = row < sq ? lse[at] : 0.f;
-    dl_sh[threadIdx.x] = row < sq ? delta[at] : 0.f;
-  }
-  const float* kg = k + bi * ks.b + hk * ks.h;
-  const float* vg = v + bi * vs.b + hk * vs.h;
-
-  // the band of keys these rows can see (the forward's)
-  const int kv_end = causal ? min(sk, q0 + kB) : sk;
-  const int kv_begin = window > 0 ? max(0, q0 - window + 1) : 0;
-  const int jb0 = kv_begin / kB, jb1 = kv_end > kv_begin ? (kv_end + kB - 1) / kB : jb0;
-
-  const int rg = threadIdx.x >> 5, lane = threadIdx.x & 31;  // rows 4 rg + j, columns lane + 32 i
-  float adq[4][NC];
-#pragma unroll
-  for (int j = 0; j < 4; ++j)
-#pragma unroll
-    for (int i = 0; i < NC; ++i) adq[j][i] = 0.f;
-
-  for (int jb = jb0; jb < jb1; ++jb) {
-    const int k0 = jb * kB;
-    __syncthreads();  // the previous step is done with K, V and dS
-    load_tile<HD>(ksh, kg, ks.s, k0, sk);
-    load_tile<HD>(vsh, vg, vs.s, k0, sk);
-    cp_commit_wait();
-    __syncthreads();
-    tile_p_ds<HD>(qsh, dosh, ksh, vsh, lse_sh, dl_sh, nullptr, dssh, q0, k0, sq, sk, causal,
-                  window, scale);
-    __syncthreads();
-    // dQ += dS k over this block's 32 keys
-    for (int c = 0; c < kB; ++c) {
-      float ds[4], k_[NC];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) ds[j] = dssh[(4 * rg + j) * LDP + c];
-#pragma unroll
-      for (int i = 0; i < NC; ++i) {
-        const int d = lane + 32 * i;
-        k_[i] = d < HD ? ksh[c * LD + d] : 0.f;
-      }
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-#pragma unroll
-        for (int i = 0; i < NC; ++i) adq[j][i] = fmaf(ds[j], k_[i], adq[j][i]);
-    }
-  }
-  cp_commit_wait();  // where no step ran, the q / dO copies are still in flight
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    const int row = q0 + 4 * rg + j;
-    if (row >= sq) continue;
-    float* dqrow = dq + bi * dqs.b + h * dqs.h + row * dqs.s;
-#pragma unroll
-    for (int i = 0; i < NC; ++i) {
-      const int d = lane + 32 * i;
-      if (d < HD) dqrow[d] = adq[j][i] * scale;
-    }
-  }
-}
-
-template <int HD>
-int launch(const float* q, const float* k, const float* v, const float* o, const float* lse,
-           const float* dout, float* dq, float* dk, float* dv, float* delta, int batch, int hq,
-           int hkv, int sq, int sk, Strides qs, Strides ks, Strides vs, Strides os,
-           Strides dos, Strides dqs, Strides dks, Strides dvs, int causal, int window,
-           float scale, cudaStream_t stream) {
+int launch(const Params& p, const float* o, Strides os, float* delta, int batch, int n_items,
+           cudaStream_t stream) {
   constexpr int smem = Cfg<HD>::smem;
   // the opt-in above 48 KB is set once per process and instantiation
   static bool opted = false;
   if (!opted) {
-    cudaError_t err = cudaFuncSetAttribute(
-        flash_bwd_dkdv_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err == cudaSuccess)
-      err = cudaFuncSetAttribute(flash_bwd_dq_kernel<HD>,
-                                 cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    const cudaError_t err = cudaFuncSetAttribute(
+        flash_bwd_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return (int)err;
     opted = true;
   }
-  const long long rows = (long long)batch * hq * sq;
-  const int per_block = kThreads / 32;
-  flash_bwd_delta_kernel<HD><<<(unsigned)((rows + per_block - 1) / per_block), kThreads, 0,
-                               stream>>>(o, dout, delta, hq, sq, rows, os, dos);
-  cudaError_t err = cudaGetLastError();
+  const long long rows = (long long)batch * p.hq * p.sq;
+  flash_bwd_delta_kernel<HD><<<(unsigned)((rows + kWarps - 1) / kWarps), kThreads, 0,
+                               stream>>>(o, p.dout, delta, p.hq, p.sq, rows, os, p.dos);
+  const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  flash_bwd_dkdv_kernel<HD><<<dim3(batch * hkv, (sk + kB - 1) / kB), kThreads, smem, stream>>>(
-      q, k, v, dout, lse, delta, dk, dv, hq, hkv, sq, sk, qs, ks, vs, dos, dks, dvs, causal,
-      window, scale);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  flash_bwd_dq_kernel<HD><<<dim3(batch * hq, (sq + kB - 1) / kB), kThreads, smem, stream>>>(
-      q, k, v, dout, lse, delta, dq, hq, hkv, sq, sk, qs, ks, vs, dos, dqs, causal, window,
-      scale);
+  flash_bwd_kernel<HD><<<n_items, kThreads, smem, stream>>>(p);
   return (int)cudaGetLastError();
 }
 
@@ -390,36 +602,40 @@ int launch(const float* q, const float* k, const float* v, const float* o, const
 // addressed by its (batch, head, sequence) strides in elements with hd
 // contiguous, pointers and strides 16-byte aligned; lse (the forward's) and
 // the scratch delta (batch, hq, sq) contiguous f32; hd in {16, 32, 64, 80,
-// 112, 128, 256}; hq a multiple of hkv.  Launches three kernels on `stream`;
-// returns the first CUDA error.
+// 112, 128, 256}; hq a multiple of hkv; `items` the wrapper's work list,
+// n_items int4s (`backward.work_list`), which must cover every output row.
+// Launches two kernels on `stream`; returns the first CUDA error.
 extern "C" int flash_attention_bwd_launch(
     const float* q, const float* k, const float* v, const float* o, const float* lse,
-    const float* dout, float* dq, float* dk, float* dv, float* delta, int batch, int hq,
-    int hkv, int sq, int sk, int hd, long long q_sb, long long q_sh, long long q_ss,
-    long long k_sb, long long k_sh, long long k_ss, long long v_sb, long long v_sh,
-    long long v_ss, long long o_sb, long long o_sh, long long o_ss, long long do_sb,
-    long long do_sh, long long do_ss, long long dq_sb, long long dq_sh, long long dq_ss,
-    long long dk_sb, long long dk_sh, long long dk_ss, long long dv_sb, long long dv_sh,
-    long long dv_ss, int causal, int window, float scale, void* stream) {
-  if (batch < 1 || hq < 1 || hkv < 1 || hq % hkv || sq < 1 || sk < 1)
+    const float* dout, float* dq, float* dk, float* dv, float* delta, const void* items,
+    int n_items, int batch, int hq, int hkv, int sq, int sk, int hd, long long q_sb,
+    long long q_sh, long long q_ss, long long k_sb, long long k_sh, long long k_ss,
+    long long v_sb, long long v_sh, long long v_ss, long long o_sb, long long o_sh,
+    long long o_ss, long long do_sb, long long do_sh, long long do_ss, long long dq_sb,
+    long long dq_sh, long long dq_ss, long long dk_sb, long long dk_sh, long long dk_ss,
+    long long dv_sb, long long dv_sh, long long dv_ss, int causal, int window, float scale,
+    void* stream) {
+  if (batch < 1 || hq < 1 || hkv < 1 || hq % hkv || sq < 1 || sk < 1 || n_items < 1)
     return (int)cudaErrorInvalidValue;
-  const Strides qs{q_sb, q_sh, q_ss}, ks{k_sb, k_sh, k_ss}, vs{v_sb, v_sh, v_ss},
-      os{o_sb, o_sh, o_ss}, dos{do_sb, do_sh, do_ss}, dqs{dq_sb, dq_sh, dq_ss},
-      dks{dk_sb, dk_sh, dk_ss}, dvs{dv_sb, dv_sh, dv_ss};
+  Params p;
+  p.q = q; p.k = k; p.v = v; p.dout = dout; p.lse = lse; p.delta = delta;
+  p.dq = dq; p.dk = dk; p.dv = dv;
+  p.items = static_cast<const int4*>(items);
+  p.hq = hq; p.hkv = hkv; p.sq = sq; p.sk = sk; p.group = hq / hkv;
+  p.causal = causal; p.window = window; p.scale = scale;
+  p.qs = {q_sb, q_sh, q_ss}; p.ks = {k_sb, k_sh, k_ss}; p.vs = {v_sb, v_sh, v_ss};
+  p.dos = {do_sb, do_sh, do_ss}; p.dqs = {dq_sb, dq_sh, dq_ss};
+  p.dks = {dk_sb, dk_sh, dk_ss}; p.dvs = {dv_sb, dv_sh, dv_ss};
+  const Strides os{o_sb, o_sh, o_ss};
   cudaStream_t s = (cudaStream_t)stream;
-#define REPRO_BWD(HD)                                                                      \
-  case HD:                                                                                 \
-    return launch<HD>(q, k, v, o, lse, dout, dq, dk, dv, delta, batch, hq, hkv, sq, sk, qs, \
-                      ks, vs, os, dos, dqs, dks, dvs, causal, window, scale, s);
   switch (hd) {
-    REPRO_BWD(16)
-    REPRO_BWD(32)
-    REPRO_BWD(64)
-    REPRO_BWD(80)
-    REPRO_BWD(112)
-    REPRO_BWD(128)
-    REPRO_BWD(256)
+    case 16: return launch<16>(p, o, os, delta, batch, n_items, s);
+    case 32: return launch<32>(p, o, os, delta, batch, n_items, s);
+    case 64: return launch<64>(p, o, os, delta, batch, n_items, s);
+    case 80: return launch<80>(p, o, os, delta, batch, n_items, s);
+    case 112: return launch<112>(p, o, os, delta, batch, n_items, s);
+    case 128: return launch<128>(p, o, os, delta, batch, n_items, s);
+    case 256: return launch<256>(p, o, os, delta, batch, n_items, s);
     default: return (int)cudaErrorInvalidValue;
   }
-#undef REPRO_BWD
 }

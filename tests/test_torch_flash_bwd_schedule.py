@@ -1,0 +1,126 @@
+"""The flash backward kernel's schedule and bound, on the CPU.
+
+`backward.work_list` is the list of items the CUDA kernel walks (one
+block an item): it must cover every (q tile, kv tile) pair of the band
+exactly once per role -- dK/dV items over their group's q heads, dQ items
+over their q head -- with an item for every block, and be sorted longest
+first.  `backward.flops`, the FLOP count `chip_smoke.py`'s bound uses,
+must equal a brute-force count of `ref.band_mask`.  Exact integer
+comparisons throughout.  `step_clocks.instrument` must still find its
+anchors in the kernel source (the measurement copy is made from it).
+"""
+
+import pytest
+import torch
+
+from repro_torch.kernels.flash_attention import backward as bk
+from repro_torch.kernels.flash_attention import step_clocks
+from repro_torch.kernels.flash_attention.ref import band_mask
+
+T = bk.TILE
+
+SHAPES = {  # (b, hq, hkv, sq, sk, hd, causal, window)
+    "gemma3-global": (4, 4, 1, 1024, 1024, 256, True, 0),
+    "gemma3-local-w512": (4, 4, 1, 1024, 1024, 256, True, 512),
+    "ragged-S77-g1": (2, 4, 4, 77, 77, 64, True, 0),
+    "ragged-S77-w40-g4": (2, 4, 1, 77, 77, 80, True, 40),
+    "rows-that-see-no-key-Sq200-Sk50-w40-g2": (1, 2, 1, 200, 50, 64, True, 40),
+    "keys-no-row-sees-Sq50-Sk200-g1": (1, 2, 2, 50, 200, 16, True, 0),
+    "non-causal-Sq77-Sk256-g2": (1, 2, 1, 77, 256, 128, False, 0),
+    "non-causal-w24-Sq100-Sk130-g1": (1, 4, 4, 100, 130, 32, False, 24),
+}
+
+
+def _band_tiles(sq, sk, causal, window) -> torch.Tensor:
+    """(q tiles, kv tiles) int: 1 where the tile pair holds a band pair."""
+    ok = band_mask(sq, sk, causal=causal, window=window, device="cpu")
+    nq, nk = -(-sq // T), -(-sk // T)
+    pad = torch.zeros(nq * T, nk * T, dtype=torch.bool)
+    pad[:sq, :sk] = ok
+    return pad.reshape(nq, T, nk, T).any(3).any(1).to(torch.int64)
+
+
+@pytest.mark.parametrize("name", sorted(SHAPES))
+def test_work_list_covers_every_band_tile_pair_once_per_role(name):
+    b, hq, hkv, sq, sk, hd, causal, window = SHAPES[name]
+    g = hq // hkv
+    band = _band_tiles(sq, sk, causal, window)
+    nq, nk = band.shape
+    steps = {bk.DKDV: torch.zeros(b, hq, nq, nk, dtype=torch.int64),
+             bk.DQ: torch.zeros(b, hq, nq, nk, dtype=torch.int64)}
+    blocks = {bk.DKDV: [], bk.DQ: []}
+    for role, bh, blk, lo, hi in bk.work_list(b, hq, hkv, sq, sk, hd, causal, window):
+        assert 0 <= lo <= hi and hi <= (nq if role == bk.DKDV else nk)
+        blocks[role].append((bh, blk))
+        if role == bk.DKDV:  # key block blk of kv head hk: q tiles [lo, hi) of its g q heads
+            bi, hk = divmod(bh, hkv)
+            steps[role][bi, hk * g:(hk + 1) * g, lo:hi, blk] += 1
+        else:  # q block blk of q head h: kv tiles [lo, hi)
+            bi, h = divmod(bh, hq)
+            steps[role][bi, h, blk, lo:hi] += 1
+    # one item for every block, also where its band is empty
+    assert sorted(blocks[bk.DKDV]) == [(bh, kb) for bh in range(b * hkv) for kb in range(nk)]
+    assert sorted(blocks[bk.DQ]) == [(bh, qb) for bh in range(b * hq) for qb in range(nq)]
+    want = band.expand(b, hq, nq, nk)
+    assert torch.equal(steps[bk.DKDV], want)
+    assert torch.equal(steps[bk.DQ], want)
+
+
+@pytest.mark.parametrize("name", sorted(SHAPES))
+def test_work_list_is_sorted_longest_first(name):
+    b, hq, hkv, sq, sk, hd, causal, window = SHAPES[name]
+    items = bk.work_list(b, hq, hkv, sq, sk, hd, causal, window)
+    costs = [bk.item_steps(it, hq // hkv) * bk.PRODUCTS[it[0]] for it in items]
+    assert costs == sorted(costs, reverse=True)
+    assert list(items) == sorted(items, key=lambda it: (-costs[items.index(it)], it[:3]))
+
+
+def test_work_list_at_gemma3_global_layer():
+    """128 dK/dV items (4 batches x 32 key blocks, key block 0 the longest:
+    4 heads x 32 q tiles) and 512 dQ items; the list starts with the four
+    key-block-0 items."""
+    items = bk.work_list(*SHAPES["gemma3-global"])
+    assert sum(it[0] == bk.DKDV for it in items) == 128
+    assert sum(it[0] == bk.DQ for it in items) == 512
+    assert items[:4] == tuple((bk.DKDV, bh, 0, 0, 32) for bh in range(4))
+    assert bk.item_steps(items[0], 4) == 128
+
+
+@pytest.mark.parametrize("name", sorted(SHAPES))
+def test_bound_flops_equal_a_brute_force_count_of_the_band(name):
+    b, hq, hkv, sq, sk, hd, causal, window = SHAPES[name]
+    pairs = int(band_mask(sq, sk, causal=causal, window=window, device="cpu").sum())
+    assert bk.band_pairs(sq, sk, causal, window) == pairs
+    assert bk.flops(b, hq, sq, sk, hd, causal, window) == 5 * 2 * hd * b * hq * pairs
+
+
+def test_bound_flops_at_gemma3_training_layers():
+    """The figures PERF.md's bounds rest on: 524,800 band pairs a head at
+    the global layer and 393,472 at the local one (window 512)."""
+    assert bk.band_pairs(1024, 1024, True, 0) == 524_800
+    assert bk.band_pairs(1024, 1024, True, 512) == 393_472
+    assert bk.flops(4, 4, 1024, 1024, 256, True, 0) == 21_495_808_000
+    assert bk.flops(4, 4, 1024, 1024, 256, True, 512) == 16_116_613_120
+
+
+def test_device_items_encode_role_block_and_band():
+    key = SHAPES["rows-that-see-no-key-Sq200-Sk50-w40-g2"]
+    rows = bk._device_items(key, torch.device("cpu"))
+    assert rows.dtype == torch.int32
+    assert rows.tolist() == [[role | blk << 1, bh, lo, hi]
+                             for role, bh, blk, lo, hi in bk.work_list(*key)]
+    assert bk._device_items(key, torch.device("cpu")) is rows  # made once
+
+
+@pytest.mark.parametrize("shape", [(1, 2, 1, 8, 8, 48, True, 0), (1, 3, 2, 8, 8, 64, True, 0)])
+def test_work_list_refuses_what_the_kernel_does_not_take(shape):
+    with pytest.raises(ValueError, match="no work list"):
+        bk.work_list(*shape)
+
+
+def test_step_clocks_instruments_the_committed_source():
+    text = bk.SOURCE.read_text()
+    marked = step_clocks.instrument(text)
+    assert marked.count("MARK(") == 1 + len(step_clocks.PARTS)  # the macro and one a part
+    assert "bwd_clocks" in marked and "mma_rate_launch" in marked
+    assert "MARK(" not in text and "clock64" not in text

@@ -11,7 +11,7 @@ runs without them:
 Tolerance: rel < 1e-5 against the plain version (both fp32, summed in
 different orders); the flash backward's dq, dk, dv rel < 5e-5 against
 the plain backward fed the same o and lse (the reference's gradient
-tolerance), the training loss on the card against the CPU rel 1e-4 and
+tolerance; it runs on split-TF32 tensor cores), the training loss on the card against the CPU rel 1e-4 and
 its gradients rel 1e-3 (the reference's net-level tolerance).
 """
 
@@ -777,7 +777,7 @@ def _flash_operands(b, hq, hkv, sq, sk, hd, dev, seed):
 def _flash_bwd_check(q, k, v, do, causal, window):
     """Kernel forward (with lse) then kernel backward, against the plain
     backward fed the same o and lse: (max rel error over dq, dk, dv,
-    launches of the backward)."""
+    launches of the backward, the kernel's (dq, dk, dv))."""
     from repro_torch.kernels.flash_attention import backward as bwd_kernel
     from repro_torch.kernels.flash_attention import flash_attention_bwd_ref
     from repro_torch.kernels.flash_attention import kernel as flash_kernel
@@ -789,7 +789,7 @@ def _flash_bwd_check(q, k, v, do, causal, window):
     want = flash_attention_bwd_ref(q, k, v, o, lse, do, causal=causal, window=window)
     for g, w in zip(grads, want):
         assert g.shape == w.shape and torch.isfinite(g).all()
-    return max(_rel(g, w) for g, w in zip(grads, want)), n
+    return max(_rel(g, w) for g, w in zip(grads, want)), n, grads
 
 
 @pytest.mark.parametrize("hd", [16, 32, 64, 80, 112, 128, 256])
@@ -800,7 +800,7 @@ def test_cuda_flash_backward_matches_plain(cuda_device, hd, hkv, causal, window)
     non-causal, S 77 (ragged against the 32-row tiles): one launch, dq, dk
     and dv each within rel 5e-5 of the plain backward."""
     q, k, v, do = _flash_operands(2, 4, hkv, 77, 77, hd, cuda_device, seed=40 + hd)
-    err, n = _flash_bwd_check(q, k, v, do, causal, window)
+    err, n, _ = _flash_bwd_check(q, k, v, do, causal, window)
     assert n == 1
     assert err < FLASH_BWD_REL
 
@@ -820,8 +820,49 @@ def test_cuda_flash_backward_at_training_and_edge_shapes(cuda_device, name, shap
                                 device=cuda_device).transpose(1, 2)
     q, do = mk((b, sq, hq, hd)), mk((b, sq, hq, hd))
     k, v = mk((b, sk, hkv, hd)), mk((b, sk, hkv, hd))
-    err, n = _flash_bwd_check(q, k, v, do, causal, window)
+    err, n, (dq, _, _) = _flash_bwd_check(q, k, v, do, causal, window)
     assert n == 1 and err < FLASH_BWD_REL, (name, err)
+    if name.startswith("rows-that-see-no-key"):  # row i sees key j <= i only if i - j < 40
+        assert dq[:, :, sk - 1 + window:].count_nonzero() == 0
+        assert dq[:, :, :sk - 1 + window].count_nonzero() > 0
+
+
+@pytest.mark.parametrize("hd", [80, 112, 256])
+def test_cuda_flash_backward_long_non_causal(cuda_device, hd):
+    """Sq = Sk = 1024 with no mask and g 4: the longest chain of every
+    product (a dK item sums 4 heads x 1024 rows); dq, dk, dv each within
+    rel 5e-5 of the plain backward, one wrapper call a call."""
+    q, k, v, do = _flash_operands(2, 4, 1, 1024, 1024, hd, cuda_device, seed=90 + hd)
+    err, n, _ = _flash_bwd_check(q, k, v, do, False, 0)
+    assert n == 1 and err < FLASH_BWD_REL, err
+
+
+def test_cuda_flash_backward_launches_delta_and_one_main_kernel(cuda_device):
+    """A call launches two kernels: the delta pass and the main kernel,
+    once each (the profiler's device events over four calls; it drops an
+    event now and then, so a kernel may show one launch fewer)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels.flash_attention import backward as bwd_kernel
+    from repro_torch.kernels.flash_attention import kernel as flash_kernel
+
+    q, k, v, do = _flash_operands(2, 4, 1, 256, 256, 256, cuda_device, seed=95)
+    o, lse = flash_kernel.flash_attention_call(q, k, v, causal=True, window=0, return_lse=True)
+    run = lambda: bwd_kernel.flash_attention_bwd_call(q, k, v, o, lse, do, causal=True, window=0)
+    run()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(4):
+            run()
+            torch.cuda.synchronize()
+    counts = {}
+    for e in prof.key_averages():
+        if e.device_type == torch.autograd.DeviceType.CUDA and "flash_bwd" in e.key:
+            kind = "delta" if "flash_bwd_delta_kernel" in e.key else "main"
+            assert kind == "delta" or "flash_bwd_kernel<256>" in e.key, e.key
+            counts[kind] = counts.get(kind, 0) + e.count
+    assert set(counts) == {"delta", "main"}
+    assert all(3 <= c <= 4 for c in counts.values()), counts
 
 
 def test_cuda_flash_backward_is_bitwise_deterministic(cuda_device):
