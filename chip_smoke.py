@@ -36,14 +36,18 @@ Phases (any failure exits non-zero):
      rel 1e-3 of the all-direct `run_direct` (cuDNN, TF32 off); the tile
      kernel's launch counter is zeroed before each net is served and must
      grow;
-  6. serve LMs: gemma3-1b and mamba2-1.3b at full width and depth, fp32,
+  6. serve LMs: gemma3-1b, mamba2-1.3b and zamba2-7b (81 mamba layers and
+     13 invocations of the shared attention block with their LoRA, hd
+     112, 6.79 B params) at full width and depth, fp32,
      random weights from seed 0, six requests (prompts 17..700 tokens) in
      waves of 4, 16 new tokens; prefill ms per wave, decode ms per step,
      tokens/s; every kernel count zeroed before each model and read
-     after: flash launches = attention layers x waves, decode_mlp =
-     MLP layers x decode steps, conv1d = mamba layers x waves;
+     after: flash launches = attention layers (shared invocations
+     included) x waves, decode_mlp = MLP layers (the shared MLP's
+     invocations included) x decode steps, conv1d = mamba layers x waves;
   7. card vs CPU: each model's weights cut to one period of depth (6 / 4
-     layers), and stablelm-3b (head dim 80) cut to 2 layers at full width
+     layers; zamba2 the shared block, its 6 mamba layers and one more),
+     and stablelm-3b (head dim 80) cut to 2 layers at full width
      from seed 0, one wave of two prompts (600 and 40 tokens) on the card
      and on the CPU through the port: prefill and teacher-forced decode
      logits within rel 1e-3, and equal greedy tokens; stablelm's prefill
@@ -64,7 +68,8 @@ Phases (any failure exits non-zero):
      fft 8->8, of flash at the served global layer, of the decode MLP
      at the served step and of conv1d at mamba2's first prefill wave;
      per-stage profile of a warm ConvNet 64-bucket wave; flash at the
-     hd-80 shape gets the served row's columns;
+     hd-80 shape gets the served row's columns, and so do zamba2-7b's
+     conv1d (wave 1) and decode MLP (B 4) shapes;
  10. online: `vgg_mixed_channel` through `ReplicaPool` (two replicas, a
      CUDA stream per worker) and `ServeRuntime`, replaying
      `serve_runtime_bench`'s seeded vgg trace (poisson 40 Hz, 120
@@ -170,7 +175,31 @@ Phases (any failure exits non-zero):
      mask), and the bound both ways (five products of 2 hd FLOPs a band
      pair: split-TF32 at the TF32 peak, and the fp32 FMA peak).  Phase 2
      prints the backward source's `nvcc -Xptxas -v` registers and spills
-     per instantiation.
+     per instantiation.  (e) conv1d under autograd (`Conv1dFused`: the
+     forward kernel, then the conv1d backward kernel) against
+     `conv1d_bwd_ref` on the same card tensors, at mamba2's and zamba2's
+     training slices (B 4, L 1024), a ragged unaligned one and K 9: dx,
+     dw, db (and the forward's y) within rel 1e-5, one launch forward and one backward, bitwise
+     run to run; the backward's time (events, device time of its two
+     kernels) beside the plain one, the library's (autograd of grouped
+     `F.conv1d` + SiLU) and its bound.  (f) the
+     paths the main run bypasses, on gemma3-1b at full width: a step at
+     microbatches 2 against 1 (rel 1e-4), two steps each with bf16 and
+     int8 moments (two AdamW updates with them on identical inputs, card
+     against CPU: params within 1e-6 after the first and, after the
+     second, wherever the first stored both moments alike; for int8 the
+     cause of moments stored a step apart), an async checkpoint of the
+     trained state with its copy, write and restore times (bitwise), and
+     the loop's SIGTERM save.  (g)
+     `launch.train.main` on mamba2-1.3b at full width and depth, 6 steps
+     of 4x1024 (conv1d launches 48 x 2 x 6: forward and remat's forward,
+     its backward 48 x 6; flash 0), a 4-layer card-vs-CPU cut, a
+     profiled step and the conv backward's share of it; zamba2 at full
+     width on 12 layers (the shared block twice), 6 steps (flash 2 x 2 x
+     6, backward 2 x 6, conv1d 12 x 2 x 6, its backward 12 x 6), its
+     peak memory, and a cut
+     of 4 mamba layers with the shared block every 2 (twice) against the
+     CPU, LoRA b drawn first.
 
 The line before the last is a JSON object listing the ported kernels; the
 last line is {"ok": true, "device": {...}}.  Imports nothing of JAX and
@@ -252,6 +281,7 @@ def phase_environment() -> str:
 
 def kernel_libraries():
     """name -> (CudaLibrary, wrapper module) for every kernel of the port."""
+    from repro_torch.kernels.conv1d_fused import backward as conv1d_bwd_kernel
     from repro_torch.kernels.conv1d_fused import kernel as conv1d_kernel
     from repro_torch.kernels.decode_mlp import kernel as mlp_kernel
     from repro_torch.kernels.flash_attention import backward as flash_bwd_kernel
@@ -264,6 +294,7 @@ def kernel_libraries():
         "flash_attention": flash_kernel,
         "decode_mlp": mlp_kernel,
         "flash_attention_bwd": flash_bwd_kernel,
+        "conv1d_fused_bwd": conv1d_bwd_kernel,
     }
 
 
@@ -307,7 +338,9 @@ def phase_build() -> dict:
         lib = mod.LIB.build()
         return lib, time.perf_counter() - t0
 
-    mods = kernel_libraries()
+    # one library a source: the conv1d backward is an entry point of the
+    # conv1d source's library
+    mods = {name: mod for name, mod in kernel_libraries().items() if hasattr(mod, "LIB")}
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(mods) + 1) as pool:
         futs = {name: pool.submit(timed, mod) for name, mod in mods.items()}
@@ -695,12 +728,20 @@ def phase_times(cases, served):
 LM_PROMPTS = (700, 17, 300, 520, 64, 129)
 LM_NEW = 16
 LM_MAX_LEN = 768
-LM_ARCHS = ("gemma3-1b", "mamba2-1.3b")
+LM_ARCHS = ("gemma3-1b", "mamba2-1.3b", "zamba2-7b")
 DEV = "cuda"  # every LM phase runs its tensors here
-LM_CUT = {"gemma3-1b": 6, "mamba2-1.3b": 4}  # one period of depth
+# the card-vs-CPU cuts, in the config's layers: one period of depth
+# (zamba2: one super-block -- the shared block and 6 mamba layers -- plus
+# one mamba layer of the tail's kind)
+LM_CUT = {"gemma3-1b": 6, "mamba2-1.3b": 4, "zamba2-7b": 7}
 REL_TOL_LM_KERNEL = 1e-5  # kernel vs plain, both fp32, other sum orders
 REL_TOL_LM_CPU = 1e-3  # card vs CPU logits, the reference's net tolerance
 HD80_LABEL = "stablelm-3b hd80 B4 H32 S700 causal"
+# zamba2-7b's served shapes of conv1d and the decode MLP: held against the
+# plain versions and timed (with device time) beside the served row
+ZAMBA_CONV_LABEL = "zamba2 wave1 B4 L768 D7296 (slice of 14576) silu"
+ZAMBA_DECODE_LABEL = "zamba2 decode B4 d3584 f14336"
+ZAMBA_TIMED = {ZAMBA_CONV_LABEL: "conv1d_fused_zamba2", ZAMBA_DECODE_LABEL: "decode_mlp_zamba2"}
 STABLELM_CUT = 2  # layers of stablelm-3b at full width in phase 7
 LM_KERNELS = {
     "conv1d_fused": ("src/repro_torch/kernels/conv1d_fused/csrc/conv1d_fused.cu",
@@ -731,17 +772,24 @@ def conv1d_cases(gen):
     from repro_torch.core import analysis, registry
     from repro_torch.kernels.conv1d_fused import conv1d_fused, conv1d_ref
 
-    cfg = get_arch("mamba2-1.3b")
-    s = cfg.ssm
-    d_inner = s.expand * cfg.d_model
-    d_xbc = d_inner + 2 * s.n_groups * s.d_state  # 4352
-    width = d_inner + d_xbc + d_inner // s.head_dim  # zxbcdt, 8512
+    def xbc(arch):  # (d_inner, D of the xBC slice, width of zxbcdt, K)
+        cfg = get_arch(arch)
+        s = cfg.ssm
+        d_inner = s.expand * cfg.d_model
+        d_xbc = d_inner + 2 * s.n_groups * s.d_state
+        return d_inner, d_xbc, d_inner + d_xbc + d_inner // s.head_dim, s.d_conv
+
+    d_inner, d_xbc, width, k_conv = xbc("mamba2-1.3b")  # 4096, 4352, 8512, 4
+    z_inner, z_xbc, z_width, z_conv = xbc("zamba2-7b")  # 7168, 7296, 14576, 4
     cases = []
     for label, b, length, d, k, row, offset, act, served in (
-        ("mamba2 wave1 B4 L768 D4352 (slice of 8512) silu", 4, 768, d_xbc, s.d_conv, width,
+        ("mamba2 wave1 B4 L768 D4352 (slice of 8512) silu", 4, 768, d_xbc, k_conv, width,
          d_inner, "silu", True),
-        ("mamba2 wave2 B2 L129 D4352 (slice of 8512) silu", 2, 129, d_xbc, s.d_conv, width,
+        ("mamba2 wave2 B2 L129 D4352 (slice of 8512) silu", 2, 129, d_xbc, k_conv, width,
          d_inner, "silu", False),
+        (ZAMBA_CONV_LABEL, 4, 768, z_xbc, z_conv, z_width, z_inner, "silu", False),
+        ("zamba2 wave2 B2 L129 D7296 (slice of 14576) silu", 2, 129, z_xbc, z_conv, z_width,
+         z_inner, "silu", False),
         ("ragged L777 D100 K4 none", 2, 777, 100, 4, 100, 0, "none", False),
         ("L5 < strip D64 K3 silu", 3, 5, 64, 3, 64, 0, "silu", False),
         # not 16-byte aligned: one channel per thread
@@ -865,12 +913,16 @@ def decode_mlp_cases(gen):
     from repro_torch.configs import get_arch
     from repro_torch.kernels.decode_mlp import decode_mlp, decode_mlp_ref
 
-    cfg = get_arch("gemma3-1b")
+    cfg, z = get_arch("gemma3-1b"), get_arch("zamba2-7b")
     cases = []
     for label, b, d, f, served in (
         (f"gemma3 decode B4 d{cfg.d_model} f{cfg.d_ff}", 4, cfg.d_model, cfg.d_ff, True),
         (f"gemma3 decode B2 d{cfg.d_model} f{cfg.d_ff}", 2, cfg.d_model, cfg.d_ff, False),
         (f"gemma3 decode B1 d{cfg.d_model} f{cfg.d_ff}", 1, cfg.d_model, cfg.d_ff, False),
+        # zamba2's shared MLP: its own launch geometry (~179 KB of shared memory at B4)
+        (ZAMBA_DECODE_LABEL, 4, z.d_model, z.d_ff, False),
+        (f"zamba2 decode B2 d{z.d_model} f{z.d_ff}", 2, z.d_model, z.d_ff, False),
+        (f"zamba2 decode B1 d{z.d_model} f{z.d_ff}", 1, z.d_model, z.d_ff, False),
         ("ragged B11 d200 f700", 11, 200, 700, False),
         ("B1 d64 f33", 1, 64, 33, False),
     ):
@@ -970,7 +1022,9 @@ def phase_serve_lm():
         specs = model.specs
         want = {
             "fused_tile": 0,
-            "flash_attention": sum(s.mixer == "attn" for s in specs) * waves,
+            "flash_attention_bwd": 0,
+            "conv1d_fused_bwd": 0,
+            "flash_attention": sum(s.mixer in ("attn", "shared_attn") for s in specs) * waves,
             "decode_mlp": sum(s.has_mlp for s in specs) * steps,
             "conv1d_fused": sum(s.mixer == "mamba" for s in specs) * waves,
         }
@@ -988,15 +1042,21 @@ def phase_serve_lm():
 
 
 def _cut(model, n_layers: int):
-    """The same weights (shared, not copied), cut to the first
-    `n_layers` layers."""
+    """The same weights (shared, not copied), cut to `n_layers` of the
+    config's layers: the cut plan's layers, each the next layer of the
+    full stack with the same mixer (a prefix, except where the cut's tail
+    group skips the full stack's next shared-attention invocation)."""
     import dataclasses
 
+    from repro_torch.models import blocks
     from repro_torch.models.lm import LM
 
     cfg = dataclasses.replace(model.cfg, n_layers=n_layers)
-    tree = {k: model[k] for k in ("embed", "final_norm", "lm_head") if k in model}
-    tree["layers"] = list(model.layers[:n_layers])
+    tree = {k: model[k] for k in ("embed", "final_norm", "lm_head", "shared") if k in model}
+    full = iter(zip(model.specs, model.layers))
+    tree["layers"] = []
+    for spec in blocks.plan_layer_specs(blocks.build_stack_plan(cfg)):
+        tree["layers"].append(next(lp for s, lp in full if s.mixer == spec.mixer))
     return LM(cfg, tree)
 
 
@@ -1081,9 +1141,7 @@ def phase_stablelm_vs_cpu() -> dict:
 
     cfg = dataclasses.replace(get_arch("stablelm-3b"), dtype="float32",
                               n_layers=STABLELM_CUT)
-    if (cfg.d_model, cfg.n_heads, cfg.resolved_head_dim, cfg.d_ff, cfg.vocab_size) != (
-            2560, 32, 80, 6912, 50304):
-        raise AssertionError(f"stablelm-3b is not at its published width: {cfg}")
+    published_width(cfg, (2560, 32, 80, 6912, 50304))
     model = init_lm(cfg, seed=0, device=DEV)
     launches = _card_vs_cpu("stablelm-3b", model, cfg, STABLELM_CUT)
     attn = sum(s.mixer == "attn" for s in model.specs)
@@ -1091,6 +1149,14 @@ def phase_stablelm_vs_cpu() -> dict:
         raise AssertionError(f"stablelm-3b: flash launched {launches['flash_attention']} "
                              f"times in one prefill, expected {attn} (attention layers)")
     return launches
+
+
+def published_width(cfg, dims: tuple) -> None:
+    """Raise unless `cfg` has the published (d_model, heads, head dim,
+    d_ff[, vocab]) `dims`: a depth cut keeps the width."""
+    have = (cfg.d_model, cfg.n_heads, cfg.resolved_head_dim, cfg.d_ff, cfg.vocab_size)
+    if have[:len(dims)] != tuple(dims):
+        raise AssertionError(f"{cfg.name} is not at its published width: {have}")
 
 
 def _kernel_events(prof) -> list:
@@ -1184,7 +1250,7 @@ def phase_lm_times(cases):
         l_ms = time_ms(c["library"]) if c["library"] is not None else None
         lc_ms = time_ms(c["library_causal"]) if c.get("library_causal") else None
         ls_ms = time_ms(c["library_silu"]) if c.get("library_silu") else None
-        timed = c["served"] or c["label"] == HD80_LABEL
+        timed = c["served"] or c["label"] in (HD80_LABEL, *ZAMBA_TIMED)
         d_ms = device_ms(c["run"], c["device_key"]) if timed and "device_key" in c else None
         b_ms, b_by = c["bound"]
         lib = f"{l_ms:.4f} ms" if l_ms is not None else "-"
@@ -1204,6 +1270,10 @@ def phase_lm_times(cases):
                 shape=c["label"], ms=k_ms, device_ms=d_ms, plain_ms=p_ms, library_ms=l_ms,
                 library_is_causal_ms=lc_ms, bound_ms=b_ms, bound_by=b_by,
                 bound_fp32_ms=c.get("bound_fp32_ms"))
+        if c["label"] in ZAMBA_TIMED:
+            rows[ZAMBA_TIMED[c["label"]]] = dict(
+                shape=c["label"], ms=k_ms, device_ms=d_ms, plain_ms=p_ms, library_ms=l_ms,
+                bound_ms=b_ms, bound_by=b_by)
         if c["served"]:
             row = dict(shape=c["label"], ms=k_ms, device_ms=d_ms, plain_ms=p_ms,
                        library_ms=l_ms, bound_ms=b_ms, bound_by=b_by)
@@ -2052,7 +2122,7 @@ def train_full_width(smi: str):
               f"{batch * seq / h['seconds']:.1f} tokens/s")
     attn = sum(s.mixer == "attn" for s in model.specs)
     want = {"flash_attention": attn * 2 * steps, "flash_attention_bwd": attn * steps,
-            "fused_tile": 0, "conv1d_fused": 0, "decode_mlp": 0}
+            "fused_tile": 0, "conv1d_fused": 0, "decode_mlp": 0, "conv1d_fused_bwd": 0}
     print(f"train {model.cfg.name}: {len(model.specs)} layers, d_model {model.cfg.d_model}, "
           f"vocab {model.cfg.vocab_size}, {sum(p.numel() for p in model.parameters()) / 1e9:.4f} "
           f"B params fp32, {steps} steps of {batch}x{seq} in {wall:.2f} s (with init); peak "
@@ -2069,22 +2139,27 @@ def train_full_width(smi: str):
                 tokens=batch * seq)
 
 
-def train_card_vs_cpu():
-    """Part 3: gemma3-1b cut to one period at full width, seed 0, B 1,
-    S 576: `lm_loss` and every gradient on the card and on the CPU."""
+def train_card_vs_cpu(label: str, cfg, b: int, s: int, *, lora_std: float = 0.0):
+    """Part 3: `cfg` (a depth cut at full width), seed 0, B `b`, S `s`:
+    `lm_loss` and every gradient on the card and on the CPU.  With
+    `lora_std`, every `lora_*_b` (zeros at init, so the LoRA would add
+    nothing and its `lora_*_a` get no gradient) is drawn from N(0,
+    lora_std^2) first (seed 3), the same on both."""
     import copy
-    import dataclasses
 
-    from repro_torch.configs import get_arch
     from repro_torch.models import init_lm, lm_loss
 
-    cfg = dataclasses.replace(get_arch("gemma3-1b"), dtype="float32", n_layers=TRAIN_CUT)
     card = init_lm(cfg, seed=0, device=DEV)
+    if lora_std:
+        gen = torch.Generator(device=DEV).manual_seed(3)
+        with torch.no_grad():
+            for n, p in card.named_parameters():
+                if n.rsplit(".", 1)[-1].startswith("lora_") and n.endswith("_b"):
+                    p.normal_(0.0, lora_std, generator=gen)
     cpu = copy.deepcopy(card).to("cpu")
     card.requires_grad_(True)
     cpu.requires_grad_(True)
-    toks = torch.from_numpy(np.random.default_rng(2).integers(
-        0, cfg.vocab_size, (1, TRAIN_CUT_S + 1)))
+    toks = torch.from_numpy(np.random.default_rng(2).integers(0, cfg.vocab_size, (b, s + 1)))
     batch = {"tokens": toks[:, :-1], "targets": toks[:, 1:]}
     out = {}
     for name, model in (("card", card), ("cpu", cpu)):
@@ -2097,21 +2172,25 @@ def train_card_vs_cpu():
     (l_card, g_card, t_card), (l_cpu, g_cpu, t_cpu) = out["card"], out["cpu"]
     loss_rel = abs(l_card - l_cpu) / abs(l_cpu)
     errs = {n: rel_err(a, b) for n, a, b in zip(names, g_card, g_cpu)}
+    zero = [n for n, g in zip(names, g_cpu) if not g.any()]
     worst = max(errs, key=errs.get)
-    print(f"train card-vs-cpu gemma3-1b cut to {TRAIN_CUT} layers, B1 S{TRAIN_CUT_S}: loss "
-          f"{l_card:.6f} vs {l_cpu:.6f} rel {loss_rel:.3e} (tol {REL_TOL_TRAIN_LOSS:g}); "
-          f"{len(errs)} gradient leaves, worst rel {errs[worst]:.3e} at {worst} "
-          f"(tol {REL_TOL_TRAIN_GRAD:g}); card {t_card:.2f} s, cpu {t_cpu:.2f} s")
+    print(f"train card-vs-cpu {label}, B{b} S{s}: loss {l_card:.6f} vs {l_cpu:.6f} rel "
+          f"{loss_rel:.3e} (tol {REL_TOL_TRAIN_LOSS:g}); {len(errs)} gradient leaves, worst "
+          f"rel {errs[worst]:.3e} at {worst} (tol {REL_TOL_TRAIN_GRAD:g}); leaves with an "
+          f"all-zero gradient: {zero or 'none'}; card {t_card:.2f} s, cpu {t_cpu:.2f} s")
     if not loss_rel < REL_TOL_TRAIN_LOSS or not errs[worst] < REL_TOL_TRAIN_GRAD:
-        raise AssertionError("train: card vs cpu loss or gradients out of tolerance")
+        raise AssertionError(f"train: {label} card vs cpu loss or gradients out of tolerance")
+    return names
 
 
 def train_loop_drill():
     """Part 4: the loop on `cfg.reduced()` on the card: 30 steps,
     checkpoints every 5, injected failures at steps 12 and 21 restored
-    from disk, then a resume from disk to step 34."""
+    from disk, then a resume from disk to step 34; then a fresh run that
+    a SIGTERM at step 3 stops after saving that step."""
     import dataclasses
     import shutil
+    import signal
 
     from repro_torch.configs import get_arch
     from repro_torch.data import DataConfig, TokenStream
@@ -2154,29 +2233,49 @@ def train_loop_drill():
           and int(resumed["step"]) == 34)
     if not ok:
         raise AssertionError("train: the loop drill failed")
+    # the SIGTERM save: a signal at step 3 of a fresh run ends the loop
+    # after that step, with a checkpoint of it
+    from repro_torch.checkpoint import io as ckpt_io
+
+    shutil.rmtree(TRAIN_CKPT, ignore_errors=True)
+    seen = []
+
+    def on_step(step, m, dt):
+        seen.append(step)
+        if step == 3:
+            os.kill(os.getpid(), signal.SIGTERM)
+
+    stopped = train_loop(
+        state=init_train_state(cfg, tcfg, seed=0, device=DEV),
+        train_step=make_train_step(cfg, tcfg), next_batch=stream.batch_at,
+        cfg=LoopConfig(total_steps=30, ckpt_dir=TRAIN_CKPT, ckpt_every=100, log_every=100),
+        on_step=on_step, log=logs.append)
+    saved = ckpt_io.latest_step(TRAIN_CKPT)
+    print(f"train loop SIGTERM at step 3 (card): steps run {seen}, final step "
+          f"{int(stopped['step'])}, checkpoint on disk at step {saved}")
+    shutil.rmtree(TRAIN_CKPT, ignore_errors=True)
+    if seen != [0, 1, 2, 3] or int(stopped["step"]) != 4 or saved != 3:
+        raise AssertionError("train: the SIGTERM save failed")
 
 
-def train_profile(run: dict) -> dict:
-    """One warm full-width step (after part 2's and one more untimed)
-    timed on the host, then one under `torch.profiler`: host wall time
-    beside device busy time, the idle share and the top kernels; the
-    backward kernels' device time per launch."""
-    import dataclasses
-
+def train_profile(state, cfg, keys=(("flash_fwd", ""), ("flash_bwd", "delta"))) -> dict:
+    """One warm full-width step of `state` (after the run's and one more
+    untimed) timed on the host, then one under `torch.profiler`: host
+    wall time beside device busy time, the idle share and the top
+    kernels; for each (key, marker) of `keys`, the device time a step of
+    the kernels whose names hold the key, and their calls (launches of
+    the one kernel a call whose name holds the marker)."""
     from torch.profiler import ProfilerActivity, profile
 
-    from repro_torch.configs import get_arch
     from repro_torch.data import DataConfig, TokenStream
     from repro_torch.optim import AdamWConfig
     from repro_torch.train.step import TrainConfig, make_train_step
 
-    state = run["state"]
-    cfg = dataclasses.replace(get_arch("gemma3-1b"), dtype="float32")
     tcfg = TrainConfig(optimizer=AdamWConfig(lr=3e-3), warmup_steps=5, total_steps=6)
     step = make_train_step(cfg, tcfg)
     batch = TokenStream(DataConfig(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH, seed=0)).batch_at(
         TRAIN_STEPS)
-    state, m = step(state, batch)  # the allocator warms again after parts 3 and 4
+    state, m = step(state, batch)  # the allocator warms again after the parts before
     float(m["loss"])
     t0 = time.perf_counter()
     state, m = step(state, batch)
@@ -2188,24 +2287,23 @@ def train_profile(run: dict) -> dict:
     events = _kernel_events(prof)
     busy = sum(_device_ms(e) for e in events)
     out = dict(wall_ms=wall, busy_ms=busy or None)
+    label = f"{cfg.name} ({len(state['params'].specs)} layers) B{TRAIN_BATCH} S{TRAIN_SEQ}"
     if busy <= 0:
-        print(f"profile train step gemma3-1b B{TRAIN_BATCH} S{TRAIN_SEQ}: wall {wall:.3f} ms; "
-              "device time not "
-              "measured (the profiler saw no device events)")
+        print(f"profile train step {label}: wall {wall:.3f} ms; device time not measured "
+              "(the profiler saw no device events)")
         return out
     out["idle_share"] = max(0.0, 1 - busy / wall)
-    print(f"profile train step gemma3-1b B{TRAIN_BATCH} S{TRAIN_SEQ}: wall {wall:.3f} ms, device busy "
-          f"{busy:.3f} ms in {sum(e.count for e in events)} device events, idle share "
-          f"{out['idle_share']:.3f}")
+    print(f"profile train step {label}: wall {wall:.3f} ms, device busy {busy:.3f} ms in "
+          f"{sum(e.count for e in events)} device events, idle share {out['idle_share']:.3f}")
     for e in sorted(events, key=_device_ms, reverse=True)[:10]:
         print(f"  {_device_ms(e):9.3f} ms  x{e.count:<5d} {e.key[:90]}")
-    for key in ("flash_fwd", "flash_bwd"):
+    for key, marker in keys:
         sel = [e for e in events if key in e.key]
         if sel:
-            n = sum(e.count for e in sel if "delta" in e.key or key == "flash_fwd")
+            n = sum(e.count for e in sel if marker in e.key)
             out[key] = sum(_device_ms(e) for e in sel)
             print(f"  {key}: {out[key]:.3f} ms device time in the step "
-                  f"({out[key] / max(n, 1):.4f} ms per launch over {n} launches)")
+                  f"({out[key] / max(n, 1):.4f} ms per call over {n} calls)")
     return out
 
 
@@ -2330,20 +2428,512 @@ def train_times(ptxas: dict) -> dict:
     return dict(rows[glob], local=rows[local], ptxas_hd256=ptxas)
 
 
+# ---------------------------------------------- phase 13: the SSM stacks
+
+MAMBA_TRAIN_ARGS = ["--arch", "mamba2-1.3b", "--steps", str(TRAIN_STEPS), "--batch",
+                    str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ)]
+# conv1d launches a mamba layer takes a training step: the forward and its
+# recomputation under remat, then one call of the backward kernel
+CONV1D_FWD_PER_MAMBA_LAYER_STEP = 2
+CONV1D_BWD_PER_MAMBA_LAYER_STEP = 1
+MAMBA_TRAIN_CUT = 4  # layers of mamba2-1.3b in its card-vs-CPU part
+ZAMBA_TRAIN_LAYERS = 12  # two super-blocks: the shared block runs twice
+# zamba2's card-vs-CPU cut: 4 mamba layers with a shared-attention period
+# of 2, so the shared block still runs twice, at full width
+ZAMBA_TRAIN_CUT = (4, 2)
+TRAIN_CUT_SSM_S = 512  # two 256-step chunks: the carried state shows
+REL_TOL_CONV_BWD = 1e-5  # dx, dw, db vs the plain backward, both fp32
+# what the conv1d backward replaces: XLA's gradient of this function
+CONV1D_BWD_REPLACES = "src/repro/core/conv.py:153"
+LORA_B_STD = 0.02
+
+
+def conv1d_train_cases(gen):
+    """Conv1dFused's forward and backward at the training shapes (the xBC
+    column slice of zxbcdt at B 4, L 1024) and at a ragged, unaligned
+    slice: (label, wide input, column, D, K, w, b, output gradient)."""
+    from repro_torch.configs import get_arch
+
+    out = []
+    for arch in ("mamba2-1.3b", "zamba2-7b"):
+        cfg = get_arch(arch)
+        s = cfg.ssm
+        d_inner = s.expand * cfg.d_model
+        d_xbc = d_inner + 2 * s.n_groups * s.d_state
+        width = d_inner + d_xbc + d_inner // s.head_dim
+        out.append((f"{arch} train B4 L1024 D{d_xbc} (slice of {width}) K4 silu", 4, 1024,
+                    width, d_inner, d_xbc, s.d_conv))
+    out.append(("ragged B2 L777 D100 (slice of 300 at column 65) K4 silu", 2, 777, 300, 65,
+                100, 4))
+    out.append(("K9 B2 L300 D256 silu", 2, 300, 256, 0, 256, 9))
+    cases = []
+    for label, b, length, row, col, d, k in out:
+        wide = _cuda(gen, (b, length, row)).requires_grad_(True)
+        w = _cuda(gen, (k, d), 0.5).requires_grad_(True)
+        bias = _cuda(gen, (d,), 0.1).requires_grad_(True)
+        cases.append(dict(label=label, wide=wide, col=col, d=d, k=k, w=w, b=bias,
+                          g=_cuda(gen, (b, length, d))))
+    return cases
+
+
+def train_conv1d_vs_plain() -> dict:
+    """Kernel 2 under autograd (`Conv1dFused`) against `conv1d_ref` and
+    `conv1d_bwd_ref` on the same card tensors: y, dx (read where it lands,
+    in the slice of the wide gradient), dw, db within REL_TOL_CONV_BWD; one forward launch
+    and one backward launch a call; two backward runs bitwise equal.
+    Then, at mamba2-1.3b's training shape, the backward kernel's time
+    (CUDA events, and the device time of its two kernels), the plain
+    backward's, the library's (autograd of grouped `F.conv1d` + bias +
+    `F.silu` on the (B, D, L) layout) and the bound (g, x, w, b read
+    once, dx, dw, db written once; the operations at the fp32 FMA
+    peak)."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.conv1d_fused import backward as conv_backward
+    from repro_torch.kernels.conv1d_fused import conv1d_bwd_ref, conv1d_fused, conv1d_ref
+    from repro_torch.kernels.conv1d_fused import kernel as conv_kernel
+
+    gen = np.random.default_rng(21)
+    worst = dict(abs=0.0, rel=0.0)
+    row = {}
+    for c in conv1d_train_cases(gen):
+        wide, col, d, w, b, g = c["wide"], c["col"], c["d"], c["w"], c["b"], c["g"]
+        f0, b0 = conv_kernel.LAUNCHES, conv_backward.LAUNCHES
+        y = conv1d_fused(wide[..., col:col + d], w, b)
+        dwide, dw, db = torch.autograd.grad(y, (wide, w, b), g, retain_graph=True)
+        again = torch.autograd.grad(y, (wide, w, b), g, retain_graph=True)
+        torch.cuda.synchronize()
+        fwd, bwd = conv_kernel.LAUNCHES - f0, conv_backward.LAUNCHES - b0
+        x = wide.detach()[..., col:col + d]
+        got = (y.detach(), dwide[..., col:col + d], dw, db)
+        want = (conv1d_ref(x, w.detach(), b.detach()),
+                *conv1d_bwd_ref(g, x, w.detach(), b.detach()))
+        rels = [rel_err(a, r) for a, r in zip(got, want)]
+        # the backward kernel's errors: the gradients only
+        abs_err = max(float((a - r).abs().max()) for a, r in zip(got[1:], want[1:]))
+        outside = bool(dwide[..., :col].any() or dwide[..., col + d:].any())
+        bitwise = all(torch.equal(a, r) for a, r in zip((dwide, dw, db), again))
+        worst.update(abs=max(worst["abs"], abs_err), rel=max(worst["rel"], *rels[1:]))
+        print(f"train-kernel conv1d_fused_bwd {c['label']:52s} y/dx/dw/db rel "
+              f"{'/'.join(f'{r:.3e}' for r in rels)} (tol {REL_TOL_CONV_BWD:g}); launches "
+              f"forward {fwd}, backward {bwd / 2:g} a call; gradient outside the slice {outside}; "
+              f"backward bitwise {bitwise}")
+        if not (max(rels) < REL_TOL_CONV_BWD and fwd == 1 and bwd == 2 and not outside
+                and bitwise):
+            raise AssertionError(f"{c['label']}: conv1d under autograd vs plain failed")
+        if c["label"].startswith("mamba2"):
+            w0, b0_, k = w.detach(), b.detach(), c["k"]
+            bsz, length = x.shape[0], x.shape[1]
+            run = lambda: conv_backward.conv1d_fused_bwd_call(x, w0, b0_, g, activation="silu")
+            plain = lambda: conv1d_bwd_ref(g, x, w0, b0_)
+            xt = x.transpose(1, 2).contiguous().requires_grad_(True)
+            wt = w0.t().contiguous()[:, None, :].requires_grad_(True)
+            bt = b0_.clone().requires_grad_(True)
+            lib_y = F.silu(F.conv1d(xt, wt, bt, padding=k - 1, groups=d)[..., :length])
+            gt = g.transpose(1, 2).contiguous()
+            library = lambda: torch.autograd.grad(lib_y, (xt, wt, bt), gt, retain_graph=True)
+            k_ms, p_ms, l_ms = time_ms(run), time_ms(plain, reps=10), time_ms(library, reps=10)
+            kernels = kernel_breakdown(run, "conv1d_bwd", reps=10)
+            d_ms = sum(ms for _, ms, _ in kernels) or None
+            n = bsz * length * d
+            b_ms, b_by = _bound(4 * (3 * n + 2 * k * d + 2 * d), (4 * k + 10) * n)
+            row = dict(shape=c["label"], ms=k_ms, device_ms=d_ms, plain_ms=p_ms,
+                       library_ms=l_ms, bound_ms=b_ms, bound_by=b_by,
+                       library_note="autograd of grouped F.conv1d + bias + F.silu, "
+                                    "(B, D, L) layout")
+            print(f"time conv1d_fused_bwd {c['label']:52s} kernel {k_ms:.4f} ms (profiler "
+                  f"device time {d_ms if d_ms is None else round(d_ms, 4)} ms)  plain "
+                  f"{p_ms:.4f} ms  library {l_ms:.4f} ms  bound {b_ms:.4f} ms ({b_by})")
+            for name, ms, per_call in kernels:
+                print(f"  {ms:9.4f} ms  x{per_call} a call  {name[:90]}")
+    return dict(worst=worst, backward=row)
+
+
+def _train_cut(cfg, steps: int):
+    """`launch.train.main`'s run -- its TrainConfig, data, loop and seed --
+    on a depth cut, which the launcher's flags (the reference's) cannot
+    name."""
+    from repro_torch.data import DataConfig, TokenStream
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.train.loop import LoopConfig, train_loop
+    from repro_torch.train.step import TrainConfig, init_train_state, make_train_step
+
+    tcfg = TrainConfig(optimizer=AdamWConfig(lr=3e-3), microbatches=1, remat=True,
+                       warmup_steps=max(steps // 20, 5), total_steps=steps)
+    state = init_train_state(cfg, tcfg, 0, DEV)
+    stream = TokenStream(DataConfig(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH, seed=0))
+    history = []
+
+    def record(step, metrics, dt):
+        history.append(dict(step=step, loss=float(metrics["loss"]),
+                            grad_norm=float(metrics["grad_norm"]), seconds=dt))
+
+    state = train_loop(state=state, train_step=make_train_step(cfg, tcfg),
+                       next_batch=stream.batch_at,
+                       cfg=LoopConfig(total_steps=steps, log_every=10), on_step=record)
+    return state, history
+
+
+def train_ssm_run(label: str, fn, smi: str) -> dict:
+    """Six full-width steps of 4 x 1024 tokens through `fn` (returns the
+    state and the per-step history): losses, grad norms, step ms and
+    tokens/s, peak `max_memory_allocated`; every count zeroed before and
+    read after, and held exactly to the plan: conv1d = mamba layers x 2
+    (remat) x steps and its backward mamba layers x steps, flash forward
+    = attention invocations x 2 (remat) x steps, backward = invocations x
+    steps, the rest 0."""
+    mods = kernel_libraries()
+    gc_collect()
+    torch.cuda.reset_peak_memory_stats()
+    for mod in mods.values():
+        mod.LAUNCHES = 0  # main path: count only the training run
+    t0 = time.perf_counter()
+    state, history = fn()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: mod.LAUNCHES for k, mod in mods.items()}
+    peak = torch.cuda.max_memory_allocated()
+    model = state["params"]
+    specs, steps = model.specs, len(history)
+    for h in history:
+        print(f"  train step {h['step']}: loss {h['loss']:.6f} grad_norm {h['grad_norm']:.6f} "
+              f"{h['seconds'] * 1e3:.2f} ms {TRAIN_BATCH * TRAIN_SEQ / h['seconds']:.1f} "
+              "tokens/s")
+    attn = sum(s.mixer in ("attn", "shared_attn") for s in specs)
+    n_mamba = sum(s.mixer == "mamba" for s in specs)
+    want = {"conv1d_fused": n_mamba * CONV1D_FWD_PER_MAMBA_LAYER_STEP * steps,
+            "conv1d_fused_bwd": n_mamba * CONV1D_BWD_PER_MAMBA_LAYER_STEP * steps,
+            "flash_attention": attn * 2 * steps, "flash_attention_bwd": attn * steps,
+            "fused_tile": 0, "decode_mlp": 0}
+    n_params = sum(p.numel() for p in model.parameters())
+    print(f"train {label}: {len(specs)} layers ({sum(s.mixer == 'mamba' for s in specs)} "
+          f"mamba, {attn} attention), d_model {model.cfg.d_model}, vocab "
+          f"{model.cfg.vocab_size}, {n_params / 1e9:.4f} B params fp32, {steps} steps of "
+          f"{TRAIN_BATCH}x{TRAIN_SEQ} in {wall:.2f} s (with init); peak max_memory_allocated "
+          f"{peak / 2**30:.2f} GiB; launches {launches} (want {want}); card {smi}")
+    if steps != TRAIN_STEPS:
+        raise AssertionError(f"train {label}: {steps} steps recorded")
+    if not all(np.isfinite(h["loss"]) and np.isfinite(h["grad_norm"]) for h in history):
+        raise AssertionError(f"train {label}: a loss or grad norm is not finite")
+    for k, n in want.items():
+        if launches[k] != n:
+            raise AssertionError(f"train {label}: {k} launched {launches[k]} times, "
+                                 f"expected {n}")
+    return dict(state=state, history=history, launches=launches, peak_bytes=peak,
+                n_params=n_params)
+
+
+def gc_collect():
+    """Free what the last part dropped, so that a peak reads one part."""
+    import gc
+
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+
+def train_ssm(smi: str, conv_bwd: dict) -> dict:
+    """mamba2-1.3b through `launch.train.main` at full width and depth, its
+    4-layer card-vs-CPU cut and a profiled step with the conv backward's
+    share of it; zamba2 at full width on 12 layers (`_train_cut`), its
+    cut (4 mamba layers, the shared block twice) and its peak memory."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.launch import train as launch_train
+
+    out = {}
+    mamba = train_ssm_run("mamba2-1.3b", lambda: launch_train.main(MAMBA_TRAIN_ARGS), smi)
+    cfg = dataclasses.replace(get_arch("mamba2-1.3b"), dtype="float32")
+    prof = train_profile(mamba.pop("state"), cfg,
+                         keys=(("conv1d_fused_kernel", ""), ("conv1d_bwd", "reduce")))
+    n_mamba = cfg.n_layers
+    if conv_bwd:
+        share = n_mamba * conv_bwd["ms"] / prof["wall_ms"]
+        prof["conv1d_backward_ms_a_step"] = n_mamba * conv_bwd["ms"]
+        print(f"  conv1d backward a step: {n_mamba} x {conv_bwd['ms']:.4f} ms (CUDA events "
+              f"of one call at the training shape) = "
+              f"{prof['conv1d_backward_ms_a_step']:.3f} ms, {100 * share:.2f} % of the "
+              f"step's wall {prof['wall_ms']:.1f} ms")
+    mamba["profile"] = prof
+    out["mamba2-1.3b"] = mamba
+    gc_collect()
+    train_card_vs_cpu(f"mamba2-1.3b cut to {MAMBA_TRAIN_CUT} layers",
+                      dataclasses.replace(cfg, n_layers=MAMBA_TRAIN_CUT), 1, TRAIN_CUT_SSM_S)
+    gc_collect()
+    zcfg = dataclasses.replace(get_arch("zamba2-7b"), dtype="float32",
+                               n_layers=ZAMBA_TRAIN_LAYERS)
+    published_width(zcfg, (3584, 32, 112, 14336))
+    zamba = train_ssm_run(f"zamba2-7b ({ZAMBA_TRAIN_LAYERS} layers)",
+                          lambda: _train_cut(zcfg, TRAIN_STEPS), smi)
+    zamba.pop("state")
+    out["zamba2"] = zamba
+    gc_collect()
+    n, period = ZAMBA_TRAIN_CUT
+    names = train_card_vs_cpu(
+        f"zamba2-7b cut to {n} mamba layers, shared period {period} (LoRA b drawn, std "
+        f"{LORA_B_STD:g})", dataclasses.replace(zcfg, n_layers=n, shared_attn_period=period),
+        1, TRAIN_CUT_SSM_S, lora_std=LORA_B_STD)
+    if not any(n.startswith("shared.") for n in names):
+        raise AssertionError("zamba2 cut: no shared leaf was compared")
+    gc_collect()
+    return out
+
+
+# ------------------------------------ phase 13: gemma3's other train paths
+
+MOMENT_LEAVES = {"layers.0.attn.wq": (1152, 1024), "layers.0.mlp.w1": (1152, 6912),
+                 "final_norm": (1152,)}  # gemma3-1b's shapes
+ADAM_ATOL = 1e-6  # the AdamW tests' tolerance against the reference
+
+
+def _gemma3_step(tcfg, batch_index: int = 0, steps: int = 1):
+    """A fresh gemma3-1b train state at full width (seed 0) taken `steps`
+    steps with `tcfg`; returns each step's metrics, the step's ms and the
+    state's moments' bytes."""
+    import dataclasses
+
+    from repro_torch.checkpoint import io as ckpt_io
+    from repro_torch.configs import get_arch
+    from repro_torch.data import DataConfig, TokenStream
+    from repro_torch.train.step import init_train_state, make_train_step
+
+    cfg = dataclasses.replace(get_arch("gemma3-1b"), dtype="float32")
+    state = init_train_state(cfg, tcfg, seed=0, device=DEV)
+    step = make_train_step(cfg, tcfg)
+    stream = TokenStream(DataConfig(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH, seed=0))
+    out = []
+    for t in range(steps):
+        t0 = time.perf_counter()
+        state, m = step(state, stream.batch_at(batch_index + t))
+        m = {k: float(v) for k, v in m.items()}
+        out.append((m, (time.perf_counter() - t0) * 1e3))
+    moments = sum(t.numel() * t.element_size() for _, t in ckpt_io._leaves(state["opt"]))
+    return out, moments
+
+
+def _adamw_card_vs_cpu(moment_dtype: str) -> dict:
+    """AdamW on identical inputs on the card and on the CPU, at gemma3-1b's
+    leaf shapes (`MOMENT_LEAVES`), as `tests/test_torch_train.py` holds it
+    against the reference: seeded params, gradients of global norm < 1
+    (clip exactly 1 on both) and non-zero moments (the same stored bits on
+    both) at step count 4, then two updates with fresh gradients.
+
+    After the first update: the params' worst difference (`p1`) and the
+    stored moments' (`moments`: absolute for bf16; for int8 |q_card -
+    q_cpu| in quantisation steps).  For int8 also the cause of a step
+    apart: the f32 moments before storage (recomputed as `adamw_update`
+    computes them) differing elements, the blocks whose scale differs, and
+    whether every element stored a step apart lies in such a block; and
+    how often the card's division by 127.0 differs from the CPU's on the
+    same floats.  After the second update: the params' worst difference
+    at the elements whose stored m and v the devices wrote alike
+    (`p2_alike`) and at the others (`p2_apart`, which a moment one step
+    apart moves by up to lr times the update cap), and their counts."""
+    from repro_torch.optim import adamw
+
+    cfg = adamw.AdamWConfig(lr=1e-2, moment_dtype=moment_dtype)
+    gen = np.random.default_rng(17)
+    int8 = moment_dtype == "int8"
+
+    def draw(scale, fn=gen.standard_normal):
+        return {n: torch.tensor(fn(s) * scale, dtype=torch.float32)
+                for n, s in MOMENT_LEAVES.items()}
+
+    host, grads, m0, v0 = draw(0.02), draw(1e-4), draw(1e-4), draw(1e-8, gen.random)
+    grads2 = draw(1e-4)
+    if int8:  # encoded once: both devices read the same bits
+        m0 = {n: adamw._q8_encode(t) for n, t in m0.items()}
+        v0 = {n: adamw._q8_encode(torch.sqrt(t)) for n, t in v0.items()}
+    else:
+        m0 = {n: t.to(getattr(torch, moment_dtype)) for n, t in m0.items()}
+        v0 = {n: t.to(getattr(torch, moment_dtype)) for n, t in v0.items()}
+
+    def to(x, dev):
+        return {k: v.to(dev) for k, v in x.items()} if isinstance(x, dict) else x.to(dev)
+
+    def host_copy(x):
+        if isinstance(x, dict):
+            return {k: v.cpu().clone() for k, v in x.items()}
+        return x.cpu().clone()
+
+    runs = {}
+    for dev in (DEV, "cpu"):
+        params = {n: t.to(dev) for n, t in host.items()}
+        st = adamw.adamw_init(params, cfg)
+        st["m"] = {n: to(m0[n], dev) for n in params}
+        st["v"] = {n: to(v0[n], dev) for n in params}
+        st["count"].fill_(4)
+        # the first moment before storage, as the update computes it
+        m_f32 = {n: cfg.b1 * adamw._moment_read(st["m"][n], p, moment_dtype)
+                 + (1 - cfg.b1) * grads[n].to(dev) for n, p in params.items()}
+        adamw.adamw_update(params, {n: t.to(dev) for n, t in grads.items()}, st, cfg, 0.7)
+        p1 = {n: p.cpu().clone() for n, p in params.items()}
+        stored = {mom: {n: host_copy(st[mom][n]) for n in params} for mom in ("m", "v")}
+        adamw.adamw_update(params, {n: t.to(dev) for n, t in grads2.items()}, st, cfg, 0.7)
+        runs[dev] = (p1, stored, {n: p.cpu() for n, p in params.items()},
+                     {n: t.cpu() for n, t in m_f32.items()})
+    (c1, cs, c2, cm), (h1, hs, h2, hm) = runs[DEV], runs["cpu"]
+    out = dict(p1=max(float((c1[n] - h1[n]).abs().max()) for n in c1), moments=0.0,
+               p2_alike=0.0, p2_apart=0.0, n_apart=0, n_params_apart=0, n=0)
+    if int8:
+        out.update(m_f32_differ=sum(int((cm[n] != hm[n]).sum()) for n in cm),
+                   blocks=0, scale_blocks=0, apart_outside_scale_blocks=0)
+    for n in c1:
+        numel = c1[n].numel()
+        apart = torch.zeros(numel, dtype=torch.bool)
+        for mom in ("m", "v"):
+            a, b = cs[mom][n], hs[mom][n]
+            if int8:
+                dq = (a["q"].int() - b["q"].int()).abs()  # (blocks, 256)
+                scale_differs = a["scale"] != b["scale"]
+                out["moments"] = max(out["moments"], float(dq.max()))
+                out["blocks"] += int(scale_differs.numel())
+                out["scale_blocks"] += int(scale_differs.sum())
+                out["apart_outside_scale_blocks"] += int(((dq > 0) & ~scale_differs[:, None]).sum())
+                apart |= (dq > 0).reshape(-1)[:numel]
+            else:
+                out["moments"] = max(out["moments"], float((a.float() - b.float()).abs().max()))
+                apart |= (a != b).reshape(-1)
+        diff = (c2[n] - h2[n]).abs().reshape(-1)
+        out["n"] += numel
+        out["n_apart"] += int(apart.sum())
+        out["n_params_apart"] += int((diff > ADAM_ATOL).sum())
+        if (~apart).any():
+            out["p2_alike"] = max(out["p2_alike"], float(diff[~apart].max()))
+        if apart.any():
+            out["p2_apart"] = max(out["p2_apart"], float(diff[apart].max()))
+    if int8:  # the card's float division by a Python number against the CPU's
+        t = torch.tensor(gen.random(1 << 20), dtype=torch.float32)
+        out["div127_differ"] = int(((t.to(DEV) / 127.0).cpu() != t / 127.0).sum())
+    return out
+
+
+def _gemma3_tcfg(microbatches: int = 1, moment_dtype: str = "float32"):
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.train.step import TrainConfig
+
+    return TrainConfig(optimizer=AdamWConfig(lr=3e-3, moment_dtype=moment_dtype),
+                       microbatches=microbatches, warmup_steps=5, total_steps=6)
+
+
+def train_gemma3_paths(run: dict) -> dict:
+    """The training paths the main run bypasses, on gemma3-1b at full width
+    (ROADMAP §1, the training paths not run on the card): one step at
+    microbatches 2 against microbatches 1 (loss and grad norm rel 1e-4);
+    two steps each with bf16 and int8 moments (finite, step 0's loss
+    equal to the f32 run's, the moments' bytes) and two AdamW updates
+    with those moments on identical inputs, card against CPU
+    (`_adamw_card_vs_cpu`); an async checkpoint
+    of the main run's state (the host copy's time on the caller's thread,
+    the write's on the writer's), restored into a state from another seed
+    and compared bitwise."""
+    import pathlib
+    import shutil
+
+    from repro_torch.checkpoint import io as ckpt_io
+    from repro_torch.train.step import init_train_state
+
+    out = {}
+    (m1, ms1), = _gemma3_step(_gemma3_tcfg(microbatches=1))[0]
+    gc_collect()
+    (m2, ms2), = _gemma3_step(_gemma3_tcfg(microbatches=2))[0]
+    gc_collect()
+    rel_l = abs(m2["loss"] - m1["loss"]) / abs(m1["loss"])
+    rel_g = abs(m2["grad_norm"] - m1["grad_norm"]) / abs(m1["grad_norm"])
+    print(f"train gemma3-1b microbatches 2 vs 1, {TRAIN_BATCH}x{TRAIN_SEQ}: loss {m2['loss']:.6f}"
+          f" vs {m1['loss']:.6f} rel {rel_l:.3e}, grad norm {m2['grad_norm']:.6f} vs "
+          f"{m1['grad_norm']:.6f} rel {rel_g:.3e} (tol {REL_TOL_TRAIN_LOSS:g}); step "
+          f"{ms2:.1f} ms vs {ms1:.1f} ms")
+    if not (rel_l < REL_TOL_TRAIN_LOSS and rel_g < REL_TOL_TRAIN_LOSS):
+        raise AssertionError("train: microbatches 2 vs 1 out of tolerance")
+    out["microbatches"] = dict(loss_rel=rel_l, grad_norm_rel=rel_g, ms_mb1=ms1, ms_mb2=ms2)
+    for md in ("bfloat16", "int8"):
+        hist, nbytes = _gemma3_step(_gemma3_tcfg(moment_dtype=md), steps=2)
+        gc_collect()
+        a = _adamw_card_vs_cpu(md)
+        m_tol = 1 if md == "int8" else ADAM_ATOL
+        finite = all(np.isfinite(m["loss"]) and np.isfinite(m["grad_norm"]) for m, _ in hist)
+        rel0 = abs(hist[0][0]["loss"] - m1["loss"]) / abs(m1["loss"])
+        print(f"train gemma3-1b {md} moments: losses {[round(m['loss'], 6) for m, _ in hist]}, "
+              f"grad norms {[round(m['grad_norm'], 6) for m, _ in hist]}, steps "
+              f"{[round(t, 1) for _, t in hist]} ms, moments {nbytes / 2**30:.2f} GiB; step "
+              f"0's loss against the f32 run's rel {rel0:.3e} (tol 1e-6: the same forward)")
+        print(f"  AdamW card vs cpu at gemma3's leaf shapes, {a['n']} elements: update 1 params "
+              f"{a['p1']:.3e} (tol {ADAM_ATOL:g}), stored moments {a['moments']:.3e} (tol "
+              f"{m_tol:g}{' quantisation step' if md == 'int8' else ''}) apart at "
+              f"{a['n_apart']} elements; update 2 params {a['p2_alike']:.3e} where the stored "
+              f"moments agree (tol {ADAM_ATOL:g}), {a['p2_apart']:.3e} where they do not, "
+              f"{a['n_params_apart']} params beyond {ADAM_ATOL:g}")
+        if md == "int8":
+            print(f"  int8 cause: f32 first moments before storage differ at "
+                  f"{a['m_f32_differ']} elements; scale differs in {a['scale_blocks']} of "
+                  f"{a['blocks']} blocks; elements a step apart outside those blocks "
+                  f"{a['apart_outside_scale_blocks']}; the card's x / 127.0 differs from the "
+                  f"CPU's at {a['div127_differ']} of {1 << 20} floats")
+        if not (finite and rel0 < 1e-6 and a["p1"] <= ADAM_ATOL and a["moments"] <= m_tol
+                and a["p2_alike"] <= ADAM_ATOL):
+            raise AssertionError(f"train: {md} moments failed")
+        out[md] = dict(losses=[m["loss"] for m, _ in hist], ms=[t for _, t in hist],
+                       moment_bytes=nbytes, adamw=a)
+    state = run["state"]
+    ckpt = ckpt_io.AsyncCheckpointer(TRAIN_CKPT, keep=1)
+    shutil.rmtree(TRAIN_CKPT, ignore_errors=True)
+    step = int(state["step"])
+    n_bytes = sum(t.numel() * t.element_size() for _, t in ckpt_io._leaves(state))
+    t0 = time.perf_counter()
+    ckpt.save(step, state)
+    t_copy = time.perf_counter() - t0
+    ckpt.wait()
+    t_write = time.perf_counter() - t0 - t_copy
+    like = init_train_state(state["params"].cfg, _gemma3_tcfg(), seed=1, device=DEV)
+    t0 = time.perf_counter()
+    got, got_step = ckpt_io.restore(TRAIN_CKPT, None, like)
+    torch.cuda.synchronize()
+    t_read = time.perf_counter() - t0
+    want = dict(ckpt_io._leaves(state))
+    same = [k for k, v in ckpt_io._leaves(got) if torch.equal(v, want[k])]
+    size = sum(f.stat().st_size for f in pathlib.Path(TRAIN_CKPT).rglob("*") if f.is_file())
+    print(f"train gemma3-1b async checkpoint of step {step}: {len(want)} leaves, "
+          f"{n_bytes / 2**30:.2f} GiB in memory, {size / 2**30:.2f} GiB on disk; host copy "
+          f"{t_copy:.2f} s on the caller's thread, write {t_write:.2f} s on the writer's "
+          f"({size / 2**30 / max(t_write, 1e-9):.2f} GiB/s), restore {t_read:.2f} s; "
+          f"restored step {got_step}, {len(same)}/{len(want)} leaves bitwise equal")
+    if got_step != step or len(same) != len(want):
+        raise AssertionError("train: the checkpoint did not restore bitwise")
+    shutil.rmtree(TRAIN_CKPT, ignore_errors=True)
+    out["checkpoint"] = dict(step=step, bytes=n_bytes, disk_bytes=size, copy_s=t_copy,
+                             write_s=t_write, restore_s=t_read)
+    del like, got
+    return out
+
+
 def phase_train(smi: str, ptxas: dict) -> dict:
-    """Phase 13 (module docstring): the flash training kernels against
-    their plain versions, gemma3-1b trained at full width, card against
-    CPU, the loop drill, a profiled step and the backward's times."""
+    """Phase 13 (module docstring): the flash and conv1d training kernels
+    against their plain versions, gemma3-1b trained at full width, card
+    against CPU, the loop drill, a profiled step, the paths the main run
+    bypasses and the backward's times; then mamba2-1.3b and zamba2."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+
     t_phase = time.perf_counter()
     worst = train_kernels_vs_plain()
+    conv = train_conv1d_vs_plain()
     run = train_full_width(smi)
-    train_card_vs_cpu()
+    cfg = dataclasses.replace(get_arch("gemma3-1b"), dtype="float32")
+    train_card_vs_cpu(f"gemma3-1b cut to {TRAIN_CUT} layers",
+                      dataclasses.replace(cfg, n_layers=TRAIN_CUT), 1, TRAIN_CUT_S)
     train_loop_drill()
-    prof = train_profile(run)
-    times = train_times(ptxas)
+    prof = train_profile(run["state"], cfg)
+    paths = train_gemma3_paths(run)
     run.pop("state")
+    gc_collect()
+    times = train_times(ptxas)
+    ssm = train_ssm(smi, conv["backward"])
     print(f"train: phase wall time {time.perf_counter() - t_phase:.2f} s")
-    return dict(worst=worst, run=run, profile=prof, times=times)
+    return dict(worst=worst, run=run, profile=prof, times=times, conv=conv, paths=paths,
+                ssm=ssm)
 
 
 def main() -> int:
@@ -2375,6 +2965,7 @@ def main() -> int:
     fleet = phase_fleet(online["hw"], smi)
     for s in lm_served.values():
         s.pop("model")  # the served weights: room for training
+    gc_collect()
     train = phase_train(smi, bwd_ptxas)
 
     # headline shape: the widest served vgg layer when vgg reaches the
@@ -2406,13 +2997,23 @@ def main() -> int:
         "bound_by": head["bound_by"],
         "library_ms": head["library_ms"],
     }]}
+    # every LM path's counts, each read over its own run
+    ssm = train["ssm"]
+    paths = {f"serve {arch}": lm_served[arch]["launches"] for arch in LM_ARCHS}
+    paths.update({"train gemma3-1b": train["run"]["launches"],
+                  "train mamba2-1.3b": ssm["mamba2-1.3b"]["launches"],
+                  f"train zamba2 ({ZAMBA_TRAIN_LAYERS} layers)": ssm["zamba2"]["launches"]})
+
+    def by_path(kernel):
+        return {path: n[kernel] for path, n in paths.items() if n[kernel]}
+
     for name, (source, replaces) in LM_KERNELS.items():
         arch = "mamba2-1.3b" if name == "conv1d_fused" else "gemma3-1b"
         run = lm_served[arch]
         per = run["steps"] if name == "decode_mlp" else run["waves"]
         kernels["kernels"].append(dict(
             name=name, route="cuda", source=source, replaces=replaces,
-            launches=run["launches"][name],
+            launches=sum(by_path(name).values()), launches_by_path=by_path(name),
             launches_per=(f"{run['launches'][name] / per:g} per "
                           f"{'decode step' if name == 'decode_mlp' else 'prefill wave'} "
                           f"of {arch}"),
@@ -2420,24 +3021,44 @@ def main() -> int:
             **lm_rows[name],
             **(conv1d_prefill.get(arch, {}) if name == "conv1d_fused" else {}),
         ))
+        if f"{name}_zamba2" in lm_rows:
+            kernels["kernels"][-1]["zamba2"] = lm_rows[f"{name}_zamba2"]
         if name == "flash_attention":
             kernels["kernels"][-1].update(
                 launches_stablelm_cut=stablelm["flash_attention"],
                 hd80=lm_rows["flash_attention_hd80"],
-                launches_by_path={"serve gemma3-1b": run["launches"][name],
-                                  "train gemma3-1b": train["run"]["launches"][name]},
                 launches_per_train_step=train["run"]["launches"][name] / TRAIN_STEPS)
+        if name == "conv1d_fused":
+            kernels["kernels"][-1].update(
+                launches_per_train_step=ssm["mamba2-1.3b"]["launches"][name] / TRAIN_STEPS,
+                train_step_device_ms=ssm["mamba2-1.3b"]["profile"].get("conv1d_fused_kernel"))
     tw = train["worst"]
     kernels["kernels"].append(dict(
         name="flash_attention_bwd", route="cuda", source=FLASH_BWD_SOURCE,
         replaces=FLASH_BWD_REPLACES,
-        launches=train["run"]["launches"]["flash_attention_bwd"],
+        launches=sum(by_path("flash_attention_bwd").values()),
+        launches_by_path=by_path("flash_attention_bwd"),
         launches_per=(f"{train['run']['launches']['flash_attention_bwd'] / TRAIN_STEPS:g} "
                       "per train step of gemma3-1b"),
         max_abs_err=tw["abs"], max_rel_err=tw["rel"], max_rel_err_lse=tw["lse"],
         max_rel_err_vs_f64=tw["f64_kernel"], max_rel_err_plain_vs_f64=tw["f64_plain"],
         **train["times"],
         train_step_device_ms=train["profile"].get("flash_bwd"),
+    ))
+    cw, mp = train["conv"], ssm["mamba2-1.3b"]["profile"]
+    kernels["kernels"].append(dict(
+        name="conv1d_fused_bwd", route="cuda", source=LM_KERNELS["conv1d_fused"][0],
+        replaces=CONV1D_BWD_REPLACES,
+        replaces_note="XLA's gradient of the reference's conv + SiLU; no Pallas kernel "
+                      "trains in the reference",
+        launches=sum(by_path("conv1d_fused_bwd").values()),
+        launches_by_path=by_path("conv1d_fused_bwd"),
+        launches_per=(f"{ssm['mamba2-1.3b']['launches']['conv1d_fused_bwd'] / TRAIN_STEPS:g} "
+                      "per train step of mamba2-1.3b"),
+        max_abs_err=cw["worst"]["abs"], max_rel_err=cw["worst"]["rel"],
+        **cw["backward"],
+        train_step_device_ms=mp.get("conv1d_bwd"),
+        events_ms_a_train_step=mp.get("conv1d_backward_ms_a_step"),
     ))
     print(json.dumps(kernels))
     print(json.dumps({"ok": True, "device": {

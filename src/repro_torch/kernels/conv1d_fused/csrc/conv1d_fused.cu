@@ -45,6 +45,27 @@
 // Its halo (K-1 rows) may reach back over several strips; the rows before
 // 0 read as zero as above.  Each output's chain of operations is the one
 // above, so it agrees with the templated instances where both apply.
+//
+// The backward (conv1d_fused_bwd_launch) is the gradient XLA computes for
+// the reference's silu(conv1d_depthwise_causal(x, w) + b): the reference
+// trains through no Pallas conv, so this replaces its autodiff, not a TPU
+// kernel.  For an output gradient g:
+//     dpre[t] = g[t] * silu'(pre[t])   (g[t] without the SiLU)
+//     dx[s]   = sum_i dpre[s + K-1-i] * w[i]
+//     dw[i]   = sum_{b,t} dpre[t] * x[t - (K-1) + i],   db = sum_{b,t} dpre[t]
+// It is bounded by bytes too: x and g read once, dx written once (3 x 4 B
+// an element).  A thread owns V channels of one segment of kSegRows rows
+// and walks it in order, with the last K rows of x and of dpre in
+// registers: at row t it loads x[t] and g[t], recomputes pre[t] (the
+// forward's chain of operations, so pre is bitwise the forward's), forms
+// dpre[t], adds it into its dw / db sums if t is its own, and writes dx[t -
+// (K-1)], whose K dpre rows it now holds.  The K-1 rows past the segment
+// are walked again by the next segment (their dpre, for dx only).  dw and
+// db are summed without atomics: each (sequence, segment) writes its
+// partial sums to a scratch row, and a second kernel adds the rows in a
+// fixed order, so the result is the same bits on every run.  K 1..8 keep
+// the windows in registers; a larger K runs one instance whose windows
+// live in local memory (K <= kMaxAnyKBwd).
 
 #include <cuda_runtime.h>
 
@@ -206,6 +227,136 @@ void launch_any_k(const float* x, const float* w, const float* b, float* out,
 
 bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
 
+// ----------------------------------------------------------------- backward
+
+constexpr int kSegRows = 32;     // rows of a backward segment: one thread's walk
+constexpr int kMaxAnyKBwd = 32;  // taps the backward's any-K instance takes
+
+// KT > 0: K = KT, windows in registers; KT == 0: K = a.k <= kMaxAnyKBwd,
+// windows in local memory
+template <int KT, int V>
+__global__ void __launch_bounds__(kMaxThreads)
+conv1d_bwd_kernel(const float* __restrict__ x, const float* __restrict__ w,
+                  const float* __restrict__ bias, const float* __restrict__ g,
+                  float* __restrict__ dx, float* __restrict__ part, const LaunchArgs a) {
+  constexpr int KW = KT > 0 ? KT : kMaxAnyKBwd;  // window length
+  const int k = KT > 0 ? KT : a.k;
+  const int c = (blockIdx.y * blockDim.x + threadIdx.x) * V;
+  if (c >= a.d) return;
+  const int s0 = blockIdx.x * kSegRows;
+  const int seg_end = min(s0 + kSegRows, a.seq);  // rows whose dpre sums here
+  const long long row0 = (long long)blockIdx.z * a.seq;
+  const float* xc = x + row0 * a.x_row_stride + c;
+  const float* gc = g + row0 * a.d + c;
+  float* dxc = dx + row0 * a.d + c;
+  float taps[KW][V], b[V], xw[KW][V], dw[KW][V], dwin[KW][V], db[V];
+#pragma unroll
+  for (int i = 0; i < KW; ++i) {
+    if (i < k) load_unit<V>(w + (long long)i * a.d + c, taps[i]);
+#pragma unroll
+    for (int v = 0; v < V; ++v) xw[i][v] = dw[i][v] = dwin[i][v] = 0.f;
+  }
+  load_unit<V>(bias + c, b);
+#pragma unroll
+  for (int v = 0; v < V; ++v) db[v] = 0.f;
+  // xw[j] holds row t - (K-1) + j: before the first row, the K-1 rows
+  // before the segment go into xw[1..K-1] (rows before 0 read as zero)
+#pragma unroll
+  for (int j = 0; j < KW - 1; ++j) {
+    const int l = s0 - (k - 1) + j;
+    if (j < k - 1 && l >= 0) load_unit<V>(xc + l * a.x_row_stride, xw[j + 1]);
+  }
+  for (int t = s0; t < seg_end + k - 1; ++t) {
+#pragma unroll
+    for (int j = 0; j < KW - 1; ++j) {
+      if (j < k - 1) {
+#pragma unroll
+        for (int v = 0; v < V; ++v) xw[j][v] = xw[j + 1][v], dwin[j][v] = dwin[j + 1][v];
+      }
+    }
+    float dp[V];
+    if (t < a.seq) {
+      float gv[V];
+      load_unit<V>(xc + t * a.x_row_stride, xw[k - 1]);
+      load_unit<V>(gc + (long long)t * a.d, gv);
+#pragma unroll
+      for (int v = 0; v < V; ++v) {
+        float pre = 0.f;  // the forward's chain: acc = fmaf(x, w_i, acc), + bias
+#pragma unroll
+        for (int i = 0; i < KW; ++i)
+          if (i < k) pre = fmaf(xw[i][v], taps[i][v], pre);
+        pre += b[v];
+        if (a.silu) {
+          const float sg = 1.f / (1.f + expf(-pre));
+          dp[v] = gv[v] * (sg * (1.f + pre * (1.f - sg)));
+        } else {
+          dp[v] = gv[v];
+        }
+      }
+      if (t < seg_end) {
+#pragma unroll
+        for (int v = 0; v < V; ++v) {
+#pragma unroll
+          for (int i = 0; i < KW; ++i)
+            if (i < k) dw[i][v] = fmaf(dp[v], xw[i][v], dw[i][v]);
+          db[v] += dp[v];
+        }
+      }
+    } else {  // past the end: no gradient, no input
+#pragma unroll
+      for (int v = 0; v < V; ++v) xw[k - 1][v] = 0.f, dp[v] = 0.f;
+    }
+#pragma unroll
+    for (int v = 0; v < V; ++v) dwin[k - 1][v] = dp[v];
+    const int s = t - (k - 1);  // dwin[j] holds dpre row s + j
+    if (s >= s0) {
+      float o[V];
+#pragma unroll
+      for (int v = 0; v < V; ++v) {
+        float acc = 0.f;
+#pragma unroll
+        for (int i = 0; i < KW; ++i)
+          if (i < k) acc = fmaf(dwin[k - 1 - i][v], taps[i][v], acc);
+        o[v] = acc;
+      }
+      store_unit<V>(dxc + (long long)s * a.d, o);
+    }
+  }
+  // this (sequence, segment)'s partial sums: K rows of dw, then db
+  float* pc = part + (long long)(blockIdx.z * a.n_strips + blockIdx.x) * (k + 1) * a.d + c;
+#pragma unroll
+  for (int i = 0; i < KW; ++i)
+    if (i < k) store_unit<V>(pc + (long long)i * a.d, dw[i]);
+  store_unit<V>(pc + (long long)k * a.d, db);
+}
+
+// dw, db: the partial rows summed in order (row 0 first), one thread an element
+__global__ void __launch_bounds__(kMaxThreads)
+conv1d_bwd_reduce_kernel(const float* __restrict__ part, float* __restrict__ dw,
+                         float* __restrict__ db, int n_part, int k, int d) {
+  const long long n = (long long)(k + 1) * d;
+  const long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (e >= n) return;
+  float acc = 0.f;
+  for (int p = 0; p < n_part; ++p) acc += __ldg(part + p * n + e);
+  if (e < (long long)k * d) {
+    dw[e] = acc;
+  } else {
+    db[e - (long long)k * d] = acc;
+  }
+}
+
+template <int KT>
+void launch_bwd(const float* x, const float* w, const float* b, const float* g, float* dx,
+                float* part, const LaunchArgs& a, cudaStream_t stream) {
+  const dim3 grid(a.n_strips, a.n_cblocks, a.batch);
+  if (a.vec == 4) {
+    conv1d_bwd_kernel<KT, 4><<<grid, a.threads, 0, stream>>>(x, w, b, g, dx, part, a);
+  } else {
+    conv1d_bwd_kernel<KT, 1><<<grid, a.threads, 0, stream>>>(x, w, b, g, dx, part, a);
+  }
+}
+
 }  // namespace
 
 // x: (batch, seq, d) rows a->x_row_stride floats apart (channels contiguous);
@@ -239,5 +390,46 @@ extern "C" int conv1d_fused_launch(const float* x, const float* w, const float* 
     case 8: launch<8>(x, w, b, out, *a, s); break;
     default: launch_any_k(x, w, b, out, *a, s); break;  // k > kMaxTaps
   }
+  return (int)cudaGetLastError();
+}
+
+// The backward of the above for the output gradient g (batch, seq, d),
+// contiguous: dx (batch, seq, d) contiguous, dw (k, d), db (d,), and
+// `part`, scratch of batch * n_strips * (k + 1) * d floats.  Here
+// `a->n_strips` counts segments of kSegRows rows; the rest of `a` is as
+// above.  k <= kMaxAnyKBwd.  Two launches on `stream` (the segments, then
+// the reduction of their partial dw / db); returns cudaGetLastError()
+// after them.
+extern "C" int conv1d_fused_bwd_launch(const float* x, const float* w, const float* b,
+                                       const float* g, float* dx, float* dw, float* db,
+                                       float* part, const LaunchArgs* a, void* stream) {
+  const long long span = (long long)a->threads * a->vec;
+  const bool vec_ok =
+      a->vec == 1 || (a->vec == 4 && a->d % 4 == 0 && a->x_row_stride % 4 == 0 && aligned16(x) &&
+                      aligned16(w) && aligned16(b) && aligned16(g) && aligned16(dx) &&
+                      aligned16(part));
+  const bool ok =
+      a->batch >= 1 && a->batch <= 65535 && a->seq >= 1 && a->d >= 1 && a->k >= 1 &&
+      a->k <= kMaxAnyKBwd && (a->silu == 0 || a->silu == 1) && a->x_row_stride >= a->d &&
+      vec_ok && a->threads >= 32 && a->threads <= kMaxThreads && a->threads % 32 == 0 &&
+      a->n_strips == (a->seq + kSegRows - 1) / kSegRows && a->n_cblocks >= 1 &&
+      a->n_cblocks <= 65535 && a->n_cblocks * span >= a->d && (a->n_cblocks - 1) * span < a->d;
+  if (!ok) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  switch (a->k) {
+    case 1: launch_bwd<1>(x, w, b, g, dx, part, *a, s); break;
+    case 2: launch_bwd<2>(x, w, b, g, dx, part, *a, s); break;
+    case 3: launch_bwd<3>(x, w, b, g, dx, part, *a, s); break;
+    case 4: launch_bwd<4>(x, w, b, g, dx, part, *a, s); break;
+    case 5: launch_bwd<5>(x, w, b, g, dx, part, *a, s); break;
+    case 6: launch_bwd<6>(x, w, b, g, dx, part, *a, s); break;
+    case 7: launch_bwd<7>(x, w, b, g, dx, part, *a, s); break;
+    case 8: launch_bwd<8>(x, w, b, g, dx, part, *a, s); break;
+    default: launch_bwd<0>(x, w, b, g, dx, part, *a, s); break;  // k > kMaxTaps
+  }
+  const long long n = (long long)(a->k + 1) * a->d;
+  const int blocks = (int)((n + kMaxThreads - 1) / kMaxThreads);
+  conv1d_bwd_reduce_kernel<<<blocks, kMaxThreads, 0, s>>>(
+      part, dw, db, a->batch * a->n_strips, a->k, a->d);
   return (int)cudaGetLastError();
 }

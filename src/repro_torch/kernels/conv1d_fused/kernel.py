@@ -42,6 +42,8 @@ class LaunchArgs(ctypes.Structure):
 LIB = _build.CudaLibrary(SOURCE, "conv1d_fused", {
     # x, w, b, out, &LaunchArgs, stream
     "conv1d_fused_launch": [ctypes.c_void_p] * 6,
+    # x, w, b, g, dx, dw, db, scratch, &LaunchArgs, stream (`backward.py`)
+    "conv1d_fused_bwd_launch": [ctypes.c_void_p] * 10,
 })
 
 
@@ -110,7 +112,9 @@ def conv1d_fused_call(
     returns: (B, L, D) contiguous, act(causal conv + b).
     """
     global LAUNCHES
-    _build.refuse_grad("conv1d_fused", "ROADMAP §1, mamba2 training", x, w, b)
+    # the gradient is `ops.Conv1dFused`'s, reached through `conv1d_fused`
+    _build.refuse_grad("conv1d_fused_call", "call ops.conv1d_fused, whose Conv1dFused "
+                       "carries the gradient", x, w, b)
     if activation not in ("silu", "none"):
         raise ValueError(f"activation must be 'silu' or 'none', got {activation!r}")
     index = x.get_device()  # -1 on the CPU

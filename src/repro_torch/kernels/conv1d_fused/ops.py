@@ -1,10 +1,17 @@
-"""The fused causal conv1d's entry point, plus its registry `Algorithm`:
-temporal `ConvSpec`s (h == 1, causal left pad along w) plan and execute
-through the same planner as the 2-D paths.
+"""The fused causal conv1d's entry point, its gradient, and its registry
+`Algorithm`: temporal `ConvSpec`s (h == 1, causal left pad along w) plan
+and execute through the same planner as the 2-D paths.
 
 The device decides the path: a CUDA tensor launches the CUDA kernel
 (`kernel.conv1d_fused_call`) or raises, a CPU tensor runs the plain
-version (`ref.conv1d_ref`).
+version (`ref.conv1d_ref`).  Under grad, when an input requires it, the
+call goes through `Conv1dFused` on either device: its forward is the
+same launch, and its backward is the backward kernel
+(`backward.conv1d_fused_bwd_call`) on the card, its plain version
+(`ref.conv1d_bwd_ref`) on the CPU.  The reference never trains through
+its Pallas conv (`use_pallas_conv` is off in every caller): its gradient
+is XLA's, of the shifted-MAC conv plus SiLU, which is what both
+compute.
 """
 
 from __future__ import annotations
@@ -12,10 +19,45 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+from torch.autograd.function import once_differentiable
 
 from repro_torch.core import registry
+from repro_torch.kernels.conv1d_fused import backward as _backward
 from repro_torch.kernels.conv1d_fused import kernel as _kernel
-from repro_torch.kernels.conv1d_fused.ref import conv1d_ref
+from repro_torch.kernels.conv1d_fused.ref import conv1d_bwd_ref, conv1d_ref
+
+
+def _conv(x, w, b, activation: str) -> torch.Tensor:
+    """One forward: the kernel for a CUDA tensor, the plain version for a
+    CPU one."""
+    if x.device.type == "cuda":
+        return _kernel.conv1d_fused_call(x, w, b, activation=activation)
+    return conv1d_ref(x, w, b, activation=activation)
+
+
+class Conv1dFused(torch.autograd.Function):
+    """act(causal depthwise conv1d(x, w) + b) with its gradient.  Saves x,
+    w and b (x may be a column slice of a wider activation: the slice is
+    saved, not copied).  The backward's dx comes back contiguous in x's
+    shape; autograd's slice backward scatters it into the wider
+    activation's gradient."""
+
+    @staticmethod
+    def forward(ctx, x, w, b, activation: str):
+        ctx.save_for_backward(x, w, b)
+        ctx.activation = activation
+        return _conv(x, w, b, activation)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        x, w, b = ctx.saved_tensors
+        if x.device.type == "cuda":
+            dx, dw, db = _backward.conv1d_fused_bwd_call(
+                x, w, b, g.contiguous(), activation=ctx.activation)
+        else:
+            dx, dw, db = conv1d_bwd_ref(g, x, w, b, activation=ctx.activation)
+        return dx, dw, db, None
 
 
 def conv1d_fused(
@@ -36,11 +78,10 @@ def conv1d_fused(
     """
     if b is None:
         b = torch.zeros((x.shape[-1],), dtype=x.dtype, device=x.device)
-    if x.device.type == "cuda":
-        return _kernel.conv1d_fused_call(
-            x, w.contiguous(), b.contiguous(), activation=activation
-        )
-    return conv1d_ref(x, w, b, activation=activation)
+    w, b = w.contiguous(), b.contiguous()
+    if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad or b.requires_grad):
+        return Conv1dFused.apply(x, w, b, activation)
+    return _conv(x, w, b, activation)
 
 
 class Conv1dFusedAlgorithm(registry.Algorithm):

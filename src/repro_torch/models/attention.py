@@ -90,6 +90,19 @@ def decode_attention(
     return out.permute(0, 3, 1, 2, 4).reshape(b, sq, hq, vd).to(q.dtype)
 
 
+def init_lora(gen, cfg: ArchConfig, rank: int, dtype, device) -> Dict[str, torch.Tensor]:
+    """Low-rank q, k and v deltas, ``lora_{q,k,v}_{a,b}``: a (d, rank) drawn
+    as a dense layer, b (rank, width) zeros, so a fresh delta adds nothing.
+    The reference draws the three a's from one key, equal at init; here
+    each has its own draw from `gen`, of the same distribution."""
+    d, hq, hkv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    p = {}
+    for nm, width in (("q", hq * hd), ("k", hkv * hd), ("v", hkv * hd)):
+        p[f"lora_{nm}_a"] = dense_init(gen, (d, rank), dtype, device)
+        p[f"lora_{nm}_b"] = torch.zeros((rank, width), dtype=dtype, device=device)
+    return p
+
+
 def init_attn(gen, cfg: ArchConfig, dtype, device) -> Dict[str, torch.Tensor]:
     d, hq, hkv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
     p = {
@@ -108,10 +121,17 @@ def init_attn(gen, cfg: ArchConfig, dtype, device) -> Dict[str, torch.Tensor]:
 
 
 def _project_qkv(p, x: torch.Tensor, cfg: ArchConfig):
+    """q, k, v (B, S, H, hd); with ``lora_*`` leaves in `p` (zamba2's shared
+    block) each projection adds its low-rank delta (x a) b before bias,
+    reshape and qk-norm, as the reference does."""
     hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
     q = x @ p["wq"]
     k = x @ p["wk"]
     v = x @ p["wv"]
+    if "lora_q_a" in p:
+        q = q + (x @ p["lora_q_a"]) @ p["lora_q_b"]
+        k = k + (x @ p["lora_k_a"]) @ p["lora_k_b"]
+        v = v + (x @ p["lora_v_a"]) @ p["lora_v_b"]
     if cfg.qkv_bias:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
     b, s = x.shape[:2]

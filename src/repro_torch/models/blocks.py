@@ -5,7 +5,9 @@ identical *super-blocks*; a super-block is a short static tuple of
 `LayerSpec`s.  The plan is the reference's (`build_stack_plan`) for the
 ported stacks: dense LMs are one group of 1-layer super-blocks, gemma3 is
 super-blocks of 5 local + 1 global attention layers plus a tail group,
-mamba2 is one group of mamba layers.  Where the reference scans over
+mamba2 is one group of mamba layers, zamba2 is super-blocks of one
+shared-attention invocation + `period` mamba layers plus a tail group of
+mamba layers.  Where the reference scans over
 stacked layer weights, the port walks a flat list of per-layer modules
 (`plan_layer_specs` gives each layer's spec, in the same order).
 `apply_stack` runs the full-sequence stack for training; with `remat`
@@ -13,9 +15,16 @@ each super-block runs under `torch.utils.checkpoint` (the reference's
 `jax.checkpoint(body)` over one scan step), so the backward recomputes
 a super-block's activations instead of storing them.
 
-Ported mixers: GQA attention ("attn") and "mamba", each layer with its
-dense MLP where the spec has one.  Architectures with MLA, MoE, zamba2's
-shared attention, an encoder-decoder or an MTP head raise
+Ported mixers: GQA attention ("attn"), "mamba", and zamba2's
+"shared_attn": one attention block and one dense MLP whose weights live
+at model level (`shared`, ``{"attn": ..., "mlp": ...}``), invoked every
+`period` layers with the invocation's own norms and low-rank q / k / v
+deltas (``lora_{q,k,v}_{a,b}``, merged into the shared attention's
+weights per call).  Each layer has its dense MLP where the spec has one.
+Under `remat` the shared weights are closure inputs of every
+super-block's checkpointed body (`use_reentrant=False` differentiates
+those too), so their gradient sums over the invocations.  Architectures
+with MLA, MoE, an encoder-decoder or an MTP head raise
 NotImplementedError when their plan is built, naming the ROADMAP item
 that ports them.
 """
@@ -39,7 +48,7 @@ NOT_PORTED = "ROADMAP §1, the remaining LM families"
 
 @dataclasses.dataclass(frozen=True)
 class LayerSpec:
-    mixer: str  # "attn" | "mamba"
+    mixer: str  # "attn" | "mamba" | "shared_attn"
     window: int = 0  # 0 = global
     has_mlp: bool = True  # mamba blocks carry no MLP
 
@@ -53,8 +62,8 @@ class GroupSpec:
 def check_ported(cfg: ArchConfig) -> None:
     """Raise for an architecture whose layers or heads are not ported."""
     missing = [name for name, present in (
-        ("MLA", cfg.mla), ("MoE", cfg.moe), ("shared attention", cfg.shared_attn_period),
-        ("encoder-decoder", cfg.is_encoder_decoder), ("MTP", cfg.mtp),
+        ("MLA", cfg.mla), ("MoE", cfg.moe), ("encoder-decoder", cfg.is_encoder_decoder),
+        ("MTP", cfg.mtp),
     ) if present]
     if missing:
         raise NotImplementedError(
@@ -67,6 +76,17 @@ def build_stack_plan(cfg: ArchConfig) -> Tuple[GroupSpec, ...]:
     n = cfg.n_layers
     if cfg.family == "ssm":
         return (GroupSpec(n, (LayerSpec(mixer="mamba", has_mlp=False),)),)
+
+    if cfg.shared_attn_period:  # zamba2: [shared attn, period x mamba] + tail
+        p = cfg.shared_attn_period
+        mamba = LayerSpec(mixer="mamba", has_mlp=False)
+        full, rem = divmod(n, p)
+        groups = []
+        if full:
+            groups.append(GroupSpec(full, (LayerSpec(mixer="shared_attn"),) + (mamba,) * p))
+        if rem:
+            groups.append(GroupSpec(1, (mamba,) * rem))
+        return tuple(groups)
 
     if cfg.local_global_period:  # gemma3-style 5:1 local:global
         p = cfg.local_global_period
@@ -102,12 +122,40 @@ def init_layer(gen, spec: LayerSpec, cfg: ArchConfig, dtype, device) -> Dict:
     p: Dict = {"ln1": torch.zeros((d,), dtype=dtype, device=device)}
     if spec.mixer == "attn":
         p["attn"] = attn_mod.init_attn(gen, cfg, dtype, device)
-    else:
+    elif spec.mixer == "mamba":
         p["mamba"] = mamba_mod.init_mamba(gen, cfg, dtype, device)
+    elif spec.mixer == "shared_attn":
+        # the weights are model-level (`init_shared`); the invocation's
+        # LoRA and norms live here, and it carries no MLP of its own
+        rank = max(1, cfg.shared_attn_lora_rank)
+        p.update(attn_mod.init_lora(gen, cfg, rank, dtype, device))
+    else:
+        raise ValueError(spec.mixer)
     if spec.has_mlp:
         p["ln2"] = torch.zeros((d,), dtype=dtype, device=device)
-        p["mlp"] = mlp_mod.init_mlp(gen, cfg.d_model, cfg.d_ff, dtype, device)
+        if spec.mixer != "shared_attn":
+            p["mlp"] = mlp_mod.init_mlp(gen, cfg.d_model, cfg.d_ff, dtype, device)
     return p
+
+
+def init_shared(gen, cfg: ArchConfig, dtype, device) -> Dict:
+    """zamba2's model-level shared block: one attention's and one dense
+    MLP's weights."""
+    return {
+        "attn": attn_mod.init_attn(gen, cfg, dtype, device),
+        "mlp": mlp_mod.init_mlp(gen, cfg.d_model, cfg.d_ff, dtype, device),
+    }
+
+
+def _merge_shared_attn(shared, p) -> Dict[str, torch.Tensor]:
+    """The shared attention's weights with this invocation's LoRA leaves."""
+    merged = dict(shared["attn"].named_parameters())
+    merged.update((k, v) for k, v in p.named_parameters() if k.startswith("lora_"))
+    return merged
+
+
+def _mlp_params(p, spec: LayerSpec, shared):
+    return shared["mlp"] if spec.mixer == "shared_attn" else p["mlp"]
 
 
 def apply_layer(
@@ -116,31 +164,35 @@ def apply_layer(
     cfg: ArchConfig,
     x: torch.Tensor,
     positions: torch.Tensor,
+    shared=None,
     *,
     build_cache_len: Optional[int] = None,
 ):
     """Full-sequence layer application (prefill).  Returns (x, cache or
-    None); the cache is built when `build_cache_len` is given."""
+    None); the cache is built when `build_cache_len` is given.  `shared`
+    is the model's shared block (zamba2), read by "shared_attn" layers."""
     cache = None
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
-    if spec.mixer == "attn":
+    if spec.mixer in ("attn", "shared_attn"):
+        ap = _merge_shared_attn(shared, p) if spec.mixer == "shared_attn" else p["attn"]
         if build_cache_len is not None:
             y, (k, v) = attn_mod.attn_forward(
-                p["attn"], h, positions, cfg, window=spec.window, return_kv=True
+                ap, h, positions, cfg, window=spec.window, return_kv=True
             )
             cache = attn_mod.init_kv_cache(
                 cfg, x.shape[0], build_cache_len, spec.window, x.dtype, x.device
             )
             cache = attn_mod.fill_kv_cache(cache, k, v, positions)
         else:
-            y = attn_mod.attn_forward(p["attn"], h, positions, cfg, window=spec.window)
+            y = attn_mod.attn_forward(ap, h, positions, cfg, window=spec.window)
     elif build_cache_len is not None:
         y, cache = mamba_mod.mamba_forward(p["mamba"], h, cfg, return_state=True)
     else:
         y = mamba_mod.mamba_forward(p["mamba"], h, cfg)
     x = x + y
     if spec.has_mlp:
-        x = x + mlp_mod.mlp_forward(p["mlp"], rms_norm(x, p["ln2"], cfg.norm_eps))
+        mlp = _mlp_params(p, spec, shared)
+        x = x + mlp_mod.mlp_forward(mlp, rms_norm(x, p["ln2"], cfg.norm_eps))
     return x, cache
 
 
@@ -161,15 +213,17 @@ def apply_stack(
     cfg: ArchConfig,
     x: torch.Tensor,
     positions: torch.Tensor,
+    shared=None,
     *,
     remat: bool = False,
 ) -> torch.Tensor:
     """The full-sequence stack (training): every layer in order; with
-    `remat`, one `checkpoint(..., use_reentrant=False)` per super-block."""
+    `remat`, one `checkpoint(..., use_reentrant=False)` per super-block.
+    `shared` (zamba2's shared block) is a closure input of every body."""
     for start, n in spans:
         def body(x, start=start, n=n):
             for i in range(start, start + n):
-                x, _ = apply_layer(layers[i], specs[i], cfg, x, positions)
+                x, _ = apply_layer(layers[i], specs[i], cfg, x, positions, shared)
             return x
 
         x = checkpoint(body, x, use_reentrant=False) if remat else body(x)
@@ -183,15 +237,19 @@ def apply_layer_decode(
     x: torch.Tensor,  # (B, 1, D)
     pos: int,
     cache: Dict[str, torch.Tensor],
+    shared=None,
 ):
     """One decode step of one layer.  Returns (x, new cache); the dense
-    MLP is the fused decode-MLP kernel on the card."""
+    MLP (zamba2's shared one too) is the fused decode-MLP kernel on the
+    card."""
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
-    if spec.mixer == "attn":
-        y, cache = attn_mod.attn_decode(p["attn"], h, pos, cache, cfg, window=spec.window)
+    if spec.mixer in ("attn", "shared_attn"):
+        ap = _merge_shared_attn(shared, p) if spec.mixer == "shared_attn" else p["attn"]
+        y, cache = attn_mod.attn_decode(ap, h, pos, cache, cfg, window=spec.window)
     else:
         y, cache = mamba_mod.mamba_decode(p["mamba"], h, cache, cfg)
     x = x + y
     if spec.has_mlp:
-        x = x + mlp_mod.mlp_decode(p["mlp"], rms_norm(x, p["ln2"], cfg.norm_eps))
+        mlp = _mlp_params(p, spec, shared)
+        x = x + mlp_mod.mlp_decode(mlp, rms_norm(x, p["ln2"], cfg.norm_eps))
     return x, cache

@@ -86,7 +86,7 @@ class Params(torch.nn.Module):
     the reference's parameter pytrees.  ``p["wq"]`` and ``"bq" in p`` read
     like the reference's dicts, while `.to()`, `state_dict()` and
     `parameters()` work as on any Module.  Sub-mappings become nested
-    `Params`.  The tensors are Parameters registered with
+    `Params`; a module in the tree is registered as it is.  The tensors are Parameters registered with
     ``requires_grad=False``: serving (under `inference_mode`) never needs
     a gradient, and training turns gradients on for its train state's
     parameters only (`train.step.train_state`)."""
@@ -94,7 +94,9 @@ class Params(torch.nn.Module):
     def __init__(self, tree: Mapping[str, Any]):
         super().__init__()
         for name, val in tree.items():
-            if isinstance(val, Mapping):
+            if isinstance(val, torch.nn.Module):  # shared, not copied
+                self.add_module(name, val)
+            elif isinstance(val, Mapping):
                 self.add_module(name, Params(val))
             else:
                 self.register_parameter(

@@ -14,13 +14,15 @@ Serving runs under `inference_mode`; `lm_loss` is the one entry point
 that builds an autograd graph.
 
 Ported: decoder-only stacks of GQA attention (dense SwiGLU MLP) and mamba
-layers, with tied or untied heads -- gemma3-1b and mamba2-1.3b, among
-the registered architectures.  The rest raise NotImplementedError.
+layers, with tied or untied heads, and zamba2's shared attention block
+with per-invocation LoRA -- the dense configs, mamba2-1.3b and zamba2-7b
+among the registered architectures.  MLA, MoE, the encoder-decoder and
+MTP raise NotImplementedError.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 
@@ -41,8 +43,10 @@ State = Dict[str, List[Dict[str, torch.Tensor]]]
 
 class LM(Params):
     """A language model's parameters (`embed`, `layers` -- one `Params`
-    per layer, in stack order --, `final_norm`, `lm_head` when untied)
-    with its config and the per-layer specs of its stack plan."""
+    per layer, in stack order --, `final_norm`, `lm_head` when untied,
+    `shared` -- zamba2's shared attention and MLP -- when the config has
+    a shared-attention period) with its config and the per-layer specs of
+    its stack plan."""
 
     def __init__(self, cfg: ArchConfig, tree: Dict):
         layers = tree["layers"]
@@ -56,10 +60,17 @@ class LM(Params):
         self.layers = torch.nn.ModuleList(
             lp if isinstance(lp, Params) else Params(lp) for lp in layers
         )
+        if bool(cfg.shared_attn_period) != ("shared" in self):
+            raise ValueError(f"{cfg.name}: a shared block goes with a shared-attention period")
 
     @property
     def device(self) -> torch.device:
         return self.embed.device
+
+    @property
+    def shared_block(self) -> Optional[Params]:
+        """The shared attention + MLP (zamba2), else None."""
+        return self["shared"] if "shared" in self else None
 
 
 def init_lm(cfg: ArchConfig, seed: int = 0, device: DeviceLike = None) -> LM:
@@ -80,6 +91,8 @@ def init_lm(cfg: ArchConfig, seed: int = 0, device: DeviceLike = None) -> LM:
     }
     if not cfg.tie_embeddings:
         tree["lm_head"] = dense_init(gen, (cfg.d_model, vpad), dtype, dev)
+    if cfg.shared_attn_period:
+        tree["shared"] = blocks.init_shared(gen, cfg, dtype, dev)
     return LM(cfg, tree)
 
 
@@ -108,7 +121,8 @@ def lm_loss(
     x = model.embed[tokens]
     pos = _positions(tokens.shape[0], tokens.shape[1], tokens.device)
     x = blocks.apply_stack(
-        model.layers, model.specs, model.spans, model.cfg, x, pos, remat=remat
+        model.layers, model.specs, model.spans, model.cfg, x, pos, model.shared_block,
+        remat=remat,
     )
     nll = softmax_cross_entropy(_head(model, x), targets, batch.get("mask"))
     zero = torch.zeros((), dtype=torch.float32, device=nll.device)
@@ -123,7 +137,7 @@ def lm_logits(model: LM, tokens: torch.Tensor) -> torch.Tensor:
     x = model.embed[tokens]
     pos = _positions(tokens.shape[0], tokens.shape[1], tokens.device)
     for spec, lp in zip(model.specs, model.layers):
-        x, _ = blocks.apply_layer(lp, spec, model.cfg, x, pos)
+        x, _ = blocks.apply_layer(lp, spec, model.cfg, x, pos, model.shared_block)
     return _head(model, x)
 
 
@@ -136,7 +150,7 @@ def lm_prefill(model: LM, tokens: torch.Tensor, max_len: int) -> Tuple[torch.Ten
     caches = []
     for spec, lp in zip(model.specs, model.layers):
         x, cache = blocks.apply_layer(
-            lp, spec, model.cfg, x, pos, build_cache_len=max_len
+            lp, spec, model.cfg, x, pos, model.shared_block, build_cache_len=max_len
         )
         caches.append(cache)
     return _head(model, x[:, -1:])[:, 0], {"layers": caches}
@@ -151,6 +165,7 @@ def lm_decode_step(
     x = model.embed[token[:, None]]
     caches = []
     for spec, lp, cache in zip(model.specs, model.layers, state["layers"]):
-        x, cache = blocks.apply_layer_decode(lp, spec, model.cfg, x, pos, cache)
+        x, cache = blocks.apply_layer_decode(
+            lp, spec, model.cfg, x, pos, cache, model.shared_block)
         caches.append(cache)
     return _head(model, x)[:, 0], {"layers": caches}

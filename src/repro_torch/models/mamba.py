@@ -4,9 +4,15 @@ Prefill uses the SSD chunked algorithm: within a chunk of Q steps the
 quadratic dual form (C B^T . decay) runs as batched matmuls; across chunks
 a Python loop carries the (H, P, N) state.  Decode is the O(1) recurrent
 update.  The prefill's short depthwise-causal conv (+ bias + SiLU) is the
-fused conv1d kernel on the card (its plain version on the CPU); the
-decode step's single-row conv stays plain torch, as the reference
-computes it outside Pallas.
+fused conv1d kernel on the card (its plain version on the CPU); under
+grad it goes through `Conv1dFused`, whose backward is the conv1d
+backward kernel.  The decode step's single-row conv
+stays plain torch, as the reference computes it outside Pallas.
+
+Training remats per super-block (one mamba layer), not per chunk as the
+reference does: one layer's chunk intermediates, (B, H, Q, Q) a tensor,
+are all that its backward holds at once, and at full width and 4 x 1024
+tokens the peak leaves room on the card (PERF.md §5).
 """
 
 from __future__ import annotations

@@ -4,7 +4,9 @@
 returns -- as numpy arrays or anything `numpy.asarray` reads -- with its
 stacked ``"layers"`` leaves per group (leading axis = the group's
 repeats), and returns the port's `LM` with one `Params` per layer, in
-stack order.  Both then compute the same function.
+stack order, and zamba2's model-level ``"shared"`` block as it is (the
+per-invocation LoRA leaves come with their layers).  Both then compute
+the same function.
 """
 
 from __future__ import annotations
@@ -41,6 +43,7 @@ def from_jax(params: Mapping, cfg: ArchConfig, device: DeviceLike = None) -> LM:
         for r in range(gspec.n_repeat):
             for i in range(len(gspec.layers)):
                 layers.append(_tree(group["layers"][i], dev, index=r))
-    tree = {k: _tree(params[k], dev) for k in ("embed", "final_norm", "lm_head") if k in params}
+    tree = {k: _tree(params[k], dev)
+            for k in ("embed", "final_norm", "lm_head", "shared") if k in params}
     tree["layers"] = layers
     return LM(cfg, tree)

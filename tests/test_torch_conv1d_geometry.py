@@ -11,6 +11,7 @@ import inspect
 import pytest
 import torch
 
+from repro_torch.kernels.conv1d_fused import backward as conv1d_backward
 from repro_torch.kernels.conv1d_fused import kernel as conv1d_kernel
 
 D_XBC, WIDTH = 4352, 8512  # mamba2-1.3b's xBC slice of its in-projection
@@ -148,3 +149,47 @@ def test_conv1d_wrapper_takes_any_tap_count(k):
     assert not hasattr(conv1d_kernel, "MAX_TAPS")
     args, _ = conv1d_kernel._launch_args(2, 40, 64, 64, k, False, True)
     assert (args.k, args.silu, args.seq, args.d) == (k, 0, 40, 64)
+
+
+# ------------------------------------------------------------- backward
+
+SOURCE = conv1d_kernel.SOURCE.read_text()
+
+
+def test_conv1d_backward_constants_mirror_the_source():
+    assert f"constexpr int kSegRows = {conv1d_backward.SEG_ROWS};" in SOURCE
+    assert f"constexpr int kMaxAnyKBwd = {conv1d_backward.MAX_TAPS};" in SOURCE
+
+
+@pytest.mark.parametrize("k", [1, 4, 9])
+@pytest.mark.parametrize("name", sorted(SHAPES))
+def test_conv1d_backward_segments_cover_every_row_once(name, k):
+    """The backward's launch arguments: the forward's channel geometry,
+    `n_strips` = segments of SEG_ROWS rows that cover every row once
+    (the last one starts inside the sequence), and the source's own
+    acceptance rules (`conv1d_fused_bwd_launch`); the scratch holds one
+    row of K + 1 partial sums per (sequence, segment)."""
+    b, length, d, row, aligned = SHAPES[name]
+    args, addr = conv1d_backward._launch_args(b, length, d, row, k, True, aligned)
+    g = conv1d_kernel.launch_geometry(b, length, d, row, aligned=aligned)
+    assert addr and (args.vec, args.threads, args.n_cblocks) == (g.vec, g.threads, g.n_cblocks)
+    assert (args.k, args.silu, args.seq, args.d, args.batch) == (k, 1, length, d, b)
+    seg = conv1d_backward.SEG_ROWS
+    owners = torch.zeros(length, dtype=torch.int32)
+    for s in range(args.n_strips):
+        owners[s * seg:min((s + 1) * seg, length)] += 1
+    assert bool((owners == 1).all()) and (args.n_strips - 1) * seg < length
+    span = args.threads * args.vec
+    assert 1 <= args.k <= conv1d_backward.MAX_TAPS and args.x_row_stride >= args.d
+    assert args.n_cblocks * span >= args.d > (args.n_cblocks - 1) * span
+
+
+def test_conv1d_backward_refuses_what_the_kernel_does_not_take():
+    """The wrapper's checks run before any build or launch: a CPU tensor,
+    K past the source's cap, a g of another shape."""
+    x, w, b = torch.zeros(2, 40, 64), torch.zeros(4, 64), torch.zeros(64)
+    with pytest.raises(ValueError, match="on the card"):
+        conv1d_backward.conv1d_fused_bwd_call(x, w, b, torch.zeros(2, 40, 64),
+                                              activation="silu")
+    with pytest.raises(ValueError, match="activation"):
+        conv1d_backward.conv1d_fused_bwd_call(x, w, b, x, activation="relu")

@@ -98,6 +98,31 @@ def test_roundtrip_layout_and_names(tmp_path, moment_dtype):
         assert torch.equal(flat[k], v), k
 
 
+def test_zamba2_train_state_roundtrip_keeps_the_shared_leaves(tmp_path):
+    """A zamba2 train state (its model-level shared attention + MLP and
+    each invocation's LoRA) saves under dotted names -- the shared
+    leaves and their moments included -- and restores bitwise into a state
+    drawn from another seed."""
+    cfg = get_arch("zamba2-7b").reduced()
+    tcfg = TrainConfig(optimizer=AdamWConfig())
+    state = init_train_state(cfg, tcfg, seed=0, device="cpu")
+    want = _flat(state)
+    ckpt_io.save(tmp_path, 3, state)
+    leaves = json.loads((tmp_path / "step_3" / "meta.json").read_text())["leaves"]
+    for name in ("params.shared.attn.wq", "params.shared.mlp.w2", "opt.m.shared.attn.wo",
+                 "opt.v.shared.mlp.w1", "params.layers.0.lora_q_a", "params.layers.0.lora_v_b",
+                 "params.layers.1.mamba.conv_w"):
+        assert name in leaves, name
+    assert set(leaves) == set(want)
+    like = init_train_state(cfg, tcfg, seed=1, device="cpu")
+    assert not torch.equal(like["params"].shared_block["attn"]["wq"], state["params"].shared_block["attn"]["wq"])
+    got, step = ckpt_io.restore(tmp_path, None, like)
+    assert step == 3
+    flat = _flat(got)
+    assert set(flat) == set(want)
+    assert all(torch.equal(flat[k], v) for k, v in want.items())
+
+
 def test_keep_k_gc(tmp_path):
     state = {"params": {"w": torch.zeros(3)}, "step": torch.tensor(0, dtype=torch.int32)}
     for s in range(6):

@@ -48,7 +48,7 @@ def test_importing_the_port_loads_no_jax():
 
 # the modules of the later slices: the online runtime, obs and the
 # measuring tune; then the adapt loop, check and fused Winograd; then
-# the fleet; then training
+# the fleet; then training; then the conv1d backward
 NEW_MODULES = (
     "repro_torch.convserve.obs",
     "repro_torch.convserve.obs.trace",
@@ -98,6 +98,7 @@ NEW_MODULES = (
     "repro_torch.train.step",
     "repro_torch.train.loop",
     "repro_torch.launch.train",
+    "repro_torch.kernels.conv1d_fused.backward",
 )
 
 

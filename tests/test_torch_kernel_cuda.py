@@ -12,7 +12,8 @@ Tolerance: rel < 1e-5 against the plain version (both fp32, summed in
 different orders); the flash backward's dq, dk, dv rel < 5e-5 against
 the plain backward fed the same o and lse (the reference's gradient
 tolerance; it runs on split-TF32 tensor cores), the training loss on the card against the CPU rel 1e-4 and
-its gradients rel 1e-3 (the reference's net-level tolerance).
+its gradients rel 1e-3 (the reference's net-level tolerance); the conv1d
+backward's dx, dw, db rel < 1e-5 against `conv1d_bwd_ref` (both fp32).
 """
 
 import numpy as np
@@ -142,6 +143,46 @@ def test_cuda_conv1d_at_served_and_edge_shapes(cuda_device, name):
     assert _rel(y, conv1d_ref(x, w, bias, activation=act)) < 1e-5
     geo = conv1d_kernel.launch_geometry(b, length, d, row, aligned=x.data_ptr() % 16 == 0)
     assert geo.vec == (1 if offset % 4 else 4)
+
+
+@pytest.mark.parametrize("k, act, lo", [
+    (4, "silu", 4096), (4, "none", 4096), (9, "silu", 4096), (16, "silu", 4096),
+    (1, "silu", 4096), (4, "silu", 65)])
+def test_cuda_conv1d_backward_matches_plain(cuda_device, k, act, lo):
+    """Autograd through `Conv1dFused` on a strided column slice (rows 8512
+    floats apart, mamba2's zxbcdt; at column 65 not 16-byte aligned, one
+    channel a thread): the forward launches the kernel once, the backward
+    the backward kernel once (K 9 and 16: its any-K instance), dx, dw, db
+    agree with `conv1d_bwd_ref` on the same card tensors within rel 1e-5
+    and are the same bits on a second run; dx lands in the slice of the
+    wide gradient and nowhere else."""
+    from repro_torch.kernels.conv1d_fused import backward as conv_backward
+    from repro_torch.kernels.conv1d_fused import conv1d_bwd_ref, conv1d_fused
+    from repro_torch.kernels.conv1d_fused import kernel as conv_kernel
+
+    gen = np.random.default_rng(40 + k)
+    wide = torch.tensor(gen.standard_normal((2, 300, 8512)), dtype=torch.float32,
+                        device=cuda_device, requires_grad=True)
+    d = 4352
+    w = torch.tensor(gen.standard_normal((k, d)) * 0.5, dtype=torch.float32,
+                     device=cuda_device, requires_grad=True)
+    b = torch.tensor(gen.standard_normal(d) * 0.1, dtype=torch.float32,
+                     device=cuda_device, requires_grad=True)
+    g = torch.tensor(gen.standard_normal((2, 300, d)), dtype=torch.float32,
+                     device=cuda_device)
+    f0, b0 = conv_kernel.LAUNCHES, conv_backward.LAUNCHES
+    y = conv1d_fused(wide[..., lo:lo + d], w, b, activation=act)
+    assert (conv_kernel.LAUNCHES - f0, conv_backward.LAUNCHES - b0) == (1, 0)
+    dwide, dw, db = torch.autograd.grad(y, (wide, w, b), g, retain_graph=True)
+    again = torch.autograd.grad(y, (wide, w, b), g)
+    torch.cuda.synchronize()
+    assert (conv_kernel.LAUNCHES - f0, conv_backward.LAUNCHES - b0) == (1, 2)
+    want = conv1d_bwd_ref(g, wide.detach()[..., lo:lo + d], w.detach(), b.detach(),
+                          activation=act)
+    assert _rel(dwide[..., lo:lo + d], want[0]) < 1e-5
+    assert _rel(dw, want[1]) < 1e-5 and _rel(db, want[2]) < 1e-5
+    assert not dwide[..., :lo].any() and not dwide[..., lo + d:].any()
+    assert all(torch.equal(a, r) for a, r in zip((dwide, dw, db), again))
 
 
 @pytest.mark.parametrize("k", [*range(1, 9), 9, 16])
@@ -919,17 +960,23 @@ def test_cuda_flash_attention_function_launches_forward_and_backward(cuda_device
 
 
 def test_cuda_kernels_without_a_backward_refuse_grad(cuda_device):
-    """conv1d, the decode MLP and the tile kernel raise under grad on the
-    card instead of returning an output with no gradient; so does the
-    flash forward called directly (training goes through `FlashAttention`)."""
+    """The raw conv1d call, the decode MLP and the tile kernel raise under
+    grad on the card instead of returning an output with no gradient; so
+    does the flash forward called directly (training goes through
+    `FlashAttention`).  `conv1d_fused` under grad returns a graph
+    (`Conv1dFused`)."""
     from repro_torch.kernels.conv1d_fused import conv1d_fused
+    from repro_torch.kernels.conv1d_fused import kernel as conv_kernel
     from repro_torch.kernels.decode_mlp import decode_mlp
     from repro_torch.kernels.flash_attention import flash_attention
 
     dev = cuda_device
     x = torch.randn(2, 40, 64, device=dev, requires_grad=True)
-    with pytest.raises(NotImplementedError, match="conv1d_fused.*mamba2 training"):
-        conv1d_fused(x, torch.randn(4, 64, device=dev), torch.zeros(64, device=dev))
+    with pytest.raises(NotImplementedError, match="conv1d_fused_call.*Conv1dFused"):
+        conv_kernel.conv1d_fused_call(x, torch.randn(4, 64, device=dev),
+                                      torch.zeros(64, device=dev), activation="silu")
+    y = conv1d_fused(x, torch.randn(4, 64, device=dev), torch.zeros(64, device=dev))
+    assert y.grad_fn is not None and type(y.grad_fn).__name__ == "Conv1dFusedBackward"
     h = torch.randn(2, 64, device=dev, requires_grad=True)
     w = [torch.randn(*s, device=dev) for s in ((64, 96), (64, 96), (96, 64))]
     with pytest.raises(NotImplementedError, match="decode_mlp.*ROADMAP"):

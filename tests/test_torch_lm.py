@@ -1,9 +1,14 @@
-"""The port's LM stack (reduced gemma3-1b and mamba2-1.3b) against JAX.
+"""The port's LM stack (reduced gemma3-1b, mamba2-1.3b and zamba2-7b)
+against JAX.
 
 The reference's `init_lm` weights, loaded into the port with `from_jax`,
 go through both stacks on the CPU with the same seeded tokens: full
 logits, prefill logits and caches, teacher-forced decode logits, and
-`Engine.run`'s tokens.  The reference runs under
+`Engine.run`'s tokens.  For zamba2 the leaves that the reference draws
+as constants (`lora_*_b` zeros, so a fresh LoRA adds nothing; the three
+`lora_*_a` equal; mamba's `A_log`, `dt_bias`, `D`) get seeded
+non-trivial values first, in the numpy tree fed to both
+(`_torch_params.nontrivial`).  The reference runs under
 ``overrides(flash_p_dtype="float32")``: its default rounds the softmax
 probabilities P to bf16 before the PV product, which the Pallas kernel
 and the port do not.
@@ -39,10 +44,13 @@ from repro.serve.engine import ServeConfig as JaxServeConfig
 from repro_torch.configs import get_arch
 from repro_torch.models import from_jax, init_lm, lm_decode_step, lm_logits, lm_prefill
 from repro_torch.models import mamba as mamba_mod
+from repro_torch.models.blocks import build_stack_plan
 from repro_torch.models.common import Params
 from repro_torch.serve import Engine, Request, ServeConfig
 
-ARCHS = ("gemma3-1b", "mamba2-1.3b")
+from _torch_params import nontrivial  # the seeded constant-drawn leaves
+
+ARCHS = ("gemma3-1b", "mamba2-1.3b", "zamba2-7b")
 REL_TOL = 1e-4
 CACHE_ATOL = 1e-6
 BF16_P_TOL = 2e-2
@@ -59,6 +67,8 @@ def pair(request):
     name = request.param
     cfg = jax_get_arch(name).reduced()
     params = jax_init_lm(jax.random.PRNGKey(0), cfg)
+    if name == "zamba2-7b":
+        params = jax.tree.map(jnp.asarray, nontrivial(jax.tree.map(np.asarray, params)))
     model = from_jax(jax.tree.map(np.asarray, params), get_arch(name).reduced(),
                      device="cpu")
     return name, cfg, params, model
@@ -97,7 +107,9 @@ def test_prefill_logits_and_caches_match_jax(pair):
     logits, state = lm_prefill(model, torch.from_numpy(toks).long(), 40)
     assert _rel(logits.numpy(), ref_logits) < REL_TOL, name
     ref_caches = _flat_jax_caches(cfg, ref_state)
-    assert len(state["layers"]) == len(ref_caches) == cfg.n_layers
+    # one cache per layer of the plan: zamba2's shared invocations have theirs
+    n_shared = sum(spec.mixer == "shared_attn" for spec in model.specs)
+    assert len(state["layers"]) == len(ref_caches) == cfg.n_layers + n_shared
     for i, (c, rc) in enumerate(zip(state["layers"], ref_caches)):
         assert set(c) == set(rc), (name, i)
         for key in c:
@@ -259,8 +271,40 @@ def test_launcher_serves_on_the_cpu(capsys):
     assert "3 requests, 12 tokens" in out and "on cpu" in out
 
 
-# MLA / MoE / MTP, MoE, encoder-decoder, shared attention + LoRA
-UNPORTED = ("deepseek-v3-671b", "moonshot-v1-16b-a3b", "seamless-m4t-medium", "zamba2-7b")
+def test_launcher_serves_zamba2_on_the_cpu(capsys):
+    from repro_torch.launch import serve as launcher
+
+    launcher.main(["--arch", "zamba2-7b", "--device", "cpu", "--requests", "3",
+                   "--max-new", "4", "--max-batch", "2"])
+    out = capsys.readouterr().out
+    assert "3 requests, 12 tokens" in out and "on cpu" in out
+
+
+def test_zamba2_plan_and_shared_block_are_the_reference():
+    """zamba2-7b's full plan: 13 super-blocks of [shared attention, 6 x
+    mamba] and a tail of 3 mamba layers, as the reference builds it; the
+    reduced model carries one shared block, and each invocation its own
+    norms and LoRA of the configured rank (no MLP of its own)."""
+    full = get_arch("zamba2-7b")
+    plan = [(g.n_repeat, tuple(s.mixer for s in g.layers))
+            for g in build_stack_plan(full)]
+    ref = [(g.n_repeat, tuple(s.mixer for s in g.layers)) for g in jax_stack_plan(
+        jax_get_arch("zamba2-7b"))]
+    assert plan == ref == [(13, ("shared_attn",) + ("mamba",) * 6), (1, ("mamba",) * 3)]
+    cfg = get_arch("zamba2-7b").reduced()
+    model = init_lm(cfg, seed=0, device="cpu")
+    assert sorted(n for n, _ in model.shared_block.named_parameters()) == [
+        "attn.wk", "attn.wo", "attn.wq", "attn.wv", "mlp.w1", "mlp.w2", "mlp.w3"]
+    lp = model.layers[0]
+    rank = max(1, cfg.shared_attn_lora_rank)
+    assert sorted(n for n, _ in lp.named_parameters()) == sorted(
+        ["ln1", "ln2"] + [f"lora_{t}_{ab}" for t in "qkv" for ab in "ab"])
+    assert tuple(lp["lora_q_a"].shape) == (cfg.d_model, rank)
+    assert not lp["lora_k_b"].any()  # a fresh LoRA adds nothing, as in the reference
+
+
+# MLA / MoE / MTP, MoE, encoder-decoder
+UNPORTED = ("deepseek-v3-671b", "moonshot-v1-16b-a3b", "seamless-m4t-medium")
 OTHER_DENSE = sorted(set(list_archs()) - set(ARCHS) - set(UNPORTED))
 
 

@@ -17,6 +17,7 @@ import torch
 
 from repro.core import analysis as jax_analysis
 from repro.core import registry as jax_registry
+from repro.core.conv import conv1d_depthwise_causal as jax_conv1d_depthwise_causal
 from repro.kernels.conv1d_fused import conv1d_fused as jax_conv1d_fused
 from repro.kernels.conv1d_fused import conv1d_ref as jax_conv1d_ref
 from repro.kernels.decode_mlp import decode_mlp as jax_decode_mlp
@@ -25,7 +26,7 @@ from repro.kernels.flash_attention import attention_ref as jax_attention_ref
 from repro.kernels.flash_attention import flash_attention_pallas
 from repro_torch.core import analysis, registry
 from repro_torch.core.conv import conv1d_depthwise_causal
-from repro_torch.kernels.conv1d_fused import conv1d_fused
+from repro_torch.kernels.conv1d_fused import conv1d_bwd_ref, conv1d_fused
 from repro_torch.kernels.decode_mlp import decode_mlp
 from repro_torch.kernels.flash_attention import flash_attention
 
@@ -93,6 +94,58 @@ def test_conv1d_fused_reads_a_column_slice_in_place():
     view = wide[..., 10:22]
     ref = np.asarray(jax_conv1d_ref(view.numpy(), w.numpy(), bias.numpy()))
     assert _rel(conv1d_fused(view, w, bias).numpy(), ref) < REL_TOL
+
+
+def _jax_conv_grads(x, w, b, g, act):
+    """jax.grad of the reference mamba's conv, act(conv1d_depthwise_causal(x,
+    w) + b): what XLA differentiates (the reference never trains through
+    its Pallas conv)."""
+    def f(x, w, b):
+        y = jax_conv1d_depthwise_causal(x, w) + b
+        y = jax.nn.silu(y) if act == "silu" else y
+        return jnp.sum(y * g)
+
+    return jax.grad(f, argnums=(0, 1, 2))(x, w, b)
+
+
+@pytest.mark.parametrize("k", [1, 4, 9])
+@pytest.mark.parametrize("act", ["silu", "none"])
+def test_conv1d_bwd_ref_matches_jax_grad(k, act):
+    """`conv1d_bwd_ref`'s dx, dw, db against jax.grad of the reference's
+    conv + bias + SiLU, rel 1e-5 (f32, other summation orders); L is
+    ragged against K and shorter than K - 1 rows in no case."""
+    rng = np.random.default_rng(30 + k)
+    x = rng.standard_normal((3, 37, 20)).astype(np.float32)
+    w = (rng.standard_normal((k, 20)) * 0.5).astype(np.float32)
+    b = (rng.standard_normal(20) * 0.1).astype(np.float32)
+    g = rng.standard_normal((3, 37, 20)).astype(np.float32)
+    ref = _jax_conv_grads(x, w, b, g, act)
+    got = conv1d_bwd_ref(_t(g), _t(x), _t(w), _t(b), activation=act)
+    for name, y, r in zip(("dx", "dw", "db"), got, ref):
+        assert y.shape == r.shape, name
+        assert _rel(y.numpy(), r) < REL_TOL, (name, k, act)
+
+
+def test_conv1d_fused_under_grad_is_the_function_and_matches_jax():
+    """Under grad `conv1d_fused` goes through `Conv1dFused` (on the CPU its
+    plain version, on the card the kernel): x a column slice of a wider
+    activation, as mamba's xBC of zxbcdt; the gradient lands in the slice
+    and matches jax.grad of the reference's conv (rel 1e-5)."""
+    rng = np.random.default_rng(5)
+    wide = rng.standard_normal((2, 40, 50)).astype(np.float32)
+    w = (rng.standard_normal((4, 24)) * 0.5).astype(np.float32)
+    b = (rng.standard_normal(24) * 0.1).astype(np.float32)
+    g = rng.standard_normal((2, 40, 24)).astype(np.float32)
+    wt, ww, bt = (_t(a).requires_grad_(True) for a in (wide, w, b))
+    y = conv1d_fused(wt[..., 10:34], ww, bt)
+    assert type(y.grad_fn).__name__ == "Conv1dFusedBackward"
+    dwide, dw, db = torch.autograd.grad(y, (wt, ww, bt), _t(g))
+    ref = _jax_conv_grads(wide[..., 10:34], w, b, g, "silu")
+    assert _rel(dwide[..., 10:34].numpy(), ref[0]) < REL_TOL
+    assert not dwide[..., :10].any() and not dwide[..., 34:].any()
+    assert _rel(dw.numpy(), ref[1]) < REL_TOL and _rel(db.numpy(), ref[2]) < REL_TOL
+    with torch.no_grad():  # no graph without grad
+        assert conv1d_fused(wt[..., 10:34], ww, bt).grad_fn is None
 
 
 def test_conv1d_depthwise_causal_is_the_plain_conv():

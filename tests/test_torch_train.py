@@ -3,7 +3,12 @@ gradients, AdamW, the train step (microbatched or not), the loop's fault
 handling and the launcher.
 
 Weights are the reference's `init_lm` tree loaded with `from_jax`; data
-and optimizer state are seeded numpy arrays handed to both.  The
+and optimizer state are seeded numpy arrays handed to both.  Leaves that
+the reference draws as constants -- zamba2's `lora_*_b` (zeros: a fresh
+LoRA adds nothing and its `lora_*_a` get no gradient) and the three
+`lora_*_a` (one draw, equal), mamba's `A_log`, `dt_bias` and `D` -- are
+set to seeded non-trivial values in the numpy tree fed to both
+(`_torch_params.nontrivial`).  The
 reference runs with P in f32 (`tests/conftest.py` sets it), as the port
 keeps P.
 
@@ -46,11 +51,14 @@ from repro_torch.runtime.fault import FailureInjector
 from repro_torch.train.loop import LoopConfig, train_loop
 from repro_torch.train.step import TrainConfig, make_train_step, train_state
 
+from _torch_params import nontrivial  # the seeded constant-drawn leaves
+
 LOSS_REL = 1e-5
 GRAD_REL = 1e-4
 ADAM_ATOL = 1e-6
 STEP_LOSS_REL = 1e-4
-ARCHS = ("gemma3-1b", "stablelm-3b")
+ARCHS = ("gemma3-1b", "stablelm-3b", "mamba2-1.3b", "zamba2-7b", "qwen2.5-14b",
+         "deepseek-67b", "chameleon-34b")
 
 
 def _rel(y, ref) -> float:
@@ -77,7 +85,8 @@ def reference(request):
     """(name, jax params, batch, jax loss, port model of jax grads)."""
     name = request.param
     cfg = jax_get_arch(name).reduced()
-    params = jax_init_lm(jax.random.PRNGKey(0), cfg)
+    params = jax.tree.map(jnp.asarray, nontrivial(
+        jax.tree.map(np.asarray, jax_init_lm(jax.random.PRNGKey(0), cfg))))
     batch = _batch(cfg.vocab_size)
     (loss, metrics), grads = jax.value_and_grad(
         lambda p: jax_lm_loss(p, cfg, {k: jnp.asarray(v) for k, v in batch.items()}),
@@ -103,6 +112,30 @@ def test_lm_loss_and_every_gradient_match_jax(reference, remat):
     assert set(names) == set(want)
     for n, g in zip(names, grads):
         assert _rel(g.numpy(), want[n].detach().numpy()) < GRAD_REL, (name, n)
+
+
+@pytest.mark.parametrize("reference", ["zamba2-7b"], indirect=True)
+def test_zamba2_shared_and_lora_gradients_by_name(reference):
+    """zamba2's shared attention and MLP leaves take a gradient summed over
+    the stack's two invocations, and each invocation's LoRA leaves one of
+    their own: every one is non-zero and matches the reference's leaf of
+    the same name (`test_lm_loss_and_every_gradient_match_jax` holds the
+    rest)."""
+    name, np_params, batch, _, _, g_model = reference
+    model = from_jax(np_params, get_arch(name).reduced(), device="cpu")
+    assert [s.mixer for s in model.specs].count("shared_attn") == 2
+    model.requires_grad_(True)
+    loss, _ = lm_loss(model, _torch_batch(batch))
+    named = dict(model.named_parameters())
+    want = dict(g_model.named_parameters())
+    shared = [f"shared.attn.{w}" for w in ("wq", "wk", "wv", "wo")] + [
+        f"shared.mlp.{w}" for w in ("w1", "w3", "w2")]
+    lora = [f"layers.{i}.lora_{t}_{ab}" for i in (0, 3) for t in "qkv" for ab in "ab"]
+    grads = torch.autograd.grad(loss, [named[n] for n in shared + lora])
+    for n, g in zip(shared + lora, grads):
+        ref = want[n].detach().numpy()
+        assert np.abs(ref).max() > 0 and g.abs().max() > 0, n
+        assert _rel(g.numpy(), ref) < GRAD_REL, n
 
 
 @pytest.mark.parametrize("name", ARCHS)
@@ -368,6 +401,21 @@ def test_launcher_trains_on_the_cpu(tmp_path, capsys):
     out = capsys.readouterr().out
     assert "[train] arch=gemma3-1b" in out and "step      0 loss" in out
     assert ckpt_io.latest_step(tmp_path) == 2
+
+
+@pytest.mark.parametrize("arch", ["mamba2-1.3b", "zamba2-7b"])
+def test_launcher_trains_the_ssm_stacks_on_the_cpu(tmp_path, arch, capsys):
+    """mamba2 and zamba2 (shared attention + LoRA) train `--reduced` through
+    the launcher, with a checkpoint that holds zamba2's shared leaves."""
+    state, history = launch_train.main([
+        "--arch", arch, "--reduced", "--device", "cpu", "--steps", "2", "--batch", "2",
+        "--seq", "40", "--ckpt-dir", str(tmp_path), "--ckpt-every", "1"])
+    assert [h["step"] for h in history] == [0, 1]
+    assert all(np.isfinite(h["loss"]) and np.isfinite(h["grad_norm"]) for h in history)
+    assert f"[train] arch={arch}" in capsys.readouterr().out
+    assert ckpt_io.latest_step(tmp_path) == 1
+    names = dict(state["params"].named_parameters())
+    assert ("shared.mlp.w1" in names) == (arch == "zamba2-7b")
 
 
 def test_launcher_defaults_to_the_card():
