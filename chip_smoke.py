@@ -28,8 +28,9 @@ Phases (any failure exits non-zero):
      key, decode B 1-11, a temporal `ConvSpec` through the registry), and
      the repaired walls: flash at hd 80 (stablelm-3b, B 4, 32 heads, S
      700, causal) and hd 112 (32 heads, causal with window 512, and
-     non-causal), conv1d at K 9 and K 16 (B 4, L 768, the D 4352 slice,
-     SiLU on and off); max rel err < 1e-5;
+     non-causal), moonshot-v1-16b-a3b's prefill attention (MHA, hd 128,
+     B 4, 16 heads, S 700, causal), conv1d at K 9 and K 16 (B 4, L 768,
+     the D 4352 slice, SiLU on and off); max rel err < 1e-5;
   5. serve ConvNets: `vgg_mixed_channel` and `fft_fewchannel` through
      `Engine` + `ConvServer` on the H100 hardware model, five requests
      cold and warm; every output finite, of the expected shape and within
@@ -68,8 +69,8 @@ Phases (any failure exits non-zero):
      fft 8->8, of flash at the served global layer, of the decode MLP
      at the served step and of conv1d at mamba2's first prefill wave;
      per-stage profile of a warm ConvNet 64-bucket wave; flash at the
-     hd-80 shape gets the served row's columns, and so do zamba2-7b's
-     conv1d (wave 1) and decode MLP (B 4) shapes;
+     hd-80 and moonshot shapes gets the served row's columns, and so do
+     zamba2-7b's conv1d (wave 1) and decode MLP (B 4) shapes;
  10. online: `vgg_mixed_channel` through `ReplicaPool` (two replicas, a
      CUDA stream per worker) and `ServeRuntime`, replaying
      `serve_runtime_bench`'s seeded vgg trace (poisson 40 Hz, 120
@@ -144,8 +145,9 @@ Phases (any failure exits non-zero):
      log-sum-exp and the flash backward kernel against their plain
      versions on the same card tensors, at gemma3's training layers (B 4,
      Hq 4, Hkv 1, S 1024, hd 256, window 512 / 0, the model's layout),
-     every head dim at g 1 and g 4 on S 700, non-causal, and rows that
-     see no key: dq, dk, dv each within rel 5e-5 of
+     moonshot-v1-16b-a3b's (B 4, 16 heads, S 1024, hd 128, causal), every
+     head dim at g 1 and g 4 on S 700, non-causal, and rows that see no
+     key: dq, dk, dv each within rel 5e-5 of
      `flash_attention_bwd_ref` fed the same o and lse (the reference's
      gradient tolerance), lse within rel 1e-5, o bitwise with and without
      lse, two backward runs bitwise equal, each printed beside its error
@@ -167,7 +169,8 @@ Phases (any failure exits non-zero):
      step 34.  Then one warm full-width step under `torch.profiler` (wall,
      device busy, idle share, top kernels, the backward's device time a
      step) and the backward's times at gemma3-1b's global and local
-     (window 512) training layers: CUDA events, the profiler's device time
+     (window 512) training layers and at moonshot's: CUDA events, the
+     profiler's device time
      of each kernel of a call (delta, main) with its launches a call, the
      wrapper's host time a call and the card's idle time between the
      call's two kernels, the plain backward, SDPA's fp32 backward
@@ -200,6 +203,29 @@ Phases (any failure exits non-zero):
      peak memory, and a cut
      of 4 mamba layers with the shared block every 2 (twice) against the
      CPU, LoRA b drawn first.
+ 14. moonshot-v1-16b-a3b (48 layers of MHA, 16 heads of hd 128, and a
+     mixture of 64 experts, top-6, d_ff 1408 each, vocab 163,840), after
+     every earlier model is dropped (less than 1 GiB may stay allocated):
+     (a) served at full width on 30 of its 48 layers (all 48 in fp32 are
+     104.5 GiB), fp32, seed 0, phase 6's six requests through `Engine`:
+     prefill ms a wave, decode ms a step, the param count, peak
+     `max_memory_allocated` (at least 6 GiB of the card left), the pairs
+     wave 1's capacity (328 an expert) dropped per layer; flash launches
+     = layers x waves, the decode MLP, conv1d and the tile kernel none;
+     layer 0's `moe_forward` at wave 1's and a decode step's shapes with
+     the card in sync-debug mode "error" (no host sync).  (b) cut to 2
+     layers, card against CPU as in phase 7 (capacity 144 drops the
+     pads): logits rel 1e-3, equal greedy tokens, and per MoE call equal
+     top-6 sets (a token's may differ only where its 6th and 7th
+     probability lie within 1e-5) and equal kept (token, expert) pairs.
+     (c) one profiled warm prefill of wave 1 and decode step, as phase 8.
+     (d) trained at full width on 5 layers (3.52 B params), `launch.train`'s
+     run for 6 steps of 4 x 1024: step ms, tokens/s, peak memory,
+     `moe_aux` and `moe_z` a step (finite, non-zero); flash 2 x 5 and its
+     backward 5 launches a step; a profiled step; one batch's loss and
+     aux losses computed twice from one state bitwise equal (the largest
+     gradient difference printed, not held); a 2-layer cut's loss, aux
+     losses and gradients card against CPU at B 1, S 512.
 
 The line before the last is a JSON object listing the ported kernels; the
 last line is {"ok": true, "device": {...}}.  Imports nothing of JAX and
@@ -742,6 +768,10 @@ HD80_LABEL = "stablelm-3b hd80 B4 H32 S700 causal"
 ZAMBA_CONV_LABEL = "zamba2 wave1 B4 L768 D7296 (slice of 14576) silu"
 ZAMBA_DECODE_LABEL = "zamba2 decode B4 d3584 f14336"
 ZAMBA_TIMED = {ZAMBA_CONV_LABEL: "conv1d_fused_zamba2", ZAMBA_DECODE_LABEL: "decode_mlp_zamba2"}
+# moonshot-v1-16b-a3b's prefill attention (MHA, hd 128, wave 1): held
+# against the plain version and timed beside the served row, as hd 80 is
+MOON_FLASH_LABEL = "moonshot hd128 B4 H16 S700 causal"
+FLASH_TIMED = {HD80_LABEL: "flash_attention_hd80", MOON_FLASH_LABEL: "flash_attention_moonshot"}
 STABLELM_CUT = 2  # layers of stablelm-3b at full width in phase 7
 LM_KERNELS = {
     "conv1d_fused": ("src/repro_torch/kernels/conv1d_fused/csrc/conv1d_fused.cu",
@@ -848,7 +878,7 @@ def flash_cases(gen):
     from repro_torch.kernels.flash_attention import attention_ref, flash_attention
 
     cases = []
-    # (the hd-80 row is timed in phase 9 beside the served one)
+    # (the hd-80 and moonshot rows are timed in phase 9 beside the served one)
     for label, b, hq, hkv, sq, sk, hd, causal, window, model_layout, served in (
         ("gemma3 wave1 global B4 S700 hd256 g4", 4, 4, 1, 700, 700, 256, True, 0, True, True),
         ("gemma3 wave1 local w512 B4 S700 hd256 g4", 4, 4, 1, 700, 700, 256, True, 512, True, False),
@@ -864,6 +894,7 @@ def flash_cases(gen):
          False),
         ("zamba2 hd112 B2 H32 S768 non-causal", 2, 32, 32, 768, 768, 112, False, 0, False,
          False),
+        (MOON_FLASH_LABEL, 4, 16, 16, 700, 700, 128, True, 0, True, False),
     ):
         if model_layout:  # the model's (B, S, H, hd), viewed as (B, H, S, hd)
             q = _cuda(gen, (b, sq, hq, hd)).transpose(1, 2)
@@ -1083,10 +1114,12 @@ def _card_vs_cpu(name: str, cut, cfg, n_layers: int):
     """One wave of two requests (600 and 40 tokens, one longer than a
     512 window) through `cut` on the card and through a copy on the CPU:
     prefill and teacher-forced decode logits within REL_TOL_LM_CPU, and
-    the same greedy tokens.  Returns the kernel launches of the card run."""
-    import copy
+    the same greedy tokens.  Returns the kernel launches of the card run
+    and each device's MoE routing, one `Routing` per MoE layer and call
+    (none without experts)."""
+    from repro_torch.models import record_routing
 
-    cpu = copy.deepcopy(cut).to("cpu")
+    cpu = _cpu_copy(cut)
     reqs = lm_requests(cfg, (600, 40), seed=1)
     toks = np.zeros((2, 600), np.int64)
     for i, r in enumerate(reqs):
@@ -1095,12 +1128,14 @@ def _card_vs_cpu(name: str, cut, cfg, n_layers: int):
     for mod in mods.values():
         mod.LAUNCHES = 0  # count only the card run
     t0 = time.perf_counter()
-    card, fed = _logits_run(cut, toks, LM_NEW)
+    with record_routing() as card_routes:
+        card, fed = _logits_run(cut, toks, LM_NEW)
     torch.cuda.synchronize()
     t_card = time.perf_counter() - t0
     launches = {k: mod.LAUNCHES for k, mod in mods.items()}
     t0 = time.perf_counter()
-    host, _ = _logits_run(cpu, toks, LM_NEW, forced=fed)
+    with record_routing() as cpu_routes:
+        host, _ = _logits_run(cpu, toks, LM_NEW, forced=fed)
     t_cpu = time.perf_counter() - t0
     if not (torch.isfinite(card).all() and torch.isfinite(host).all()):
         raise AssertionError(f"{name}: non-finite logits")
@@ -1118,7 +1153,7 @@ def _card_vs_cpu(name: str, cut, cfg, n_layers: int):
         raise AssertionError(f"{name}: card vs cpu rel err {max(errs):.3e}")
     if not same:
         raise AssertionError(f"{name}: greedy tokens differ between card and cpu")
-    return launches
+    return launches, dict(card=card_routes, cpu=cpu_routes)
 
 
 def phase_lm_vs_cpu(served):
@@ -1143,7 +1178,7 @@ def phase_stablelm_vs_cpu() -> dict:
                               n_layers=STABLELM_CUT)
     published_width(cfg, (2560, 32, 80, 6912, 50304))
     model = init_lm(cfg, seed=0, device=DEV)
-    launches = _card_vs_cpu("stablelm-3b", model, cfg, STABLELM_CUT)
+    launches, _ = _card_vs_cpu("stablelm-3b", model, cfg, STABLELM_CUT)
     attn = sum(s.mixer == "attn" for s in model.specs)
     if launches["flash_attention"] != attn:
         raise AssertionError(f"stablelm-3b: flash launched {launches['flash_attention']} "
@@ -1250,7 +1285,7 @@ def phase_lm_times(cases):
         l_ms = time_ms(c["library"]) if c["library"] is not None else None
         lc_ms = time_ms(c["library_causal"]) if c.get("library_causal") else None
         ls_ms = time_ms(c["library_silu"]) if c.get("library_silu") else None
-        timed = c["served"] or c["label"] in (HD80_LABEL, *ZAMBA_TIMED)
+        timed = c["served"] or c["label"] in (*FLASH_TIMED, *ZAMBA_TIMED)
         d_ms = device_ms(c["run"], c["device_key"]) if timed and "device_key" in c else None
         b_ms, b_by = c["bound"]
         lib = f"{l_ms:.4f} ms" if l_ms is not None else "-"
@@ -1265,8 +1300,8 @@ def phase_lm_times(cases):
             f", split-TF32 tensor cores), fp32 FMA bound {fp32:.4f} ms")
         print(f"time {c['kernel']:15s} {c['label']:48s} kernel {k_ms:.4f} ms{extra}  "
               f"plain {p_ms:.4f} ms  library {lib}  {bounds}")
-        if c["label"] == HD80_LABEL:
-            rows["flash_attention_hd80"] = dict(
+        if c["label"] in FLASH_TIMED:
+            rows[FLASH_TIMED[c["label"]]] = dict(
                 shape=c["label"], ms=k_ms, device_ms=d_ms, plain_ms=p_ms, library_ms=l_ms,
                 library_is_causal_ms=lc_ms, bound_ms=b_ms, bound_by=b_by,
                 bound_fp32_ms=c.get("bound_fp32_ms"))
@@ -1996,6 +2031,7 @@ REL_TOL_TRAIN_GRAD = 1e-3  # card vs CPU gradient leaves, the reference's net to
 FLASH_BWD_SOURCE = "src/repro_torch/kernels/flash_attention/csrc/flash_attention_bwd.cu"
 FLASH_BWD_REPLACES = "src/repro/models/flash_attention.py:142"
 DRILL_FAULTS = (12, 21)
+MOON_TRAIN_ATTN = "moonshot train B4 H16 S1024 hd128 causal"
 # the six losses of the same run over the first backward kernel (FMA units,
 # commit 0c64a3e), printed beside this run's: the forward is unchanged, so
 # step 0 matches; later steps carry the backward's other sum order
@@ -2015,6 +2051,7 @@ def flash_bwd_cases(gen):
          True),
         ("non-causal Sq77 Sk256 hd128 g2", 1, 2, 1, 77, 256, 128, False, 0, False),
         ("rows that see no key Sq200 Sk50 w40 hd64 g2", 1, 2, 1, 200, 50, 64, True, 40, False),
+        (MOON_TRAIN_ATTN, 4, 16, 16, 1024, 1024, 128, True, 0, True),
     ]
     for hd in HEAD_DIMS:
         for hkv in (4, 1):
@@ -2141,7 +2178,8 @@ def train_full_width(smi: str):
 
 def train_card_vs_cpu(label: str, cfg, b: int, s: int, *, lora_std: float = 0.0):
     """Part 3: `cfg` (a depth cut at full width), seed 0, B `b`, S `s`:
-    `lm_loss` and every gradient on the card and on the CPU.  With
+    `lm_loss` and every gradient on the card and on the CPU (and, with
+    experts, the summed aux losses, at the loss's tolerance).  With
     `lora_std`, every `lora_*_b` (zeros at init, so the LoRA would add
     nothing and its `lora_*_a` get no gradient) is drawn from N(0,
     lora_std^2) first (seed 3), the same on both."""
@@ -2161,16 +2199,23 @@ def train_card_vs_cpu(label: str, cfg, b: int, s: int, *, lora_std: float = 0.0)
     cpu.requires_grad_(True)
     toks = torch.from_numpy(np.random.default_rng(2).integers(0, cfg.vocab_size, (b, s + 1)))
     batch = {"tokens": toks[:, :-1], "targets": toks[:, 1:]}
-    out = {}
+    out, aux = {}, {}
     for name, model in (("card", card), ("cpu", cpu)):
         t0 = time.perf_counter()
         dev = model.device
-        loss, _ = lm_loss(model, {k: t.to(dev) for k, t in batch.items()})
+        loss, metrics = lm_loss(model, {k: t.to(dev) for k, t in batch.items()})
         grads = torch.autograd.grad(loss, [p for _, p in model.named_parameters()])
+        aux[name] = {k: float(metrics[k].detach()) for k in ("moe_aux", "moe_z")}
         out[name] = (float(loss.detach()), [g.cpu() for g in grads], time.perf_counter() - t0)
     names = [n for n, _ in card.named_parameters()]
     (l_card, g_card, t_card), (l_cpu, g_cpu, t_cpu) = out["card"], out["cpu"]
     loss_rel = abs(l_card - l_cpu) / abs(l_cpu)
+    if cfg.moe:
+        aux_rel = {k: abs(aux["card"][k] - v) / abs(v) for k, v in aux["cpu"].items()}
+        print(f"train card-vs-cpu {label}: aux losses card {aux['card']} cpu {aux['cpu']}, "
+              f"rel {aux_rel} (tol {REL_TOL_TRAIN_LOSS:g})")
+        if not (all(aux["cpu"].values()) and max(aux_rel.values()) < REL_TOL_TRAIN_LOSS):
+            raise AssertionError(f"train: {label} aux losses zero or out of tolerance")
     errs = {n: rel_err(a, b) for n, a, b in zip(names, g_card, g_cpu)}
     zero = [n for n, g in zip(names, g_cpu) if not g.any()]
     worst = max(errs, key=errs.get)
@@ -2307,10 +2352,12 @@ def train_profile(state, cfg, keys=(("flash_fwd", ""), ("flash_bwd", "delta"))) 
     return out
 
 
-# gemma3-1b's two training attention layers (B 4, Hq 4, Hkv 1, S 1024, hd
-# 256, causal): (label, window); 4 of its 26 layers are global, 22 local
-TRAIN_ATTN_LAYERS = (("gemma3 train global B4 S1024 hd256 g4", 0),
-                     ("gemma3 train local w512 B4 S1024 hd256 g4", 512))
+# the training attention layers whose backward is timed: (label, (B, Hq,
+# Hkv, S, hd), window), all causal; gemma3-1b's two (4 of its 26 layers
+# are global, 22 local) and moonshot-v1-16b-a3b's (MHA, hd 128)
+TRAIN_ATTN_LAYERS = (("gemma3 train global B4 S1024 hd256 g4", (4, 4, 1, 1024, 256), 0),
+                     ("gemma3 train local w512 B4 S1024 hd256 g4", (4, 4, 1, 1024, 256), 512),
+                     (MOON_TRAIN_ATTN, (4, 16, 16, 1024, 128), 0))
 
 
 def kernel_gap_us(fn, first: str, then: str, reps: int = 5):
@@ -2349,8 +2396,9 @@ def host_ms(fn, reps: int = 20) -> float:
 
 def train_times(ptxas: dict) -> dict:
     """The backward kernel at gemma3-1b's two training attention layers
-    (`TRAIN_ATTN_LAYERS`, the model's layout): CUDA events, the profiler's
-    device time of each kernel of a call (delta, main) with its launches
+    and moonshot's (`TRAIN_ATTN_LAYERS`, the model's layout): CUDA
+    events, the profiler's device time of each kernel of a call (delta,
+    main) with its launches
     a call, the wrapper's host time a call, the card's idle time between
     the delta and the main kernel, beside the plain backward, the
     library's (the backward of `F.scaled_dot_product_attention`, fp32, kv
@@ -2359,7 +2407,8 @@ def train_times(ptxas: dict) -> dict:
     and the bound both ways (`backward.flops`, five products a band pair:
     three TF32 products per FLOP at the TF32 peak, and at the fp32 FMA
     peak; bytes: q, k, v, o, dO, lse read once, dq, dk, dv written once).
-    Returns the global layer's row with the local one's under "local"."""
+    Returns gemma3's global layer's row with the local one's under
+    "local" and moonshot's under "moonshot"."""
     import torch.nn.functional as F
     from torch.nn.attention import SDPBackend, sdpa_kernel
 
@@ -2368,15 +2417,14 @@ def train_times(ptxas: dict) -> dict:
     from repro_torch.kernels.flash_attention import kernel as flash_kernel
     from repro_torch.kernels.flash_attention.ref import band_mask
 
-    b, hq, hkv, s, hd = 4, 4, 1, 1024, 256
     gen = np.random.default_rng(20)
-    q, do = (_cuda(gen, (b, s, hq, hd)).transpose(1, 2) for _ in range(2))
-    k, v = (_cuda(gen, (b, s, hkv, hd)).transpose(1, 2) for _ in range(2))
     print(f"ptxas -v flash_bwd_kernel<256>: {ptxas['registers']} registers, "
           f"{ptxas['stack_frame_bytes']} B stack frame, {ptxas['spill_store_bytes']} B spill "
           f"stores, {ptxas['spill_load_bytes']} B spill loads")
     rows = {}
-    for label, window in TRAIN_ATTN_LAYERS:
+    for label, (b, hq, hkv, s, hd), window in TRAIN_ATTN_LAYERS:
+        q, do = (_cuda(gen, (b, s, hq, hd)).transpose(1, 2) for _ in range(2))
+        k, v = (_cuda(gen, (b, s, hkv, hd)).transpose(1, 2) for _ in range(2))
         kw = dict(causal=True, window=window)
         o, lse = flash_kernel.flash_attention_call(q, k, v, return_lse=True, **kw)
         ops = bwd_kernel.flops(b, hq, s, s, hd, True, window)
@@ -2424,8 +2472,8 @@ def train_times(ptxas: dict) -> dict:
             kernels_per_call={re.search(r"(\w+<\d+>)", name).group(1): dict(device_ms=ms,
                                                                               launches=n)
                               for name, ms, n in kernels})
-    (glob, _), (local, _) = TRAIN_ATTN_LAYERS
-    return dict(rows[glob], local=rows[local], ptxas_hd256=ptxas)
+    (glob, _, _), (local, _, _), (moon, _, _) = TRAIN_ATTN_LAYERS
+    return dict(rows[glob], local=rows[local], moonshot=rows[moon], ptxas_hd256=ptxas)
 
 
 # ---------------------------------------------- phase 13: the SSM stacks
@@ -2566,7 +2614,9 @@ def _train_cut(cfg, steps: int):
 
     def record(step, metrics, dt):
         history.append(dict(step=step, loss=float(metrics["loss"]),
-                            grad_norm=float(metrics["grad_norm"]), seconds=dt))
+                            grad_norm=float(metrics["grad_norm"]), seconds=dt,
+                            **{k: float(metrics[k]) for k in ("moe_aux", "moe_z")
+                               if k in metrics}))
 
     state = train_loop(state=state, train_step=make_train_step(cfg, tcfg),
                        next_batch=stream.batch_at,
@@ -2574,7 +2624,7 @@ def _train_cut(cfg, steps: int):
     return state, history
 
 
-def train_ssm_run(label: str, fn, smi: str) -> dict:
+def train_run(label: str, fn, smi: str) -> dict:
     """Six full-width steps of 4 x 1024 tokens through `fn` (returns the
     state and the per-step history): losses, grad norms, step ms and
     tokens/s, peak `max_memory_allocated`; every count zeroed before and
@@ -2596,9 +2646,10 @@ def train_ssm_run(label: str, fn, smi: str) -> dict:
     model = state["params"]
     specs, steps = model.specs, len(history)
     for h in history:
-        print(f"  train step {h['step']}: loss {h['loss']:.6f} grad_norm {h['grad_norm']:.6f} "
-              f"{h['seconds'] * 1e3:.2f} ms {TRAIN_BATCH * TRAIN_SEQ / h['seconds']:.1f} "
-              "tokens/s")
+        aux = "".join(f" {k} {h[k]:.6e}" for k in ("moe_aux", "moe_z") if k in h)
+        print(f"  train step {h['step']}: loss {h['loss']:.6f} grad_norm {h['grad_norm']:.6f}"
+              f"{aux} {h['seconds'] * 1e3:.2f} ms "
+              f"{TRAIN_BATCH * TRAIN_SEQ / h['seconds']:.1f} tokens/s")
     attn = sum(s.mixer in ("attn", "shared_attn") for s in specs)
     n_mamba = sum(s.mixer == "mamba" for s in specs)
     want = {"conv1d_fused": n_mamba * CONV1D_FWD_PER_MAMBA_LAYER_STEP * steps,
@@ -2643,7 +2694,7 @@ def train_ssm(smi: str, conv_bwd: dict) -> dict:
     from repro_torch.launch import train as launch_train
 
     out = {}
-    mamba = train_ssm_run("mamba2-1.3b", lambda: launch_train.main(MAMBA_TRAIN_ARGS), smi)
+    mamba = train_run("mamba2-1.3b", lambda: launch_train.main(MAMBA_TRAIN_ARGS), smi)
     cfg = dataclasses.replace(get_arch("mamba2-1.3b"), dtype="float32")
     prof = train_profile(mamba.pop("state"), cfg,
                          keys=(("conv1d_fused_kernel", ""), ("conv1d_bwd", "reduce")))
@@ -2664,8 +2715,8 @@ def train_ssm(smi: str, conv_bwd: dict) -> dict:
     zcfg = dataclasses.replace(get_arch("zamba2-7b"), dtype="float32",
                                n_layers=ZAMBA_TRAIN_LAYERS)
     published_width(zcfg, (3584, 32, 112, 14336))
-    zamba = train_ssm_run(f"zamba2-7b ({ZAMBA_TRAIN_LAYERS} layers)",
-                          lambda: _train_cut(zcfg, TRAIN_STEPS), smi)
+    zamba = train_run(f"zamba2-7b ({ZAMBA_TRAIN_LAYERS} layers)",
+                      lambda: _train_cut(zcfg, TRAIN_STEPS), smi)
     zamba.pop("state")
     out["zamba2"] = zamba
     gc_collect()
@@ -2936,6 +2987,271 @@ def phase_train(smi: str, ptxas: dict) -> dict:
                 ssm=ssm)
 
 
+# ------------------------------------------------------------ phase 14
+
+MOON = "moonshot-v1-16b-a3b"
+MOON_WIDTH = (2048, 16, 128, 1408, 163840)  # d_model, heads, head dim, d_ff an expert, vocab
+# served depth: all 48 layers in fp32 (28.06 B params, 104.5 GiB) exceed the
+# card; 30 keep the weights at 66.3 GiB
+MOON_SERVE_LAYERS = 30
+MOON_FREE = 6 * 2**30  # the served run's peak must leave this much of the card free
+MOON_CUT = 2  # layers of the card-vs-CPU parts (serving and training)
+# trained depth: 4 layers (2.95 B params, 44 GiB of params, grads and two f32
+# moments) peaked at 52.92 GiB on the H100, under 60, so 5 (3.52 B)
+MOON_TRAIN_LAYERS = 5
+RESIDUAL_LIMIT = 2**30  # card memory earlier phases may leave allocated
+TIE_GAP = 1e-5  # a top-k set may differ card vs CPU only where p_k - p_k+1 is below it
+
+
+def _kept(r) -> torch.Tensor:
+    """(N, E) bool on the host: token t holds a slot at expert e."""
+    ids, keep = r.ids.cpu(), r.keep.cpu()
+    return torch.zeros((ids.shape[0], r.probs.shape[1]), dtype=torch.bool).scatter_(1, ids, keep)
+
+
+def moe_drops(routes) -> list:
+    """Per MoE call: (pairs dropped by capacity, tokens that lost every
+    choice, capacity)."""
+    return [(int((~r.keep).sum()), int((~r.keep.any(dim=1)).sum()), r.cap) for r in routes]
+
+
+def routing_agreement(card, cpu, n_layers: int) -> dict:
+    """The card's and the CPU's routing, call by call (the prefill's
+    layers, then every decode step's): top-k sets per token and kept
+    (token, expert) pairs.  A set may differ only where the CPU's gap
+    between its k-th and (k+1)-th probability is below TIE_GAP, and kept
+    pairs must be equal wherever every set is; anything else raises."""
+    if len(card) != len(cpu):
+        raise AssertionError(f"{MOON}: {len(card)} MoE calls on the card, {len(cpu)} on the cpu")
+    out = dict(calls=len(card), sets_differ=0, keep_differ=0, worst_gap=None)
+    for i, (a, b) in enumerate(zip(card, cpu)):
+        k = b.ids.shape[1]
+        differ = (a.ids.cpu().sort(dim=1).values != b.ids.sort(dim=1).values).any(dim=1)
+        n_keep = int((_kept(a) != _kept(b)).sum())
+        n_sets = int(differ.sum())
+        gap = None
+        if n_sets:
+            top = b.probs[differ].topk(k + 1, dim=1).values
+            gap = float((top[:, k - 1] - top[:, k]).max())
+            out["worst_gap"] = max(gap, out["worst_gap"] or 0.0)
+        out["sets_differ"] += n_sets
+        out["keep_differ"] += n_keep
+        if i < n_layers:
+            print(f"  routing layer {i} prefill ({b.ids.shape[0]} tokens, cap {b.cap}): top-{k} "
+                  f"sets equal {n_sets == 0} ({n_sets} differ"
+                  f"{'' if gap is None else f', largest p{k} - p{k + 1} gap {gap:.3e}'}); keep "
+                  f"equal {n_keep == 0} ({n_keep} (token, expert) pairs differ)")
+        if (gap is not None and gap >= TIE_GAP) or (n_sets == 0 and n_keep):
+            raise AssertionError(f"{MOON}: card and cpu route call {i} differently "
+                                 f"({n_sets} sets, gap {gap}, {n_keep} kept pairs)")
+    print(f"  routing over all {out['calls']} MoE calls (prefill and {LM_NEW} decode steps): "
+          f"{out['sets_differ']} top-k sets and {out['keep_differ']} kept pairs differ "
+          f"(a set may differ where p_k - p_k+1 < {TIE_GAP:g})")
+    return out
+
+
+def moonshot_serve(smi: str) -> dict:
+    """moonshot at full width, MOON_SERVE_LAYERS of its 48 layers, fp32,
+    seed 0, through `Engine` with phase 6's six requests: prefill ms a
+    wave, decode ms a step, peak memory (at least MOON_FREE of the card
+    left), the pairs wave 1's capacity dropped per layer; flash launches =
+    layers x waves, the decode MLP, conv1d and tile kernels none."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.models import init_lm, record_routing
+    from repro_torch.serve import Engine, ServeConfig
+
+    cfg = dataclasses.replace(get_arch(MOON), dtype="float32", n_layers=MOON_SERVE_LAYERS)
+    published_width(cfg, MOON_WIDTH)
+    mods = kernel_libraries()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = init_lm(cfg, seed=0, device=DEV)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    print(f"model {MOON}: {cfg.n_layers} of 48 layers (the depth cut: fp32 weights of all 48 "
+          f"exceed the card), d_model {cfg.d_model}, {cfg.n_heads} heads of "
+          f"{cfg.resolved_head_dim}, {cfg.moe.n_experts} experts top-{cfg.moe.top_k} of d_ff "
+          f"{cfg.d_ff}, vocab {cfg.vocab_size}; {n_params / 1e9:.4f} B params fp32, init "
+          f"{time.perf_counter() - t0:.2f} s")
+    reqs = lm_requests(cfg, LM_PROMPTS)
+    engine = Engine(model, ServeConfig(max_batch=MAX_BATCH, max_len=LM_MAX_LEN))
+    for mod in mods.values():
+        mod.LAUNCHES = 0  # main path: count only the served run
+    t0 = time.perf_counter()
+    with record_routing() as routes:
+        out = engine.run(reqs, seed=0)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: mod.LAUNCHES for k, mod in mods.items()}
+    peak = torch.cuda.max_memory_allocated()
+    free = torch.cuda.get_device_properties(0).total_memory - peak
+    for r in reqs:
+        toks = out[r.rid]
+        if len(toks) != LM_NEW or not all(0 <= t < cfg.vocab_size for t in toks):
+            raise AssertionError(f"{MOON} rid {r.rid}: bad tokens {toks}")
+    waves, steps = len(engine.waves), sum(w["decode_steps"] for w in engine.waves)
+    n_tok = sum(w["tokens"] for w in engine.waves)
+    for i, w in enumerate(engine.waves):
+        print(f"  wave {i}: {w['size']} requests, prompt {w['prompt_len']} tokens, "
+              f"prefill {w['prefill_s'] * 1e3:.2f} ms, decode "
+              f"{w['decode_s'] / max(w['decode_steps'], 1) * 1e3:.3f} ms/step "
+              f"over {w['decode_steps']} steps")
+    print(f"  {len(reqs)} requests, {n_tok} tokens in {wall:.3f} s ({n_tok / wall:.1f} tokens/s, "
+          f"host clock after synchronize); peak max_memory_allocated {peak / 2**30:.2f} GiB, "
+          f"{free / 2**30:.2f} GiB of the card left (need {MOON_FREE / 2**30:g}); card {smi}")
+    moe_sync_free(model, cfg, engine.waves[0])
+    drops = moe_drops(routes[:cfg.n_layers])  # wave 1's prefill, layer by layer
+    n1 = engine.waves[0]["size"] * engine.waves[0]["prompt_len"]
+    print(f"  wave 1 ({n1} tokens x top-{cfg.moe.top_k}, capacity {drops[0][2]} an expert): "
+          f"pairs dropped by capacity per layer {[d for d, _, _ in drops]}; tokens that lost "
+          f"every choice per layer {[t for _, t, _ in drops]}")
+    want = {"flash_attention": cfg.n_layers * waves, "decode_mlp": 0, "conv1d_fused": 0,
+            "fused_tile": 0, "flash_attention_bwd": 0, "conv1d_fused_bwd": 0}
+    print(f"  launches: {launches} over {waves} waves, {steps} decode steps (want {want})")
+    for k, n in want.items():
+        if launches[k] != n:
+            raise AssertionError(f"{MOON}: {k} launched {launches[k]} times, expected {n}")
+    if free < MOON_FREE:
+        raise AssertionError(f"{MOON}: {cfg.n_layers} layers leave {free / 2**30:.2f} GiB free")
+    return dict(model=model, cfg=cfg, launches=launches, waves=waves, steps=steps,
+                n_params=n_params, peak_bytes=peak, wave_stats=engine.waves,
+                wave1_dropped_pairs=[d for d, _, _ in drops])
+
+
+def moe_sync_free(model, cfg, wave: dict) -> None:
+    """Layer 0's `moe_forward` at `wave`'s prefill shape and at a decode
+    step's (B, 1, D), with the card in sync-debug mode "error": a host
+    sync in the layer raises."""
+    from repro_torch.models import moe_forward
+
+    p = model.layers[0]["moe"]
+    gen = np.random.default_rng(14)
+    xs = [_cuda(gen, (wave["size"], n, cfg.d_model)) for n in (wave["prompt_len"], 1)]
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        with torch.inference_mode():
+            for x in xs:
+                moe_forward(p, x, cfg)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    print(f"  layer 0 moe_forward at {[tuple(x.shape) for x in xs]} in sync-debug mode "
+          "\"error\": no host sync")
+
+
+def _cpu_copy(model):
+    """A copy of `model` on the CPU, made leaf by leaf (no second copy on
+    the card)."""
+    import copy
+
+    memo = {id(p): torch.nn.Parameter(p.detach().cpu(), requires_grad=p.requires_grad)
+            for p in model.parameters()}
+    return copy.deepcopy(model, memo)
+
+
+def moonshot_vs_cpu(served) -> dict:
+    """The served weights cut to MOON_CUT layers, card against CPU
+    (`_card_vs_cpu`: prompts 600 and 40, capacity 144 drops pads), and
+    both devices' routing call by call (`routing_agreement`)."""
+    cut = _cut(served["model"], MOON_CUT)
+    launches, routes = _card_vs_cpu(MOON, cut, cut.cfg, MOON_CUT)
+    if launches["flash_attention"] != MOON_CUT or launches["decode_mlp"]:
+        raise AssertionError(f"{MOON} cut: launches {launches}")
+    drops = moe_drops(routes["card"][:MOON_CUT])
+    print(f"  card prefill of (600, 40) at capacity {drops[0][2]}: pairs dropped per layer "
+          f"{[d for d, _, _ in drops]}")
+    return routing_agreement(routes["card"], routes["cpu"], MOON_CUT)
+
+
+def train_repeat(model, cfg) -> dict:
+    """`lm_loss` of one batch (the stream's batch after the run's, B 4 x
+    S 1024) and its gradients, computed twice from one state: the loss
+    and the aux losses must be bitwise equal (a deterministic forward,
+    so remat's recompute routes as the forward did); the largest
+    gradient difference is printed, not held (the backward of a gather
+    adds with atomics)."""
+    from repro_torch.data import DataConfig, TokenStream
+    from repro_torch.models import lm_loss
+
+    host = TokenStream(DataConfig(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH, seed=0)).batch_at(
+        TRAIN_STEPS + 1)
+    batch = {k: torch.as_tensor(v).to(DEV) for k, v in host.items()}
+    names, params = zip(*model.named_parameters())
+    runs = []
+    for _ in range(2):
+        loss, metrics = lm_loss(model, batch)
+        grads = torch.autograd.grad(loss, params)
+        runs.append(([loss.detach(), metrics["moe_aux"].detach(), metrics["moe_z"].detach()],
+                     grads))
+    (v1, g1), (v2, g2) = runs
+    same = all(torch.equal(a, b) for a, b in zip(v1, v2))
+    diffs = [float((a - b).abs().max()) for a, b in zip(g1, g2)]
+    worst = max(range(len(diffs)), key=diffs.__getitem__)
+    print(f"train {MOON} repeat: loss {float(v1[0]):.9f} / {float(v2[0]):.9f}, moe_aux "
+          f"{float(v1[1]):.9e} / {float(v2[1]):.9e}, moe_z {float(v1[2]):.9e} / "
+          f"{float(v2[2]):.9e}: bitwise equal {same}; largest gradient difference "
+          f"{diffs[worst]:.3e} at {names[worst]} ({sum(d > 0 for d in diffs)} of {len(diffs)} "
+          "leaves differ; not held)")
+    if not same:
+        raise AssertionError(f"train {MOON}: the forward is not repeatable")
+    return dict(bitwise=same, max_grad_diff=diffs[worst], grad_diff_leaf=names[worst])
+
+
+def moonshot_train(smi: str) -> dict:
+    """moonshot at full width on MOON_TRAIN_LAYERS layers: six steps of
+    `launch.train`'s run (`_train_cut`), aux losses finite and non-zero
+    every step, flash launches as planned (`train_run`); a profiled step;
+    the repeatability of one batch's loss (`train_repeat`); a MOON_CUT-
+    layer cut's loss, aux losses and gradients card against CPU at B 1 x
+    S 512."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+
+    cfg = dataclasses.replace(get_arch(MOON), dtype="float32", n_layers=MOON_TRAIN_LAYERS)
+    published_width(cfg, MOON_WIDTH)
+    run = train_run(f"{MOON} ({MOON_TRAIN_LAYERS} layers)",
+                    lambda: _train_cut(cfg, TRAIN_STEPS), smi)
+    aux = [(h["moe_aux"], h["moe_z"]) for h in run["history"]]
+    if not all(np.isfinite(a) and a != 0 for pair in aux for a in pair):
+        raise AssertionError(f"train {MOON}: aux losses {aux}")
+    state = run.pop("state")
+    run["profile"] = train_profile(state, cfg)
+    state.pop("opt")  # the moments: room for two gradients at once
+    gc_collect()
+    run["repeat"] = train_repeat(state["params"], cfg)
+    del state
+    gc_collect()
+    train_card_vs_cpu(f"{MOON} cut to {MOON_CUT} layers",
+                      dataclasses.replace(cfg, n_layers=MOON_CUT), 1, TRAIN_CUT_SSM_S)
+    gc_collect()
+    return run
+
+
+def phase_moonshot(smi: str) -> dict:
+    """Phase 14 (module docstring): moonshot-v1-16b-a3b served at full
+    width (cut in depth), card against CPU with its routing, a profiled
+    prefill and decode step, then trained at full width."""
+    t_phase = time.perf_counter()
+    gc_collect()
+    left = torch.cuda.memory_allocated()
+    print(f"moonshot: {left / 2**30:.3f} GiB still allocated on the card by earlier phases "
+          f"(limit {RESIDUAL_LIMIT / 2**30:g})")
+    if left >= RESIDUAL_LIMIT:
+        raise AssertionError(f"{left} bytes left allocated before {MOON} loads")
+    served = moonshot_serve(smi)
+    served["routing"] = moonshot_vs_cpu(served)
+    phase_lm_profile({MOON: served})
+    served.pop("model")
+    gc_collect()
+    train = moonshot_train(smi)
+    print(f"moonshot: phase wall time {time.perf_counter() - t_phase:.2f} s")
+    return dict(serve=served, train=train)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the GPU only",
@@ -2960,6 +3276,7 @@ def main() -> int:
     conv1d_prefill = phase_lm_profile(lm_served)
     rows = phase_times(cases, served)
     lm_rows = phase_lm_times(lm_cases)
+    del cases, lm_cases  # their card tensors (~2 GiB): room for phase 14
     online = phase_online(smi)
     adapt = phase_adapt(online["hw"], smi)
     fleet = phase_fleet(online["hw"], smi)
@@ -2967,6 +3284,7 @@ def main() -> int:
         s.pop("model")  # the served weights: room for training
     gc_collect()
     train = phase_train(smi, bwd_ptxas)
+    moon = phase_moonshot(smi)
 
     # headline shape: the widest served vgg layer when vgg reaches the
     # kernel (64->64 at bucket 64), else fft_fewchannel's 8->8
@@ -3002,7 +3320,9 @@ def main() -> int:
     paths = {f"serve {arch}": lm_served[arch]["launches"] for arch in LM_ARCHS}
     paths.update({"train gemma3-1b": train["run"]["launches"],
                   "train mamba2-1.3b": ssm["mamba2-1.3b"]["launches"],
-                  f"train zamba2 ({ZAMBA_TRAIN_LAYERS} layers)": ssm["zamba2"]["launches"]})
+                  f"train zamba2 ({ZAMBA_TRAIN_LAYERS} layers)": ssm["zamba2"]["launches"],
+                  f"serve {MOON} ({MOON_SERVE_LAYERS} layers)": moon["serve"]["launches"],
+                  f"train {MOON} ({MOON_TRAIN_LAYERS} layers)": moon["train"]["launches"]})
 
     def by_path(kernel):
         return {path: n[kernel] for path, n in paths.items() if n[kernel]}
@@ -3027,6 +3347,7 @@ def main() -> int:
             kernels["kernels"][-1].update(
                 launches_stablelm_cut=stablelm["flash_attention"],
                 hd80=lm_rows["flash_attention_hd80"],
+                moonshot=lm_rows["flash_attention_moonshot"],
                 launches_per_train_step=train["run"]["launches"][name] / TRAIN_STEPS)
         if name == "conv1d_fused":
             kernels["kernels"][-1].update(

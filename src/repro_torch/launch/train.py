@@ -15,7 +15,8 @@ counterpart, so this process is the whole job.  Fault tolerance
 (restore-on-failure, SIGTERM save) lives in `repro_torch.train.loop`.
 
 `main` returns the final train state and one record per step (step,
-loss, grad_norm, seconds).
+loss, grad_norm, seconds; and moe_aux, moe_z, the MoE aux losses summed
+over the stack, where the step reports them).
 """
 
 from __future__ import annotations
@@ -73,7 +74,9 @@ def main(argv=None) -> Tuple[Dict, List[Dict[str, float]]]:
 
     def record(step, metrics, dt):
         history.append(dict(step=step, loss=float(metrics["loss"]),
-                            grad_norm=float(metrics["grad_norm"]), seconds=dt))
+                            grad_norm=float(metrics["grad_norm"]), seconds=dt,
+                            **{k: float(metrics[k]) for k in ("moe_aux", "moe_z")
+                               if k in metrics}))
 
     state = train_loop(
         state=state,

@@ -10,23 +10,26 @@ shared-attention invocation + `period` mamba layers plus a tail group of
 mamba layers.  Where the reference scans over
 stacked layer weights, the port walks a flat list of per-layer modules
 (`plan_layer_specs` gives each layer's spec, in the same order).
-`apply_stack` runs the full-sequence stack for training; with `remat`
-each super-block runs under `torch.utils.checkpoint` (the reference's
-`jax.checkpoint(body)` over one scan step), so the backward recomputes
-a super-block's activations instead of storing them.
+`apply_stack` runs the full-sequence stack for training and returns the
+MoE aux losses summed over its layers (the reference's `apply_group`);
+with `remat` each super-block runs under `torch.utils.checkpoint` (the
+reference's `jax.checkpoint(body)` over one scan step), so the backward
+recomputes a super-block's activations instead of storing them.
 
 Ported mixers: GQA attention ("attn"), "mamba", and zamba2's
 "shared_attn": one attention block and one dense MLP whose weights live
 at model level (`shared`, ``{"attn": ..., "mlp": ...}``), invoked every
 `period` layers with the invocation's own norms and low-rank q / k / v
 deltas (``lora_{q,k,v}_{a,b}``, merged into the shared attention's
-weights per call).  Each layer has its dense MLP where the spec has one.
+weights per call).  Each layer has its dense MLP where the spec has one,
+or its mixture of experts (`models/moe.py`) where the spec sets `moe`:
+the dense-family plan does for an MoE config (moonshot-v1-16b-a3b), and
+the decode step calls the same `moe_forward` on its (B, 1, D) input.
 Under `remat` the shared weights are closure inputs of every
 super-block's checkpointed body (`use_reentrant=False` differentiates
 those too), so their gradient sums over the invocations.  Architectures
-with MLA, MoE, an encoder-decoder or an MTP head raise
-NotImplementedError when their plan is built, naming the ROADMAP item
-that ports them.
+with MLA, an encoder-decoder or an MTP head raise NotImplementedError
+when their plan is built, naming the ROADMAP item that ports them.
 """
 
 from __future__ import annotations
@@ -41,6 +44,7 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import mamba as mamba_mod
 from repro_torch.models import mlp as mlp_mod
+from repro_torch.models import moe as moe_mod
 from repro_torch.models.common import rms_norm
 
 NOT_PORTED = "ROADMAP §1, the remaining LM families"
@@ -50,6 +54,7 @@ NOT_PORTED = "ROADMAP §1, the remaining LM families"
 class LayerSpec:
     mixer: str  # "attn" | "mamba" | "shared_attn"
     window: int = 0  # 0 = global
+    moe: bool = False  # the MLP is a mixture of experts
     has_mlp: bool = True  # mamba blocks carry no MLP
 
 
@@ -62,7 +67,7 @@ class GroupSpec:
 def check_ported(cfg: ArchConfig) -> None:
     """Raise for an architecture whose layers or heads are not ported."""
     missing = [name for name, present in (
-        ("MLA", cfg.mla), ("MoE", cfg.moe), ("encoder-decoder", cfg.is_encoder_decoder),
+        ("MLA", cfg.mla), ("encoder-decoder", cfg.is_encoder_decoder),
         ("MTP", cfg.mtp),
     ) if present]
     if missing:
@@ -90,8 +95,8 @@ def build_stack_plan(cfg: ArchConfig) -> Tuple[GroupSpec, ...]:
 
     if cfg.local_global_period:  # gemma3-style 5:1 local:global
         p = cfg.local_global_period
-        local = LayerSpec(mixer="attn", window=cfg.sliding_window)
-        glob = LayerSpec(mixer="attn", window=0)
+        local = LayerSpec(mixer="attn", window=cfg.sliding_window, moe=bool(cfg.moe))
+        glob = LayerSpec(mixer="attn", window=0, moe=bool(cfg.moe))
         full, rem = divmod(n, p)
         groups = []
         if full:
@@ -100,7 +105,7 @@ def build_stack_plan(cfg: ArchConfig) -> Tuple[GroupSpec, ...]:
             groups.append(GroupSpec(1, (local,) * rem))
         return tuple(groups)
 
-    return (GroupSpec(n, (LayerSpec(mixer="attn"),)),)
+    return (GroupSpec(n, (LayerSpec(mixer="attn", moe=bool(cfg.moe)),)),)
 
 
 def plan_layer_specs(plan: Tuple[GroupSpec, ...]) -> Tuple[LayerSpec, ...]:
@@ -133,7 +138,9 @@ def init_layer(gen, spec: LayerSpec, cfg: ArchConfig, dtype, device) -> Dict:
         raise ValueError(spec.mixer)
     if spec.has_mlp:
         p["ln2"] = torch.zeros((d,), dtype=dtype, device=device)
-        if spec.mixer != "shared_attn":
+        if spec.moe:
+            p["moe"] = moe_mod.init_moe(gen, cfg, dtype, device)
+        elif spec.mixer != "shared_attn":
             p["mlp"] = mlp_mod.init_mlp(gen, cfg.d_model, cfg.d_ff, dtype, device)
     return p
 
@@ -168,10 +175,12 @@ def apply_layer(
     *,
     build_cache_len: Optional[int] = None,
 ):
-    """Full-sequence layer application (prefill).  Returns (x, cache or
-    None); the cache is built when `build_cache_len` is given.  `shared`
-    is the model's shared block (zamba2), read by "shared_attn" layers."""
-    cache = None
+    """Full-sequence layer application (training, prefill).  Returns (x,
+    aux, cache): the MoE aux losses ({moe_aux, moe_z}) where the spec has
+    experts, else None; the cache (or None) is built when
+    `build_cache_len` is given.  `shared` is the model's shared block
+    (zamba2), read by "shared_attn" layers."""
+    cache = aux = None
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
     if spec.mixer in ("attn", "shared_attn"):
         ap = _merge_shared_attn(shared, p) if spec.mixer == "shared_attn" else p["attn"]
@@ -191,9 +200,13 @@ def apply_layer(
         y = mamba_mod.mamba_forward(p["mamba"], h, cfg)
     x = x + y
     if spec.has_mlp:
-        mlp = _mlp_params(p, spec, shared)
-        x = x + mlp_mod.mlp_forward(mlp, rms_norm(x, p["ln2"], cfg.norm_eps))
-    return x, cache
+        h = rms_norm(x, p["ln2"], cfg.norm_eps)
+        if spec.moe:
+            y, aux = moe_mod.moe_forward(p["moe"], h, cfg)
+        else:
+            y = mlp_mod.mlp_forward(_mlp_params(p, spec, shared), h)
+        x = x + y
+    return x, aux, cache
 
 
 def super_block_spans(plan: Tuple[GroupSpec, ...]) -> Tuple[Tuple[int, int], ...]:
@@ -216,18 +229,24 @@ def apply_stack(
     shared=None,
     *,
     remat: bool = False,
-) -> torch.Tensor:
+) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """The full-sequence stack (training): every layer in order; with
     `remat`, one `checkpoint(..., use_reentrant=False)` per super-block.
-    `shared` (zamba2's shared block) is a closure input of every body."""
+    `shared` (zamba2's shared block) is a closure input of every body.
+    Returns (x, {moe_aux, moe_z}), the aux losses summed over the MoE
+    layers (zeros without any), carried through each body."""
+    aux = z = torch.zeros((), dtype=torch.float32, device=x.device)
     for start, n in spans:
-        def body(x, start=start, n=n):
+        def body(x, aux, z, start=start, n=n):
             for i in range(start, start + n):
-                x, _ = apply_layer(layers[i], specs[i], cfg, x, positions, shared)
-            return x
+                x, a, _ = apply_layer(layers[i], specs[i], cfg, x, positions, shared)
+                if a is not None:
+                    aux, z = aux + a["moe_aux"], z + a["moe_z"]
+            return x, aux, z
 
-        x = checkpoint(body, x, use_reentrant=False) if remat else body(x)
-    return x
+        x, aux, z = (checkpoint(body, x, aux, z, use_reentrant=False) if remat
+                     else body(x, aux, z))
+    return x, {"moe_aux": aux, "moe_z": z}
 
 
 def apply_layer_decode(
@@ -241,7 +260,8 @@ def apply_layer_decode(
 ):
     """One decode step of one layer.  Returns (x, new cache); the dense
     MLP (zamba2's shared one too) is the fused decode-MLP kernel on the
-    card."""
+    card; experts run `moe_forward` on the step's (B, 1, D), as the
+    reference does (its aux losses are dropped)."""
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
     if spec.mixer in ("attn", "shared_attn"):
         ap = _merge_shared_attn(shared, p) if spec.mixer == "shared_attn" else p["attn"]
@@ -250,6 +270,10 @@ def apply_layer_decode(
         y, cache = mamba_mod.mamba_decode(p["mamba"], h, cache, cfg)
     x = x + y
     if spec.has_mlp:
-        mlp = _mlp_params(p, spec, shared)
-        x = x + mlp_mod.mlp_decode(mlp, rms_norm(x, p["ln2"], cfg.norm_eps))
+        h = rms_norm(x, p["ln2"], cfg.norm_eps)
+        if spec.moe:
+            y, _ = moe_mod.moe_forward(p["moe"], h, cfg)
+        else:
+            y = mlp_mod.mlp_decode(_mlp_params(p, spec, shared), h)
+        x = x + y
     return x, cache

@@ -13,11 +13,12 @@ state is ``{"layers": [cache per layer]}``; caches are updated in place.
 Serving runs under `inference_mode`; `lm_loss` is the one entry point
 that builds an autograd graph.
 
-Ported: decoder-only stacks of GQA attention (dense SwiGLU MLP) and mamba
-layers, with tied or untied heads, and zamba2's shared attention block
-with per-invocation LoRA -- the dense configs, mamba2-1.3b and zamba2-7b
-among the registered architectures.  MLA, MoE, the encoder-decoder and
-MTP raise NotImplementedError.
+Ported: decoder-only stacks of GQA attention (dense SwiGLU MLP or a
+mixture of experts) and mamba layers, with tied or untied heads, and
+zamba2's shared attention block with per-invocation LoRA -- the dense
+configs, moonshot-v1-16b-a3b, mamba2-1.3b and zamba2-7b among the
+registered architectures.  MLA, the encoder-decoder and MTP raise
+NotImplementedError.
 """
 
 from __future__ import annotations
@@ -114,19 +115,18 @@ def lm_loss(
     model: LM, batch: Dict[str, torch.Tensor], *, remat: bool = True
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Mean token NLL of `batch` (``tokens``, ``targets`` (B, S) int, optional
-    ``mask``) and the reference's metrics (``nll``, ``moe_aux``, ``moe_z``,
-    ``loss``; the MoE terms are 0 for the ported families).  With `remat`
-    each super-block's activations are recomputed in the backward."""
+    ``mask``) plus the MoE aux losses summed over the stack, and the
+    reference's metrics (``nll``, ``moe_aux``, ``moe_z``, ``loss``; the
+    MoE terms are 0 without experts).  With `remat` each super-block's
+    activations are recomputed in the backward."""
     tokens, targets = batch["tokens"], batch["targets"]
     x = model.embed[tokens]
     pos = _positions(tokens.shape[0], tokens.shape[1], tokens.device)
-    x = blocks.apply_stack(
+    x, aux = blocks.apply_stack(
         model.layers, model.specs, model.spans, model.cfg, x, pos, model.shared_block,
         remat=remat,
     )
     nll = softmax_cross_entropy(_head(model, x), targets, batch.get("mask"))
-    zero = torch.zeros((), dtype=torch.float32, device=nll.device)
-    aux = {"moe_aux": zero, "moe_z": zero}
     loss = nll + aux["moe_aux"] + aux["moe_z"]
     return loss, {"nll": nll, **aux, "loss": loss}
 
@@ -137,7 +137,7 @@ def lm_logits(model: LM, tokens: torch.Tensor) -> torch.Tensor:
     x = model.embed[tokens]
     pos = _positions(tokens.shape[0], tokens.shape[1], tokens.device)
     for spec, lp in zip(model.specs, model.layers):
-        x, _ = blocks.apply_layer(lp, spec, model.cfg, x, pos, model.shared_block)
+        x, _, _ = blocks.apply_layer(lp, spec, model.cfg, x, pos, model.shared_block)
     return _head(model, x)
 
 
@@ -149,7 +149,7 @@ def lm_prefill(model: LM, tokens: torch.Tensor, max_len: int) -> Tuple[torch.Ten
     pos = _positions(tokens.shape[0], tokens.shape[1], tokens.device)
     caches = []
     for spec, lp in zip(model.specs, model.layers):
-        x, cache = blocks.apply_layer(
+        x, _, cache = blocks.apply_layer(
             lp, spec, model.cfg, x, pos, model.shared_block, build_cache_len=max_len
         )
         caches.append(cache)

@@ -5,8 +5,9 @@ returns -- as numpy arrays or anything `numpy.asarray` reads -- with its
 stacked ``"layers"`` leaves per group (leading axis = the group's
 repeats), and returns the port's `LM` with one `Params` per layer, in
 stack order, and zamba2's model-level ``"shared"`` block as it is (the
-per-invocation LoRA leaves come with their layers).  Both then compute
-the same function.
+per-invocation LoRA leaves come with their layers; an MoE layer's
+``"moe"`` subtree, its f32 router included, like any other).  Both then
+compute the same function.
 """
 
 from __future__ import annotations

@@ -48,7 +48,7 @@ def test_importing_the_port_loads_no_jax():
 
 # the modules of the later slices: the online runtime, obs and the
 # measuring tune; then the adapt loop, check and fused Winograd; then
-# the fleet; then training; then the conv1d backward
+# the fleet; then training; then the conv1d backward; then the MoE layer
 NEW_MODULES = (
     "repro_torch.convserve.obs",
     "repro_torch.convserve.obs.trace",
@@ -99,6 +99,7 @@ NEW_MODULES = (
     "repro_torch.train.loop",
     "repro_torch.launch.train",
     "repro_torch.kernels.conv1d_fused.backward",
+    "repro_torch.models.moe",
 )
 
 

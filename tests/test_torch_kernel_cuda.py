@@ -1,6 +1,6 @@
 """The CUDA kernels on the card, against their plain PyTorch versions:
 the tile kernel, and the LM path's conv1d, flash-attention and decode-MLP
-kernels.
+kernels; and the mixture-of-experts layer on the card against the CPU.
 
 Skips on a host without a CUDA card (the kernels have no CPU mode).  It
 imports neither JAX nor the reference package, so on the GPU machine it
@@ -279,6 +279,7 @@ FLASH_SHAPES = {
     "hd16-w8": (1, 4, 1, 33, 33, 16, True, 8, False),
     "hd32-w40-Sq50-Sk200": (2, 8, 2, 50, 200, 32, True, 40, False),
     "masked-rows-Sq200-Sk50-w40": (1, 2, 1, 200, 50, 64, True, 40, False),
+    "moonshot-B4-H16-S700-hd128": (4, 16, 16, 700, 700, 128, True, 0, True),
 }
 
 
@@ -851,10 +852,12 @@ def test_cuda_flash_backward_matches_plain(cuda_device, hd, hkv, causal, window)
     ("gemma3-local-w512-B4-S1024-hd256-g4", (4, 4, 1, 1024, 1024, 256, True, 512)),
     ("rows-that-see-no-key-Sq200-Sk50-w40", (1, 2, 1, 200, 50, 64, True, 40)),
     ("non-causal-Sq77-Sk256-hd128", (1, 2, 1, 77, 256, 128, False, 0)),
+    ("moonshot-B4-H16-S1024-hd128", (4, 16, 16, 1024, 1024, 128, True, 0)),
 ])
 def test_cuda_flash_backward_at_training_and_edge_shapes(cuda_device, name, shape):
-    """gemma3-1b's training layers in the model's layout (transposed
-    views), and rows that see no key (their dq must be exactly 0)."""
+    """gemma3-1b's and moonshot-v1-16b-a3b's training layers in the
+    model's layout (transposed views), and rows that see no key (their dq
+    must be exactly 0)."""
     b, hq, hkv, sq, sk, hd, causal, window = shape
     rng = np.random.default_rng(50)
     mk = lambda s: torch.tensor(rng.standard_normal(s), dtype=torch.float32,
@@ -1020,5 +1023,88 @@ def test_cuda_lm_loss_gradients_match_the_cpu(cuda_device):
     loss_c, _ = lm_loss(cpu, batch)
     loss_c.backward()
     assert abs(float(loss_d.detach()) - float(loss_c.detach())) < 1e-4 * abs(float(loss_c.detach()))
+    for (n, pd), (_, pc) in zip(card.named_parameters(), cpu.named_parameters()):
+        assert _rel(pd.grad.cpu(), pc.grad) < 1e-3, n
+
+
+def _moe_case(cuda_device):
+    """moonshot's MoE at 64 experts, top-6, with d 256 and d_ff 128, at
+    capacity factor 0.5, weights from the port's initialiser (seed 0):
+    one CPU copy and one card copy, and a (2, 200, 256) batch whose
+    first 150 rows are one pad row (right-aligned prompts of 200 and 50)."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.models.common import Params
+
+    cfg = get_arch("moonshot-v1-16b-a3b")
+    cfg = dataclasses.replace(cfg, d_model=256, d_ff=128, dtype="float32", moe=dataclasses.replace(
+        cfg.moe, capacity_factor=0.5))
+    p = Params(moe_mod.init_moe(torch.Generator().manual_seed(0), cfg, torch.float32, "cpu"))
+    x = torch.tensor(np.random.default_rng(60).standard_normal((2, 200, 256)),
+                     dtype=torch.float32)
+    x[1, :150] = x[0, 0]
+    return cfg, p, x
+
+
+def test_cuda_moe_forward_matches_the_cpu_where_capacity_drops(cuda_device):
+    """`moe_forward` on the card against the CPU at a capacity that drops
+    pairs (the pad rows fill their experts): the same top-6 sets and kept
+    (token, expert) pairs, output and aux losses within rel 1e-5; with
+    the card in sync-debug mode "error" (no host sync in the layer), and
+    bitwise the same output twice."""
+    import copy
+
+    from repro_torch.models import moe as moe_mod
+
+    cfg, p, x = _moe_case(cuda_device)
+    with moe_mod.record_routing() as routes:
+        ref, ref_aux = moe_mod.moe_forward(p, x, cfg)
+        pd, xd = copy.deepcopy(p).to(cuda_device), x.to(cuda_device)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            y, aux = moe_mod.moe_forward(pd, xd, cfg)
+            again, _ = moe_mod.moe_forward(pd, xd, cfg)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    cpu, card = routes[0], routes[1]
+    assert int((~cpu.keep).sum()) > 0  # capacity dropped pairs
+    assert torch.equal(card.ids.cpu().sort(dim=1).values, cpu.ids.sort(dim=1).values)
+    assert torch.equal(card.keep.cpu(), cpu.keep) and torch.equal(card.slot.cpu(), cpu.slot)
+    assert _rel(y.cpu(), ref) < 1e-5
+    for k in ("moe_aux", "moe_z"):
+        assert abs(float(aux[k]) - float(ref_aux[k])) <= 1e-5 * abs(float(ref_aux[k])), k
+    assert torch.equal(y, again)
+
+
+def test_cuda_moonshot_lm_loss_matches_the_cpu(cuda_device):
+    """Reduced moonshot-v1-16b-a3b: `lm_loss`, its aux losses and every
+    gradient (routers included) on the card within rel 1e-4 / 1e-3 of
+    the CPU; flash launched twice a layer (remat) and its backward once."""
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels.flash_attention import backward as bwd_kernel
+    from repro_torch.kernels.flash_attention import kernel as flash_kernel
+    from repro_torch.models import init_lm, lm_loss
+
+    cfg = get_arch("moonshot-v1-16b-a3b").reduced()
+    cpu = init_lm(cfg, seed=0, device="cpu")
+    card = init_lm(cfg, seed=0, device="cpu").to(cuda_device)
+    cpu.requires_grad_(True)
+    card.requires_grad_(True)
+    toks = torch.from_numpy(np.random.default_rng(91).integers(0, cfg.vocab_size, (2, 41)))
+    batch = {"tokens": toks[:, :-1], "targets": toks[:, 1:]}
+    f0, b0 = flash_kernel.LAUNCHES, bwd_kernel.LAUNCHES
+    loss_d, m_d = lm_loss(card, {k: t.to(cuda_device) for k, t in batch.items()})
+    loss_d.backward()
+    torch.cuda.synchronize()
+    assert flash_kernel.LAUNCHES - f0 == 2 * cfg.n_layers
+    assert bwd_kernel.LAUNCHES - b0 == cfg.n_layers
+    loss_c, m_c = lm_loss(cpu, batch)
+    loss_c.backward()
+    for k in ("loss", "moe_aux", "moe_z"):
+        want = float(m_c[k].detach())
+        assert want != 0 and abs(float(m_d[k].detach()) - want) < 1e-4 * abs(want), k
     for (n, pd), (_, pc) in zip(card.named_parameters(), cpu.named_parameters()):
         assert _rel(pd.grad.cpu(), pc.grad) < 1e-3, n

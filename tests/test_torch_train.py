@@ -58,7 +58,7 @@ GRAD_REL = 1e-4
 ADAM_ATOL = 1e-6
 STEP_LOSS_REL = 1e-4
 ARCHS = ("gemma3-1b", "stablelm-3b", "mamba2-1.3b", "zamba2-7b", "qwen2.5-14b",
-         "deepseek-67b", "chameleon-34b")
+         "deepseek-67b", "chameleon-34b", "moonshot-v1-16b-a3b")
 
 
 def _rel(y, ref) -> float:
@@ -136,6 +136,29 @@ def test_zamba2_shared_and_lora_gradients_by_name(reference):
         ref = want[n].detach().numpy()
         assert np.abs(ref).max() > 0 and g.abs().max() > 0, n
         assert _rel(g.numpy(), ref) < GRAD_REL, n
+
+
+@pytest.mark.parametrize("reference", ["moonshot-v1-16b-a3b"], indirect=True)
+@pytest.mark.parametrize("remat", [True, False])
+def test_moonshot_aux_losses_and_router_gradients(reference, remat):
+    """moonshot's `moe_aux` and `moe_z` are the sums over its four MoE
+    layers (each within rel 1e-5 of the reference's, not just of the
+    loss), and every layer's f32 router takes a non-zero gradient that
+    matches the reference's."""
+    name, np_params, batch, _, ref_metrics, g_model = reference
+    model = from_jax(np_params, get_arch(name).reduced(), device="cpu")
+    model.requires_grad_(True)
+    loss, metrics = lm_loss(model, _torch_batch(batch), remat=remat)
+    for k in ("moe_aux", "moe_z"):
+        assert ref_metrics[k] > 0
+        assert abs(float(metrics[k].detach()) - ref_metrics[k]) <= LOSS_REL * ref_metrics[k], k
+    named = dict(model.named_parameters())
+    routers = [n for n in named if n.endswith("moe.router")]
+    assert len(routers) == len(model.specs) == 4
+    want = dict(g_model.named_parameters())
+    for n, g in zip(routers, torch.autograd.grad(loss, [named[n] for n in routers])):
+        assert named[n].dtype == torch.float32 and g.abs().max() > 0, n
+        assert _rel(g.numpy(), want[n].detach().numpy()) < GRAD_REL, n
 
 
 @pytest.mark.parametrize("name", ARCHS)
@@ -416,6 +439,22 @@ def test_launcher_trains_the_ssm_stacks_on_the_cpu(tmp_path, arch, capsys):
     assert ckpt_io.latest_step(tmp_path) == 1
     names = dict(state["params"].named_parameters())
     assert ("shared.mlp.w1" in names) == (arch == "zamba2-7b")
+
+
+def test_launcher_trains_moonshot_on_the_cpu(tmp_path, capsys):
+    """moonshot-v1-16b-a3b (`--reduced`: 4 MoE layers, 8 experts, top-6)
+    trains through the launcher; each step's history holds its summed
+    aux losses, finite and non-zero."""
+    state, history = launch_train.main([
+        "--arch", "moonshot-v1-16b-a3b", "--reduced", "--device", "cpu", "--steps", "2",
+        "--batch", "2", "--seq", "40", "--ckpt-dir", str(tmp_path), "--ckpt-every", "1"])
+    assert [h["step"] for h in history] == [0, 1]
+    for h in history:
+        assert all(np.isfinite(h[k]) for k in ("loss", "grad_norm", "moe_aux", "moe_z"))
+        assert h["moe_aux"] > 0 and h["moe_z"] > 0
+    assert "[train] arch=moonshot-v1-16b-a3b" in capsys.readouterr().out
+    assert ckpt_io.latest_step(tmp_path) == 1
+    assert "layers.3.moe.router" in dict(state["params"].named_parameters())
 
 
 def test_launcher_defaults_to_the_card():
