@@ -29,8 +29,12 @@ Phases (any failure exits non-zero):
      the repaired walls: flash at hd 80 (stablelm-3b, B 4, 32 heads, S
      700, causal) and hd 112 (32 heads, causal with window 512, and
      non-causal), moonshot-v1-16b-a3b's prefill attention (MHA, hd 128,
-     B 4, 16 heads, S 700, causal), conv1d at K 9 and K 16 (B 4, L 768,
-     the D 4352 slice, SiLU on and off); max rel err < 1e-5;
+     B 4, 16 heads, S 700, causal), deepseek-v3-671b's MLA prefill (B 4,
+     128 heads, S 700, q/k hd 192, v hd 128, causal) and its MTP block's
+     attention (B 4, 128 heads, S 1023, hd 56, padded in the kernel), each
+     also at g 1 with ragged Sq / Sk and rows that see no key, conv1d at
+     K 9 and K 16 (B 4, L 768, the D 4352 slice, SiLU on and off); max
+     rel err < 1e-5;
   5. serve ConvNets: `vgg_mixed_channel` and `fft_fewchannel` through
      `Engine` + `ConvServer` on the H100 hardware model, five requests
      cold and warm; every output finite, of the expected shape and within
@@ -69,8 +73,9 @@ Phases (any failure exits non-zero):
      fft 8->8, of flash at the served global layer, of the decode MLP
      at the served step and of conv1d at mamba2's first prefill wave;
      per-stage profile of a warm ConvNet 64-bucket wave; flash at the
-     hd-80 and moonshot shapes gets the served row's columns, and so do
-     zamba2-7b's conv1d (wave 1) and decode MLP (B 4) shapes;
+     hd-80, moonshot, MLA and MTP shapes gets the served row's columns
+     (SDPA takes v's head dim apart from q's), and so do zamba2-7b's
+     conv1d (wave 1) and decode MLP (B 4) shapes;
  10. online: `vgg_mixed_channel` through `ReplicaPool` (two replicas, a
      CUDA stream per worker) and `ServeRuntime`, replaying
      `serve_runtime_bench`'s seeded vgg trace (poisson 40 Hz, 120
@@ -145,9 +150,11 @@ Phases (any failure exits non-zero):
      log-sum-exp and the flash backward kernel against their plain
      versions on the same card tensors, at gemma3's training layers (B 4,
      Hq 4, Hkv 1, S 1024, hd 256, window 512 / 0, the model's layout),
-     moonshot-v1-16b-a3b's (B 4, 16 heads, S 1024, hd 128, causal), every
-     head dim at g 1 and g 4 on S 700, non-causal, and rows that see no
-     key: dq, dk, dv each within rel 5e-5 of
+     moonshot-v1-16b-a3b's (B 4, 16 heads, S 1024, hd 128, causal),
+     deepseek-v3-671b's MLA (B 4, 128 heads, S 1024, q/k hd 192, v hd
+     128) and MTP block (S 1023, hd 56), every instantiated (hd, vd) at
+     g 1 and g 4 on S 700, non-causal, and rows that see no key (at the
+     MLA and MTP head dims too): dq, dk, dv each within rel 5e-5 of
      `flash_attention_bwd_ref` fed the same o and lse (the reference's
      gradient tolerance), lse within rel 1e-5, o bitwise with and without
      lse, two backward runs bitwise equal, each printed beside its error
@@ -169,16 +176,17 @@ Phases (any failure exits non-zero):
      step 34.  Then one warm full-width step under `torch.profiler` (wall,
      device busy, idle share, top kernels, the backward's device time a
      step) and the backward's times at gemma3-1b's global and local
-     (window 512) training layers and at moonshot's: CUDA events, the
-     profiler's device time
+     (window 512) training layers, at moonshot's and at deepseek's MLA
+     and MTP layers: CUDA events, the profiler's device time
      of each kernel of a call (delta, main) with its launches a call, the
      wrapper's host time a call and the card's idle time between the
      call's two kernels, the plain backward, SDPA's fp32 backward
      as the library yardstick (`is_causal`; the local band as a boolean
-     mask), and the bound both ways (five products of 2 hd FLOPs a band
-     pair: split-TF32 at the TF32 peak, and the fp32 FMA peak).  Phase 2
-     prints the backward source's `nvcc -Xptxas -v` registers and spills
-     per instantiation.  (e) conv1d under autograd (`Conv1dFused`: the
+     mask; where SDPA refuses a shape the row says so), and the bound
+     both ways (five products a band pair, three of 2 hd FLOPs and two of
+     2 vd: split-TF32 at the TF32 peak, and the fp32 FMA peak).  Phase 2
+     prints the forward's and the backward's `nvcc -Xptxas -v` registers
+     and spills per instantiation.  (e) conv1d under autograd (`Conv1dFused`: the
      forward kernel, then the conv1d backward kernel) against
      `conv1d_bwd_ref` on the same card tensors, at mamba2's and zamba2's
      training slices (B 4, L 1024), a ragged unaligned one and K 9: dx,
@@ -222,10 +230,35 @@ Phases (any failure exits non-zero):
      (d) trained at full width on 5 layers (3.52 B params), `launch.train`'s
      run for 6 steps of 4 x 1024: step ms, tokens/s, peak memory,
      `moe_aux` and `moe_z` a step (finite, non-zero); flash 2 x 5 and its
-     backward 5 launches a step; a profiled step; one batch's loss and
-     aux losses computed twice from one state bitwise equal (the largest
-     gradient difference printed, not held); a 2-layer cut's loss, aux
-     losses and gradients card against CPU at B 1, S 512.
+     backward 5 launches a step; a profiled step; one batch's loss, aux
+     losses and gradients computed twice from one state bitwise equal; a
+     2-layer cut's loss, aux losses and gradients card against CPU at B
+     1, S 512.
+ 15. deepseek-v3-671b (MLA with 128 heads -- q_lora 1536, kv_lora 512,
+     q/k hd 192, v hd 128 --, 256 experts top-8 and one shared of d_ff
+     2048, vocab 129,280, the MTP head), after phase 14's model is dropped
+     (less than 1 GiB may stay allocated): (a) served at full width on 1
+     of its 61 layers (13.74 B params, 51.18 GiB; two layers are 94.05
+     GiB), fp32, seed 0, phase 6's six requests through `Engine` with the
+     absorbed MLA decode: prefill ms a wave, decode ms a step, the param
+     count, peak memory (at least 6 GiB of the card left), the pairs wave
+     1's capacity (112 an expert) drops; flash launches = waves (at q/k
+     hd 192, v hd 128), the decode MLP, conv1d and the tile kernel none;
+     layer 0's `moe_forward` and its MLA decode step
+     (`mla_decode_absorbed`) in sync-debug mode "error".  (b) the layer's
+     experts cut to 16, card against CPU (prompts 600 and 40): prefill
+     and teacher-forced absorbed-decode logits rel 1e-3, equal greedy
+     tokens, per MoE call equal top-8 sets and kept pairs.  (c) a
+     profiled warm prefill of wave 1 and decode step, as phase 8.  (d)
+     trained at full width with the experts cut to 16 (256 need ~184 GB
+     of param, gradient and moments for one layer) on the layer and the
+     MTP head (3.17 B params), `launch.train`'s run for 6 steps of 4 x
+     1024: step ms, tokens/s, peak memory, nll, mtp_nll, moe_aux, moe_z a
+     step (finite, mtp_nll non-zero); flash 3 (MLA x 2 for remat + the
+     MTP block, hd 56) and its backward 2 launches a step; a profiled
+     step; one batch's loss and gradients twice from one state, bitwise;
+     an 8-expert cut's loss, mtp_nll and every gradient leaf card against
+     CPU at B 1, S 512.
 
 The line before the last is a JSON object listing the ported kernels; the
 last line is {"ok": true, "device": {...}}.  Imports nothing of JAX and
@@ -352,9 +385,9 @@ def ptxas_report(source: str) -> dict:
 
 def phase_build() -> dict:
     """Every kernel built from the checkout's sources, one nvcc per
-    source, all started together; beside them the flash backward's
-    ptxas report.  Returns the backward's main kernel's registers and
-    spills at hd 256."""
+    source, all started together; beside them the flash forward's and
+    backward's ptxas reports, per instantiation (hd / vd).  Returns the
+    backward's main kernel's registers and spills at hd 256."""
     from concurrent.futures import ThreadPoolExecutor
 
     from repro_torch.kernels import _build
@@ -370,24 +403,26 @@ def phase_build() -> dict:
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(mods) + 1) as pool:
         futs = {name: pool.submit(timed, mod) for name, mod in mods.items()}
-        ptxas = pool.submit(ptxas_report, FLASH_BWD_SOURCE)
+        reports = {src: pool.submit(ptxas_report, src)
+                   for src in (LM_KERNELS["flash_attention"][0], FLASH_BWD_SOURCE)}
         done = {name: f.result() for name, f in futs.items()}
-        ptxas = ptxas.result()
+        reports = {src: f.result() for src, f in reports.items()}
     print(f"build: nvcc {' '.join(_build.NVCC_FLAGS)}")
     for name, (lib, secs) in done.items():
         print(f"  {name:16s} {os.path.relpath(mods[name].SOURCE, ROOT)} -> "
               f"{os.path.relpath(lib, ROOT)} in {secs:.2f} s")
     print(f"  all {len(done)} kernels built in {time.perf_counter() - t0:.2f} s")
-    print(f"ptxas -v {FLASH_BWD_SOURCE} (registers, stack frame / spill store / spill load "
-          "bytes):")
     hd256 = None
-    for fn, (regs, frame, st, ld) in sorted(ptxas.items()):
-        kind = "delta" if "delta" in fn else "main"
-        hd = m.group(1) if (m := re.search(r"ILi(\d+)E", fn)) else "?"
-        print(f"  {kind:5s} hd {hd:>3s}: {regs} registers, {frame} / {st} / {ld} bytes")
-        if kind == "main" and hd == "256":
-            hd256 = dict(registers=regs, stack_frame_bytes=frame, spill_store_bytes=st,
-                         spill_load_bytes=ld)
+    for src, ptxas in reports.items():
+        print(f"ptxas -v {src} (registers, stack frame / spill store / spill load bytes):")
+        for fn, (regs, frame, st, ld) in sorted(ptxas.items()):
+            kind = "delta" if "delta" in fn else "main"
+            # the instantiation's template arguments: (hd, vd), or vd alone for delta
+            dims = "/".join(re.findall(r"Li(\d+)E", fn)) or "?"
+            print(f"  {kind:5s} hd {dims:>7s}: {regs} registers, {frame} / {st} / {ld} bytes")
+            if src == FLASH_BWD_SOURCE and kind == "main" and dims == "256/256":
+                hd256 = dict(registers=regs, stack_frame_bytes=frame, spill_store_bytes=st,
+                             spill_load_bytes=ld)
     if hd256 is None:
         raise AssertionError("ptxas reported no hd-256 instance of the backward's main kernel")
     return hd256
@@ -679,6 +714,11 @@ def bound(c) -> tuple:
 DEVICE_TIMED = ("vgg b64 64->64@64", "fft b64 8->8@64 +bias+relu")
 
 
+# profiler sessions a measurement may take: in phase 13, after the gemma3
+# paths, the first few sessions have recorded no device event at all
+PROFILER_TRIES = 6
+
+
 def kernel_breakdown(fn, key: str, reps: int = 20) -> list:
     """(kernel name, device ms a call, launches a call) of each kernel
     whose name holds `key` that `fn` launches, from `torch.profiler`'s
@@ -690,15 +730,21 @@ def kernel_breakdown(fn, key: str, reps: int = 20) -> list:
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
     rows = []
-    for e in _kernel_events(prof):
-        if key in e.key and e.count:
-            per_call = max(1, round(e.count / reps))
-            rows.append((e.key, _device_ms(e) / e.count * per_call, per_call))
+    for attempt in range(PROFILER_TRIES):  # a session that records no device event runs again
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        events = _kernel_events(prof)
+        for e in events:
+            if key in e.key and e.count:
+                per_call = max(1, round(e.count / reps))
+                rows.append((e.key, _device_ms(e) / e.count * per_call, per_call))
+        if rows:
+            break
+        print(f"  profiler session {attempt + 1}: {len(events)} device events, none named "
+              f"{key!r}")
     return rows
 
 
@@ -771,7 +817,14 @@ ZAMBA_TIMED = {ZAMBA_CONV_LABEL: "conv1d_fused_zamba2", ZAMBA_DECODE_LABEL: "dec
 # moonshot-v1-16b-a3b's prefill attention (MHA, hd 128, wave 1): held
 # against the plain version and timed beside the served row, as hd 80 is
 MOON_FLASH_LABEL = "moonshot hd128 B4 H16 S700 causal"
-FLASH_TIMED = {HD80_LABEL: "flash_attention_hd80", MOON_FLASH_LABEL: "flash_attention_moonshot"}
+# deepseek-v3-671b's MLA prefill attention (MHA, q/k hd 192, v hd 128, wave
+# 1) and its MTP block's attention (hd 56 in the padded instantiation, the
+# training shape S 1023): held against the plain version and timed
+# beside the served row
+MLA_FLASH_LABEL = "deepseek MLA hd192/128 B4 H128 S700 causal"
+MTP_FLASH_LABEL = "deepseek MTP hd56 B4 H128 S1023 causal"
+FLASH_TIMED = {HD80_LABEL: "flash_attention_hd80", MOON_FLASH_LABEL: "flash_attention_moonshot",
+               MLA_FLASH_LABEL: "flash_attention_mla", MTP_FLASH_LABEL: "flash_attention_mtp"}
 STABLELM_CUT = 2  # layers of stablelm-3b at full width in phase 7
 LM_KERNELS = {
     "conv1d_fused": ("src/repro_torch/kernels/conv1d_fused/csrc/conv1d_fused.cu",
@@ -878,31 +931,48 @@ def flash_cases(gen):
     from repro_torch.kernels.flash_attention import attention_ref, flash_attention
 
     cases = []
-    # (the hd-80 and moonshot rows are timed in phase 9 beside the served one)
-    for label, b, hq, hkv, sq, sk, hd, causal, window, model_layout, served in (
-        ("gemma3 wave1 global B4 S700 hd256 g4", 4, 4, 1, 700, 700, 256, True, 0, True, True),
-        ("gemma3 wave1 local w512 B4 S700 hd256 g4", 4, 4, 1, 700, 700, 256, True, 512, True, False),
-        ("gemma3 wave2 local w512 B2 S129 hd256 g4", 2, 4, 1, 129, 129, 256, True, 512, True, False),
-        ("g=1 B2 H4 S100 hd64 causal", 2, 4, 4, 100, 100, 64, True, 0, False, False),
-        ("non-causal Sq77 Sk256 hd128 g2", 1, 2, 1, 77, 256, 128, False, 0, False, False),
-        ("causal w40 Sq50 Sk200 hd32 g4", 2, 8, 2, 50, 200, 32, True, 40, False, False),
-        ("causal w8 S33 hd16 g4", 1, 4, 1, 33, 33, 16, True, 8, False, False),
-        ("causal w40 Sq200 > Sk50 + w hd64 g2", 1, 2, 1, 200, 50, 64, True, 40, False, False),
+    # (the hd-80, moonshot, MLA and MTP rows are timed in phase 9 beside the
+    # served one); vd is v's head dim, hd q's and k's
+    for label, b, hq, hkv, sq, sk, hd, vd, causal, window, model_layout, served in (
+        ("gemma3 wave1 global B4 S700 hd256 g4", 4, 4, 1, 700, 700, 256, 256, True, 0, True,
+         True),
+        ("gemma3 wave1 local w512 B4 S700 hd256 g4", 4, 4, 1, 700, 700, 256, 256, True, 512,
+         True, False),
+        ("gemma3 wave2 local w512 B2 S129 hd256 g4", 2, 4, 1, 129, 129, 256, 256, True, 512,
+         True, False),
+        ("g=1 B2 H4 S100 hd64 causal", 2, 4, 4, 100, 100, 64, 64, True, 0, False, False),
+        ("non-causal Sq77 Sk256 hd128 g2", 1, 2, 1, 77, 256, 128, 128, False, 0, False, False),
+        ("causal w40 Sq50 Sk200 hd32 g4", 2, 8, 2, 50, 200, 32, 32, True, 40, False, False),
+        ("causal w8 S33 hd16 g4", 1, 4, 1, 33, 33, 16, 16, True, 8, False, False),
+        ("causal w40 Sq200 > Sk50 + w hd64 g2", 1, 2, 1, 200, 50, 64, 64, True, 40, False,
+         False),
         # head dims of registered configs in chunks of 8 columns
-        (HD80_LABEL, 4, 32, 32, 700, 700, 80, True, 0, True, False),
-        ("zamba2 hd112 B2 H32 S768 causal w512", 2, 32, 32, 768, 768, 112, True, 512, True,
+        (HD80_LABEL, 4, 32, 32, 700, 700, 80, 80, True, 0, True, False),
+        ("zamba2 hd112 B2 H32 S768 causal w512", 2, 32, 32, 768, 768, 112, 112, True, 512,
+         True, False),
+        ("zamba2 hd112 B2 H32 S768 non-causal", 2, 32, 32, 768, 768, 112, 112, False, 0,
+         False, False),
+        (MOON_FLASH_LABEL, 4, 16, 16, 700, 700, 128, 128, True, 0, True, False),
+        # deepseek-v3-671b: MLA's q/k and v head dims apart, the MTP block's
+        # 56 padded in the kernel; at g 1, ragged Sq / Sk and rows that see
+        # no key at both
+        (MLA_FLASH_LABEL, 4, 128, 128, 700, 700, 192, 128, True, 0, True, False),
+        (MTP_FLASH_LABEL, 4, 128, 128, 1023, 1023, 56, 56, True, 0, True, False),
+        ("MLA g1 w40 Sq200 > Sk50 + w hd192/128", 1, 4, 4, 200, 50, 192, 128, True, 40, True,
          False),
-        ("zamba2 hd112 B2 H32 S768 non-causal", 2, 32, 32, 768, 768, 112, False, 0, False,
+        ("MLA g1 non-causal Sq77 Sk256 hd192/128", 1, 4, 4, 77, 256, 192, 128, False, 0,
+         False, False),
+        ("MTP g1 w40 Sq200 > Sk50 + w hd56", 1, 4, 4, 200, 50, 56, 56, True, 40, True, False),
+        ("MTP g1 non-causal Sq77 Sk256 hd56", 1, 4, 4, 77, 256, 56, 56, False, 0, False,
          False),
-        (MOON_FLASH_LABEL, 4, 16, 16, 700, 700, 128, True, 0, True, False),
     ):
         if model_layout:  # the model's (B, S, H, hd), viewed as (B, H, S, hd)
             q = _cuda(gen, (b, sq, hq, hd)).transpose(1, 2)
             k = _cuda(gen, (b, sk, hkv, hd)).transpose(1, 2)
-            v = _cuda(gen, (b, sk, hkv, hd)).transpose(1, 2)
+            v = _cuda(gen, (b, sk, hkv, vd)).transpose(1, 2)
         else:
             q, k, v = (_cuda(gen, (b, hq, sq, hd)), _cuda(gen, (b, hkv, sk, hd)),
-                       _cuda(gen, (b, hkv, sk, hd)))
+                       _cuda(gen, (b, hkv, sk, vd)))
         # the SDPA yardstick gets kv heads repeated before the timed call
         qc = q.contiguous()
         kr = k.repeat_interleave(hq // hkv, 1).contiguous()
@@ -923,7 +993,8 @@ def flash_cases(gen):
             # no mask tensor: SDPA may skip the upper triangle
             return F.scaled_dot_product_attention(qc, kr, vr, is_causal=True)
 
-        ops = 4 * hd * pairs * b * hq
+        ops = 2 * (hd + vd) * pairs * b * hq  # QK^T over hd, P.V over vd
+        n_bytes = 4 * (q.numel() + k.numel() + v.numel() + b * hq * sq * vd)  # q, k, v in; o out
         cases.append(dict(
             kernel="flash_attention", label=label, served=served,
             run=lambda q=q, k=k, v=v, c=causal, w=window: flash_attention(q, k, v, causal=c, window=w),
@@ -933,8 +1004,8 @@ def flash_cases(gen):
             # the kernel's fp32-accurate products run on the tensor cores as
             # three TF32 products each (split operands): its bound is theirs;
             # the same FLOPs on the fp32 FMA units are the secondary bound
-            bound=_bound(4 * (2 * q.numel() + k.numel() + v.numel()), 3 * ops, PEAK_TF32),
-            bound_fp32_ms=_bound(4 * (2 * q.numel() + k.numel() + v.numel()), ops)[0],
+            bound=_bound(n_bytes, 3 * ops, PEAK_TF32),
+            bound_fp32_ms=_bound(n_bytes, ops)[0],
             device_key="flash_fwd",
         ))
     return cases
@@ -2032,6 +2103,8 @@ FLASH_BWD_SOURCE = "src/repro_torch/kernels/flash_attention/csrc/flash_attention
 FLASH_BWD_REPLACES = "src/repro/models/flash_attention.py:142"
 DRILL_FAULTS = (12, 21)
 MOON_TRAIN_ATTN = "moonshot train B4 H16 S1024 hd128 causal"
+MLA_TRAIN_ATTN = "deepseek MLA train B4 H128 S1024 hd192/128 causal"
+MTP_TRAIN_ATTN = "deepseek MTP train B4 H128 S1023 hd56 causal"
 # the six losses of the same run over the first backward kernel (FMA units,
 # commit 0c64a3e), printed beside this run's: the forward is unchanged, so
 # step 0 matches; later steps carry the backward's other sum order
@@ -2040,30 +2113,39 @@ TRAIN_CKPT = os.path.join(ROOT, "build", "chip_smoke_ckpt")
 
 
 def flash_bwd_cases(gen):
-    """(label, B, Hq, Hkv, S_q, S_k, hd, causal, window, model layout):
-    gemma3-1b's two training layers, every head dim at g 1 and g 4 on a
-    ragged S, non-causal, and rows that see no key."""
+    """(label, B, Hq, Hkv, S_q, S_k, hd, vd, causal, window, model layout):
+    gemma3-1b's two training layers, moonshot's and deepseek-v3's (MLA at
+    q/k hd 192 and v hd 128, the MTP block at hd 56), every instantiated
+    (hd, vd) at g 1 and g 4 on a ragged S, non-causal, and rows that see
+    no key (at the new shapes too)."""
     from repro_torch.kernels.flash_attention.kernel import HEAD_DIMS
 
     cases = [
-        ("gemma3 train global B4 S1024 hd256 g4", 4, 4, 1, 1024, 1024, 256, True, 0, True),
-        ("gemma3 train local w512 B4 S1024 hd256 g4", 4, 4, 1, 1024, 1024, 256, True, 512,
+        ("gemma3 train global B4 S1024 hd256 g4", 4, 4, 1, 1024, 1024, 256, 256, True, 0, True),
+        ("gemma3 train local w512 B4 S1024 hd256 g4", 4, 4, 1, 1024, 1024, 256, 256, True, 512,
          True),
-        ("non-causal Sq77 Sk256 hd128 g2", 1, 2, 1, 77, 256, 128, False, 0, False),
-        ("rows that see no key Sq200 Sk50 w40 hd64 g2", 1, 2, 1, 200, 50, 64, True, 40, False),
-        (MOON_TRAIN_ATTN, 4, 16, 16, 1024, 1024, 128, True, 0, True),
+        ("non-causal Sq77 Sk256 hd128 g2", 1, 2, 1, 77, 256, 128, 128, False, 0, False),
+        ("rows that see no key Sq200 Sk50 w40 hd64 g2", 1, 2, 1, 200, 50, 64, 64, True, 40,
+         False),
+        (MOON_TRAIN_ATTN, 4, 16, 16, 1024, 1024, 128, 128, True, 0, True),
+        (MLA_TRAIN_ATTN, 4, 128, 128, 1024, 1024, 192, 128, True, 0, True),
+        (MTP_TRAIN_ATTN, 4, 128, 128, 1023, 1023, 56, 56, True, 0, True),
+        ("MLA rows that see no key Sq200 Sk50 w40 hd192/128 g1", 1, 4, 4, 200, 50, 192, 128,
+         True, 40, True),
+        ("MTP rows that see no key Sq200 Sk50 w40 hd56 g1", 1, 4, 4, 200, 50, 56, 56, True, 40,
+         True),
     ]
-    for hd in HEAD_DIMS:
+    for hd, vd in HEAD_DIMS:
         for hkv in (4, 1):
-            cases.append((f"hd{hd} g{4 // hkv} B2 S700 causal w300", 2, 4, hkv, 700, 700, hd,
-                          True, 300, False))
+            cases.append((f"hd{hd}/{vd} g{4 // hkv} B2 S700 causal w300", 2, 4, hkv, 700, 700,
+                          hd, vd, True, 300, False))
     out = []
-    for label, b, hq, hkv, sq, sk, hd, causal, window, model_layout in cases:
+    for label, b, hq, hkv, sq, sk, hd, vd, causal, window, model_layout in cases:
         def mk(bb, h, s, d):
             if model_layout:
                 return _cuda(gen, (bb, s, h, d)).transpose(1, 2)
             return _cuda(gen, (bb, h, s, d))
-        q, k, v, do = mk(b, hq, sq, hd), mk(b, hkv, sk, hd), mk(b, hkv, sk, hd), mk(b, hq, sq, hd)
+        q, k, v, do = mk(b, hq, sq, hd), mk(b, hkv, sk, hd), mk(b, hkv, sk, vd), mk(b, hq, sq, vd)
         out.append(dict(label=label, q=q, k=k, v=v, do=do, causal=causal, window=window))
     return out
 
@@ -2179,7 +2261,8 @@ def train_full_width(smi: str):
 def train_card_vs_cpu(label: str, cfg, b: int, s: int, *, lora_std: float = 0.0):
     """Part 3: `cfg` (a depth cut at full width), seed 0, B `b`, S `s`:
     `lm_loss` and every gradient on the card and on the CPU (and, with
-    experts, the summed aux losses, at the loss's tolerance).  With
+    experts, the summed aux losses, and with an MTP head its `mtp_nll`, at
+    the loss's tolerance).  With
     `lora_std`, every `lora_*_b` (zeros at init, so the LoRA would add
     nothing and its `lora_*_a` get no gradient) is drawn from N(0,
     lora_std^2) first (seed 3), the same on both."""
@@ -2205,14 +2288,15 @@ def train_card_vs_cpu(label: str, cfg, b: int, s: int, *, lora_std: float = 0.0)
         dev = model.device
         loss, metrics = lm_loss(model, {k: t.to(dev) for k, t in batch.items()})
         grads = torch.autograd.grad(loss, [p for _, p in model.named_parameters()])
-        aux[name] = {k: float(metrics[k].detach()) for k in ("moe_aux", "moe_z")}
+        aux[name] = {k: float(metrics[k].detach()) for k in ("moe_aux", "moe_z", "mtp_nll")
+                     if k in metrics}
         out[name] = (float(loss.detach()), [g.cpu() for g in grads], time.perf_counter() - t0)
     names = [n for n, _ in card.named_parameters()]
     (l_card, g_card, t_card), (l_cpu, g_cpu, t_cpu) = out["card"], out["cpu"]
     loss_rel = abs(l_card - l_cpu) / abs(l_cpu)
-    if cfg.moe:
+    if cfg.moe or cfg.mtp:
         aux_rel = {k: abs(aux["card"][k] - v) / abs(v) for k, v in aux["cpu"].items()}
-        print(f"train card-vs-cpu {label}: aux losses card {aux['card']} cpu {aux['cpu']}, "
+        print(f"train card-vs-cpu {label}: loss terms card {aux['card']} cpu {aux['cpu']}, "
               f"rel {aux_rel} (tol {REL_TOL_TRAIN_LOSS:g})")
         if not (all(aux["cpu"].values()) and max(aux_rel.values()) < REL_TOL_TRAIN_LOSS):
             raise AssertionError(f"train: {label} aux losses zero or out of tolerance")
@@ -2353,11 +2437,15 @@ def train_profile(state, cfg, keys=(("flash_fwd", ""), ("flash_bwd", "delta"))) 
 
 
 # the training attention layers whose backward is timed: (label, (B, Hq,
-# Hkv, S, hd), window), all causal; gemma3-1b's two (4 of its 26 layers
-# are global, 22 local) and moonshot-v1-16b-a3b's (MHA, hd 128)
-TRAIN_ATTN_LAYERS = (("gemma3 train global B4 S1024 hd256 g4", (4, 4, 1, 1024, 256), 0),
-                     ("gemma3 train local w512 B4 S1024 hd256 g4", (4, 4, 1, 1024, 256), 512),
-                     (MOON_TRAIN_ATTN, (4, 16, 16, 1024, 128), 0))
+# Hkv, S, hd, vd), window), all causal; gemma3-1b's two (4 of its 26 layers
+# are global, 22 local), moonshot-v1-16b-a3b's (MHA, hd 128) and
+# deepseek-v3-671b's MLA (q/k 192, v 128) and MTP block (hd 56, S 1023)
+TRAIN_ATTN_LAYERS = (
+    ("gemma3 train global B4 S1024 hd256 g4", (4, 4, 1, 1024, 256, 256), 0),
+    ("gemma3 train local w512 B4 S1024 hd256 g4", (4, 4, 1, 1024, 256, 256), 512),
+    (MOON_TRAIN_ATTN, (4, 16, 16, 1024, 128, 128), 0),
+    (MLA_TRAIN_ATTN, (4, 128, 128, 1024, 192, 128), 0),
+    (MTP_TRAIN_ATTN, (4, 128, 128, 1023, 56, 56), 0))
 
 
 def kernel_gap_us(fn, first: str, then: str, reps: int = 5):
@@ -2370,12 +2458,15 @@ def kernel_gap_us(fn, first: str, then: str, reps: int = 5):
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-            torch.cuda.synchronize()
-    ev = sorted((e.time_range.start, e.time_range.end, e.name) for e in prof.events()
-                if e.device_type == DeviceType.CUDA)
+    for _ in range(PROFILER_TRIES):  # a session that records no device event runs again
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+                torch.cuda.synchronize()
+        ev = sorted((e.time_range.start, e.time_range.end, e.name) for e in prof.events()
+                    if e.device_type == DeviceType.CUDA)
+        if ev:
+            break
     gaps = [b[0] - a[1] for a, b in zip(ev, ev[1:]) if first in a[2] and then in b[2]]
     return statistics.median(gaps) if gaps else None
 
@@ -2404,11 +2495,13 @@ def train_times(ptxas: dict) -> dict:
     library's (the backward of `F.scaled_dot_product_attention`, fp32, kv
     heads repeated beforehand, `is_causal` for the global layer and the
     band as a boolean mask for the local one, the backend torch picked)
-    and the bound both ways (`backward.flops`, five products a band pair:
-    three TF32 products per FLOP at the TF32 peak, and at the fp32 FMA
-    peak; bytes: q, k, v, o, dO, lse read once, dq, dk, dv written once).
-    Returns gemma3's global layer's row with the local one's under
-    "local" and moonshot's under "moonshot"."""
+    and the bound both ways (`backward.flops`, five products a band pair,
+    three at hd and two at vd: three TF32 products per FLOP at the TF32
+    peak, and at the fp32 FMA peak; bytes: q, k, v, o, dO, lse read once,
+    dq, dk, dv written once).  Where SDPA refuses the shape its time is
+    None and the row says why.  Returns gemma3's global layer's row with
+    the local one's under "local", moonshot's under "moonshot" and
+    deepseek's under "mla" and "mtp"."""
     import torch.nn.functional as F
     from torch.nn.attention import SDPBackend, sdpa_kernel
 
@@ -2418,17 +2511,21 @@ def train_times(ptxas: dict) -> dict:
     from repro_torch.kernels.flash_attention.ref import band_mask
 
     gen = np.random.default_rng(20)
-    print(f"ptxas -v flash_bwd_kernel<256>: {ptxas['registers']} registers, "
+    print(f"ptxas -v flash_bwd_kernel<256, 256>: {ptxas['registers']} registers, "
           f"{ptxas['stack_frame_bytes']} B stack frame, {ptxas['spill_store_bytes']} B spill "
           f"stores, {ptxas['spill_load_bytes']} B spill loads")
     rows = {}
-    for label, (b, hq, hkv, s, hd), window in TRAIN_ATTN_LAYERS:
-        q, do = (_cuda(gen, (b, s, hq, hd)).transpose(1, 2) for _ in range(2))
-        k, v = (_cuda(gen, (b, s, hkv, hd)).transpose(1, 2) for _ in range(2))
+    for label, (b, hq, hkv, s, hd, vd), window in TRAIN_ATTN_LAYERS:
+        q = _cuda(gen, (b, s, hq, hd)).transpose(1, 2)
+        do = _cuda(gen, (b, s, hq, vd)).transpose(1, 2)
+        k = _cuda(gen, (b, s, hkv, hd)).transpose(1, 2)
+        v = _cuda(gen, (b, s, hkv, vd)).transpose(1, 2)
         kw = dict(causal=True, window=window)
         o, lse = flash_kernel.flash_attention_call(q, k, v, return_lse=True, **kw)
-        ops = bwd_kernel.flops(b, hq, s, s, hd, True, window)
-        n_bytes = 4 * (3 * q.numel() + 2 * (k.numel() + v.numel()) + lse.numel() + q.numel())
+        ops = bwd_kernel.flops(b, hq, s, s, hd, True, window, vd=vd)
+        # q, k, v, o, dO, lse in; dq, dk, dv out
+        n_bytes = 4 * (2 * q.numel() + 2 * (k.numel() + v.numel()) + 2 * do.numel()
+                       + lse.numel())
         b_ms, b_by = _bound(n_bytes, 3 * ops, PEAK_TF32)
         fma_ms = _bound(n_bytes, ops)[0]
         run = lambda: bwd_kernel.flash_attention_bwd_call(q, k, v, o, lse, do, **kw)
@@ -2442,7 +2539,7 @@ def train_times(ptxas: dict) -> dict:
         kr = k.repeat_interleave(hq // hkv, 1).contiguous().requires_grad_(True)
         vr = v.repeat_interleave(hq // hkv, 1).contiguous().requires_grad_(True)
         mask = None if window == 0 else band_mask(s, s, device=DEV, **kw)
-        l_ms, backend = None, None
+        l_ms, backend, refused = None, None, []
         for bk in (SDPBackend.EFFICIENT_ATTENTION, SDPBackend.MATH):
             try:
                 with sdpa_kernel([bk]):
@@ -2453,7 +2550,11 @@ def train_times(ptxas: dict) -> dict:
                 backend = bk.name
                 break
             except RuntimeError as e:
-                print(f"  SDPA backward with {bk.name}: {str(e).splitlines()[0][:100]}")
+                refused.append(f"{bk.name}: {str(e).splitlines()[0][:100]}")
+                print(f"  SDPA backward with {refused[-1]}")
+            finally:
+                out = None
+                gc_collect()
         print(f"time flash_attention_bwd {label:44s} kernel {k_ms:.4f} ms (profiler device "
               f"time {d_ms if d_ms is None else round(d_ms, 4)} ms, host {h_ms:.4f} ms a call, "
               f"card idle {gap if gap is None else round(gap, 2)} us from delta to main)  "
@@ -2467,13 +2568,16 @@ def train_times(ptxas: dict) -> dict:
         rows[label] = dict(
             shape=label, ms=k_ms, device_ms=d_ms, host_ms=h_ms, gap_delta_to_main_us=gap,
             plain_ms=p_ms, library_ms=l_ms,
-            library_backend=f"SDPA backward, {backend}", bound_ms=b_ms, bound_by=b_by,
-            bound_fp32_ms=fma_ms,
-            kernels_per_call={re.search(r"(\w+<\d+>)", name).group(1): dict(device_ms=ms,
-                                                                              launches=n)
-                              for name, ms, n in kernels})
-    (glob, _, _), (local, _, _), (moon, _, _) = TRAIN_ATTN_LAYERS
-    return dict(rows[glob], local=rows[local], moonshot=rows[moon], ptxas_hd256=ptxas)
+            library_backend=(f"SDPA backward, {backend}" if backend else
+                             "none: SDPA refused the shape (" + "; ".join(refused) + ")"),
+            bound_ms=b_ms, bound_by=b_by, bound_fp32_ms=fma_ms,
+            kernels_per_call={re.search(r"(\w+<[\d, ]+>)", name).group(1): dict(
+                device_ms=ms, launches=n) for name, ms, n in kernels})
+        del q, k, v, do, o, lse, qc, kr, vr
+        gc_collect()
+    (glob, _, _), (local, _, _), (moon, _, _), (mla, _, _), (mtp, _, _) = TRAIN_ATTN_LAYERS
+    return dict(rows[glob], local=rows[local], moonshot=rows[moon], mla=rows[mla],
+                mtp=rows[mtp], ptxas_hd256=ptxas)
 
 
 # ---------------------------------------------- phase 13: the SSM stacks
@@ -2602,6 +2706,7 @@ def _train_cut(cfg, steps: int):
     on a depth cut, which the launcher's flags (the reference's) cannot
     name."""
     from repro_torch.data import DataConfig, TokenStream
+    from repro_torch.launch import train as launch_train
     from repro_torch.optim import AdamWConfig
     from repro_torch.train.loop import LoopConfig, train_loop
     from repro_torch.train.step import TrainConfig, init_train_state, make_train_step
@@ -2615,7 +2720,7 @@ def _train_cut(cfg, steps: int):
     def record(step, metrics, dt):
         history.append(dict(step=step, loss=float(metrics["loss"]),
                             grad_norm=float(metrics["grad_norm"]), seconds=dt,
-                            **{k: float(metrics[k]) for k in ("moe_aux", "moe_z")
+                            **{k: float(metrics[k]) for k in launch_train.RECORDED
                                if k in metrics}))
 
     state = train_loop(state=state, train_step=make_train_step(cfg, tcfg),
@@ -2630,8 +2735,9 @@ def train_run(label: str, fn, smi: str) -> dict:
     tokens/s, peak `max_memory_allocated`; every count zeroed before and
     read after, and held exactly to the plan: conv1d = mamba layers x 2
     (remat) x steps and its backward mamba layers x steps, flash forward
-    = attention invocations x 2 (remat) x steps, backward = invocations x
-    steps, the rest 0."""
+    = (attention invocations -- MLA layers among them -- x 2 (remat) + an
+    MTP head's block, which runs without remat) x steps, backward =
+    (invocations + the MTP block) x steps, the rest 0."""
     mods = kernel_libraries()
     gc_collect()
     torch.cuda.reset_peak_memory_stats()
@@ -2646,19 +2752,23 @@ def train_run(label: str, fn, smi: str) -> dict:
     model = state["params"]
     specs, steps = model.specs, len(history)
     for h in history:
-        aux = "".join(f" {k} {h[k]:.6e}" for k in ("moe_aux", "moe_z") if k in h)
+        aux = "".join(f" {k} {h[k]:.6e}" for k in ("nll", "mtp_nll", "moe_aux", "moe_z")
+                      if k in h)
         print(f"  train step {h['step']}: loss {h['loss']:.6f} grad_norm {h['grad_norm']:.6f}"
               f"{aux} {h['seconds'] * 1e3:.2f} ms "
               f"{TRAIN_BATCH * TRAIN_SEQ / h['seconds']:.1f} tokens/s")
-    attn = sum(s.mixer in ("attn", "shared_attn") for s in specs)
+    attn = sum(s.mixer in ("attn", "shared_attn", "mla") for s in specs)
     n_mamba = sum(s.mixer == "mamba" for s in specs)
+    mtp = int(bool(model.cfg.mtp))  # the MTP head's attention block
     want = {"conv1d_fused": n_mamba * CONV1D_FWD_PER_MAMBA_LAYER_STEP * steps,
             "conv1d_fused_bwd": n_mamba * CONV1D_BWD_PER_MAMBA_LAYER_STEP * steps,
-            "flash_attention": attn * 2 * steps, "flash_attention_bwd": attn * steps,
+            "flash_attention": (attn * 2 + mtp) * steps,
+            "flash_attention_bwd": (attn + mtp) * steps,
             "fused_tile": 0, "decode_mlp": 0}
     n_params = sum(p.numel() for p in model.parameters())
     print(f"train {label}: {len(specs)} layers ({sum(s.mixer == 'mamba' for s in specs)} "
-          f"mamba, {attn} attention), d_model {model.cfg.d_model}, vocab "
+          f"mamba, {attn} attention{', and the MTP head' if mtp else ''}), d_model "
+          f"{model.cfg.d_model}, vocab "
           f"{model.cfg.vocab_size}, {n_params / 1e9:.4f} B params fp32, {steps} steps of "
           f"{TRAIN_BATCH}x{TRAIN_SEQ} in {wall:.2f} s (with init); peak max_memory_allocated "
           f"{peak / 2**30:.2f} GiB; launches {launches} (want {want}); card {smi}")
@@ -3015,14 +3125,14 @@ def moe_drops(routes) -> list:
     return [(int((~r.keep).sum()), int((~r.keep.any(dim=1)).sum()), r.cap) for r in routes]
 
 
-def routing_agreement(card, cpu, n_layers: int) -> dict:
+def routing_agreement(card, cpu, n_layers: int, name: str = MOON) -> dict:
     """The card's and the CPU's routing, call by call (the prefill's
     layers, then every decode step's): top-k sets per token and kept
     (token, expert) pairs.  A set may differ only where the CPU's gap
     between its k-th and (k+1)-th probability is below TIE_GAP, and kept
     pairs must be equal wherever every set is; anything else raises."""
     if len(card) != len(cpu):
-        raise AssertionError(f"{MOON}: {len(card)} MoE calls on the card, {len(cpu)} on the cpu")
+        raise AssertionError(f"{name}: {len(card)} MoE calls on the card, {len(cpu)} on the cpu")
     out = dict(calls=len(card), sets_differ=0, keep_differ=0, worst_gap=None)
     for i, (a, b) in enumerate(zip(card, cpu)):
         k = b.ids.shape[1]
@@ -3042,7 +3152,7 @@ def routing_agreement(card, cpu, n_layers: int) -> dict:
                   f"{'' if gap is None else f', largest p{k} - p{k + 1} gap {gap:.3e}'}); keep "
                   f"equal {n_keep == 0} ({n_keep} (token, expert) pairs differ)")
         if (gap is not None and gap >= TIE_GAP) or (n_sets == 0 and n_keep):
-            raise AssertionError(f"{MOON}: card and cpu route call {i} differently "
+            raise AssertionError(f"{name}: card and cpu route call {i} differently "
                                  f"({n_sets} sets, gap {gap}, {n_keep} kept pairs)")
     print(f"  routing over all {out['calls']} MoE calls (prefill and {LM_NEW} decode steps): "
           f"{out['sets_differ']} top-k sets and {out['keep_differ']} kept pairs differ "
@@ -3050,31 +3160,24 @@ def routing_agreement(card, cpu, n_layers: int) -> dict:
     return out
 
 
-def moonshot_serve(smi: str) -> dict:
-    """moonshot at full width, MOON_SERVE_LAYERS of its 48 layers, fp32,
-    seed 0, through `Engine` with phase 6's six requests: prefill ms a
-    wave, decode ms a step, peak memory (at least MOON_FREE of the card
-    left), the pairs wave 1's capacity dropped per layer; flash launches =
-    layers x waves, the decode MLP, conv1d and tile kernels none."""
-    import dataclasses
-
-    from repro_torch.configs import get_arch
+def serve_moe(cfg, smi: str, describe) -> dict:
+    """An MoE model at full width (`cfg`, a depth cut), fp32, seed 0,
+    through `Engine` with phase 6's six requests: prefill ms a wave,
+    decode ms a step, peak memory from before the init (at least MOON_FREE
+    of the card left), the pairs wave 1's capacity dropped per layer;
+    flash launches = layers x waves, the decode MLP, conv1d and tile
+    kernels none; layer 0's `moe_forward` with no host sync.
+    `describe(n_params)` is the model's line."""
     from repro_torch.models import init_lm, record_routing
     from repro_torch.serve import Engine, ServeConfig
 
-    cfg = dataclasses.replace(get_arch(MOON), dtype="float32", n_layers=MOON_SERVE_LAYERS)
-    published_width(cfg, MOON_WIDTH)
     mods = kernel_libraries()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     model = init_lm(cfg, seed=0, device=DEV)
     torch.cuda.synchronize()
     n_params = sum(p.numel() for p in model.parameters())
-    print(f"model {MOON}: {cfg.n_layers} of 48 layers (the depth cut: fp32 weights of all 48 "
-          f"exceed the card), d_model {cfg.d_model}, {cfg.n_heads} heads of "
-          f"{cfg.resolved_head_dim}, {cfg.moe.n_experts} experts top-{cfg.moe.top_k} of d_ff "
-          f"{cfg.d_ff}, vocab {cfg.vocab_size}; {n_params / 1e9:.4f} B params fp32, init "
-          f"{time.perf_counter() - t0:.2f} s")
+    print(f"model {cfg.name}: {describe(n_params)}, init {time.perf_counter() - t0:.2f} s")
     reqs = lm_requests(cfg, LM_PROMPTS)
     engine = Engine(model, ServeConfig(max_batch=MAX_BATCH, max_len=LM_MAX_LEN))
     for mod in mods.values():
@@ -3090,7 +3193,7 @@ def moonshot_serve(smi: str) -> dict:
     for r in reqs:
         toks = out[r.rid]
         if len(toks) != LM_NEW or not all(0 <= t < cfg.vocab_size for t in toks):
-            raise AssertionError(f"{MOON} rid {r.rid}: bad tokens {toks}")
+            raise AssertionError(f"{cfg.name} rid {r.rid}: bad tokens {toks}")
     waves, steps = len(engine.waves), sum(w["decode_steps"] for w in engine.waves)
     n_tok = sum(w["tokens"] for w in engine.waves)
     for i, w in enumerate(engine.waves):
@@ -3112,12 +3215,29 @@ def moonshot_serve(smi: str) -> dict:
     print(f"  launches: {launches} over {waves} waves, {steps} decode steps (want {want})")
     for k, n in want.items():
         if launches[k] != n:
-            raise AssertionError(f"{MOON}: {k} launched {launches[k]} times, expected {n}")
+            raise AssertionError(f"{cfg.name}: {k} launched {launches[k]} times, expected {n}")
     if free < MOON_FREE:
-        raise AssertionError(f"{MOON}: {cfg.n_layers} layers leave {free / 2**30:.2f} GiB free")
+        raise AssertionError(f"{cfg.name}: {cfg.n_layers} layers leave {free / 2**30:.2f} "
+                             "GiB free")
     return dict(model=model, cfg=cfg, launches=launches, waves=waves, steps=steps,
                 n_params=n_params, peak_bytes=peak, wave_stats=engine.waves,
                 wave1_dropped_pairs=[d for d, _, _ in drops])
+
+
+def moonshot_serve(smi: str) -> dict:
+    """moonshot at full width on MOON_SERVE_LAYERS of its 48 layers
+    (`serve_moe`)."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+
+    cfg = dataclasses.replace(get_arch(MOON), dtype="float32", n_layers=MOON_SERVE_LAYERS)
+    published_width(cfg, MOON_WIDTH)
+    return serve_moe(cfg, smi, lambda n: (
+        f"{cfg.n_layers} of 48 layers (the depth cut: fp32 weights of all 48 exceed the "
+        f"card), d_model {cfg.d_model}, {cfg.n_heads} heads of {cfg.resolved_head_dim}, "
+        f"{cfg.moe.n_experts} experts top-{cfg.moe.top_k} of d_ff {cfg.d_ff}, vocab "
+        f"{cfg.vocab_size}; {n / 1e9:.4f} B params fp32"))
 
 
 def moe_sync_free(model, cfg, wave: dict) -> None:
@@ -3168,11 +3288,11 @@ def moonshot_vs_cpu(served) -> dict:
 
 def train_repeat(model, cfg) -> dict:
     """`lm_loss` of one batch (the stream's batch after the run's, B 4 x
-    S 1024) and its gradients, computed twice from one state: the loss
-    and the aux losses must be bitwise equal (a deterministic forward,
-    so remat's recompute routes as the forward did); the largest
-    gradient difference is printed, not held (the backward of a gather
-    adds with atomics)."""
+    S 1024) and its gradients, computed twice from one state: the loss,
+    its reported terms (aux losses; an MTP head's mtp_nll) and every
+    gradient leaf must be bitwise equal (a deterministic forward, so
+    remat's recompute routes as the forward did, and no atomic adds in
+    the backward)."""
     from repro_torch.data import DataConfig, TokenStream
     from repro_torch.models import lm_loss
 
@@ -3180,33 +3300,34 @@ def train_repeat(model, cfg) -> dict:
         TRAIN_STEPS + 1)
     batch = {k: torch.as_tensor(v).to(DEV) for k, v in host.items()}
     names, params = zip(*model.named_parameters())
+    keys = ["moe_aux", "moe_z"] + (["mtp_nll"] if cfg.mtp else [])
     runs = []
     for _ in range(2):
         loss, metrics = lm_loss(model, batch)
         grads = torch.autograd.grad(loss, params)
-        runs.append(([loss.detach(), metrics["moe_aux"].detach(), metrics["moe_z"].detach()],
-                     grads))
+        runs.append(([loss.detach()] + [metrics[k].detach() for k in keys], grads))
     (v1, g1), (v2, g2) = runs
     same = all(torch.equal(a, b) for a, b in zip(v1, v2))
     diffs = [float((a - b).abs().max()) for a, b in zip(g1, g2)]
     worst = max(range(len(diffs)), key=diffs.__getitem__)
-    print(f"train {MOON} repeat: loss {float(v1[0]):.9f} / {float(v2[0]):.9f}, moe_aux "
-          f"{float(v1[1]):.9e} / {float(v2[1]):.9e}, moe_z {float(v1[2]):.9e} / "
-          f"{float(v2[2]):.9e}: bitwise equal {same}; largest gradient difference "
-          f"{diffs[worst]:.3e} at {names[worst]} ({sum(d > 0 for d in diffs)} of {len(diffs)} "
-          "leaves differ; not held)")
-    if not same:
-        raise AssertionError(f"train {MOON}: the forward is not repeatable")
-    return dict(bitwise=same, max_grad_diff=diffs[worst], grad_diff_leaf=names[worst])
+    n_diff = sum(d > 0 for d in diffs)
+    terms = ", ".join(f"{k} {float(a):.9e} / {float(b):.9e}"
+                      for k, a, b in zip(["loss"] + keys, v1, v2))
+    print(f"train {cfg.name} repeat: {terms}: bitwise equal {same}; {n_diff} of {len(diffs)} "
+          f"gradient leaves differ (largest difference {diffs[worst]:.3e} at {names[worst]})")
+    if not same or n_diff:
+        raise AssertionError(f"train {cfg.name}: one batch's loss or gradients are not "
+                             "repeatable")
+    return dict(bitwise=same, max_grad_diff=diffs[worst], grad_leaves_differ=n_diff)
 
 
 def moonshot_train(smi: str) -> dict:
     """moonshot at full width on MOON_TRAIN_LAYERS layers: six steps of
     `launch.train`'s run (`_train_cut`), aux losses finite and non-zero
     every step, flash launches as planned (`train_run`); a profiled step;
-    the repeatability of one batch's loss (`train_repeat`); a MOON_CUT-
-    layer cut's loss, aux losses and gradients card against CPU at B 1 x
-    S 512."""
+    the repeatability of one batch's loss and gradients (`train_repeat`);
+    a MOON_CUT-layer cut's loss, aux losses and gradients card against CPU
+    at B 1 x S 512."""
     import dataclasses
 
     from repro_torch.configs import get_arch
@@ -3252,6 +3373,179 @@ def phase_moonshot(smi: str) -> dict:
     return dict(serve=served, train=train)
 
 
+# ------------------------------------------------------------ phase 15
+
+DS = "deepseek-v3-671b"
+# d_model, heads, head dim (d_model // heads: the MTP block's attention; MLA's
+# q/k and v head dims are 192 and 128), d_ff an expert, vocab
+DS_WIDTH = (7168, 128, 56, 2048, 129280)
+# served depth: one layer at full width with the embedding, the head and the
+# MTP head is 13.74 B params, 51.18 GiB in fp32; two are 94.05 GiB
+DS_SERVE_LAYERS = 1
+DS_SERVE_PARAMS = 13_738_691_584
+# trained: every width, one layer and the MTP head, the expert count cut from
+# 256 to 16 (one layer's 256 experts, 11.27 B params, need ~184 GB of param,
+# gradient and two f32 moments): 3.17 B params, 47.2 GiB of state
+DS_TRAIN_EXPERTS = 16
+DS_CUT_EXPERTS = 8  # the training card-vs-CPU cut
+
+
+def _expert_cut(model, n_experts: int):
+    """The same weights (shared, not copied) with each MoE layer cut to its
+    first `n_experts` experts (the router's first columns)."""
+    import dataclasses
+
+    from repro_torch.models.lm import LM
+
+    cfg = dataclasses.replace(model.cfg, moe=dataclasses.replace(model.cfg.moe,
+                                                                 n_experts=n_experts))
+    tree = {k: model[k] for k in ("embed", "final_norm", "lm_head", "shared", "mtp")
+            if k in model}
+    tree["layers"] = []
+    for lp in model.layers:
+        layer = {name: mod for name, mod in lp.named_children() if name != "moe"}
+        layer.update((name, t) for name, t in lp.named_parameters(recurse=False))
+        moe = dict(lp["moe"].named_parameters())
+        moe["router"] = moe["router"][:, :n_experts]
+        for w in ("w1", "w2", "w3"):
+            moe[w] = moe[w][:n_experts]
+        layer["moe"] = moe
+        tree["layers"].append(layer)
+    return LM(cfg, tree)
+
+
+def mla_sync_free(model, cfg, wave: dict) -> None:
+    """Layer 0's MLA decode step (`mla_decode`: the step's latents into the
+    cache, then `mla_decode_absorbed`) over a cache filled at `wave`'s
+    prompt length, with the card in sync-debug mode "error": a host sync
+    in it raises."""
+    from repro_torch.models import attention as attn_mod
+
+    p = model.layers[0]["attn"]
+    gen = np.random.default_rng(15)
+    b, n = wave["size"], wave["prompt_len"]
+    pos = torch.arange(n, dtype=torch.int32, device=DEV).expand(b, n)
+    cache = attn_mod.init_mla_cache(cfg, b, LM_MAX_LEN, torch.float32, DEV)
+    x = _cuda(gen, (b, 1, cfg.d_model))
+    with torch.inference_mode():
+        c_kv, k_rope = attn_mod._mla_kv_latent(p, _cuda(gen, (b, n, cfg.d_model)), pos, cfg)
+        attn_mod.fill_mla_cache(cache, c_kv, k_rope, pos)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        with torch.inference_mode():
+            y, _ = attn_mod.mla_decode(p, x, n, cache, cfg)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    if tuple(y.shape) != (b, 1, cfg.d_model) or not torch.isfinite(y).all():
+        raise AssertionError(f"{DS}: bad absorbed decode output {tuple(y.shape)}")
+    print(f"  layer 0 mla_decode (absorbed) at B{b} over a {n}-token latent cache in "
+          "sync-debug mode \"error\": no host sync")
+
+
+def deepseek_serve(smi: str) -> dict:
+    """deepseek-v3-671b at full width on DS_SERVE_LAYERS of its 61 layers
+    (`serve_moe`: flash at q/k hd 192, v hd 128; the absorbed MLA decode),
+    the param count held exactly, and layer 0's MLA decode step with no
+    host sync."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+
+    cfg = dataclasses.replace(get_arch(DS), dtype="float32", n_layers=DS_SERVE_LAYERS)
+    published_width(cfg, DS_WIDTH)
+    m = cfg.mla
+    served = serve_moe(cfg, smi, lambda n: (
+        f"{cfg.n_layers} of 61 layers (the depth cut: two layers in fp32 are 94.05 GiB), "
+        f"d_model {cfg.d_model}, {cfg.n_heads} heads of MLA (q_lora {m.q_lora_rank}, kv_lora "
+        f"{m.kv_lora_rank}, q/k hd {m.qk_nope_dim + m.qk_rope_dim}, v hd {m.v_head_dim}), "
+        f"{cfg.moe.n_experts} experts top-{cfg.moe.top_k} and {cfg.moe.n_shared} shared of "
+        f"d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, the MTP head (hd {cfg.resolved_head_dim}; "
+        f"never served); {n / 1e9:.4f} B params fp32 ({n * 4 / 2**30:.2f} GiB)"))
+    if served["n_params"] != DS_SERVE_PARAMS:
+        raise AssertionError(f"{DS}: {served['n_params']} params, expected {DS_SERVE_PARAMS}")
+    mla_sync_free(served["model"], cfg, served["wave_stats"][0])
+    return served
+
+
+def deepseek_vs_cpu(served) -> dict:
+    """The served layer with its experts cut to DS_TRAIN_EXPERTS, card
+    against CPU (`_card_vs_cpu`: prompts 600 and 40, prefill and
+    teacher-forced absorbed-decode logits, greedy tokens), and both
+    devices' routing call by call (`routing_agreement`)."""
+    cut = _expert_cut(served["model"], DS_TRAIN_EXPERTS)
+    name = f"{DS} ({DS_TRAIN_EXPERTS} experts)"
+    launches, routes = _card_vs_cpu(name, cut, cut.cfg, DS_SERVE_LAYERS)
+    if launches["flash_attention"] != DS_SERVE_LAYERS or launches["decode_mlp"]:
+        raise AssertionError(f"{name}: launches {launches}")
+    drops = moe_drops(routes["card"][:DS_SERVE_LAYERS])
+    print(f"  card prefill of (600, 40) at capacity {drops[0][2]}: pairs dropped per layer "
+          f"{[d for d, _, _ in drops]}")
+    return routing_agreement(routes["card"], routes["cpu"], DS_SERVE_LAYERS, name=name)
+
+
+def deepseek_train(smi: str) -> dict:
+    """deepseek-v3-671b at full width on one layer and the MTP head, the
+    expert count cut to DS_TRAIN_EXPERTS: six steps of `launch.train`'s
+    run (`_train_cut`), nll, mtp_nll and the aux losses finite and
+    mtp_nll non-zero every step, flash launches as planned (MLA x 2 for
+    remat + the MTP block a step; the backward MLA + MTP) (`train_run`);
+    a profiled step; one batch's loss and gradients twice from one state
+    (`train_repeat`); a DS_CUT_EXPERTS-expert cut's loss, mtp_nll and
+    gradients card against CPU at B 1 x S 512."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+
+    full = get_arch(DS)
+    cfg = dataclasses.replace(full, dtype="float32", n_layers=DS_SERVE_LAYERS,
+                              moe=dataclasses.replace(full.moe, n_experts=DS_TRAIN_EXPERTS))
+    published_width(cfg, DS_WIDTH)
+    label = f"{DS} (1 layer + MTP, {DS_TRAIN_EXPERTS} experts)"
+    run = train_run(label, lambda: _train_cut(cfg, TRAIN_STEPS), smi)
+    keys = ("nll", "mtp_nll", "moe_aux", "moe_z")
+    terms = [[h[k] for k in keys] for h in run["history"]]
+    if not all(np.isfinite(t).all() and h["mtp_nll"] != 0 for t, h in zip(terms, run["history"])):
+        raise AssertionError(f"train {DS}: {keys} {terms}")
+    free = torch.cuda.get_device_properties(0).total_memory - run["peak_bytes"]
+    print(f"train {label}: peak leaves {free / 2**30:.2f} GiB of the card at B{TRAIN_BATCH}")
+    state = run.pop("state")
+    run["profile"] = train_profile(state, cfg)
+    state.pop("opt")  # the moments: room for two gradients at once
+    gc_collect()
+    run["repeat"] = train_repeat(state["params"], cfg)
+    del state
+    gc_collect()
+    cut = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, n_experts=DS_CUT_EXPERTS))
+    train_card_vs_cpu(f"{DS} cut to {DS_CUT_EXPERTS} experts (1 layer + MTP)", cut, 1,
+                      TRAIN_CUT_SSM_S)
+    gc_collect()
+    return run
+
+
+def phase_deepseek(smi: str) -> dict:
+    """Phase 15 (module docstring): deepseek-v3-671b served at full width
+    (one layer), card against CPU with its routing, a profiled prefill
+    and decode step, then trained at full width (16 experts) with the MTP
+    head."""
+    t_phase = time.perf_counter()
+    gc_collect()
+    left = torch.cuda.memory_allocated()
+    print(f"deepseek: {left / 2**30:.3f} GiB still allocated on the card by earlier phases "
+          f"(limit {RESIDUAL_LIMIT / 2**30:g})")
+    if left >= RESIDUAL_LIMIT:
+        raise AssertionError(f"{left} bytes left allocated before {DS} loads")
+    served = deepseek_serve(smi)
+    served["routing"] = deepseek_vs_cpu(served)
+    phase_lm_profile({DS: served})
+    served.pop("model")
+    gc_collect()
+    train = deepseek_train(smi)
+    print(f"deepseek: phase wall time {time.perf_counter() - t_phase:.2f} s")
+    return dict(serve=served, train=train)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the GPU only",
@@ -3285,6 +3579,7 @@ def main() -> int:
     gc_collect()
     train = phase_train(smi, bwd_ptxas)
     moon = phase_moonshot(smi)
+    deep = phase_deepseek(smi)
 
     # headline shape: the widest served vgg layer when vgg reaches the
     # kernel (64->64 at bucket 64), else fft_fewchannel's 8->8
@@ -3322,7 +3617,10 @@ def main() -> int:
                   "train mamba2-1.3b": ssm["mamba2-1.3b"]["launches"],
                   f"train zamba2 ({ZAMBA_TRAIN_LAYERS} layers)": ssm["zamba2"]["launches"],
                   f"serve {MOON} ({MOON_SERVE_LAYERS} layers)": moon["serve"]["launches"],
-                  f"train {MOON} ({MOON_TRAIN_LAYERS} layers)": moon["train"]["launches"]})
+                  f"train {MOON} ({MOON_TRAIN_LAYERS} layers)": moon["train"]["launches"],
+                  f"serve {DS} ({DS_SERVE_LAYERS} layer)": deep["serve"]["launches"],
+                  f"train {DS} (1 layer + MTP, {DS_TRAIN_EXPERTS} experts)":
+                      deep["train"]["launches"]})
 
     def by_path(kernel):
         return {path: n[kernel] for path, n in paths.items() if n[kernel]}
@@ -3348,6 +3646,7 @@ def main() -> int:
                 launches_stablelm_cut=stablelm["flash_attention"],
                 hd80=lm_rows["flash_attention_hd80"],
                 moonshot=lm_rows["flash_attention_moonshot"],
+                mla=lm_rows["flash_attention_mla"], mtp=lm_rows["flash_attention_mtp"],
                 launches_per_train_step=train["run"]["launches"][name] / TRAIN_STEPS)
         if name == "conv1d_fused":
             kernels["kernels"][-1].update(

@@ -6,13 +6,18 @@ earlier version of their sources, on one card.
 
 DIR holds the earlier `flash_attention.cu` and `conv1d_fused.cu`, e.g.
 from `git show <commit>:src/repro_torch/kernels/flash_attention/csrc/
-flash_attention.cu` and the same for the conv1d source.  Each old source
+flash_attention.cu` and the same for the conv1d source, and, when it
+holds an earlier `flash_attention_bwd.cu` (commit 457bda9 or later: the
+work-list entry point), the flash backward is compared too, at the same
+flash cases (dq, dk, dv from the current forward's o and lse and a
+seeded dO).  Each old source
 is built as a `_build.CudaLibrary` of its own and swapped in as the
 wrapper's `LIB` between calls on the same inputs.  The flash entry point
-gained an `lse` pointer after those versions (the log-sum-exp that
-training's backward reads): the old source is called without it, and the
-current kernel's output is compared both without and with the lse
-written.  The cases are every head dim and every tap count (flash at hd
+gained an `lse` pointer after the first versions (the log-sum-exp that
+training's backward reads), then v's head dim beside q's: an old source
+is called without what its entry point lacks (read off its signature),
+and the current kernel's output is compared both without and with the
+lse written.  The cases are every head dim and every tap count (flash at hd
 16, 32, 64, 80, 112, 128 and 256, causal with and without a window,
 non-causal, GQA; conv1d at K 1..8 with float4 and single-float units,
 SiLU on and off); an old source that lacks a head dim fails that case.
@@ -43,6 +48,7 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels.conv1d_fused import conv1d_fused
 from repro_torch.kernels.conv1d_fused import kernel as conv1d_kernel
+from repro_torch.kernels.flash_attention import backward as flash_bwd
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.flash_attention import kernel as flash_kernel
 
@@ -113,18 +119,50 @@ def _card() -> str:
     ).stdout.strip().splitlines()[0]
 
 
-class _WithoutLse:
-    """An earlier flash source, whose entry point has no `lse` pointer
-    (argument 4 of the current one): the pointer, which must be null, is
-    dropped."""
+# the current flash entry point's `lse` pointer and v head dim: earlier
+# sources lack the head dim (all before this one) or both (before f69b32c)
+_LSE, _HD, _VD = 4, 10, 11
 
-    def __init__(self, lib: _build.CudaLibrary):
-        self.lib = lib
+
+class _Earlier:
+    """An earlier flash source, called through the current wrapper: the
+    arguments its entry point lacks are dropped (`drop`: the `lse`
+    pointer, argument 4, which must then be null; v's head dim, argument
+    11, which must then equal q's, argument 10)."""
+
+    def __init__(self, path: pathlib.Path):
+        text = path.read_text()
+        sig = text[text.index('extern "C" int flash_attention_launch('):]
+        sig = sig[:sig.index(")")]
+        self.drop = ([] if "lse" in sig else [_LSE]) + ([] if "int vd" in sig else [_VD])
+        self.lib = _build.CudaLibrary(path, "flash_attention_old", {
+            "flash_attention_launch": [t for i, t in enumerate(flash_kernel.ARGTYPES)
+                                       if i not in self.drop]})
 
     def launch(self, name, device, *args):
-        if args[4] is not None:
+        if _LSE in self.drop and args[_LSE] is not None:
             raise ValueError("an earlier flash source cannot write the lse")
-        self.lib.launch(name, device, *args[:4], *args[5:])
+        if _VD in self.drop and args[_HD] != args[_VD]:
+            raise ValueError("an earlier flash source takes one head dim")
+        self.lib.launch(name, device, *(a for i, a in enumerate(args) if i not in self.drop))
+
+
+class _EarlierBwd:
+    """An earlier flash backward source, whose entry point takes one head
+    dim: v's (argument 18 of the current one), which must equal q's
+    (argument 17), is dropped."""
+
+    _HD, _VD = 17, 18
+
+    def __init__(self, path: pathlib.Path):
+        self.lib = _build.CudaLibrary(path, "flash_attention_bwd_old", {
+            "flash_attention_bwd_launch": (flash_bwd.ARGTYPES[:self._VD]
+                                           + flash_bwd.ARGTYPES[self._VD + 1:])})
+
+    def launch(self, name, device, *args):
+        if args[self._HD] != args[self._VD]:
+            raise ValueError("an earlier flash backward source takes one head dim")
+        self.lib.launch(name, device, *args[:self._VD], *args[self._VD + 1:])
 
 
 def _both(mod, old_lib, fn):
@@ -151,9 +189,7 @@ def main(argv=None) -> int:
                     help="what the old sources are, for --record (default: --old)")
     args = ap.parse_args(argv)
     dev = torch.device("cuda")
-    old_flash = _WithoutLse(_build.CudaLibrary(
-        args.old / "flash_attention.cu", "flash_attention_old",
-        {"flash_attention_launch": flash_kernel.ARGTYPES[:4] + flash_kernel.ARGTYPES[5:]}))
+    old_flash = _Earlier(args.old / "flash_attention.cu")
     old_conv = _build.CudaLibrary(
         args.old / "conv1d_fused.cu", "conv1d_fused_old",
         {"conv1d_fused_launch": [ctypes.c_void_p] * 6})
@@ -175,6 +211,20 @@ def main(argv=None) -> int:
     gen = np.random.default_rng(1)
     mk = lambda shape, s=1.0: torch.tensor(gen.standard_normal(shape) * s,
                                            dtype=torch.float32, device=dev)
+    if (args.old / "flash_attention_bwd.cu").exists():
+        old_bwd = _EarlierBwd(args.old / "flash_attention_bwd.cu")
+        for (b, hq, hkv, sq, sk, hd, causal, window), q, k, v in flash_operands(dev):
+            o, lse = flash_kernel.flash_attention_call(q, k, v, causal=causal, window=window,
+                                                       return_lse=True)
+            do = mk(tuple(o.shape))
+            g, g_old = _both(flash_bwd, old_bwd, lambda: flash_bwd.flash_attention_bwd_call(
+                q, k, v, o, lse, do, causal=causal, window=window))
+            same = all(torch.equal(a, c) for a, c in zip(g, g_old))
+            bad += not same
+            rows.append(dict(kernel="flash_attention_bwd", hd=hd, shape=[b, hq, hkv, sq, sk],
+                             causal=causal, window=window, bitwise_equal=same))
+            print(f"flash backward hd {hd:3d} B{b} Hq{hq} Hkv{hkv} Sq{sq} Sk{sk} "
+                  f"causal={causal} window={window}: dq, dk, dv bitwise equal {same}")
     for b, length, d, k, row, off, act in CONV1D:
         x = mk((b, length, row))[..., off:off + d]
         w, bias = mk((k, d), 0.5), mk((d,), 0.1)

@@ -5,8 +5,10 @@ card.
     PYTHONPATH=src python -m repro_torch.kernels.flash_attention.accuracy \
         [--out build/flash_accuracy.json]
 
-For each case (head dims 80, 112, 128 and 256; causal and non-causal;
-seeded N(0, 1) inputs) it prints the max abs error and the max rel error
+For each case (head dims 80, 112, 128 and 256, deepseek-v3-671b's MLA
+at q/k hd 192 with v hd 128 and its MTP block's 56, the last two on
+fresh fragments beside hd 80's; causal and non-causal; seeded N(0, 1)
+inputs) it prints the max abs error and the max rel error
 (max abs error over max |reference|) against float64 of: the kernel; the
 plain version (`attention_ref`, fp32 with TF32 off); and the kernel's
 split-TF32 operands alone (each of q, k, P and v rounded to big + small
@@ -33,16 +35,20 @@ import torch
 from repro_torch.kernels.flash_attention import attention_ref, flash_attention
 
 CASES = [
-    # (label, B, H, Sq, Sk, hd, causal, window)
-    ("hd112 S768 non-causal", 2, 32, 768, 768, 112, False, 0),
-    ("hd128 S768 non-causal", 2, 32, 768, 768, 128, False, 0),
-    ("hd80 S768 non-causal", 2, 32, 768, 768, 80, False, 0),
-    ("hd256 S768 non-causal", 2, 8, 768, 768, 256, False, 0),
-    ("hd112 S256 non-causal", 2, 32, 256, 256, 112, False, 0),
-    ("hd128 Sq77 Sk256 non-causal", 1, 2, 77, 256, 128, False, 0),
-    ("hd112 S768 causal w512", 2, 32, 768, 768, 112, True, 512),
-    ("hd80 S700 causal", 4, 32, 700, 700, 80, True, 0),
-    ("hd256 S700 causal", 4, 4, 700, 700, 256, True, 0),
+    # (label, B, H, Sq, Sk, hd, vd, causal, window)
+    ("hd112 S768 non-causal", 2, 32, 768, 768, 112, 112, False, 0),
+    ("hd128 S768 non-causal", 2, 32, 768, 768, 128, 128, False, 0),
+    ("hd80 S768 non-causal", 2, 32, 768, 768, 80, 80, False, 0),
+    ("hd192/128 S768 non-causal", 2, 32, 768, 768, 192, 128, False, 0),
+    ("hd56 S768 non-causal", 2, 32, 768, 768, 56, 56, False, 0),
+    ("hd256 S768 non-causal", 2, 8, 768, 768, 256, 256, False, 0),
+    ("hd112 S256 non-causal", 2, 32, 256, 256, 112, 112, False, 0),
+    ("hd128 Sq77 Sk256 non-causal", 1, 2, 77, 256, 128, 128, False, 0),
+    ("hd112 S768 causal w512", 2, 32, 768, 768, 112, 112, True, 512),
+    ("hd80 S700 causal", 4, 32, 700, 700, 80, 80, True, 0),
+    ("hd192/128 S700 causal", 4, 32, 700, 700, 192, 128, True, 0),
+    ("hd56 S1023 causal", 4, 32, 1023, 1023, 56, 56, True, 0),
+    ("hd256 S700 causal", 4, 4, 700, 700, 256, 256, True, 0),
 ]
 
 
@@ -97,9 +103,9 @@ def main(argv=None) -> int:
     dev = torch.device("cuda")
     gen = np.random.default_rng(0)
     rows = []
-    for label, b, h, sq, sk, hd, causal, window in CASES:
+    for label, b, h, sq, sk, hd, vd, causal, window in CASES:
         q, k, v = (torch.tensor(gen.standard_normal(shape), dtype=torch.float32, device=dev)
-                   for shape in ((b, h, sq, hd), (b, h, sk, hd), (b, h, sk, hd)))
+                   for shape in ((b, h, sq, hd), (b, h, sk, hd), (b, h, sk, vd)))
         y = flash_attention(q, k, v, causal=causal, window=window)
         plain = attention_ref(q, k, v, causal=causal, window=window)
         qp = torch.arange(sq, device=dev)[:, None]

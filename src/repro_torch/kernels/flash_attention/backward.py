@@ -27,7 +27,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import pathlib
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -45,7 +45,7 @@ SOURCE = pathlib.Path(__file__).parent / "csrc" / "flash_attention_bwd.cu"
 # `flash_attention_bwd_launch`'s C signature, in order (the stream is appended)
 ARGTYPES = (
     [ctypes.c_void_p] * 11  # q, k, v, o, lse, dO, dq, dk, dv, delta scratch, work list
-    + [ctypes.c_int] * 7  # items, batch, hq, hkv, sq, sk, hd
+    + [ctypes.c_int] * 8  # items, batch, hq, hkv, sq, sk, hd, vd
     + [ctypes.c_longlong] * 24  # (b, h, s) strides of q, k, v, o, dO, dq, dk, dv
     + [ctypes.c_int] * 2  # causal, window
     + [ctypes.c_float, ctypes.c_void_p]  # scale, stream
@@ -72,7 +72,8 @@ def item_steps(item: Item, group: int) -> int:
 
 @functools.lru_cache(maxsize=64)
 def work_list(
-    b: int, hq: int, hkv: int, sq: int, sk: int, hd: int, causal: bool, window: int
+    b: int, hq: int, hkv: int, sq: int, sk: int, hd: int, causal: bool, window: int,
+    vd: Optional[int] = None,
 ) -> Tuple[Item, ...]:
     """The main kernel's items, longest first.
 
@@ -84,11 +85,13 @@ def work_list(
     of the band is one step of exactly one item of each role.  Every
     block has an item, also when its range is empty (it writes zeros).
     Sorted by tile steps times `PRODUCTS` a step, longest first, ties in
-    (role, head, block) order; the tile is TILE at every head dim (`hd`
-    is checked, not used).
+    (role, head, block) order; the tile is TILE at every head dim (`hd`,
+    and v's `vd`, hd when not given, are checked, not used).
     """
-    if hd not in HEAD_DIMS or hq % hkv or min(b, hq, hkv, sq, sk) < 1:
-        raise ValueError(f"no work list for b {b}, hq {hq}, hkv {hkv}, sq {sq}, sk {sk}, hd {hd}")
+    vd = hd if vd is None else vd
+    if (hd, vd) not in HEAD_DIMS or hq % hkv or min(b, hq, hkv, sq, sk) < 1:
+        raise ValueError(f"no work list for b {b}, hq {hq}, hkv {hkv}, sq {sq}, sk {sk}, "
+                         f"hd {hd}, vd {vd}")
     items = []
     for kb in range(-(-sk // TILE)):
         k0, k1 = kb * TILE, min(kb * TILE + TILE, sk) - 1  # the block's first and last key
@@ -119,12 +122,15 @@ def band_pairs(sq: int, sk: int, causal: bool, window: int) -> int:
     return total
 
 
-def flops(b: int, hq: int, sq: int, sk: int, hd: int, causal: bool, window: int) -> int:
-    """FLOPs of the function the backward computes: five products (S, dP,
-    dV, dK, dQ) of 2 hd FLOPs a band pair, per (batch, q head).  The
-    kernel does seven (S and dP again in its dQ items) and computes whole
-    32 x 32 tiles at the band's edge; a bound counts only these."""
-    return 5 * 2 * hd * b * hq * band_pairs(sq, sk, causal, window)
+def flops(b: int, hq: int, sq: int, sk: int, hd: int, causal: bool, window: int,
+          vd: Optional[int] = None) -> int:
+    """FLOPs of the function the backward computes: five products a band
+    pair, per (batch, q head) -- three of 2 hd FLOPs (S, dK, dQ) and two of
+    2 vd (dP, dV), vd = hd when not given.  The kernel does seven (S and dP
+    again in its dQ items) and computes whole 32 x 32 tiles at the band's
+    edge; a bound counts only these."""
+    vd = hd if vd is None else vd
+    return 2 * (3 * hd + 2 * vd) * b * hq * band_pairs(sq, sk, causal, window)
 
 
 @functools.lru_cache(maxsize=64)
@@ -153,10 +159,11 @@ def flash_attention_bwd_call(
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Launch the backward on the current stream.
 
-    q, o, do: (B, Hq, Sq, hd); k, v: (B, Hkv, Sk, hd), f32 on the card,
-    any (batch, head, sequence) strides with hd contiguous; lse: the
-    forward kernel's (B, Hq, Sq) log-sum-exp.  Hq % Hkv == 0, hd in
-    `HEAD_DIMS`, any Sq and Sk (masks by index, as the forward).
+    q: (B, Hq, Sq, hd); o, do: (B, Hq, Sq, vd); k: (B, Hkv, Sk, hd); v:
+    (B, Hkv, Sk, vd), f32 on the card, any (batch, head, sequence) strides
+    with the head dim contiguous; lse: the forward kernel's (B, Hq, Sq)
+    log-sum-exp.  Hq % Hkv == 0, (hd, vd) in `HEAD_DIMS`, scale q's
+    hd^-0.5, any Sq and Sk (masks by index, as the forward).
     returns: (dq, dk, dv) in q's, k's and v's memory layouts.
     """
     global LAUNCHES
@@ -166,15 +173,17 @@ def flash_attention_bwd_call(
     for name, t in (("q", q), ("k", k), ("v", v), ("o", o), ("do", do)):
         _check(name, t, dev)
     b, hq, sq, hd = q.shape
-    hkv, sk = k.shape[1], k.shape[2]
-    if tuple(k.shape) != (b, hkv, sk, hd) or tuple(v.shape) != tuple(k.shape):
+    hkv, sk, vd = k.shape[1], k.shape[2], v.shape[3]
+    if tuple(k.shape) != (b, hkv, sk, hd) or tuple(v.shape) != (b, hkv, sk, vd):
         raise ValueError(f"k {tuple(k.shape)} / v {tuple(v.shape)} do not match q {tuple(q.shape)}")
-    if tuple(o.shape) != tuple(q.shape) or tuple(do.shape) != tuple(q.shape):
-        raise ValueError(f"o {tuple(o.shape)} / do {tuple(do.shape)} do not match q {tuple(q.shape)}")
+    if tuple(o.shape) != (b, hq, sq, vd) or tuple(do.shape) != (b, hq, sq, vd):
+        raise ValueError(f"o {tuple(o.shape)} / do {tuple(do.shape)} do not match q "
+                         f"{tuple(q.shape)} and v {tuple(v.shape)}")
     if hq % hkv:
         raise ValueError(f"{hq} q heads are not a multiple of {hkv} kv heads")
-    if hd not in HEAD_DIMS:
-        raise ValueError(f"head dim {hd} is not one of the kernel's instantiations {HEAD_DIMS}")
+    if (hd, vd) not in HEAD_DIMS:
+        raise ValueError(f"head dims (q/k {hd}, v {vd}) are not one of the kernel's "
+                         f"instantiations {HEAD_DIMS}")
     if (lse.device != dev or lse.dtype != torch.float32 or tuple(lse.shape) != (b, hq, sq)
             or not lse.is_contiguous()):
         raise ValueError(f"lse must be the forward's contiguous f32 (B, Hq, Sq) on {dev}")
@@ -182,12 +191,12 @@ def flash_attention_bwd_call(
     for name, t in (("dq", dq), ("dk", dk), ("dv", dv)):
         _check(name, t, dev)
     delta = torch.empty((b, hq, sq), dtype=torch.float32, device=dev)
-    items = _device_items((b, hq, hkv, sq, sk, hd, bool(causal), int(window)), dev)
+    items = _device_items((b, hq, hkv, sq, sk, hd, bool(causal), int(window), vd), dev)
     LIB.launch(
         "flash_attention_bwd_launch", dev,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
         do.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), delta.data_ptr(),
-        items.data_ptr(), items.shape[0], b, hq, hkv, sq, sk, hd,
+        items.data_ptr(), items.shape[0], b, hq, hkv, sq, sk, hd, vd,
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *o.stride()[:3],
         *do.stride()[:3], *dq.stride()[:3], *dk.stride()[:3], *dv.stride()[:3],
         int(causal), int(window), hd ** -0.5,

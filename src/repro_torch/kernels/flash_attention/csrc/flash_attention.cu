@@ -5,12 +5,13 @@
 // kernel launched by flash_attention_fwd_pallas):
 //     o[b, h, i] = softmax_j(scale * q[b, h, i] . k[b, h // g, j]) v[b, h // g, j]
 // over the keys j allowed by the mask (j < Sk; j <= i when causal;
-// i - j < window when window > 0), with scale = hd^-0.5, the online-softmax
+// i - j < window when window > 0), with scale = hd^-0.5 (q's head dim, which
+// may differ from v's: MLA's q and k are 192 wide, v and o 128), the online-softmax
 // state (m, l, acc) and P in f32, the reference's m_safe / corr rules, a fully
 // masked row giving 0, and the final divide by max(l, 1e-30).
 //
-// What bounds it on this card: operations.  QK^T and P.V are 4 * hd FLOPs per
-// (q row, key) pair inside the band.  On the fp32 FMA units that is 67 TFLOP/s,
+// What bounds it on this card: operations.  QK^T and P.V are 2 * (hd + vd)
+// FLOPs per (q row, key) pair inside the band.  On the fp32 FMA units that is 67 TFLOP/s,
 // and an FMA loop fed from shared memory reaches a fraction of it.  Here both
 // products run on the tensor cores (mma.sync.m16n8k8, TF32 in, f32
 // accumulate) at fp32 accuracy: each operand a is split into big = tf32(a)
@@ -25,17 +26,24 @@
 //
 // Layout.  A block owns one (batch, q head) and 64 q rows and walks the kv
 // band in steps of 32 keys:
-//   - q (64 x hd) is staged once; K and V (32 x hd each) go through a ring of
-//     two stages filled by cp.async, so the next step's tiles load while this
-//     one computes.  Rows are padded by 4 floats and every fragment load is a
-//     float4 (a float2 where a chunk is 8 columns: hd 16, 80, 112).  hd 256
-//     takes 216,064 B of shared memory, so one block runs per SM.
+//   - q (64 x hd) is staged once; K (32 x hd) and V (32 x vd) go through a
+//     ring of two stages filled by cp.async, so the next step's tiles load
+//     while this one computes.  Rows are padded by 4 floats and every
+//     fragment load is a float4 (a float2 where a chunk is 8 columns: hd 16,
+//     80, 112).  hd 256 takes 216,064 B of shared memory, (192, 128) 150,528
+//     B, so one block runs per SM.
+//   - A head dim that is not a multiple of 16 (the MTP block's 56) is padded
+//     to the next one in its instantiation's tiles: its columns past 56 are
+//     zero-filled in shared memory (cp.async with src-size 0, as the rows
+//     past Sq / Sk), so they add nothing to QK^T, and the output columns past
+//     56 are not stored.  The model's tensors are read in place; nothing is
+//     copied to pad them.
 //   - 8 warps work in pairs on 16 q rows (one warp of 16 rows alone cannot
 //     hide the latency of its dependent mma chains).  Each warp of a pair sums
 //     QK^T over half of hd; the two halves are added through shared memory
 //     (in the same order by both, so both hold the same scores), both run the
-//     same online softmax, and each computes P.V for its half of the output
-//     columns (64 accumulator registers a thread at hd 256).
+//     same online softmax, and each computes P.V for its half of the vd output
+//     columns (64 accumulator registers a thread at vd 256).
 //   - The reduction axis of each product is permuted inside each 8-wide k-step
 //     (any order of a sum's terms gives the same product): the QK^T fragment
 //     of thread (g, t) holds hd columns 8t..8t+7 of a 32-column chunk, and the
@@ -50,10 +58,11 @@
 // Numerics.  The split operands alone cost ~1.4e-7 of max |o| against
 // float64; the tensor cores' accumulation into one long chain costs more:
 // at 768 keys with no mask (each output cancelling ~20x) one chain per
-// output reaches 6-9e-6 (`flash_attention/accuracy.py`).  HD 80 and 112
-// therefore sum each chunk's QK^T and each kv step's P.V in a fresh fragment
-// and add it to the running sum in f32 (`Cfg::kFreshAcc`); the power-of-two
-// head dims keep the single chains they were first built with, so their
+// output reaches 6-9e-6 (`flash_attention/accuracy.py`).  HD 80 and 112,
+// the padded 56 and MLA's (192, 128) therefore sum each chunk's QK^T and each
+// kv step's P.V in a fresh fragment and add it to the running sum in f32
+// (`Cfg::kFreshAcc`); the power-of-two head dims keep the single chains they
+// were first built with, so their
 // outputs are bitwise those of that first build.  The split is temporary:
 // the fresh fragments are the more accurate scheme, and every head dim is
 // to take them, with a new card measurement of time and error (ROADMAP).
@@ -79,25 +88,41 @@ struct Strides {
   long long b, h, s;  // elements between batches, heads and sequence rows
 };
 
-template <int HD>
+// the column chunk of a fragment load over a warp's half of a padded width P:
+// the largest of 32, 16 and 8 that divides P / 2, so that each warp of a pair
+// takes whole chunks (P 80 and 112 take chunks of 8, as P 16 does)
+__host__ __device__ constexpr int chunk(int p) {
+  return (p / 2) % 32 == 0 ? 32 : (p / 2) % 16 == 0 ? 16 : 8;
+}
+// a width padded to the next multiple of 16 (a pair of warps splits it)
+__host__ __device__ constexpr int padded(int d) { return (d + 15) / 16 * 16; }
+
+// DK: the head dim of q and K (QK^T's reduction); DV: that of V and the
+// output (MLA's 192 and 128).  A width that is not a multiple of 16 (the MTP
+// block's 56) is padded to the next one in shared memory with its columns
+// past D zero-filled, so they add nothing to QK^T, and the output columns
+// past DV are not stored
+template <int DK, int DV>
 struct Cfg {
-  static constexpr int LD = HD + 4;                  // padded smem row, floats
-  // column chunk of a fragment load: the largest of 32, 16 and 8 that divides
-  // HD / 2, so that each warp of a pair takes NH whole chunks (HD 80 and 112
-  // take chunks of 8, as HD 16 does)
-  static_assert(HD % 16 == 0, "the head dim must be a multiple of 16");
-  static constexpr int DC = (HD / 2) % 32 == 0 ? 32 : (HD / 2) % 16 == 0 ? 16 : 8;
-  static constexpr int E = DC / 4;                   // floats a thread loads per row and chunk
-  static constexpr int NT = DC / 8;                  // k-steps (QK^T) / n-tiles (P.V) per chunk
-  static constexpr int NH = HD / DC / 2;             // chunks of each warp of a pair
-  static constexpr int kQ = kBq * LD;                // floats of the q tile
-  static constexpr int kKV = kBk * LD;               // floats of one K or V tile
+  static_assert(DK % 8 == 0 && DV % 8 == 0, "the head dims must be multiples of 8");
+  static constexpr int PK = padded(DK), PV = padded(DV);
+  static constexpr int LDK = PK + 4, LDV = PV + 4;   // padded smem rows, floats
+  // QK^T: chunks of DCK columns, EK floats a thread loads per row and chunk,
+  // NTK k-steps a chunk, NHK chunks for each warp of a pair
+  static constexpr int DCK = chunk(PK), EK = DCK / 4, NTK = DCK / 8, NHK = PK / DCK / 2;
+  // P.V: chunks of DCV columns, NTV n-tiles a chunk, NHV chunks a warp
+  static constexpr int DCV = chunk(PV), NTV = DCV / 8, NHV = PV / DCV / 2;
+  static_assert(DV % (2 * NTV) == 0, "a thread's output columns are all stored or none");
+  static constexpr int kQ = kBq * LDK;               // floats of the q tile
+  static constexpr int kK = kBk * LDK;               // floats of one K tile
+  static constexpr int kV = kBk * LDV;               // floats of one V tile
   static constexpr int kX = kWarps * 16 * 32;        // floats of the score exchange
-  // HD 80 and 112 sum each chunk's QK^T and each kv step's P.V in a fresh
-  // accumulator and add it to the running one in f32; the other head dims
-  // keep their single chains, bit for bit (see Numerics)
-  static constexpr bool kFreshAcc = HD == 80 || HD == 112;
-  static constexpr int smem = (int)sizeof(float) * (kQ + 2 * kStages * kKV + kX);
+  // HD 80 and 112, the padded 56 and MLA's (192, 128) sum each chunk's QK^T
+  // and each kv step's P.V in a fresh accumulator and add it to the running
+  // one in f32; the other head dims keep their single chains, bit for bit
+  // (see Numerics)
+  static constexpr bool kFreshAcc = DK == 80 || DK == 112 || DK != DV || DK != PK;
+  static constexpr int smem = (int)sizeof(float) * (kQ + kStages * (kK + kV) + kX);
   static_assert(smem <= 232448, "over sm_90's opt-in shared memory per block");
 };
 
@@ -174,23 +199,25 @@ __device__ __forceinline__ void pair_sync(int row_warp) {
   asm volatile("bar.sync %0, 64;\n" ::"r"(1 + row_warp) : "memory");
 }
 
-template <int HD>
+template <int DK, int DV>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v, float* __restrict__ o,
                  float* __restrict__ lse, int hq, int sq, int sk, int group, Strides qs,
                  Strides ks, Strides vs, Strides os, int causal, int window, float scale) {
-  using C = Cfg<HD>;
-  constexpr int LD = C::LD, DC = C::DC, E = C::E, NT = C::NT, NH = C::NH;
+  using C = Cfg<DK, DV>;
+  constexpr int PK = C::PK, PV = C::PV, LDK = C::LDK, LDV = C::LDV;
+  constexpr int DCK = C::DCK, EK = C::EK, NTK = C::NTK, NHK = C::NHK;
+  constexpr int DCV = C::DCV, NTV = C::NTV, NHV = C::NHV;
   extern __shared__ float4 smem4[];
-  float* qsh = reinterpret_cast<float*>(smem4);  // (kBq, LD)
-  float* kvsh = qsh + C::kQ;                     // per stage: K (kBk, LD), V (kBk, LD)
-  float* xsh = kvsh + 2 * kStages * C::kKV;      // per warp: 16 scores x 32 lanes
+  float* qsh = reinterpret_cast<float*>(smem4);  // (kBq, LDK)
+  float* kvsh = qsh + C::kQ;                     // per stage: K (kBk, LDK), V (kBk, LDV)
+  float* xsh = kvsh + kStages * (C::kK + C::kV);  // per warp: 16 scores x 32 lanes
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, t = lane & 3;
   const int rw = warp % kRowWarps;  // the warp's 16 q rows
-  const int hf = warp / kRowWarps;  // its half of hd: chunks [hf * NH, hf * NH + NH)
+  const int hf = warp / kRowWarps;  // its half of the columns: chunks [hf * NH, hf * NH + NH)
   const int h = blockIdx.x % hq, bi = blockIdx.x / hq, hk = h / group;
   const int qb = causal ? gridDim.y - 1 - blockIdx.y : blockIdx.y;
   const int q0 = qb * kBq;
@@ -204,21 +231,28 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int jb0 = kv_begin / kBk;
   const int n_kv = max(0, (kv_end + kBk - 1) / kBk - jb0);
 
-  for (int idx = tid; idx < kBq * HD / 4; idx += kThreads) {
-    const int r = idx / (HD / 4), c4 = idx - r * (HD / 4);
-    const bool ok = q0 + r < sq;
-    cp_async16(qsh + r * LD + 4 * c4, qg + (ok ? q0 + r : 0) * qs.s + 4 * c4, ok);
+  // 16-byte columns c4 of a padded row past the true width are zero-filled
+  for (int idx = tid; idx < kBq * PK / 4; idx += kThreads) {
+    const int r = idx / (PK / 4), c4 = idx - r * (PK / 4);
+    const bool row_ok = q0 + r < sq;
+    cp_async16(qsh + r * LDK + 4 * c4, qg + (row_ok ? q0 + r : 0) * qs.s + 4 * c4,
+               row_ok && (DK == PK || 4 * c4 < DK));
   }
   auto load_kv = [&](int jb, int st) {
-    float* ksh = kvsh + st * 2 * C::kKV;
-    float* vsh = ksh + C::kKV;
+    float* ksh = kvsh + st * (C::kK + C::kV);
+    float* vsh = ksh + C::kK;
     const int k0 = jb * kBk;
-    for (int idx = tid; idx < kBk * HD / 4; idx += kThreads) {
-      const int r = idx / (HD / 4), c4 = idx - r * (HD / 4);
-      const bool ok = k0 + r < sk;
-      const long long row = ok ? k0 + r : 0;
-      cp_async16(ksh + r * LD + 4 * c4, kg + row * ks.s + 4 * c4, ok);
-      cp_async16(vsh + r * LD + 4 * c4, vg + row * vs.s + 4 * c4, ok);
+    for (int idx = tid; idx < kBk * PK / 4; idx += kThreads) {
+      const int r = idx / (PK / 4), c4 = idx - r * (PK / 4);
+      const long long row = k0 + r < sk ? k0 + r : 0;
+      cp_async16(ksh + r * LDK + 4 * c4, kg + row * ks.s + 4 * c4,
+                 k0 + r < sk && (DK == PK || 4 * c4 < DK));
+    }
+    for (int idx = tid; idx < kBk * PV / 4; idx += kThreads) {
+      const int r = idx / (PV / 4), c4 = idx - r * (PV / 4);
+      const long long row = k0 + r < sk ? k0 + r : 0;
+      cp_async16(vsh + r * LDV + 4 * c4, vg + row * vs.s + 4 * c4,
+                 k0 + r < sk && (DV == PV || 4 * c4 < DV));
     }
   };
   if (n_kv > 0) load_kv(jb0, 0);
@@ -226,9 +260,9 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
   const int r0 = q0 + 16 * rw;  // the warp's first q row
   float m_run[2] = {-INFINITY, -INFINITY}, l_run[2] = {0.f, 0.f};
-  float acc[NH * NT][4];  // P.V n-tile (c - hf * NH) * NT + i; rows g, g + 8
+  float acc[NHV * NTV][4];  // P.V n-tile (c - hf * NHV) * NTV + i; rows g, g + 8
 #pragma unroll
-  for (int n = 0; n < NH * NT; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+  for (int n = 0; n < NHV * NTV; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
 
   for (int it = 0; it < n_kv; ++it) {
     const int st = it & 1;
@@ -241,24 +275,24 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
     const bool masked_out = k0 >= sk || (causal && k0 > r0 + 15) ||
                             (window > 0 && r0 - (k0 + kBk - 1) >= window);
     if (!masked_out) {  // the same for both warps of the pair
-      const float* ksh = kvsh + st * 2 * C::kKV;
-      const float* vsh = ksh + C::kKV;
+      const float* ksh = kvsh + st * (C::kK + C::kV);
+      const float* vsh = ksh + C::kK;
 
       // s = q k^T for rows (g, g + 8), keys 8j + 2t + {0, 1}: this warp sums
-      // its half of hd, then adds the other half from its pair
+      // its half of the q / K columns, then adds the other half from its pair
       float s[4][4];
 #pragma unroll
       for (int j = 0; j < 4; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
-      const float* qa = qsh + (16 * rw + g) * LD + hf * NH * DC + t * E;
-      const float* kb = ksh + g * LD + hf * NH * DC + t * E;
+      const float* qa = qsh + (16 * rw + g) * LDK + hf * NHK * DCK + t * EK;
+      const float* kb = ksh + g * LDK + hf * NHK * DCK + t * EK;
 #pragma unroll
-      for (int c = 0; c < NH; ++c) {
-        float xa[E], xb[E];
-        load_row(xa, qa + c * DC);
-        load_row(xb, qa + 8 * LD + c * DC);
-        uint32_t ab[NT][4], as[NT][4];
+      for (int c = 0; c < NHK; ++c) {
+        float xa[EK], xb[EK];
+        load_row(xa, qa + c * DCK);
+        load_row(xb, qa + 8 * LDK + c * DCK);
+        uint32_t ab[NTK][4], as[NTK][4];
 #pragma unroll
-        for (int kk = 0; kk < NT; ++kk) {
+        for (int kk = 0; kk < NTK; ++kk) {
           split(xa[2 * kk], ab[kk][0], as[kk][0]);
           split(xb[2 * kk], ab[kk][1], as[kk][1]);
           split(xa[2 * kk + 1], ab[kk][2], as[kk][2]);
@@ -266,17 +300,17 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
         }
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
-          float y[E];
-          load_row(y, kb + 8 * j * LD + c * DC);
+          float y[EK];
+          load_row(y, kb + 8 * j * LDK + c * DCK);
           if constexpr (C::kFreshAcc) {
             float t[4] = {0.f, 0.f, 0.f, 0.f};
 #pragma unroll
-            for (int kk = 0; kk < NT; ++kk) mma3(t, ab[kk], as[kk], y[2 * kk], y[2 * kk + 1]);
+            for (int kk = 0; kk < NTK; ++kk) mma3(t, ab[kk], as[kk], y[2 * kk], y[2 * kk + 1]);
 #pragma unroll
             for (int e = 0; e < 4; ++e) s[j][e] += t[e];
           } else {
 #pragma unroll
-            for (int kk = 0; kk < NT; ++kk) mma3(s[j], ab[kk], as[kk], y[2 * kk], y[2 * kk + 1]);
+            for (int kk = 0; kk < NTK; ++kk) mma3(s[j], ab[kk], as[kk], y[2 * kk], y[2 * kk + 1]);
           }
         }
       }
@@ -333,18 +367,18 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
         l_run[r] = l_run[r] * corr[r] + ps[r];
       }
 #pragma unroll
-      for (int n = 0; n < NH * NT; ++n) {
+      for (int n = 0; n < NHV * NTV; ++n) {
         acc[n][0] *= corr[0]; acc[n][1] *= corr[0];
         acc[n][2] *= corr[1]; acc[n][3] *= corr[1];
       }
 
-      // acc += P V over this warp's half of hd: the A-fragment of k-tile j is
-      // s[j] (key 2t -> column t, key 2t + 1 -> column t + 4); V n-tile i of
-      // chunk c, column g is hd column c * DC + NT * g + i
-      float step[C::kFreshAcc ? NH * NT : 1][4];  // this kv step's P.V (HD 80, 112)
+      // acc += P V over this warp's half of the V columns: the A-fragment of
+      // k-tile j is s[j] (key 2t -> column t, key 2t + 1 -> column t + 4); V
+      // n-tile i of chunk c, column g is V column c * DCV + NTV * g + i
+      float step[C::kFreshAcc ? NHV * NTV : 1][4];  // this kv step's P.V (kFreshAcc)
       if constexpr (C::kFreshAcc) {
 #pragma unroll
-        for (int n = 0; n < NH * NT; ++n) step[n][0] = step[n][1] = step[n][2] = step[n][3] = 0.f;
+        for (int n = 0; n < NHV * NTV; ++n) step[n][0] = step[n][1] = step[n][2] = step[n][3] = 0.f;
       }
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
@@ -353,25 +387,25 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
         split(s[j][2], pb[1], pl[1]);
         split(s[j][1], pb[2], pl[2]);
         split(s[j][3], pb[3], pl[3]);
-        const float* v0 = vsh + (8 * j + 2 * t) * LD + hf * NH * DC + NT * g;
+        const float* v0 = vsh + (8 * j + 2 * t) * LDV + hf * NHV * DCV + NTV * g;
 #pragma unroll
-        for (int c = 0; c < NH; ++c) {
-          float y0[NT], y1[NT];
-          load_row(y0, v0 + c * DC);
-          load_row(y1, v0 + LD + c * DC);
+        for (int c = 0; c < NHV; ++c) {
+          float y0[NTV], y1[NTV];
+          load_row(y0, v0 + c * DCV);
+          load_row(y1, v0 + LDV + c * DCV);
 #pragma unroll
-          for (int i = 0; i < NT; ++i) {
+          for (int i = 0; i < NTV; ++i) {
             if constexpr (C::kFreshAcc) {
-              mma3(step[c * NT + i], pb, pl, y0[i], y1[i]);
+              mma3(step[c * NTV + i], pb, pl, y0[i], y1[i]);
             } else {
-              mma3(acc[c * NT + i], pb, pl, y0[i], y1[i]);
+              mma3(acc[c * NTV + i], pb, pl, y0[i], y1[i]);
             }
           }
         }
       }
       if constexpr (C::kFreshAcc) {
 #pragma unroll
-        for (int n = 0; n < NH * NT; ++n)
+        for (int n = 0; n < NHV * NTV; ++n)
 #pragma unroll
           for (int e = 0; e < 4; ++e) acc[n][e] += step[n][e];
       }
@@ -394,56 +428,60 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
     }
   }
 
-  // thread (g, t) holds, per chunk c of its half, hd columns
-  // c * DC + 2t * NT + [0, 2 NT)
+  // thread (g, t) holds, per chunk c of its half, output columns
+  // c * DCV + 2t * NTV + [0, 2 NTV): stored where they lie below DV
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int row = r0 + g + 8 * r;
     if (row >= sq) continue;
     const float denom = fmaxf(l_run[r], 1e-30f);
-    float* orow = o + bi * os.b + h * os.h + row * os.s + hf * NH * DC + 2 * t * NT;
+    const int col = hf * NHV * DCV + 2 * t * NTV;
+    float* orow = o + bi * os.b + h * os.h + row * os.s + col;
 #pragma unroll
-    for (int c = 0; c < NH; ++c) {
-      float out[2 * NT];
+    for (int c = 0; c < NHV; ++c) {
+      if (DV != PV && col + c * DCV >= DV) continue;
+      float out[2 * NTV];
 #pragma unroll
-      for (int i = 0; i < NT; ++i) {
-        out[i] = acc[c * NT + i][2 * r] / denom;
-        out[NT + i] = acc[c * NT + i][2 * r + 1] / denom;
+      for (int i = 0; i < NTV; ++i) {
+        out[i] = acc[c * NTV + i][2 * r] / denom;
+        out[NTV + i] = acc[c * NTV + i][2 * r + 1] / denom;
       }
-      store_row(orow + c * DC, out);
+      store_row(orow + c * DCV, out);
     }
   }
 }
 
-template <int HD>
+template <int DK, int DV>
 int launch(const float* q, const float* k, const float* v, float* o, float* lse, int batch,
            int hq, int hkv, int sq, int sk, Strides qs, Strides ks, Strides vs, Strides os,
            int causal, int window, float scale, cudaStream_t stream) {
-  constexpr int smem = Cfg<HD>::smem;
+  constexpr int smem = Cfg<DK, DV>::smem;
   // the opt-in above 48 KB is set once per process and instantiation
   static bool opted = false;
   if (!opted) {
     const cudaError_t err = cudaFuncSetAttribute(
-        flash_fwd_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+        flash_fwd_kernel<DK, DV>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return (int)err;
     opted = true;
   }
   const dim3 grid(batch * hq, (sq + kBq - 1) / kBq);
-  flash_fwd_kernel<HD><<<grid, kThreads, smem, stream>>>(
+  flash_fwd_kernel<DK, DV><<<grid, kThreads, smem, stream>>>(
       q, k, v, o, lse, hq, sq, sk, hq / hkv, qs, ks, vs, os, causal, window, scale);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// q (batch, hq, sq, hd), k/v (batch, hkv, sk, hd), o like q, each addressed
-// by its (batch, head, sequence) strides in elements with hd contiguous; lse,
-// when not null, (batch, hq, sq) contiguous f32 (the backward's input);
-// pointers and strides 16-byte aligned; hd in {16, 32, 64, 80, 112, 128, 256}; hq a
-// multiple of hkv.  Launches on `stream`; returns cudaGetLastError().
+// q (batch, hq, sq, hd), k (batch, hkv, sk, hd), v (batch, hkv, sk, vd), o
+// (batch, hq, sq, vd), each addressed by its (batch, head, sequence) strides
+// in elements with the head dim contiguous; lse, when not null, (batch, hq,
+// sq) contiguous f32 (the backward's input); pointers and strides 16-byte
+// aligned; (hd, vd) one of (16, 16), (32, 32), (56, 56), (64, 64), (80, 80),
+// (112, 112), (128, 128), (192, 128), (256, 256); hq a multiple of hkv.
+// Launches on `stream`; returns cudaGetLastError().
 extern "C" int flash_attention_launch(
     const float* q, const float* k, const float* v, float* o, float* lse, int batch,
-    int hq, int hkv, int sq, int sk, int hd, long long q_sb, long long q_sh,
+    int hq, int hkv, int sq, int sk, int hd, int vd, long long q_sb, long long q_sh,
     long long q_ss, long long k_sb, long long k_sh, long long k_ss,
     long long v_sb, long long v_sh, long long v_ss, long long o_sb,
     long long o_sh, long long o_ss, int causal, int window, float scale,
@@ -453,14 +491,19 @@ extern "C" int flash_attention_launch(
   const Strides qs{q_sb, q_sh, q_ss}, ks{k_sb, k_sh, k_ss}, vs{v_sb, v_sh, v_ss},
       os{o_sb, o_sh, o_ss};
   cudaStream_t s = (cudaStream_t)stream;
-  switch (hd) {
-    case 16: return launch<16>(q, k, v, o, lse, batch, hq, hkv, sq, sk, qs, ks, vs, os, causal, window, scale, s);
-    case 32: return launch<32>(q, k, v, o, lse, batch, hq, hkv, sq, sk, qs, ks, vs, os, causal, window, scale, s);
-    case 64: return launch<64>(q, k, v, o, lse, batch, hq, hkv, sq, sk, qs, ks, vs, os, causal, window, scale, s);
-    case 80: return launch<80>(q, k, v, o, lse, batch, hq, hkv, sq, sk, qs, ks, vs, os, causal, window, scale, s);
-    case 112: return launch<112>(q, k, v, o, lse, batch, hq, hkv, sq, sk, qs, ks, vs, os, causal, window, scale, s);
-    case 128: return launch<128>(q, k, v, o, lse, batch, hq, hkv, sq, sk, qs, ks, vs, os, causal, window, scale, s);
-    case 256: return launch<256>(q, k, v, o, lse, batch, hq, hkv, sq, sk, qs, ks, vs, os, causal, window, scale, s);
-    default: return (int)cudaErrorInvalidValue;
-  }
+#define FLASH_CASE(DK, DV)                                                                  \
+  if (hd == DK && vd == DV)                                                                 \
+    return launch<DK, DV>(q, k, v, o, lse, batch, hq, hkv, sq, sk, qs, ks, vs, os, causal, \
+                          window, scale, s);
+  FLASH_CASE(16, 16)
+  FLASH_CASE(32, 32)
+  FLASH_CASE(56, 56)
+  FLASH_CASE(64, 64)
+  FLASH_CASE(80, 80)
+  FLASH_CASE(112, 112)
+  FLASH_CASE(128, 128)
+  FLASH_CASE(192, 128)
+  FLASH_CASE(256, 256)
+#undef FLASH_CASE
+  return (int)cudaErrorInvalidValue;
 }

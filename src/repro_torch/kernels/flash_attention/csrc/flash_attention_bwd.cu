@@ -10,15 +10,17 @@
 //     dK = scale * dS^T q,        dQ = scale * dS k
 // with the forward's masks (key j visible to query i when j < Sk, j <= i if
 // causal, i - j < window if window > 0), GQA (kv head = q head // g; a kv
-// head's dK and dV sum over its g q heads), and ragged Sq and Sk.
+// head's dK and dV sum over its g q heads), and ragged Sq and Sk.  q and K
+// are hd wide, V, o and dO vd wide (MLA: 192 and 128), scale = hd^-0.5.
 //
 // What bounds it on this card: operations.  Per (q row, key) pair in the band
-// the function needs five products of 2 * hd FLOPs (S, dP, dV, dK, dQ).  Every
+// the function needs five products: three of 2 * hd FLOPs (S, dK, dQ) and
+// two of 2 * vd (dP, dV).  Every
 // product here runs on the tensor cores (mma.sync.m16n8k8, TF32 in, f32
 // accumulate) at fp32 accuracy: each operand a is split into big = tf32(a)
 // (round half away) and small = a - big, and every product is small.big +
 // big.small + big.big (CUTLASS's OpMultiplyAddFastF32), so the bound is
-// 3 x 5 x 2 x hd FLOPs a band pair at the 495 TFLOP/s TF32 peak.  This design
+// 3 x 2 x (3 hd + 2 vd) FLOPs a band pair at the 495 TFLOP/s TF32 peak.  This design
 // does seven products a pair, not five (S and dP twice, below).  mma.sync
 // rather than wgmma: TF32 wgmma takes only K-major operands, and dV / dK
 // reduce over the q rows, the outer axis of dO and q.
@@ -45,13 +47,20 @@
 // whenever; so two runs give the same bits.
 //
 // Warps.  8 warps.  S and dP: warp w sums 16 q rows (16 ((w >> 1) & 1)) x
-// all 32 keys over its half (w & 1) of hd, S for w < 4 and dP for w >= 4; the
+// all 32 keys over its half (w & 1) of hd (S, w < 4) or vd (dP, w >= 4); the
 // two halves trade the keys each keeps through shared memory (a 64-thread
 // named barrier), so each warp ends with a 16 x 16 tile, eight mma chains in
 // flight on the way.  The S warp turns its tile into P and hands it to its
 // dP twin (another named barrier), which forms dS.  The products into dK, dV,
-// dQ: warp w owns the 32 rows of the item x DW columns of hd (DW = 32 at hd
-// 256, 16 at 80-128, 8 below), so HD / DW warps take part.
+// dQ: warp w owns the 32 rows of the item x DW columns of the product's
+// width (DW = 32 above 128, 16 at 80-128, 8 below), so width / DW warps take
+// part; in a dK/dV item the dK warps and the dV warps may differ in number
+// (MLA: 6 warps of 32 dK columns, 8 of 16 dV columns).
+// A head dim that is not a multiple of 16 (the MTP block's 56) is padded to
+// the next one in the tiles, its columns past 56 zero-filled as the copies
+// land (cp.async with src-size 0), so they add nothing to S or dP; the
+// gradient columns past 56 are neither computed nor stored.  Nothing is
+// copied to pad the model's tensors.
 // The reduction axis of each product is permuted inside each 8-wide k-step
 // (any order of a sum's terms gives the same product): in S and dP, thread
 // (g, t) holds hd columns t E1 .. t E1 + E1 - 1 of a DC-wide chunk (float4
@@ -68,8 +77,8 @@
 // Shared memory at hd 256: six 32 x 260 tiles (two resident, a ring of two
 // stages of two), lse / delta for two stages, two 32 x 40 P / dS tiles, a
 // 4 KB P hand-off and an 8 KB exchange of hd halves: 222,720 B, one block per
-// SM.  `step_clocks.py` measures where a step of the longest item spends its
-// clocks.
+// SM; MLA's (192, 128) takes 148,992 B.  `step_clocks.py` measures where a
+// step of the longest item spends its clocks.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -95,24 +104,37 @@ struct Params {
   Strides qs, ks, vs, dos, dqs, dks, dvs;
 };
 
-template <int HD>
+// a width padded to the next multiple of 16 (a pair of warps splits it)
+__host__ __device__ constexpr int padded(int d) { return (d + 15) / 16 * 16; }
+// S and dP: a warp sums half of a padded width P in chunks of the largest of
+// 32, 16, 8 that divides P / 2
+__host__ __device__ constexpr int chunk(int p) {
+  return (p / 2) % 32 == 0 ? 32 : (p / 2) % 16 == 0 ? 16 : 8;
+}
+// dV, dK, dQ: the output columns of one warp, for a padded width P
+__host__ __device__ constexpr int warp_cols(int p) { return p > 128 ? 32 : p >= 80 ? 16 : 8; }
+
+// DK: the head dim of q and K (S's reduction, dK's and dQ's columns); DV:
+// that of V, o and dO (dP's reduction, dV's columns) -- MLA's 192 and 128.
+// A width that is not a multiple of 16 (the MTP block's 56) is padded to the
+// next one in shared memory with its columns past D zero-filled, so they add
+// nothing to S or dP; the output columns past D are neither computed nor
+// stored.  Tiles of q and K are LDK floats a row, of V and dO LDV.
+template <int DK, int DV>
 struct Cfg {
-  static_assert(HD % 16 == 0, "the head dim must be a multiple of 16");
-  static constexpr int LD = HD + 4;                   // padded tile row, floats
-  // S and dP: a warp's half of hd in chunks of DC columns (the largest of 32,
-  // 16, 8 that divides HD / 2), E1 floats a thread and row, NK1 k-steps
-  static constexpr int DC = (HD / 2) % 32 == 0 ? 32 : (HD / 2) % 16 == 0 ? 16 : 8;
-  static constexpr int E1 = DC / 4;
-  static constexpr int NK1 = DC / 8;
-  // dV, dK, dQ: a warp's DW output columns, E2 n-tiles; NW2 warps take part
-  static constexpr int DW = HD >= 256 ? 32 : HD >= 80 ? 16 : 8;
-  static constexpr int E2 = DW / 8;
-  static constexpr int NW2 = HD / DW;
-  static_assert(HD % DW == 0 && NW2 <= kWarps, "the output columns must fit the warps");
-  static constexpr int kTile = kB * LD;
+  static_assert(DK % 8 == 0 && DV % 8 == 0, "the head dims must be multiples of 8");
+  static constexpr int PK = padded(DK), PV = padded(DV);
+  static constexpr int LDK = PK + 4, LDV = PV + 4;   // padded tile rows, floats
+  // dK / dQ (DK wide) and dV (DV wide): DWK / DWV columns a warp, E2K / E2V
+  // n-tiles; NWK / NWV warps take part
+  static constexpr int DWK = warp_cols(PK), E2K = DWK / 8, NWK = DK / DWK;
+  static constexpr int DWV = warp_cols(PV), E2V = DWV / 8, NWV = DV / DWV;
+  static_assert(DK % DWK == 0 && DV % DWV == 0 && NWK <= kWarps && NWV <= kWarps,
+                "the output columns must fit the warps");
+  static constexpr int kTileK = kB * LDK, kTileV = kB * LDV;
   static constexpr int kPT = kB * LDP;
-  static constexpr int smem =
-      (int)sizeof(float) * (6 * kTile + 4 * kB + 2 * kPT + 4 * 8 * 32 + kWarps * 8 * 32);
+  static constexpr int smem = (int)sizeof(float) *
+      (3 * (kTileK + kTileV) + 4 * kB + 2 * kPT + 4 * 8 * 32 + kWarps * 8 * 32);
   static_assert(smem <= 232448, "over sm_90's opt-in shared memory per block");
   // two blocks an SM where their shared memory fits (228 KB, 1 KB reserved each)
   static constexpr int kMinBlocks = 2 * (smem + 1024) <= 233472 ? 2 : 1;
@@ -191,16 +213,18 @@ __device__ __forceinline__ void pair_sync(int id) {
   asm volatile("bar.sync %0, 64;\n" ::"r"(id) : "memory");
 }
 
-// rows [r0, r0 + kB) of a (rows, HD) tensor at `base` with row stride `rs`
-// into a (kB, LD) tile; rows at or past `n` are zeros
-template <int HD>
+// rows [r0, r0 + kB) of a (rows, D) tensor at `base` with row stride `rs`
+// into a (kB, P + 4) tile, P = padded(D); rows at or past `n` and columns at
+// or past D are zeros
+template <int D>
 __device__ __forceinline__ void load_tile(float* tile, const float* base, long long rs, int r0,
                                           int n) {
-  constexpr int LD = Cfg<HD>::LD;
-  for (int idx = threadIdx.x; idx < kB * HD / 4; idx += kThreads) {
-    const int r = idx / (HD / 4), c4 = idx - r * (HD / 4);
-    const bool ok = r0 + r < n;
-    cp_async16(tile + r * LD + 4 * c4, base + (ok ? r0 + r : 0) * rs + 4 * c4, ok);
+  constexpr int P = padded(D), LD = P + 4;
+  for (int idx = threadIdx.x; idx < kB * P / 4; idx += kThreads) {
+    const int r = idx / (P / 4), c4 = idx - r * (P / 4);
+    const bool row_ok = r0 + r < n;
+    cp_async16(tile + r * LD + 4 * c4, base + (row_ok ? r0 + r : 0) * rs + 4 * c4,
+               row_ok && (D == P || 4 * c4 < D));
   }
 }
 // kB row statistics (lse or delta) from rows [r0, r0 + kB) of `src`; zeros past n
@@ -211,14 +235,14 @@ __device__ __forceinline__ void load_stats(float* dst, const float* src, int r0,
   }
 }
 
-// acc = A B^T for 16 rows of `a` (row stride LD) against 32 rows of `b`,
-// over the HD / 2 columns from each one's first: a half of S = q k^T or of
-// dP = dO v^T.  acc[j] holds rows g, g + 8 and keys 8j + 2t, 8j + 2t + 1.
-template <int HD>
+// acc = A B^T for 16 rows of `a` against 32 rows of `b` (row stride LD
+// both), over the P / 2 columns from each one's first: a half of S = q k^T
+// (P = PK) or of dP = dO v^T (P = PV).  acc[j] holds rows g, g + 8 and keys
+// 8j + 2t, 8j + 2t + 1.
+template <int P>
 __device__ __forceinline__ void scores_half(float (&acc)[4][4], const float* a, const float* b,
                                             int g, int t) {
-  using C = Cfg<HD>;
-  constexpr int LD = C::LD, DC = C::DC, E1 = C::E1, NK1 = C::NK1;
+  constexpr int LD = P + 4, DC = chunk(P), E1 = DC / 4, NK1 = DC / 8;
   float cross[4][4];
 #pragma unroll
   for (int j = 0; j < 4; ++j)
@@ -227,7 +251,7 @@ __device__ __forceinline__ void scores_half(float (&acc)[4][4], const float* a, 
   const float* ar = a + g * LD + t * E1;
   const float* br = b + g * LD + t * E1;
 #pragma unroll
-  for (int c = 0; c < HD / 2 / DC; ++c) {
+  for (int c = 0; c < P / 2 / DC; ++c) {
     float xa[E1], xb[E1];
     load_row(xa, ar + c * DC);
     load_row(xb, ar + 8 * LD + c * DC);
@@ -261,13 +285,12 @@ __device__ __forceinline__ void scores_half(float (&acc)[4][4], const float* a, 
 }
 
 // acc = A B for A (32 x 32, row stride LDP: P^T, dS^T or dS) and B (32 rows
-// of a (kB, LD) tile, from the warp's first column): acc[m][i] holds rows
-// 16m + g, 16m + g + 8 and, for n-tile i, columns E2 (2t) + i, E2 (2t + 1) + i
-template <int HD>
-__device__ __forceinline__ void product32(float (&acc)[2][Cfg<HD>::E2][4], const float* a,
+// of a tile with row stride LD, from the warp's first column): acc[m][i]
+// holds rows 16m + g, 16m + g + 8 and, for n-tile i, columns E2 (2t) + i,
+// E2 (2t + 1) + i
+template <int LD, int E2>
+__device__ __forceinline__ void product32(float (&acc)[2][E2][4], const float* a,
                                           const float* b, int g, int t) {
-  using C = Cfg<HD>;
-  constexpr int LD = C::LD, E2 = C::E2;
 #pragma unroll
   for (int m = 0; m < 2; ++m)
 #pragma unroll
@@ -335,24 +358,32 @@ __device__ __forceinline__ bool visible(int row, int key, const Params& p) {
 
 // S / dP for this warp's 16 x 16 tile of the step (q rows q0 + 16 rh, keys
 // k0 + 16 hf), then P (S warps) and dS (dP warps).  The warp sums its half
-// hf of hd for all 32 keys, hands the half of the keys that its twin (warp ^
-// 1) keeps through `xch`, and adds the twin's half of its own keys.  P goes
-// to the dP twin through `xsh` and, when `pt` is not null, to pt[key][row];
-// dS goes to dst[key][row] (`ds_t`) or dst[row][key].
-template <int HD>
+// hf of the head dim (of q and K for S, of dO and V for dP) for all 32 keys,
+// hands the half of the keys that its twin (warp ^ 1) keeps through `xch`,
+// and adds the twin's half of its own keys.  P goes to the dP twin through
+// `xsh` and, when `pt` is not null, to pt[key][row]; dS goes to dst[key][row]
+// (`ds_t`) or dst[row][key].
+template <int DK, int DV>
 __device__ __forceinline__ void step_p_ds(const Params& p, const float* qsh, const float* dosh,
                                           const float* ksh, const float* vsh,
                                           const float* lse_sh, const float* dl_sh, float* pt,
                                           float* dst, bool ds_t, float* xsh, float* xch, int q0,
                                           int k0) {
-  constexpr int LD = Cfg<HD>::LD;
+  using C = Cfg<DK, DV>;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int g = lane >> 2, t = lane & 3;
   const int pair = warp & 3, rh = pair >> 1, hf = pair & 1;
   const bool is_s = warp < 4;
   float part[4][4];
-  scores_half<HD>(part, (is_s ? qsh : dosh) + 16 * rh * LD + hf * (HD / 2),
-                  (is_s ? ksh : vsh) + hf * (HD / 2), g, t);
+  if constexpr (DK == DV)
+    scores_half<C::PK>(part, (is_s ? qsh : dosh) + 16 * rh * C::LDK + hf * (C::PK / 2),
+                       (is_s ? ksh : vsh) + hf * (C::PK / 2), g, t);
+  else if (is_s)
+    scores_half<C::PK>(part, qsh + 16 * rh * C::LDK + hf * (C::PK / 2), ksh + hf * (C::PK / 2),
+                       g, t);
+  else
+    scores_half<C::PV>(part, dosh + 16 * rh * C::LDV + hf * (C::PV / 2), vsh + hf * (C::PV / 2),
+                       g, t);
   float* give = xch + warp * 8 * 32 + lane;
   const float* take = xch + (warp ^ 1) * 8 * 32 + lane;
 #pragma unroll
@@ -396,43 +427,46 @@ __device__ __forceinline__ void step_p_ds(const Params& p, const float* qsh, con
   }
 }
 
-// shared memory: tiles 0-1 resident, 2-5 the ring (stage s: tiles 2 + 2s and
-// 3 + 2s), then lse / delta for two stages, two P / dS tiles, the P hand-off
-// and the hd halves' exchange
-template <int HD>
+// shared memory: tiles 0-1 resident (K / V, or q / dO), 2-5 the ring (stage
+// s: a q or K tile, then a dO or V tile), then lse / delta for two stages,
+// two P / dS tiles, the P hand-off and the hd halves' exchange.  Tiles of q
+// and K are kTileK floats, of V and dO kTileV.
+template <int DK, int DV>
 struct Smem {
   float *res0, *res1, *ring, *stats, *pa, *pb, *xsh, *xch;
   __device__ __forceinline__ explicit Smem(float* s) {
-    using C = Cfg<HD>;
+    using C = Cfg<DK, DV>;
     res0 = s;
-    res1 = s + C::kTile;
-    ring = s + 2 * C::kTile;
-    stats = s + 6 * C::kTile;
+    res1 = s + C::kTileK;
+    ring = res1 + C::kTileV;
+    stats = ring + 2 * (C::kTileK + C::kTileV);
     pa = stats + 4 * kB;
     pb = pa + C::kPT;
     xsh = pb + C::kPT;
     xch = xsh + 4 * 8 * 32;
   }
-  __device__ __forceinline__ float* stage(int st) const { return ring + 2 * st * Cfg<HD>::kTile; }
+  __device__ __forceinline__ float* stage(int st) const {
+    return ring + st * (Cfg<DK, DV>::kTileK + Cfg<DK, DV>::kTileV);
+  }
 };
 
 // dK and dV of keys [k0, k0 + kB) of one (batch, kv head): q tiles [lo, hi)
 // of each of the group's q heads
-template <int HD>
+template <int DK, int DV>
 __device__ __forceinline__ void dkdv_item(const Params& p, float* smem, int bh, int kb, int lo,
                                           int hi) {
-  using C = Cfg<HD>;
-  constexpr int E2 = C::E2;
-  const Smem<HD> sm(smem);
+  using C = Cfg<DK, DV>;
+  constexpr int E2K = C::E2K, E2V = C::E2V;
+  const Smem<DK, DV> sm(smem);
   const int hk = bh % p.hkv, bi = bh / p.hkv, k0 = kb * kB;
-  load_tile<HD>(sm.res0, p.k + bi * p.ks.b + hk * p.ks.h, p.ks.s, k0, p.sk);
-  load_tile<HD>(sm.res1, p.v + bi * p.vs.b + hk * p.vs.h, p.vs.s, k0, p.sk);
+  load_tile<DK>(sm.res0, p.k + bi * p.ks.b + hk * p.ks.h, p.ks.s, k0, p.sk);
+  load_tile<DV>(sm.res1, p.v + bi * p.vs.b + hk * p.vs.h, p.vs.s, k0, p.sk);
   const int nq = hi - lo, n = p.group * nq;
   auto issue = [&](int step, int st) {  // q, dO, lse, delta of step `step` into stage st
     const int h = hk * p.group + step / nq, q0 = (lo + step % nq) * kB;
     float* qs = sm.stage(st);
-    load_tile<HD>(qs, p.q + bi * p.qs.b + h * p.qs.h, p.qs.s, q0, p.sq);
-    load_tile<HD>(qs + C::kTile, p.dout + bi * p.dos.b + h * p.dos.h, p.dos.s, q0, p.sq);
+    load_tile<DK>(qs, p.q + bi * p.qs.b + h * p.qs.h, p.qs.s, q0, p.sq);
+    load_tile<DV>(qs + C::kTileK, p.dout + bi * p.dos.b + h * p.dos.h, p.dos.s, q0, p.sq);
     const long long rows = ((long long)bi * p.hq + h) * p.sq;
     load_stats(sm.stats + 2 * kB * st, p.lse + rows, q0, p.sq);
     load_stats(sm.stats + 2 * kB * st + kB, p.delta + rows, q0, p.sq);
@@ -442,13 +476,18 @@ __device__ __forceinline__ void dkdv_item(const Params& p, float* smem, int bh, 
 
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int g = lane >> 2, t = lane & 3;
-  float adk[2][E2][4], adv[2][E2][4];
+  float adk[2][E2K][4], adv[2][E2V][4];
 #pragma unroll
-  for (int m = 0; m < 2; ++m)
+  for (int m = 0; m < 2; ++m) {
 #pragma unroll
-    for (int i = 0; i < E2; ++i)
+    for (int i = 0; i < E2K; ++i)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) adk[m][i][e] = adv[m][i][e] = 0.f;
+      for (int e = 0; e < 4; ++e) adk[m][i][e] = 0.f;
+#pragma unroll
+    for (int i = 0; i < E2V; ++i)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) adv[m][i][e] = 0.f;
+  }
 
   for (int it = 0; it < n; ++it) {
     const int st = it & 1;
@@ -457,57 +496,73 @@ __device__ __forceinline__ void dkdv_item(const Params& p, float* smem, int bh, 
     if (it + 1 < n) issue(it + 1, st ^ 1);
     cp_commit();
     const float* qsh = sm.stage(st);
-    const float* dosh = qsh + C::kTile;
+    const float* dosh = qsh + C::kTileK;
     const float* lse_sh = sm.stats + 2 * kB * st;
-    step_p_ds<HD>(p, qsh, dosh, sm.res0, sm.res1, lse_sh, lse_sh + kB, sm.pa, sm.pb, true,
-                  sm.xsh, sm.xch, (lo + it % nq) * kB, k0);
+    step_p_ds<DK, DV>(p, qsh, dosh, sm.res0, sm.res1, lse_sh, lse_sh + kB, sm.pa, sm.pb, true,
+                      sm.xsh, sm.xch, (lo + it % nq) * kB, k0);
     __syncthreads();  // P^T and dS^T are whole
-    if (warp < C::NW2) {
-      float step[2][E2][4];
-      product32<HD>(step, sm.pa, dosh + warp * C::DW, g, t);
-      add_into(adv, step);
-      product32<HD>(step, sm.pb, qsh + warp * C::DW, g, t);
-      add_into(adk, step);
+    if constexpr (DK == DV) {  // one step fragment for both products
+      if (warp < C::NWK) {
+        float step[2][E2K][4];
+        product32<C::LDV>(step, sm.pa, dosh + warp * C::DWV, g, t);
+        add_into(adv, step);
+        product32<C::LDK>(step, sm.pb, qsh + warp * C::DWK, g, t);
+        add_into(adk, step);
+      }
+    } else {
+      if (warp < C::NWV) {
+        float step[2][E2V][4];
+        product32<C::LDV>(step, sm.pa, dosh + warp * C::DWV, g, t);
+        add_into(adv, step);
+      }
+      if (warp < C::NWK) {
+        float step[2][E2K][4];
+        product32<C::LDK>(step, sm.pb, qsh + warp * C::DWK, g, t);
+        add_into(adk, step);
+      }
     }
   }
   cp_wait_all();  // where no step ran, the K / V copies are still in flight
-  if (warp < C::NW2) {
-    const int col = warp * C::DW + 2 * t * E2;
+  if (warp < C::NWK) {
+    const int col = warp * C::DWK + 2 * t * E2K;
     store_rows(p.dk + bi * p.dks.b + hk * p.dks.h + col, p.dks.s, k0, p.sk, adk, p.scale, g);
+  }
+  if (warp < C::NWV) {
+    const int col = warp * C::DWV + 2 * t * E2V;
     store_rows(p.dv + bi * p.dvs.b + hk * p.dvs.h + col, p.dvs.s, k0, p.sk, adv, 1.f, g);
   }
 }
 
 // dQ of q rows [q0, q0 + kB) of one (batch, q head): kv tiles [lo, hi)
-template <int HD>
+template <int DK, int DV>
 __device__ __forceinline__ void dq_item(const Params& p, float* smem, int bh, int qb, int lo,
                                         int hi) {
-  using C = Cfg<HD>;
-  constexpr int E2 = C::E2;
-  const Smem<HD> sm(smem);
+  using C = Cfg<DK, DV>;
+  constexpr int E2K = C::E2K;
+  const Smem<DK, DV> sm(smem);
   const int h = bh % p.hq, bi = bh / p.hq, hk = h / p.group, q0 = qb * kB;
   const long long rows = ((long long)bi * p.hq + h) * p.sq;
-  load_tile<HD>(sm.res0, p.q + bi * p.qs.b + h * p.qs.h, p.qs.s, q0, p.sq);
-  load_tile<HD>(sm.res1, p.dout + bi * p.dos.b + h * p.dos.h, p.dos.s, q0, p.sq);
+  load_tile<DK>(sm.res0, p.q + bi * p.qs.b + h * p.qs.h, p.qs.s, q0, p.sq);
+  load_tile<DV>(sm.res1, p.dout + bi * p.dos.b + h * p.dos.h, p.dos.s, q0, p.sq);
   load_stats(sm.stats, p.lse + rows, q0, p.sq);
   load_stats(sm.stats + kB, p.delta + rows, q0, p.sq);
   const int n = hi - lo;
   auto issue = [&](int step, int st) {  // K and V of kv tile lo + step into stage st
     const int k0 = (lo + step) * kB;
     float* ks = sm.stage(st);
-    load_tile<HD>(ks, p.k + bi * p.ks.b + hk * p.ks.h, p.ks.s, k0, p.sk);
-    load_tile<HD>(ks + C::kTile, p.v + bi * p.vs.b + hk * p.vs.h, p.vs.s, k0, p.sk);
+    load_tile<DK>(ks, p.k + bi * p.ks.b + hk * p.ks.h, p.ks.s, k0, p.sk);
+    load_tile<DV>(ks + C::kTileK, p.v + bi * p.vs.b + hk * p.vs.h, p.vs.s, k0, p.sk);
   };
   if (n > 0) issue(0, 0);
   cp_commit();
 
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int g = lane >> 2, t = lane & 3;
-  float adq[2][E2][4];
+  float adq[2][E2K][4];
 #pragma unroll
   for (int m = 0; m < 2; ++m)
 #pragma unroll
-    for (int i = 0; i < E2; ++i)
+    for (int i = 0; i < E2K; ++i)
 #pragma unroll
       for (int e = 0; e < 4; ++e) adq[m][i][e] = 0.f;
 
@@ -518,32 +573,32 @@ __device__ __forceinline__ void dq_item(const Params& p, float* smem, int bh, in
     if (it + 1 < n) issue(it + 1, st ^ 1);
     cp_commit();
     const float* ksh = sm.stage(st);
-    step_p_ds<HD>(p, sm.res0, sm.res1, ksh, ksh + C::kTile, sm.stats, sm.stats + kB, nullptr,
-                  sm.pa, false, sm.xsh, sm.xch, q0, (lo + it) * kB);
+    step_p_ds<DK, DV>(p, sm.res0, sm.res1, ksh, ksh + C::kTileK, sm.stats, sm.stats + kB,
+                      nullptr, sm.pa, false, sm.xsh, sm.xch, q0, (lo + it) * kB);
     __syncthreads();  // dS is whole
-    if (warp < C::NW2) {
-      float step[2][E2][4];
-      product32<HD>(step, sm.pa, ksh + warp * C::DW, g, t);
+    if (warp < C::NWK) {
+      float step[2][E2K][4];
+      product32<C::LDK>(step, sm.pa, ksh + warp * C::DWK, g, t);
       add_into(adq, step);
     }
   }
   cp_wait_all();  // where no step ran, the q / dO copies are still in flight
-  if (warp < C::NW2) {
-    const int col = warp * C::DW + 2 * t * E2;
+  if (warp < C::NWK) {
+    const int col = warp * C::DWK + 2 * t * E2K;
     store_rows(p.dq + bi * p.dqs.b + h * p.dqs.h + col, p.dqs.s, q0, p.sq, adq, p.scale, g);
   }
 }
 
-template <int HD>
-__global__ void __launch_bounds__(kThreads, Cfg<HD>::kMinBlocks)
+template <int DK, int DV>
+__global__ void __launch_bounds__(kThreads, Cfg<DK, DV>::kMinBlocks)
 flash_bwd_kernel(const Params p) {
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   const int4 item = p.items[blockIdx.x];
   if (item.x & 1)
-    dq_item<HD>(p, smem, item.y, item.x >> 1, item.z, item.w);
+    dq_item<DK, DV>(p, smem, item.y, item.x >> 1, item.z, item.w);
   else
-    dkdv_item<HD>(p, smem, item.y, item.x >> 1, item.z, item.w);
+    dkdv_item<DK, DV>(p, smem, item.y, item.x >> 1, item.z, item.w);
 }
 
 __device__ __forceinline__ float dot4(float4 a, float4 b, float acc) {
@@ -553,8 +608,9 @@ __device__ __forceinline__ float dot4(float4 a, float4 b, float acc) {
   return fmaf(a.w, b.w, acc);
 }
 
-// delta[b, h, i] = sum_d dO[b, h, i, d] * o[b, h, i, d]: one warp per row
-template <int HD>
+// delta[b, h, i] = sum_d dO[b, h, i, d] * o[b, h, i, d] over v's DV
+// columns: one warp per row
+template <int DV>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_delta_kernel(const float* __restrict__ o, const float* __restrict__ dout,
                        float* __restrict__ delta, int hq, int sq, long long rows,
@@ -567,7 +623,7 @@ flash_bwd_delta_kernel(const float* __restrict__ o, const float* __restrict__ do
   const float* orow = o + bi * os.b + h * os.h + i * os.s;
   const float* drow = dout + bi * dos.b + h * dos.h + i * dos.s;
   float acc = 0.f;
-  for (int d = 4 * lane; d < HD; d += 128)
+  for (int d = 4 * lane; d < DV; d += 128)
     acc = dot4(*reinterpret_cast<const float4*>(orow + d),
                *reinterpret_cast<const float4*>(drow + d), acc);
 #pragma unroll
@@ -575,40 +631,42 @@ flash_bwd_delta_kernel(const float* __restrict__ o, const float* __restrict__ do
   if (lane == 0) delta[row] = acc;
 }
 
-template <int HD>
+template <int DK, int DV>
 int launch(const Params& p, const float* o, Strides os, float* delta, int batch, int n_items,
            cudaStream_t stream) {
-  constexpr int smem = Cfg<HD>::smem;
+  constexpr int smem = Cfg<DK, DV>::smem;
   // the opt-in above 48 KB is set once per process and instantiation
   static bool opted = false;
   if (!opted) {
     const cudaError_t err = cudaFuncSetAttribute(
-        flash_bwd_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+        flash_bwd_kernel<DK, DV>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return (int)err;
     opted = true;
   }
   const long long rows = (long long)batch * p.hq * p.sq;
-  flash_bwd_delta_kernel<HD><<<(unsigned)((rows + kWarps - 1) / kWarps), kThreads, 0,
+  flash_bwd_delta_kernel<DV><<<(unsigned)((rows + kWarps - 1) / kWarps), kThreads, 0,
                                stream>>>(o, p.dout, delta, p.hq, p.sq, rows, os, p.dos);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  flash_bwd_kernel<HD><<<n_items, kThreads, smem, stream>>>(p);
+  flash_bwd_kernel<DK, DV><<<n_items, kThreads, smem, stream>>>(p);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// q, o, dO, dq (batch, hq, sq, hd); k, v, dk, dv (batch, hkv, sk, hd); each
-// addressed by its (batch, head, sequence) strides in elements with hd
-// contiguous, pointers and strides 16-byte aligned; lse (the forward's) and
-// the scratch delta (batch, hq, sq) contiguous f32; hd in {16, 32, 64, 80,
-// 112, 128, 256}; hq a multiple of hkv; `items` the wrapper's work list,
-// n_items int4s (`backward.work_list`), which must cover every output row.
-// Launches two kernels on `stream`; returns the first CUDA error.
+// q, dq (batch, hq, sq, hd); o, dO (batch, hq, sq, vd); k, dk (batch, hkv,
+// sk, hd); v, dv (batch, hkv, sk, vd); each addressed by its (batch, head,
+// sequence) strides in elements with the head dim contiguous, pointers and
+// strides 16-byte aligned; lse (the forward's) and the scratch delta (batch,
+// hq, sq) contiguous f32; (hd, vd) one of (16, 16), (32, 32), (56, 56), (64,
+// 64), (80, 80), (112, 112), (128, 128), (192, 128), (256, 256); hq a
+// multiple of hkv; `items` the wrapper's work list, n_items int4s
+// (`backward.work_list`), which must cover every output row.  Launches two
+// kernels on `stream`; returns the first CUDA error.
 extern "C" int flash_attention_bwd_launch(
     const float* q, const float* k, const float* v, const float* o, const float* lse,
     const float* dout, float* dq, float* dk, float* dv, float* delta, const void* items,
-    int n_items, int batch, int hq, int hkv, int sq, int sk, int hd, long long q_sb,
+    int n_items, int batch, int hq, int hkv, int sq, int sk, int hd, int vd, long long q_sb,
     long long q_sh, long long q_ss, long long k_sb, long long k_sh, long long k_ss,
     long long v_sb, long long v_sh, long long v_ss, long long o_sb, long long o_sh,
     long long o_ss, long long do_sb, long long do_sh, long long do_ss, long long dq_sb,
@@ -628,14 +686,17 @@ extern "C" int flash_attention_bwd_launch(
   p.dks = {dk_sb, dk_sh, dk_ss}; p.dvs = {dv_sb, dv_sh, dv_ss};
   const Strides os{o_sb, o_sh, o_ss};
   cudaStream_t s = (cudaStream_t)stream;
-  switch (hd) {
-    case 16: return launch<16>(p, o, os, delta, batch, n_items, s);
-    case 32: return launch<32>(p, o, os, delta, batch, n_items, s);
-    case 64: return launch<64>(p, o, os, delta, batch, n_items, s);
-    case 80: return launch<80>(p, o, os, delta, batch, n_items, s);
-    case 112: return launch<112>(p, o, os, delta, batch, n_items, s);
-    case 128: return launch<128>(p, o, os, delta, batch, n_items, s);
-    case 256: return launch<256>(p, o, os, delta, batch, n_items, s);
-    default: return (int)cudaErrorInvalidValue;
-  }
+#define FLASH_BWD_CASE(DK, DV) \
+  if (hd == DK && vd == DV) return launch<DK, DV>(p, o, os, delta, batch, n_items, s);
+  FLASH_BWD_CASE(16, 16)
+  FLASH_BWD_CASE(32, 32)
+  FLASH_BWD_CASE(56, 56)
+  FLASH_BWD_CASE(64, 64)
+  FLASH_BWD_CASE(80, 80)
+  FLASH_BWD_CASE(112, 112)
+  FLASH_BWD_CASE(128, 128)
+  FLASH_BWD_CASE(192, 128)
+  FLASH_BWD_CASE(256, 256)
+#undef FLASH_BWD_CASE
+  return (int)cudaErrorInvalidValue;
 }

@@ -24,7 +24,8 @@ def band_mask(sq: int, sk: int, *, causal: bool, window: int, device) -> torch.T
 
 
 def _scores(q: torch.Tensor, k: torch.Tensor, causal: bool, window: int):
-    """Masked scaled scores (B, Hq, Sq, Sk) in f32 and the mask."""
+    """Masked scaled scores (B, Hq, Sq, Sk) in f32 and the mask; the scale
+    is q's hd^-0.5."""
     hq, sq, hd = q.shape[1], q.shape[2], q.shape[3]
     hkv, sk = k.shape[1], k.shape[2]
     k = k.repeat_interleave(hq // hkv, dim=1)
@@ -36,14 +37,15 @@ def _scores(q: torch.Tensor, k: torch.Tensor, causal: bool, window: int):
 def attention_ref(
     q: torch.Tensor,  # (B, Hq, Sq, hd)
     k: torch.Tensor,  # (B, Hkv, Sk, hd)
-    v: torch.Tensor,
+    v: torch.Tensor,  # (B, Hkv, Sk, vd)
     *,
     causal: bool = True,
     window: int = 0,
 ) -> torch.Tensor:
     """Masked softmax attention in f32 with the flash kernel's semantics:
-    kv head = q head // (Hq / Hkv), scale hd^-0.5, positions are indices
-    (`band_mask`), and a fully masked row gives 0."""
+    kv head = q head // (Hq / Hkv), scale q's hd^-0.5 (v's vd may differ,
+    as in MLA), positions are indices (`band_mask`), and a fully masked
+    row gives 0.  Returns (B, Hq, Sq, vd)."""
     s, _ = _scores(q, k, causal, window)
     v = v.repeat_interleave(q.shape[1] // k.shape[1], dim=1)
     p = torch.softmax(s, dim=-1)
@@ -64,10 +66,10 @@ def lse_ref(
 def flash_attention_bwd_ref(
     q: torch.Tensor,  # (B, Hq, Sq, hd)
     k: torch.Tensor,  # (B, Hkv, Sk, hd)
-    v: torch.Tensor,
-    o: torch.Tensor,  # (B, Hq, Sq, hd), the forward's output
+    v: torch.Tensor,  # (B, Hkv, Sk, vd)
+    o: torch.Tensor,  # (B, Hq, Sq, vd), the forward's output
     lse: torch.Tensor,  # (B, Hq, Sq), the forward's log-sum-exp
-    do: torch.Tensor,  # (B, Hq, Sq, hd), the gradient of o
+    do: torch.Tensor,  # (B, Hq, Sq, vd), the gradient of o
     *,
     causal: bool = True,
     window: int = 0,
@@ -76,15 +78,16 @@ def flash_attention_bwd_ref(
     (`src/repro/models/flash_attention.py`) in one dense pass: P is
     recomputed from q, k and the forward's `lse` (never from a stored
     softmax), delta = rowsum(dO o), dS = P (dO v^T - delta); a kv head's
-    gradients sum over its q heads.  f32 throughout."""
+    gradients sum over its q heads; the scale is q's hd^-0.5.  f32
+    throughout."""
     b, hq, sq, hd = q.shape
-    hkv, sk = k.shape[1], k.shape[2]
+    hkv, sk, vd = k.shape[1], k.shape[2], v.shape[3]
     g = hq // hkv
     scale = hd ** -0.5
     qf = (q.float() * scale).reshape(b, hkv, g, sq, hd)
     kf, vf = k.float(), v.float()
-    dof = do.float().reshape(b, hkv, g, sq, hd)
-    of = o.float().reshape(b, hkv, g, sq, hd)
+    dof = do.float().reshape(b, hkv, g, sq, vd)
+    of = o.float().reshape(b, hkv, g, sq, vd)
     delta = (dof * of).sum(-1)  # (B, Hkv, g, Sq)
     s = torch.einsum("bhgqd,bhkd->bhgqk", qf, kf)
     ok = band_mask(sq, sk, causal=causal, window=window, device=q.device)

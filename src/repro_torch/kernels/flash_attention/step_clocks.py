@@ -57,8 +57,9 @@ def instrument(text: str) -> str:
     text = _edit(text, "                                          int k0) {", (
         "                                          int k0, unsigned long long* tc = nullptr,\n"
         "                                          unsigned long long last = 0) {"))
-    text = _edit(text, "                  (is_s ? ksh : vsh) + hf * (HD / 2), g, t);",
-                 "                  (is_s ? ksh : vsh) + hf * (HD / 2), g, t);\n  MARK(2);")
+    pv_half = ("    scores_half<C::PV>(part, dosh + 16 * rh * C::LDV + hf * (C::PV / 2), "
+               "vsh + hf * (C::PV / 2),\n                       g, t);")
+    text = _edit(text, pv_half, pv_half + "\n  MARK(2);")
     text = _edit(text, "  float* x = xsh + pair * 8 * 32 + lane;",
                  "  MARK(3);\n  float* x = xsh + pair * 8 * 32 + lane;")
     text = _edit(text, (
@@ -85,20 +86,20 @@ def instrument(text: str) -> str:
         "    MARK(1);\n"
         "    const float* qsh"))
     text = _edit(text, (
-        "                  sm.xsh, sm.xch, (lo + it % nq) * kB, k0);\n"
+        "                      sm.xsh, sm.xch, (lo + it % nq) * kB, k0);\n"
         "    __syncthreads();  // P^T and dS^T are whole"), (
-        "                  sm.xsh, sm.xch, (lo + it % nq) * kB, k0, tc, last);\n"
+        "                      sm.xsh, sm.xch, (lo + it % nq) * kB, k0, tc, last);\n"
         "    last = clock64();\n"
         "    __syncthreads();  // P^T and dS^T are whole\n"
         "    MARK(5);"))
     text = _edit(text, (
-        "      product32<HD>(step, sm.pb, qsh + warp * C::DW, g, t);\n"
-        "      add_into(adk, step);\n    }\n  }"), (
-        "      product32<HD>(step, sm.pb, qsh + warp * C::DW, g, t);\n"
-        "      add_into(adk, step);\n    }\n    MARK(6);\n  }\n"
+        "        add_into(adk, step);\n      }\n    }\n  }\n"
+        "  cp_wait_all();  // where no step ran, the K / V copies"), (
+        "        add_into(adk, step);\n      }\n    }\n    MARK(6);\n  }\n"
         "  if (blockIdx.x == 0 && (threadIdx.x == 0 || threadIdx.x == 160)) {\n"
         "    for (int i = 0; i < 7; ++i) g_clocks[threadIdx.x == 160][i] = tcs[i];\n"
-        "    g_clocks[threadIdx.x == 160][7] = n;\n  }"))
+        "    g_clocks[threadIdx.x == 160][7] = n;\n  }\n"
+        "  cp_wait_all();  // where no step ran, the K / V copies"))
     return text + """
 extern "C" int bwd_clocks(unsigned long long* out) {
   return (int)cudaMemcpyFromSymbol(out, g_clocks, sizeof(g_clocks));

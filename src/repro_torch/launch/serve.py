@@ -2,10 +2,15 @@
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma3-1b --requests 16
     PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-1.3b --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch deepseek-v3-671b --reduced \
+        --device cpu
 
 Runs on the CUDA card unless `--device` names another device.  The model
 is the architecture's reduced (smoke) configuration with random weights
-from `--seed`.
+from `--seed` (`--reduced`, the training launcher's flag, says so and
+changes nothing).  The engine takes any stack the port builds: a
+deepseek-v3-671b layer's cache holds MLA's latents (`c_kv`, `k_rope`,
+`pos`) where a GQA layer's holds k and v.
 """
 
 from __future__ import annotations
@@ -27,6 +32,8 @@ def main(argv=None):
     ap.add_argument("--max-new", type=int, default=24)
     ap.add_argument("--max-batch", type=int, default=8)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--reduced", action="store_true",
+                    help="the reduced config (always: this launcher serves no other)")
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda; raises without a card)")
     args = ap.parse_args(argv)

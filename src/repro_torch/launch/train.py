@@ -15,8 +15,10 @@ counterpart, so this process is the whole job.  Fault tolerance
 (restore-on-failure, SIGTERM save) lives in `repro_torch.train.loop`.
 
 `main` returns the final train state and one record per step (step,
-loss, grad_norm, seconds; and moe_aux, moe_z, the MoE aux losses summed
-over the stack, where the step reports them).
+loss, grad_norm, seconds; and, where the step reports them, nll, the
+main NLL, moe_aux and moe_z, the MoE aux losses summed over the stack,
+and mtp_nll, the MTP head's NLL of an MTP config such as
+deepseek-v3-671b).
 """
 
 from __future__ import annotations
@@ -31,6 +33,10 @@ from repro_torch.data.pipeline import DataConfig, TokenStream
 from repro_torch.optim.adamw import AdamWConfig
 from repro_torch.train.loop import LoopConfig, train_loop
 from repro_torch.train.step import TrainConfig, init_train_state, make_train_step
+
+
+# the step's metrics a record carries where the step reports them
+RECORDED = ("nll", "moe_aux", "moe_z", "mtp_nll")
 
 
 def main(argv=None) -> Tuple[Dict, List[Dict[str, float]]]:
@@ -75,8 +81,7 @@ def main(argv=None) -> Tuple[Dict, List[Dict[str, float]]]:
     def record(step, metrics, dt):
         history.append(dict(step=step, loss=float(metrics["loss"]),
                             grad_norm=float(metrics["grad_norm"]), seconds=dt,
-                            **{k: float(metrics[k]) for k in ("moe_aux", "moe_z")
-                               if k in metrics}))
+                            **{k: float(metrics[k]) for k in RECORDED if k in metrics}))
 
     state = train_loop(
         state=state,

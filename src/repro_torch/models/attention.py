@@ -1,4 +1,5 @@
-"""Attention: GQA (+bias, +qk-norm, +sliding window), prefill and decode.
+"""Attention: GQA (+bias, +qk-norm, +sliding window) and MLA, prefill and
+decode.
 
 Prefill runs full-sequence attention through the flash-attention kernel
 (its plain version on the CPU); under grad (training) it goes through
@@ -8,7 +9,14 @@ masked pass (the reference's one-shot path of `chunked_attention`), in
 plain torch.  Local layers keep a ring buffer of `window` slots, global
 layers a dense `max_len` cache; `pos < 0` marks an empty slot.
 
-MLA (DeepSeek-V3's latent attention) is not ported yet.
+MLA (DeepSeek-V3's multi-head latent attention) projects x to a q
+latent and a kv latent (`c_kv`, kv_lora_rank wide) plus one shared
+rotary key (`k_rope`); prefill and training expand the latent to
+per-head k (nope + rope dims, 192 at full width) and v (128) and run the
+same flash kernel as GQA, at q/k and v head dims apart.  Its decode cache
+holds only the latents (`c_kv`, `k_rope`, `pos`), and decode is the
+weight-absorbed form (`mla_decode_absorbed`): the reference's default
+(`mla_absorb=True`), the only decode the port has.
 
 Caches are updated in place at decode (one slot per step), where the
 reference returns a new cache: it saves copying every cache each step.
@@ -20,7 +28,7 @@ from typing import Dict, Tuple
 
 import torch
 
-from repro_torch.configs.base import ArchConfig
+from repro_torch.configs.base import ArchConfig, MLAConfig
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.models import flash_attention as flash_grad
 from repro_torch.models.common import apply_rotary, dense_init, rms_norm
@@ -31,11 +39,11 @@ Cache = Dict[str, torch.Tensor]
 def full_attention(
     q: torch.Tensor,  # (B, S, Hq, hd)
     k: torch.Tensor,  # (B, S, Hkv, hd)
-    v: torch.Tensor,
+    v: torch.Tensor,  # (B, S, Hkv, vd): vd may differ from hd (MLA)
     *,
     window: int = 0,
 ) -> torch.Tensor:
-    """Causal prefill self-attention, (B, S, Hq, hd).  Every row's positions are
+    """Causal prefill self-attention, (B, S, Hq, vd), scale hd^-0.5.  Every row's positions are
     0..S-1 (`lm_prefill` builds them so), so the kernel's index masks are
     the reference's position masks.  The (B, H, S, hd) views handed to the
     kernel are transposes of the model's layout; it reads them in place
@@ -221,3 +229,130 @@ def attn_decode(
         window=int(window or 0),
     )
     return out.reshape(b, 1, -1) @ p["wo"], cache
+
+
+# ---------------------------------------------------------------------------
+# MLA (DeepSeek-V3 multi-head latent attention)
+# ---------------------------------------------------------------------------
+
+
+def init_mla(gen, cfg: ArchConfig, dtype, device) -> Dict[str, torch.Tensor]:
+    m: MLAConfig = cfg.mla
+    d, h = cfg.d_model, cfg.n_heads
+    qd = m.qk_nope_dim + m.qk_rope_dim
+    return {
+        "wq_a": dense_init(gen, (d, m.q_lora_rank), dtype, device),
+        "q_a_norm": torch.zeros((m.q_lora_rank,), dtype=dtype, device=device),
+        "wq_b": dense_init(gen, (m.q_lora_rank, h * qd), dtype, device),
+        "wkv_a": dense_init(gen, (d, m.kv_lora_rank + m.qk_rope_dim), dtype, device),
+        "kv_a_norm": torch.zeros((m.kv_lora_rank,), dtype=dtype, device=device),
+        "wk_b": dense_init(gen, (m.kv_lora_rank, h * m.qk_nope_dim), dtype, device),
+        "wv_b": dense_init(gen, (m.kv_lora_rank, h * m.v_head_dim), dtype, device),
+        "wo": dense_init(gen, (h * m.v_head_dim, d), dtype, device),
+    }
+
+
+def _mla_q(p, x: torch.Tensor, positions: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
+    """x -> q (B, S, H, nope + rope), its rope part rotated."""
+    m: MLAConfig = cfg.mla
+    b, s = x.shape[:2]
+    cq = rms_norm(x @ p["wq_a"], p["q_a_norm"], cfg.norm_eps)
+    q = (cq @ p["wq_b"]).reshape(b, s, cfg.n_heads, m.qk_nope_dim + m.qk_rope_dim)
+    q_nope, q_rope = q[..., : m.qk_nope_dim], q[..., m.qk_nope_dim :]
+    return torch.cat([q_nope, apply_rotary(q_rope, positions, cfg.rope_theta)], dim=-1)
+
+
+def _mla_kv_latent(p, x: torch.Tensor, positions: torch.Tensor, cfg: ArchConfig):
+    """x -> (c_kv normalised latent (B, S, kv_lora_rank), k_rope rotated
+    (B, S, rope)): the decode cache's contents."""
+    m: MLAConfig = cfg.mla
+    ckv = x @ p["wkv_a"]
+    c_kv = rms_norm(ckv[..., : m.kv_lora_rank], p["kv_a_norm"], cfg.norm_eps)
+    k_rope = apply_rotary(ckv[..., m.kv_lora_rank :][:, :, None, :], positions, cfg.rope_theta)
+    return c_kv, k_rope[:, :, 0, :]
+
+
+def _mla_expand(p, c_kv: torch.Tensor, k_rope: torch.Tensor, cfg: ArchConfig):
+    """latents -> per-head k (B, S, H, nope + rope), the rope part shared
+    by every head, and v (B, S, H, v_head_dim)."""
+    m: MLAConfig = cfg.mla
+    b, s = c_kv.shape[:2]
+    h = cfg.n_heads
+    k_nope = (c_kv @ p["wk_b"]).reshape(b, s, h, m.qk_nope_dim)
+    v = (c_kv @ p["wv_b"]).reshape(b, s, h, m.v_head_dim)
+    k = torch.cat([k_nope, k_rope[:, :, None, :].expand(b, s, h, m.qk_rope_dim)], dim=-1)
+    return k, v
+
+
+def mla_forward(p, x: torch.Tensor, positions: torch.Tensor, cfg: ArchConfig, *,
+                return_latent: bool = False):
+    """Full-sequence causal MLA (training, prefill): the flash kernel at
+    q/k head dim nope + rope and v head dim v_head_dim, scale (nope +
+    rope)^-0.5."""
+    b, s = x.shape[:2]
+    q = _mla_q(p, x, positions, cfg)
+    c_kv, k_rope = _mla_kv_latent(p, x, positions, cfg)
+    k, v = _mla_expand(p, c_kv, k_rope, cfg)
+    y = full_attention(q, k, v).reshape(b, s, -1) @ p["wo"]
+    if return_latent:
+        return y, (c_kv, k_rope)
+    return y
+
+
+def init_mla_cache(cfg: ArchConfig, batch: int, max_len: int, dtype, device) -> Cache:
+    m: MLAConfig = cfg.mla
+    return {
+        "c_kv": torch.zeros((batch, max_len, m.kv_lora_rank), dtype=dtype, device=device),
+        "k_rope": torch.zeros((batch, max_len, m.qk_rope_dim), dtype=dtype, device=device),
+        "pos": torch.full((batch, max_len), -1, dtype=torch.int32, device=device),
+    }
+
+
+def fill_mla_cache(cache: Cache, c_kv: torch.Tensor, k_rope: torch.Tensor,
+                   positions: torch.Tensor) -> Cache:
+    """Write the prefill's latents (length S <= max_len) into the cache."""
+    s = c_kv.shape[1]
+    cache["c_kv"][:, :s] = c_kv
+    cache["k_rope"][:, :s] = k_rope
+    cache["pos"][:, :s] = positions.to(torch.int32)
+    return cache
+
+
+def mla_decode(p, x: torch.Tensor, pos: int, cache: Cache,
+               cfg: ArchConfig) -> Tuple[torch.Tensor, Cache]:
+    """One decode step: the step's latents go to slot `pos`, then the
+    absorbed attention over the cache."""
+    b = x.shape[0]
+    positions = torch.full((b, 1), pos, dtype=torch.int32, device=x.device)
+    q = _mla_q(p, x, positions, cfg)
+    c_kv, k_rope = _mla_kv_latent(p, x, positions, cfg)
+    cache["c_kv"][:, pos] = c_kv[:, 0]
+    cache["k_rope"][:, pos] = k_rope[:, 0]
+    cache["pos"][:, pos] = pos
+    return mla_decode_absorbed(p, q, cache, cfg), cache
+
+
+def mla_decode_absorbed(p, q: torch.Tensor, cache: Cache, cfg: ArchConfig) -> torch.Tensor:
+    """Weight-absorbed MLA decode (DeepSeek-V3's inference form), in the
+    kv_lora_rank-wide latent space:
+        s = (q_nope W_uk) . c_kv + q_rope . k_rope
+        o = (softmax(s) c_kv) W_uv, per head
+    over the cache's filled slots (pos >= 0), scale (nope + rope)^-0.5.
+    Plain einsums, as the reference leaves them to XLA.  q: (B, 1, H,
+    nope + rope); returns (B, 1, D)."""
+    m: MLAConfig = cfg.mla
+    b, h = q.shape[0], cfg.n_heads
+    q_nope, q_rope = q[..., : m.qk_nope_dim], q[..., m.qk_nope_dim :]
+    wk = p["wk_b"].reshape(m.kv_lora_rank, h, m.qk_nope_dim)
+    q_lat = torch.einsum("bqhn,rhn->bqhr", q_nope, wk)
+    ckv, kr = cache["c_kv"], cache["k_rope"]
+    s = (torch.einsum("bqhr,bsr->bhqs", q_lat, ckv)
+         + torch.einsum("bqhn,bsn->bhqs", q_rope, kr))
+    s = s * (m.qk_nope_dim + m.qk_rope_dim) ** -0.5
+    valid = (cache["pos"] >= 0)[:, None, None, :]
+    w = torch.softmax(s.float().masked_fill(~valid, float("-inf")), dim=-1)
+    w = torch.where(valid, w, torch.zeros_like(w)).to(ckv.dtype)
+    o_lat = torch.einsum("bhqs,bsr->bqhr", w, ckv)
+    wv = p["wv_b"].reshape(m.kv_lora_rank, h, m.v_head_dim)
+    o = torch.einsum("bqhr,rhv->bqhv", o_lat, wv).reshape(b, 1, h * m.v_head_dim)
+    return o.to(q.dtype) @ p["wo"]

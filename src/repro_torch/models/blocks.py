@@ -16,7 +16,9 @@ with `remat` each super-block runs under `torch.utils.checkpoint` (the
 reference's `jax.checkpoint(body)` over one scan step), so the backward
 recomputes a super-block's activations instead of storing them.
 
-Ported mixers: GQA attention ("attn"), "mamba", and zamba2's
+Ported mixers: GQA attention ("attn"), DeepSeek-V3's latent attention
+("mla", `attention.mla_forward`; its cache holds the latents and its
+decode is the absorbed form), "mamba", and zamba2's
 "shared_attn": one attention block and one dense MLP whose weights live
 at model level (`shared`, ``{"attn": ..., "mlp": ...}``), invoked every
 `period` layers with the invocation's own norms and low-rank q / k / v
@@ -27,9 +29,10 @@ the dense-family plan does for an MoE config (moonshot-v1-16b-a3b), and
 the decode step calls the same `moe_forward` on its (B, 1, D) input.
 Under `remat` the shared weights are closure inputs of every
 super-block's checkpointed body (`use_reentrant=False` differentiates
-those too), so their gradient sums over the invocations.  Architectures
-with MLA, an encoder-decoder or an MTP head raise NotImplementedError
-when their plan is built, naming the ROADMAP item that ports them.
+those too), so their gradient sums over the invocations.  An
+encoder-decoder architecture raises NotImplementedError when its plan is
+built, naming the ROADMAP item that ports it.  (DeepSeek-V3's MTP head
+is model-level: `lm.init_lm` builds it, `lm.lm_loss` runs it.)
 """
 
 from __future__ import annotations
@@ -47,12 +50,12 @@ from repro_torch.models import mlp as mlp_mod
 from repro_torch.models import moe as moe_mod
 from repro_torch.models.common import rms_norm
 
-NOT_PORTED = "ROADMAP §1, the remaining LM families"
+NOT_PORTED = "ROADMAP §1, the remaining LM families (the encoder-decoder)"
 
 
 @dataclasses.dataclass(frozen=True)
 class LayerSpec:
-    mixer: str  # "attn" | "mamba" | "shared_attn"
+    mixer: str  # "attn" | "mla" | "mamba" | "shared_attn"
     window: int = 0  # 0 = global
     moe: bool = False  # the MLP is a mixture of experts
     has_mlp: bool = True  # mamba blocks carry no MLP
@@ -66,14 +69,8 @@ class GroupSpec:
 
 def check_ported(cfg: ArchConfig) -> None:
     """Raise for an architecture whose layers or heads are not ported."""
-    missing = [name for name, present in (
-        ("MLA", cfg.mla), ("encoder-decoder", cfg.is_encoder_decoder),
-        ("MTP", cfg.mtp),
-    ) if present]
-    if missing:
-        raise NotImplementedError(
-            f"{cfg.name}: {', '.join(missing)} not ported: {NOT_PORTED}"
-        )
+    if cfg.is_encoder_decoder:
+        raise NotImplementedError(f"{cfg.name}: encoder-decoder not ported: {NOT_PORTED}")
 
 
 def build_stack_plan(cfg: ArchConfig) -> Tuple[GroupSpec, ...]:
@@ -105,7 +102,8 @@ def build_stack_plan(cfg: ArchConfig) -> Tuple[GroupSpec, ...]:
             groups.append(GroupSpec(1, (local,) * rem))
         return tuple(groups)
 
-    return (GroupSpec(n, (LayerSpec(mixer="attn", moe=bool(cfg.moe)),)),)
+    mixer = "mla" if cfg.mla else "attn"
+    return (GroupSpec(n, (LayerSpec(mixer=mixer, moe=bool(cfg.moe)),)),)
 
 
 def plan_layer_specs(plan: Tuple[GroupSpec, ...]) -> Tuple[LayerSpec, ...]:
@@ -127,6 +125,8 @@ def init_layer(gen, spec: LayerSpec, cfg: ArchConfig, dtype, device) -> Dict:
     p: Dict = {"ln1": torch.zeros((d,), dtype=dtype, device=device)}
     if spec.mixer == "attn":
         p["attn"] = attn_mod.init_attn(gen, cfg, dtype, device)
+    elif spec.mixer == "mla":
+        p["attn"] = attn_mod.init_mla(gen, cfg, dtype, device)
     elif spec.mixer == "mamba":
         p["mamba"] = mamba_mod.init_mamba(gen, cfg, dtype, device)
     elif spec.mixer == "shared_attn":
@@ -194,6 +194,14 @@ def apply_layer(
             cache = attn_mod.fill_kv_cache(cache, k, v, positions)
         else:
             y = attn_mod.attn_forward(ap, h, positions, cfg, window=spec.window)
+    elif spec.mixer == "mla":
+        if build_cache_len is not None:
+            y, (c_kv, k_rope) = attn_mod.mla_forward(
+                p["attn"], h, positions, cfg, return_latent=True)
+            cache = attn_mod.init_mla_cache(cfg, x.shape[0], build_cache_len, x.dtype, x.device)
+            cache = attn_mod.fill_mla_cache(cache, c_kv, k_rope, positions)
+        else:
+            y = attn_mod.mla_forward(p["attn"], h, positions, cfg)
     elif build_cache_len is not None:
         y, cache = mamba_mod.mamba_forward(p["mamba"], h, cfg, return_state=True)
     else:
@@ -266,6 +274,8 @@ def apply_layer_decode(
     if spec.mixer in ("attn", "shared_attn"):
         ap = _merge_shared_attn(shared, p) if spec.mixer == "shared_attn" else p["attn"]
         y, cache = attn_mod.attn_decode(ap, h, pos, cache, cfg, window=spec.window)
+    elif spec.mixer == "mla":
+        y, cache = attn_mod.mla_decode(p["attn"], h, pos, cache, cfg)
     else:
         y, cache = mamba_mod.mamba_decode(p["mamba"], h, cache, cfg)
     x = x + y

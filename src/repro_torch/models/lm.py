@@ -13,12 +13,12 @@ state is ``{"layers": [cache per layer]}``; caches are updated in place.
 Serving runs under `inference_mode`; `lm_loss` is the one entry point
 that builds an autograd graph.
 
-Ported: decoder-only stacks of GQA attention (dense SwiGLU MLP or a
-mixture of experts) and mamba layers, with tied or untied heads, and
-zamba2's shared attention block with per-invocation LoRA -- the dense
-configs, moonshot-v1-16b-a3b, mamba2-1.3b and zamba2-7b among the
-registered architectures.  MLA, the encoder-decoder and MTP raise
-NotImplementedError.
+Ported: decoder-only stacks of GQA attention or MLA (dense SwiGLU MLP or
+a mixture of experts) and mamba layers, with tied or untied heads,
+zamba2's shared attention block with per-invocation LoRA, and
+DeepSeek-V3's multi-token-prediction head (`mtp`, trained by `lm_loss`,
+never served) -- every registered architecture but the encoder-decoder
+(seamless-m4t-medium), which raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -41,13 +41,19 @@ from repro_torch.models.common import (
 
 State = Dict[str, List[Dict[str, torch.Tensor]]]
 
+# the MTP head's block: one GQA attention layer with a dense MLP, at the
+# config's own head dim (d_model // n_heads: 56 for deepseek-v3-671b)
+MTP_SPEC = blocks.LayerSpec(mixer="attn")
+MTP_WEIGHT = 0.3  # the MTP loss's weight in the total
+
 
 class LM(Params):
     """A language model's parameters (`embed`, `layers` -- one `Params`
     per layer, in stack order --, `final_norm`, `lm_head` when untied,
     `shared` -- zamba2's shared attention and MLP -- when the config has
-    a shared-attention period) with its config and the per-layer specs of
-    its stack plan."""
+    a shared-attention period, `mtp` -- DeepSeek-V3's MTP head: `proj`,
+    `norm_h`, `norm_e` and an attention `block` -- when the config has
+    one) with its config and the per-layer specs of its stack plan."""
 
     def __init__(self, cfg: ArchConfig, tree: Dict):
         layers = tree["layers"]
@@ -63,6 +69,8 @@ class LM(Params):
         )
         if bool(cfg.shared_attn_period) != ("shared" in self):
             raise ValueError(f"{cfg.name}: a shared block goes with a shared-attention period")
+        if bool(cfg.mtp) != ("mtp" in self):
+            raise ValueError(f"{cfg.name}: an MTP head goes with `mtp` in the config")
 
     @property
     def device(self) -> torch.device:
@@ -94,6 +102,13 @@ def init_lm(cfg: ArchConfig, seed: int = 0, device: DeviceLike = None) -> LM:
         tree["lm_head"] = dense_init(gen, (cfg.d_model, vpad), dtype, dev)
     if cfg.shared_attn_period:
         tree["shared"] = blocks.init_shared(gen, cfg, dtype, dev)
+    if cfg.mtp:
+        tree["mtp"] = {
+            "proj": dense_init(gen, (2 * cfg.d_model, cfg.d_model), dtype, dev),
+            "norm_h": torch.zeros((cfg.d_model,), dtype=dtype, device=dev),
+            "norm_e": torch.zeros((cfg.d_model,), dtype=dtype, device=dev),
+            "block": blocks.init_layer(gen, MTP_SPEC, cfg, dtype, dev),
+        }
     return LM(cfg, tree)
 
 
@@ -118,17 +133,38 @@ def lm_loss(
     ``mask``) plus the MoE aux losses summed over the stack, and the
     reference's metrics (``nll``, ``moe_aux``, ``moe_z``, ``loss``; the
     MoE terms are 0 without experts).  With `remat` each super-block's
-    activations are recomputed in the backward."""
+    activations are recomputed in the backward (the MTP head's block is
+    not, as in the reference).
+
+    With an MTP head (DeepSeek-V3) the loss adds 0.3 x ``mtp_nll``, the
+    NLL of predicting token t + 2: the stack's output at t (``norm_h``)
+    and the embedded target at t (``norm_e``) are concatenated, projected
+    (``proj``), run through the head's attention block at positions 0..S-2
+    and the shared output head, against ``targets`` shifted by one (the
+    mask too)."""
+    cfg = model.cfg
     tokens, targets = batch["tokens"], batch["targets"]
+    mask = batch.get("mask")
     x = model.embed[tokens]
     pos = _positions(tokens.shape[0], tokens.shape[1], tokens.device)
     x, aux = blocks.apply_stack(
-        model.layers, model.specs, model.spans, model.cfg, x, pos, model.shared_block,
+        model.layers, model.specs, model.spans, cfg, x, pos, model.shared_block,
         remat=remat,
     )
-    nll = softmax_cross_entropy(_head(model, x), targets, batch.get("mask"))
+    nll = softmax_cross_entropy(_head(model, x), targets, mask)
     loss = nll + aux["moe_aux"] + aux["moe_z"]
-    return loss, {"nll": nll, **aux, "loss": loss}
+    metrics = {"nll": nll, **aux}
+    if cfg.mtp:
+        mp = model["mtp"]
+        h_in = rms_norm(x[:, :-1], mp.norm_h, cfg.norm_eps)
+        e_in = rms_norm(model.embed[targets[:, :-1]], mp.norm_e, cfg.norm_eps)
+        z = torch.cat([h_in, e_in], dim=-1) @ mp.proj
+        z, _, _ = blocks.apply_layer(mp.block, MTP_SPEC, cfg, z, pos[:, :-1])
+        mtp_nll = softmax_cross_entropy(
+            _head(model, z), targets[:, 1:], None if mask is None else mask[:, 1:])
+        loss = loss + MTP_WEIGHT * mtp_nll
+        metrics["mtp_nll"] = mtp_nll
+    return loss, {**metrics, "loss": loss}
 
 
 @torch.inference_mode()

@@ -4,9 +4,11 @@
 returns -- as numpy arrays or anything `numpy.asarray` reads -- with its
 stacked ``"layers"`` leaves per group (leading axis = the group's
 repeats), and returns the port's `LM` with one `Params` per layer, in
-stack order, and zamba2's model-level ``"shared"`` block as it is (the
-per-invocation LoRA leaves come with their layers; an MoE layer's
-``"moe"`` subtree, its f32 router included, like any other).  Both then
+stack order, and the model-level subtrees as they are: zamba2's
+``"shared"`` block (the per-invocation LoRA leaves come with their
+layers) and DeepSeek-V3's ``"mtp"`` head.  An MoE layer's ``"moe"``
+subtree, its f32 router included, and an MLA layer's ``"attn"`` leaves
+come with their layers like any other.  Both then
 compute the same function.
 """
 
@@ -45,6 +47,6 @@ def from_jax(params: Mapping, cfg: ArchConfig, device: DeviceLike = None) -> LM:
             for i in range(len(gspec.layers)):
                 layers.append(_tree(group["layers"][i], dev, index=r))
     tree = {k: _tree(params[k], dev)
-            for k in ("embed", "final_norm", "lm_head", "shared") if k in params}
+            for k in ("embed", "final_norm", "lm_head", "shared", "mtp") if k in params}
     tree["layers"] = layers
     return LM(cfg, tree)

@@ -103,6 +103,32 @@ def test_bound_flops_at_gemma3_training_layers():
     assert bk.flops(4, 4, 1024, 1024, 256, True, 512) == 16_116_613_120
 
 
+def test_bound_flops_at_split_head_dims():
+    """Three products at q/k's hd (S, dK, dQ) and two at v's vd (dP, dV): at
+    deepseek-v3's MLA training layer (B 4, 128 heads, S 1024, causal, hd
+    192, vd 128) 447 GFLOP; vd = hd gives the five products of 2 hd."""
+    pairs = bk.band_pairs(1024, 1024, True, 0)
+    assert bk.flops(4, 128, 1024, 1024, 192, True, 0, vd=128) == (
+        2 * (3 * 192 + 2 * 128) * 4 * 128 * pairs) == 447_112_806_400
+    assert bk.flops(4, 128, 1023, 1023, 56, True, 0) == 5 * 2 * 56 * 4 * 128 * 523_776
+    assert bk.flops(2, 4, 77, 77, 64, True, 0, vd=64) == bk.flops(2, 4, 77, 77, 64, True, 0)
+
+
+@pytest.mark.parametrize("hd,vd", [(192, 128), (56, 56), (56, None)])
+def test_work_list_takes_the_split_and_padded_head_dims(hd, vd):
+    """MLA's (192, 128) and the MTP block's 56 have work lists, the same
+    items as any head dim's at the same shape (the tile is 32 at every
+    head dim)."""
+    key = (2, 4, 2, 77, 77)
+    assert bk.work_list(*key, hd, True, 24, vd) == bk.work_list(*key, 64, True, 24)
+
+
+@pytest.mark.parametrize("hd,vd", [(128, 192), (192, 192), (48, 48), (56, 64)])
+def test_work_list_refuses_a_pair_with_no_instantiation(hd, vd):
+    with pytest.raises(ValueError, match="no work list"):
+        bk.work_list(1, 2, 2, 8, 8, hd, True, 0, vd)
+
+
 def test_device_items_encode_role_block_and_band():
     key = SHAPES["rows-that-see-no-key-Sq200-Sk50-w40-g2"]
     rows = bk._device_items(key, torch.device("cpu"))

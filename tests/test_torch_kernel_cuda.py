@@ -312,17 +312,17 @@ def test_cuda_flash_attention_at_served_and_edge_shapes(cuda_device, name):
 def test_cuda_flash_attention_launches_at_every_head_dim(cuda_device):
     """Every instantiation's shared memory is accepted by the card (the
     source also checks it against sm_90's limit when it compiles): one
-    launch per head dim, rel < 1e-5 against the plain version."""
+    launch per (hd, vd) pair, rel < 1e-5 against the plain version."""
     from repro_torch.kernels.flash_attention import attention_ref, flash_attention
     from repro_torch.kernels.flash_attention import kernel as flash_kernel
 
     rng = np.random.default_rng(11)
-    for hd in flash_kernel.HEAD_DIMS:
-        q, k, v = (torch.tensor(rng.standard_normal((1, 2, 70, hd)), dtype=torch.float32,
-                                device=cuda_device) for _ in range(3))
+    for hd, vd in flash_kernel.HEAD_DIMS:
+        q, k, v = (torch.tensor(rng.standard_normal((1, 2, 70, d)), dtype=torch.float32,
+                                device=cuda_device) for d in (hd, hd, vd))
         ref = attention_ref(q, k, v, causal=True, window=0)
         y, n = _counted(flash_kernel, lambda: flash_attention(q, k, v, causal=True, window=0))
-        assert n == 1 and _rel(y, ref) < 1e-5, hd
+        assert n == 1 and tuple(y.shape) == (1, 2, 70, vd) and _rel(y, ref) < 1e-5, (hd, vd)
 
 
 REPAIRED_HEAD_DIMS = {
@@ -377,6 +377,105 @@ def test_cuda_flash_attention_refuses_an_unregistered_head_dim(cuda_device):
     q = torch.zeros((1, 2, 16, 48), device=cuda_device)
     with pytest.raises(ValueError, match="instantiations"):
         flash_attention(q, q, q, causal=True, window=0)
+
+
+@pytest.mark.parametrize("hd,vd", [(128, 192), (192, 192), (56, 64), (48, 48)])
+def test_cuda_flash_kernels_refuse_a_pair_with_no_instantiation(cuda_device, hd, vd):
+    """A (q/k, v) head-dim pair the kernels have no instantiation for is
+    refused by the forward and the backward, with a message that names the
+    pairs they have (MLA's (192, 128) and the MTP block's (56, 56) among
+    them)."""
+    from repro_torch.kernels.flash_attention import backward as bwd_kernel
+    from repro_torch.kernels.flash_attention import kernel as flash_kernel
+
+    q, k = (torch.zeros((1, 2, 16, hd), device=cuda_device) for _ in range(2))
+    v, o = (torch.zeros((1, 2, 16, vd), device=cuda_device) for _ in range(2))
+    lse = torch.zeros((1, 2, 16), device=cuda_device)
+    for call in (lambda: flash_kernel.flash_attention_call(q, k, v, causal=True, window=0),
+                 lambda: bwd_kernel.flash_attention_bwd_call(q, k, v, o, lse, o, causal=True,
+                                                             window=0)):
+        with pytest.raises(ValueError, match=r"instantiations .*\(192, 128\).*") as err:
+            call()
+        assert "(56, 56)" in str(err.value)
+
+
+# deepseek-v3-671b: MLA's prefill / training attention (q/k hd 192 = nope 128
+# + rope 64, v hd 128, scale 192^-0.5) and its MTP block's (hd 56, padded to
+# 64 in the kernels' tiles), in the model's (B, S, H, hd) layout
+SPLIT_SHAPES = {
+    # name: (B, Hq, Hkv, Sq, Sk, hd, vd, causal, window, model layout)
+    "mla-prefill-B4-H128-S700": (4, 128, 128, 700, 700, 192, 128, True, 0, True),
+    "mtp-B4-H128-S1023-hd56": (4, 128, 128, 1023, 1023, 56, 56, True, 0, True),
+    "mla-g1-masked-rows-Sq200-Sk50-w40": (1, 4, 4, 200, 50, 192, 128, True, 40, True),
+    "mtp-g1-masked-rows-Sq200-Sk50-w40": (1, 4, 4, 200, 50, 56, 56, True, 40, True),
+    "mla-g4-noncausal-Sq77-Sk256": (1, 8, 2, 77, 256, 192, 128, False, 0, False),
+    "mtp-g2-w24-ragged-S97": (2, 8, 4, 97, 97, 56, 56, True, 24, False),
+}
+
+
+def _split_operands(shape, dev, seed):
+    b, hq, hkv, sq, sk, hd, vd, _, _, model_layout = shape
+    rng = np.random.default_rng(seed)
+
+    def mk(h, s, d):
+        t = torch.tensor(rng.standard_normal((b, s, h, d) if model_layout else (b, h, s, d)),
+                         dtype=torch.float32, device=dev)
+        return t.transpose(1, 2) if model_layout else t
+
+    return mk(hq, sq, hd), mk(hkv, sk, hd), mk(hkv, sk, vd), mk(hq, sq, vd)
+
+
+@pytest.mark.parametrize("name", sorted(SPLIT_SHAPES))
+def test_cuda_flash_attention_at_split_and_padded_head_dims(cuda_device, name):
+    """One launch; o (B, Hq, Sq, vd) in q's layout within rel 1e-5 of the
+    plain version, bitwise the same with the lse written, the lse within
+    rel 1e-5 of `lse_ref`; rows past Sk + window that see no key give
+    exactly 0 (and an lse of 0)."""
+    from repro_torch.kernels.flash_attention import attention_ref, flash_attention, lse_ref
+    from repro_torch.kernels.flash_attention import kernel as flash_kernel
+
+    shape = SPLIT_SHAPES[name]
+    b, hq, hkv, sq, sk, hd, vd, causal, window, model_layout = shape
+    q, k, v, _ = _split_operands(shape, cuda_device, seed=16)
+    ref = attention_ref(q, k, v, causal=causal, window=window)
+    y, n = _counted(flash_kernel, lambda: flash_attention(q, k, v, causal=causal, window=window))
+    y2, lse = flash_kernel.flash_attention_call(q, k, v, causal=causal, window=window,
+                                                return_lse=True)
+    torch.cuda.synchronize()
+    assert n == 1 and tuple(y.shape) == (b, hq, sq, vd) == tuple(ref.shape)
+    assert (y.stride(1) < y.stride(2)) == model_layout  # q's layout
+    assert _rel(y, ref) < 1e-5
+    assert torch.equal(y, y2)
+    want = lse_ref(q, k, causal=causal, window=window)
+    assert float((lse - want).abs().max() / want.abs().max()) < 1e-5
+    if sq > sk + window > window:  # rows i >= sk + window - 1 see no key
+        assert not y[:, :, sk + window - 1:].any() and not lse[:, :, sk + window - 1:].any()
+
+
+@pytest.mark.parametrize("name", sorted(SPLIT_SHAPES))
+def test_cuda_flash_backward_at_split_and_padded_head_dims(cuda_device, name):
+    """dq, dk (hd wide) and dv (vd wide) within rel 5e-5 of the plain
+    backward fed the same o and lse, one launch, two runs bitwise equal;
+    rows that see no key get a dq of exactly 0."""
+    from repro_torch.kernels.flash_attention import backward as bwd_kernel
+    from repro_torch.kernels.flash_attention import kernel as flash_kernel
+
+    shape = SPLIT_SHAPES[name]
+    b, hq, hkv, sq, sk, hd, vd, causal, window, _ = shape
+    q, k, v, do = _split_operands(shape, cuda_device, seed=17)
+    err, n, (dq, dk, dv) = _flash_bwd_check(q, k, v, do, causal, window)
+    assert n == 1 and err < FLASH_BWD_REL, (name, err)
+    assert (tuple(dq.shape), tuple(dk.shape), tuple(dv.shape)) == (
+        (b, hq, sq, hd), (b, hkv, sk, hd), (b, hkv, sk, vd))
+    o, lse = flash_kernel.flash_attention_call(q, k, v, causal=causal, window=window,
+                                               return_lse=True)
+    again = bwd_kernel.flash_attention_bwd_call(q, k, v, o, lse, do, causal=causal,
+                                                window=window)
+    a2 = bwd_kernel.flash_attention_bwd_call(q, k, v, o, lse, do, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert all(torch.equal(x, y) for x, y in zip(again, a2))
+    if sq > sk + window > window:
+        assert dq[:, :, sk + window - 1:].count_nonzero() == 0
 
 
 def _mlp_operands(b, d, f, dev, seed):
@@ -903,7 +1002,7 @@ def test_cuda_flash_backward_launches_delta_and_one_main_kernel(cuda_device):
     for e in prof.key_averages():
         if e.device_type == torch.autograd.DeviceType.CUDA and "flash_bwd" in e.key:
             kind = "delta" if "flash_bwd_delta_kernel" in e.key else "main"
-            assert kind == "delta" or "flash_bwd_kernel<256>" in e.key, e.key
+            assert kind == "delta" or "flash_bwd_kernel<256, 256>" in e.key, e.key
             counts[kind] = counts.get(kind, 0) + e.count
     assert set(counts) == {"delta", "main"}
     assert all(3 <= c <= 4 for c in counts.values()), counts

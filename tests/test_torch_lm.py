@@ -1,5 +1,5 @@
-"""The port's LM stack (reduced gemma3-1b, mamba2-1.3b, zamba2-7b and
-moonshot-v1-16b-a3b) against JAX.
+"""The port's LM stack (reduced gemma3-1b, mamba2-1.3b, zamba2-7b,
+moonshot-v1-16b-a3b and deepseek-v3-671b) against JAX.
 
 The reference's `init_lm` weights, loaded into the port with `from_jax`,
 go through both stacks on the CPU with the same seeded tokens: full
@@ -50,7 +50,7 @@ from repro_torch.serve import Engine, Request, ServeConfig
 
 from _torch_params import nontrivial  # the seeded constant-drawn leaves
 
-ARCHS = ("gemma3-1b", "mamba2-1.3b", "zamba2-7b", "moonshot-v1-16b-a3b")
+ARCHS = ("gemma3-1b", "mamba2-1.3b", "zamba2-7b", "moonshot-v1-16b-a3b", "deepseek-v3-671b")
 REL_TOL = 1e-4
 CACHE_ATOL = 1e-6
 BF16_P_TOL = 2e-2
@@ -308,8 +308,8 @@ def test_zamba2_plan_and_shared_block_are_the_reference():
     assert not lp["lora_k_b"].any()  # a fresh LoRA adds nothing, as in the reference
 
 
-# MLA / MoE / MTP, encoder-decoder
-UNPORTED = ("deepseek-v3-671b", "seamless-m4t-medium")
+# the encoder-decoder
+UNPORTED = ("seamless-m4t-medium",)
 OTHER_DENSE = sorted(set(list_archs()) - set(ARCHS) - set(UNPORTED))
 
 

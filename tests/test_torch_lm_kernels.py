@@ -242,16 +242,23 @@ def test_flash_attention_noncausal_ragged_sk_raises_like_reference():
 def test_flash_head_dims_cover_every_registered_attention_config():
     """Every dense and hybrid config the port registers has a head dim the
     card kernel is instantiated for (stablelm-3b's 80, zamba2-7b's 112,
-    the powers of two); the reduced CPU configs (hd 16) do not show it."""
+    the powers of two), and so do deepseek-v3-671b's MLA (q/k 192, v 128)
+    and its MTP block (56); the reduced CPU configs (hd 16) do not show
+    it."""
     from repro_torch.configs import get_arch, list_archs
     from repro_torch.kernels.flash_attention import kernel as flash_kernel
 
     dims = {name: get_arch(name).resolved_head_dim for name in list_archs()
             if get_arch(name).family in ("dense", "hybrid")}
     assert {dims["stablelm-3b"], dims["zamba2-7b"]} == {80, 112}
-    missing = {n: hd for n, hd in dims.items() if hd not in flash_kernel.HEAD_DIMS}
+    missing = {n: hd for n, hd in dims.items() if (hd, hd) not in flash_kernel.HEAD_DIMS}
     assert not missing, missing
-    assert all(hd % 16 == 0 for hd in flash_kernel.HEAD_DIMS)  # the source's static_assert
+    ds = get_arch("deepseek-v3-671b")
+    mla = (ds.mla.qk_nope_dim + ds.mla.qk_rope_dim, ds.mla.v_head_dim)
+    assert mla == (192, 128) and mla in flash_kernel.HEAD_DIMS
+    assert (ds.resolved_head_dim,) * 2 == (56, 56) in flash_kernel.HEAD_DIMS
+    # the sources' static_assert: every width a multiple of 8 (56 is padded to 64)
+    assert all(d % 8 == 0 for pair in flash_kernel.HEAD_DIMS for d in pair)
 
 
 # ---------------------------------------------------------- decode MLP

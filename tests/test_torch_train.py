@@ -58,7 +58,7 @@ GRAD_REL = 1e-4
 ADAM_ATOL = 1e-6
 STEP_LOSS_REL = 1e-4
 ARCHS = ("gemma3-1b", "stablelm-3b", "mamba2-1.3b", "zamba2-7b", "qwen2.5-14b",
-         "deepseek-67b", "chameleon-34b", "moonshot-v1-16b-a3b")
+         "deepseek-67b", "chameleon-34b", "moonshot-v1-16b-a3b", "deepseek-v3-671b")
 
 
 def _rel(y, ref) -> float:
