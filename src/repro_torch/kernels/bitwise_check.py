@@ -21,7 +21,14 @@ lse written.  The cases are every head dim and every tap count (flash at hd
 16, 32, 64, 80, 112, 128 and 256, causal with and without a window,
 non-causal, GQA; conv1d at K 1..8 with float4 and single-float units,
 SiLU on and off); an old source that lacks a head dim fails that case.
-Every output pair must be bitwise equal; the run exits 1 otherwise.  Rows
+Every output pair must be bitwise equal; the run exits 1 otherwise.  The
+one exception is a head dim whose accumulation scheme the current source
+changed on purpose (`SCHEME_CHANGED`: hd 64 moved to fresh fragments,
+for seamless-m4t-medium's 1,024 unmasked keys): against an old source
+without the change its forward is reported, not held, and both versions
+are timed at that head dim's served shapes (`SCHEME_TIMED`, the model's
+layout; CUDA events, median of 20 calls, in the order current, old, old,
+current) beside each one's max rel err against the plain version.  Rows
 go to `--out` as JSON with the card's name and power limit.
 
 `--record PATH` also writes the SHA-256 of the old flash source's output
@@ -39,6 +46,7 @@ import ctypes
 import hashlib
 import json
 import pathlib
+import statistics
 import subprocess
 import sys
 
@@ -49,7 +57,7 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.conv1d_fused import conv1d_fused
 from repro_torch.kernels.conv1d_fused import kernel as conv1d_kernel
 from repro_torch.kernels.flash_attention import backward as flash_bwd
-from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.flash_attention import attention_ref, flash_attention
 from repro_torch.kernels.flash_attention import kernel as flash_kernel
 
 FLASH = [
@@ -74,6 +82,19 @@ CONV1D = [
 
 
 RECORDED = pathlib.Path(__file__).parent / "flash_attention" / "recorded_outputs.json"
+# head dims whose forward changed its accumulation scheme on purpose, with
+# the text of the current source's `Cfg::kFreshAcc` that marks the change:
+# an old source without it computes other bits there
+SCHEME_CHANGED = {64: "DK == 64"}
+# where a changed head dim is served, (label, (B, Hq, Hkv, Sq, Sk, causal)):
+# seamless-m4t-medium's encoder, decoder self-attention and cross attention
+# at prefill and at a decode step over 1,024 frames
+SCHEME_TIMED = {64: (
+    ("seamless encoder", (4, 16, 16, 1024, 1024, False)),
+    ("seamless decoder self", (4, 16, 16, 128, 128, True)),
+    ("seamless cross", (4, 16, 16, 128, 1024, False)),
+    ("seamless cross decode", (4, 16, 16, 1, 1024, False)),
+)}
 
 
 def flash_operands(dev):
@@ -135,6 +156,7 @@ class _Earlier:
         sig = text[text.index('extern "C" int flash_attention_launch('):]
         sig = sig[:sig.index(")")]
         self.drop = ([] if "lse" in sig else [_LSE]) + ([] if "int vd" in sig else [_VD])
+        self.changed = {hd for hd, mark in SCHEME_CHANGED.items() if mark not in text}
         self.lib = _build.CudaLibrary(path, "flash_attention_old", {
             "flash_attention_launch": [t for i, t in enumerate(flash_kernel.ARGTYPES)
                                        if i not in self.drop]})
@@ -148,18 +170,25 @@ class _Earlier:
 
 
 class _EarlierBwd:
-    """An earlier flash backward source, whose entry point takes one head
-    dim: v's (argument 18 of the current one), which must equal q's
-    (argument 17), is dropped."""
+    """An earlier flash backward source.  One whose entry point takes one
+    head dim (read off its signature) is called without v's (argument 18
+    of the current one), which must then equal q's (argument 17)."""
 
     _HD, _VD = 17, 18
 
     def __init__(self, path: pathlib.Path):
+        text = path.read_text()
+        sig = text[text.index('extern "C" int flash_attention_bwd_launch('):]
+        self.one_dim = "int vd" not in sig[:sig.index(")")]
+        drop = [self._VD] if self.one_dim else []
         self.lib = _build.CudaLibrary(path, "flash_attention_bwd_old", {
-            "flash_attention_bwd_launch": (flash_bwd.ARGTYPES[:self._VD]
-                                           + flash_bwd.ARGTYPES[self._VD + 1:])})
+            "flash_attention_bwd_launch": [t for i, t in enumerate(flash_bwd.ARGTYPES)
+                                           if i not in drop]})
 
     def launch(self, name, device, *args):
+        if not self.one_dim:
+            self.lib.launch(name, device, *args)
+            return
         if args[self._HD] != args[self._VD]:
             raise ValueError("an earlier flash backward source takes one head dim")
         self.lib.launch(name, device, *args[:self._VD], *args[self._VD + 1:])
@@ -177,6 +206,59 @@ def _both(mod, old_lib, fn):
         mod.LIB = new_lib
     torch.cuda.synchronize()
     return y_new, y_old
+
+
+def _event_ms(fn, reps: int = 20) -> float:
+    """Median of `reps` calls of `fn`, each between two CUDA events."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def time_changed(old_flash: _Earlier, dev) -> list:
+    """The current and the old flash forward at the served shapes of each
+    head dim whose scheme changed: ms by CUDA events (current, old, old,
+    current) and each one's max rel err against `attention_ref`."""
+    gen = np.random.default_rng(2)
+    rows = []
+    for hd in sorted(old_flash.changed):
+        for label, (b, hq, hkv, sq, sk, causal) in SCHEME_TIMED.get(hd, ()):
+            q, k, v = (torch.tensor(gen.standard_normal((b, s, h, hd)), dtype=torch.float32,
+                                    device=dev).transpose(1, 2)
+                       for s, h in ((sq, hq), (sk, hkv), (sk, hkv)))
+            run = lambda: flash_attention(q, k, v, causal=causal)
+            ref = attention_ref(q, k, v, causal=causal)
+            times = {"current": [], "old": []}
+            errs = {}
+            for which in ("current", "old", "old", "current"):
+                new_lib = flash_kernel.LIB
+                if which == "old":
+                    flash_kernel.LIB = old_flash
+                try:
+                    times[which].append(_event_ms(run))
+                    y = run()
+                    torch.cuda.synchronize()
+                finally:
+                    flash_kernel.LIB = new_lib
+                errs[which] = float((y - ref).abs().max() / ref.abs().max())
+            rows.append(dict(kernel="flash_attention_time", hd=hd, label=label,
+                             shape=[b, hq, hkv, sq, sk], causal=causal, ms_current=times["current"],
+                             ms_old=times["old"], max_rel_err_current=errs["current"],
+                             max_rel_err_old=errs["old"]))
+            print(f"flash hd {hd:3d} {label} B{b} Hq{hq} Hkv{hkv} Sq{sq} Sk{sk} causal={causal}: "
+                  f"current {' / '.join(f'{t:.4f}' for t in times['current'])} ms, old "
+                  f"{' / '.join(f'{t:.4f}' for t in times['old'])} ms (CUDA events, median of "
+                  f"20); max rel err vs plain current {errs['current']:.3e}, old "
+                  f"{errs['old']:.3e}")
+    return rows
 
 
 def main(argv=None) -> int:
@@ -202,12 +284,16 @@ def main(argv=None) -> int:
         torch.cuda.synchronize()
         digests.append(digest(y_old))
         same, same_lse = bool(torch.equal(y, y_old)), bool(torch.equal(y_lse, y_old))
-        bad += not (same and same_lse)
+        changed = hd in old_flash.changed
+        bad += not (same and same_lse) and not changed
         rows.append(dict(kernel="flash_attention", hd=hd, shape=[b, hq, hkv, sq, sk],
                          causal=causal, window=window, bitwise_equal=same,
-                         bitwise_equal_with_lse=same_lse))
+                         bitwise_equal_with_lse=same_lse, scheme_changed=changed))
         print(f"flash hd {hd:3d} B{b} Hq{hq} Hkv{hkv} Sq{sq} Sk{sk} causal={causal} "
-              f"window={window}: bitwise equal {same}, with lse written {same_lse}")
+              f"window={window}: bitwise equal {same}, with lse written {same_lse}"
+              + (" (not held: the old source sums this head dim on one chain)"
+                 if changed else ""))
+    rows += time_changed(old_flash, dev)
     gen = np.random.default_rng(1)
     mk = lambda shape, s=1.0: torch.tensor(gen.standard_normal(shape) * s,
                                            dtype=torch.float32, device=dev)
@@ -237,7 +323,10 @@ def main(argv=None) -> int:
         print(f"conv1d K {k} B{b} L{length} D{d} row {row} offset {off} {act}: "
               f"bitwise equal {same}")
     card = _card()
-    print(f"card: {card}; {len(rows) - bad}/{len(rows)} cases bitwise equal")
+    n_changed = sum(r.get("scheme_changed", False) for r in rows)
+    n_held = sum(r["kernel"] != "flash_attention_time" for r in rows) - n_changed
+    print(f"card: {card}; {n_held - bad}/{n_held} held cases "
+          f"bitwise equal ({n_changed} at a changed accumulation scheme not held)")
     if args.out is not None:
         args.out.parent.mkdir(parents=True, exist_ok=True)
         args.out.write_text(json.dumps(dict(card=card, rows=rows), indent=1))

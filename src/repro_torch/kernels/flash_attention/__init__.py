@@ -2,6 +2,7 @@ from repro_torch.kernels.flash_attention.ops import (
     flash_attention,
     flash_attention_bwd,
     flash_attention_fwd,
+    flash_forward,
 )
 from repro_torch.kernels.flash_attention.ref import (
     attention_ref,
@@ -15,5 +16,6 @@ __all__ = [
     "flash_attention_bwd",
     "flash_attention_bwd_ref",
     "flash_attention_fwd",
+    "flash_forward",
     "lse_ref",
 ]

@@ -7,8 +7,9 @@ card.
 
 For each case (head dims 80, 112, 128 and 256, deepseek-v3-671b's MLA
 at q/k hd 192 with v hd 128 and its MTP block's 56, the last two on
-fresh fragments beside hd 80's; causal and non-causal; seeded N(0, 1)
-inputs) it prints the max abs error and the max rel error
+fresh fragments beside hd 80's, and seamless-m4t-medium's hd 64 over
+1,024 unmasked keys -- its encoder and its cross attention --; causal
+and non-causal; seeded N(0, 1) inputs) it prints the max abs error and the max rel error
 (max abs error over max |reference|) against float64 of: the kernel; the
 plain version (`attention_ref`, fp32 with TF32 off); and the kernel's
 split-TF32 operands alone (each of q, k, P and v rounded to big + small
@@ -42,6 +43,8 @@ CASES = [
     ("hd192/128 S768 non-causal", 2, 32, 768, 768, 192, 128, False, 0),
     ("hd56 S768 non-causal", 2, 32, 768, 768, 56, 56, False, 0),
     ("hd256 S768 non-causal", 2, 8, 768, 768, 256, 256, False, 0),
+    ("hd64 S1024 non-causal", 2, 16, 1024, 1024, 64, 64, False, 0),
+    ("hd64 Sq128 Sk1024 non-causal", 4, 16, 128, 1024, 64, 64, False, 0),
     ("hd112 S256 non-causal", 2, 32, 256, 256, 112, 112, False, 0),
     ("hd128 Sq77 Sk256 non-causal", 1, 2, 77, 256, 128, 128, False, 0),
     ("hd112 S768 causal w512", 2, 32, 768, 768, 112, 112, True, 512),

@@ -58,11 +58,12 @@
 // Numerics.  The split operands alone cost ~1.4e-7 of max |o| against
 // float64; the tensor cores' accumulation into one long chain costs more:
 // at 768 keys with no mask (each output cancelling ~20x) one chain per
-// output reaches 6-9e-6 (`flash_attention/accuracy.py`).  HD 80 and 112,
-// the padded 56 and MLA's (192, 128) therefore sum each chunk's QK^T and each
-// kv step's P.V in a fresh fragment and add it to the running sum in f32
-// (`Cfg::kFreshAcc`); the power-of-two head dims keep the single chains they
-// were first built with, so their
+// output reaches 6-9e-6 (`flash_attention/accuracy.py`), and hd 64 at 1,024
+// keys (seamless-m4t-medium's encoder and cross attention) 1.2e-5, past the
+// 1e-5 gate.  HD 64, 80 and 112, the padded 56 and MLA's (192, 128) therefore
+// sum each chunk's QK^T and each kv step's P.V in a fresh fragment and add it
+// to the running sum in f32 (`Cfg::kFreshAcc`); the other power-of-two head
+// dims keep the single chains they were first built with, so their
 // outputs are bitwise those of that first build.  The split is temporary:
 // the fresh fragments are the more accurate scheme, and every head dim is
 // to take them, with a new card measurement of time and error (ROADMAP).
@@ -117,11 +118,12 @@ struct Cfg {
   static constexpr int kK = kBk * LDK;               // floats of one K tile
   static constexpr int kV = kBk * LDV;               // floats of one V tile
   static constexpr int kX = kWarps * 16 * 32;        // floats of the score exchange
-  // HD 80 and 112, the padded 56 and MLA's (192, 128) sum each chunk's QK^T
-  // and each kv step's P.V in a fresh accumulator and add it to the running
-  // one in f32; the other head dims keep their single chains, bit for bit
-  // (see Numerics)
-  static constexpr bool kFreshAcc = DK == 80 || DK == 112 || DK != DV || DK != PK;
+  // HD 64, 80 and 112, the padded 56 and MLA's (192, 128) sum each chunk's
+  // QK^T and each kv step's P.V in a fresh accumulator and add it to the
+  // running one in f32; the other head dims keep their single chains, bit for
+  // bit (see Numerics)
+  static constexpr bool kFreshAcc =
+      DK == 64 || DK == 80 || DK == 112 || DK != DV || DK != PK;
   static constexpr int smem = (int)sizeof(float) * (kQ + kStages * (kK + kV) + kX);
   static_assert(smem <= 232448, "over sm_90's opt-in shared memory per block");
 };

@@ -1,5 +1,6 @@
-"""Flash attention's entry points: the forward (`flash_attention`), the
-forward with its log-sum-exp (`flash_attention_fwd`) and the backward
+"""Flash attention's entry points: the forward (`flash_attention`, in the
+reference kernel's domain; `flash_forward`, any Sk), the forward with its
+log-sum-exp (`flash_attention_fwd`) and the backward
 (`flash_attention_bwd`) that training reads.
 
 The device decides the path: a CUDA tensor launches the CUDA kernel
@@ -43,6 +44,15 @@ def flash_attention(
             f"non-causal attention needs Sk % {min(REFERENCE_KV_BLK, sk)} == 0, "
             f"got Sk={sk}"
         )
+    return flash_forward(q, k, v, causal=causal, window=window)
+
+
+def flash_forward(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool = True, window: int = 0
+) -> torch.Tensor:
+    """The forward's output at any Sq and Sk: what the model's attention
+    calls, as the reference's model-level flash (which pads Sk with keys
+    its masks drop) takes any Sk."""
     window = int(window or 0)
     if q.device.type == "cuda":
         return _kernel.flash_attention_call(q, k, v, causal=causal, window=window)

@@ -1,13 +1,20 @@
 """Attention: GQA (+bias, +qk-norm, +sliding window) and MLA, prefill and
-decode.
+decode; self-attention (causal, or bidirectional in an encoder) and
+cross attention (an encoder-decoder's decoder over the encoder's output).
 
-Prefill runs full-sequence attention through the flash-attention kernel
-(its plain version on the CPU); under grad (training) it goes through
-`models.flash_attention.FlashAttention`, whose backward is the flash
-backward kernel.  Decode attends over the cache in one
-masked pass (the reference's one-shot path of `chunked_attention`), in
-plain torch.  Local layers keep a ring buffer of `window` slots, global
-layers a dense `max_len` cache; `pos < 0` marks an empty slot.
+Full-sequence attention -- training, prefill, the encoder, and cross
+attention at every step, decode included -- runs through the flash
+kernel (its plain version on the CPU) via
+`models.flash_attention.flash_attention`: under grad (training) that is
+`FlashAttention`, whose backward is the flash backward kernel.  Decode
+self-attention attends over the cache in one masked pass (the
+reference's one-shot path of `chunked_attention`), in plain torch.
+Local layers keep a ring buffer of `window` slots, global layers a dense
+`max_len` cache; `pos < 0` marks an empty slot.
+
+Cross attention projects q from the decoder's x and k / v from the
+encoder's output (`cross_x`); it gets no rotary and no mask (every
+frame is visible), as in the reference, so it takes any Sq and Sk.
 
 MLA (DeepSeek-V3's multi-head latent attention) projects x to a q
 latent and a kv latent (`c_kv`, kv_lora_rank wide) plus one shared
@@ -24,40 +31,36 @@ reference returns a new cache: it saves copying every cache each step.
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
 from repro_torch.configs.base import ArchConfig, MLAConfig
-from repro_torch.kernels.flash_attention import flash_attention
-from repro_torch.models import flash_attention as flash_grad
+from repro_torch.models.flash_attention import flash_attention
 from repro_torch.models.common import apply_rotary, dense_init, rms_norm
 
 Cache = Dict[str, torch.Tensor]
 
 
 def full_attention(
-    q: torch.Tensor,  # (B, S, Hq, hd)
-    k: torch.Tensor,  # (B, S, Hkv, hd)
-    v: torch.Tensor,  # (B, S, Hkv, vd): vd may differ from hd (MLA)
+    q: torch.Tensor,  # (B, Sq, Hq, hd)
+    k: torch.Tensor,  # (B, Sk, Hkv, hd)
+    v: torch.Tensor,  # (B, Sk, Hkv, vd): vd may differ from hd (MLA)
     *,
     window: int = 0,
+    causal: bool = True,
 ) -> torch.Tensor:
-    """Causal prefill self-attention, (B, S, Hq, vd), scale hd^-0.5.  Every row's positions are
-    0..S-1 (`lm_prefill` builds them so), so the kernel's index masks are
-    the reference's position masks.  The (B, H, S, hd) views handed to the
+    """Full-sequence attention, (B, Sq, Hq, vd), scale hd^-0.5.  A causal
+    or windowed call has Sq == Sk and every row's positions 0..S-1
+    (`lm_prefill` builds them so), so the kernel's index masks are the
+    reference's position masks; a non-causal one without a window masks
+    nothing and takes any Sk.  The (B, H, S, hd) views handed to the
     kernel are transposes of the model's layout; it reads them in place
-    and writes its output in q's layout.  When grad is on and an input
-    needs it, the call is `FlashAttention`'s, which also writes the
-    log-sum-exp for the backward; otherwise (serving) the forward kernel
-    alone runs."""
+    and writes its output in q's layout.  Under grad the call is
+    `FlashAttention`'s; otherwise (serving) the forward kernel alone
+    runs."""
     qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
-    window = int(window or 0)
-    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
-        out = flash_grad.flash_attention(qt, kt, vt, causal=True, window=window)
-    else:
-        out = flash_attention(qt, kt, vt, causal=True, window=window)
-    return out.transpose(1, 2)
+    return flash_attention(qt, kt, vt, causal=causal, window=window).transpose(1, 2)
 
 
 def _mask(q_pos, kv_pos, window: int) -> torch.Tensor:
@@ -128,24 +131,26 @@ def init_attn(gen, cfg: ArchConfig, dtype, device) -> Dict[str, torch.Tensor]:
     return p
 
 
-def _project_qkv(p, x: torch.Tensor, cfg: ArchConfig):
-    """q, k, v (B, S, H, hd); with ``lora_*`` leaves in `p` (zamba2's shared
-    block) each projection adds its low-rank delta (x a) b before bias,
-    reshape and qk-norm, as the reference does."""
+def _project_qkv(p, x: torch.Tensor, x_kv: torch.Tensor, cfg: ArchConfig):
+    """q (B, Sq, Hq, hd) from x, k and v (B, Sk, Hkv, hd) from x_kv (x
+    itself for self-attention); with ``lora_*`` leaves in `p` (zamba2's
+    shared block) each projection adds its low-rank delta (x a) b before
+    bias, reshape and qk-norm, as the reference does."""
     hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
     q = x @ p["wq"]
-    k = x @ p["wk"]
-    v = x @ p["wv"]
+    k = x_kv @ p["wk"]
+    v = x_kv @ p["wv"]
     if "lora_q_a" in p:
         q = q + (x @ p["lora_q_a"]) @ p["lora_q_b"]
-        k = k + (x @ p["lora_k_a"]) @ p["lora_k_b"]
-        v = v + (x @ p["lora_v_a"]) @ p["lora_v_b"]
+        k = k + (x_kv @ p["lora_k_a"]) @ p["lora_k_b"]
+        v = v + (x_kv @ p["lora_v_a"]) @ p["lora_v_b"]
     if cfg.qkv_bias:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
-    b, s = x.shape[:2]
-    q = q.reshape(b, s, hq, hd)
-    k = k.reshape(b, s, hkv, hd)
-    v = v.reshape(b, s, hkv, hd)
+    b, sq = x.shape[:2]
+    sk = x_kv.shape[1]
+    q = q.reshape(b, sq, hq, hd)
+    k = k.reshape(b, sk, hkv, hd)
+    v = v.reshape(b, sk, hkv, hd)
     if cfg.qk_norm:
         q = rms_norm(q, p["q_norm"], cfg.norm_eps)
         k = rms_norm(k, p["k_norm"], cfg.norm_eps)
@@ -155,17 +160,25 @@ def _project_qkv(p, x: torch.Tensor, cfg: ArchConfig):
 def attn_forward(
     p,
     x: torch.Tensor,  # (B, S, D)
-    positions: torch.Tensor,  # (B, S)
+    positions: Optional[torch.Tensor],  # (B, S); cross attention reads none
     cfg: ArchConfig,
     *,
     window: int = 0,
+    causal: bool = True,
+    cross_x: Optional[torch.Tensor] = None,  # (B, S_src, D): the encoder's output
     return_kv: bool = False,
 ):
-    """Full-sequence causal self-attention (prefill)."""
-    q, k, v = _project_qkv(p, x, cfg)
-    q = apply_rotary(q, positions, cfg.rope_theta)
-    k = apply_rotary(k, positions, cfg.rope_theta)
-    out = full_attention(q, k, v, window=window)
+    """Full-sequence attention (training, prefill, the encoder).  Self-
+    attention rotates q and k by `positions`, causal or (an encoder's)
+    bidirectional.  With `cross_x` it is cross attention: k and v from
+    `cross_x`, no rotary, no mask (the reference's `causal and cross_x is
+    None`), so it reads no position of the frames; the reference's
+    `cross_pos` has nothing to do here."""
+    q, k, v = _project_qkv(p, x, x if cross_x is None else cross_x, cfg)
+    if cross_x is None:  # self-attention gets rotary
+        q = apply_rotary(q, positions, cfg.rope_theta)
+        k = apply_rotary(k, positions, cfg.rope_theta)
+    out = full_attention(q, k, v, window=window, causal=causal and cross_x is None)
     b, s = x.shape[:2]
     y = out.reshape(b, s, -1) @ p["wo"]
     if return_kv:
@@ -217,7 +230,7 @@ def attn_decode(
 ) -> Tuple[torch.Tensor, Cache]:
     b = x.shape[0]
     positions = torch.full((b, 1), pos, dtype=torch.int32, device=x.device)
-    q, k, v = _project_qkv(p, x, cfg)
+    q, k, v = _project_qkv(p, x, x, cfg)
     q = apply_rotary(q, positions, cfg.rope_theta)
     k = apply_rotary(k, positions, cfg.rope_theta)
     slot = pos % cache["k"].shape[1]  # ring for window caches; identity for dense

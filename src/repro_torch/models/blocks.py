@@ -7,7 +7,8 @@ ported stacks: dense LMs are one group of 1-layer super-blocks, gemma3 is
 super-blocks of 5 local + 1 global attention layers plus a tail group,
 mamba2 is one group of mamba layers, zamba2 is super-blocks of one
 shared-attention invocation + `period` mamba layers plus a tail group of
-mamba layers.  Where the reference scans over
+mamba layers, an encoder-decoder is an encoder stack and a decoder stack
+with cross attention.  Where the reference scans over
 stacked layer weights, the port walks a flat list of per-layer modules
 (`plan_layer_specs` gives each layer's spec, in the same order).
 `apply_stack` runs the full-sequence stack for training and returns the
@@ -29,10 +30,16 @@ the dense-family plan does for an MoE config (moonshot-v1-16b-a3b), and
 the decode step calls the same `moe_forward` on its (B, 1, D) input.
 Under `remat` the shared weights are closure inputs of every
 super-block's checkpointed body (`use_reentrant=False` differentiates
-those too), so their gradient sums over the invocations.  An
-encoder-decoder architecture raises NotImplementedError when its plan is
-built, naming the ROADMAP item that ports it.  (DeepSeek-V3's MTP head
-is model-level: `lm.init_lm` builds it, `lm.lm_loss` runs it.)
+those too), so their gradient sums over the invocations.
+
+The encoder-decoder (seamless-m4t-medium) has two plans: the encoder's
+(`role="encoder"`, one group of bidirectional attention layers, spec
+`causal=False`) and the decoder's, whose layers set `cross_attn`: after
+the mixer each adds ``x + attn(ln_cross(x), cross_x)``, its own
+attention weights (``cross``) over the encoder's output `cross_x`, in
+prefill, decode and training alike.  (The encoder's weights and
+DeepSeek-V3's MTP head are model-level: `lm.init_lm` builds them,
+`lm._encode` and `lm.lm_loss` run them.)
 """
 
 from __future__ import annotations
@@ -50,8 +57,6 @@ from repro_torch.models import mlp as mlp_mod
 from repro_torch.models import moe as moe_mod
 from repro_torch.models.common import rms_norm
 
-NOT_PORTED = "ROADMAP §1, the remaining LM families (the encoder-decoder)"
-
 
 @dataclasses.dataclass(frozen=True)
 class LayerSpec:
@@ -59,6 +64,8 @@ class LayerSpec:
     window: int = 0  # 0 = global
     moe: bool = False  # the MLP is a mixture of experts
     has_mlp: bool = True  # mamba blocks carry no MLP
+    cross_attn: bool = False  # decoder-side cross attention (encoder-decoder)
+    causal: bool = True  # encoder layers are bidirectional
 
 
 @dataclasses.dataclass(frozen=True)
@@ -67,14 +74,11 @@ class GroupSpec:
     layers: Tuple[LayerSpec, ...]
 
 
-def check_ported(cfg: ArchConfig) -> None:
-    """Raise for an architecture whose layers or heads are not ported."""
-    if cfg.is_encoder_decoder:
-        raise NotImplementedError(f"{cfg.name}: encoder-decoder not ported: {NOT_PORTED}")
-
-
-def build_stack_plan(cfg: ArchConfig) -> Tuple[GroupSpec, ...]:
-    check_ported(cfg)
+def build_stack_plan(cfg: ArchConfig, role: str = "decoder") -> Tuple[GroupSpec, ...]:
+    """The stack's groups; `role="encoder"` gives an encoder-decoder's
+    encoder (one group of bidirectional attention layers)."""
+    if role == "encoder":
+        return (GroupSpec(cfg.encoder_layers, (LayerSpec(mixer="attn", causal=False),)),)
     n = cfg.n_layers
     if cfg.family == "ssm":
         return (GroupSpec(n, (LayerSpec(mixer="mamba", has_mlp=False),)),)
@@ -103,7 +107,8 @@ def build_stack_plan(cfg: ArchConfig) -> Tuple[GroupSpec, ...]:
         return tuple(groups)
 
     mixer = "mla" if cfg.mla else "attn"
-    return (GroupSpec(n, (LayerSpec(mixer=mixer, moe=bool(cfg.moe)),)),)
+    spec = LayerSpec(mixer=mixer, moe=bool(cfg.moe), cross_attn=cfg.is_encoder_decoder)
+    return (GroupSpec(n, (spec,)),)
 
 
 def plan_layer_specs(plan: Tuple[GroupSpec, ...]) -> Tuple[LayerSpec, ...]:
@@ -136,6 +141,9 @@ def init_layer(gen, spec: LayerSpec, cfg: ArchConfig, dtype, device) -> Dict:
         p.update(attn_mod.init_lora(gen, cfg, rank, dtype, device))
     else:
         raise ValueError(spec.mixer)
+    if spec.cross_attn:
+        p["ln_cross"] = torch.zeros((d,), dtype=dtype, device=device)
+        p["cross"] = attn_mod.init_attn(gen, cfg, dtype, device)
     if spec.has_mlp:
         p["ln2"] = torch.zeros((d,), dtype=dtype, device=device)
         if spec.moe:
@@ -173,27 +181,30 @@ def apply_layer(
     positions: torch.Tensor,
     shared=None,
     *,
+    cross_x: Optional[torch.Tensor] = None,
     build_cache_len: Optional[int] = None,
 ):
-    """Full-sequence layer application (training, prefill).  Returns (x,
-    aux, cache): the MoE aux losses ({moe_aux, moe_z}) where the spec has
-    experts, else None; the cache (or None) is built when
+    """Full-sequence layer application (training, prefill, the encoder).
+    Returns (x, aux, cache): the MoE aux losses ({moe_aux, moe_z}) where
+    the spec has experts, else None; the cache (or None) is built when
     `build_cache_len` is given.  `shared` is the model's shared block
-    (zamba2), read by "shared_attn" layers."""
+    (zamba2), read by "shared_attn" layers; `cross_x` the encoder's
+    output, read by a layer with `cross_attn`."""
     cache = aux = None
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
     if spec.mixer in ("attn", "shared_attn"):
         ap = _merge_shared_attn(shared, p) if spec.mixer == "shared_attn" else p["attn"]
         if build_cache_len is not None:
             y, (k, v) = attn_mod.attn_forward(
-                ap, h, positions, cfg, window=spec.window, return_kv=True
+                ap, h, positions, cfg, window=spec.window, causal=spec.causal, return_kv=True
             )
             cache = attn_mod.init_kv_cache(
                 cfg, x.shape[0], build_cache_len, spec.window, x.dtype, x.device
             )
             cache = attn_mod.fill_kv_cache(cache, k, v, positions)
         else:
-            y = attn_mod.attn_forward(ap, h, positions, cfg, window=spec.window)
+            y = attn_mod.attn_forward(
+                ap, h, positions, cfg, window=spec.window, causal=spec.causal)
     elif spec.mixer == "mla":
         if build_cache_len is not None:
             y, (c_kv, k_rope) = attn_mod.mla_forward(
@@ -207,6 +218,9 @@ def apply_layer(
     else:
         y = mamba_mod.mamba_forward(p["mamba"], h, cfg)
     x = x + y
+    if spec.cross_attn:
+        h = rms_norm(x, p["ln_cross"], cfg.norm_eps)
+        x = x + attn_mod.attn_forward(p["cross"], h, positions, cfg, cross_x=cross_x)
     if spec.has_mlp:
         h = rms_norm(x, p["ln2"], cfg.norm_eps)
         if spec.moe:
@@ -236,24 +250,28 @@ def apply_stack(
     positions: torch.Tensor,
     shared=None,
     *,
+    cross_x: Optional[torch.Tensor] = None,
     remat: bool = False,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """The full-sequence stack (training): every layer in order; with
     `remat`, one `checkpoint(..., use_reentrant=False)` per super-block.
-    `shared` (zamba2's shared block) is a closure input of every body.
-    Returns (x, {moe_aux, moe_z}), the aux losses summed over the MoE
-    layers (zeros without any), carried through each body."""
+    `shared` (zamba2's shared block) is a closure input of every body;
+    `cross_x` (the encoder's output) an input of every body, so the
+    backward recomputes a cross attention from it.  Returns (x,
+    {moe_aux, moe_z}), the aux losses summed over the MoE layers (zeros
+    without any), carried through each body."""
     aux = z = torch.zeros((), dtype=torch.float32, device=x.device)
     for start, n in spans:
-        def body(x, aux, z, start=start, n=n):
+        def body(x, aux, z, cross_x, start=start, n=n):
             for i in range(start, start + n):
-                x, a, _ = apply_layer(layers[i], specs[i], cfg, x, positions, shared)
+                x, a, _ = apply_layer(layers[i], specs[i], cfg, x, positions, shared,
+                                      cross_x=cross_x)
                 if a is not None:
                     aux, z = aux + a["moe_aux"], z + a["moe_z"]
             return x, aux, z
 
-        x, aux, z = (checkpoint(body, x, aux, z, use_reentrant=False) if remat
-                     else body(x, aux, z))
+        x, aux, z = (checkpoint(body, x, aux, z, cross_x, use_reentrant=False) if remat
+                     else body(x, aux, z, cross_x))
     return x, {"moe_aux": aux, "moe_z": z}
 
 
@@ -265,11 +283,16 @@ def apply_layer_decode(
     pos: int,
     cache: Dict[str, torch.Tensor],
     shared=None,
+    *,
+    cross_x: Optional[torch.Tensor] = None,
 ):
     """One decode step of one layer.  Returns (x, new cache); the dense
     MLP (zamba2's shared one too) is the fused decode-MLP kernel on the
     card; experts run `moe_forward` on the step's (B, 1, D), as the
-    reference does (its aux losses are dropped)."""
+    reference does (its aux losses are dropped).  A cross attention runs
+    `attn_forward` at Sq 1 over all of `cross_x` (the flash kernel on the
+    card), its k and v projected again every step, as the reference
+    does."""
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
     if spec.mixer in ("attn", "shared_attn"):
         ap = _merge_shared_attn(shared, p) if spec.mixer == "shared_attn" else p["attn"]
@@ -279,6 +302,10 @@ def apply_layer_decode(
     else:
         y, cache = mamba_mod.mamba_decode(p["mamba"], h, cache, cfg)
     x = x + y
+    if spec.cross_attn:
+        h = rms_norm(x, p["ln_cross"], cfg.norm_eps)
+        # no rotary and no mask: cross attention reads no position
+        x = x + attn_mod.attn_forward(p["cross"], h, None, cfg, cross_x=cross_x)
     if spec.has_mlp:
         h = rms_norm(x, p["ln2"], cfg.norm_eps)
         if spec.moe:

@@ -7,9 +7,15 @@ k, v, o and lse; its backward launches the backward kernel, which
 recomputes P per tile from them (P is never stored, so the residuals are
 O(S * hd), not O(S^2)).  On the CPU both run their plain versions.
 
+`flash_attention` is what the model's attention calls: `FlashAttention`
+when an input needs a gradient, else the forward kernel alone (serving).
+
 Positions are indices (the kernels' masks).  The reference aligns a
-causal mask at the end (`offset = Sk - Sq`); the two agree when Sq == Sk,
-which is all that training calls, so anything else is refused.
+causal or windowed mask at the end (`offset = Sk - Sq`); the two agree
+when Sq == Sk, so a causal or windowed call at Sq != Sk is refused.  A
+non-causal mask without a window reads no position (the reference's is
+`kv_pos >= 0` alone, true for every key), so cross attention and the
+encoder's self-attention take any Sq and Sk.
 """
 
 from __future__ import annotations
@@ -17,7 +23,11 @@ from __future__ import annotations
 import torch
 from torch.autograd.function import once_differentiable
 
-from repro_torch.kernels.flash_attention import flash_attention_bwd, flash_attention_fwd
+from repro_torch.kernels.flash_attention import (
+    flash_attention_bwd,
+    flash_attention_fwd,
+    flash_forward,
+)
 
 
 class FlashAttention(torch.autograd.Function):
@@ -41,16 +51,23 @@ class FlashAttention(torch.autograd.Function):
 
 
 def flash_attention(
-    q: torch.Tensor,  # (B, Hq, S, hd)
-    k: torch.Tensor,  # (B, Hkv, S, hd)
-    v: torch.Tensor,
+    q: torch.Tensor,  # (B, Hq, Sq, hd)
+    k: torch.Tensor,  # (B, Hkv, Sk, hd)
+    v: torch.Tensor,  # (B, Hkv, Sk, vd)
     *,
     causal: bool = True,
     window: int = 0,
 ) -> torch.Tensor:
-    """Self-attention that autograd can differentiate: (B, Hq, S, hd)."""
-    if q.shape[2] != k.shape[2]:
+    """Attention that autograd can differentiate: (B, Hq, Sq, vd).  Under
+    grad (an input needs one) the call is `FlashAttention`'s, which also
+    writes the log-sum-exp for the backward; otherwise the forward kernel
+    alone runs.  Sq may differ from Sk only without a causal mask or a
+    window."""
+    window = int(window or 0)
+    if q.shape[2] != k.shape[2] and (causal or window):
         raise ValueError(
-            f"attention under grad needs Sq == Sk (index positions agree with the "
+            f"a causal or windowed mask needs Sq == Sk (index positions agree with the "
             f"reference's end-aligned mask only then), got Sq={q.shape[2]}, Sk={k.shape[2]}")
-    return FlashAttention.apply(q, k, v, bool(causal), int(window or 0))
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        return FlashAttention.apply(q, k, v, bool(causal), window)
+    return flash_forward(q, k, v, causal=causal, window=window)

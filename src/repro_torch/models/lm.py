@@ -13,17 +13,23 @@ state is ``{"layers": [cache per layer]}``; caches are updated in place.
 Serving runs under `inference_mode`; `lm_loss` is the one entry point
 that builds an autograd graph.
 
-Ported: decoder-only stacks of GQA attention or MLA (dense SwiGLU MLP or
-a mixture of experts) and mamba layers, with tied or untied heads,
-zamba2's shared attention block with per-invocation LoRA, and
-DeepSeek-V3's multi-token-prediction head (`mtp`, trained by `lm_loss`,
-never served) -- every registered architecture but the encoder-decoder
-(seamless-m4t-medium), which raises NotImplementedError.
+Every registered architecture is ported: decoder-only stacks of GQA
+attention or MLA (dense SwiGLU MLP or a mixture of experts) and mamba
+layers, with tied or untied heads, zamba2's shared attention block with
+per-invocation LoRA, DeepSeek-V3's multi-token-prediction head (`mtp`,
+trained by `lm_loss`, never served), and the encoder-decoder
+(seamless-m4t-medium).  An encoder-decoder takes source frame embeddings
+(B, S_src, d_model) -- the reference's speech frontend is a stub that
+provides them -- as ``src_embeds``: a keyword of `lm_logits` and
+`lm_prefill`, a key of `lm_loss`'s batch.  Its encoder (`_encode`) runs
+first; the decoder's cross attention reads the encoder's output, which
+the prefill state carries to every decode step as ``cross_x`` (beside
+``cross_pos``, the frames' positions, as the reference's state).
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 
@@ -39,12 +45,20 @@ from repro_torch.models.common import (
     softmax_cross_entropy,
 )
 
-State = Dict[str, List[Dict[str, torch.Tensor]]]
+# {"layers": [cache per layer]}, and an encoder-decoder's "cross_x" / "cross_pos"
+State = Dict[str, Any]
 
 # the MTP head's block: one GQA attention layer with a dense MLP, at the
 # config's own head dim (d_model // n_heads: 56 for deepseek-v3-671b)
 MTP_SPEC = blocks.LayerSpec(mixer="attn")
 MTP_WEIGHT = 0.3  # the MTP loss's weight in the total
+
+
+def _stack(layers, n: int) -> torch.nn.ModuleList:
+    """One `Params` per layer of a plan of `n` layers."""
+    if len(layers) != n:
+        raise ValueError(f"{len(layers)} layers for a plan of {n}")
+    return torch.nn.ModuleList(lp if isinstance(lp, Params) else Params(lp) for lp in layers)
 
 
 class LM(Params):
@@ -53,20 +67,29 @@ class LM(Params):
     `shared` -- zamba2's shared attention and MLP -- when the config has
     a shared-attention period, `mtp` -- DeepSeek-V3's MTP head: `proj`,
     `norm_h`, `norm_e` and an attention `block` -- when the config has
-    one) with its config and the per-layer specs of its stack plan."""
+    one, `encoder` -- an encoder-decoder's encoder: its `layers` and
+    `final_norm` -- when the config has encoder layers) with its config
+    and the per-layer specs of its stack plans (`enc_specs`: the
+    encoder's)."""
 
     def __init__(self, cfg: ArchConfig, tree: Dict):
-        layers = tree["layers"]
-        super().__init__({k: v for k, v in tree.items() if k != "layers"})
-        self.cfg = cfg
+        tree = dict(tree)
+        layers = tree.pop("layers")
         plan = blocks.build_stack_plan(cfg)
+        enc_specs = (blocks.plan_layer_specs(blocks.build_stack_plan(cfg, "encoder"))
+                     if cfg.is_encoder_decoder else ())
+        if cfg.is_encoder_decoder != ("encoder" in tree):
+            raise ValueError(f"{cfg.name}: an encoder goes with `encoder_layers` in the config")
+        if enc_specs:
+            enc = tree["encoder"]
+            tree["encoder"] = Params({"final_norm": enc["final_norm"]})
+            tree["encoder"].layers = _stack(enc["layers"], len(enc_specs))
+        super().__init__(tree)
+        self.cfg = cfg
         self.specs = blocks.plan_layer_specs(plan)
         self.spans = blocks.super_block_spans(plan)
-        if len(layers) != len(self.specs):
-            raise ValueError(f"{len(layers)} layers for a plan of {len(self.specs)}")
-        self.layers = torch.nn.ModuleList(
-            lp if isinstance(lp, Params) else Params(lp) for lp in layers
-        )
+        self.enc_specs = enc_specs
+        self.layers = _stack(layers, len(self.specs))
         if bool(cfg.shared_attn_period) != ("shared" in self):
             raise ValueError(f"{cfg.name}: a shared block goes with a shared-attention period")
         if bool(cfg.mtp) != ("mtp" in self):
@@ -102,6 +125,12 @@ def init_lm(cfg: ArchConfig, seed: int = 0, device: DeviceLike = None) -> LM:
         tree["lm_head"] = dense_init(gen, (cfg.d_model, vpad), dtype, dev)
     if cfg.shared_attn_period:
         tree["shared"] = blocks.init_shared(gen, cfg, dtype, dev)
+    if cfg.is_encoder_decoder:
+        enc_specs = blocks.plan_layer_specs(blocks.build_stack_plan(cfg, "encoder"))
+        tree["encoder"] = {
+            "layers": [blocks.init_layer(gen, s, cfg, dtype, dev) for s in enc_specs],
+            "final_norm": torch.zeros((cfg.d_model,), dtype=dtype, device=dev),
+        }
     if cfg.mtp:
         tree["mtp"] = {
             "proj": dense_init(gen, (2 * cfg.d_model, cfg.d_model), dtype, dev),
@@ -114,6 +143,25 @@ def init_lm(cfg: ArchConfig, seed: int = 0, device: DeviceLike = None) -> LM:
 
 def _positions(bsz: int, s: int, device) -> torch.Tensor:
     return torch.arange(s, dtype=torch.int32, device=device).expand(bsz, s)
+
+
+def _encode(model: LM, src_embeds: Optional[torch.Tensor]):
+    """The encoder over source frame embeddings (B, S_src, d_model): its
+    bidirectional layers (never under remat, as the reference's), then its
+    final norm.  Returns (cross_x, cross_pos): the encoder's output and the
+    frames' positions 0..S_src-1, which rotate the encoder's q and k.
+    Every row's positions are 0..S-1 by construction (`_positions`, here
+    and for the decoder's tokens), so the kernels' index masks are the
+    reference's position masks."""
+    cfg = model.cfg
+    if src_embeds is None:
+        raise ValueError(f"{cfg.name} is an encoder-decoder: it needs `src_embeds`, the "
+                         "source frame embeddings (B, S_src, d_model)")
+    x = src_embeds.to(model.embed.dtype)
+    pos = _positions(x.shape[0], x.shape[1], x.device)
+    for spec, lp in zip(model.enc_specs, model.encoder.layers):
+        x, _, _ = blocks.apply_layer(lp, spec, cfg, x, pos)
+    return rms_norm(x, model.encoder.final_norm, cfg.norm_eps), pos
 
 
 def _head(model: LM, x: torch.Tensor) -> torch.Tensor:
@@ -130,11 +178,12 @@ def lm_loss(
     model: LM, batch: Dict[str, torch.Tensor], *, remat: bool = True
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Mean token NLL of `batch` (``tokens``, ``targets`` (B, S) int, optional
-    ``mask``) plus the MoE aux losses summed over the stack, and the
+    ``mask``; an encoder-decoder's ``src_embeds`` (B, S_src, d_model)
+    float) plus the MoE aux losses summed over the stack, and the
     reference's metrics (``nll``, ``moe_aux``, ``moe_z``, ``loss``; the
     MoE terms are 0 without experts).  With `remat` each super-block's
-    activations are recomputed in the backward (the MTP head's block is
-    not, as in the reference).
+    activations are recomputed in the backward (the MTP head's block and
+    an encoder are not, as in the reference).
 
     With an MTP head (DeepSeek-V3) the loss adds 0.3 x ``mtp_nll``, the
     NLL of predicting token t + 2: the stack's output at t (``norm_h``)
@@ -145,11 +194,12 @@ def lm_loss(
     cfg = model.cfg
     tokens, targets = batch["tokens"], batch["targets"]
     mask = batch.get("mask")
+    cross_x = _encode(model, batch.get("src_embeds"))[0] if cfg.is_encoder_decoder else None
     x = model.embed[tokens]
     pos = _positions(tokens.shape[0], tokens.shape[1], tokens.device)
     x, aux = blocks.apply_stack(
         model.layers, model.specs, model.spans, cfg, x, pos, model.shared_block,
-        remat=remat,
+        cross_x=cross_x, remat=remat,
     )
     nll = softmax_cross_entropy(_head(model, x), targets, mask)
     loss = nll + aux["moe_aux"] + aux["moe_z"]
@@ -168,28 +218,45 @@ def lm_loss(
 
 
 @torch.inference_mode()
-def lm_logits(model: LM, tokens: torch.Tensor) -> torch.Tensor:
-    """Full-sequence logits (B, S, vocab)."""
+def lm_logits(
+    model: LM, tokens: torch.Tensor, *, src_embeds: Optional[torch.Tensor] = None
+) -> torch.Tensor:
+    """Full-sequence logits (B, S, vocab); an encoder-decoder needs
+    `src_embeds`."""
+    cross_x = _encode(model, src_embeds)[0] if model.cfg.is_encoder_decoder else None
     x = model.embed[tokens]
     pos = _positions(tokens.shape[0], tokens.shape[1], tokens.device)
     for spec, lp in zip(model.specs, model.layers):
-        x, _, _ = blocks.apply_layer(lp, spec, model.cfg, x, pos, model.shared_block)
+        x, _, _ = blocks.apply_layer(lp, spec, model.cfg, x, pos, model.shared_block,
+                                     cross_x=cross_x)
     return _head(model, x)
 
 
 @torch.inference_mode()
-def lm_prefill(model: LM, tokens: torch.Tensor, max_len: int) -> Tuple[torch.Tensor, State]:
-    """Run the prompt (B, S), build the caches.  Returns (last-token
-    logits (B, vocab), state)."""
+def lm_prefill(
+    model: LM, tokens: torch.Tensor, max_len: int, *,
+    src_embeds: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, State]:
+    """Run the prompt (B, S), build the caches; an encoder-decoder runs its
+    encoder over `src_embeds` first, and its state carries the encoder's
+    output (``cross_x``) and the frames' positions (``cross_pos``).
+    Returns (last-token logits (B, vocab), state)."""
+    state: State = {}
+    cross_x = None
+    if model.cfg.is_encoder_decoder:
+        cross_x, state["cross_pos"] = _encode(model, src_embeds)
+        state["cross_x"] = cross_x
     x = model.embed[tokens]
     pos = _positions(tokens.shape[0], tokens.shape[1], tokens.device)
     caches = []
     for spec, lp in zip(model.specs, model.layers):
         x, _, cache = blocks.apply_layer(
-            lp, spec, model.cfg, x, pos, model.shared_block, build_cache_len=max_len
+            lp, spec, model.cfg, x, pos, model.shared_block, cross_x=cross_x,
+            build_cache_len=max_len,
         )
         caches.append(cache)
-    return _head(model, x[:, -1:])[:, 0], {"layers": caches}
+    state["layers"] = caches
+    return _head(model, x[:, -1:])[:, 0], state
 
 
 @torch.inference_mode()
@@ -199,9 +266,10 @@ def lm_decode_step(
     """One decode step: `token` (B,) at position `pos`.  Returns (logits
     (B, vocab), state)."""
     x = model.embed[token[:, None]]
+    cross_x = state.get("cross_x")
     caches = []
     for spec, lp, cache in zip(model.specs, model.layers, state["layers"]):
         x, cache = blocks.apply_layer_decode(
-            lp, spec, model.cfg, x, pos, cache, model.shared_block)
+            lp, spec, model.cfg, x, pos, cache, model.shared_block, cross_x=cross_x)
         caches.append(cache)
-    return _head(model, x)[:, 0], {"layers": caches}
+    return _head(model, x)[:, 0], {**state, "layers": caches}

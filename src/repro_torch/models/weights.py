@@ -6,10 +6,12 @@ stacked ``"layers"`` leaves per group (leading axis = the group's
 repeats), and returns the port's `LM` with one `Params` per layer, in
 stack order, and the model-level subtrees as they are: zamba2's
 ``"shared"`` block (the per-invocation LoRA leaves come with their
-layers) and DeepSeek-V3's ``"mtp"`` head.  An MoE layer's ``"moe"``
-subtree, its f32 router included, and an MLA layer's ``"attn"`` leaves
-come with their layers like any other.  Both then
-compute the same function.
+layers), DeepSeek-V3's ``"mtp"`` head, and an encoder-decoder's
+``"encoder"`` (its stacked layers, unstacked the same way, and its
+``"final_norm"``).  An MoE layer's ``"moe"`` subtree, its f32 router
+included, an MLA layer's ``"attn"`` leaves and a decoder layer's
+``"ln_cross"`` / ``"cross"`` come with their layers like any other.  Both
+then compute the same function.
 """
 
 from __future__ import annotations
@@ -36,17 +38,27 @@ def _tree(node: Any, device: torch.device, index=None):
     return torch.from_numpy(np.array(arr, copy=True, order="C")).to(device)
 
 
+def _layers(plan, stack, device: torch.device) -> list:
+    """A plan's stacked groups -> one tree per layer, in stack order."""
+    layers = []
+    for gspec, group in zip(plan, stack, strict=True):
+        for r in range(gspec.n_repeat):
+            for i in range(len(gspec.layers)):
+                layers.append(_tree(group["layers"][i], device, index=r))
+    return layers
+
+
 def from_jax(params: Mapping, cfg: ArchConfig, device: DeviceLike = None) -> LM:
     """The reference's `init_lm(key, cfg)` pytree -> the port's `LM` on
     `device` (cuda unless the caller names another)."""
     dev = resolve_device(device)
-    plan = blocks.build_stack_plan(cfg)
-    layers = []
-    for gspec, group in zip(plan, params["stack"], strict=True):
-        for r in range(gspec.n_repeat):
-            for i in range(len(gspec.layers)):
-                layers.append(_tree(group["layers"][i], dev, index=r))
     tree = {k: _tree(params[k], dev)
             for k in ("embed", "final_norm", "lm_head", "shared", "mtp") if k in params}
-    tree["layers"] = layers
+    tree["layers"] = _layers(blocks.build_stack_plan(cfg), params["stack"], dev)
+    if "encoder" in params:
+        enc = params["encoder"]
+        tree["encoder"] = {
+            "layers": _layers(blocks.build_stack_plan(cfg, "encoder"), enc["stack"], dev),
+            "final_norm": _tree(enc["final_norm"], dev),
+        }
     return LM(cfg, tree)

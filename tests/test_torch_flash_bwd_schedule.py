@@ -28,6 +28,10 @@ SHAPES = {  # (b, hq, hkv, sq, sk, hd, causal, window)
     "keys-no-row-sees-Sq50-Sk200-g1": (1, 2, 2, 50, 200, 16, True, 0),
     "non-causal-Sq77-Sk256-g2": (1, 2, 1, 77, 256, 128, False, 0),
     "non-causal-w24-Sq100-Sk130-g1": (1, 4, 4, 100, 130, 32, False, 24),
+    # seamless-m4t-medium's cross attention: training (Sq 512) and prefill
+    # (Sq 128) over 1024 frames, MHA hd 64, no mask
+    "seamless-cross-Sq512-Sk1024": (4, 16, 16, 512, 1024, 64, False, 0),
+    "seamless-cross-Sq128-Sk1024": (4, 16, 16, 128, 1024, 64, False, 0),
 }
 
 
@@ -136,6 +140,26 @@ def test_device_items_encode_role_block_and_band():
     assert rows.tolist() == [[role | blk << 1, bh, lo, hi]
                              for role, bh, blk, lo, hi in bk.work_list(*key)]
     assert bk._device_items(key, torch.device("cpu")) is rows  # made once
+
+
+@pytest.mark.parametrize("name", ["seamless-cross-Sq512-Sk1024", "seamless-cross-Sq128-Sk1024"])
+def test_device_items_at_non_causal_sq_other_than_sk(name):
+    """The memoised device copy under the wrapper's key (vd appended) at
+    cross attention's shapes: every dK/dV item walks all Sq / 32 q tiles
+    and every dQ item all 32 kv tiles; Sq 128 and Sq 512 get lists of
+    their own."""
+    key = SHAPES[name] + (64,)
+    b, hq, _, sq, sk = key[:5]
+    rows = bk._device_items(key, torch.device("cpu"))
+    assert rows.tolist() == [[role | blk << 1, bh, lo, hi]
+                             for role, bh, blk, lo, hi in bk.work_list(*key)]
+    dkdv = rows[rows[:, 0] % 2 == bk.DKDV]
+    dq = rows[rows[:, 0] % 2 == bk.DQ]
+    assert len(dkdv) == b * hq * sk // T and len(dq) == b * hq * sq // T
+    assert (dkdv[:, 2] == 0).all() and (dkdv[:, 3] == sq // T).all()
+    assert (dq[:, 2] == 0).all() and (dq[:, 3] == sk // T).all()
+    other = "seamless-cross-Sq128-Sk1024" if sq == 512 else "seamless-cross-Sq512-Sk1024"
+    assert bk._device_items(SHAPES[other] + (64,), torch.device("cpu")).shape != rows.shape
 
 
 @pytest.mark.parametrize("shape", [(1, 2, 1, 8, 8, 48, True, 0), (1, 3, 2, 8, 8, 64, True, 0)])

@@ -11,7 +11,9 @@ runs without them:
 Tolerance: rel < 1e-5 against the plain version (both fp32, summed in
 different orders); the flash backward's dq, dk, dv rel < 5e-5 against
 the plain backward fed the same o and lse (the reference's gradient
-tolerance; it runs on split-TF32 tensor cores), the training loss on the card against the CPU rel 1e-4 and
+tolerance; it runs on split-TF32 tensor cores; rel < 1e-5 at
+seamless-m4t-medium's training shapes and through `FlashAttention` at
+non-causal Sq != Sk), the training loss on the card against the CPU rel 1e-4 and
 its gradients rel 1e-3 (the reference's net-level tolerance); the conv1d
 backward's dx, dw, db rel < 1e-5 against `conv1d_bwd_ref` (both fp32).
 """
@@ -280,6 +282,16 @@ FLASH_SHAPES = {
     "hd32-w40-Sq50-Sk200": (2, 8, 2, 50, 200, 32, True, 40, False),
     "masked-rows-Sq200-Sk50-w40": (1, 2, 1, 200, 50, 64, True, 40, False),
     "moonshot-B4-H16-S700-hd128": (4, 16, 16, 700, 700, 128, True, 0, True),
+    # seamless-m4t-medium (MHA, hd 64): the encoder's bidirectional
+    # self-attention over 1024 frames, the decoder's causal self-attention
+    # (the 128-token prompt, the training S 512), the cross attention at
+    # prefill, at a decode step (one q row in a 64-row tile) and in training
+    "seamless-encoder-B4-H16-S1024-hd64": (4, 16, 16, 1024, 1024, 64, False, 0, True),
+    "seamless-decoder-self-B4-H16-S128-hd64": (4, 16, 16, 128, 128, 64, True, 0, True),
+    "seamless-decoder-self-B4-H16-S512-hd64": (4, 16, 16, 512, 512, 64, True, 0, True),
+    "seamless-cross-B4-H16-Sq512-Sk1024-hd64": (4, 16, 16, 512, 1024, 64, False, 0, True),
+    "seamless-cross-B4-H16-Sq128-Sk1024-hd64": (4, 16, 16, 128, 1024, 64, False, 0, True),
+    "seamless-cross-decode-B4-H16-Sq1-Sk1024-hd64": (4, 16, 16, 1, 1024, 64, False, 0, True),
 }
 
 
@@ -485,10 +497,12 @@ def _mlp_operands(b, d, f, dev, seed):
     return mk((b, d), 1.0), mk((d, f), d ** -0.5), mk((d, f), d ** -0.5), mk((f, d), f ** -0.5)
 
 
-@pytest.mark.parametrize("b,d,f", [(4, 1152, 6912), (1, 1152, 6912), (11, 200, 700), (3, 64, 33)])
+@pytest.mark.parametrize("b,d,f", [(4, 1152, 6912), (1, 1152, 6912), (11, 200, 700), (3, 64, 33),
+                                   (4, 1024, 4096)])
 def test_cuda_decode_mlp_at_served_and_ragged_shapes(cuda_device, b, d, f):
-    """gemma3-1b's decode MLP at B 4 and 1, a ragged B and f, and f not a
-    multiple of 4 (single-float units): one launch, rel < 1e-5."""
+    """gemma3-1b's decode MLP at B 4 and 1, a ragged B and f, f not a
+    multiple of 4 (single-float units), and seamless-m4t-medium's decoder
+    MLP at B 4: one launch, rel < 1e-5."""
     from repro_torch.kernels.decode_mlp import decode_mlp, decode_mlp_ref
     from repro_torch.kernels.decode_mlp import kernel as mlp_kernel
 
@@ -980,6 +994,62 @@ def test_cuda_flash_backward_long_non_causal(cuda_device, hd):
     assert n == 1 and err < FLASH_BWD_REL, err
 
 
+SEAMLESS_BWD_REL = 1e-5  # the new shapes' gate
+
+
+@pytest.mark.parametrize("name,shape", [
+    ("seamless-cross-B4-H16-Sq512-Sk1024-hd64", (4, 16, 16, 512, 1024, 64, False)),
+    ("seamless-encoder-B4-H16-S1024-hd64", (4, 16, 16, 1024, 1024, 64, False)),
+    ("seamless-decoder-self-B4-H16-S512-hd64", (4, 16, 16, 512, 512, 64, True)),
+])
+def test_cuda_flash_backward_at_the_encoder_decoder_shapes(cuda_device, name, shape):
+    """seamless-m4t-medium's training attention, MHA at hd 64 in the
+    model's layout: the cross attention at Sq 512 / Sk 1024 and the
+    encoder's self-attention at S 1024, where every (q tile, kv tile) pair
+    is live, and the decoder's causal self-attention at S 512.  The work
+    list must give each dK/dV and dQ block one owner: one launch, dq, dk,
+    dv within rel 1e-5 of the plain backward, bitwise the same on a second
+    run."""
+    from repro_torch.kernels.flash_attention import backward as bwd_kernel
+
+    b, hq, hkv, sq, sk, hd, causal = shape
+    rng = np.random.default_rng(52)
+    mk = lambda s: torch.tensor(rng.standard_normal(s), dtype=torch.float32,
+                                device=cuda_device).transpose(1, 2)
+    q, do = mk((b, sq, hq, hd)), mk((b, sq, hq, hd))
+    k, v = mk((b, sk, hkv, hd)), mk((b, sk, hkv, hd))
+    err, n, grads = _flash_bwd_check(q, k, v, do, causal, 0)
+    assert n == 1 and err < SEAMLESS_BWD_REL, (name, err)
+    items = bwd_kernel.work_list(b, hq, hkv, sq, sk, hd, causal, 0)
+    assert len(items) == b * hkv * -(-sk // bwd_kernel.TILE) + b * hq * -(-sq // bwd_kernel.TILE)
+    _, _, again = _flash_bwd_check(q, k, v, do, causal, 0)
+    assert all(torch.equal(x, y) for x, y in zip(grads, again))
+
+
+def test_cuda_flash_attention_function_at_non_causal_sq_other_than_sk(cuda_device):
+    """Autograd through `FlashAttention` on the card at non-causal Sq 128 /
+    Sk 256 (cross attention's case): one forward and one backward launch,
+    the output and gradients within rel 1e-5 of the CPU's plain versions."""
+    from repro_torch.kernels.flash_attention import backward as bwd_kernel
+    from repro_torch.kernels.flash_attention import kernel as flash_kernel
+    from repro_torch.models.flash_attention import flash_attention as flash_grad
+
+    q, _, _, do = _flash_operands(2, 16, 16, 128, 128, 64, cuda_device, seed=81)
+    _, k, v, _ = _flash_operands(2, 16, 16, 256, 256, 64, cuda_device, seed=82)
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    f0, b0 = flash_kernel.LAUNCHES, bwd_kernel.LAUNCHES
+    o = flash_grad(*leaves, causal=False)
+    o.backward(do)
+    torch.cuda.synchronize()
+    assert flash_kernel.LAUNCHES - f0 == 1 and bwd_kernel.LAUNCHES - b0 == 1
+    cpu = [t.detach().cpu().requires_grad_(True) for t in (q, k, v)]
+    o_cpu = flash_grad(*cpu, causal=False)
+    o_cpu.backward(do.cpu())
+    assert _rel(o.detach().cpu(), o_cpu.detach()) < SEAMLESS_BWD_REL
+    for t, c in zip(leaves, cpu):
+        assert _rel(t.grad.cpu(), c.grad) < SEAMLESS_BWD_REL
+
+
 def test_cuda_flash_backward_launches_delta_and_one_main_kernel(cuda_device):
     """A call launches two kernels: the delta pass and the main kernel,
     once each (the profiler's device events over four calls; it drops an
@@ -1119,6 +1189,40 @@ def test_cuda_lm_loss_gradients_match_the_cpu(cuda_device):
     n_layers = len(card.specs)
     assert flash_kernel.LAUNCHES - f0 == 2 * n_layers  # remat: forward twice
     assert bwd_kernel.LAUNCHES - b0 == n_layers
+    loss_c, _ = lm_loss(cpu, batch)
+    loss_c.backward()
+    assert abs(float(loss_d.detach()) - float(loss_c.detach())) < 1e-4 * abs(float(loss_c.detach()))
+    for (n, pd), (_, pc) in zip(card.named_parameters(), cpu.named_parameters()):
+        assert _rel(pd.grad.cpu(), pc.grad) < 1e-3, n
+
+
+def test_cuda_encoder_decoder_lm_loss_matches_the_cpu(cuda_device):
+    """Reduced seamless-m4t-medium (2 encoder and 4 decoder layers), 40
+    source frames and 30 target tokens: `lm_loss` and every gradient on
+    the card within rel 1e-4 / 1e-3 of the CPU; the flash forward launches
+    encoder + 2 x (self + cross) x decoder layers (remat), its backward
+    encoder + 2 x decoder layers."""
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels.flash_attention import backward as bwd_kernel
+    from repro_torch.kernels.flash_attention import kernel as flash_kernel
+    from repro_torch.models import init_lm, lm_loss
+
+    cfg = get_arch("seamless-m4t-medium").reduced()
+    cpu = init_lm(cfg, seed=0, device="cpu")
+    card = init_lm(cfg, seed=0, device="cpu").to(cuda_device)
+    cpu.requires_grad_(True)
+    card.requires_grad_(True)
+    rng = np.random.default_rng(91)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 31)))
+    batch = {"tokens": toks[:, :-1], "targets": toks[:, 1:], "src_embeds": torch.tensor(
+        rng.standard_normal((2, 40, cfg.d_model)), dtype=torch.float32)}
+    f0, b0 = flash_kernel.LAUNCHES, bwd_kernel.LAUNCHES
+    loss_d, _ = lm_loss(card, {k: t.to(cuda_device) for k, t in batch.items()})
+    loss_d.backward()
+    torch.cuda.synchronize()
+    n_enc, n_dec = len(card.enc_specs), len(card.specs)
+    assert flash_kernel.LAUNCHES - f0 == n_enc + 2 * 2 * n_dec
+    assert bwd_kernel.LAUNCHES - b0 == n_enc + 2 * n_dec
     loss_c, _ = lm_loss(cpu, batch)
     loss_c.backward()
     assert abs(float(loss_d.detach()) - float(loss_c.detach())) < 1e-4 * abs(float(loss_c.detach()))

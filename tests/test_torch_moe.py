@@ -254,8 +254,10 @@ def test_from_jax_carries_the_moe_subtree():
 
 def test_init_lm_builds_moonshot_and_still_refuses_mla_and_enc_dec():
     """moonshot's MoE layers build; since MLA was ported, deepseek-v3's
-    MoE layers build beside MLA (a shared expert each) and only the
-    encoder-decoder is still refused."""
+    MoE layers build beside MLA (a shared expert each); since the
+    encoder-decoder was ported, no architecture is refused any more:
+    seamless-m4t-medium builds its encoder and its decoder's cross
+    attention."""
     model = init_lm(get_arch("moonshot-v1-16b-a3b").reduced(), seed=0, device="cpu")
     assert sorted(n for n, _ in model.layers[0].named_parameters()) == [
         "attn.wk", "attn.wo", "attn.wq", "attn.wv", "ln1", "ln2", "moe.router", "moe.w1",
@@ -264,8 +266,9 @@ def test_init_lm_builds_moonshot_and_still_refuses_mla_and_enc_dec():
     assert sorted(n for n, _ in ds.layers[0]["moe"].named_parameters()) == [
         "router", "shared_w1", "shared_w2", "shared_w3", "w1", "w2", "w3"]
     assert ds.specs[0].mixer == "mla"
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        init_lm(get_arch("seamless-m4t-medium").reduced(), seed=0, device="cpu")
+    enc_dec = init_lm(get_arch("seamless-m4t-medium").reduced(), seed=0, device="cpu")
+    assert len(enc_dec.encoder.layers) == 2 and enc_dec.specs[0].cross_attn
+    assert "ln_cross" in enc_dec.layers[0] and "cross" in enc_dec.layers[0]
 
 
 def test_record_routing_collects_one_entry_per_moe_call():

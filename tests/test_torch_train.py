@@ -48,6 +48,7 @@ from repro_torch.launch import train as launch_train
 from repro_torch.models import from_jax, lm_loss
 from repro_torch.optim import adamw
 from repro_torch.runtime.fault import FailureInjector
+from repro_torch.train import step as step_mod
 from repro_torch.train.loop import LoopConfig, train_loop
 from repro_torch.train.step import TrainConfig, make_train_step, train_state
 
@@ -58,7 +59,9 @@ GRAD_REL = 1e-4
 ADAM_ATOL = 1e-6
 STEP_LOSS_REL = 1e-4
 ARCHS = ("gemma3-1b", "stablelm-3b", "mamba2-1.3b", "zamba2-7b", "qwen2.5-14b",
-         "deepseek-67b", "chameleon-34b", "moonshot-v1-16b-a3b", "deepseek-v3-671b")
+         "deepseek-67b", "chameleon-34b", "moonshot-v1-16b-a3b", "deepseek-v3-671b",
+         "seamless-m4t-medium")
+SRC_FRAMES = 16  # an encoder-decoder's source frames in a test batch
 
 
 def _rel(y, ref) -> float:
@@ -66,17 +69,26 @@ def _rel(y, ref) -> float:
     return float(np.abs(y - ref).max() / (np.abs(ref).max() + 1e-30))
 
 
-def _batch(vocab, b=2, s=24, seed=0, masked=True):
+def _batch(vocab, b=2, s=24, seed=0, masked=True, d_src=0):
+    """Seeded tokens, targets and mask; with `d_src` (an encoder-decoder's
+    d_model) also source frame embeddings, standard normal."""
     rng = np.random.default_rng(seed)
     toks = rng.integers(0, vocab, (b, s + 1)).astype(np.int32)
     mask = np.ones((b, s), np.float32)
     if masked:
         mask[0, -5:] = 0.0
-    return {"tokens": toks[:, :-1], "targets": toks[:, 1:], "mask": mask}
+    batch = {"tokens": toks[:, :-1], "targets": toks[:, 1:], "mask": mask}
+    if d_src:
+        batch["src_embeds"] = rng.standard_normal((b, SRC_FRAMES, d_src)).astype(np.float32)
+    return batch
+
+
+def _d_src(cfg) -> int:
+    return cfg.d_model if cfg.is_encoder_decoder else 0
 
 
 def _torch_batch(batch):
-    return {k: torch.from_numpy(v).long() if k != "mask" else torch.from_numpy(v)
+    return {k: torch.from_numpy(v).long() if k in ("tokens", "targets") else torch.from_numpy(v)
             for k, v in batch.items()}
 
 
@@ -87,7 +99,7 @@ def reference(request):
     cfg = jax_get_arch(name).reduced()
     params = jax.tree.map(jnp.asarray, nontrivial(
         jax.tree.map(np.asarray, jax_init_lm(jax.random.PRNGKey(0), cfg))))
-    batch = _batch(cfg.vocab_size)
+    batch = _batch(cfg.vocab_size, d_src=_d_src(cfg))
     (loss, metrics), grads = jax.value_and_grad(
         lambda p: jax_lm_loss(p, cfg, {k: jnp.asarray(v) for k, v in batch.items()}),
         has_aux=True)(params)
@@ -167,7 +179,7 @@ def test_lm_loss_reaches_every_parameter(name):
     model = from_jax(jax.tree.map(np.asarray, jax_init_lm(jax.random.PRNGKey(1), cfg)),
                      get_arch(name).reduced(), device="cpu")
     model.requires_grad_(True)
-    loss, _ = lm_loss(model, _torch_batch(_batch(cfg.vocab_size, seed=1)))
+    loss, _ = lm_loss(model, _torch_batch(_batch(cfg.vocab_size, seed=1, d_src=_d_src(cfg))))
     loss.backward()
     missing = [n for n, p in model.named_parameters() if p.grad is None]
     assert not missing
@@ -313,6 +325,28 @@ def test_two_microbatches_match_one_and_the_reference():
     _, jm = jax.jit(jax_make_train_step(jcfg, jt))(
         jstate, {k: jnp.asarray(v) for k, v in batch.items()})
     assert set(m2) == set(jm) == {"loss", "grad_norm", "clip"}
+    assert _rel(float(m2["loss"]), float(m1["loss"])) < LOSS_REL
+    assert _rel(float(m2["grad_norm"]), float(m1["grad_norm"])) < GRAD_REL
+    assert _rel(float(m2["loss"]), float(jm["loss"])) < LOSS_REL
+    assert _rel(float(m2["grad_norm"]), float(jm["grad_norm"])) < GRAD_REL
+
+
+def test_two_microbatches_match_one_and_the_reference_with_src_embeds():
+    """The encoder-decoder's batch: `src_embeds` reaches the step as float
+    and splits on axis 0 with the tokens; two microbatches match one and
+    the reference's step."""
+    name = "seamless-m4t-medium"
+    (jcfg, jt, jstate), (cfg, tcfg, state) = _pair(name, microbatches=2)
+    _, (_, tcfg1, state1) = _pair(name, microbatches=1)
+    batch = dict(JaxTokenStream(JaxDataConfig(jcfg.vocab_size, 32, 4, seed=1)).batch_at(0))
+    batch["src_embeds"] = np.random.default_rng(4).standard_normal(
+        (4, SRC_FRAMES, cfg.d_model)).astype(np.float32)
+    moved = step_mod._to_device(batch, torch.device("cpu"))
+    assert moved["src_embeds"].dtype == torch.float32 and moved["tokens"].dtype == torch.long
+    _, m2 = make_train_step(cfg, tcfg)(state, batch)
+    _, m1 = make_train_step(cfg, tcfg1)(state1, batch)
+    _, jm = jax.jit(jax_make_train_step(jcfg, jt))(
+        jstate, {k: jnp.asarray(v) for k, v in batch.items()})
     assert _rel(float(m2["loss"]), float(m1["loss"])) < LOSS_REL
     assert _rel(float(m2["grad_norm"]), float(m1["grad_norm"])) < GRAD_REL
     assert _rel(float(m2["loss"]), float(jm["loss"])) < LOSS_REL
