@@ -297,6 +297,38 @@ Phases (any failure exits non-zero):
      the backward at the training shapes (cross Sq 512 / Sk 1024, encoder
      S 1024, decoder self S 512 causal; rel 1e-5).
 
+ 17. bf16 serving, the registered configs' own dtype, after phase 16's
+     model is dropped (less than 1 GiB may stay allocated), the caller's
+     cuBLAS setting left at PyTorch's default (the served entry points sum
+     bf16 products in f32 themselves, as the reference's dots do):
+     (a) the bf16 instantiations of flash (gemma3-1b's global layer, hd
+     256 GQA 4:1; zamba2-7b's hd 112; moonshot's hd 128 MHA, each B 4 S
+     700 causal; seamless-m4t-medium's encoder, hd 64 S 1024, and its
+     cross attention at Sq 1 over 1,024 frames), of the decode MLP
+     (gemma3's, zamba2's and seamless's widths at B 4, 2 and 1) and of
+     conv1d (mamba2's and zamba2's xBC slices at B 4 L 768), each against
+     its plain version on the same bf16 inputs and both against float64
+     from those inputs: the kernel's max error at most twice the plain
+     version's plus one bf16 ulp of max |out|, and bitwise the same twice;
+     each one's time (CUDA events; device time by the profiler), the plain
+     version's, the library's (SDPA in bf16, `is_causal` where causal;
+     grouped `F.conv1d` + `F.silu` in bf16; none for the MLP) and the bound
+     (bytes at 2 a value, operations at 989 TFLOP/s).  (b) gemma3-1b,
+     mamba2-1.3b, zamba2-7b and moonshot-v1-16b-a3b (48 of 48 layers) at
+     full size in bf16 as registered (`init_lm(get_arch(name), seed=0)`),
+     phase 6's six requests through `Engine`: prefill and decode a wave
+     beside the fp32 phase's (phase 6; phase 14 for moonshot, 30 layers),
+     peak memory beside the fp32 one, every launch count held exactly,
+     wave 1's warm prefill by CUDA events and profiled, a decode step
+     profiled (wall and device busy).  (c) each cut to its config's first
+     2 layers (zamba2: 2 mamba layers), card against the port's bf16 CPU
+     run: prompts 600 and 40, the prefill and 8 teacher-forced decode
+     steps' logits within rel 2e-2 of max |logits| (two devices, other
+     summation orders, bf16's eps 2^-8), the greedy tokens' agreement
+     printed; zamba2's shared block (a cut of one mamba layer with the
+     block before it) held at its own output, rel 2e-2 of max |x|, at the
+     prefill and every step.
+
 The line before the last is a JSON object listing the ported kernels; the
 last line is {"ok": true, "device": {...}}.  Imports nothing of JAX and
 nothing of the reference package.
@@ -305,6 +337,7 @@ nothing of the reference package.
 from __future__ import annotations
 
 import json
+import math
 import os
 import re
 import statistics
@@ -324,6 +357,7 @@ import torch
 ROOT = os.path.dirname(os.path.abspath(__file__))
 PEAK_FP32 = 67e12  # H100 SXM fp32 outside the tensor cores (data sheet)
 PEAK_TF32 = 495e12  # H100 SXM TF32 tensor cores, dense (data sheet)
+PEAK_BF16 = 989e12  # H100 SXM bf16 tensor cores, dense (data sheet)
 HBM_BW = 3.35e12  # H100 SXM HBM3 bytes/s (data sheet)
 REL_TOL_KERNEL = 1e-5
 REL_TOL_SERVE = 1e-3  # the reference's own net-level tolerance
@@ -428,9 +462,10 @@ def ptxas_report(source: str) -> dict:
 
 def phase_build() -> dict:
     """Every kernel built from the checkout's sources, one nvcc per
-    source, all started together; beside them the flash forward's and
-    backward's ptxas reports, per instantiation (hd / vd).  Returns the
-    backward's main kernel's registers and spills at hd 256."""
+    source, all started together; beside them the flash forward's (fp32
+    and bf16) and backward's ptxas reports, per instantiation (hd / vd).
+    Returns the backward's main kernel's registers and spills at hd
+    256."""
     from concurrent.futures import ThreadPoolExecutor
 
     from repro_torch.kernels import _build
@@ -459,7 +494,8 @@ def phase_build() -> dict:
     for src, ptxas in reports.items():
         print(f"ptxas -v {src} (registers, stack frame / spill store / spill load bytes):")
         for fn, (regs, frame, st, ld) in sorted(ptxas.items()):
-            kind = "delta" if "delta" in fn else "main"
+            kind = ("delta" if "delta" in fn else "bf16" if "bf16" in fn or "bfloat16" in fn
+                    else "main")
             # the instantiation's template arguments: (hd, vd), or vd alone for delta
             dims = "/".join(re.findall(r"Li(\d+)E", fn)) or "?"
             print(f"  {kind:5s} hd {dims:>7s}: {regs} registers, {frame} / {st} / {ld} bytes")
@@ -1172,6 +1208,8 @@ def phase_serve_lm():
     served = {}
     for name in LM_ARCHS:
         cfg = dataclasses.replace(get_arch(name), dtype="float32")
+        gc_collect()
+        torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         model = init_lm(cfg, seed=0, device=DEV)
         torch.cuda.synchronize()
@@ -1217,22 +1255,25 @@ def phase_serve_lm():
             if launches[k] != n:
                 raise AssertionError(f"{name}: {k} launched {launches[k]} times, "
                                      f"expected {n} (layers x waves or steps)")
+        peak = torch.cuda.max_memory_allocated()
+        print(f"  peak max_memory_allocated {peak / 2**30:.2f} GiB (from before the init)")
         served[name] = dict(model=model, cfg=cfg, launches=launches, waves=waves,
-                            steps=steps)
+                            steps=steps, peak_bytes=peak, wave_stats=engine.waves)
     return served
 
 
-def _cut(model, n_layers: int):
+def _cut(model, n_layers: int, **changes):
     """The same weights (shared, not copied), cut to `n_layers` of the
-    config's layers: the cut plan's layers, each the next layer of the
-    full stack with the same mixer (a prefix, except where the cut's tail
-    group skips the full stack's next shared-attention invocation)."""
+    config's layers (and any other `changes` of its config, e.g. a shorter
+    shared-attention period): the cut plan's layers, each the next layer
+    of the full stack with the same mixer (a prefix, except where the
+    cut's plan skips the full stack's next shared-attention invocation)."""
     import dataclasses
 
     from repro_torch.models import blocks
     from repro_torch.models.lm import LM
 
-    cfg = dataclasses.replace(model.cfg, n_layers=n_layers)
+    cfg = dataclasses.replace(model.cfg, n_layers=n_layers, **changes)
     tree = {k: model[k] for k in ("embed", "final_norm", "lm_head", "shared") if k in model}
     full = iter(zip(model.specs, model.layers))
     tree["layers"] = []
@@ -3950,6 +3991,403 @@ def phase_seamless(smi: str) -> dict:
     print(f"seamless: phase wall time {time.perf_counter() - t_phase:.2f} s")
     return dict(serve=served, train=train)
 
+# ------------------------------------------------------------ phase 17
+
+BF16_ARCHS = ("gemma3-1b", "mamba2-1.3b", "zamba2-7b", MOON)
+BF16_CUT = 2  # layers of each config, as registered, in the card-vs-CPU part
+BF16_CPU_STEPS = 8  # teacher-forced decode steps of the card-vs-CPU part
+# bf16 logits, card against CPU: two devices sum in other orders, and a
+# value that rounds the other way in bf16 moves by 2^-8 of itself, layer
+# after layer: rel 2e-2 of max |logits| (of max |x| for zamba2's shared
+# block).  zamba2-7b's first two layers are mamba layers; its shared block
+# is held at its own output (`_bf16_shared_vs_cpu`), not at logits past a
+# mamba layer: there bf16 summation order alone moves the logits by up to
+# 3.5e-2 on one device (PERF.md §7, `python -m repro_torch.serve.bf16_drift`).
+REL_TOL_BF16_CPU = 2e-2
+
+
+def _bf16(gen: np.random.Generator, shape, scale: float = 1.0) -> torch.Tensor:
+    return _cuda(gen, shape, scale).to(torch.bfloat16)
+
+
+def bf16_ulp(x: float) -> float:
+    """One bf16 ulp (8 bits of mantissa) at magnitude x."""
+    return 2.0 ** (math.floor(math.log2(x)) - 7)
+
+
+def _attention_f64(q, k, v, causal: bool, window: int) -> torch.Tensor:
+    """Masked softmax attention in float64 from the (bf16) inputs."""
+    g = q.shape[1] // k.shape[1]
+    k, v = k.double().repeat_interleave(g, 1), v.double().repeat_interleave(g, 1)
+    s = torch.einsum("bhqd,bhkd->bhqk", q.double(), k) * q.shape[-1] ** -0.5
+    sq, sk = q.shape[2], k.shape[2]
+    qp = torch.arange(sq, device=DEV)[:, None]
+    kp = torch.arange(sk, device=DEV)[None, :]
+    ok = torch.ones((sq, sk), dtype=torch.bool, device=DEV)
+    if causal:
+        ok &= kp <= qp
+    if window:
+        ok &= qp - kp < window
+    p = torch.nan_to_num(torch.softmax(s.masked_fill(~ok, float("-inf")), -1), nan=0.0)
+    return torch.einsum("bhqk,bhkd->bhqd", p, v)
+
+
+def bf16_kernel_cases(gen) -> list:
+    """The bf16 instantiations at the shapes the bf16 path gives them: each
+    a dict of the kernel, a label, the kernel's and the plain version's
+    call, the float64 result from the same bf16 inputs, the library
+    yardstick (None where no single call computes the function) and the
+    bound (bytes at 2 a value, operations at the bf16 tensor-core peak)."""
+    import torch.nn.functional as F
+
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels.conv1d_fused import conv1d_fused, conv1d_ref
+    from repro_torch.kernels.decode_mlp import decode_mlp, decode_mlp_ref
+    from repro_torch.kernels.flash_attention import attention_ref, flash_forward
+
+    cases = []
+    for label, b, hq, hkv, sq, sk, hd, causal, served in (
+        ("gemma3 global B4 H4/1 S700 hd256 causal", 4, 4, 1, 700, 700, 256, True, True),
+        ("zamba2 B4 H32 S700 hd112 causal", 4, 32, 32, 700, 700, 112, True, False),
+        ("moonshot B4 H16 S700 hd128 causal", 4, 16, 16, 700, 700, 128, True, False),
+        ("seamless encoder B4 H16 S1024 hd64", 4, 16, 16, 1024, 1024, 64, False, False),
+        ("seamless cross B4 H16 Sq1 Sk1024 hd64", 4, 16, 16, 1, 1024, 64, False, False),
+    ):
+        # the model's (B, S, H, hd), viewed as (B, H, S, hd)
+        q = _bf16(gen, (b, sq, hq, hd)).transpose(1, 2)
+        k = _bf16(gen, (b, sk, hkv, hd)).transpose(1, 2)
+        v = _bf16(gen, (b, sk, hkv, hd)).transpose(1, 2)
+        qc = q.contiguous()
+        kr = k.repeat_interleave(hq // hkv, 1).contiguous()
+        vr = v.repeat_interleave(hq // hkv, 1).contiguous()
+        pairs = (sq * (sq + 1) // 2) if causal else sq * sk
+        cases.append(dict(
+            kernel="flash_attention", label=label, served=served,
+            run=lambda q=q, k=k, v=v, c=causal: flash_forward(q, k, v, causal=c),
+            plain=lambda q=q, k=k, v=v, c=causal: attention_ref(q, k, v, causal=c),
+            f64=lambda q=q, k=k, v=v, c=causal: _attention_f64(q, k, v, c, 0),
+            library=lambda qc=qc, kr=kr, vr=vr, c=causal: F.scaled_dot_product_attention(
+                qc, kr, vr, is_causal=c),
+            library_note="SDPA bf16" + (", is_causal" if causal else ", no mask"),
+            bound=_bound(2 * (q.numel() + k.numel() + v.numel() + b * hq * sq * hd),
+                         4 * hd * pairs * b * hq, PEAK_BF16),
+            device_key="flash_fwd",
+        ))
+    z = get_arch("zamba2-7b")
+    for label, b, d, f, served in (
+        ("gemma3 decode B4 d1152 f6912", 4, 1152, 6912, True),
+        (f"zamba2 decode B2 d{z.d_model} f{z.d_ff}", 2, z.d_model, z.d_ff, False),
+        ("seamless decode B1 d1024 f4096", 1, 1024, 4096, False),
+    ):
+        x = _bf16(gen, (b, d))
+        w1, w3 = _bf16(gen, (d, f), d ** -0.5), _bf16(gen, (d, f), d ** -0.5)
+        w2 = _bf16(gen, (f, d), f ** -0.5)
+
+        def mlp64(x=x, w1=w1, w3=w3, w2=w2):
+            x64 = x.double()
+            return (F.silu(x64 @ w1.double()) * (x64 @ w3.double())) @ w2.double()
+
+        cases.append(dict(
+            kernel="decode_mlp", label=label, served=served,
+            run=lambda x=x, w1=w1, w3=w3, w2=w2: decode_mlp(x, w1, w3, w2),
+            plain=lambda x=x, w1=w1, w3=w3, w2=w2: decode_mlp_ref(x, w1, w3, w2),
+            f64=mlp64, library=None, library_note="no single call",
+            bound=_bound(2 * (3 * d * f + 2 * b * d), 2 * b * 3 * d * f, PEAK_BF16),
+            device_key="decode_mlp",
+        ))
+    for arch, served in (("mamba2-1.3b", True), ("zamba2-7b", False)):
+        cfg = get_arch(arch)
+        s_ = cfg.ssm
+        d_inner = s_.expand * cfg.d_model
+        d_xbc = d_inner + 2 * s_.n_groups * s_.d_state
+        width = d_inner + d_xbc + d_inner // s_.head_dim
+        b, length, k = 4, 768, s_.d_conv
+        x = _bf16(gen, (b, length, width))[..., d_inner:d_inner + d_xbc]
+        w, bias = _bf16(gen, (k, d_xbc), 0.5), _bf16(gen, (d_xbc,), 0.1)
+        xt = x.transpose(1, 2).contiguous()
+        wt = w.t().contiguous()[:, None, :]
+
+        def conv64(x=x, w=w, bias=bias, k=k, length=length):
+            xp = F.pad(x.double(), (0, 0, k - 1, 0))
+            acc = sum(xp[:, i:i + length] * w[i].double() for i in range(k))
+            return F.silu(acc + bias.double())
+
+        cases.append(dict(
+            kernel="conv1d_fused",
+            label=f"{arch.split('-')[0]} wave1 B4 L768 D{d_xbc} (slice of {width}) silu",
+            served=served,
+            run=lambda x=x, w=w, bias=bias: conv1d_fused(x, w, bias, activation="silu"),
+            plain=lambda x=x, w=w, bias=bias: conv1d_ref(x, w, bias, activation="silu"),
+            f64=conv64,
+            library=lambda xt=xt, wt=wt, bias=bias, k=k, length=length: F.silu(F.conv1d(
+                xt, wt, bias, padding=k - 1, groups=wt.shape[0])[..., :length]),
+            library_note="grouped F.conv1d with bias, + F.silu, bf16",
+            bound=_bound(2 * (2 * b * length * d_xbc + k * d_xbc + d_xbc),
+                         2 * k * b * length * d_xbc, PEAK_BF16),
+            device_key="conv1d_fused_kernel",
+        ))
+    return cases
+
+
+def bf16_kernels(smi: str) -> dict:
+    """Each bf16 instantiation against its plain version on the same bf16
+    inputs and both against float64 from those inputs: the kernel's max
+    error at most twice the plain version's plus one bf16 ulp of max |out|,
+    the output bitwise the same twice; then its time (CUDA events; device
+    time by the profiler at the served shape), the plain version's, the
+    library's and the bound.  Returns, per kernel, the served row and the
+    worst errors."""
+    gen = np.random.default_rng(17)
+    rows = {}
+    for c in bf16_kernel_cases(gen):
+        y1, y2, ref = c["run"](), c["run"](), c["plain"]()
+        f64 = c["f64"]()
+        torch.cuda.synchronize()
+        if (y1.dtype != torch.bfloat16 or y1.shape != ref.shape or y1.shape != f64.shape
+                or not torch.isfinite(y1).all()):
+            raise AssertionError(f"bf16 {c['label']}: bad output {y1.dtype} {tuple(y1.shape)}")
+        err_k = float((y1.double() - f64).abs().max())
+        err_p = float((ref.double() - f64).abs().max())
+        ulp = bf16_ulp(float(f64.abs().max()))
+        twice = bool(torch.equal(y1, y2))
+        abs_kp = float((y1.double() - ref.double()).abs().max())
+        del y1, y2, ref, f64
+        k_ms, p_ms = time_ms(c["run"]), time_ms(c["plain"], reps=5)
+        l_ms = time_ms(c["library"]) if c["library"] is not None else None
+        d_ms = device_ms(c["run"], c["device_key"])
+        b_ms, b_by = c["bound"]
+        lib = f"{l_ms:.4f} ms" if l_ms is not None else "-"
+        dev = "not measured" if d_ms is None else f"{d_ms:.4f} ms"
+        print(f"bf16 {c['kernel']:15s} {c['label']:42s} err vs f64 kernel {err_k:.3e} plain "
+              f"{err_p:.3e} (limit {2 * err_p + ulp:.3e}: 2x plain + 1 ulp {ulp:.3e}); "
+              f"kernel vs plain {abs_kp:.3e}; bitwise twice {twice}; kernel {k_ms:.4f} ms "
+              f"(device {dev})  plain {p_ms:.4f} ms  library {lib} ({c['library_note']})  "
+              f"bound {b_ms:.4f} ms ({b_by})")
+        if not (err_k <= 2 * err_p + ulp and twice):
+            raise AssertionError(f"bf16 {c['label']}: kernel err {err_k:.3e} vs plain "
+                                 f"{err_p:.3e} + ulp {ulp:.3e}, bitwise twice {twice}")
+        row = dict(shape=c["label"], ms=k_ms, device_ms=d_ms, plain_ms=p_ms, library_ms=l_ms,
+                   library_note=c["library_note"], bound_ms=b_ms, bound_by=b_by,
+                   max_abs_err_vs_f64=err_k, plain_max_abs_err_vs_f64=err_p,
+                   max_abs_err=abs_kp)
+        r = rows.setdefault(c["kernel"], dict(shapes=[], max_abs_err=0.0))
+        r["shapes"].append(row)
+        r["max_abs_err"] = max(r["max_abs_err"], abs_kp)
+        if c["served"]:
+            r["served"] = row
+    print(f"bf16 kernels: card {smi}")
+    return rows
+
+
+def _bf16_want(specs, waves: int, steps: int) -> dict:
+    """Each kernel's launches on a served run: flash a wave per attention
+    layer (shared invocations included), the decode MLP a step per dense
+    MLP, conv1d a wave per mamba layer, the rest none."""
+    return {
+        "flash_attention": sum(s.mixer in ("attn", "shared_attn") for s in specs) * waves,
+        "decode_mlp": sum(s.has_mlp and not s.moe for s in specs) * steps,
+        "conv1d_fused": sum(s.mixer == "mamba" for s in specs) * waves,
+        "fused_tile": 0, "flash_attention_bwd": 0, "conv1d_fused_bwd": 0,
+    }
+
+
+def bf16_serve(name: str, fp32: dict, smi: str) -> dict:
+    """`name` at full size in bf16 as registered (`init_lm(get_arch(name),
+    seed=0)`, no dtype override) through `Engine`: phase 6's six requests,
+    max_batch 4, 16 new tokens; every count zeroed before the run and held
+    after (`_bf16_want`); peak memory from before the init; then wave 1's
+    warm prefill by CUDA events and profiled, and a decode step profiled
+    (wall and device busy), each beside the fp32 phase's figure (`fp32`:
+    its peak and its waves' host times)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models import init_lm, lm_decode_step, lm_prefill
+    from repro_torch.serve import Engine, ServeConfig
+
+    cfg = get_arch(name)
+    if cfg.dtype != "bfloat16":
+        raise AssertionError(f"{name} is registered in {cfg.dtype}, not bf16")
+    mods = kernel_libraries()
+    gc_collect()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = init_lm(cfg, seed=0, device=DEV)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    dtypes = sorted({str(p.dtype).removeprefix("torch.") for p in model.parameters()})
+    print(f"bf16 model {name}: {cfg.n_layers} layers (all), d_model {cfg.d_model}, "
+          f"{n_params / 1e9:.4f} B params ({dtypes}), init {time.perf_counter() - t0:.2f} s")
+    reqs = lm_requests(cfg, LM_PROMPTS)
+    engine = Engine(model, ServeConfig(max_batch=MAX_BATCH, max_len=LM_MAX_LEN))
+    for mod in mods.values():
+        mod.LAUNCHES = 0  # main path: count only the served run
+    t0 = time.perf_counter()
+    out = engine.run(reqs, seed=0)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: mod.LAUNCHES for k, mod in mods.items()}
+    peak = torch.cuda.max_memory_allocated()
+    for r in reqs:
+        toks = out[r.rid]
+        if len(toks) != LM_NEW or not all(0 <= t < cfg.vocab_size for t in toks):
+            raise AssertionError(f"bf16 {name} rid {r.rid}: bad tokens {toks}")
+    waves, steps = len(engine.waves), sum(w["decode_steps"] for w in engine.waves)
+    want = _bf16_want(model.specs, waves, steps)
+    n_tok = sum(w["tokens"] for w in engine.waves)
+    for i, (w, w32) in enumerate(zip(engine.waves, fp32["wave_stats"])):
+        print(f"  wave {i}: {w['size']} requests, prompt {w['prompt_len']} tokens, prefill "
+              f"{w['prefill_s'] * 1e3:.2f} ms (fp32 {w32['prefill_s'] * 1e3:.2f}), decode "
+              f"{w['decode_s'] / max(w['decode_steps'], 1) * 1e3:.3f} ms/step (fp32 "
+              f"{w32['decode_s'] / max(w32['decode_steps'], 1) * 1e3:.3f}) over "
+              f"{w['decode_steps']} steps (host clock, the first calls' allocations included)")
+    print(f"  {len(reqs)} requests, {n_tok} tokens in {wall:.3f} s ({n_tok / wall:.1f} tokens/s); "
+          f"peak max_memory_allocated {peak / 2**30:.2f} GiB (fp32 {fp32['peak_bytes'] / 2**30:.2f}"
+          f" GiB{fp32.get('note', '')}); launches {launches} (want {want})")
+    for k, n in want.items():
+        if launches[k] != n:
+            raise AssertionError(f"bf16 {name}: {k} launched {launches[k]} times, expected {n}")
+    wave1 = lm_requests(cfg, LM_PROMPTS[:MAX_BATCH])
+    plen = max(len(r.prompt) for r in wave1)
+    toks = np.zeros((len(wave1), plen), np.int64)
+    for i, r in enumerate(wave1):
+        toks[i, plen - len(r.prompt):] = r.prompt
+    toks = torch.from_numpy(toks).to(DEV)
+    with torch.inference_mode():
+        prefill_ms = time_ms(lambda: lm_prefill(model, toks, LM_MAX_LEN), reps=3)
+        _, state = lm_prefill(model, toks, LM_MAX_LEN)
+        tok = toks[:, -1]
+        prof_p = profile_call(f"bf16 {name}", f"prefill B{len(wave1)} S{plen}",
+                              lambda: lm_prefill(model, toks, LM_MAX_LEN))
+        prof_d = profile_call(f"bf16 {name}", f"decode step B{len(wave1)}",
+                              lambda: lm_decode_step(model, tok, plen, state))
+    del state
+    print(f"  warm wave-1 prefill {prefill_ms:.3f} ms (CUDA events, median of 3); decode step "
+          f"wall {prof_d['wall_ms']:.3f} ms, device busy "
+          f"{'not measured' if prof_d['busy_ms'] is None else '%.3f ms' % prof_d['busy_ms']}; "
+          f"card {smi}")
+    return dict(model=model, cfg=cfg, launches=launches, waves=waves, steps=steps,
+                n_params=n_params, peak_bytes=peak, prefill_ms=prefill_ms,
+                prefill_busy_ms=prof_p["busy_ms"], decode_wall_ms=prof_d["wall_ms"],
+                decode_busy_ms=prof_d["busy_ms"], wave_stats=engine.waves)
+
+
+def _bf16_wave(cfg):
+    """One wave of prompts 600 and 40 (seed 1), left-padded to 600."""
+    reqs = lm_requests(cfg, (600, 40), seed=1)
+    toks = np.zeros((2, 600), np.int64)
+    for i, r in enumerate(reqs):
+        toks[i, 600 - len(r.prompt):] = r.prompt
+    return toks
+
+
+def _rel_steps(card: torch.Tensor, host: torch.Tensor) -> list:
+    """Per call (prefill, then each step): max |card - host| over max |host|
+    of that call."""
+    return [float((c - h).abs().max() / h.abs().max()) for c, h in zip(card, host)]
+
+
+def bf16_vs_cpu(name: str, model) -> dict:
+    """The served bf16 weights cut to the config's first BF16_CUT layers,
+    on the card against the port's bf16 CPU run: one wave of prompts 600
+    and 40, the prefill and BF16_CPU_STEPS teacher-forced decode steps,
+    logits within REL_TOL_BF16_CPU of max |logits|.  The greedy tokens'
+    agreement is printed (a near-tie may round either way in bf16).  A
+    model with a shared block (zamba2) also holds that block's output
+    (`_bf16_shared_vs_cpu`)."""
+    cut = _cut(model, BF16_CUT)
+    cpu = _cpu_copy(cut)
+    toks = _bf16_wave(cut.cfg)
+    t0 = time.perf_counter()
+    card, fed = _logits_run(cut, toks, BF16_CPU_STEPS)
+    torch.cuda.synchronize()
+    t_card = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    host, _ = _logits_run(cpu, toks, BF16_CPU_STEPS, forced=fed)
+    t_cpu = time.perf_counter() - t0
+    if not (torch.isfinite(card).all() and torch.isfinite(host).all()):
+        raise AssertionError(f"bf16 {name}: non-finite logits")
+    scale = float(host.abs().max())
+    errs = [float((card[i] - host[i]).abs().max()) / scale for i in range(len(card))]
+    same = float((card.argmax(-1) == host.argmax(-1)).float().mean())
+    print(f"bf16 card-vs-cpu {name} cut to {len(cut.specs)} layers "
+          f"({'/'.join(s.mixer for s in cut.specs)}), prompts (600, 40) + {BF16_CPU_STEPS} "
+          f"teacher-forced steps: prefill rel err {errs[0]:.3e}, decode max {max(errs[1:]):.3e} "
+          f"(tol {REL_TOL_BF16_CPU:g}); greedy tokens equal {same:.3f}; card {t_card:.2f} s, "
+          f"cpu {t_cpu:.2f} s")
+    if not max(errs) <= REL_TOL_BF16_CPU:
+        raise AssertionError(f"bf16 {name}: card vs cpu rel err {max(errs):.3e}")
+    out = dict(prefill_rel=errs[0], decode_rel=max(errs[1:]), greedy_equal=same,
+               rule=f"rel {REL_TOL_BF16_CPU:g}")
+    if model.cfg.shared_attn_period:
+        out["shared_block"] = _bf16_shared_vs_cpu(name, model)
+    return out
+
+
+def _bf16_shared_vs_cpu(name: str, model) -> dict:
+    """zamba2's shared block in bf16, card against CPU: the served weights
+    cut to one mamba layer with the shared block before it (shared period
+    1), the same wave and steps.  The block's output -- the cut's first
+    layer, before any mamba layer: flash at hd 112 in the prefill, the
+    cache pass and the decode MLP in each step, the LoRA deltas -- within
+    REL_TOL_BF16_CPU of its max |x| on the CPU, at the prefill and every
+    step.  The cut's logits, past the mamba layer, are printed, not held
+    (REL_TOL_BF16_CPU's note)."""
+    from repro_torch.serve.bf16_drift import recording
+
+    cut = _cut(model, 1, shared_attn_period=1)
+    if cut.specs[0].mixer != "shared_attn":
+        raise AssertionError(f"bf16 {name}: the cut starts with {cut.specs[0].mixer}")
+    cpu = _cpu_copy(cut)
+    toks = _bf16_wave(cut.cfg)
+    rec_card, rec_cpu = [], []
+    with recording(rec_card):
+        card, fed = _logits_run(cut, toks, BF16_CPU_STEPS)
+    with recording(rec_cpu):
+        host, _ = _logits_run(cpu, toks, BF16_CPU_STEPS, forced=fed)
+    n = len(cut.specs)
+    errs = _rel_steps(rec_card[0::n], rec_cpu[0::n])
+    logits = _rel_steps(card, host)
+    print(f"bf16 card-vs-cpu {name} shared block (cut "
+          f"{'/'.join(s.mixer for s in cut.specs)}): its output's rel err at the prefill "
+          f"{errs[0]:.3e}, decode max {max(errs[1:]):.3e} (tol {REL_TOL_BF16_CPU:g} of max |x|); "
+          f"the cut's logits past the mamba layer, not held: prefill {logits[0]:.3e}, decode "
+          f"max {max(logits[1:]):.3e}")
+    if not max(errs) <= REL_TOL_BF16_CPU:
+        raise AssertionError(f"bf16 {name}: shared block card vs cpu rel err {max(errs):.3e}")
+    return dict(prefill_rel=errs[0], decode_rel=max(errs[1:]), logits_prefill_rel=logits[0],
+                logits_decode_rel=max(logits[1:]))
+
+
+def phase_bf16(smi: str, fp32: dict) -> dict:
+    """Phase 17 (module docstring): serve the registered configs in bf16.
+    `fp32` maps each model to its fp32 phase's peak and waves."""
+    t_phase = time.perf_counter()
+    # the caller's cuBLAS setting is left as a user's would be (PyTorch's
+    # default allows bf16 reduced-precision reductions): the served entry
+    # points sum bf16 products in f32 themselves (`f32_accumulation`)
+    print(f"bf16: torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = "
+          f"{torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction} (the caller's)")
+    gc_collect()
+    left = torch.cuda.memory_allocated()
+    print(f"bf16: {left / 2**30:.3f} GiB still allocated on the card by earlier phases "
+          f"(limit {RESIDUAL_LIMIT / 2**30:g})")
+    if left >= RESIDUAL_LIMIT:
+        raise AssertionError(f"{left} bytes left allocated before the bf16 phase")
+    t0 = time.perf_counter()
+    kernels = bf16_kernels(smi)
+    print(f"bf16: kernels {time.perf_counter() - t0:.2f} s")
+    served, cpu = {}, {}
+    for name in BF16_ARCHS:
+        t0 = time.perf_counter()
+        s = bf16_serve(name, fp32[name], smi)
+        t1 = time.perf_counter()
+        cpu[name] = bf16_vs_cpu(name, s.pop("model"))
+        served[name] = s
+        gc_collect()
+        print(f"bf16: {name} served in {t1 - t0:.2f} s, cut against the CPU in "
+              f"{time.perf_counter() - t1:.2f} s")
+    print(f"bf16: phase wall time {time.perf_counter() - t_phase:.2f} s")
+    return dict(kernels=kernels, serve=served, cpu=cpu)
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -3962,12 +4400,18 @@ def main() -> int:
     os.environ["REPRO_WISDOM"] = PLAN_WISDOM  # read and written under build/ only
     if os.path.exists(PLAN_WISDOM):
         os.unlink(PLAN_WISDOM)
+    t_start = time.perf_counter()
+
+    def stamp(phases: str) -> None:
+        print(f"chip_smoke: phases {phases} done at {time.perf_counter() - t_start:.1f} s")
+
     smi = phase_environment()
     bwd_ptxas = phase_build()
     phase_check()
     cases, worst_abs, worst_rel = phase_kernel_vs_plain()
     oracle = phase_winograd_and_oracle()
     lm_cases, lm_worst = phase_lm_kernels_vs_plain()
+    stamp("1-4")
     served = phase_serve()
     lm_served = phase_serve_lm()
     phase_lm_vs_cpu(lm_served)
@@ -3976,16 +4420,26 @@ def main() -> int:
     rows = phase_times(cases, served)
     lm_rows = phase_lm_times(lm_cases)
     del cases, lm_cases  # their card tensors (~2 GiB): room for phase 14
+    stamp("5-9")
     online = phase_online(smi)
     adapt = phase_adapt(online["hw"], smi)
     fleet = phase_fleet(online["hw"], smi)
+    stamp("10-12")
     for s in lm_served.values():
         s.pop("model")  # the served weights: room for training
     gc_collect()
     train = phase_train(smi, bwd_ptxas)
+    stamp("13")
     moon = phase_moonshot(smi)
     deep = phase_deepseek(smi)
     seam = phase_seamless(smi)
+    stamp("14-16")
+    fp32 = {arch: lm_served[arch] for arch in LM_ARCHS}
+    fp32[MOON] = dict(peak_bytes=moon["serve"]["peak_bytes"],
+                      wave_stats=moon["serve"]["wave_stats"],
+                      note=f", {MOON_SERVE_LAYERS} of 48 layers")
+    bf16 = phase_bf16(smi, fp32)
+    stamp("17")
 
     # headline shape: the widest served vgg layer when vgg reaches the
     # kernel (64->64 at bucket 64), else fft_fewchannel's 8->8
@@ -4033,6 +4487,18 @@ def main() -> int:
     def by_path(kernel):
         return {path: n[kernel] for path, n in paths.items() if n[kernel]}
 
+    bf16_paths = {f"serve {arch} bf16": s["launches"] for arch, s in bf16["serve"].items()}
+    paths.update(bf16_paths)
+
+    def bf16_entry(kernel):
+        """The kernel's bf16 instantiation: its launches on the bf16 serving
+        runs, its served row's numbers and every bf16 shape's."""
+        rows = bf16["kernels"][kernel]
+        by = {path: n[kernel] for path, n in bf16_paths.items() if n[kernel]}
+        return dict(launches=sum(by.values()), launches_by_path=by,
+                    **{**rows["served"], "max_abs_err": rows["max_abs_err"]},
+                    shapes=rows["shapes"])
+
     for name, (source, replaces) in LM_KERNELS.items():
         arch = "mamba2-1.3b" if name == "conv1d_fused" else "gemma3-1b"
         run = lm_served[arch]
@@ -4047,6 +4513,7 @@ def main() -> int:
             **lm_rows[name],
             **(conv1d_prefill.get(arch, {}) if name == "conv1d_fused" else {}),
         ))
+        kernels["kernels"][-1]["bf16"] = bf16_entry(name)
         if f"{name}_zamba2" in lm_rows:
             kernels["kernels"][-1]["zamba2"] = lm_rows[f"{name}_zamba2"]
         if name == "flash_attention":

@@ -1,5 +1,5 @@
-"""Hold the flash-attention and causal-conv1d kernels bitwise against an
-earlier version of their sources, on one card.
+"""Hold the flash-attention, causal-conv1d and decode-MLP kernels bitwise
+against an earlier version of their sources, on one card.
 
     PYTHONPATH=src python -m repro_torch.kernels.bitwise_check --old DIR \
         [--out build/bitwise_check.json]
@@ -10,7 +10,8 @@ flash_attention.cu` and the same for the conv1d source, and, when it
 holds an earlier `flash_attention_bwd.cu` (commit 457bda9 or later: the
 work-list entry point), the flash backward is compared too, at the same
 flash cases (dq, dk, dv from the current forward's o and lse and a
-seeded dO).  Each old source
+seeded dO), and, when it holds an earlier `decode_mlp.cu`, the decode
+MLP at the served and ragged shapes (`DECODE_MLP`).  Each old source
 is built as a `_build.CudaLibrary` of its own and swapped in as the
 wrapper's `LIB` between calls on the same inputs.  The flash entry point
 gained an `lse` pointer after the first versions (the log-sum-exp that
@@ -20,7 +21,10 @@ and the current kernel's output is compared both without and with the
 lse written.  The cases are every head dim and every tap count (flash at hd
 16, 32, 64, 80, 112, 128 and 256, causal with and without a window,
 non-causal, GQA; conv1d at K 1..8 with float4 and single-float units,
-SiLU on and off); an old source that lacks a head dim fails that case.
+SiLU on and off; the decode MLP at gemma3-1b's, zamba2-7b's and
+seamless-m4t-medium's widths and two ragged shapes); the comparisons
+are at fp32, the instantiations every earlier source has.  An old source
+that lacks a head dim fails that case.
 Every output pair must be bitwise equal; the run exits 1 otherwise.  The
 one exception is a head dim whose accumulation scheme the current source
 changed on purpose (`SCHEME_CHANGED`: hd 64 moved to fresh fragments,
@@ -56,6 +60,8 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels.conv1d_fused import conv1d_fused
 from repro_torch.kernels.conv1d_fused import kernel as conv1d_kernel
+from repro_torch.kernels.decode_mlp import decode_mlp
+from repro_torch.kernels.decode_mlp import kernel as mlp_kernel
 from repro_torch.kernels.flash_attention import backward as flash_bwd
 from repro_torch.kernels.flash_attention import attention_ref, flash_attention
 from repro_torch.kernels.flash_attention import kernel as flash_kernel
@@ -78,6 +84,11 @@ CONV1D = [
         (4, 768, 4352, 8512, 4096, "silu"),
         (2, 203, 71, 200, 65, "none"),
     )
+]
+
+DECODE_MLP = [
+    # (B, d, f): the served widths, a ragged float4 shape and single floats
+    (4, 1152, 6912), (2, 3584, 14336), (1, 1024, 4096), (11, 200, 700), (3, 64, 33),
 ]
 
 
@@ -322,6 +333,17 @@ def main(argv=None) -> int:
                          activation=act, bitwise_equal=same))
         print(f"conv1d K {k} B{b} L{length} D{d} row {row} offset {off} {act}: "
               f"bitwise equal {same}")
+    if (args.old / "decode_mlp.cu").exists():
+        old_mlp = _build.CudaLibrary(args.old / "decode_mlp.cu", "decode_mlp_old",
+                                     {"decode_mlp_launch": [ctypes.c_void_p] * 8})
+        for b, d, f in DECODE_MLP:
+            x, w1, w3 = mk((b, d)), mk((d, f), d ** -0.5), mk((d, f), d ** -0.5)
+            w2 = mk((f, d), f ** -0.5)
+            y, y_old = _both(mlp_kernel, old_mlp, lambda: decode_mlp(x, w1, w3, w2))
+            same = bool(torch.equal(y, y_old))
+            bad += not same
+            rows.append(dict(kernel="decode_mlp", shape=[b, d, f], bitwise_equal=same))
+            print(f"decode_mlp B{b} d{d} f{f}: bitwise equal {same}")
     card = _card()
     n_changed = sum(r.get("scheme_changed", False) for r in rows)
     n_held = sum(r["kernel"] != "flash_attention_time" for r in rows) - n_changed

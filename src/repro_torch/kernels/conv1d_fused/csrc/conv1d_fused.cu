@@ -46,6 +46,15 @@
 // 0 read as zero as above.  Each output's chain of operations is the one
 // above, so it agrees with the templated instances where both apply.
 //
+// bf16 (`conv1d_fused_bf16_launch`): the same kernels on bf16 x, w and bias,
+// what the Pallas kernel computes at bf16 input -- each value upcast, the
+// same f32 chain of operations (taps, bias, SiLU), the output rounded to
+// bf16 once.  A thread owns 8 channels (one 16-byte load a row) where D, the
+// row stride and the pointers allow it, else 1; the window is kept in f32
+// registers.  Bytes bound it the same way at half the bytes: mamba2-1.3b's
+// first prefill wave, 2 x 4 x 768 x 4352 x 2 B, is 16.0 us at 3.35 TB/s.
+// The backward stays fp32 (training in bf16 is still to port).
+//
 // The backward (conv1d_fused_bwd_launch) is the gradient XLA computes for
 // the reference's silu(conv1d_depthwise_causal(x, w) + b): the reference
 // trains through no Pallas conv, so this replaces its autodiff, not a TPU
@@ -67,6 +76,7 @@
 // the windows in registers; a larger K runs one instance whose windows
 // live in local memory (K <= kMaxAnyKBwd).
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -87,40 +97,78 @@ constexpr int kMaxTaps = 8;  // K 1..8 have instances of their own
 constexpr int kMaxThreads = 128;
 constexpr int kRows = 8;  // rows of a strip: one thread's, all loaded before any is used
 
-template <int V>
-__device__ __forceinline__ void load_unit(const float* __restrict__ p, float (&v)[V]) {
-  if constexpr (V == 4) {
+bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
+
+using bf16 = __nv_bfloat16;
+
+// V values of type T at p, as f32 (read-only path) / f32 stored as T (streaming)
+template <typename T, int V>
+struct Io;
+template <>
+struct Io<float, 4> {
+  static __device__ __forceinline__ void load(const float* __restrict__ p, float (&v)[4]) {
     const float4 t = __ldg(reinterpret_cast<const float4*>(p));
     v[0] = t.x, v[1] = t.y, v[2] = t.z, v[3] = t.w;
-  } else {
+  }
+  static __device__ __forceinline__ void store(float* p, const float (&v)[4]) {
+    __stcs(reinterpret_cast<float4*>(p), make_float4(v[0], v[1], v[2], v[3]));
+  }
+};
+template <>
+struct Io<float, 1> {
+  static __device__ __forceinline__ void load(const float* __restrict__ p, float (&v)[1]) {
     v[0] = __ldg(p);
   }
-}
-
-template <int V>
-__device__ __forceinline__ void store_unit(float* p, const float (&v)[V]) {
-  if constexpr (V == 4) {
-    __stcs(reinterpret_cast<float4*>(p), make_float4(v[0], v[1], v[2], v[3]));
-  } else {
+  static __device__ __forceinline__ void store(float* p, const float (&v)[1]) {
     __stcs(p, v[0]);
   }
-}
+};
+template <>
+struct Io<bf16, 8> {  // one 16-byte access; the low half of a word is the lower channel
+  static __device__ __forceinline__ void load(const bf16* __restrict__ p, float (&v)[8]) {
+    const int4 t = __ldg(reinterpret_cast<const int4*>(p));
+    const uint32_t w[4] = {(uint32_t)t.x, (uint32_t)t.y, (uint32_t)t.z, (uint32_t)t.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      v[2 * i] = __uint_as_float(w[i] << 16);
+      v[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+    }
+  }
+  static __device__ __forceinline__ void store(bf16* p, const float (&v)[8]) {
+    int w[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      w[i] = (int)((uint32_t)__bfloat16_as_ushort(__float2bfloat16_rn(v[2 * i])) |
+                   ((uint32_t)__bfloat16_as_ushort(__float2bfloat16_rn(v[2 * i + 1])) << 16));
+    __stcs(reinterpret_cast<int4*>(p), make_int4(w[0], w[1], w[2], w[3]));
+  }
+};
+template <>
+struct Io<bf16, 1> {
+  static __device__ __forceinline__ void load(const bf16* __restrict__ p, float (&v)[1]) {
+    v[0] = __uint_as_float((uint32_t)__ldg(reinterpret_cast<const unsigned short*>(p)) << 16);
+  }
+  static __device__ __forceinline__ void store(bf16* p, const float (&v)[1]) {
+    *p = __float2bfloat16_rn(v[0]);
+  }
+};
 
-template <int K, int V>
+template <typename T, int K, int V>
 __global__ void __launch_bounds__(kMaxThreads)
-conv1d_fused_kernel(const float* __restrict__ x, const float* __restrict__ w,
-                    const float* __restrict__ bias, float* __restrict__ out,
+conv1d_fused_kernel(const T* __restrict__ x, const T* __restrict__ w,
+                    const T* __restrict__ bias, T* __restrict__ out,
                     const LaunchArgs a) {
+  using U = Io<T, V>;
   const int c = (blockIdx.y * blockDim.x + threadIdx.x) * V;
   if (c >= a.d) return;
   const int l0 = blockIdx.x * kRows;
   const long long row0 = (long long)blockIdx.z * a.seq;
-  const float* xc = x + row0 * a.x_row_stride + c;
-  float* oc = out + row0 * a.d + c;
+  const T* xc = x + row0 * a.x_row_stride + c;
+  T* oc = out + row0 * a.d + c;
   float taps[K][V], b[V];
 #pragma unroll
-  for (int i = 0; i < K; ++i) load_unit<V>(w + (long long)i * a.d + c, taps[i]);
-  load_unit<V>(bias + c, b);
+  for (int i = 0; i < K; ++i) U::load(w + (long long)i * a.d + c, taps[i]);
+  U::load(bias + c, b);
   // win[i] holds row l0 - (K-1) + i: the K-1 halo rows, then the strip;
   // rows before 0 (the causal pad) and past the end read as zero
   float win[K - 1 + kRows][V];
@@ -128,7 +176,7 @@ conv1d_fused_kernel(const float* __restrict__ x, const float* __restrict__ w,
   for (int i = 0; i < K - 1 + kRows; ++i) {
     const int l = l0 - (K - 1) + i;
     if (l >= 0 && l < a.seq) {
-      load_unit<V>(xc + l * a.x_row_stride, win[i]);
+      U::load(xc + l * a.x_row_stride, win[i]);
     } else {
 #pragma unroll
       for (int v = 0; v < V; ++v) win[i][v] = 0.f;
@@ -147,23 +195,24 @@ conv1d_fused_kernel(const float* __restrict__ x, const float* __restrict__ w,
         if (a.silu) acc = acc * (1.f / (1.f + expf(-acc)));
         o[v] = acc;
       }
-      store_unit<V>(oc + (long long)(l0 + j) * a.d, o);
+      U::store(oc + (long long)(l0 + j) * a.d, o);
     }
   }
 }
 
 // any K: the taps are the outer loop, acc[j] the chain of output l0 + j
-template <int V>
+template <typename T, int V>
 __global__ void __launch_bounds__(kMaxThreads)
-conv1d_fused_kernel_any_k(const float* __restrict__ x, const float* __restrict__ w,
-                          const float* __restrict__ bias, float* __restrict__ out,
+conv1d_fused_kernel_any_k(const T* __restrict__ x, const T* __restrict__ w,
+                          const T* __restrict__ bias, T* __restrict__ out,
                           const LaunchArgs a) {
+  using U = Io<T, V>;
   const int c = (blockIdx.y * blockDim.x + threadIdx.x) * V;
   if (c >= a.d) return;
   const int l0 = blockIdx.x * kRows;
   const long long row0 = (long long)blockIdx.z * a.seq;
-  const float* xc = x + row0 * a.x_row_stride + c;
-  float* oc = out + row0 * a.d + c;
+  const T* xc = x + row0 * a.x_row_stride + c;
+  T* oc = out + row0 * a.d + c;
   float acc[kRows][V];
 #pragma unroll
   for (int j = 0; j < kRows; ++j)
@@ -171,14 +220,14 @@ conv1d_fused_kernel_any_k(const float* __restrict__ x, const float* __restrict__
     for (int v = 0; v < V; ++v) acc[j][v] = 0.f;
   for (int i = 0; i < a.k; ++i) {
     float tap[V];
-    load_unit<V>(w + (long long)i * a.d + c, tap);
+    U::load(w + (long long)i * a.d + c, tap);
 #pragma unroll
     for (int j = 0; j < kRows; ++j) {
       // output l0 + j meets row l0 + j - (K-1) + i at tap i
       const int l = l0 + j - (a.k - 1) + i;
       float xv[V];
       if (l >= 0 && l < a.seq) {
-        load_unit<V>(xc + l * a.x_row_stride, xv);
+        U::load(xc + l * a.x_row_stride, xv);
       } else {
 #pragma unroll
         for (int v = 0; v < V; ++v) xv[v] = 0.f;
@@ -188,7 +237,7 @@ conv1d_fused_kernel_any_k(const float* __restrict__ x, const float* __restrict__
     }
   }
   float b[V];
-  load_unit<V>(bias + c, b);
+  U::load(bias + c, b);
 #pragma unroll
   for (int j = 0; j < kRows; ++j) {
     if (l0 + j < a.seq) {
@@ -199,33 +248,64 @@ conv1d_fused_kernel_any_k(const float* __restrict__ x, const float* __restrict__
         if (a.silu) r = r * (1.f / (1.f + expf(-r)));
         o[v] = r;
       }
-      store_unit<V>(oc + (long long)(l0 + j) * a.d, o);
+      U::store(oc + (long long)(l0 + j) * a.d, o);
     }
   }
 }
 
-template <int K>
-void launch(const float* x, const float* w, const float* b, float* out, const LaunchArgs& a,
+// VW: the wide unit of T (4 floats or 8 bf16, 16 bytes); a.vec is VW or 1
+template <typename T, int VW, int K>
+void launch(const T* x, const T* w, const T* b, T* out, const LaunchArgs& a,
             cudaStream_t stream) {
   const dim3 grid(a.n_strips, a.n_cblocks, a.batch);
-  if (a.vec == 4) {
-    conv1d_fused_kernel<K, 4><<<grid, a.threads, 0, stream>>>(x, w, b, out, a);
+  if (a.vec == VW) {
+    conv1d_fused_kernel<T, K, VW><<<grid, a.threads, 0, stream>>>(x, w, b, out, a);
   } else {
-    conv1d_fused_kernel<K, 1><<<grid, a.threads, 0, stream>>>(x, w, b, out, a);
+    conv1d_fused_kernel<T, K, 1><<<grid, a.threads, 0, stream>>>(x, w, b, out, a);
   }
 }
 
-void launch_any_k(const float* x, const float* w, const float* b, float* out,
-                  const LaunchArgs& a, cudaStream_t stream) {
+template <typename T, int VW>
+void launch_any_k(const T* x, const T* w, const T* b, T* out, const LaunchArgs& a,
+                  cudaStream_t stream) {
   const dim3 grid(a.n_strips, a.n_cblocks, a.batch);
-  if (a.vec == 4) {
-    conv1d_fused_kernel_any_k<4><<<grid, a.threads, 0, stream>>>(x, w, b, out, a);
+  if (a.vec == VW) {
+    conv1d_fused_kernel_any_k<T, VW><<<grid, a.threads, 0, stream>>>(x, w, b, out, a);
   } else {
-    conv1d_fused_kernel_any_k<1><<<grid, a.threads, 0, stream>>>(x, w, b, out, a);
+    conv1d_fused_kernel_any_k<T, 1><<<grid, a.threads, 0, stream>>>(x, w, b, out, a);
   }
 }
 
-bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
+// the forward's checks (a geometry that covers the work exactly, wide units
+// of VW values only where the sizes and pointers allow them), then the
+// instance of its tap count; returns cudaGetLastError() after the launch
+template <typename T, int VW>
+int launch_forward(const T* x, const T* w, const T* b, T* out, const LaunchArgs* a,
+                   cudaStream_t s) {
+  const long long span = (long long)a->threads * a->vec;  // channels per block
+  const bool vec_ok =
+      a->vec == 1 || (a->vec == VW && a->d % VW == 0 && a->x_row_stride % VW == 0 &&
+                      aligned16(x) && aligned16(w) && aligned16(b) && aligned16(out));
+  const bool ok =
+      a->batch >= 1 && a->batch <= 65535 && a->seq >= 1 && a->d >= 1 && a->k >= 1 &&
+      (a->silu == 0 || a->silu == 1) && a->x_row_stride >= a->d && vec_ok &&
+      a->threads >= 32 && a->threads <= kMaxThreads && a->threads % 32 == 0 &&
+      a->n_strips == (a->seq + kRows - 1) / kRows && a->n_cblocks >= 1 &&
+      a->n_cblocks <= 65535 && a->n_cblocks * span >= a->d && (a->n_cblocks - 1) * span < a->d;
+  if (!ok) return (int)cudaErrorInvalidValue;
+  switch (a->k) {
+    case 1: launch<T, VW, 1>(x, w, b, out, *a, s); break;
+    case 2: launch<T, VW, 2>(x, w, b, out, *a, s); break;
+    case 3: launch<T, VW, 3>(x, w, b, out, *a, s); break;
+    case 4: launch<T, VW, 4>(x, w, b, out, *a, s); break;
+    case 5: launch<T, VW, 5>(x, w, b, out, *a, s); break;
+    case 6: launch<T, VW, 6>(x, w, b, out, *a, s); break;
+    case 7: launch<T, VW, 7>(x, w, b, out, *a, s); break;
+    case 8: launch<T, VW, 8>(x, w, b, out, *a, s); break;
+    default: launch_any_k<T, VW>(x, w, b, out, *a, s); break;  // k > kMaxTaps
+  }
+  return (int)cudaGetLastError();
+}
 
 // ----------------------------------------------------------------- backward
 
@@ -252,11 +332,11 @@ conv1d_bwd_kernel(const float* __restrict__ x, const float* __restrict__ w,
   float taps[KW][V], b[V], xw[KW][V], dw[KW][V], dwin[KW][V], db[V];
 #pragma unroll
   for (int i = 0; i < KW; ++i) {
-    if (i < k) load_unit<V>(w + (long long)i * a.d + c, taps[i]);
+    if (i < k) Io<float, V>::load(w + (long long)i * a.d + c, taps[i]);
 #pragma unroll
     for (int v = 0; v < V; ++v) xw[i][v] = dw[i][v] = dwin[i][v] = 0.f;
   }
-  load_unit<V>(bias + c, b);
+  Io<float, V>::load(bias + c, b);
 #pragma unroll
   for (int v = 0; v < V; ++v) db[v] = 0.f;
   // xw[j] holds row t - (K-1) + j: before the first row, the K-1 rows
@@ -264,7 +344,7 @@ conv1d_bwd_kernel(const float* __restrict__ x, const float* __restrict__ w,
 #pragma unroll
   for (int j = 0; j < KW - 1; ++j) {
     const int l = s0 - (k - 1) + j;
-    if (j < k - 1 && l >= 0) load_unit<V>(xc + l * a.x_row_stride, xw[j + 1]);
+    if (j < k - 1 && l >= 0) Io<float, V>::load(xc + l * a.x_row_stride, xw[j + 1]);
   }
   for (int t = s0; t < seg_end + k - 1; ++t) {
 #pragma unroll
@@ -277,8 +357,8 @@ conv1d_bwd_kernel(const float* __restrict__ x, const float* __restrict__ w,
     float dp[V];
     if (t < a.seq) {
       float gv[V];
-      load_unit<V>(xc + t * a.x_row_stride, xw[k - 1]);
-      load_unit<V>(gc + (long long)t * a.d, gv);
+      Io<float, V>::load(xc + t * a.x_row_stride, xw[k - 1]);
+      Io<float, V>::load(gc + (long long)t * a.d, gv);
 #pragma unroll
       for (int v = 0; v < V; ++v) {
         float pre = 0.f;  // the forward's chain: acc = fmaf(x, w_i, acc), + bias
@@ -319,15 +399,15 @@ conv1d_bwd_kernel(const float* __restrict__ x, const float* __restrict__ w,
           if (i < k) acc = fmaf(dwin[k - 1 - i][v], taps[i][v], acc);
         o[v] = acc;
       }
-      store_unit<V>(dxc + (long long)s * a.d, o);
+      Io<float, V>::store(dxc + (long long)s * a.d, o);
     }
   }
   // this (sequence, segment)'s partial sums: K rows of dw, then db
   float* pc = part + (long long)(blockIdx.z * a.n_strips + blockIdx.x) * (k + 1) * a.d + c;
 #pragma unroll
   for (int i = 0; i < KW; ++i)
-    if (i < k) store_unit<V>(pc + (long long)i * a.d, dw[i]);
-  store_unit<V>(pc + (long long)k * a.d, db);
+    if (i < k) Io<float, V>::store(pc + (long long)i * a.d, dw[i]);
+  Io<float, V>::store(pc + (long long)k * a.d, db);
 }
 
 // dw, db: the partial rows summed in order (row 0 first), one thread an element
@@ -367,30 +447,14 @@ void launch_bwd(const float* x, const float* w, const float* b, const float* g, 
 // `stream`; returns cudaGetLastError() right after the launch.
 extern "C" int conv1d_fused_launch(const float* x, const float* w, const float* b,
                                    float* out, const LaunchArgs* a, void* stream) {
-  const long long span = (long long)a->threads * a->vec;  // channels per block
-  const bool vec_ok =
-      a->vec == 1 || (a->vec == 4 && a->d % 4 == 0 && a->x_row_stride % 4 == 0 && aligned16(x) &&
-                      aligned16(w) && aligned16(b) && aligned16(out));
-  const bool ok =
-      a->batch >= 1 && a->batch <= 65535 && a->seq >= 1 && a->d >= 1 && a->k >= 1 &&
-      (a->silu == 0 || a->silu == 1) && a->x_row_stride >= a->d && vec_ok &&
-      a->threads >= 32 && a->threads <= kMaxThreads && a->threads % 32 == 0 &&
-      a->n_strips == (a->seq + kRows - 1) / kRows && a->n_cblocks >= 1 &&
-      a->n_cblocks <= 65535 && a->n_cblocks * span >= a->d && (a->n_cblocks - 1) * span < a->d;
-  if (!ok) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = (cudaStream_t)stream;
-  switch (a->k) {
-    case 1: launch<1>(x, w, b, out, *a, s); break;
-    case 2: launch<2>(x, w, b, out, *a, s); break;
-    case 3: launch<3>(x, w, b, out, *a, s); break;
-    case 4: launch<4>(x, w, b, out, *a, s); break;
-    case 5: launch<5>(x, w, b, out, *a, s); break;
-    case 6: launch<6>(x, w, b, out, *a, s); break;
-    case 7: launch<7>(x, w, b, out, *a, s); break;
-    case 8: launch<8>(x, w, b, out, *a, s); break;
-    default: launch_any_k(x, w, b, out, *a, s); break;  // k > kMaxTaps
-  }
-  return (int)cudaGetLastError();
+  return launch_forward<float, 4>(x, w, b, out, a, (cudaStream_t)stream);
+}
+
+// The same at bf16: x, w, b and out bf16; `a->vec` 8 (one 16-byte access:
+// D and the row stride multiples of 8, the pointers 16-byte aligned) or 1.
+extern "C" int conv1d_fused_bf16_launch(const bf16* x, const bf16* w, const bf16* b,
+                                        bf16* out, const LaunchArgs* a, void* stream) {
+  return launch_forward<bf16, 8>(x, w, b, out, a, (cudaStream_t)stream);
 }
 
 // The backward of the above for the output gradient g (batch, seq, d),

@@ -4,7 +4,10 @@
 (`kernels._build`).  `conv1d_fused_call` takes CUDA tensors only and
 raises on anything the kernel does not take; the plain version of the
 same function is `ref.conv1d_ref`.  `LAUNCHES` counts the kernel's
-launches.
+launches.  fp32 inputs launch the fp32 instantiation
+(`conv1d_fused_launch`), bf16 inputs the bf16 one
+(`conv1d_fused_bf16_launch`: f32 taps, bias and SiLU, the output rounded
+once); nothing else is taken.
 
 The launch geometry (`Geometry`: channels per thread, threads per block,
 the grid) is computed here, once per (B, L, D, row stride, alignment),
@@ -42,9 +45,13 @@ class LaunchArgs(ctypes.Structure):
 LIB = _build.CudaLibrary(SOURCE, "conv1d_fused", {
     # x, w, b, out, &LaunchArgs, stream
     "conv1d_fused_launch": [ctypes.c_void_p] * 6,
+    "conv1d_fused_bf16_launch": [ctypes.c_void_p] * 6,
     # x, w, b, g, dx, dw, db, scratch, &LaunchArgs, stream (`backward.py`)
     "conv1d_fused_bwd_launch": [ctypes.c_void_p] * 10,
 })
+# the forward's entry point of each element type, and its wide unit (16 bytes)
+ENTRY = {torch.float32: "conv1d_fused_launch", torch.bfloat16: "conv1d_fused_bf16_launch"}
+WIDE = {torch.float32: 4, torch.bfloat16: 8}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -73,10 +80,11 @@ class Geometry:
 
 @functools.lru_cache(maxsize=None)
 def launch_geometry(batch: int, length: int, d: int, row_stride: int,
-                    aligned: bool = True) -> Geometry:
-    """The geometry for x (batch, length, d), rows `row_stride` floats
-    apart: float4 units when d and the row stride are multiples of 4 and
-    the tensors 16-byte aligned, else single floats; blocks of 128
+                    aligned: bool = True, dtype: torch.dtype = torch.float32) -> Geometry:
+    """The geometry for x (batch, length, d), rows `row_stride` values
+    apart: 16-byte units (4 floats, or 8 bf16 values for a bf16 `dtype`)
+    when d and the row stride are multiples of the unit and the tensors
+    16-byte aligned, else single values; blocks of 128
     threads (fewer warps for a narrow D); one strip of `ROWS` rows per
     thread, so every L gives ceil(L / 8) strips.  At mamba2-1.3b's
     prefill waves that is 3,456 blocks (B 4, L 768) and 306 (B 2, L 129),
@@ -84,7 +92,8 @@ def launch_geometry(batch: int, length: int, d: int, row_stride: int,
     the card it changes nothing."""
     if min(batch, length, d) < 1 or row_stride < d:
         raise ValueError(f"no geometry for B={batch} L={length} D={d} row={row_stride}")
-    vec = 4 if aligned and d % 4 == 0 and row_stride % 4 == 0 else 1
+    wide = WIDE[dtype]
+    vec = wide if aligned and d % wide == 0 and row_stride % wide == 0 else 1
     units = -(-d // vec)
     threads = min(MAX_THREADS, -(-units // 32) * 32)
     return Geometry(vec, threads, -(-units // threads), -(-length // ROWS), batch)
@@ -92,11 +101,12 @@ def launch_geometry(batch: int, length: int, d: int, row_stride: int,
 
 @functools.lru_cache(maxsize=None)
 def _launch_args(batch: int, length: int, d: int, row: int, k: int, silu: bool,
-                 aligned: bool) -> tuple:
+                 aligned: bool, dtype: torch.dtype = torch.float32) -> tuple:
     """(`LaunchArgs`, its address) for a shape, made once: a call passes
     one pointer, not ten ints (the cache keeps the struct alive at that
     address)."""
-    args = launch_geometry(batch, length, d, row, aligned).launch_args(length, d, row, k, silu)
+    geo = launch_geometry(batch, length, d, row, aligned, dtype)
+    args = geo.launch_args(length, d, row, k, silu)
     return args, ctypes.addressof(args)
 
 
@@ -105,11 +115,11 @@ def conv1d_fused_call(
 ) -> torch.Tensor:
     """Launch the kernel on the current stream.
 
-    x: (B, L, D) f32 on the card, channels contiguous; its rows may be
-       further apart than D (a column slice of a wider activation is read
-       in place).
-    w: (K, D), b: (D,) f32 contiguous on the same card, any K >= 1.
-    returns: (B, L, D) contiguous, act(causal conv + b).
+    x: (B, L, D) f32 or bf16 on the card, channels contiguous; its rows
+       may be further apart than D (a column slice of a wider activation
+       is read in place).
+    w: (K, D), b: (D,) contiguous on the same card in x's dtype, any K >= 1.
+    returns: (B, L, D) contiguous in x's dtype, act(causal conv + b).
     """
     global LAUNCHES
     # the gradient is `ops.Conv1dFused`'s, reached through `conv1d_fused`
@@ -118,12 +128,13 @@ def conv1d_fused_call(
     if activation not in ("silu", "none"):
         raise ValueError(f"activation must be 'silu' or 'none', got {activation!r}")
     index = x.get_device()  # -1 on the CPU
+    dtype = x.dtype if x.dtype in ENTRY else torch.float32
     for name, t, ndim in (("x", x, 3), ("w", w, 2), ("b", b, 1)):
-        if (t.dtype is not torch.float32 or index < 0 or t.get_device() != index
+        if (t.dtype is not dtype or index < 0 or t.get_device() != index
                 or t.dim() != ndim):
             raise ValueError(
-                f"{name} must be a {ndim}-d float32 tensor on the card beside x "
-                f"({x.device}), got {t.dtype} {tuple(t.shape)} on {t.device}"
+                f"{name} must be a {ndim}-d {dtype} tensor (float32 or bfloat16, as x) on "
+                f"the card beside x ({x.device}), got {t.dtype} {tuple(t.shape)} on {t.device}"
             )
     bsz, length, d = x.shape
     k = w.shape[0]
@@ -136,11 +147,11 @@ def conv1d_fused_call(
     row = x.stride(1)
     if x.stride(2) != 1 or row < d or (bsz > 1 and x.stride(0) != length * row):
         raise ValueError(f"x strides {x.stride()} are not (L*R, R, 1) with R >= D")
-    out = torch.empty((bsz, length, d), dtype=torch.float32, device=x.device)
+    out = torch.empty((bsz, length, d), dtype=dtype, device=x.device)
     ptrs = (x.data_ptr(), w.data_ptr(), b.data_ptr(), out.data_ptr())
     _, args = _launch_args(bsz, length, d, row, k, activation == "silu",
-                           not any(p % 16 for p in ptrs))
-    LIB.launch("conv1d_fused_launch", x.device, *ptrs, args)
+                           not any(p % 16 for p in ptrs), dtype)
+    LIB.launch(ENTRY[dtype], x.device, *ptrs, args)
     with _build.COUNT_LOCK:
         LAUNCHES += 1
     return out

@@ -11,7 +11,9 @@ same launch, and its backward is the backward kernel
 (`ref.conv1d_bwd_ref`) on the CPU.  The reference never trains through
 its Pallas conv (`use_pallas_conv` is off in every caller): its gradient
 is XLA's, of the shifted-MAC conv plus SiLU, which is what both
-compute.
+compute.  The forward takes fp32 and bf16; the backward kernel is fp32
+only, so on the card a bf16 input under grad raises (ROADMAP §1,
+reduced precision: bf16 training).
 """
 
 from __future__ import annotations
@@ -80,6 +82,11 @@ def conv1d_fused(
         b = torch.zeros((x.shape[-1],), dtype=x.dtype, device=x.device)
     w, b = w.contiguous(), b.contiguous()
     if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad or b.requires_grad):
+        if x.device.type == "cuda" and x.dtype != torch.float32:
+            raise NotImplementedError(
+                f"conv1d_fused under grad takes float32 on the card, got {x.dtype}: the "
+                "backward kernel has no bf16 instantiation yet (ROADMAP §1, reduced "
+                "precision: bf16 training)")
         return Conv1dFused.apply(x, w, b, activation)
     return _conv(x, w, b, activation)
 
@@ -104,10 +111,8 @@ class Conv1dFusedAlgorithm(registry.Algorithm):
     chain_family = None  # 1-D stages never chain with the 2-D tiling
 
     def supports(self, spec: registry.ConvSpec) -> bool:
-        """Any K, fp32 or bf16, as the reference's kernel takes them.  On
-        the card the CUDA kernel takes fp32 only: a bf16 spec plans here
-        and raises at execute until the bf16 kernels land (ROADMAP §1,
-        reduced precision)."""
+        """Any K, fp32 or bf16, as the reference's kernel takes them; on the
+        card each executes through the kernel's instantiation of its dtype."""
         return (
             spec.temporal
             and spec.groups == spec.c_in == spec.c_out

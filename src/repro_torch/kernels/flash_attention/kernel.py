@@ -5,7 +5,10 @@
 raises on anything the kernel does not take; the plain version of the
 same function is `ref.attention_ref` (and `ref.lse_ref` for the
 log-sum-exp that training's backward reads).  `LAUNCHES` counts the
-kernel's launches.
+kernel's launches.  fp32 inputs launch the fp32 instantiation
+(`flash_attention_launch`), bf16 inputs the bf16 one
+(`flash_attention_bf16_launch`: bf16 P for P.V, bf16 output); nothing
+else is taken.
 
 The kernel addresses q, k, v and the output by (batch, head, sequence)
 strides with the head dim contiguous, so a (B, H, S, hd) view of the
@@ -40,23 +43,28 @@ ARGTYPES = (
     + [ctypes.c_float, ctypes.c_void_p]  # scale, stream
 )
 LIB = _build.CudaLibrary(
-    SOURCE, "flash_attention", {"flash_attention_launch": ARGTYPES}
+    SOURCE, "flash_attention",
+    {"flash_attention_launch": ARGTYPES, "flash_attention_bf16_launch": ARGTYPES},
 )
+# the entry point of each element type the kernel takes
+ENTRY = {torch.float32: "flash_attention_launch", torch.bfloat16: "flash_attention_bf16_launch"}
 
 
-def _check(name: str, t: torch.Tensor, device: torch.device) -> None:
+def _check(name: str, t: torch.Tensor, device: torch.device,
+           dtype: torch.dtype = torch.float32) -> None:
     if t.device.type != "cuda" or t.device != device:
         raise ValueError(f"{name} must be a CUDA tensor on {device}, got {t.device}")
-    if t.dtype != torch.float32:
-        raise ValueError(f"{name} must be float32, got {t.dtype}")
+    if t.dtype != dtype:
+        raise ValueError(f"{name} must be {dtype}, got {t.dtype}")
     if t.ndim != 4 or t.stride(3) != 1:
         raise ValueError(f"{name} must be (B, H, S, hd) with hd contiguous")
-    if t.data_ptr() % 16 or any(s % 4 for s in t.stride()[:3]):
+    per16 = 16 // t.element_size()  # elements in 16 bytes
+    if t.data_ptr() % 16 or any(s % per16 for s in t.stride()[:3]):
         raise ValueError(f"{name} must be 16-byte aligned (strides {t.stride()})")
 
 
 def empty_in_layout(t: torch.Tensor, last: int) -> torch.Tensor:
-    """An uninitialised f32 tensor of `t`'s shape with the last dim `last`,
+    """An uninitialised tensor of `t`'s dtype and shape with the last dim `last`,
     its first three dims in `t`'s memory order (so a (B, H, S, hd) view of
     a (B, S, H, hd) tensor gets a (B, H, S, last) view of a (B, S, H,
     last) one)."""
@@ -76,12 +84,12 @@ def flash_attention_call(
 ):
     """Launch the kernel on the current stream.
 
-    q: (B, Hq, Sq, hd), k: (B, Hkv, Sk, hd), v: (B, Hkv, Sk, vd) f32 on
-    the card, any (batch, head, sequence) strides with the head dim
-    contiguous; Hq % Hkv == 0, (hd, vd) in `HEAD_DIMS`; the scale is q's
+    q: (B, Hq, Sq, hd), k: (B, Hkv, Sk, hd), v: (B, Hkv, Sk, vd) on the
+    card, all f32 or all bf16, any (batch, head, sequence) strides with
+    the head dim contiguous; Hq % Hkv == 0, (hd, vd) in `HEAD_DIMS`; the scale is q's
     hd^-0.5.  Sq and Sk need not be multiples of the kernel's tiles: the
     ragged edges are masked in the kernel.
-    returns: (B, Hq, Sq, vd) in q's memory layout; with `return_lse`
+    returns: (B, Hq, Sq, vd) in q's dtype and memory layout; with `return_lse`
     also the f32 log-sum-exp of each row's scaled scores, (B, Hq, Sq)
     contiguous (0 for a row that sees no key).  Writing it changes no
     bit of the output.
@@ -89,8 +97,10 @@ def flash_attention_call(
     global LAUNCHES
     _build.refuse_grad("flash_attention", "training goes through "
                        "repro_torch.models.flash_attention, which has one", q, k, v)
+    if q.dtype not in ENTRY:
+        raise ValueError(f"q must be float32 or bfloat16, got {q.dtype}")
     for name, t in (("q", q), ("k", k), ("v", v)):
-        _check(name, t, q.device)
+        _check(name, t, q.device, q.dtype)
     b, hq, sq, hd = q.shape
     hkv, sk, vd = k.shape[1], k.shape[2], v.shape[3]
     if tuple(k.shape) != (b, hkv, sk, hd) or tuple(v.shape) != (b, hkv, sk, vd):
@@ -101,10 +111,10 @@ def flash_attention_call(
         raise ValueError(f"head dims (q/k {hd}, v {vd}) are not one of the kernel's "
                          f"instantiations {HEAD_DIMS} (the registered configs' head dims)")
     out = empty_in_layout(q, vd)  # q's layout
-    _check("out", out, q.device)
+    _check("out", out, q.device, q.dtype)
     lse = torch.empty((b, hq, sq), dtype=torch.float32, device=q.device) if return_lse else None
     LIB.launch(
-        "flash_attention_launch", q.device,
+        ENTRY[q.dtype], q.device,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         lse.data_ptr() if return_lse else None,
         b, hq, hkv, sq, sk, hd, vd,

@@ -5,7 +5,7 @@ the CPU."""
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -41,16 +41,33 @@ def attention_ref(
     *,
     causal: bool = True,
     window: int = 0,
+    p_dtype: Optional[torch.dtype] = None,
 ) -> torch.Tensor:
-    """Masked softmax attention in f32 with the flash kernel's semantics:
+    """Masked softmax attention with the flash kernel's semantics:
     kv head = q head // (Hq / Hkv), scale q's hd^-0.5 (v's vd may differ,
     as in MLA), positions are indices (`band_mask`), and a fully masked
-    row gives 0.  Returns (B, Hq, Sq, vd)."""
+    row gives 0.  Returns (B, Hq, Sq, vd) in q's dtype.
+
+    Scores and softmax statistics are f32.  `p_dtype` is the type P meets
+    v in: bf16 by default for bf16 inputs (the reference's default
+    `flash_p_dtype`, and its kernel's cast of P to v's dtype), f32
+    otherwise.  At f32 this is the softmax times f32 v; at bf16 the
+    numerator exp(s - m) and v are rounded to bf16, their products summed
+    in f32 and divided by the f32 row sum of the unrounded numerator, as
+    the reference's flash does."""
+    if p_dtype is None:
+        p_dtype = torch.bfloat16 if v.dtype == torch.bfloat16 else torch.float32
     s, _ = _scores(q, k, causal, window)
     v = v.repeat_interleave(q.shape[1] // k.shape[1], dim=1)
-    p = torch.softmax(s, dim=-1)
-    p = torch.nan_to_num(p, nan=0.0)
-    return torch.einsum("bhqk,bhkd->bhqd", p, v.float()).to(q.dtype)
+    if p_dtype == torch.float32:
+        p = torch.softmax(s, dim=-1)
+        p = torch.nan_to_num(p, nan=0.0)
+        return torch.einsum("bhqk,bhkd->bhqd", p, v.float()).to(q.dtype)
+    m = s.amax(dim=-1, keepdim=True)
+    m = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
+    p = torch.exp(s - m)  # 0 where masked
+    o = torch.einsum("bhqk,bhkd->bhqd", p.to(p_dtype).float(), v.to(p_dtype).float())
+    return (o / torch.clamp(p.sum(dim=-1, keepdim=True), min=1e-30)).to(q.dtype)
 
 
 def lse_ref(

@@ -83,8 +83,13 @@ def decode_attention(
     *,
     window: int = 0,
 ) -> torch.Tensor:
-    """One causal masked pass over the whole cache (no KV loop), f32 statistics;
-    a fully masked row gives 0."""
+    """One causal masked pass over the whole cache (no KV loop), the
+    reference's one-shot path (which it takes for caches of up to 512
+    slots; a longer one it walks in 512-slot chunks with P in f32): q
+    scaled in its own dtype, f32 scores and statistics, P cast to v's
+    dtype and its products with v summed in f32 (a bf16 product is exact
+    in f32), the row sum divided out in f32, the output in q's dtype; a
+    fully masked row gives 0."""
     b, sq, hq, hd = q.shape
     hkv, vd = k.shape[2], v.shape[3]
     g = hq // hkv
@@ -96,7 +101,7 @@ def decode_attention(
     m = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
     p = torch.where(msk, torch.exp(s - m), torch.zeros_like(s))
     l = p.sum(dim=-1, keepdim=True)
-    out = torch.einsum("bhgqc,bchd->bhgqd", p.to(v.dtype), v).float()
+    out = torch.einsum("bhgqc,bchd->bhgqd", p.to(v.dtype).float(), v.float())
     out = out / torch.clamp(l, min=1e-30)
     return out.permute(0, 3, 1, 2, 4).reshape(b, sq, hq, vd).to(q.dtype)
 
@@ -351,21 +356,30 @@ def mla_decode_absorbed(p, q: torch.Tensor, cache: Cache, cfg: ArchConfig) -> to
         s = (q_nope W_uk) . c_kv + q_rope . k_rope
         o = (softmax(s) c_kv) W_uv, per head
     over the cache's filled slots (pos >= 0), scale (nope + rope)^-0.5.
-    Plain einsums, as the reference leaves them to XLA.  q: (B, 1, H,
-    nope + rope); returns (B, 1, D)."""
+    Plain einsums, as the reference leaves them to XLA, in the cache's
+    dtype as the reference's are: each operand cast to it, the products
+    summed in f32 (`_cdot`), the latents q_lat and o_lat and the softmax
+    weights rounded to it between the products.  q: (B, 1, H, nope +
+    rope); returns (B, 1, D)."""
     m: MLAConfig = cfg.mla
     b, h = q.shape[0], cfg.n_heads
+    cdtype = cache["c_kv"].dtype
+
+    def _cdot(eq: str, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+        """einsum of x and y cast to the cache's dtype, summed in f32 (the
+        reference's `preferred_element_type`)."""
+        return torch.einsum(eq, x.to(cdtype).float(), y.to(cdtype).float())
+
     q_nope, q_rope = q[..., : m.qk_nope_dim], q[..., m.qk_nope_dim :]
     wk = p["wk_b"].reshape(m.kv_lora_rank, h, m.qk_nope_dim)
-    q_lat = torch.einsum("bqhn,rhn->bqhr", q_nope, wk)
+    q_lat = _cdot("bqhn,rhn->bqhr", q_nope, wk)
     ckv, kr = cache["c_kv"], cache["k_rope"]
-    s = (torch.einsum("bqhr,bsr->bhqs", q_lat, ckv)
-         + torch.einsum("bqhn,bsn->bhqs", q_rope, kr))
+    s = _cdot("bqhr,bsr->bhqs", q_lat, ckv) + _cdot("bqhn,bsn->bhqs", q_rope, kr)
     s = s * (m.qk_nope_dim + m.qk_rope_dim) ** -0.5
     valid = (cache["pos"] >= 0)[:, None, None, :]
-    w = torch.softmax(s.float().masked_fill(~valid, float("-inf")), dim=-1)
-    w = torch.where(valid, w, torch.zeros_like(w)).to(ckv.dtype)
-    o_lat = torch.einsum("bhqs,bsr->bqhr", w, ckv)
+    w = torch.softmax(s.masked_fill(~valid, float("-inf")), dim=-1)
+    w = torch.where(valid, w, torch.zeros_like(w))
+    o_lat = _cdot("bhqs,bsr->bqhr", w, ckv)
     wv = p["wv_b"].reshape(m.kv_lora_rank, h, m.v_head_dim)
-    o = torch.einsum("bqhr,rhv->bqhv", o_lat, wv).reshape(b, 1, h * m.v_head_dim)
+    o = _cdot("bqhr,rhv->bqhv", o_lat, wv).reshape(b, 1, h * m.v_head_dim)
     return o.to(q.dtype) @ p["wo"]

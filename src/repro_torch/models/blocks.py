@@ -183,13 +183,16 @@ def apply_layer(
     *,
     cross_x: Optional[torch.Tensor] = None,
     build_cache_len: Optional[int] = None,
+    cache_dtype: Optional[torch.dtype] = None,
 ):
     """Full-sequence layer application (training, prefill, the encoder).
     Returns (x, aux, cache): the MoE aux losses ({moe_aux, moe_z}) where
     the spec has experts, else None; the cache (or None) is built when
-    `build_cache_len` is given.  `shared` is the model's shared block
-    (zamba2), read by "shared_attn" layers; `cross_x` the encoder's
-    output, read by a layer with `cross_attn`."""
+    `build_cache_len` is given, an attention cache in `cache_dtype` (x's
+    dtype by default; `lm_prefill` passes the config's, as the
+    reference).  `shared` is the model's shared block (zamba2), read by
+    "shared_attn" layers; `cross_x` the encoder's output, read by a layer
+    with `cross_attn`."""
     cache = aux = None
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
     if spec.mixer in ("attn", "shared_attn"):
@@ -199,7 +202,7 @@ def apply_layer(
                 ap, h, positions, cfg, window=spec.window, causal=spec.causal, return_kv=True
             )
             cache = attn_mod.init_kv_cache(
-                cfg, x.shape[0], build_cache_len, spec.window, x.dtype, x.device
+                cfg, x.shape[0], build_cache_len, spec.window, cache_dtype or x.dtype, x.device
             )
             cache = attn_mod.fill_kv_cache(cache, k, v, positions)
         else:
@@ -209,7 +212,8 @@ def apply_layer(
         if build_cache_len is not None:
             y, (c_kv, k_rope) = attn_mod.mla_forward(
                 p["attn"], h, positions, cfg, return_latent=True)
-            cache = attn_mod.init_mla_cache(cfg, x.shape[0], build_cache_len, x.dtype, x.device)
+            cache = attn_mod.init_mla_cache(cfg, x.shape[0], build_cache_len,
+                                            cache_dtype or x.dtype, x.device)
             cache = attn_mod.fill_mla_cache(cache, c_kv, k_rope, positions)
         else:
             y = attn_mod.mla_forward(p["attn"], h, positions, cfg)

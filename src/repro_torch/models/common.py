@@ -3,10 +3,26 @@ initialisers."""
 
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Any, Mapping, Optional, Tuple
 
 import torch
+
+
+@contextlib.contextmanager
+def f32_accumulation():
+    """Inside, cuBLAS sums bf16 products in f32 (no reduced-precision
+    reductions), as the reference's bf16 dots do, whatever the caller's
+    global setting; that setting is restored after.  The serving entry
+    points (`lm_logits`, `lm_prefill`, `lm_decode_step`) run under it."""
+    mm = torch.backends.cuda.matmul
+    prev = mm.allow_bf16_reduced_precision_reduction
+    mm.allow_bf16_reduced_precision_reduction = False
+    try:
+        yield
+    finally:
+        mm.allow_bf16_reduced_precision_reduction = prev
 
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:

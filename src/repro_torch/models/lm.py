@@ -10,8 +10,9 @@
 `tokens` are int tensors on the model's device.  Embedding tables are
 padded to a multiple of 2048 rows; padded logits are cut.  The decode
 state is ``{"layers": [cache per layer]}``; caches are updated in place.
-Serving runs under `inference_mode`; `lm_loss` is the one entry point
-that builds an autograd graph.
+Serving runs under `inference_mode`, and under `f32_accumulation`: bf16
+products are summed in f32 on the card whatever the caller's cuBLAS
+setting; `lm_loss` is the one entry point that builds an autograd graph.
 
 Every registered architecture is ported: decoder-only stacks of GQA
 attention or MLA (dense SwiGLU MLP or a mixture of experts) and mamba
@@ -40,6 +41,7 @@ from repro_torch.models.common import (
     Params,
     dense_init,
     embed_init,
+    f32_accumulation,
     pad_vocab,
     rms_norm,
     softmax_cross_entropy,
@@ -157,7 +159,7 @@ def _encode(model: LM, src_embeds: Optional[torch.Tensor]):
     if src_embeds is None:
         raise ValueError(f"{cfg.name} is an encoder-decoder: it needs `src_embeds`, the "
                          "source frame embeddings (B, S_src, d_model)")
-    x = src_embeds.to(model.embed.dtype)
+    x = src_embeds.to(getattr(torch, cfg.dtype))  # the model's dtype, as the reference
     pos = _positions(x.shape[0], x.shape[1], x.device)
     for spec, lp in zip(model.enc_specs, model.encoder.layers):
         x, _, _ = blocks.apply_layer(lp, spec, cfg, x, pos)
@@ -218,6 +220,7 @@ def lm_loss(
 
 
 @torch.inference_mode()
+@f32_accumulation()
 def lm_logits(
     model: LM, tokens: torch.Tensor, *, src_embeds: Optional[torch.Tensor] = None
 ) -> torch.Tensor:
@@ -232,6 +235,7 @@ def lm_logits(
     return _head(model, x)
 
 
+@f32_accumulation()
 @torch.inference_mode()
 def lm_prefill(
     model: LM, tokens: torch.Tensor, max_len: int, *,
@@ -240,7 +244,8 @@ def lm_prefill(
     """Run the prompt (B, S), build the caches; an encoder-decoder runs its
     encoder over `src_embeds` first, and its state carries the encoder's
     output (``cross_x``) and the frames' positions (``cross_pos``).
-    Returns (last-token logits (B, vocab), state)."""
+    Returns (last-token logits (B, vocab), state).  The attention caches
+    are in the config's dtype (the reference's `cache_dtype`)."""
     state: State = {}
     cross_x = None
     if model.cfg.is_encoder_decoder:
@@ -252,13 +257,14 @@ def lm_prefill(
     for spec, lp in zip(model.specs, model.layers):
         x, _, cache = blocks.apply_layer(
             lp, spec, model.cfg, x, pos, model.shared_block, cross_x=cross_x,
-            build_cache_len=max_len,
+            build_cache_len=max_len, cache_dtype=getattr(torch, model.cfg.dtype),
         )
         caches.append(cache)
     state["layers"] = caches
     return _head(model, x[:, -1:])[:, 0], state
 
 
+@f32_accumulation()
 @torch.inference_mode()
 def lm_decode_step(
     model: LM, token: torch.Tensor, pos: int, state: State

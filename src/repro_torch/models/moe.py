@@ -119,6 +119,19 @@ def record_routing() -> Iterator[List[Routing]]:
         _RECORDS = prev
 
 
+def _bmm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b, batched, its bf16 products summed in f32 and returned f32
+    (the reference's `preferred_element_type`): on the card cuBLAS reads
+    the bf16 operands as they are; on the CPU, which has no such product,
+    they are upcast first (each product is exact in f32).  f32 operands
+    go as they are."""
+    if a.dtype == torch.float32 and b.dtype == torch.float32:
+        return torch.bmm(a, b)
+    if a.is_cuda:
+        return torch.bmm(a, b, out_dtype=torch.float32)
+    return torch.bmm(a.float(), b.float())
+
+
 def moe_forward(
     p, x: torch.Tensor, cfg: ArchConfig
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
@@ -147,13 +160,24 @@ def moe_forward(
     buf = x.new_zeros((rows + 1, d)).index_copy(0, slot, pairs * keep[:, None])
     h_in = buf[:rows].view(e, r.cap, d)
 
-    # ---- expert FFN, batched over experts
-    h = F.silu(torch.bmm(h_in, p["w1"])) * torch.bmm(h_in, p["w3"])
-    h_out = torch.bmm(h, p["w2"]).reshape(rows, d)
+    # ---- expert FFN, batched over experts, at the reference's cast points:
+    # x W1 and x W3 summed and kept in f32, h rounded to x's dtype, h W2
+    # summed in f32 and rounded to it (the reference's f32
+    # `preferred_element_type`; a bf16 product is exact in f32)
+    h = (F.silu(_bmm_f32(h_in, p["w1"])) * _bmm_f32(h_in, p["w3"])).to(x.dtype)
+    h_out = _bmm_f32(h, p["w2"]).to(x.dtype).reshape(rows, d)
 
-    # ---- combine: gather each pair's row back, weight, sum over k
+    # ---- combine in x's dtype, as the reference's scatter-add: each pair's
+    # row gathered back and weighted, then a token's k rows added one at a
+    # time in ascending expert order (the reference's slots are sorted by
+    # expert), each add rounded to x's dtype
     gathered = h_out[torch.clamp(slot, max=rows - 1)]
-    out = (gathered * (keep * r.gates.reshape(-1).to(x.dtype))[:, None]).view(n, k, d).sum(dim=1)
+    rows_k = (gathered * (keep * r.gates.reshape(-1).to(x.dtype))[:, None]).view(n, k, d)
+    by_expert = r.ids.argsort(dim=-1)[..., None].expand(n, k, d)
+    rows_k = rows_k.gather(1, by_expert)
+    out = rows_k[:, 0]
+    for j in range(1, k):
+        out = out + rows_k[:, j]
 
     # ---- shared experts (always on)
     if "shared_w1" in p:

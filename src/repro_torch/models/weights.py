@@ -12,6 +12,11 @@ layers), DeepSeek-V3's ``"mtp"`` head, and an encoder-decoder's
 included, an MLA layer's ``"attn"`` leaves and a decoder layer's
 ``"ln_cross"`` / ``"cross"`` come with their layers like any other.  Both
 then compute the same function.
+
+Each leaf keeps its dtype, bit for bit: a bf16 leaf (numpy's
+`ml_dtypes.bfloat16`, which `torch.from_numpy` refuses) is carried as its
+16-bit patterns and viewed as `torch.bfloat16`, and an f32 leaf of a bf16
+tree (an MoE router, mamba's `dt_bias`, `A_log` and `D`) stays f32.
 """
 
 from __future__ import annotations
@@ -35,7 +40,10 @@ def _tree(node: Any, device: torch.device, index=None):
     arr = np.asarray(node)
     if index is not None:
         arr = arr[index]
-    return torch.from_numpy(np.array(arr, copy=True, order="C")).to(device)
+    arr = np.array(arr, copy=True, order="C")
+    if arr.dtype.name == "bfloat16":  # ml_dtypes' bf16: its bits, viewed as torch's
+        return torch.from_numpy(arr.view(np.uint16)).view(torch.bfloat16).to(device)
+    return torch.from_numpy(arr).to(device)
 
 
 def _layers(plan, stack, device: torch.device) -> list:

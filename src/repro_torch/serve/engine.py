@@ -48,9 +48,19 @@ class Engine:
         self.waves: List[Dict] = []
 
     def _sample(self, logits: torch.Tensor, rng: np.random.Generator) -> np.ndarray:
+        """Greedy: the argmax of the logits as they are (bf16 logits
+        included).  Else the softmax of logits / temperature in the
+        logits' dtype, as the reference's engine computes it, drawn by
+        numpy; below f32 from its float64 copy divided by its sum, since
+        numpy refuses probabilities whose sum is off 1 by more than ~1e-8
+        and a bf16 softmax over a full vocabulary is off by ~1e-4 (the
+        reference raises there)."""
         if self.scfg.temperature <= 0.0:
             return logits.argmax(dim=-1).to(torch.int32).cpu().numpy()
-        probs = torch.softmax(logits.float() / self.scfg.temperature, dim=-1)
+        probs = torch.softmax(logits / self.scfg.temperature, dim=-1)
+        if probs.dtype != torch.float32:
+            probs = probs.double()
+            probs = probs / probs.sum(dim=-1, keepdim=True)
         probs = probs.cpu().numpy()
         return np.array(
             [rng.choice(probs.shape[-1], p=pr) for pr in probs], np.int32

@@ -43,10 +43,9 @@ def _cover(g, batch, length, d):
     return count
 
 
-@pytest.mark.parametrize("name", sorted(SHAPES))
-def test_conv1d_geometry_covers_every_output_once(name):
+def _check_covers_every_output_once(name, dtype):
     b, length, d, row, aligned = SHAPES[name]
-    g = conv1d_kernel.launch_geometry(b, length, d, row, aligned=aligned)
+    g = conv1d_kernel.launch_geometry(b, length, d, row, aligned=aligned, dtype=dtype)
     assert g.batch == b
     assert g.threads % 32 == 0 and 32 <= g.threads <= conv1d_kernel.MAX_THREADS
     assert g.n_blocks == g.n_strips * g.n_cblocks * b
@@ -55,6 +54,16 @@ def test_conv1d_geometry_covers_every_output_once(name):
     # inside the tensor
     assert (g.n_strips - 1) * conv1d_kernel.ROWS < length
     assert (g.n_cblocks - 1) * g.threads * g.vec < d
+
+
+@pytest.mark.parametrize("name", sorted(SHAPES))
+def test_conv1d_geometry_covers_every_output_once(name):
+    _check_covers_every_output_once(name, torch.float32)
+
+
+@pytest.mark.parametrize("name", sorted(SHAPES))
+def test_conv1d_bf16_geometry_covers_every_output_once(name):
+    _check_covers_every_output_once(name, torch.bfloat16)
 
 
 @pytest.mark.parametrize("name,vec", [
@@ -66,6 +75,18 @@ def test_conv1d_geometry_vector_width(name, vec):
     16-byte accesses."""
     b, length, d, row, aligned = SHAPES[name]
     assert conv1d_kernel.launch_geometry(b, length, d, row, aligned=aligned).vec == vec
+
+
+@pytest.mark.parametrize("name,vec", [
+    ("mamba2-wave1", 8), ("mamba2-wave2", 8), ("D73", 1), ("slice-at-offset-65", 1),
+    ("row-stride-not-multiple-of-4", 1), ("L5-D64", 8),
+])
+def test_conv1d_bf16_geometry_vector_width(name, vec):
+    """At bf16 a unit is 8 values (16 bytes), where D, the row stride and
+    every pointer allow it."""
+    b, length, d, row, aligned = SHAPES[name]
+    g = conv1d_kernel.launch_geometry(b, length, d, row, aligned=aligned, dtype=torch.bfloat16)
+    assert g.vec == vec
 
 
 def test_conv1d_slice_at_offset_65_is_not_aligned():

@@ -1311,3 +1311,164 @@ def test_cuda_moonshot_lm_loss_matches_the_cpu(cuda_device):
         assert want != 0 and abs(float(m_d[k].detach()) - want) < 1e-4 * abs(want), k
     for (n, pd), (_, pc) in zip(card.named_parameters(), cpu.named_parameters()):
         assert _rel(pd.grad.cpu(), pc.grad) < 1e-3, n
+
+
+# ------------------------------------------------------------ bf16
+#
+# The bf16 instantiations against their plain versions on the same bf16
+# inputs, and both against float64 from those inputs: the kernel's max
+# error at most twice the plain version's plus one bf16 ulp of max |out|
+# (the output is rounded to bf16 once on both sides; the kernel sums in
+# another order), and bitwise the same twice.
+
+BF16 = torch.bfloat16
+
+
+def _bf16_operand(rng, shape, dev, scale=1.0):
+    return torch.tensor(rng.standard_normal(shape) * scale, dtype=torch.float32).to(dev, BF16)
+
+
+def _bf16_rule(run, plain, f64):
+    y1, y2, ref, exact = run(), run(), plain(), f64()
+    torch.cuda.synchronize()
+    assert y1.dtype == BF16 and y1.shape == ref.shape == exact.shape
+    assert torch.isfinite(y1.float()).all()
+    ulp = 2.0 ** (np.floor(np.log2(float(exact.abs().max()))) - 7)
+    err_k = float((y1.double() - exact).abs().max())
+    err_p = float((ref.double() - exact).abs().max())
+    assert err_k <= 2 * err_p + ulp, (err_k, err_p, ulp)
+    assert torch.equal(y1, y2)
+
+
+def _f64_attention(q, k, v, causal, window):
+    g = q.shape[1] // k.shape[1]
+    k, v = k.double().repeat_interleave(g, 1), v.double().repeat_interleave(g, 1)
+    s = torch.einsum("bhqd,bhkd->bhqk", q.double(), k) * q.shape[-1] ** -0.5
+    sq, sk = q.shape[2], k.shape[2]
+    qp, kp = torch.arange(sq, device=q.device)[:, None], torch.arange(sk, device=q.device)[None]
+    ok = torch.ones((sq, sk), dtype=torch.bool, device=q.device)
+    if causal:
+        ok &= kp <= qp
+    if window:
+        ok &= qp - kp < window
+    p = torch.nan_to_num(torch.softmax(s.masked_fill(~ok, float("-inf")), -1), nan=0.0)
+    return torch.einsum("bhqk,bhkd->bhqd", p, v)
+
+
+BF16_FLASH_SHAPES = {
+    # name: (B, Hq, Hkv, Sq, Sk, causal, window, model layout); every
+    # instantiated (hd, vd) runs each
+    "g4-causal-S300": (2, 4, 1, 300, 300, True, 0, True),
+    "g2-window64-S200": (1, 4, 2, 200, 200, True, 64, False),
+    "noncausal-Sq77-Sk256": (1, 2, 2, 77, 256, False, 0, False),
+    "masked-rows-Sq200-Sk50-w40": (1, 4, 4, 200, 50, True, 40, True),
+    "cross-decode-Sq1-Sk1024": (2, 4, 4, 1, 1024, False, 0, True),
+}
+
+
+@pytest.mark.parametrize("name", sorted(BF16_FLASH_SHAPES))
+def test_cuda_flash_bf16_at_every_head_dim(cuda_device, name):
+    from repro_torch.kernels.flash_attention import attention_ref, flash_forward
+    from repro_torch.kernels.flash_attention import kernel as flash_kernel
+
+    b, hq, hkv, sq, sk, causal, window, layout = BF16_FLASH_SHAPES[name]
+    rng = np.random.default_rng(31)
+    for hd, vd in flash_kernel.HEAD_DIMS:
+        if layout:
+            q = _bf16_operand(rng, (b, sq, hq, hd), cuda_device).transpose(1, 2)
+            k = _bf16_operand(rng, (b, sk, hkv, hd), cuda_device).transpose(1, 2)
+            v = _bf16_operand(rng, (b, sk, hkv, vd), cuda_device).transpose(1, 2)
+        else:
+            q = _bf16_operand(rng, (b, hq, sq, hd), cuda_device)
+            k = _bf16_operand(rng, (b, hkv, sk, hd), cuda_device)
+            v = _bf16_operand(rng, (b, hkv, sk, vd), cuda_device)
+        _, n = _counted(flash_kernel, lambda: flash_forward(q, k, v, causal=causal, window=window))
+        assert n == 1
+        _bf16_rule(lambda: flash_forward(q, k, v, causal=causal, window=window),
+                   lambda: attention_ref(q, k, v, causal=causal, window=window),
+                   lambda: _f64_attention(q, k, v, causal, window))
+
+
+@pytest.mark.parametrize("b,d,f", [(4, 1152, 6912), (1, 1152, 6912), (2, 3584, 14336),
+                                   (1, 1024, 4096), (11, 200, 704)])
+def test_cuda_decode_mlp_bf16(cuda_device, b, d, f):
+    from repro_torch.kernels.decode_mlp import decode_mlp, decode_mlp_ref
+    from repro_torch.kernels.decode_mlp import kernel as mlp_kernel
+
+    rng = np.random.default_rng(32)
+    x = _bf16_operand(rng, (b, d), cuda_device)
+    w1, w3 = (_bf16_operand(rng, (d, f), cuda_device, d ** -0.5) for _ in range(2))
+    w2 = _bf16_operand(rng, (f, d), cuda_device, f ** -0.5)
+
+    def f64():
+        x64 = x.double()
+        h = torch.nn.functional.silu(x64 @ w1.double()) * (x64 @ w3.double())
+        return h @ w2.double()
+
+    _, n = _counted(mlp_kernel, lambda: decode_mlp(x, w1, w3, w2))
+    assert n == 1
+    _bf16_rule(lambda: decode_mlp(x, w1, w3, w2), lambda: decode_mlp_ref(x, w1, w3, w2), f64)
+
+
+@pytest.mark.parametrize("name", ["mamba2-wave1", "zamba2-wave1", "unaligned-D71", "K9-none"])
+def test_cuda_conv1d_bf16(cuda_device, name):
+    from repro_torch.kernels.conv1d_fused import conv1d_fused, conv1d_ref
+    from repro_torch.kernels.conv1d_fused import kernel as conv1d_kernel
+
+    b, length, d, k, row, off, act = {
+        "mamba2-wave1": (4, 768, 4352, 4, 8512, 4096, "silu"),
+        "zamba2-wave1": (4, 768, 7296, 4, 14576, 7168, "silu"),
+        "unaligned-D71": (2, 300, 71, 4, 200, 65, "silu"),  # one channel a thread
+        "K9-none": (2, 300, 256, 9, 256, 0, "none"),  # the any-K instance
+    }[name]
+    rng = np.random.default_rng(33)
+    x = _bf16_operand(rng, (b, length, row), cuda_device)[..., off:off + d]
+    w = _bf16_operand(rng, (k, d), cuda_device, 0.5)
+    bias = _bf16_operand(rng, (d,), cuda_device, 0.1)
+
+    def f64():
+        xp = torch.nn.functional.pad(x.double(), (0, 0, k - 1, 0))
+        acc = sum(xp[:, i:i + length] * w[i].double() for i in range(k)) + bias.double()
+        return torch.nn.functional.silu(acc) if act == "silu" else acc
+
+    _, n = _counted(conv1d_kernel, lambda: conv1d_fused(x, w, bias, activation=act))
+    assert n == 1
+    _bf16_rule(lambda: conv1d_fused(x, w, bias, activation=act),
+               lambda: conv1d_ref(x, w, bias, activation=act), f64)
+
+
+def test_cuda_bf16_under_grad_raises_until_the_backward_has_it(cuda_device):
+    """Serving takes bf16; training does not yet: flash and conv1d under
+    grad refuse a bf16 input on the card, naming the roadmap item."""
+    from repro_torch.kernels.conv1d_fused import conv1d_fused
+    from repro_torch.models.flash_attention import flash_attention
+
+    rng = np.random.default_rng(34)
+    q, k, v = (_bf16_operand(rng, (1, 4, 32, 64), cuda_device).requires_grad_() for _ in range(3))
+    with pytest.raises(NotImplementedError, match="bf16 training"):
+        flash_attention(q, k, v, causal=True)
+    x = _bf16_operand(rng, (2, 40, 64), cuda_device).requires_grad_()
+    w, bias = _bf16_operand(rng, (4, 64), cuda_device), _bf16_operand(rng, (64,), cuda_device)
+    with pytest.raises(NotImplementedError, match="bf16 training"):
+        conv1d_fused(x, w, bias)
+    with torch.no_grad():  # serving: no gradient asked, the kernels run
+        assert flash_attention(q, k, v, causal=True).dtype == BF16
+        assert conv1d_fused(x, w, bias).dtype == BF16
+
+
+def test_cuda_bf16_kernels_refuse_what_they_do_not_take(cuda_device):
+    """Mixed dtypes, and a bf16 decode MLP whose widths are not multiples
+    of its 8-value units, raise before any launch."""
+    from repro_torch.kernels.decode_mlp import decode_mlp
+    from repro_torch.kernels.flash_attention import flash_forward
+
+    rng = np.random.default_rng(35)
+    q = _bf16_operand(rng, (1, 2, 16, 64), cuda_device)
+    with pytest.raises(ValueError, match="bfloat16"):
+        flash_forward(q, q.float(), q, causal=True)
+    with pytest.raises(ValueError):
+        flash_forward(q.half(), q.half(), q.half(), causal=True)
+    x = _bf16_operand(rng, (2, 64), cuda_device)
+    w1, w3 = _bf16_operand(rng, (64, 33), cuda_device), _bf16_operand(rng, (64, 33), cuda_device)
+    with pytest.raises(ValueError, match="multiples of 8"):
+        decode_mlp(x, w1, w3, _bf16_operand(rng, (33, 64), cuda_device))

@@ -8,6 +8,7 @@ the shared memory it passes to the kernel.
 """
 
 import pytest
+import torch
 
 from repro_torch.kernels.decode_mlp import kernel as mlp_kernel
 
@@ -82,3 +83,32 @@ def test_decode_mlp_geometry_is_memoised():
     g2 = mlp_kernel.launch_geometry(4, 1152, 6912)
     assert g1 is g2
     assert mlp_kernel.launch_geometry.cache_info().hits == hits + 2
+
+
+@pytest.mark.parametrize("b,d,f", [(4, 1152, 6912), (1, 1152, 6912), (2, 3584, 14336),
+                                   (4, 3584, 14336), (1, 1024, 4096), (11, 200, 704)])
+def test_decode_mlp_bf16_geometry_covers_the_work(b, d, f):
+    """At bf16 a unit is 8 values (16 bytes), a grain two units, at most
+    `MAX_THREADS_BF16` threads a block, and the ring holds 2-byte values."""
+    g = mlp_kernel.launch_geometry(b, d, f, dtype=torch.bfloat16)
+    grains = -(-(f // 8) // 2)
+    assert g.vec == 8 and g.n_blocks == min(mlp_kernel.SM_COUNT, grains)
+    assert g.uf % 2 == 0 and g.uf // 2 * g.n_blocks >= grains
+    assert g.threads % 32 == 0 and g.threads <= mlp_kernel.MAX_THREADS_BF16
+    assert 1 <= g.slots1 and g.slots1 * g.uf <= g.threads
+    assert 1 <= g.slots2 and g.slots2 * g.dut <= g.threads and g.dut <= d // 8
+    assert g.smem == mlp_kernel.smem_bytes(d, g.rb, 8, g.threads, g.uf, g.slots1, g.slots2,
+                                           g.depth, 2)
+    assert g.smem <= mlp_kernel.MAX_SMEM_BYTES
+
+
+@pytest.mark.parametrize("d,f,aligned", [(1152, 6900, True), (1150, 6912, True),
+                                         (1152, 6912, False)])
+def test_decode_mlp_bf16_refuses_widths_off_its_units(d, f, aligned):
+    with pytest.raises(ValueError, match="multiples of 8"):
+        mlp_kernel.launch_geometry(4, d, f, aligned=aligned, dtype=torch.bfloat16)
+
+
+def test_decode_mlp_bf16_launch_bound_is_the_sources():
+    assert (f"constexpr int kMaxThreadsBf16 = {mlp_kernel.MAX_THREADS_BF16};"
+            in mlp_kernel.SOURCE.read_text())
