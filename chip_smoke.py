@@ -165,10 +165,11 @@ Phases (any failure exits non-zero):
      lse, two backward runs bitwise equal, each printed beside its error
      against a float64 backward; o against the recorded outputs of the
      earlier flash source (`kernels/bitwise_check.py`, compared only
-     under the nvcc release that recorded them).  (b)
-     `launch.train.main(["--arch", "gemma3-1b", "--steps", "6", "--batch",
-     "4", "--seq", "1024"])`: full width and depth, fp32, TF32 off, seed
-     0; per step loss (beside the run's recorded losses over the first
+     under the nvcc release that recorded them).  (b) gemma3-1b at full
+     width and depth in fp32 through `train_fp32` (the launcher's run --
+     its TrainConfig, data, loop and seed -- on a float32 config; the
+     launcher itself trains the config's dtype, bf16, phase 18), TF32
+     off, 6 steps of 4 x 1024; per step loss (beside the run's recorded losses over the first
      backward kernel, commit 0c64a3e), grad norm, ms and tokens/s, peak
      `max_memory_allocated`; every count zeroed before and read after:
      flash forward = 26 x 2 (remat) x 6, backward = 26 x 6, the others 0;
@@ -207,9 +208,10 @@ Phases (any failure exits non-zero):
      cause of moments stored a step apart), an async checkpoint of the
      trained state with its copy, write and restore times (bitwise), and
      the loop's SIGTERM save.  (g)
-     `launch.train.main` on mamba2-1.3b at full width and depth, 6 steps
-     of 4x1024 (conv1d launches 48 x 2 x 6: forward and remat's forward,
-     its backward 48 x 6; flash 0), a 4-layer card-vs-CPU cut, a
+     mamba2-1.3b in fp32 through `train_fp32` at full width on 24 of its
+     48 layers (the bf16 run of phase 18 takes the full depth), 6 steps
+     of 4x1024 (conv1d launches 24 x 2 x 6: forward and remat's forward,
+     its backward 24 x 6; flash 0), a 4-layer card-vs-CPU cut, a
      profiled step and the conv backward's share of it; zamba2 at full
      width on 12 layers (the shared block twice), 6 steps (flash 2 x 2 x
      6, backward 2 x 6, conv1d 12 x 2 x 6, its backward 12 x 6), its
@@ -328,6 +330,37 @@ Phases (any failure exits non-zero):
      printed; zamba2's shared block (a cut of one mamba layer with the
      block before it) held at its own output, rel 2e-2 of max |x|, at the
      prefill and every step.
+ 18. bf16 training, the registered configs' own dtype, after phase 17's
+     models are dropped (less than 1 GiB may stay allocated): (a) the bf16
+     instantiations of the flash backward (every `HEAD_DIMS` pair at g 1
+     and g 4 on S 300 with a window, non-causal Sq != Sk, rows that see no
+     key, and phase 13's training layers: gemma3's global and local,
+     moonshot's hd 128, deepseek's MLA (192, 128) and MTP hd 56,
+     seamless's cross, encoder and decoder) and of the conv1d backward
+     (mamba2's and zamba2's training slices at B 4 L 1024, a ragged one, K
+     9), each against its plain version on the same bf16 inputs (the
+     flash backward fed the bf16 forward kernel's o and lse) and both
+     against float64 from those inputs: every gradient's max error at
+     most twice the plain version's plus one bf16 ulp of its max, bitwise
+     the same twice; at the training shapes each one's time (events,
+     device time), the plain version's, the library's (SDPA's bf16
+     backward; autograd of grouped `F.conv1d` + bias + `F.silu` in bf16)
+     and the bound (bytes at 2 a value; the flash backward's five
+     products at 989 TFLOP/s, the conv's f32 FMAs at the fp32 peak).  (b)
+     `launch.train.main` on gemma3-1b and mamba2-1.3b at full size in
+     bf16 as registered, 6 steps of 4 x 1024: per step loss, grad norm
+     and ms beside this run's fp32 steps (phase 13) and the fp32 steps of
+     record (PERF.md), peak memory, every launch count held exactly
+     (flash 26 x 2 x 6 and its backward 26 x 6; conv1d 48 x 2 x 6 and its
+     backward 48 x 6), every loss finite and batch 0's loss after the 6
+     steps below its loss at step 0, one profiled warm step (wall, busy,
+     idle share).  (c) each
+     cut to its first 2 layers at full width, seed 0, B 1 (gemma3 S 576,
+     mamba2 S 512), card against CPU in bf16 under `f32_accumulation` as
+     the train step runs: the loss within rel 1e-2 and every gradient leaf
+     within rel 2e-2 of its max |grad|, or, for a leaf past that, within
+     the CPU's own distance from its f32 gradient of the same weights plus
+     2e-2 (the CPU tests' rule, `tests/test_torch_train_bf16_archs.py`).
 
 The line before the last is a JSON object listing the ported kernels; the
 last line is {"ok": true, "device": {...}}.  Imports nothing of JAX and
@@ -2362,19 +2395,32 @@ def train_kernels_vs_plain():
     return worst
 
 
-def train_full_width(smi: str):
-    """Part 2: `launch.train.main` at gemma3-1b's full width and depth,
-    fp32; per-step loss, grad norm, time and tokens/s; the flash forward
-    and backward launch counts of the run."""
-    from repro_torch.launch import train as launch_train
+def train_fp32(name: str, n_layers: int = 0):
+    """fp32 training of a registered config (cut to `n_layers` when given)
+    at full width: `launch.train.main`'s run on a float32 config
+    (`_train_cut`), as the launcher trained before it trained each
+    config's own dtype; returns the state and the per-step history."""
+    import dataclasses
 
+    from repro_torch.configs import get_arch
+
+    cfg = dataclasses.replace(get_arch(name), dtype="float32")
+    if n_layers:
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
+    return _train_cut(cfg, TRAIN_STEPS)
+
+
+def train_full_width(smi: str):
+    """Part 2: gemma3-1b at full width and depth in fp32 (`train_fp32`);
+    per-step loss, grad norm, time and tokens/s; the flash forward and
+    backward launch counts of the run."""
     mods = kernel_libraries()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     for mod in mods.values():
         mod.LAUNCHES = 0  # main path: count only the training run
     t0 = time.perf_counter()
-    state, history = launch_train.main(TRAIN_ARGS)
+    state, history = train_fp32("gemma3-1b")
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {k: mod.LAUNCHES for k, mod in mods.items()}
@@ -2670,7 +2716,7 @@ def train_times(ptxas: dict) -> dict:
     from repro_torch.kernels.flash_attention.ref import band_mask
 
     gen = np.random.default_rng(20)
-    print(f"ptxas -v flash_bwd_kernel<256, 256>: {ptxas['registers']} registers, "
+    print(f"ptxas -v flash_bwd_kernel<float, 256, 256>: {ptxas['registers']} registers, "
           f"{ptxas['stack_frame_bytes']} B stack frame, {ptxas['spill_store_bytes']} B spill "
           f"stores, {ptxas['spill_load_bytes']} B spill loads")
     rows = {}
@@ -2730,7 +2776,7 @@ def train_times(ptxas: dict) -> dict:
             library_backend=(f"SDPA backward, {backend}" if backend else
                              "none: SDPA refused the shape (" + "; ".join(refused) + ")"),
             bound_ms=b_ms, bound_by=b_by, bound_fp32_ms=fma_ms,
-            kernels_per_call={re.search(r"(\w+<[\d, ]+>)", name).group(1): dict(
+            kernels_per_call={re.search(r"(\w+<[\w, ]+>)", name).group(1): dict(
                 device_ms=ms, launches=n) for name, ms, n in kernels})
         del q, k, v, do, o, lse, qc, kr, vr
         gc_collect()
@@ -2749,6 +2795,7 @@ MAMBA_TRAIN_ARGS = ["--arch", "mamba2-1.3b", "--steps", str(TRAIN_STEPS), "--bat
 CONV1D_FWD_PER_MAMBA_LAYER_STEP = 2
 CONV1D_BWD_PER_MAMBA_LAYER_STEP = 1
 MAMBA_TRAIN_CUT = 4  # layers of mamba2-1.3b in its card-vs-CPU part
+MAMBA_FP32_LAYERS = 24  # fp32 mamba2 depth (phase 18 trains all 48 in bf16)
 ZAMBA_TRAIN_LAYERS = 12  # two super-blocks: the shared block runs twice
 # zamba2's card-vs-CPU cut: 4 mamba layers with a shared-attention period
 # of 2, so the shared block still runs twice, at full width
@@ -2760,10 +2807,10 @@ CONV1D_BWD_REPLACES = "src/repro/core/conv.py:153"
 LORA_B_STD = 0.02
 
 
-def conv1d_train_cases(gen):
-    """Conv1dFused's forward and backward at the training shapes (the xBC
-    column slice of zxbcdt at B 4, L 1024) and at a ragged, unaligned
-    slice: (label, wide input, column, D, K, w, b, output gradient)."""
+def _conv1d_train_shapes() -> list:
+    """(label, B, L, row width, column, D, K) of `conv1d_train_cases`: the
+    xBC slice of zxbcdt at mamba2's and zamba2's training shapes, a ragged
+    unaligned slice and K 9."""
     from repro_torch.configs import get_arch
 
     out = []
@@ -2778,8 +2825,15 @@ def conv1d_train_cases(gen):
     out.append(("ragged B2 L777 D100 (slice of 300 at column 65) K4 silu", 2, 777, 300, 65,
                 100, 4))
     out.append(("K9 B2 L300 D256 silu", 2, 300, 256, 0, 256, 9))
+    return out
+
+
+def conv1d_train_cases(gen):
+    """Conv1dFused's forward and backward at the training shapes (the xBC
+    column slice of zxbcdt at B 4, L 1024) and at a ragged, unaligned
+    slice: (label, wide input, column, D, K, w, b, output gradient)."""
     cases = []
-    for label, b, length, row, col, d, k in out:
+    for label, b, length, row, col, d, k in _conv1d_train_shapes():
         wide = _cuda(gen, (b, length, row)).requires_grad_(True)
         w = _cuda(gen, (k, d), 0.5).requires_grad_(True)
         bias = _cuda(gen, (d,), 0.1).requires_grad_(True)
@@ -2948,7 +3002,7 @@ def train_run(label: str, fn, smi: str, seq: int = TRAIN_SEQ) -> dict:
     print(f"train {label}: {len(specs)} layers ({sum(s.mixer == 'mamba' for s in specs)} "
           f"mamba, {attn} attention{extra}), d_model "
           f"{model.cfg.d_model}, vocab "
-          f"{model.cfg.vocab_size}, {n_params / 1e9:.4f} B params fp32, {steps} steps of "
+          f"{model.cfg.vocab_size}, {n_params / 1e9:.4f} B params {model.cfg.dtype}, {steps} steps of "
           f"{TRAIN_BATCH}x{seq} in {wall:.2f} s (with init); peak max_memory_allocated "
           f"{peak / 2**30:.2f} GiB; launches {launches} (want {want}); card {smi}")
     if steps != TRAIN_STEPS:
@@ -2973,18 +3027,20 @@ def gc_collect():
 
 
 def train_ssm(smi: str, conv_bwd: dict) -> dict:
-    """mamba2-1.3b through `launch.train.main` at full width and depth, its
-    4-layer card-vs-CPU cut and a profiled step with the conv backward's
-    share of it; zamba2 at full width on 12 layers (`_train_cut`), its
-    cut (4 mamba layers, the shared block twice) and its peak memory."""
+    """mamba2-1.3b in fp32 at full width on `MAMBA_FP32_LAYERS` layers
+    (`train_fp32`), its 4-layer card-vs-CPU cut and a profiled step with
+    the conv backward's share of it; zamba2 at full width on 12 layers
+    (`_train_cut`), its cut (4 mamba layers, the shared block twice) and
+    its peak memory."""
     import dataclasses
 
     from repro_torch.configs import get_arch
-    from repro_torch.launch import train as launch_train
 
     out = {}
-    mamba = train_run("mamba2-1.3b", lambda: launch_train.main(MAMBA_TRAIN_ARGS), smi)
-    cfg = dataclasses.replace(get_arch("mamba2-1.3b"), dtype="float32")
+    mamba = train_run(f"mamba2-1.3b ({MAMBA_FP32_LAYERS} layers)",
+                      lambda: train_fp32("mamba2-1.3b", MAMBA_FP32_LAYERS), smi)
+    cfg = dataclasses.replace(get_arch("mamba2-1.3b"), dtype="float32",
+                              n_layers=MAMBA_FP32_LAYERS)
     prof = train_profile(mamba.pop("state"), cfg,
                          keys=(("conv1d_fused_kernel", ""), ("conv1d_bwd", "reduce")))
     n_mamba = cfg.n_layers
@@ -4389,6 +4445,320 @@ def phase_bf16(smi: str, fp32: dict) -> dict:
     return dict(kernels=kernels, serve=served, cpu=cpu)
 
 
+# ------------------------------------------------------------ phase 18
+
+BF16_TRAIN = (("gemma3-1b", TRAIN_ARGS), ("mamba2-1.3b", MAMBA_TRAIN_ARGS))
+BF16_TRAIN_CUT = 2  # each config's first layers in the card-vs-CPU part
+# the CPU tests' tolerances (tests/test_torch_train_bf16_archs.py)
+REL_TOL_BF16_TRAIN_LOSS = 1e-2
+REL_TOL_BF16_TRAIN_GRAD = 2e-2
+# the fp32 steps of record, wall ms of a warm step (PERF.md §5), printed
+# beside this run's
+FP32_STEP_OF_RECORD = {"gemma3-1b": "806-820", "mamba2-1.3b": "1,861.5"}
+
+
+def _bwd_f64(q, k, v, do, causal: bool, window: int):
+    """dq, dk, dv of masked softmax attention in float64 from the (bf16)
+    inputs: P exact, no rounding anywhere."""
+    from repro_torch.kernels.flash_attention.ref import band_mask
+
+    q, k, v, do = (t.double() for t in (q, k, v, do))
+    b, hq, sq, hd = q.shape
+    hkv, sk, vd = k.shape[1], k.shape[2], v.shape[3]
+    g, scale = hq // hkv, hd ** -0.5
+    kk, vv = k.repeat_interleave(g, 1), v.repeat_interleave(g, 1)
+    s = torch.einsum("bhqd,bhkd->bhqk", q, kk) * scale
+    ok = band_mask(sq, sk, causal=causal, window=window, device=q.device)
+    p = torch.nan_to_num(torch.softmax(s.masked_fill(~ok, float("-inf")), -1), nan=0.0)
+    del s
+    o = torch.einsum("bhqk,bhkd->bhqd", p, vv)
+    dv = torch.einsum("bhqk,bhqd->bhkd", p, do).reshape(b, hkv, g, sk, vd).sum(2)
+    ds = p * (torch.einsum("bhqd,bhkd->bhqk", do, vv) - (do * o).sum(-1, keepdim=True))
+    del p
+    dq = torch.einsum("bhqk,bhkd->bhqd", ds, kk) * scale
+    dk = (torch.einsum("bhqk,bhqd->bhkd", ds, q) * scale).reshape(b, hkv, g, sk, hd).sum(2)
+    return dq, dk, dv
+
+
+def bf16_bwd_cases(gen) -> list:
+    """The bf16 backward instantiations at the shapes bf16 training gives
+    them and at edge cases: each a dict of the kernel, a label, whether it
+    is timed, the kernel's and the plain version's call (both return a
+    tuple of gradients), the float64 gradients, the library yardstick and
+    the bound (bytes at 2 a value)."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.conv1d_fused import backward as conv_backward
+    from repro_torch.kernels.conv1d_fused import conv1d_bwd_ref
+    from repro_torch.kernels.flash_attention import backward as bwd_kernel
+    from repro_torch.kernels.flash_attention import flash_attention_bwd_ref
+    from repro_torch.kernels.flash_attention import kernel as flash_kernel
+    from repro_torch.kernels.flash_attention.kernel import HEAD_DIMS
+    from repro_torch.kernels.flash_attention.ref import band_mask
+
+    layers = [(label, shape, causal, window, True)
+              for label, shape, causal, window in TRAIN_ATTN_LAYERS]
+    for hd, vd in HEAD_DIMS:
+        for hkv in (4, 1):
+            layers.append((f"hd{hd}/{vd} g{4 // hkv} B2 S300 causal w100",
+                           (2, 4, hkv, 300, 300, hd, vd), True, 100, False))
+    layers += [("non-causal Sq77 Sk256 hd128 g2", (1, 2, 1, 77, 256, 128, 128), False, 0, False),
+               ("rows that see no key Sq200 Sk50 w40 hd64 g2", (1, 2, 1, 200, 50, 64, 64), True,
+                40, False)]
+    cases = []
+    for label, (b, hq, hkv, sq, sk, hd, vd), causal, window, timed in layers:
+        # the model's (B, S, H, hd), viewed as (B, H, S, hd)
+        q = _bf16(gen, (b, sq, hq, hd)).transpose(1, 2)
+        k = _bf16(gen, (b, sk, hkv, hd)).transpose(1, 2)
+        v = _bf16(gen, (b, sk, hkv, vd)).transpose(1, 2)
+        do = _bf16(gen, (b, sq, hq, vd)).transpose(1, 2)
+        kw = dict(causal=causal, window=window)
+        o, lse = flash_kernel.flash_attention_call(q, k, v, return_lse=True, **kw)
+        n_bytes = 2 * (2 * q.numel() + 2 * (k.numel() + v.numel()) + 2 * do.numel()) \
+            + 4 * lse.numel()
+        ops = bwd_kernel.flops(b, hq, sq, sk, hd, causal, window, vd=vd)
+
+        def library(q=q, k=k, v=v, do=do, kw=kw, g=hq // hkv):
+            qc = q.detach().contiguous().requires_grad_(True)
+            kr = k.repeat_interleave(g, 1).contiguous().requires_grad_(True)
+            vr = v.repeat_interleave(g, 1).contiguous().requires_grad_(True)
+            mask = (None if kw["window"] == 0 else
+                    band_mask(qc.shape[2], kr.shape[2], device=DEV, **kw))
+            out = F.scaled_dot_product_attention(
+                qc, kr, vr, attn_mask=mask, is_causal=kw["causal"] and mask is None)
+            return lambda: torch.autograd.grad(out, (qc, kr, vr), do, retain_graph=True)
+
+        cases.append(dict(
+            kernel="flash_attention_bwd", label=label, timed=timed, names=("dq", "dk", "dv"),
+            run=lambda q=q, k=k, v=v, o=o, lse=lse, do=do, kw=kw:
+                bwd_kernel.flash_attention_bwd_call(q, k, v, o, lse, do, **kw),
+            plain=lambda q=q, k=k, v=v, o=o, lse=lse, do=do, kw=kw:
+                flash_attention_bwd_ref(q, k, v, o, lse, do, **kw),
+            f64=lambda q=q, k=k, v=v, do=do, kw=kw: _bwd_f64(q, k, v, do, **kw),
+            library=library, library_note="SDPA bf16 backward" + (
+                ", boolean band mask" if window else ", is_causal" if causal else ", no mask")
+            + (", kv heads repeated" if hq != hkv else ""),
+            bound=_bound(n_bytes, ops, PEAK_BF16), device_key="flash_bwd"))
+    for label, b, length, row, col, d, k in _conv1d_train_shapes():
+        wide = _bf16(gen, (b, length, row))
+        x = wide[..., col:col + d]
+        w, bias = _bf16(gen, (k, d), 0.5), _bf16(gen, (d,), 0.1)
+        g = _bf16(gen, (b, length, d))
+        n = b * length * d
+
+        def conv_f64(x=x, w=w, bias=bias, g=g, k=k, length=length):
+            x64, w64, b64 = (t.double().requires_grad_(True) for t in (x, w, bias))
+            xp = F.pad(x64, (0, 0, k - 1, 0))
+            y = F.silu(sum(xp[:, i:i + length] * w64[i] for i in range(k)) + b64)
+            return torch.autograd.grad(y, (x64, w64, b64), g.double())
+
+        def library(x=x, w=w, bias=bias, g=g, k=k, d=d, length=length):
+            xt = x.transpose(1, 2).contiguous().requires_grad_(True)
+            wt = w.t().contiguous()[:, None, :].requires_grad_(True)
+            bt = bias.clone().requires_grad_(True)
+            y = F.silu(F.conv1d(xt, wt, bt, padding=k - 1, groups=d)[..., :length])
+            gt = g.transpose(1, 2).contiguous()
+            return lambda: torch.autograd.grad(y, (xt, wt, bt), gt, retain_graph=True)
+
+        cases.append(dict(
+            kernel="conv1d_fused_bwd", label=label, timed=label.startswith(("mamba2", "zamba2")),
+            names=("dx", "dw", "db"),
+            run=lambda x=x, w=w, bias=bias, g=g: conv_backward.conv1d_fused_bwd_call(
+                x, w, bias, g, activation="silu"),
+            plain=lambda x=x, w=w, bias=bias, g=g: conv1d_bwd_ref(g, x, w, bias),
+            f64=conv_f64, library=library,
+            library_note="autograd of grouped F.conv1d + bias + F.silu, bf16, (B, D, L) layout",
+            bound=_bound(2 * (3 * n + 2 * k * d + 2 * d), (4 * k + 10) * n),
+            device_key="conv1d_bwd"))
+    return cases
+
+
+def bf16_backward_kernels(smi: str) -> dict:
+    """Part (a): each bf16 backward against its plain version on the same
+    bf16 inputs and both against float64: every gradient's max error at
+    most twice the plain version's plus one bf16 ulp of its max |grad|,
+    and bitwise the same twice; then, at the training shapes, the times
+    (events; device time), the plain version's, the library's and the
+    bound.  Returns, per kernel, the timed rows (the first is the served
+    row) and the worst kernel-vs-plain error."""
+    gen = np.random.default_rng(26)
+    rows = {}
+    for c in bf16_bwd_cases(gen):
+        g1, g2, ref, f64 = c["run"](), c["run"](), c["plain"](), c["f64"]()
+        torch.cuda.synchronize()
+        errs, ok = [], True
+        for name, a, p, e in zip(c["names"], g1, ref, f64):
+            if a.dtype != torch.bfloat16 or a.shape != e.shape or not torch.isfinite(a).all():
+                raise AssertionError(f"bf16 {c['label']}: bad {name} {a.dtype} {tuple(a.shape)}")
+            err_k = float((a.double() - e).abs().max())
+            err_p = float((p.double() - e).abs().max())
+            ulp = bf16_ulp(float(e.abs().max()))
+            ok &= err_k <= 2 * err_p + ulp
+            errs.append((name, err_k, err_p, ulp, float((a.double() - p.double()).abs().max())))
+        twice = all(torch.equal(a, b) for a, b in zip(g1, g2))
+        del g1, g2, ref, f64
+        print(f"bf16 {c['kernel']:19s} {c['label']:52s} err vs f64 kernel / plain (limit 2x "
+              f"plain + 1 ulp): " + "; ".join(
+                  f"{n} {k:.3e} / {p:.3e} ({2 * p + u:.3e})" for n, k, p, u, _ in errs)
+              + f"; bitwise twice {twice}")
+        if not (ok and twice):
+            raise AssertionError(f"bf16 {c['label']}: backward kernel vs plain failed")
+        r = rows.setdefault(c["kernel"], dict(shapes=[], max_abs_err=0.0))
+        r["max_abs_err"] = max(r["max_abs_err"], *(e[4] for e in errs))
+        if not c["timed"]:
+            continue
+        k_ms, p_ms = time_ms(c["run"], reps=10), time_ms(c["plain"], reps=3)
+        d_ms = device_ms(c["run"], c["device_key"], reps=10)
+        l_ms, l_note = None, c["library_note"]
+        try:
+            l_ms = time_ms(c["library"](), reps=10)
+        except RuntimeError as e:  # a shape the library refuses: the row says so
+            l_note += f" (refused: {str(e).splitlines()[0][:100]})"
+        gc_collect()
+        b_ms, b_by = c["bound"]
+        dev = "not measured" if d_ms is None else f"{d_ms:.4f} ms"
+        lib = "-" if l_ms is None else f"{l_ms:.4f} ms"
+        print(f"time bf16 {c['kernel']:19s} {c['label']:52s} kernel {k_ms:.4f} ms (device "
+              f"{dev})  plain {p_ms:.4f} ms  library {lib} ({l_note})  bound {b_ms:.4f} ms "
+              f"({b_by}); card {smi}")
+        r["shapes"].append(dict(shape=c["label"], ms=k_ms, device_ms=d_ms, plain_ms=p_ms,
+                                library_ms=l_ms, library_note=l_note, bound_ms=b_ms,
+                                bound_by=b_by, max_abs_err_vs_f64=max(e[1] for e in errs),
+                                plain_max_abs_err_vs_f64=max(e[2] for e in errs)))
+    return rows
+
+
+def bf16_train_card_vs_cpu(name: str, cfg, s: int) -> dict:
+    """Part (c): `cfg` (a depth cut at full width, bf16), seed 0, B 1, S
+    `s`: `lm_loss` and every gradient on the card and on the CPU, each
+    under `f32_accumulation` as the train step runs them.  The loss within
+    REL_TOL_BF16_TRAIN_LOSS, every leaf within REL_TOL_BF16_TRAIN_GRAD of
+    its max |grad|, or, for a leaf past it, within the CPU's own distance
+    from the f32 gradient of the same weights plus REL_TOL_BF16_TRAIN_GRAD
+    (summation order: the CPU tests' rule)."""
+    import copy
+    import dataclasses
+
+    from repro_torch.models import init_lm, lm_loss
+    from repro_torch.models.common import f32_accumulation
+
+    card = init_lm(cfg, seed=0, device=DEV)
+    cpu = copy.deepcopy(card).to("cpu")
+    rng = np.random.default_rng(2)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (1, s + 1)))
+    batch = {"tokens": toks[:, :-1], "targets": toks[:, 1:]}
+
+    def grads(model):
+        model.requires_grad_(True)
+        t0 = time.perf_counter()
+        dev = model.device
+        with f32_accumulation():
+            loss, _ = lm_loss(model, {k: t.to(dev) for k, t in batch.items()})
+            gs = torch.autograd.grad(loss, [p for _, p in model.named_parameters()])
+        return float(loss.detach()), [g.cpu() for g in gs], time.perf_counter() - t0
+
+    (l_card, g_card, t_card), (l_cpu, g_cpu, t_cpu) = grads(card), grads(cpu)
+    names = [n for n, _ in card.named_parameters()]
+    del card
+    gc_collect()
+    loss_rel = abs(l_card - l_cpu) / abs(l_cpu)
+    errs = {n: rel_err(a.float(), b.float()) for n, a, b in zip(names, g_card, g_cpu)}
+    past = [n for n, e in errs.items() if not e < REL_TOL_BF16_TRAIN_GRAD]
+    own = {}
+    if past:  # the CPU's bf16 gradient against its f32 one of the same weights
+        f32 = init_lm(dataclasses.replace(cfg, dtype="float32"), seed=0, device="cpu")
+        f32.load_state_dict({k: v.float() for k, v in cpu.state_dict().items()})
+        _, g32, _ = grads(f32)
+        g32 = dict(zip(names, g32))
+        own = {n: rel_err(g_cpu[names.index(n)].float(), g32[n]) for n in past}
+        del f32, g32
+    worst = max(errs, key=errs.get)
+    print(f"bf16 train card-vs-cpu {name} cut to {cfg.n_layers} layers, B1 S{s}: loss "
+          f"{l_card:.6f} vs {l_cpu:.6f} rel {loss_rel:.3e} (tol {REL_TOL_BF16_TRAIN_LOSS:g}); "
+          f"{len(errs)} gradient leaves, worst rel {errs[worst]:.3e} at {worst} (tol "
+          f"{REL_TOL_BF16_TRAIN_GRAD:g}); past it: "
+          + (", ".join(f"{n} {errs[n]:.3e} (the CPU's bf16 vs f32 {own[n]:.3e}, limit "
+                       f"{own[n] + REL_TOL_BF16_TRAIN_GRAD:.3e})" for n in past) or "none")
+          + f"; card {t_card:.2f} s, cpu {t_cpu:.2f} s")
+    if not (loss_rel < REL_TOL_BF16_TRAIN_LOSS
+            and all(errs[n] <= own[n] + REL_TOL_BF16_TRAIN_GRAD for n in past)):
+        raise AssertionError(f"bf16 train: {name} card vs cpu out of tolerance")
+    return dict(loss_rel=loss_rel, worst=(worst, errs[worst]),
+                past={n: (errs[n], own[n]) for n in past})
+
+
+def phase_bf16_train(smi: str, fp32: dict) -> dict:
+    """Phase 18 (module docstring): the bf16 backward kernels against their
+    plain versions, gemma3-1b and mamba2-1.3b trained in bf16 through
+    `launch.train.main`, and their 2-layer cuts card against CPU.  `fp32`
+    maps each model to this run's fp32 history (phase 13)."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models import lm_loss
+    from repro_torch.models.common import f32_accumulation
+
+    t_phase = time.perf_counter()
+    gc_collect()
+    left = torch.cuda.memory_allocated()
+    print(f"bf16 train: {left / 2**30:.3f} GiB still allocated on the card by earlier phases "
+          f"(limit {RESIDUAL_LIMIT / 2**30:g})")
+    if left >= RESIDUAL_LIMIT:
+        raise AssertionError(f"{left} bytes left allocated before the bf16 training phase")
+    t0 = time.perf_counter()
+    kernels = bf16_backward_kernels(smi)
+    gc_collect()
+    print(f"bf16 train: backward kernels {time.perf_counter() - t0:.2f} s")
+    runs = {}
+    for name, args in BF16_TRAIN:
+        t0 = time.perf_counter()
+        cfg = get_arch(name)
+        if cfg.dtype != "bfloat16":
+            raise AssertionError(f"{name} is registered in {cfg.dtype}, not bf16")
+        run = train_run(f"{name} bf16", lambda args=args: launch_train.main(args), smi)
+        hist = run["history"]
+        model = run["state"]["params"]
+        # the loss falls: batch 0's loss after the 6 steps against step 0's
+        # (the same batch at init; each step's own batch differs, and a
+        # later batch's loss can sit above step 0's while the model learns)
+        batch0 = {k: torch.as_tensor(v).to(DEV, dtype=torch.long if k in ("tokens", "targets")
+                                         else None)
+                  for k, v in stream_batch(cfg, 0).items()}
+        with torch.no_grad(), f32_accumulation():
+            after = float(lm_loss(model, batch0)[0])
+        print(f"bf16 train {name}: batch 0's loss {hist[0]['loss']:.6f} at step 0, {after:.6f} "
+              f"after {len(hist)} steps")
+        if not (math.isfinite(after) and after < hist[0]["loss"]):
+            raise AssertionError(f"bf16 train {name}: the loss did not fall over the steps")
+        run["loss_batch0_after"] = after
+        if {p.dtype for p in model.parameters()} - {torch.bfloat16, torch.float32} or not any(
+                p.dtype == torch.bfloat16 for p in model.parameters()):
+            raise AssertionError(f"bf16 train {name}: the parameters are not bf16")
+        warm = statistics.median(h["seconds"] * 1e3 for h in hist[1:])
+        ref = fp32.get(name)
+        this = ("" if ref is None else
+                f"this run's fp32 {ref['label']} {statistics.median(h['seconds'] * 1e3 for h in ref['history'][1:]):.1f} ms, ")
+        print(f"bf16 train {name}: warm step median {warm:.1f} ms over steps 1-5 ({this}fp32 "
+              f"step of record {FP32_STEP_OF_RECORD[name]} ms, PERF.md); peak "
+              f"{run['peak_bytes'] / 2**30:.2f} GiB; loss {hist[0]['loss']:.6f} -> "
+              f"{hist[-1]['loss']:.6f}")
+        keys = ((("flash_fwd", ""), ("flash_bwd", "delta")) if name == "gemma3-1b" else
+                (("conv1d_fused_kernel", ""), ("conv1d_bwd", "reduce")))
+        run["profile"] = train_profile(run.pop("state"), cfg, keys=keys)
+        run["warm_ms"] = warm
+        del model
+        gc_collect()
+        s = TRAIN_CUT_S if name == "gemma3-1b" else TRAIN_CUT_SSM_S
+        run["cpu"] = bf16_train_card_vs_cpu(
+            name, dataclasses.replace(cfg, n_layers=BF16_TRAIN_CUT), s)
+        gc_collect()
+        runs[name] = run
+        print(f"bf16 train: {name} in {time.perf_counter() - t0:.2f} s")
+    print(f"bf16 train: phase wall time {time.perf_counter() - t_phase:.2f} s")
+    return dict(kernels=kernels, runs=runs)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the GPU only",
@@ -4440,6 +4810,12 @@ def main() -> int:
                       note=f", {MOON_SERVE_LAYERS} of 48 layers")
     bf16 = phase_bf16(smi, fp32)
     stamp("17")
+    ssm = train["ssm"]
+    btrain = phase_bf16_train(smi, {
+        "gemma3-1b": dict(label="(26 layers)", history=train["run"]["history"]),
+        "mamba2-1.3b": dict(label=f"({MAMBA_FP32_LAYERS} layers)",
+                            history=ssm["mamba2-1.3b"]["history"])})
+    stamp("18")
 
     # headline shape: the widest served vgg layer when vgg reaches the
     # kernel (64->64 at bucket 64), else fft_fewchannel's 8->8
@@ -4471,10 +4847,9 @@ def main() -> int:
         "library_ms": head["library_ms"],
     }]}
     # every LM path's counts, each read over its own run
-    ssm = train["ssm"]
     paths = {f"serve {arch}": lm_served[arch]["launches"] for arch in LM_ARCHS}
     paths.update({"train gemma3-1b": train["run"]["launches"],
-                  "train mamba2-1.3b": ssm["mamba2-1.3b"]["launches"],
+                  f"train mamba2-1.3b ({MAMBA_FP32_LAYERS} layers)": ssm["mamba2-1.3b"]["launches"],
                   f"train zamba2 ({ZAMBA_TRAIN_LAYERS} layers)": ssm["zamba2"]["launches"],
                   f"serve {MOON} ({MOON_SERVE_LAYERS} layers)": moon["serve"]["launches"],
                   f"train {MOON} ({MOON_TRAIN_LAYERS} layers)": moon["train"]["launches"],
@@ -4488,15 +4863,16 @@ def main() -> int:
         return {path: n[kernel] for path, n in paths.items() if n[kernel]}
 
     bf16_paths = {f"serve {arch} bf16": s["launches"] for arch, s in bf16["serve"].items()}
+    bf16_paths.update({f"train {name} bf16": r["launches"] for name, r in btrain["runs"].items()})
     paths.update(bf16_paths)
 
     def bf16_entry(kernel):
         """The kernel's bf16 instantiation: its launches on the bf16 serving
         runs, its served row's numbers and every bf16 shape's."""
-        rows = bf16["kernels"][kernel]
-        by = {path: n[kernel] for path, n in bf16_paths.items() if n[kernel]}
+        rows = (bf16 if kernel in bf16["kernels"] else btrain)["kernels"][kernel]
+        by = {path: n.get(kernel, 0) for path, n in bf16_paths.items() if n.get(kernel, 0)}
         return dict(launches=sum(by.values()), launches_by_path=by,
-                    **{**rows["served"], "max_abs_err": rows["max_abs_err"]},
+                    **{**rows.get("served", rows["shapes"][0]), "max_abs_err": rows["max_abs_err"]},
                     shapes=rows["shapes"])
 
     for name, (source, replaces) in LM_KERNELS.items():
@@ -4547,6 +4923,7 @@ def main() -> int:
         max_rel_err_vs_f64=tw["f64_kernel"], max_rel_err_plain_vs_f64=tw["f64_plain"],
         **train["times"],
         train_step_device_ms=train["profile"].get("flash_bwd"),
+        bf16=bf16_entry("flash_attention_bwd"),
     ))
     cw, mp = train["conv"], ssm["mamba2-1.3b"]["profile"]
     kernels["kernels"].append(dict(
@@ -4557,11 +4934,12 @@ def main() -> int:
         launches=sum(by_path("conv1d_fused_bwd").values()),
         launches_by_path=by_path("conv1d_fused_bwd"),
         launches_per=(f"{ssm['mamba2-1.3b']['launches']['conv1d_fused_bwd'] / TRAIN_STEPS:g} "
-                      "per train step of mamba2-1.3b"),
+                      f"per train step of mamba2-1.3b on {MAMBA_FP32_LAYERS} layers"),
         max_abs_err=cw["worst"]["abs"], max_rel_err=cw["worst"]["rel"],
         **cw["backward"],
         train_step_device_ms=mp.get("conv1d_bwd"),
         events_ms_a_train_step=mp.get("conv1d_backward_ms_a_step"),
+        bf16=bf16_entry("conv1d_fused_bwd"),
     ))
     print(json.dumps(kernels))
     print(json.dumps({"ok": True, "device": {

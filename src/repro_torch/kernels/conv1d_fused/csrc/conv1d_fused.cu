@@ -53,7 +53,7 @@
 // row stride and the pointers allow it, else 1; the window is kept in f32
 // registers.  Bytes bound it the same way at half the bytes: mamba2-1.3b's
 // first prefill wave, 2 x 4 x 768 x 4352 x 2 B, is 16.0 us at 3.35 TB/s.
-// The backward stays fp32 (training in bf16 is still to port).
+// The backward has a bf16 entry too (`conv1d_fused_bwd_bf16_launch`, below).
 //
 // The backward (conv1d_fused_bwd_launch) is the gradient XLA computes for
 // the reference's silu(conv1d_depthwise_causal(x, w) + b): the reference
@@ -141,6 +141,33 @@ struct Io<bf16, 8> {  // one 16-byte access; the low half of a word is the lower
       w[i] = (int)((uint32_t)__bfloat16_as_ushort(__float2bfloat16_rn(v[2 * i])) |
                    ((uint32_t)__bfloat16_as_ushort(__float2bfloat16_rn(v[2 * i + 1])) << 16));
     __stcs(reinterpret_cast<int4*>(p), make_int4(w[0], w[1], w[2], w[3]));
+  }
+};
+template <>
+struct Io<float, 8> {  // two float4 accesses (the bf16 backward's f32 partial rows)
+  static __device__ __forceinline__ void store(float* p, const float (&v)[8]) {
+    __stcs(reinterpret_cast<float4*>(p), make_float4(v[0], v[1], v[2], v[3]));
+    __stcs(reinterpret_cast<float4*>(p) + 1, make_float4(v[4], v[5], v[6], v[7]));
+  }
+};
+template <>
+struct Io<bf16, 4> {  // one 8-byte access
+  static __device__ __forceinline__ void load(const bf16* __restrict__ p, float (&v)[4]) {
+    const int2 t = __ldg(reinterpret_cast<const int2*>(p));
+    const uint32_t w[2] = {(uint32_t)t.x, (uint32_t)t.y};
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      v[2 * i] = __uint_as_float(w[i] << 16);
+      v[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+    }
+  }
+  static __device__ __forceinline__ void store(bf16* p, const float (&v)[4]) {
+    int w[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+      w[i] = (int)((uint32_t)__bfloat16_as_ushort(__float2bfloat16_rn(v[2 * i])) |
+                   ((uint32_t)__bfloat16_as_ushort(__float2bfloat16_rn(v[2 * i + 1])) << 16));
+    __stcs(reinterpret_cast<int2*>(p), make_int2(w[0], w[1]));
   }
 };
 template <>
@@ -313,12 +340,15 @@ constexpr int kSegRows = 32;     // rows of a backward segment: one thread's wal
 constexpr int kMaxAnyKBwd = 32;  // taps the backward's any-K instance takes
 
 // KT > 0: K = KT, windows in registers; KT == 0: K = a.k <= kMaxAnyKBwd,
-// windows in local memory
-template <int KT, int V>
+// windows in local memory.  T: the element type of x, w, bias, g and dx
+// (values upcast as they load, dx rounded once as it stores); the windows,
+// the sums and the partial rows are f32 at both types
+template <typename T, int KT, int V>
 __global__ void __launch_bounds__(kMaxThreads)
-conv1d_bwd_kernel(const float* __restrict__ x, const float* __restrict__ w,
-                  const float* __restrict__ bias, const float* __restrict__ g,
-                  float* __restrict__ dx, float* __restrict__ part, const LaunchArgs a) {
+conv1d_bwd_kernel(const T* __restrict__ x, const T* __restrict__ w,
+                  const T* __restrict__ bias, const T* __restrict__ g,
+                  T* __restrict__ dx, float* __restrict__ part, const LaunchArgs a) {
+  using U = Io<T, V>;
   constexpr int KW = KT > 0 ? KT : kMaxAnyKBwd;  // window length
   const int k = KT > 0 ? KT : a.k;
   const int c = (blockIdx.y * blockDim.x + threadIdx.x) * V;
@@ -326,17 +356,17 @@ conv1d_bwd_kernel(const float* __restrict__ x, const float* __restrict__ w,
   const int s0 = blockIdx.x * kSegRows;
   const int seg_end = min(s0 + kSegRows, a.seq);  // rows whose dpre sums here
   const long long row0 = (long long)blockIdx.z * a.seq;
-  const float* xc = x + row0 * a.x_row_stride + c;
-  const float* gc = g + row0 * a.d + c;
-  float* dxc = dx + row0 * a.d + c;
+  const T* xc = x + row0 * a.x_row_stride + c;
+  const T* gc = g + row0 * a.d + c;
+  T* dxc = dx + row0 * a.d + c;
   float taps[KW][V], b[V], xw[KW][V], dw[KW][V], dwin[KW][V], db[V];
 #pragma unroll
   for (int i = 0; i < KW; ++i) {
-    if (i < k) Io<float, V>::load(w + (long long)i * a.d + c, taps[i]);
+    if (i < k) U::load(w + (long long)i * a.d + c, taps[i]);
 #pragma unroll
     for (int v = 0; v < V; ++v) xw[i][v] = dw[i][v] = dwin[i][v] = 0.f;
   }
-  Io<float, V>::load(bias + c, b);
+  U::load(bias + c, b);
 #pragma unroll
   for (int v = 0; v < V; ++v) db[v] = 0.f;
   // xw[j] holds row t - (K-1) + j: before the first row, the K-1 rows
@@ -344,7 +374,7 @@ conv1d_bwd_kernel(const float* __restrict__ x, const float* __restrict__ w,
 #pragma unroll
   for (int j = 0; j < KW - 1; ++j) {
     const int l = s0 - (k - 1) + j;
-    if (j < k - 1 && l >= 0) Io<float, V>::load(xc + l * a.x_row_stride, xw[j + 1]);
+    if (j < k - 1 && l >= 0) U::load(xc + l * a.x_row_stride, xw[j + 1]);
   }
   for (int t = s0; t < seg_end + k - 1; ++t) {
 #pragma unroll
@@ -357,8 +387,8 @@ conv1d_bwd_kernel(const float* __restrict__ x, const float* __restrict__ w,
     float dp[V];
     if (t < a.seq) {
       float gv[V];
-      Io<float, V>::load(xc + t * a.x_row_stride, xw[k - 1]);
-      Io<float, V>::load(gc + (long long)t * a.d, gv);
+      U::load(xc + t * a.x_row_stride, xw[k - 1]);
+      U::load(gc + (long long)t * a.d, gv);
 #pragma unroll
       for (int v = 0; v < V; ++v) {
         float pre = 0.f;  // the forward's chain: acc = fmaf(x, w_i, acc), + bias
@@ -399,7 +429,7 @@ conv1d_bwd_kernel(const float* __restrict__ x, const float* __restrict__ w,
           if (i < k) acc = fmaf(dwin[k - 1 - i][v], taps[i][v], acc);
         o[v] = acc;
       }
-      Io<float, V>::store(dxc + (long long)s * a.d, o);
+      U::store(dxc + (long long)s * a.d, o);
     }
   }
   // this (sequence, segment)'s partial sums: K rows of dw, then db
@@ -410,31 +440,77 @@ conv1d_bwd_kernel(const float* __restrict__ x, const float* __restrict__ w,
   Io<float, V>::store(pc + (long long)k * a.d, db);
 }
 
-// dw, db: the partial rows summed in order (row 0 first), one thread an element
+// dw, db: the partial rows summed in order (row 0 first), one thread an
+// element, each rounded to T once
+template <typename T>
 __global__ void __launch_bounds__(kMaxThreads)
-conv1d_bwd_reduce_kernel(const float* __restrict__ part, float* __restrict__ dw,
-                         float* __restrict__ db, int n_part, int k, int d) {
+conv1d_bwd_reduce_kernel(const float* __restrict__ part, T* __restrict__ dw,
+                         T* __restrict__ db, int n_part, int k, int d) {
   const long long n = (long long)(k + 1) * d;
   const long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (e >= n) return;
   float acc = 0.f;
   for (int p = 0; p < n_part; ++p) acc += __ldg(part + p * n + e);
-  if (e < (long long)k * d) {
-    dw[e] = acc;
+  T* out = e < (long long)k * d ? dw + e : db + (e - (long long)k * d);
+  if constexpr (sizeof(T) == 4) {
+    *out = acc;
   } else {
-    db[e - (long long)k * d] = acc;
+    *out = __float2bfloat16_rn(acc);
   }
 }
 
-template <int KT>
-void launch_bwd(const float* x, const float* w, const float* b, const float* g, float* dx,
-                float* part, const LaunchArgs& a, cudaStream_t stream) {
+// a.vec: 4 or 1 for fp32; 8, 4 or 1 for bf16
+template <typename T, int KT>
+void launch_bwd(const T* x, const T* w, const T* b, const T* g, T* dx, float* part,
+                const LaunchArgs& a, cudaStream_t stream) {
   const dim3 grid(a.n_strips, a.n_cblocks, a.batch);
-  if (a.vec == 4) {
-    conv1d_bwd_kernel<KT, 4><<<grid, a.threads, 0, stream>>>(x, w, b, g, dx, part, a);
-  } else {
-    conv1d_bwd_kernel<KT, 1><<<grid, a.threads, 0, stream>>>(x, w, b, g, dx, part, a);
+  if constexpr (sizeof(T) == 2) {
+    if (a.vec == 8) {
+      conv1d_bwd_kernel<T, KT, 8><<<grid, a.threads, 0, stream>>>(x, w, b, g, dx, part, a);
+      return;
+    }
   }
+  if (a.vec == 4) {
+    conv1d_bwd_kernel<T, KT, 4><<<grid, a.threads, 0, stream>>>(x, w, b, g, dx, part, a);
+  } else {
+    conv1d_bwd_kernel<T, KT, 1><<<grid, a.threads, 0, stream>>>(x, w, b, g, dx, part, a);
+  }
+}
+
+// the backward's checks (as the forward's; wide units of `a->vec` values,
+// VW or 4, only where the sizes and pointers allow them), the instance of
+// its tap count, then the reduction; cudaGetLastError() after them
+template <typename T, int VW>
+int launch_backward(const T* x, const T* w, const T* b, const T* g, T* dx, T* dw, T* db,
+                    float* part, const LaunchArgs* a, cudaStream_t s) {
+  const long long span = (long long)a->threads * a->vec;
+  const bool vec_ok =
+      a->vec == 1 || ((a->vec == VW || a->vec == 4) && a->d % a->vec == 0 &&
+                      a->x_row_stride % a->vec == 0 && aligned16(x) && aligned16(w) &&
+                      aligned16(b) && aligned16(g) && aligned16(dx) && aligned16(part));
+  const bool ok =
+      a->batch >= 1 && a->batch <= 65535 && a->seq >= 1 && a->d >= 1 && a->k >= 1 &&
+      a->k <= kMaxAnyKBwd && (a->silu == 0 || a->silu == 1) && a->x_row_stride >= a->d &&
+      vec_ok && a->threads >= 32 && a->threads <= kMaxThreads && a->threads % 32 == 0 &&
+      a->n_strips == (a->seq + kSegRows - 1) / kSegRows && a->n_cblocks >= 1 &&
+      a->n_cblocks <= 65535 && a->n_cblocks * span >= a->d && (a->n_cblocks - 1) * span < a->d;
+  if (!ok) return (int)cudaErrorInvalidValue;
+  switch (a->k) {
+    case 1: launch_bwd<T, 1>(x, w, b, g, dx, part, *a, s); break;
+    case 2: launch_bwd<T, 2>(x, w, b, g, dx, part, *a, s); break;
+    case 3: launch_bwd<T, 3>(x, w, b, g, dx, part, *a, s); break;
+    case 4: launch_bwd<T, 4>(x, w, b, g, dx, part, *a, s); break;
+    case 5: launch_bwd<T, 5>(x, w, b, g, dx, part, *a, s); break;
+    case 6: launch_bwd<T, 6>(x, w, b, g, dx, part, *a, s); break;
+    case 7: launch_bwd<T, 7>(x, w, b, g, dx, part, *a, s); break;
+    case 8: launch_bwd<T, 8>(x, w, b, g, dx, part, *a, s); break;
+    default: launch_bwd<T, 0>(x, w, b, g, dx, part, *a, s); break;  // k > kMaxTaps
+  }
+  const long long n = (long long)(a->k + 1) * a->d;
+  const int blocks = (int)((n + kMaxThreads - 1) / kMaxThreads);
+  conv1d_bwd_reduce_kernel<T><<<blocks, kMaxThreads, 0, s>>>(
+      part, dw, db, a->batch * a->n_strips, a->k, a->d);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -467,33 +543,16 @@ extern "C" int conv1d_fused_bf16_launch(const bf16* x, const bf16* w, const bf16
 extern "C" int conv1d_fused_bwd_launch(const float* x, const float* w, const float* b,
                                        const float* g, float* dx, float* dw, float* db,
                                        float* part, const LaunchArgs* a, void* stream) {
-  const long long span = (long long)a->threads * a->vec;
-  const bool vec_ok =
-      a->vec == 1 || (a->vec == 4 && a->d % 4 == 0 && a->x_row_stride % 4 == 0 && aligned16(x) &&
-                      aligned16(w) && aligned16(b) && aligned16(g) && aligned16(dx) &&
-                      aligned16(part));
-  const bool ok =
-      a->batch >= 1 && a->batch <= 65535 && a->seq >= 1 && a->d >= 1 && a->k >= 1 &&
-      a->k <= kMaxAnyKBwd && (a->silu == 0 || a->silu == 1) && a->x_row_stride >= a->d &&
-      vec_ok && a->threads >= 32 && a->threads <= kMaxThreads && a->threads % 32 == 0 &&
-      a->n_strips == (a->seq + kSegRows - 1) / kSegRows && a->n_cblocks >= 1 &&
-      a->n_cblocks <= 65535 && a->n_cblocks * span >= a->d && (a->n_cblocks - 1) * span < a->d;
-  if (!ok) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = (cudaStream_t)stream;
-  switch (a->k) {
-    case 1: launch_bwd<1>(x, w, b, g, dx, part, *a, s); break;
-    case 2: launch_bwd<2>(x, w, b, g, dx, part, *a, s); break;
-    case 3: launch_bwd<3>(x, w, b, g, dx, part, *a, s); break;
-    case 4: launch_bwd<4>(x, w, b, g, dx, part, *a, s); break;
-    case 5: launch_bwd<5>(x, w, b, g, dx, part, *a, s); break;
-    case 6: launch_bwd<6>(x, w, b, g, dx, part, *a, s); break;
-    case 7: launch_bwd<7>(x, w, b, g, dx, part, *a, s); break;
-    case 8: launch_bwd<8>(x, w, b, g, dx, part, *a, s); break;
-    default: launch_bwd<0>(x, w, b, g, dx, part, *a, s); break;  // k > kMaxTaps
-  }
-  const long long n = (long long)(a->k + 1) * a->d;
-  const int blocks = (int)((n + kMaxThreads - 1) / kMaxThreads);
-  conv1d_bwd_reduce_kernel<<<blocks, kMaxThreads, 0, s>>>(
-      part, dw, db, a->batch * a->n_strips, a->k, a->d);
-  return (int)cudaGetLastError();
+  return launch_backward<float, 4>(x, w, b, g, dx, dw, db, part, a, (cudaStream_t)stream);
+}
+
+// The same at bf16: x, w, b, g, dx, dw and db bf16, `part` f32 as above;
+// `a->vec` 8 (16-byte units), 4 (8-byte units) or 1, each only where D,
+// the row stride and the pointers allow it.  Each value is upcast as it
+// loads; pre, silu' and every sum are f32 (the fp32 entry's operations in
+// its order), and dx, dw and db are rounded to bf16 once.
+extern "C" int conv1d_fused_bwd_bf16_launch(const bf16* x, const bf16* w, const bf16* b,
+                                            const bf16* g, bf16* dx, bf16* dw, bf16* db,
+                                            float* part, const LaunchArgs* a, void* stream) {
+  return launch_backward<bf16, 8>(x, w, b, g, dx, dw, db, part, a, (cudaStream_t)stream);
 }

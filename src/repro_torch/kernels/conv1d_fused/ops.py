@@ -11,9 +11,9 @@ same launch, and its backward is the backward kernel
 (`ref.conv1d_bwd_ref`) on the CPU.  The reference never trains through
 its Pallas conv (`use_pallas_conv` is off in every caller): its gradient
 is XLA's, of the shifted-MAC conv plus SiLU, which is what both
-compute.  The forward takes fp32 and bf16; the backward kernel is fp32
-only, so on the card a bf16 input under grad raises (ROADMAP §1,
-reduced precision: bf16 training).
+compute.  Both kernels take fp32 and bf16 (the backward's bf16 entry
+sums in f32 and rounds each gradient once); on the card any other dtype
+under grad raises.
 """
 
 from __future__ import annotations
@@ -82,11 +82,10 @@ def conv1d_fused(
         b = torch.zeros((x.shape[-1],), dtype=x.dtype, device=x.device)
     w, b = w.contiguous(), b.contiguous()
     if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad or b.requires_grad):
-        if x.device.type == "cuda" and x.dtype != torch.float32:
+        if x.device.type == "cuda" and x.dtype not in (torch.float32, torch.bfloat16):
             raise NotImplementedError(
-                f"conv1d_fused under grad takes float32 on the card, got {x.dtype}: the "
-                "backward kernel has no bf16 instantiation yet (ROADMAP §1, reduced "
-                "precision: bf16 training)")
+                f"conv1d_fused under grad takes float32 or bfloat16 on the card, got "
+                f"{x.dtype}: the backward kernel has no other instantiation")
         return Conv1dFused.apply(x, w, b, activation)
     return _conv(x, w, b, activation)
 

@@ -6,7 +6,11 @@ use (`kernels._build`).  `flash_attention_bwd_call` takes CUDA tensors
 only and raises on anything the kernel does not take; the plain version
 of the same function is `ref.flash_attention_bwd_ref`.  `LAUNCHES`
 counts the wrapper's calls that launched the kernel (each launches the
-source's two kernels: delta, then the main kernel).
+source's two kernels: delta, then the main kernel).  fp32 inputs launch
+the fp32 instantiation (`flash_attention_bwd_launch`, split-TF32), bf16
+inputs the bf16 one (`flash_attention_bwd_bf16_launch`: bf16 P for dV,
+the gradients rounded once to bf16), as `kernel.ENTRY` selects the
+forward's; nothing else is taken.
 
 The main kernel runs one block per item of `work_list`: a dK/dV item
 (32 keys of one batch and kv head, over its group's q heads) or a dQ
@@ -51,8 +55,12 @@ ARGTYPES = (
     + [ctypes.c_float, ctypes.c_void_p]  # scale, stream
 )
 LIB = _build.CudaLibrary(
-    SOURCE, "flash_attention_bwd", {"flash_attention_bwd_launch": ARGTYPES}
+    SOURCE, "flash_attention_bwd",
+    {"flash_attention_bwd_launch": ARGTYPES, "flash_attention_bwd_bf16_launch": ARGTYPES},
 )
+# the entry point of each element type the kernel takes
+ENTRY = {torch.float32: "flash_attention_bwd_launch",
+         torch.bfloat16: "flash_attention_bwd_bf16_launch"}
 
 Item = Tuple[int, int, int, int, int]  # (role, batch * heads + head, block, lo, hi)
 
@@ -143,7 +151,9 @@ def _device_items(key: tuple, device: torch.device) -> torch.Tensor:
 
 
 def _aligned(t: torch.Tensor) -> bool:
-    return t.stride(3) == 1 and t.data_ptr() % 16 == 0 and all(s % 4 == 0 for s in t.stride()[:3])
+    per16 = 16 // t.element_size()  # elements in 16 bytes
+    return (t.stride(3) == 1 and t.data_ptr() % 16 == 0
+            and all(s % per16 == 0 for s in t.stride()[:3]))
 
 
 def flash_attention_bwd_call(
@@ -160,18 +170,20 @@ def flash_attention_bwd_call(
     """Launch the backward on the current stream.
 
     q: (B, Hq, Sq, hd); o, do: (B, Hq, Sq, vd); k: (B, Hkv, Sk, hd); v:
-    (B, Hkv, Sk, vd), f32 on the card, any (batch, head, sequence) strides
-    with the head dim contiguous; lse: the forward kernel's (B, Hq, Sq)
-    log-sum-exp.  Hq % Hkv == 0, (hd, vd) in `HEAD_DIMS`, scale q's
+    (B, Hkv, Sk, vd), all f32 or all bf16 on the card, any (batch, head,
+    sequence) strides with the head dim contiguous; lse: the forward
+    kernel's f32 (B, Hq, Sq) log-sum-exp.  Hq % Hkv == 0, (hd, vd) in `HEAD_DIMS`, scale q's
     hd^-0.5, any Sq and Sk (masks by index, as the forward).
     returns: (dq, dk, dv) in q's, k's and v's memory layouts.
     """
     global LAUNCHES
-    dev = q.device
-    if do.device == dev and do.dtype == torch.float32 and do.ndim == 4 and not _aligned(do):
+    dev, dtype = q.device, q.dtype
+    if dtype not in ENTRY:
+        raise ValueError(f"q must be float32 or bfloat16, got {dtype}")
+    if do.device == dev and do.dtype == dtype and do.ndim == 4 and not _aligned(do):
         do = do.contiguous()
     for name, t in (("q", q), ("k", k), ("v", v), ("o", o), ("do", do)):
-        _check(name, t, dev)
+        _check(name, t, dev, dtype)
     b, hq, sq, hd = q.shape
     hkv, sk, vd = k.shape[1], k.shape[2], v.shape[3]
     if tuple(k.shape) != (b, hkv, sk, hd) or tuple(v.shape) != (b, hkv, sk, vd):
@@ -189,11 +201,11 @@ def flash_attention_bwd_call(
         raise ValueError(f"lse must be the forward's contiguous f32 (B, Hq, Sq) on {dev}")
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     for name, t in (("dq", dq), ("dk", dk), ("dv", dv)):
-        _check(name, t, dev)
+        _check(name, t, dev, dtype)
     delta = torch.empty((b, hq, sq), dtype=torch.float32, device=dev)
     items = _device_items((b, hq, hkv, sq, sk, hd, bool(causal), int(window), vd), dev)
     LIB.launch(
-        "flash_attention_bwd_launch", dev,
+        ENTRY[dtype], dev,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
         do.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), delta.data_ptr(),
         items.data_ptr(), items.shape[0], b, hq, hkv, sq, sk, hd, vd,

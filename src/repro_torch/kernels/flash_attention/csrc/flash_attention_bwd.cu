@@ -1,5 +1,6 @@
-// Backward flash attention for Hopper (sm_90a), fp32 in and out, computed on
-// the tensor cores with split-TF32 operands.
+// Backward flash attention for Hopper (sm_90a): fp32 in and out, computed on
+// the tensor cores with split-TF32 operands; and bf16 in and out on bf16
+// mma.sync (the "bf16" section below).
 //
 // Replaces src/repro/models/flash_attention.py::_flash_bwd (the custom VJP
 // that the reference trains through): given q, k, v, the forward's output o,
@@ -80,6 +81,7 @@
 // SM; MLA's (192, 128) takes 148,992 B.  `step_clocks.py` measures where a
 // step of the longest item spends its clocks.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -95,9 +97,12 @@ struct Strides {
   long long b, h, s;  // elements between batches, heads and sequence rows
 };
 
+// T: float or bf16, the element type of q, k, v, dO and the gradients
+template <typename T>
 struct Params {
-  const float *q, *k, *v, *dout, *lse, *delta;
-  float *dq, *dk, *dv;
+  const T *q, *k, *v, *dout;
+  const float *lse, *delta;
+  T *dq, *dk, *dv;
   const int4* items;  // (role | block << 1, batch * heads + head, lo, hi)
   int hq, hkv, sq, sk, group, causal, window;
   float scale;
@@ -349,7 +354,8 @@ __device__ __forceinline__ void store_rows(float* base, long long rs, int r0, in
     }
 }
 
-__device__ __forceinline__ bool visible(int row, int key, const Params& p) {
+template <typename P>
+__device__ __forceinline__ bool visible(int row, int key, const P& p) {
   bool ok = row < p.sq && key < p.sk;
   if (p.causal) ok = ok && key <= row;
   if (p.window > 0) ok = ok && row - key < p.window;
@@ -364,7 +370,7 @@ __device__ __forceinline__ bool visible(int row, int key, const Params& p) {
 // `xsh` and, when `pt` is not null, to pt[key][row]; dS goes to dst[key][row]
 // (`ds_t`) or dst[row][key].
 template <int DK, int DV>
-__device__ __forceinline__ void step_p_ds(const Params& p, const float* qsh, const float* dosh,
+__device__ __forceinline__ void step_p_ds(const Params<float>& p, const float* qsh, const float* dosh,
                                           const float* ksh, const float* vsh,
                                           const float* lse_sh, const float* dl_sh, float* pt,
                                           float* dst, bool ds_t, float* xsh, float* xch, int q0,
@@ -453,7 +459,7 @@ struct Smem {
 // dK and dV of keys [k0, k0 + kB) of one (batch, kv head): q tiles [lo, hi)
 // of each of the group's q heads
 template <int DK, int DV>
-__device__ __forceinline__ void dkdv_item(const Params& p, float* smem, int bh, int kb, int lo,
+__device__ __forceinline__ void dkdv_item(const Params<float>& p, float* smem, int bh, int kb, int lo,
                                           int hi) {
   using C = Cfg<DK, DV>;
   constexpr int E2K = C::E2K, E2V = C::E2V;
@@ -535,7 +541,7 @@ __device__ __forceinline__ void dkdv_item(const Params& p, float* smem, int bh, 
 
 // dQ of q rows [q0, q0 + kB) of one (batch, q head): kv tiles [lo, hi)
 template <int DK, int DV>
-__device__ __forceinline__ void dq_item(const Params& p, float* smem, int bh, int qb, int lo,
+__device__ __forceinline__ void dq_item(const Params<float>& p, float* smem, int bh, int qb, int lo,
                                         int hi) {
   using C = Cfg<DK, DV>;
   constexpr int E2K = C::E2K;
@@ -589,11 +595,412 @@ __device__ __forceinline__ void dq_item(const Params& p, float* smem, int bh, in
   }
 }
 
+// ------------------------------------------------------------------ bf16
+//
+// The same function at bf16 in and out (`flash_attention_bwd_bf16_launch`),
+// what the reference's `_flash_bwd` computes for bf16 inputs: q, k, v, o and
+// dO upcast to f32, delta = rowsum(dO * o) in f32, P from the f32 lse, dV
+// from bf16(P), dS = P * (dP - delta) in f32, and dQ, dK, dV each rounded to
+// bf16 once.  The work list, the two launches, the warps' roles and the
+// order of every sum over steps are the fp32 kernel's; no atomics.
+//
+// Products.  S = q k^T, dP = dO v^T and dV += bf16(P)^T dO have bf16
+// operands, so they run exactly on mma.sync.m16n8k16 bf16 with f32
+// accumulators (a bf16 product is exact in f32).  dK = dS^T q and dQ = dS k
+// take the f32 dS: it is split into hi = bf16(dS) and lo = bf16(dS - hi),
+// two bf16 mmas against the exact q or k (|dS - hi - lo| <= 2^-16 |dS|,
+// against bf16's 2^-8 output rounding).  The reference scales q by hd^-0.5
+// in f32 before q k^T and dS^T q; q * scale is not a bf16 value (but at hd
+// 256), so here the scale multiplies S inside the exponent and the f32 dK
+// sum once, as in the fp32 kernel: that moves each by one f32 rounding of
+// q * scale (2^-24 relative), nothing at bf16.
+//
+// Tiles are bf16 in shared memory, rows padded by 8 values (16 bytes) so
+// that the 8 rows of an ldmatrix phase fall on 8 distinct bank groups; A
+// fragments come from ldmatrix, B fragments of q, K and dO (whose reduction
+// axis is their row) from ldmatrix.trans.  S and dP: warp w (S for w < 4,
+// dP for w >= 4) sums a 16 x 16 tile (q rows 16 ((w >> 1) & 1), keys 16 (w
+// & 1)) over the whole head dim; the S warp turns it into P and hands it to
+// its dP twin through shared memory (a 64-thread named barrier), which forms
+// dS.  P^T (bf16) and dS (hi and lo) are written to shared memory, key-major
+// in a dK/dV item.  The products into dK, dV and dQ: warp w owns the 32
+// rows of the item and DW columns (32 above 128, else 16), each step's
+// product summed in a fresh fragment and added to the running f32 sum, as
+// in the fp32 kernel.  Shared memory at hd 256: six 32 x 264 bf16 tiles,
+// three 32 x 40 bf16 P / dS tiles, lse / delta for two stages and the 4 KB
+// P hand-off: 113,664 B.
+
+using bf16 = __nv_bfloat16;
+
+constexpr int LDPB = kB + 8;  // bf16 P / dS row: 80 bytes, ldmatrix conflict-free
+
 template <int DK, int DV>
-__global__ void __launch_bounds__(kThreads, Cfg<DK, DV>::kMinBlocks)
-flash_bwd_kernel(const Params p) {
+struct CfgB {
+  static_assert(DK % 8 == 0 && DV % 8 == 0, "the head dims must be multiples of 8");
+  static constexpr int PK = padded(DK), PV = padded(DV);
+  static constexpr int LDK = PK + 8, LDV = PV + 8;  // padded tile rows, bf16 values
+  static constexpr int NK = PK / 16, NV = PV / 16;  // 16-wide k-steps of S and of dP
+  // dK / dQ (DK wide) and dV (DV wide): DWK / DWV columns a warp, NWK / NWV
+  // warps take part (the last one's columns past the head dim are not stored)
+  static constexpr int DWK = PK > 128 ? 32 : 16, DWV = PV > 128 ? 32 : 16;
+  static constexpr int NWK = (DK + DWK - 1) / DWK, NWV = (DV + DWV - 1) / DWV;
+  static_assert(NWK <= kWarps && NWV <= kWarps, "the output columns must fit the warps");
+  static constexpr int kTileK = kB * LDK, kTileV = kB * LDV, kPT = kB * LDPB;
+  static constexpr int smem = (int)sizeof(bf16) * (3 * (kTileK + kTileV) + 3 * kPT) +
+                              (int)sizeof(float) * (4 * kB + 4 * 8 * 32);
+  static_assert(smem <= 232448, "over sm_90's opt-in shared memory per block");
+  static constexpr int kMinBlocks = 1;
+};
+
+__device__ __forceinline__ void cp_async16b(bf16* dst, const bf16* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)), "l"(src),
+               "r"(valid ? 16 : 0));
+}
+
+// four 8 x 8 b16 matrices; lane l gives the address of row l % 8 of matrix
+// l / 8, and register i holds matrix i's (row g, columns 2t, 2t + 1) -- with
+// .trans its (rows 2t, 2t + 1, column g)
+__device__ __forceinline__ void ldsm4(uint32_t (&r)[4], const bf16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p))
+               : "memory");
+}
+__device__ __forceinline__ void ldsm4_t(uint32_t (&r)[4], const bf16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p))
+               : "memory");
+}
+
+// c += a b, a 16 x 16 and b 16 x 8 bf16, c f32
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, "
+      "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// two f32 rounded to bf16, `lo` in the low half (the smaller column)
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const uint32_t l = __bfloat16_as_ushort(__float2bfloat16_rn(lo));
+  const uint32_t h = __bfloat16_as_ushort(__float2bfloat16_rn(hi));
+  return l | (h << 16);
+}
+
+// rows [r0, r0 + kB) of a (rows, D) bf16 tensor at `base` with row stride
+// `rs` into a (kB, P + 8) tile, P = padded(D); rows at or past `n` and
+// columns at or past D are zeros
+template <int D>
+__device__ __forceinline__ void load_tile_b(bf16* tile, const bf16* base, long long rs, int r0,
+                                            int n) {
+  constexpr int P = padded(D), LD = P + 8;
+  for (int idx = threadIdx.x; idx < kB * P / 8; idx += kThreads) {
+    const int r = idx / (P / 8), c8 = idx - r * (P / 8);
+    const bool row_ok = r0 + r < n;
+    cp_async16b(tile + r * LD + 8 * c8, base + (row_ok ? r0 + r : 0) * rs + 8 * c8,
+                row_ok && (D == P || 8 * c8 < D));
+  }
+}
+
+// acc = A B^T for 16 rows of `a` (from row 16 rh) against 16 rows of `b`
+// (from row 16 kh), row stride LD both, over NS 16-wide k-steps: S = q k^T
+// or dP = dO v^T.  acc[j] holds rows g, g + 8 and keys 8j + 2t, 8j + 2t + 1.
+template <int NS, int LD>
+__device__ __forceinline__ void scores_b(float (&acc)[2][4], const bf16* a, const bf16* b,
+                                         int rh, int kh, int lane) {
+#pragma unroll
+  for (int j = 0; j < 2; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+  const bf16* ar = a + (16 * rh + (lane & 15)) * LD + 8 * (lane >> 4);
+  const bf16* br = b + (16 * kh + (lane & 7) + 8 * (lane >> 4)) * LD + 8 * ((lane >> 3) & 1);
+#pragma unroll
+  for (int c = 0; c < NS; ++c) {
+    uint32_t fa[4], fb[4];
+    ldsm4(fa, ar + 16 * c);
+    ldsm4(fb, br + 16 * c);
+    mma_bf16(acc[0], fa, fb[0], fb[1]);
+    mma_bf16(acc[1], fa, fb[2], fb[3]);
+  }
+}
+
+// acc = A B for A (32 x 32 bf16, row stride LDPB: P^T, or dS^T / dS as hi
+// and, with SPLIT, lo) and B (32 rows of a tile with row stride LD, from the
+// warp's first column; read transposed): acc[m][i] holds rows 16m + g,
+// 16m + g + 8 and columns 8i + 2t, 8i + 2t + 1
+template <int LD, int DW, bool SPLIT>
+__device__ __forceinline__ void product_b(float (&acc)[2][DW / 8][4], const bf16* ah,
+                                          const bf16* al, const bf16* b, int lane) {
+#pragma unroll
+  for (int m = 0; m < 2; ++m)
+#pragma unroll
+    for (int i = 0; i < DW / 8; ++i) acc[m][i][0] = acc[m][i][1] = acc[m][i][2] = acc[m][i][3] = 0.f;
+  const bf16* bl = b + ((lane & 7) + 8 * ((lane >> 3) & 1)) * LD + 8 * (lane >> 4);
+  const int arow = (lane & 15) * LDPB + 8 * (lane >> 4);
+#pragma unroll
+  for (int kk = 0; kk < kB / 16; ++kk) {
+    uint32_t fb[DW / 16][4];
+#pragma unroll
+    for (int c = 0; c < DW / 16; ++c) ldsm4_t(fb[c], bl + 16 * kk * LD + 16 * c);
+#pragma unroll
+    for (int m = 0; m < 2; ++m) {
+      uint32_t fa[4];
+      if constexpr (SPLIT) {  // the small part first
+        ldsm4(fa, al + 16 * m * LDPB + arow + 16 * kk);
+#pragma unroll
+        for (int c = 0; c < DW / 16; ++c) {
+          mma_bf16(acc[m][2 * c], fa, fb[c][0], fb[c][1]);
+          mma_bf16(acc[m][2 * c + 1], fa, fb[c][2], fb[c][3]);
+        }
+      }
+      ldsm4(fa, ah + 16 * m * LDPB + arow + 16 * kk);
+#pragma unroll
+      for (int c = 0; c < DW / 16; ++c) {
+        mma_bf16(acc[m][2 * c], fa, fb[c][0], fb[c][1]);
+        mma_bf16(acc[m][2 * c + 1], fa, fb[c][2], fb[c][3]);
+      }
+    }
+  }
+}
+
+// rows r0 + 16m + g (+ 8) below n of `acc` times `mul`, rounded to bf16, to
+// `base` (row stride rs) at columns col0 + 8i + 2t, + 1 below D
+template <int DW, int D>
+__device__ __forceinline__ void store_rows_b(bf16* base, long long rs, int r0, int n,
+                                             const float (&acc)[2][DW / 8][4], float mul,
+                                             int col0, int lane) {
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int m = 0; m < 2; ++m)
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = r0 + 16 * m + g + 8 * r;
+      if (row >= n) continue;
+#pragma unroll
+      for (int i = 0; i < DW / 8; ++i) {
+        const int col = col0 + 8 * i;  // D is a multiple of 8: an n-tile is in or out
+        if (col >= D) continue;
+        *reinterpret_cast<uint32_t*>(base + row * rs + col + 2 * t) =
+            pack_bf16(acc[m][i][2 * r] * mul, acc[m][i][2 * r + 1] * mul);
+      }
+    }
+}
+
+// S / dP for this warp's 16 x 16 tile of the step (q rows q0 + 16 rh, keys
+// k0 + 16 kh), then P (S warps) and dS (dP warps).  P goes to the dP twin
+// through `xsh` and, when `pt` is not null, as bf16 to pt[key][row]; dS goes
+// as hi / lo to dsh / dsl at [key][row] (`ds_t`) or [row][key].
+template <int DK, int DV>
+__device__ __forceinline__ void step_p_ds_b(const Params<bf16>& p, const bf16* qsh, const bf16* dosh,
+                                            const bf16* ksh, const bf16* vsh,
+                                            const float* lse_sh, const float* dl_sh, bf16* pt,
+                                            bf16* dsh, bf16* dsl, bool ds_t, float* xsh,
+                                            int q0, int k0) {
+  using C = CfgB<DK, DV>;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int pair = warp & 3, rh = pair >> 1, kh = pair & 1;
+  const bool is_s = warp < 4;
+  float acc[2][4];
+  if (is_s)
+    scores_b<C::NK, C::LDK>(acc, qsh, ksh, rh, kh, lane);
+  else
+    scores_b<C::NV, C::LDV>(acc, dosh, vsh, rh, kh, lane);
+  float* hand = xsh + pair * 8 * 32 + lane;  // the P hand-off
+  if (is_s) {
+    // P = 2^(S scale log2(e) - lse log2(e)): one ex2 a score
+    constexpr float kLog2e = 1.4426950408889634f;
+    const float sl = p.scale * kLog2e;
+    const float nl[2] = {-lse_sh[16 * rh + g] * kLog2e, -lse_sh[16 * rh + g + 8] * kLog2e};
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = 16 * rh + g + 8 * (e >> 1), c = 16 * kh + 8 * j + 2 * t + (e & 1);
+        const float pv =
+            visible(q0 + r, k0 + c, p) ? exp2f(fmaf(acc[j][e], sl, nl[e >> 1])) : 0.f;
+        hand[(4 * j + e) * 32] = pv;
+        if (pt != nullptr) pt[c * LDPB + r] = __float2bfloat16_rn(pv);
+      }
+  }
+  pair_sync(1 + pair);
+  if (!is_s) {
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = 16 * rh + g + 8 * (e >> 1), c = 16 * kh + 8 * j + 2 * t + (e & 1);
+        const float ds = hand[(4 * j + e) * 32] * (acc[j][e] - dl_sh[r]);
+        const bf16 hi = __float2bfloat16_rn(ds);
+        const int at = ds_t ? c * LDPB + r : r * LDPB + c;
+        dsh[at] = hi;
+        dsl[at] = __float2bfloat16_rn(ds - __bfloat162float(hi));
+      }
+  }
+}
+
+// shared memory: tiles 0-1 resident (K / V, or q / dO), 2-5 the ring (stage
+// s: a q or K tile, then a dO or V tile), the P^T tile and dS's hi and lo
+// tiles (bf16), then lse / delta for two stages and the P hand-off (f32)
+template <int DK, int DV>
+struct SmemB {
+  bf16 *res0, *res1, *ring, *pt, *dsh, *dsl;
+  float *stats, *xsh;
+  __device__ __forceinline__ explicit SmemB(bf16* s) {
+    using C = CfgB<DK, DV>;
+    res0 = s;
+    res1 = s + C::kTileK;
+    ring = res1 + C::kTileV;
+    pt = ring + 2 * (C::kTileK + C::kTileV);
+    dsh = pt + C::kPT;
+    dsl = dsh + C::kPT;
+    stats = reinterpret_cast<float*>(dsl + C::kPT);
+    xsh = stats + 4 * kB;
+  }
+  __device__ __forceinline__ bf16* stage(int st) const {
+    return ring + st * (CfgB<DK, DV>::kTileK + CfgB<DK, DV>::kTileV);
+  }
+};
+
+template <int DW>
+__device__ __forceinline__ void zero_acc(float (&acc)[2][DW / 8][4]) {
+#pragma unroll
+  for (int m = 0; m < 2; ++m)
+#pragma unroll
+    for (int i = 0; i < DW / 8; ++i)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[m][i][e] = 0.f;
+}
+
+// dK and dV of keys [k0, k0 + kB) of one (batch, kv head): q tiles [lo, hi)
+// of each of the group's q heads
+template <int DK, int DV>
+__device__ __forceinline__ void dkdv_item(const Params<bf16>& p, bf16* smem, int bh, int kb,
+                                          int lo, int hi) {
+  using C = CfgB<DK, DV>;
+  constexpr int DWK = C::DWK, DWV = C::DWV;
+  const SmemB<DK, DV> sm(smem);
+  const int hk = bh % p.hkv, bi = bh / p.hkv, k0 = kb * kB;
+  load_tile_b<DK>(sm.res0, p.k + bi * p.ks.b + hk * p.ks.h, p.ks.s, k0, p.sk);
+  load_tile_b<DV>(sm.res1, p.v + bi * p.vs.b + hk * p.vs.h, p.vs.s, k0, p.sk);
+  const int nq = hi - lo, n = p.group * nq;
+  auto issue = [&](int step, int st) {  // q, dO, lse, delta of step `step` into stage st
+    const int h = hk * p.group + step / nq, q0 = (lo + step % nq) * kB;
+    bf16* qs = sm.stage(st);
+    load_tile_b<DK>(qs, p.q + bi * p.qs.b + h * p.qs.h, p.qs.s, q0, p.sq);
+    load_tile_b<DV>(qs + C::kTileK, p.dout + bi * p.dos.b + h * p.dos.h, p.dos.s, q0, p.sq);
+    const long long rows = ((long long)bi * p.hq + h) * p.sq;
+    load_stats(sm.stats + 2 * kB * st, p.lse + rows, q0, p.sq);
+    load_stats(sm.stats + 2 * kB * st + kB, p.delta + rows, q0, p.sq);
+  };
+  if (n > 0) issue(0, 0);
+  cp_commit();
+
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  float adk[2][DWK / 8][4], adv[2][DWV / 8][4];
+  zero_acc<DWK>(adk);
+  zero_acc<DWV>(adv);
+
+  for (int it = 0; it < n; ++it) {
+    const int st = it & 1;
+    cp_wait_all();
+    __syncthreads();  // step it has landed; every warp is done with step it - 1
+    if (it + 1 < n) issue(it + 1, st ^ 1);
+    cp_commit();
+    const bf16* qsh = sm.stage(st);
+    const bf16* dosh = qsh + C::kTileK;
+    const float* lse_sh = sm.stats + 2 * kB * st;
+    step_p_ds_b<DK, DV>(p, qsh, dosh, sm.res0, sm.res1, lse_sh, lse_sh + kB, sm.pt, sm.dsh,
+                        sm.dsl, true, sm.xsh, (lo + it % nq) * kB, k0);
+    __syncthreads();  // P^T and dS^T are whole
+    if (warp < C::NWV) {
+      float step[2][DWV / 8][4];
+      product_b<C::LDV, DWV, false>(step, sm.pt, nullptr, dosh + warp * DWV, lane);
+      add_into(adv, step);
+    }
+    if (warp < C::NWK) {
+      float step[2][DWK / 8][4];
+      product_b<C::LDK, DWK, true>(step, sm.dsh, sm.dsl, qsh + warp * DWK, lane);
+      add_into(adk, step);
+    }
+  }
+  cp_wait_all();  // where no step ran, the K / V copies are still in flight
+  if (warp < C::NWK)
+    store_rows_b<DWK, DK>(p.dk + bi * p.dks.b + hk * p.dks.h, p.dks.s, k0, p.sk, adk, p.scale,
+                          warp * DWK, lane);
+  if (warp < C::NWV)
+    store_rows_b<DWV, DV>(p.dv + bi * p.dvs.b + hk * p.dvs.h, p.dvs.s, k0, p.sk, adv, 1.f,
+                          warp * DWV, lane);
+}
+
+// dQ of q rows [q0, q0 + kB) of one (batch, q head): kv tiles [lo, hi)
+template <int DK, int DV>
+__device__ __forceinline__ void dq_item(const Params<bf16>& p, bf16* smem, int bh, int qb,
+                                        int lo, int hi) {
+  using C = CfgB<DK, DV>;
+  constexpr int DWK = C::DWK;
+  const SmemB<DK, DV> sm(smem);
+  const int h = bh % p.hq, bi = bh / p.hq, hk = h / p.group, q0 = qb * kB;
+  const long long rows = ((long long)bi * p.hq + h) * p.sq;
+  load_tile_b<DK>(sm.res0, p.q + bi * p.qs.b + h * p.qs.h, p.qs.s, q0, p.sq);
+  load_tile_b<DV>(sm.res1, p.dout + bi * p.dos.b + h * p.dos.h, p.dos.s, q0, p.sq);
+  load_stats(sm.stats, p.lse + rows, q0, p.sq);
+  load_stats(sm.stats + kB, p.delta + rows, q0, p.sq);
+  const int n = hi - lo;
+  auto issue = [&](int step, int st) {  // K and V of kv tile lo + step into stage st
+    const int k0 = (lo + step) * kB;
+    bf16* ks = sm.stage(st);
+    load_tile_b<DK>(ks, p.k + bi * p.ks.b + hk * p.ks.h, p.ks.s, k0, p.sk);
+    load_tile_b<DV>(ks + C::kTileK, p.v + bi * p.vs.b + hk * p.vs.h, p.vs.s, k0, p.sk);
+  };
+  if (n > 0) issue(0, 0);
+  cp_commit();
+
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  float adq[2][DWK / 8][4];
+  zero_acc<DWK>(adq);
+
+  for (int it = 0; it < n; ++it) {
+    const int st = it & 1;
+    cp_wait_all();
+    __syncthreads();  // step it has landed; every warp is done with step it - 1
+    if (it + 1 < n) issue(it + 1, st ^ 1);
+    cp_commit();
+    const bf16* ksh = sm.stage(st);
+    step_p_ds_b<DK, DV>(p, sm.res0, sm.res1, ksh, ksh + C::kTileK, sm.stats, sm.stats + kB,
+                        nullptr, sm.dsh, sm.dsl, false, sm.xsh, q0, (lo + it) * kB);
+    __syncthreads();  // dS is whole
+    if (warp < C::NWK) {
+      float step[2][DWK / 8][4];
+      product_b<C::LDK, DWK, true>(step, sm.dsh, sm.dsl, ksh + warp * DWK, lane);
+      add_into(adq, step);
+    }
+  }
+  cp_wait_all();  // where no step ran, the q / dO copies are still in flight
+  if (warp < C::NWK)
+    store_rows_b<DWK, DK>(p.dq + bi * p.dqs.b + h * p.dqs.h, p.dqs.s, q0, p.sq, adq, p.scale,
+                          warp * DWK, lane);
+}
+
+// ------------------------------------------------------- both element types
+
+// the tile configuration of each element type
+template <typename T, int DK, int DV>
+struct CfgOf {
+  using type = Cfg<DK, DV>;
+};
+template <int DK, int DV>
+struct CfgOf<bf16, DK, DV> {
+  using type = CfgB<DK, DV>;
+};
+
+template <typename T, int DK, int DV>
+__global__ void __launch_bounds__(kThreads, CfgOf<T, DK, DV>::type::kMinBlocks)
+flash_bwd_kernel(const Params<T> p) {
   extern __shared__ float4 smem4[];
-  float* smem = reinterpret_cast<float*>(smem4);
+  T* smem = reinterpret_cast<T*>(smem4);
   const int4 item = p.items[blockIdx.x];
   if (item.x & 1)
     dq_item<DK, DV>(p, smem, item.y, item.x >> 1, item.z, item.w);
@@ -608,11 +1015,38 @@ __device__ __forceinline__ float dot4(float4 a, float4 b, float acc) {
   return fmaf(a.w, b.w, acc);
 }
 
+// this lane's share of sum_d o[d] * dO[d] over a row's DV columns, in f32:
+// float4 loads, or 8 bf16 values a load, each upcast
+template <int DV>
+__device__ __forceinline__ float row_dot(const float* orow, const float* drow, int lane) {
+  float acc = 0.f;
+  for (int d = 4 * lane; d < DV; d += 128)
+    acc = dot4(*reinterpret_cast<const float4*>(orow + d),
+               *reinterpret_cast<const float4*>(drow + d), acc);
+  return acc;
+}
+template <int DV>
+__device__ __forceinline__ float row_dot(const bf16* orow, const bf16* drow, int lane) {
+  float acc = 0.f;
+  for (int d = 8 * lane; d < DV; d += 256) {
+    const int4 a = *reinterpret_cast<const int4*>(orow + d);
+    const int4 b = *reinterpret_cast<const int4*>(drow + d);
+    const uint32_t wa[4] = {(uint32_t)a.x, (uint32_t)a.y, (uint32_t)a.z, (uint32_t)a.w};
+    const uint32_t wb[4] = {(uint32_t)b.x, (uint32_t)b.y, (uint32_t)b.z, (uint32_t)b.w};
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {  // the low half of a word is the lower column
+      acc = fmaf(__uint_as_float(wa[e] << 16), __uint_as_float(wb[e] << 16), acc);
+      acc = fmaf(__uint_as_float(wa[e] & 0xffff0000u), __uint_as_float(wb[e] & 0xffff0000u), acc);
+    }
+  }
+  return acc;
+}
+
 // delta[b, h, i] = sum_d dO[b, h, i, d] * o[b, h, i, d] over v's DV
 // columns: one warp per row
-template <int DV>
+template <typename T, int DV>
 __global__ void __launch_bounds__(kThreads)
-flash_bwd_delta_kernel(const float* __restrict__ o, const float* __restrict__ dout,
+flash_bwd_delta_kernel(const T* __restrict__ o, const T* __restrict__ dout,
                        float* __restrict__ delta, int hq, int sq, long long rows,
                        Strides os, Strides dos) {
   const long long row = (long long)blockIdx.x * kWarps + (threadIdx.x >> 5);
@@ -620,62 +1054,48 @@ flash_bwd_delta_kernel(const float* __restrict__ o, const float* __restrict__ do
   const int lane = threadIdx.x & 31;
   const long long bh = row / sq;
   const int i = (int)(row - bh * sq), h = (int)(bh % hq), bi = (int)(bh / hq);
-  const float* orow = o + bi * os.b + h * os.h + i * os.s;
-  const float* drow = dout + bi * dos.b + h * dos.h + i * dos.s;
-  float acc = 0.f;
-  for (int d = 4 * lane; d < DV; d += 128)
-    acc = dot4(*reinterpret_cast<const float4*>(orow + d),
-               *reinterpret_cast<const float4*>(drow + d), acc);
+  float acc = row_dot<DV>(o + bi * os.b + h * os.h + i * os.s,
+                          dout + bi * dos.b + h * dos.h + i * dos.s, lane);
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
   if (lane == 0) delta[row] = acc;
 }
 
-template <int DK, int DV>
-int launch(const Params& p, const float* o, Strides os, float* delta, int batch, int n_items,
+template <typename T, int DK, int DV>
+int launch(const Params<T>& p, const T* o, Strides os, float* delta, int batch, int n_items,
            cudaStream_t stream) {
-  constexpr int smem = Cfg<DK, DV>::smem;
+  constexpr int smem = CfgOf<T, DK, DV>::type::smem;
   // the opt-in above 48 KB is set once per process and instantiation
   static bool opted = false;
   if (!opted) {
     const cudaError_t err = cudaFuncSetAttribute(
-        flash_bwd_kernel<DK, DV>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+        flash_bwd_kernel<T, DK, DV>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return (int)err;
     opted = true;
   }
   const long long rows = (long long)batch * p.hq * p.sq;
-  flash_bwd_delta_kernel<DV><<<(unsigned)((rows + kWarps - 1) / kWarps), kThreads, 0,
-                               stream>>>(o, p.dout, delta, p.hq, p.sq, rows, os, p.dos);
+  flash_bwd_delta_kernel<T, DV><<<(unsigned)((rows + kWarps - 1) / kWarps), kThreads, 0,
+                                  stream>>>(o, p.dout, delta, p.hq, p.sq, rows, os, p.dos);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  flash_bwd_kernel<DK, DV><<<n_items, kThreads, smem, stream>>>(p);
+  flash_bwd_kernel<T, DK, DV><<<n_items, kThreads, smem, stream>>>(p);
   return (int)cudaGetLastError();
 }
 
-}  // namespace
-
-// q, dq (batch, hq, sq, hd); o, dO (batch, hq, sq, vd); k, dk (batch, hkv,
-// sk, hd); v, dv (batch, hkv, sk, vd); each addressed by its (batch, head,
-// sequence) strides in elements with the head dim contiguous, pointers and
-// strides 16-byte aligned; lse (the forward's) and the scratch delta (batch,
-// hq, sq) contiguous f32; (hd, vd) one of (16, 16), (32, 32), (56, 56), (64,
-// 64), (80, 80), (112, 112), (128, 128), (192, 128), (256, 256); hq a
-// multiple of hkv; `items` the wrapper's work list, n_items int4s
-// (`backward.work_list`), which must cover every output row.  Launches two
-// kernels on `stream`; returns the first CUDA error.
-extern "C" int flash_attention_bwd_launch(
-    const float* q, const float* k, const float* v, const float* o, const float* lse,
-    const float* dout, float* dq, float* dk, float* dv, float* delta, const void* items,
-    int n_items, int batch, int hq, int hkv, int sq, int sk, int hd, int vd, long long q_sb,
-    long long q_sh, long long q_ss, long long k_sb, long long k_sh, long long k_ss,
-    long long v_sb, long long v_sh, long long v_ss, long long o_sb, long long o_sh,
-    long long o_ss, long long do_sb, long long do_sh, long long do_ss, long long dq_sb,
-    long long dq_sh, long long dq_ss, long long dk_sb, long long dk_sh, long long dk_ss,
-    long long dv_sb, long long dv_sh, long long dv_ss, int causal, int window, float scale,
-    void* stream) {
+template <typename T>
+int launch_any(const T* q, const T* k, const T* v, const T* o, const float* lse,
+               const T* dout, T* dq, T* dk, T* dv, float* delta, const void* items,
+               int n_items, int batch, int hq, int hkv, int sq, int sk, int hd, int vd,
+               long long q_sb, long long q_sh, long long q_ss, long long k_sb, long long k_sh,
+               long long k_ss, long long v_sb, long long v_sh, long long v_ss, long long o_sb,
+               long long o_sh, long long o_ss, long long do_sb, long long do_sh,
+               long long do_ss, long long dq_sb, long long dq_sh, long long dq_ss,
+               long long dk_sb, long long dk_sh, long long dk_ss, long long dv_sb,
+               long long dv_sh, long long dv_ss, int causal, int window, float scale,
+               void* stream) {
   if (batch < 1 || hq < 1 || hkv < 1 || hq % hkv || sq < 1 || sk < 1 || n_items < 1)
     return (int)cudaErrorInvalidValue;
-  Params p;
+  Params<T> p;
   p.q = q; p.k = k; p.v = v; p.dout = dout; p.lse = lse; p.delta = delta;
   p.dq = dq; p.dk = dk; p.dv = dv;
   p.items = static_cast<const int4*>(items);
@@ -687,7 +1107,7 @@ extern "C" int flash_attention_bwd_launch(
   const Strides os{o_sb, o_sh, o_ss};
   cudaStream_t s = (cudaStream_t)stream;
 #define FLASH_BWD_CASE(DK, DV) \
-  if (hd == DK && vd == DV) return launch<DK, DV>(p, o, os, delta, batch, n_items, s);
+  if (hd == DK && vd == DV) return launch<T, DK, DV>(p, o, os, delta, batch, n_items, s);
   FLASH_BWD_CASE(16, 16)
   FLASH_BWD_CASE(32, 32)
   FLASH_BWD_CASE(56, 56)
@@ -700,3 +1120,34 @@ extern "C" int flash_attention_bwd_launch(
 #undef FLASH_BWD_CASE
   return (int)cudaErrorInvalidValue;
 }
+
+}  // namespace
+
+// q, dq (batch, hq, sq, hd); o, dO (batch, hq, sq, vd); k, dk (batch, hkv,
+// sk, hd); v, dv (batch, hkv, sk, vd); all float, or all bf16 for the bf16
+// entry; each addressed by its (batch, head, sequence) strides in elements
+// with the head dim contiguous, pointers and strides 16-byte aligned; lse
+// (the forward's) and the scratch delta (batch, hq, sq) contiguous f32;
+// (hd, vd) one of (16, 16), (32, 32), (56, 56), (64, 64), (80, 80), (112,
+// 112), (128, 128), (192, 128), (256, 256); hq a multiple of hkv; `items`
+// the wrapper's work list, n_items int4s (`backward.work_list`), which must
+// cover every output row.  Launches two kernels on `stream`; returns the
+// first CUDA error.
+#define FLASH_BWD_ENTRY(NAME, T)                                                                \
+  extern "C" int NAME(                                                                          \
+      const T* q, const T* k, const T* v, const T* o, const float* lse, const T* dout, T* dq,   \
+      T* dk, T* dv, float* delta, const void* items, int n_items, int batch, int hq, int hkv,   \
+      int sq, int sk, int hd, int vd, long long q_sb, long long q_sh, long long q_ss,           \
+      long long k_sb, long long k_sh, long long k_ss, long long v_sb, long long v_sh,           \
+      long long v_ss, long long o_sb, long long o_sh, long long o_ss, long long do_sb,          \
+      long long do_sh, long long do_ss, long long dq_sb, long long dq_sh, long long dq_ss,      \
+      long long dk_sb, long long dk_sh, long long dk_ss, long long dv_sb, long long dv_sh,      \
+      long long dv_ss, int causal, int window, float scale, void* stream) {                     \
+    return launch_any(q, k, v, o, lse, dout, dq, dk, dv, delta, items, n_items, batch, hq, hkv, \
+                      sq, sk, hd, vd, q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss,     \
+                      o_sb, o_sh, o_ss, do_sb, do_sh, do_ss, dq_sb, dq_sh, dq_ss, dk_sb, dk_sh, \
+                      dk_ss, dv_sb, dv_sh, dv_ss, causal, window, scale, stream);               \
+  }
+FLASH_BWD_ENTRY(flash_attention_bwd_launch, float)
+FLASH_BWD_ENTRY(flash_attention_bwd_bf16_launch, bf16)
+#undef FLASH_BWD_ENTRY

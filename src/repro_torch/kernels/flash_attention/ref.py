@@ -90,13 +90,18 @@ def flash_attention_bwd_ref(
     *,
     causal: bool = True,
     window: int = 0,
+    p_dtype: Optional[torch.dtype] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(dq, dk, dv) of attention, after the reference's `_flash_bwd`
     (`src/repro/models/flash_attention.py`) in one dense pass: P is
     recomputed from q, k and the forward's `lse` (never from a stored
     softmax), delta = rowsum(dO o), dS = P (dO v^T - delta); a kv head's
-    gradients sum over its q heads; the scale is q's hd^-0.5.  f32
-    throughout."""
+    gradients sum over its q heads; the scale is q's hd^-0.5.  Computed
+    in f32 from the inputs upcast, each gradient rounded once to its
+    input's dtype.  `p_dtype` is the type P meets dO in for dV, as the
+    forward's `attention_ref` takes it: bf16 by default for bf16 inputs
+    (the reference's `pc = p.astype(p_dtype)`), f32 otherwise; dS uses
+    the f32 P."""
     b, hq, sq, hd = q.shape
     hkv, sk, vd = k.shape[1], k.shape[2], v.shape[3]
     g = hq // hkv
@@ -110,7 +115,9 @@ def flash_attention_bwd_ref(
     ok = band_mask(sq, sk, causal=causal, window=window, device=q.device)
     p = torch.where(ok, torch.exp(s - lse.float().reshape(b, hkv, g, sq)[..., None]),
                     torch.zeros_like(s))
-    dv = torch.einsum("bhgqk,bhgqd->bhkd", p, dof)
+    if p_dtype is None:
+        p_dtype = torch.bfloat16 if v.dtype == torch.bfloat16 else torch.float32
+    dv = torch.einsum("bhgqk,bhgqd->bhkd", p.to(p_dtype).float(), dof)
     dp = torch.einsum("bhgqd,bhkd->bhgqk", dof, vf)
     ds = p * (dp - delta[..., None])
     dq = torch.einsum("bhgqk,bhkd->bhgqd", ds, kf) * scale

@@ -7,8 +7,9 @@
 Trains on the CUDA card unless `--device` names another device (without
 a card and without `--device` it raises).  The flags are the
 reference's (`src/repro/launch/train.py`) plus `--device`.  The model
-trains in fp32 whatever the config's dtype: the port's kernels take fp32
-only (ROADMAP §1, reduced precision).  Weights come from `--seed`, data
+trains in its config's dtype, as the reference's launcher trains it: bf16
+for a registered config, fp32 for `--reduced` (whose config is f32).
+Weights come from `--seed`, data
 from the reference's synthetic `TokenStream`.  The reference calls
 `jax.distributed.initialize` on a multi-host cluster; one card has no
 counterpart, so this process is the whole job.  Fault tolerance
@@ -24,7 +25,6 @@ deepseek-v3-671b).
 from __future__ import annotations
 
 import argparse
-import dataclasses
 from typing import Dict, List, Tuple
 
 from repro_torch.configs import get_arch
@@ -59,7 +59,6 @@ def main(argv=None) -> Tuple[Dict, List[Dict[str, float]]]:
     cfg = get_arch(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
-    cfg = dataclasses.replace(cfg, dtype="float32")
     tcfg = TrainConfig(
         optimizer=AdamWConfig(lr=args.lr),
         microbatches=args.microbatches,
@@ -69,7 +68,7 @@ def main(argv=None) -> Tuple[Dict, List[Dict[str, float]]]:
     )
     state = init_train_state(cfg, tcfg, args.seed, device)
     n_params = sum(p.numel() for p in state["params"].parameters())
-    print(f"[train] arch={cfg.name} params={n_params / 1e6:.2f}M on {device} "
+    print(f"[train] arch={cfg.name} params={n_params / 1e6:.2f}M {cfg.dtype} on {device} "
           f"steps={args.steps} batch={args.batch}x{args.seq}")
 
     step_fn = make_train_step(cfg, tcfg)

@@ -9,9 +9,10 @@ O(S * hd), not O(S^2)).  On the CPU both run their plain versions.
 
 `flash_attention` is what the model's attention calls: `FlashAttention`
 when an input needs a gradient, else the forward kernel alone (serving).
-Serving takes fp32 or bf16; the backward kernel is fp32 only, so on the
-card a bf16 input under grad raises (ROADMAP §1, reduced precision: bf16
-training).  On the CPU the plain backward takes either.
+Both kernels take fp32 and bf16 (the backward's bf16 instantiation
+rounds P to bf16 for dV, as the reference's `_flash_bwd`); on the card
+any other dtype under grad raises.  On the CPU the plain backward takes
+either.
 
 Positions are indices (the kernels' masks).  The reference aligns a
 causal or windowed mask at the end (`offset = Sk - Sq`); the two agree
@@ -72,10 +73,9 @@ def flash_attention(
             f"a causal or windowed mask needs Sq == Sk (index positions agree with the "
             f"reference's end-aligned mask only then), got Sq={q.shape[2]}, Sk={k.shape[2]}")
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
-        if q.device.type == "cuda" and q.dtype != torch.float32:
+        if q.device.type == "cuda" and q.dtype not in (torch.float32, torch.bfloat16):
             raise NotImplementedError(
-                f"flash attention under grad takes float32 on the card, got {q.dtype}: the "
-                "backward kernel has no bf16 instantiation yet (ROADMAP §1, reduced "
-                "precision: bf16 training)")
+                f"flash attention under grad takes float32 or bfloat16 on the card, got "
+                f"{q.dtype}: the backward kernel has no other instantiation")
         return FlashAttention.apply(q, k, v, bool(causal), window)
     return flash_forward(q, k, v, causal=causal, window=window)

@@ -83,13 +83,17 @@ class Routing(NamedTuple):
 
 
 def route(p, xt: torch.Tensor, m: MoEConfig) -> Routing:
-    """xt (N, D) -> its `Routing`: f32 logits, top-k with gates
-    renormalised (floor 1e-9), and each pair's slot by the stable sort."""
+    """xt (N, D) -> its `Routing`: f32 logits, top-k (ties to the lower
+    expert) with gates renormalised (floor 1e-9), and each pair's slot by
+    the stable sort."""
     n = xt.shape[0]
     e, k = m.n_experts, m.top_k
     logits = xt.float() @ p["router"]
     probs = torch.softmax(logits, dim=-1)
-    gates, ids = torch.topk(probs, k, dim=-1)
+    # the reference's `lax.top_k`: among equal probabilities (a token whose
+    # input row is zero ties every expert) the lower expert first
+    gates, ids = torch.sort(probs, dim=-1, descending=True, stable=True)
+    gates, ids = gates[:, :k], ids[:, :k]
     gates = gates / torch.clamp(gates.sum(dim=-1, keepdim=True), min=1e-9)
 
     cap = capacity(n, m)

@@ -9,6 +9,10 @@ the device.
 
 Gradient accumulation over microbatches is a Python loop that sums f32
 gradients and divides by their count, as the reference's scan does.
+The loss and its gradients run under `f32_accumulation`: for a bf16
+model cuBLAS sums bf16 products in f32 in the backward as in the
+forward, as the reference's dots do; AdamW updates in f32 and rounds
+each parameter to its dtype.
 `distributed/collectives.py` (the compressed multi-host all-reduce) is
 not ported: one card reduces nothing.
 """
@@ -23,6 +27,7 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.device import DeviceLike
 from repro_torch.models import lm as lm_mod
+from repro_torch.models.common import f32_accumulation
 from repro_torch.optim.adamw import AdamWConfig, adamw_init, adamw_update, warmup_cosine
 
 State = Dict
@@ -81,16 +86,19 @@ def make_train_step(
                     if x.shape[0] % n:
                         raise ValueError(f"batch {x.shape[0]} does not split into {n} microbatches")
                     mb[k] = x.reshape(n, x.shape[0] // n, *x.shape[1:])[i]
-                loss, _ = lm_mod.lm_loss(model, mb, remat=tcfg.remat)
-                for acc, g in zip(gsum, torch.autograd.grad(loss, params)):
+                with f32_accumulation():
+                    loss, _ = lm_mod.lm_loss(model, mb, remat=tcfg.remat)
+                    mgrads = torch.autograd.grad(loss, params)
+                for acc, g in zip(gsum, mgrads):
                     acc.add_(g.float())
                 lsum = loss.detach() if lsum is None else lsum + loss.detach()
             grads = [g / n for g in gsum]
             loss = lsum / n
             metrics = {"loss": loss}
         else:
-            loss, metrics = lm_mod.lm_loss(model, batch, remat=tcfg.remat)
-            grads = torch.autograd.grad(loss, params)
+            with f32_accumulation():
+                loss, metrics = lm_mod.lm_loss(model, batch, remat=tcfg.remat)
+                grads = torch.autograd.grad(loss, params)
             loss = loss.detach()
             metrics = {k: v.detach() for k, v in metrics.items()}
 

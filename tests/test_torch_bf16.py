@@ -152,16 +152,18 @@ def _decode_mlp_pallas(mlp_forward):
 
 
 @contextlib.contextmanager
-def _reference():
+def _reference(eager: bool = True):
     """The reference as the port runs it (module docstring), at its default
-    bf16 P (the test session's conftest sets f32)."""
+    bf16 P (the test session's conftest sets f32).  `eager` False leaves
+    jit on, for a caller that compiles with XLA's excess precision off
+    (`test_torch_train_bf16.compiled`)."""
     saved = (jax_mamba.mamba_forward, jax_mlp.mlp_forward, jax.nn.silu, jnp.einsum)
     jax_mamba.mamba_forward = functools.partial(saved[0], use_pallas_conv=True)
     jax_mlp.mlp_forward = _decode_mlp_pallas(saved[1])
     jax.nn.silu = _silu_f32
     jnp.einsum = _einsum_f32(saved[3])
     try:
-        with jax.disable_jit(), overrides(flash_p_dtype="bfloat16"):
+        with jax.disable_jit(eager), overrides(flash_p_dtype="bfloat16"):
             yield
     finally:
         jax_mamba.mamba_forward, jax_mlp.mlp_forward, jax.nn.silu, jnp.einsum = saved

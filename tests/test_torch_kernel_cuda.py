@@ -159,6 +159,7 @@ def test_cuda_conv1d_backward_matches_plain(cuda_device, k, act, lo):
     and are the same bits on a second run; dx lands in the slice of the
     wide gradient and nowhere else."""
     from repro_torch.kernels.conv1d_fused import backward as conv_backward
+    from repro_torch.kernels.conv1d_fused import compare as conv_compare
     from repro_torch.kernels.conv1d_fused import conv1d_bwd_ref, conv1d_fused
     from repro_torch.kernels.conv1d_fused import kernel as conv_kernel
 
@@ -1072,7 +1073,7 @@ def test_cuda_flash_backward_launches_delta_and_one_main_kernel(cuda_device):
     for e in prof.key_averages():
         if e.device_type == torch.autograd.DeviceType.CUDA and "flash_bwd" in e.key:
             kind = "delta" if "flash_bwd_delta_kernel" in e.key else "main"
-            assert kind == "delta" or "flash_bwd_kernel<256, 256>" in e.key, e.key
+            assert kind == "delta" or "flash_bwd_kernel<float, 256, 256>" in e.key, e.key
             counts[kind] = counts.get(kind, 0) + e.count
     assert set(counts) == {"delta", "main"}
     assert all(3 <= c <= 4 for c in counts.values()), counts
@@ -1437,23 +1438,146 @@ def test_cuda_conv1d_bf16(cuda_device, name):
                lambda: conv1d_ref(x, w, bias, activation=act), f64)
 
 
-def test_cuda_bf16_under_grad_raises_until_the_backward_has_it(cuda_device):
-    """Serving takes bf16; training does not yet: flash and conv1d under
-    grad refuse a bf16 input on the card, naming the roadmap item."""
+def _f64_attention_grads(q, k, v, do, causal, window):
+    """dq, dk, dv of attention in float64 from the (bf16) inputs."""
+    leaves = [t.double().requires_grad_(True) for t in (q, k, v)]
+    o = _f64_attention(*leaves, causal, window)
+    return torch.autograd.grad(o, leaves, do.double())
+
+
+def _bf16_grad_rule(run, plain, f64):
+    """`_bf16_rule` for a tuple of gradients: each one's error against
+    float64 at most twice the plain version's plus one bf16 ulp of its max,
+    each bitwise the same twice."""
+    g1, g2, ref, exact = run(), run(), plain(), f64()
+    torch.cuda.synchronize()
+    for a, b, p, e in zip(g1, g2, ref, exact):
+        assert a.dtype == BF16 and a.shape == p.shape == e.shape
+        assert torch.isfinite(a.float()).all()
+        ulp = 2.0 ** (np.floor(np.log2(float(e.abs().max()))) - 7)
+        err_k = float((a.double() - e).abs().max())
+        err_p = float((p.double() - e).abs().max())
+        assert err_k <= 2 * err_p + ulp, (err_k, err_p, ulp)
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("shape", [
+    (2, 4, 1, 300, 300, 256, 256, True, 100),  # gemma3's GQA 4:1, a window
+    (1, 4, 4, 200, 200, 192, 128, True, 0),  # MLA
+    (1, 4, 2, 150, 150, 56, 56, True, 0),  # the MTP block's padded 56
+    (2, 4, 4, 77, 256, 64, 64, False, 0),  # cross attention, Sq != Sk
+], ids=["hd256-g4-w100", "mla-192-128", "mtp-56", "cross-sq77-sk256"])
+def test_cuda_bf16_gradients_match_their_plain_versions(cuda_device, shape):
+    """Training in bf16: under grad a bf16 input reaches `FlashAttention`
+    and the bf16 backward kernel (one launch of each a call), whose dq, dk,
+    dv pass the bf16 rule against the plain backward fed the same o and
+    lse, and against float64."""
+    from repro_torch.kernels.flash_attention import backward as bwd_kernel
+    from repro_torch.kernels.flash_attention import flash_attention_bwd_ref
+    from repro_torch.kernels.flash_attention import kernel as flash_kernel
+    from repro_torch.models.flash_attention import flash_attention
+
+    b, hq, hkv, sq, sk, hd, vd, causal, window = shape
+    rng = np.random.default_rng(34)
+    q = _bf16_operand(rng, (b, hq, sq, hd), cuda_device).requires_grad_()
+    k = _bf16_operand(rng, (b, hkv, sk, hd), cuda_device).requires_grad_()
+    v = _bf16_operand(rng, (b, hkv, sk, vd), cuda_device).requires_grad_()
+    do = _bf16_operand(rng, (b, hq, sq, vd), cuda_device)
+    f0, b0 = flash_kernel.LAUNCHES, bwd_kernel.LAUNCHES
+    o = flash_attention(q, k, v, causal=causal, window=window)
+    grads = torch.autograd.grad(o, (q, k, v), do)
+    assert (flash_kernel.LAUNCHES - f0, bwd_kernel.LAUNCHES - b0) == (1, 1)
+    assert all(g.dtype == BF16 for g in grads)
+    kw = dict(causal=causal, window=window)
+    qd, kd, vd_ = q.detach(), k.detach(), v.detach()
+    o2, lse = flash_kernel.flash_attention_call(qd, kd, vd_, return_lse=True, **kw)
+    assert torch.equal(o2, o.detach())
+    _bf16_grad_rule(
+        lambda: bwd_kernel.flash_attention_bwd_call(qd, kd, vd_, o2, lse, do, **kw),
+        lambda: flash_attention_bwd_ref(qd, kd, vd_, o2, lse, do, **kw),
+        lambda: _f64_attention_grads(qd, kd, vd_, do, causal, window))
+    again = torch.autograd.grad(flash_attention(q, k, v, causal=causal, window=window),
+                                (q, k, v), do)
+    assert all(torch.equal(a, b) for a, b in zip(grads, again))
+
+
+@pytest.mark.parametrize("wide", [0, 8, 4, 1])
+def test_cuda_bf16_conv1d_gradient_matches_its_plain_version(cuda_device, wide):
+    """Under grad a bf16 input reaches `Conv1dFused` and the bf16 backward
+    entry (one launch a call): dx (read in the slice of the wide
+    activation's gradient), dw and db pass the bf16 rule at every unit
+    width the source takes (0: the wrapper's pick; the others launched
+    through `compare.bwd_at_width`), bitwise the same across widths."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.conv1d_fused import backward as conv_backward
+    from repro_torch.kernels.conv1d_fused import compare as conv_compare
+    from repro_torch.kernels.conv1d_fused import conv1d_bwd_ref, conv1d_fused
+
+    rng = np.random.default_rng(36)
+    wide_x = _bf16_operand(rng, (2, 257, 96), cuda_device).requires_grad_()
+    col, d, k = 16, 64, 4
+    w = _bf16_operand(rng, (k, d), cuda_device, 0.5).requires_grad_()
+    bias = _bf16_operand(rng, (d,), cuda_device, 0.1).requires_grad_()
+    g = _bf16_operand(rng, (2, 257, d), cuda_device)
+    b0 = conv_backward.LAUNCHES
+    y = conv1d_fused(wide_x[..., col:col + d], w, bias)
+    dwide, dw, db = torch.autograd.grad(y, (wide_x, w, bias), g)
+    assert conv_backward.LAUNCHES - b0 == 1
+    assert dwide.dtype == dw.dtype == db.dtype == BF16
+    assert not dwide[..., :col].any() and not dwide[..., col + d:].any()
+    x = wide_x.detach()[..., col:col + d]
+    wd, bd = w.detach(), bias.detach()
+
+    def f64():
+        x64, w64, b64 = (t.double().requires_grad_(True) for t in (x, wd, bd))
+        xp = F.pad(x64, (0, 0, k - 1, 0))
+        out = F.silu(sum(xp[:, i:i + x.shape[1]] * w64[i] for i in range(k)) + b64)
+        return torch.autograd.grad(out, (x64, w64, b64), g.double())
+
+    run = (lambda: conv_compare.bwd_at_width(x, wd, bd, g, wide)) if wide else (
+        lambda: conv_backward.conv1d_fused_bwd_call(x, wd, bd, g, activation="silu"))
+    _bf16_grad_rule(run, lambda: conv1d_bwd_ref(g, x, wd, bd), f64)
+    assert all(torch.equal(a, b) for a, b in zip(
+        run(), (dwide[..., col:col + d].contiguous(), dw, db)))
+
+
+def test_cuda_bf16_flash_backward_is_bitwise_over_two_calls(cuda_device):
+    """The bf16 backward twice on the same inputs, bitwise, at MLA's (192,
+    128) and at cross attention's Sq != Sk (no atomics; a fixed order)."""
+    from repro_torch.kernels.flash_attention import backward as bwd_kernel
+    from repro_torch.kernels.flash_attention import kernel as flash_kernel
+
+    rng = np.random.default_rng(37)
+    for b, hq, sq, sk, hd, vd, causal in ((2, 8, 333, 333, 192, 128, True),
+                                          (2, 4, 100, 1000, 64, 64, False)):
+        q = _bf16_operand(rng, (b, hq, sq, hd), cuda_device)
+        k = _bf16_operand(rng, (b, hq, sk, hd), cuda_device)
+        v = _bf16_operand(rng, (b, hq, sk, vd), cuda_device)
+        do = _bf16_operand(rng, (b, hq, sq, vd), cuda_device)
+        o, lse = flash_kernel.flash_attention_call(q, k, v, causal=causal, window=0,
+                                                   return_lse=True)
+        one = bwd_kernel.flash_attention_bwd_call(q, k, v, o, lse, do, causal=causal, window=0)
+        two = bwd_kernel.flash_attention_bwd_call(q, k, v, o, lse, do, causal=causal, window=0)
+        assert all(torch.equal(a, c) for a, c in zip(one, two))
+
+
+def test_cuda_float16_under_grad_still_raises(cuda_device):
+    """The backward kernels take fp32 and bf16: a float16 input under grad
+    raises on the card, before any launch; serving's kernels refuse it
+    too."""
     from repro_torch.kernels.conv1d_fused import conv1d_fused
     from repro_torch.models.flash_attention import flash_attention
 
-    rng = np.random.default_rng(34)
-    q, k, v = (_bf16_operand(rng, (1, 4, 32, 64), cuda_device).requires_grad_() for _ in range(3))
-    with pytest.raises(NotImplementedError, match="bf16 training"):
+    rng = np.random.default_rng(38)
+    q, k, v = (_bf16_operand(rng, (1, 4, 32, 64), cuda_device).half().requires_grad_()
+               for _ in range(3))
+    with pytest.raises(NotImplementedError, match="float32 or bfloat16"):
         flash_attention(q, k, v, causal=True)
-    x = _bf16_operand(rng, (2, 40, 64), cuda_device).requires_grad_()
-    w, bias = _bf16_operand(rng, (4, 64), cuda_device), _bf16_operand(rng, (64,), cuda_device)
-    with pytest.raises(NotImplementedError, match="bf16 training"):
+    x = _bf16_operand(rng, (2, 40, 64), cuda_device).half().requires_grad_()
+    w, bias = (_bf16_operand(rng, s, cuda_device).half() for s in ((4, 64), (64,)))
+    with pytest.raises(NotImplementedError, match="float32 or bfloat16"):
         conv1d_fused(x, w, bias)
-    with torch.no_grad():  # serving: no gradient asked, the kernels run
-        assert flash_attention(q, k, v, causal=True).dtype == BF16
-        assert conv1d_fused(x, w, bias).dtype == BF16
 
 
 def test_cuda_bf16_kernels_refuse_what_they_do_not_take(cuda_device):
