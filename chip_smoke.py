@@ -361,6 +361,23 @@ Phases (any failure exits non-zero):
      within rel 2e-2 of its max |grad|, or, for a leaf past that, within
      the CPU's own distance from its f32 gradient of the same weights plus
      2e-2 (the CPU tests' rule, `tests/test_torch_train_bf16_archs.py`).
+ 19. the one-card tools, at most 60 s: (a) bf16 through the ConvNet path:
+     vgg_mixed_channel's first wave (four requests, buckets 32 and 64) on
+     the H100 model in fp32 and in bf16 on the card and in bf16 on the
+     CPU: the bf16 tile-kernel launches equal the fp32 ones, and the card's
+     bf16 outputs are within one bf16 ulp of the CPU's, elementwise, or rel
+     1e-2 overall.  (b) `launch.serve.main` on gemma3-1b with `--trace`
+     under build/: a valid Chrome trace (phase 10's check) with one
+     `request:<rid>` instant per request, flash and decode-MLP launches
+     above 0.  (c) the five `examples/torch_*.py`, each through its
+     `main(argv)` on the card at a small size with its own checks
+     (`torch_train_lm` 20 steps and its checkpoint resume under build/).
+     (d) the dry run (`launch.dryrun.lower_cell`, meta device, one card) of
+     phase 18's gemma3-1b bf16 step (4 x 1024): its flash forward,
+     backward and conv1d calls equal the card's `LAUNCHES` a step of
+     phase 18's run, its state (parameters, gradients, moments) is no
+     more than that run's peak, and model FLOPs / the run's warm step
+     time and `t_bound` are printed beside the step.
 
 The line before the last is a JSON object listing the ported kernels; the
 last line is {"ok": true, "device": {...}}.  Imports nothing of JAX and
@@ -811,15 +828,14 @@ def bound(c) -> tuple:
     """(bound_ms, bound_by): the least time the card could take for this
     call -- operations at the fp32 peak vs each input read and each
     output written once at the HBM rate."""
+    from repro_torch.kernels.fused_tile import cost
+
     spec, plan = c["spec"], c["plan"]
     b, _, _, c_in = c["x"].shape
     c_out = c["bvec"].shape[0]
-    n_tiles = b * plan.n_tiles_h * plan.n_tiles_w
-    ops = 2 * spec.macs_per_tile(c_in, c_out, c["groups"]) * n_tiles
-    n_bytes = 4 * (c["xp"].numel() + c["rhs"].numel()
-                   + b * plan.h_out * plan.w_out * c_out)
-    t_ops, t_bytes = ops / PEAK_FP32 * 1e3, n_bytes / HBM_BW * 1e3
-    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+    return _bound_of(cost(spec, plan.n_tiles_h, plan.n_tiles_w, b, c_in, c_out, c["groups"],
+                          c["xp"].numel(), c["rhs"].numel(),
+                          b * plan.h_out * plan.w_out * c_out))
 
 
 # tile-kernel shapes whose device time phase 9 reads from the profiler
@@ -980,6 +996,13 @@ def _bound(n_bytes: float, ops: float, peak: float = PEAK_FP32) -> tuple:
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
+def _bound_of(cost: tuple, peak: float = PEAK_FP32, ops_factor: int = 1) -> tuple:
+    """`_bound` of a kernel package's `cost` (FLOPs, bytes): its FLOPs
+    times `ops_factor` at `peak`."""
+    flops, n_bytes = cost
+    return _bound(n_bytes, ops_factor * flops, peak)
+
+
 def conv1d_cases(gen):
     """One dict per case: kernel, label, served, run / plain / library
     callables (library None where no single PyTorch call exists), bound."""
@@ -987,7 +1010,7 @@ def conv1d_cases(gen):
 
     from repro_torch.configs import get_arch
     from repro_torch.core import analysis, registry
-    from repro_torch.kernels.conv1d_fused import conv1d_fused, conv1d_ref
+    from repro_torch.kernels.conv1d_fused import conv1d_fused, conv1d_ref, cost
 
     def xbc(arch):  # (d_inner, D of the xBC slice, width of zxbcdt, K)
         cfg = get_arch(arch)
@@ -1038,7 +1061,7 @@ def conv1d_cases(gen):
             plain=lambda x=x, w=w, bias=bias, act=act: conv1d_ref(x, w, bias, activation=act),
             library=library,
             library_silu=lambda library=library: F.silu(library()),
-            bound=_bound(4 * (2 * b * length * d + k * d + d), 2 * k * b * length * d),
+            bound=_bound_of(cost(b, length, d, k)),
             device_key="conv1d_fused_kernel",
         ))
     # a temporal ConvSpec planned and executed through the registry
@@ -1054,7 +1077,7 @@ def conv1d_cases(gen):
         run=lambda: alg.execute(x4, w4, None, ap),
         plain=lambda: conv1d_ref(x4[:, 0], w4[0, :, 0, :], zero, activation="none")[:, None],
         library=None,
-        bound=_bound(4 * (2 * 2 * 300 * 48 + 5 * 48), 2 * 4 * 2 * 300 * 48),
+        bound=_bound_of(cost(2, 300, 48, 4)),
     ))
     return cases
 
@@ -1062,7 +1085,7 @@ def conv1d_cases(gen):
 def flash_cases(gen):
     import torch.nn.functional as F
 
-    from repro_torch.kernels.flash_attention import attention_ref, flash_attention
+    from repro_torch.kernels.flash_attention import attention_ref, cost, flash_attention
 
     cases = []
     # (the hd-80, moonshot, MLA and MTP rows are timed in phase 9 beside the
@@ -1128,7 +1151,6 @@ def flash_cases(gen):
             ok &= kp <= qp
         if window:
             ok &= qp - kp < window
-        pairs = int(ok.sum())  # (q, key) pairs inside the band, per head
 
         # every key visible (non-causal, no window): SDPA without a mask
         mask = None if not (causal or window) else ok
@@ -1140,8 +1162,8 @@ def flash_cases(gen):
             # no mask tensor: SDPA may skip the upper triangle
             return F.scaled_dot_product_attention(qc, kr, vr, is_causal=True)
 
-        ops = 2 * (hd + vd) * pairs * b * hq  # QK^T over hd, P.V over vd
-        n_bytes = 4 * (q.numel() + k.numel() + v.numel() + b * hq * sq * vd)  # q, k, v in; o out
+        # QK^T over hd, P.V over vd on the band's pairs; q, k, v in, o out
+        fc = cost(b, hq, hkv, sq, sk, hd, vd, causal=causal, window=window)
         cases.append(dict(
             kernel="flash_attention", label=label, served=served,
             run=lambda q=q, k=k, v=v, c=causal, w=window: flash_attention(q, k, v, causal=c, window=w),
@@ -1151,8 +1173,8 @@ def flash_cases(gen):
             # the kernel's fp32-accurate products run on the tensor cores as
             # three TF32 products each (split operands): its bound is theirs;
             # the same FLOPs on the fp32 FMA units are the secondary bound
-            bound=_bound(n_bytes, 3 * ops, PEAK_TF32),
-            bound_fp32_ms=_bound(n_bytes, ops)[0],
+            bound=_bound_of(fc, PEAK_TF32, ops_factor=3),
+            bound_fp32_ms=_bound_of(fc)[0],
             device_key="flash_fwd",
         ))
     return cases
@@ -1160,7 +1182,7 @@ def flash_cases(gen):
 
 def decode_mlp_cases(gen):
     from repro_torch.configs import get_arch
-    from repro_torch.kernels.decode_mlp import decode_mlp, decode_mlp_ref
+    from repro_torch.kernels.decode_mlp import cost, decode_mlp, decode_mlp_ref
 
     cfg, z = get_arch("gemma3-1b"), get_arch("zamba2-7b")
     cases = []
@@ -1184,7 +1206,7 @@ def decode_mlp_cases(gen):
             run=lambda x=x, w1=w1, w3=w3, w2=w2: decode_mlp(x, w1, w3, w2),
             plain=lambda x=x, w1=w1, w3=w3, w2=w2: decode_mlp_ref(x, w1, w3, w2),
             library=None,
-            bound=_bound(4 * (3 * d * f + 2 * b * d), 2 * b * 3 * d * f),
+            bound=_bound_of(cost(b, d, f)),
             device_key="decode_mlp",
         ))
     return cases
@@ -2727,12 +2749,10 @@ def train_times(ptxas: dict) -> dict:
         v = _cuda(gen, (b, sk, hkv, vd)).transpose(1, 2)
         kw = dict(causal=causal, window=window)
         o, lse = flash_kernel.flash_attention_call(q, k, v, return_lse=True, **kw)
-        ops = bwd_kernel.flops(b, hq, sq, sk, hd, causal, window, vd=vd)
         # q, k, v, o, dO, lse in; dq, dk, dv out
-        n_bytes = 4 * (2 * q.numel() + 2 * (k.numel() + v.numel()) + 2 * do.numel()
-                       + lse.numel())
-        b_ms, b_by = _bound(n_bytes, 3 * ops, PEAK_TF32)
-        fma_ms = _bound(n_bytes, ops)[0]
+        bc = bwd_kernel.cost(b, hq, hkv, sq, sk, hd, vd, causal=causal, window=window)
+        b_ms, b_by = _bound_of(bc, PEAK_TF32, ops_factor=3)
+        fma_ms = _bound_of(bc)[0]
         run = lambda: bwd_kernel.flash_attention_bwd_call(q, k, v, o, lse, do, **kw)
         k_ms = time_ms(run, reps=10)
         kernels = kernel_breakdown(run, "flash_bwd", reps=5)
@@ -2901,8 +2921,7 @@ def train_conv1d_vs_plain() -> dict:
             k_ms, p_ms, l_ms = time_ms(run), time_ms(plain, reps=10), time_ms(library, reps=10)
             kernels = kernel_breakdown(run, "conv1d_bwd", reps=10)
             d_ms = sum(ms for _, ms, _ in kernels) or None
-            n = bsz * length * d
-            b_ms, b_by = _bound(4 * (3 * n + 2 * k * d + 2 * d), (4 * k + 10) * n)
+            b_ms, b_by = _bound_of(conv_backward.cost(bsz, length, d, k))
             row = dict(shape=c["label"], ms=k_ms, device_ms=d_ms, plain_ms=p_ms,
                        library_ms=l_ms, bound_ms=b_ms, bound_by=b_by,
                        library_note="autograd of grouped F.conv1d + bias + F.silu, "
@@ -4097,6 +4116,9 @@ def bf16_kernel_cases(gen) -> list:
     import torch.nn.functional as F
 
     from repro_torch.configs import get_arch
+    from repro_torch.kernels import conv1d_fused as conv1d_pkg
+    from repro_torch.kernels import decode_mlp as decode_mlp_pkg
+    from repro_torch.kernels import flash_attention as flash_pkg
     from repro_torch.kernels.conv1d_fused import conv1d_fused, conv1d_ref
     from repro_torch.kernels.decode_mlp import decode_mlp, decode_mlp_ref
     from repro_torch.kernels.flash_attention import attention_ref, flash_forward
@@ -4116,7 +4138,7 @@ def bf16_kernel_cases(gen) -> list:
         qc = q.contiguous()
         kr = k.repeat_interleave(hq // hkv, 1).contiguous()
         vr = v.repeat_interleave(hq // hkv, 1).contiguous()
-        pairs = (sq * (sq + 1) // 2) if causal else sq * sk
+        fc = flash_pkg.cost(b, hq, hkv, sq, sk, hd, hd, causal=causal, window=0, itemsize=2)
         cases.append(dict(
             kernel="flash_attention", label=label, served=served,
             run=lambda q=q, k=k, v=v, c=causal: flash_forward(q, k, v, causal=c),
@@ -4125,8 +4147,7 @@ def bf16_kernel_cases(gen) -> list:
             library=lambda qc=qc, kr=kr, vr=vr, c=causal: F.scaled_dot_product_attention(
                 qc, kr, vr, is_causal=c),
             library_note="SDPA bf16" + (", is_causal" if causal else ", no mask"),
-            bound=_bound(2 * (q.numel() + k.numel() + v.numel() + b * hq * sq * hd),
-                         4 * hd * pairs * b * hq, PEAK_BF16),
+            bound=_bound_of(fc, PEAK_BF16),
             device_key="flash_fwd",
         ))
     z = get_arch("zamba2-7b")
@@ -4148,7 +4169,7 @@ def bf16_kernel_cases(gen) -> list:
             run=lambda x=x, w1=w1, w3=w3, w2=w2: decode_mlp(x, w1, w3, w2),
             plain=lambda x=x, w1=w1, w3=w3, w2=w2: decode_mlp_ref(x, w1, w3, w2),
             f64=mlp64, library=None, library_note="no single call",
-            bound=_bound(2 * (3 * d * f + 2 * b * d), 2 * b * 3 * d * f, PEAK_BF16),
+            bound=_bound_of(decode_mlp_pkg.cost(b, d, f, itemsize=2), PEAK_BF16),
             device_key="decode_mlp",
         ))
     for arch, served in (("mamba2-1.3b", True), ("zamba2-7b", False)):
@@ -4178,8 +4199,7 @@ def bf16_kernel_cases(gen) -> list:
             library=lambda xt=xt, wt=wt, bias=bias, k=k, length=length: F.silu(F.conv1d(
                 xt, wt, bias, padding=k - 1, groups=wt.shape[0])[..., :length]),
             library_note="grouped F.conv1d with bias, + F.silu, bf16",
-            bound=_bound(2 * (2 * b * length * d_xbc + k * d_xbc + d_xbc),
-                         2 * k * b * length * d_xbc, PEAK_BF16),
+            bound=_bound_of(conv1d_pkg.cost(b, length, d_xbc, k, itemsize=2), PEAK_BF16),
             device_key="conv1d_fused_kernel",
         ))
     return cases
@@ -4514,9 +4534,8 @@ def bf16_bwd_cases(gen) -> list:
         do = _bf16(gen, (b, sq, hq, vd)).transpose(1, 2)
         kw = dict(causal=causal, window=window)
         o, lse = flash_kernel.flash_attention_call(q, k, v, return_lse=True, **kw)
-        n_bytes = 2 * (2 * q.numel() + 2 * (k.numel() + v.numel()) + 2 * do.numel()) \
-            + 4 * lse.numel()
-        ops = bwd_kernel.flops(b, hq, sq, sk, hd, causal, window, vd=vd)
+        bc = bwd_kernel.cost(b, hq, hkv, sq, sk, hd, vd, causal=causal, window=window,
+                             itemsize=2)
 
         def library(q=q, k=k, v=v, do=do, kw=kw, g=hq // hkv):
             qc = q.detach().contiguous().requires_grad_(True)
@@ -4538,13 +4557,12 @@ def bf16_bwd_cases(gen) -> list:
             library=library, library_note="SDPA bf16 backward" + (
                 ", boolean band mask" if window else ", is_causal" if causal else ", no mask")
             + (", kv heads repeated" if hq != hkv else ""),
-            bound=_bound(n_bytes, ops, PEAK_BF16), device_key="flash_bwd"))
+            bound=_bound_of(bc, PEAK_BF16), device_key="flash_bwd"))
     for label, b, length, row, col, d, k in _conv1d_train_shapes():
         wide = _bf16(gen, (b, length, row))
         x = wide[..., col:col + d]
         w, bias = _bf16(gen, (k, d), 0.5), _bf16(gen, (d,), 0.1)
         g = _bf16(gen, (b, length, d))
-        n = b * length * d
 
         def conv_f64(x=x, w=w, bias=bias, g=g, k=k, length=length):
             x64, w64, b64 = (t.double().requires_grad_(True) for t in (x, w, bias))
@@ -4568,7 +4586,7 @@ def bf16_bwd_cases(gen) -> list:
             plain=lambda x=x, w=w, bias=bias, g=g: conv1d_bwd_ref(g, x, w, bias),
             f64=conv_f64, library=library,
             library_note="autograd of grouped F.conv1d + bias + F.silu, bf16, (B, D, L) layout",
-            bound=_bound(2 * (3 * n + 2 * k * d + 2 * d), (4 * k + 10) * n),
+            bound=_bound_of(conv_backward.cost(b, length, d, k, itemsize=2)),
             device_key="conv1d_bwd"))
     return cases
 
@@ -4759,6 +4777,201 @@ def phase_bf16_train(smi: str, fp32: dict) -> dict:
     return dict(kernels=kernels, runs=runs)
 
 
+# ----------------------------------------------------------------- phase 19
+
+PHASE19_LIMIT_S = 60.0
+PHASE19_TRACE = os.path.join(ROOT, "build", "chip_smoke_serve.trace.json")
+PHASE19_ONLINE_TRACE = os.path.join(ROOT, "build", "chip_smoke_example_online.trace.json")
+PHASE19_CKPT = os.path.join(ROOT, "build", "chip_smoke_train_lm")
+# the dry run's kernel names against the card's counters
+DRYRUN_KERNELS = ("flash_attention", "flash_attention_bwd", "conv1d_fused", "conv1d_fused_bwd")
+
+
+def _bf16_within(card: np.ndarray, host: np.ndarray) -> tuple:
+    """(every element within one bf16 ulp of `host`, overall rel)."""
+    card, host = card.astype(np.float64), host.astype(np.float64)
+    ulp = 2.0 ** (np.floor(np.log2(np.maximum(np.abs(host), 2.0 ** -126))) - 7)
+    diff = np.abs(card - host)
+    return bool((diff <= ulp).all()), float(diff.max() / (np.abs(host).max() + 1e-30))
+
+
+def bf16_convnet_wave(smi: str) -> dict:
+    """Phase 19 (a): vgg_mixed_channel's first wave in fp32 and bf16 on the
+    card and in bf16 on the CPU, on the H100 model's plan."""
+    from repro_torch.configs.convnets import vgg_mixed_channel
+    from repro_torch.convserve import ConvServeConfig, ConvServer, Engine, ImageRequest, init_weights
+    from repro_torch.core import analysis
+    from repro_torch.kernels.fused_tile import kernel as tile_kernel
+
+    spec = vgg_mixed_channel(3)
+    ws = init_weights(spec, seed=0)
+    gen = np.random.default_rng(19)
+    imgs = [(gen.standard_normal((s, s, 3)) * 0.5).astype(np.float32) for s in (64, 64, 32, 64)]
+    runs = {}
+    for label, dtype, device in (("fp32 card", torch.float32, "cuda"),
+                                 ("bf16 card", torch.bfloat16, "cuda"),
+                                 ("bf16 cpu", torch.bfloat16, "cpu")):
+        net = Engine(hw=analysis.H100_SXM, dtype=dtype, device=device).compile(
+            spec, ws, input_hw=(64, 64))
+        srv = ConvServer(net, ConvServeConfig(max_batch=4, buckets=(32, 64)))
+        tile_kernel.LAUNCHES = 0
+        out = srv.run([ImageRequest(i, im) for i, im in enumerate(imgs)])
+        torch.cuda.synchronize()
+        runs[label] = dict(out=out, launches=tile_kernel.LAUNCHES, algos=net.plan.algos(),
+                           waves=srv.stats()["waves"])
+    card, host = runs["bf16 card"], runs["bf16 cpu"]
+    in_ulp, rel = True, 0.0
+    for i in range(len(imgs)):
+        a, b = card["out"][i], host["out"][i]
+        if a.shape != b.shape or not np.isfinite(a).all():
+            raise AssertionError(f"bf16 convnet rid {i}: bad output {a.shape}")
+        u, r = _bf16_within(a, b)
+        in_ulp, rel = in_ulp and u, max(rel, r)
+    fp32 = runs["fp32 card"]
+    print(f"phase 19 bf16 convnet: plan {list(card['algos'])} (fp32 {list(fp32['algos'])}); "
+          f"tile launches bf16 {card['launches']} fp32 {fp32['launches']} over {card['waves']} "
+          f"waves; card vs CPU bf16: every element within one ulp {in_ulp}, rel {rel:.3e} "
+          f"(tol 1e-2); card {smi}")
+    if card["launches"] != fp32["launches"] or card["launches"] < 1:
+        raise AssertionError("bf16 convnet: tile launches differ from fp32's (or none)")
+    if card["algos"] != fp32["algos"]:
+        raise AssertionError("bf16 convnet: the bf16 plan differs from the fp32 plan")
+    if not (in_ulp or rel < 1e-2):
+        raise AssertionError(f"bf16 convnet: card vs CPU rel {rel:.3e}")
+    return dict(launches=card["launches"], in_ulp=in_ulp, rel=rel)
+
+
+def serve_with_trace() -> dict:
+    """Phase 19 (b): `launch.serve --trace` on the card."""
+    from repro_torch.convserve.obs import validate_chrome_trace
+    from repro_torch.launch import serve
+
+    mods = kernel_libraries()
+    for mod in mods.values():
+        mod.LAUNCHES = 0
+    if os.path.exists(PHASE19_TRACE):
+        os.unlink(PHASE19_TRACE)
+    results = serve.main(["--arch", "gemma3-1b", "--trace", PHASE19_TRACE])
+    torch.cuda.synchronize()
+    launches = {k: mod.LAUNCHES for k, mod in mods.items()}
+    with open(PHASE19_TRACE) as f:
+        data = json.load(f)
+    problems = validate_chrome_trace(data)
+    events = data["traceEvents"] if isinstance(data, dict) else data
+    instants = sorted(e["name"] for e in events if e["name"].startswith("request:"))
+    spans = [e["name"] for e in events if e["name"] == "serve:gemma3-1b"]
+    print(f"phase 19 serve --trace: {len(results)} requests, {len(events)} trace events "
+          f"({len(spans)} serve span, {len(instants)} request instants), problems "
+          f"{problems[:3]}; launches {launches}")
+    if problems or len(spans) != 1 or instants != sorted(f"request:{r}" for r in results):
+        raise AssertionError("serve --trace: the trace is invalid or misses a request")
+    if launches["flash_attention"] < 1 or launches["decode_mlp"] < 1:
+        raise AssertionError("serve --trace: flash or decode-MLP never launched")
+    return dict(requests=len(results), events=len(events), launches=launches)
+
+
+def _example(name: str):
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        name, os.path.join(ROOT, "examples", f"{name}.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def run_examples() -> dict:
+    """Phase 19 (c): the five examples on the card, each with its own
+    checks (an example that fails raises)."""
+    import shutil
+
+    mods = kernel_libraries()
+    shutil.rmtree(PHASE19_CKPT, ignore_errors=True)
+    out = {}
+    for name, argv in (
+        ("torch_quickstart", ["--size", "56"]),
+        ("torch_convnet_l3fusion", ["--reps", "3"]),
+        ("torch_serve_batch", []),
+        ("torch_serve_online", ["--requests", "60", "--trace", PHASE19_ONLINE_TRACE]),
+        ("torch_train_lm", ["--steps", "20", "--ckpt-every", "10", "--ckpt-dir", PHASE19_CKPT]),
+    ):
+        for mod in mods.values():
+            mod.LAUNCHES = 0
+        t0 = time.perf_counter()
+        _example(name).main(["--device", "cuda", *argv])
+        torch.cuda.synchronize()
+        launches = {k: mod.LAUNCHES for k, mod in mods.items() if mod.LAUNCHES}
+        out[name] = dict(seconds=time.perf_counter() - t0, launches=launches)
+        print(f"phase 19 example {name}: ok in {out[name]['seconds']:.2f} s; launches {launches}")
+    want = {"torch_quickstart": ("fused_tile",), "torch_convnet_l3fusion": ("fused_tile",),
+            "torch_serve_batch": ("flash_attention", "decode_mlp"),
+            "torch_serve_online": ("fused_tile",),
+            "torch_train_lm": ("flash_attention", "flash_attention_bwd")}
+    for name, kernels in want.items():
+        if not all(out[name]["launches"].get(k, 0) > 0 for k in kernels):
+            raise AssertionError(f"example {name}: {kernels} did not all launch")
+    return out
+
+
+def dryrun_vs_card(run: dict, smi: str) -> dict:
+    """Phase 19 (d): the dry run of phase 18's gemma3-1b bf16 step against
+    that run's counts, peak and step time."""
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.launch.dryrun import lower_cell
+
+    t0 = time.perf_counter()
+    rec = lower_cell("gemma3-1b", ShapeConfig("phase18_train", TRAIN_SEQ, TRAIN_BATCH, "train"))
+    count_s = time.perf_counter() - t0
+    steps = len(run["history"])
+    card = {k: run["launches"][k] / steps for k in DRYRUN_KERNELS}
+    dry = {k: rec["kernel_calls"].get(k, 0) for k in DRYRUN_KERNELS}
+    by = rec["bytes_per_card"]
+    state = by["params"] + by["grads"] + by["opt"]
+    step_s = run["warm_ms"] / 1e3
+    rf = rec["roofline"]
+    achieved = rec["model_flops"] / step_s
+    print(f"phase 19 dry run of gemma3-1b bf16 train {TRAIN_BATCH}x{TRAIN_SEQ} (meta, counted in "
+          f"{count_s:.2f} s): kernel calls a step {dry}, card's LAUNCHES a step {card}; state "
+          f"(params {by['params']} + grads {by['grads']} + moments {by['opt']} bytes) "
+          f"{state / 2**30:.3f} GiB vs phase 18's peak {run['peak_bytes'] / 2**30:.3f} GiB; "
+          f"counted {rf['hlo_flops']:.6e} FLOPs {rf['hlo_bytes']:.6e} bytes; model FLOPs "
+          f"{rec['model_flops']:.6e} / warm step {run['warm_ms']:.1f} ms = {achieved:.6e} FLOP/s "
+          f"({achieved / rf['peak_flops']:.4f} of the bf16 peak {rf['peak_flops']:.3e}); t_bound "
+          f"{rf['t_bound_s'] * 1e3:.1f} ms ({rf['bottleneck']}: compute "
+          f"{rf['t_compute_s'] * 1e3:.1f} ms, memory {rf['t_memory_s'] * 1e3:.1f} ms) beside the "
+          f"step's {run['warm_ms']:.1f} ms; card {smi}")
+    if dry != card:
+        raise AssertionError(f"dry run: kernel calls {dry} != the card's {card} a step")
+    if state > run["peak_bytes"]:
+        raise AssertionError("dry run: the state's bytes exceed the measured peak")
+    return dict(calls=dry, state_bytes=state, peak_bytes=run["peak_bytes"],
+                model_flops=rec["model_flops"], step_ms=run["warm_ms"],
+                model_flops_per_s=achieved, t_bound_ms=rf["t_bound_s"] * 1e3,
+                bottleneck=rf["bottleneck"], counted_flops=rf["hlo_flops"],
+                counted_bytes=rf["hlo_bytes"], count_s=count_s)
+
+
+def phase_tools(smi: str, gemma3_bf16: dict) -> dict:
+    """Phase 19 (module docstring): `gemma3_bf16` is phase 18's gemma3-1b
+    run (launches, peak, history, warm step ms)."""
+    t_phase = time.perf_counter()
+    gc_collect()
+    out = {}
+    for part, fn in (("convnet_bf16", lambda: bf16_convnet_wave(smi)),
+                     ("serve_trace", serve_with_trace), ("examples", run_examples),
+                     ("dryrun", lambda: dryrun_vs_card(gemma3_bf16, smi))):
+        t0 = time.perf_counter()
+        out[part] = fn()
+        print(f"phase 19: {part} in {time.perf_counter() - t0:.2f} s")
+        gc_collect()
+    wall = time.perf_counter() - t_phase
+    print(f"phase 19: phase wall time {wall:.2f} s (limit {PHASE19_LIMIT_S:g} s)")
+    if wall > PHASE19_LIMIT_S:
+        raise AssertionError(f"phase 19 took {wall:.1f} s > {PHASE19_LIMIT_S:g} s")
+    out["seconds"] = wall
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the GPU only",
@@ -4816,6 +5029,9 @@ def main() -> int:
         "mamba2-1.3b": dict(label=f"({MAMBA_FP32_LAYERS} layers)",
                             history=ssm["mamba2-1.3b"]["history"])})
     stamp("18")
+    phase_tools(smi, btrain["runs"]["gemma3-1b"])
+    stamp("19")
+    print(f"chip_smoke: total {time.perf_counter() - t_start:.1f} s (PR 26's final run: 771 s)")
 
     # headline shape: the widest served vgg layer when vgg reaches the
     # kernel (64->64 at bucket 64), else fft_fewchannel's 8->8

@@ -1,5 +1,5 @@
-"""Architecture configuration of the language models (a copy of the
-reference's `configs/base.py`, less the dry-run shape sets).
+"""Architecture configuration of the language models and the dry run's
+shape cells (a copy of the reference's `configs/base.py`).
 
 Every architecture is a frozen `ArchConfig`; `register` maps --arch ids to
 configs.  Reduced (smoke) variants are derived with `.reduced()` -- same
@@ -140,6 +140,22 @@ class ArchConfig:
         )
 
 
+@dataclasses.dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # "train" | "prefill" | "decode"
+
+
+SHAPES: Dict[str, ShapeConfig] = {
+    "train_4k": ShapeConfig("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524288, 1, "decode"),
+}
+
+
 _REGISTRY: Dict[str, Callable[[], ArchConfig]] = {}
 
 
@@ -164,3 +180,10 @@ def list_archs() -> Tuple[str, ...]:
     import repro_torch.configs.archs  # noqa: F401
 
     return tuple(sorted(_REGISTRY))
+
+
+def cell_is_defined(arch: ArchConfig, shape: ShapeConfig) -> Tuple[bool, str]:
+    """Whether (arch x shape) is a runnable cell; else the skip reason."""
+    if shape.name == "long_500k" and not arch.supports_long_context:
+        return False, "pure full-attention arch: 512k dense KV cache excluded by design (DESIGN.md S5)"
+    return True, ""

@@ -55,6 +55,7 @@ from repro_torch.convserve.adapt.shadow import ShadowVerifier
 from repro_torch.convserve.adapt.swap import hot_swap
 from repro_torch.convserve.obs.trace import CAT_ADAPT
 from repro_torch.convserve.check.ir import verify_program
+from repro_torch.core.device import host_array
 
 IDLE = "idle"
 SHADOW = "shadow"
@@ -471,7 +472,7 @@ class AdaptController:
         clock = self.runtime.pool.clock
         t0 = clock.now()
         # the copy to the host waits for the device: cand_s is complete
-        y = ex(batch, sizes).detach().cpu().numpy()
+        y = host_array(ex(batch, sizes))
         cand_s = clock.now() - t0
         cand_cold = ex.compile_count > before
         outputs = result.wave.crop(self.spec, y)

@@ -44,10 +44,12 @@ def weights_fingerprint(w) -> str:
     """Content hash of a kernel tensor: ties cache entries to the actual
     parameter values, so two executors sharing a cache but holding
     different weights for the same net never serve each other's
-    transforms, while identical weights still share entries."""
-    arr = np.asarray(torch.as_tensor(w).detach().cpu())
+    transforms, while identical weights still share entries.  A bf16
+    tensor (numpy has no bf16) is hashed as its 16-bit patterns."""
+    t = torch.as_tensor(w).detach().cpu().contiguous()
+    arr = (t.view(torch.int16) if t.dtype == torch.bfloat16 else t).numpy()
     return hashlib.sha1(
-        arr.tobytes() + str(arr.shape).encode() + str(arr.dtype).encode()
+        arr.tobytes() + str(arr.shape).encode() + dtype_name(t.dtype).encode()
     ).hexdigest()[:16]
 
 

@@ -32,6 +32,7 @@ import torch
 
 from repro_torch.convserve.runtime.clock import Clock, RealClock
 from repro_torch.convserve.runtime.scheduler import Wave
+from repro_torch.core.device import host_array
 
 
 @dataclasses.dataclass
@@ -313,5 +314,5 @@ def _host(y) -> np.ndarray:
     """A wave's output as a host array (the copy waits for the stream it
     was queued on)."""
     if isinstance(y, torch.Tensor):
-        return y.detach().cpu().numpy()
+        return host_array(y)
     return np.asarray(y)

@@ -30,6 +30,7 @@ import numpy as np
 
 from repro_torch.convserve.runtime.queueing import Request
 from repro_torch.convserve.runtime.scheduler import RuntimeConfig, WaveScheduler
+from repro_torch.core.device import host_array
 
 
 @dataclasses.dataclass
@@ -98,7 +99,7 @@ class ConvServer:
                 if wave is None:
                     return results
                 batch, sizes = wave.assemble()
-                y = self.executor(batch, sizes).detach().cpu().numpy()
+                y = host_array(self.executor(batch, sizes))
                 results.update(wave.crop(self.executor.spec, y))
         except BaseException:
             # fail-fast means fail CLEAN: an executor error mid-drain

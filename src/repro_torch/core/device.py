@@ -41,3 +41,9 @@ def dtype_name(dtype: torch.dtype) -> str:
     """torch.float32 -> "float32" (the plan files' dtype spelling)."""
     return str(dtype).removeprefix("torch.")
 
+
+def host_array(t):
+    """`t` as a host numpy array; a bf16 tensor (numpy has no bf16) as
+    float32, which holds its values exactly."""
+    t = t.detach().cpu()
+    return (t.float() if t.dtype == torch.bfloat16 else t).numpy()

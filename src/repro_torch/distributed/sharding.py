@@ -15,21 +15,35 @@ Parallelism mapping:
 A spec is a plain tuple with one entry per tensor dimension: ``None``
 (replicated), an axis name, or a tuple of axis names (one dim split over
 several axes) -- the entries of the reference's `PartitionSpec`.  A
-`Mesh` is axis name -> size over its `torch.device`s.  Only the rules
-live here: the functions that turn a tree of shapes into per-leaf
-placements wait for the launch tooling that calls them, and the
-compressed all-reduce waits for the training step (ROADMAP §1).
+`Mesh` is axis name -> size over its `torch.device`s, or a logical mesh
+(``logical=True``) that holds no device: the dry run's production meshes
+exist only for per-card accounting and place no tensor.
+
+The builders (`shard_params`, `shard_params_for_inference`,
+`shard_cache`, `shard_batch`, `replicated`) turn a tree of shapes -- a
+nested mapping of tensors (meta ones in the dry run) -- into one
+`LeafShard` per leaf: its spec and its per-card shape, with the
+reference's choices.  No collective is ported: the compressed all-reduce
+and the placement of shards on several cards wait for a multi-card mesh
+(ROADMAP §1).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import math
 import re
-from typing import Mapping, Optional, Sequence, Tuple, Union
+from typing import Any, Dict, Mapping, Optional, Sequence, Tuple, Union
 
 import torch
 
 Spec = Tuple[Union[None, str, Tuple[str, ...]], ...]
+
+# adaptive FSDP: parameter trees smaller than this are replicated over the
+# data axes (TP only) -- the reference's default `fsdp_min_tree_bytes`
+FSDP_MIN_TREE_BYTES = 3 << 30
+# inference: TP only while the TP-sharded tree is at most this per card
+INFERENCE_TP_BYTES = 6 << 30
 
 # leaf-name -> index (from the leaf's trailing dims) of the tensor-parallel
 # dim.  Negative indices count from the end, so stacked leading repeat dims
@@ -65,14 +79,19 @@ _FSDP_MIN_SIZE = 2**16  # don't bother sharding tiny tensors
 
 class Mesh:
     """A logical device mesh: axis name -> size (in order) over
-    `devices`, row-major.  `shape` reads like the reference mesh's."""
+    `devices`, row-major.  `shape` reads like the reference mesh's.  A
+    `logical` mesh holds no device: it exists for per-card accounting."""
 
     def __init__(self, shape: Mapping[str, int],
-                 devices: Optional[Sequence] = None):
+                 devices: Optional[Sequence] = None, *, logical: bool = False):
         self.shape = {str(k): int(v) for k, v in shape.items()}
         if any(v < 1 for v in self.shape.values()):
             raise ValueError(f"mesh axes must have size >= 1: {self.shape}")
         n = math.prod(self.shape.values())
+        self.logical = logical
+        if logical:  # accounting only: no device, none needed
+            self.devices = ()
+            return
         if devices is None:
             if not torch.cuda.is_available():
                 raise RuntimeError(
@@ -86,7 +105,14 @@ class Mesh:
                 f"mesh {self.shape} needs {n} devices, got {len(self.devices)}"
             )
 
+    @property
+    def size(self) -> int:
+        """The number of cards the mesh spans."""
+        return math.prod(self.shape.values())
+
     def __repr__(self) -> str:
+        if self.logical:
+            return f"Mesh({self.shape}, logical)"
         return f"Mesh({self.shape}, devices={[str(d) for d in self.devices]})"
 
 
@@ -204,3 +230,104 @@ def _tp_only_spec(path: str, shape: Tuple[int, ...], mesh: Mesh) -> Spec:
     """param_spec without the FSDP pass (TP sharding only)."""
     model = _axis_size(mesh, "model") if "model" in mesh.shape else 1
     return tuple(_tp_spec(path, shape, model))
+
+
+# ---------------------------------------------------------------------------
+# builders: a tree of shapes -> a spec and a per-card shape per leaf
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class LeafShard:
+    """One leaf's placement: its spec, its global and per-card shapes, and
+    its per-card bytes."""
+
+    spec: Spec
+    shape: Tuple[int, ...]
+    card_shape: Tuple[int, ...]
+    itemsize: int
+
+    @property
+    def card_bytes(self) -> int:
+        return math.prod(self.card_shape) * self.itemsize
+
+
+def _entry_size(entry, mesh: Mesh) -> int:
+    if entry is None:
+        return 1
+    names = entry if isinstance(entry, tuple) else (entry,)
+    return math.prod(mesh.shape[a] for a in names)
+
+
+def card_shape(shape: Tuple[int, ...], spec: Spec, mesh: Mesh) -> Tuple[int, ...]:
+    """The per-card shape of a leaf: each sharded dim divided by its axes'
+    size (the rules shard only dims that divide); dims past the spec's
+    end are replicated."""
+    spec = tuple(spec) + (None,) * (len(shape) - len(spec))
+    return tuple(d // _entry_size(e, mesh) for d, e in zip(shape, spec))
+
+
+def leaves(tree: Any, prefix: str = "") -> Dict[str, Any]:
+    """A nested mapping / sequence of tensors -> {"a/b/0/c": leaf}: the
+    reference's key paths (`_path_str`), list items by their index."""
+    if isinstance(tree, Mapping):
+        items = tree.items()
+    elif isinstance(tree, (list, tuple)):
+        items = enumerate(tree)
+    else:
+        return {prefix: tree}
+    out: Dict[str, Any] = {}
+    for k, v in items:
+        out.update(leaves(v, f"{prefix}/{k}" if prefix else str(k)))
+    return out
+
+
+def _tree_shardings(tree: Any, mesh: Mesh, spec_fn) -> Dict[str, LeafShard]:
+    out = {}
+    for path, x in leaves(tree).items():
+        shape = tuple(x.shape)
+        spec = spec_fn(path, shape, mesh)
+        out[path] = LeafShard(spec, shape, card_shape(shape, spec, mesh), x.element_size())
+    return out
+
+
+def tree_bytes(tree: Any) -> int:
+    """The whole tree's bytes (every leaf once)."""
+    return sum(x.numel() * x.element_size() for x in leaves(tree).values())
+
+
+def tree_bytes_per_card(shards: Mapping[str, LeafShard]) -> int:
+    """The bytes one card holds of a built tree."""
+    return sum(s.card_bytes for s in shards.values())
+
+
+def shard_params(shapes: Any, mesh: Mesh) -> Dict[str, LeafShard]:
+    """Adaptive FSDP: trees small enough to replicate per card skip the
+    data-axis sharding entirely (TP only below `FSDP_MIN_TREE_BYTES`)."""
+    if tree_bytes(shapes) < FSDP_MIN_TREE_BYTES:
+        return _tree_shardings(shapes, mesh, _tp_only_spec)
+    return _tree_shardings(shapes, mesh, param_spec)
+
+
+def shard_params_for_inference(shapes: Any, mesh: Mesh) -> Dict[str, LeafShard]:
+    """Inference: no optimizer state to amortise, so TP only whenever the
+    TP-sharded tree is at most `INFERENCE_TP_BYTES` per card; 2-D (TP +
+    FSDP) sharding for models that do not fit so (deepseek-v3)."""
+    model = mesh.shape.get("model", 1)
+    if tree_bytes(shapes) / max(model, 1) <= INFERENCE_TP_BYTES:
+        return _tree_shardings(shapes, mesh, _tp_only_spec)
+    return _tree_shardings(shapes, mesh, param_spec)
+
+
+def shard_cache(shapes: Any, mesh: Mesh) -> Dict[str, LeafShard]:
+    return _tree_shardings(shapes, mesh, cache_spec)
+
+
+def shard_batch(shapes: Any, mesh: Mesh) -> Dict[str, LeafShard]:
+    return _tree_shardings(shapes, mesh, batch_spec)
+
+
+def replicated(tree: Any, mesh: Mesh) -> Dict[str, LeafShard]:
+    """Every leaf whole on every card: the empty spec (the reference's
+    ``PartitionSpec()``)."""
+    return _tree_shardings(tree, mesh, lambda path, shape, mesh: ())

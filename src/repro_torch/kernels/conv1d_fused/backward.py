@@ -52,6 +52,16 @@ def _launch_args(batch: int, length: int, d: int, row: int, k: int, silu: bool,
     return args, ctypes.addressof(args)
 
 
+def cost(b: int, length: int, d: int, k: int, itemsize: int = 4) -> tuple:
+    """(FLOPs, bytes) of the function the backward computes: 4K + 10
+    operations an element of x (the forward's K multiply-adds again for
+    the SiLU's input, the SiLU's derivative, dx's K taps, dw's and db's
+    sums); x and g read and dx written once, w, b, dw and db once each, at
+    `itemsize` bytes a value."""
+    n = b * length * d
+    return (4 * k + 10) * n, itemsize * (3 * n + 2 * k * d + 2 * d)
+
+
 def conv1d_fused_bwd_call(
     x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, g: torch.Tensor, *, activation: str
 ):

@@ -112,6 +112,13 @@ def _launch_args(batch: int, length: int, d: int, row: int, k: int, silu: bool,
     return args, ctypes.addressof(args)
 
 
+def cost(b: int, length: int, d: int, k: int, itemsize: int = 4) -> tuple:
+    """(FLOPs, bytes) of the function the forward computes: K
+    multiply-adds an output element; x read and y written once, w and the
+    bias read once, at `itemsize` bytes a value."""
+    return 2 * k * b * length * d, itemsize * (2 * b * length * d + k * d + d)
+
+
 def conv1d_fused_call(
     x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, *, activation: str
 ) -> torch.Tensor:

@@ -11,7 +11,9 @@ same launch, and its backward is the backward kernel
 (`ref.conv1d_bwd_ref`) on the CPU.  The reference never trains through
 its Pallas conv (`use_pallas_conv` is off in every caller): its gradient
 is XLA's, of the shifted-MAC conv plus SiLU, which is what both
-compute.  Both kernels take fp32 and bf16 (the backward's bf16 entry
+compute.  A meta tensor runs neither kernel nor plain version: empty
+meta outputs, the call reported with its cost (`kernels.meta`, the dry
+run's op counter).  Both kernels take fp32 and bf16 (the backward's bf16 entry
 sums in f32 and rounds each gradient once); on the card any other dtype
 under grad raises.
 """
@@ -24,6 +26,7 @@ import torch
 from torch.autograd.function import once_differentiable
 
 from repro_torch.core import registry
+from repro_torch.kernels import meta as _meta
 from repro_torch.kernels.conv1d_fused import backward as _backward
 from repro_torch.kernels.conv1d_fused import kernel as _kernel
 from repro_torch.kernels.conv1d_fused.ref import conv1d_bwd_ref, conv1d_ref
@@ -34,6 +37,9 @@ def _conv(x, w, b, activation: str) -> torch.Tensor:
     CPU one."""
     if x.device.type == "cuda":
         return _kernel.conv1d_fused_call(x, w, b, activation=activation)
+    if _meta.is_meta(x):
+        _meta.record("conv1d_fused", _kernel.cost(*x.shape, w.shape[0], x.element_size()))
+        return torch.empty(x.shape, dtype=x.dtype, device=x.device)
     return conv1d_ref(x, w, b, activation=activation)
 
 
@@ -57,6 +63,11 @@ class Conv1dFused(torch.autograd.Function):
         if x.device.type == "cuda":
             dx, dw, db = _backward.conv1d_fused_bwd_call(
                 x, w, b, g.contiguous(), activation=ctx.activation)
+        elif _meta.is_meta(x):
+            _meta.record("conv1d_fused_bwd",
+                         _backward.cost(*x.shape, w.shape[0], x.element_size()))
+            dx = torch.empty(x.shape, dtype=x.dtype, device=x.device)
+            dw, db = torch.empty_like(w), torch.empty_like(b)
         else:
             dx, dw, db = conv1d_bwd_ref(g, x, w, b, activation=ctx.activation)
         return dx, dw, db, None

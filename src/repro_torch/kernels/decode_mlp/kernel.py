@@ -152,6 +152,13 @@ def _launch_args(batch: int, d: int, f: int, index: int, aligned: bool,
     return geo, args, ctypes.addressof(args)
 
 
+def cost(b: int, d: int, f: int, itemsize: int = 4) -> tuple:
+    """(FLOPs, bytes) of the function the kernel computes: three (B, d) x
+    (d, f)-sized products; W1, W3 and W2 read once, x read and y written
+    once, at `itemsize` bytes a value."""
+    return 2 * b * 3 * d * f, itemsize * (3 * d * f + 2 * b * d)
+
+
 def decode_mlp_call(
     x: torch.Tensor, w1: torch.Tensor, w3: torch.Tensor, w2: torch.Tensor
 ) -> torch.Tensor:

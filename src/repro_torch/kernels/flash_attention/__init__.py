@@ -1,3 +1,4 @@
+from repro_torch.kernels.flash_attention.kernel import cost
 from repro_torch.kernels.flash_attention.ops import (
     flash_attention,
     flash_attention_bwd,
@@ -11,6 +12,7 @@ from repro_torch.kernels.flash_attention.ref import (
 )
 
 __all__ = [
+    "cost",
     "attention_ref",
     "flash_attention",
     "flash_attention_bwd",

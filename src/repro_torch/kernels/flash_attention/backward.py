@@ -36,7 +36,7 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.flash_attention.kernel import HEAD_DIMS, _check
+from repro_torch.kernels.flash_attention.kernel import HEAD_DIMS, _check, band_pairs
 
 LAUNCHES = 0  # wrapper calls that launched the kernel since import (or a reset)
 
@@ -118,18 +118,6 @@ def work_list(
     return tuple(items)
 
 
-def band_pairs(sq: int, sk: int, causal: bool, window: int) -> int:
-    """(q row, key) pairs that the masks let through (`ref.band_mask`),
-    counted row by row: row i sees keys [i - window + 1, i] (no lower end
-    without a window, no upper end but Sk without causal), clipped to Sk."""
-    total = 0
-    for i in range(sq):
-        lo = max(0, i - window + 1) if window > 0 else 0
-        hi = min(sk, i + 1) if causal else sk
-        total += max(0, hi - lo)
-    return total
-
-
 def flops(b: int, hq: int, sq: int, sk: int, hd: int, causal: bool, window: int,
           vd: Optional[int] = None) -> int:
     """FLOPs of the function the backward computes: five products a band
@@ -139,6 +127,17 @@ def flops(b: int, hq: int, sq: int, sk: int, hd: int, causal: bool, window: int,
     edge; a bound counts only these."""
     vd = hd if vd is None else vd
     return 2 * (3 * hd + 2 * vd) * b * hq * band_pairs(sq, sk, causal, window)
+
+
+def cost(b: int, hq: int, hkv: int, sq: int, sk: int, hd: int, vd: int, *, causal: bool,
+         window: int, itemsize: int = 4) -> tuple:
+    """(FLOPs, bytes) of the function the backward computes: `flops`, and
+    q, k, v, o, dO read once and dq, dk, dv written once at `itemsize`
+    bytes a value, with the f32 lse read once."""
+    q, o = b * hq * sq * hd, b * hq * sq * vd
+    k, v = b * hkv * sk * hd, b * hkv * sk * vd
+    n_bytes = itemsize * (2 * q + 2 * (k + v) + 2 * o) + 4 * b * hq * sq
+    return flops(b, hq, sq, sk, hd, causal, window, vd=vd), n_bytes
 
 
 @functools.lru_cache(maxsize=64)

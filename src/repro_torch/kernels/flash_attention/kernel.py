@@ -19,8 +19,10 @@ copied -- and the output is allocated in q's memory layout.
 from __future__ import annotations
 
 import ctypes
+import functools
 import pathlib
 
+import numpy as np
 import torch
 
 from repro_torch.kernels import _build
@@ -71,6 +73,30 @@ def empty_in_layout(t: torch.Tensor, last: int) -> torch.Tensor:
     order = sorted(range(3), key=lambda i: -t.stride(i))  # outermost first
     out = torch.empty([t.shape[i] for i in order] + [last], dtype=t.dtype, device=t.device)
     return out.permute(*[order.index(i) for i in range(3)], 3)
+
+
+@functools.lru_cache(maxsize=256)
+def band_pairs(sq: int, sk: int, causal: bool, window: int) -> int:
+    """(q row, key) pairs that the masks let through (`ref.band_mask`),
+    counted row by row: row i sees keys [i - window + 1, i] (no lower end
+    without a window, no upper end but Sk without causal), clipped to Sk.
+    In numpy, not torch: the dry run calls it under its op counter."""
+    i = np.arange(sq, dtype=np.int64)
+    lo = np.maximum(0, i - window + 1) if window > 0 else np.zeros_like(i)
+    hi = np.minimum(sk, i + 1) if causal else np.full_like(i, sk)
+    return int(np.maximum(0, hi - lo).sum())
+
+
+def cost(b: int, hq: int, hkv: int, sq: int, sk: int, hd: int, vd: int, *, causal: bool,
+         window: int, itemsize: int = 4, lse: bool = False) -> tuple:
+    """(FLOPs, bytes) of the function the forward computes: the two
+    products (QK^T over hd, P.V over vd) of every (q row, key) pair the
+    masks let through, per (batch, q head); q, k and v read once and o
+    written once at `itemsize` bytes a value (and, with `lse`, the f32
+    log-sum-exp written beside it)."""
+    flops = 2 * (hd + vd) * band_pairs(sq, sk, causal, window) * b * hq
+    n_bytes = itemsize * (b * hq * sq * hd + b * hkv * sk * (hd + vd) + b * hq * sq * vd)
+    return flops, n_bytes + (4 * b * hq * sq if lse else 0)
 
 
 def flash_attention_call(

@@ -5,7 +5,9 @@ log-sum-exp (`flash_attention_fwd`) and the backward
 
 The device decides the path: a CUDA tensor launches the CUDA kernel
 (`kernel.flash_attention_call`, `backward.flash_attention_bwd_call`) or
-raises, a CPU tensor runs the plain version (`ref`).
+raises, a CPU tensor runs the plain version (`ref`), and a meta tensor
+runs neither: empty meta outputs in the kernel's layouts, the call
+reported with its cost (`kernels.meta`, the dry run's op counter).
 """
 
 from __future__ import annotations
@@ -14,6 +16,7 @@ from typing import Tuple
 
 import torch
 
+from repro_torch.kernels import meta as _meta
 from repro_torch.kernels.flash_attention import backward as _backward
 from repro_torch.kernels.flash_attention import kernel as _kernel
 from repro_torch.kernels.flash_attention.ref import (
@@ -47,6 +50,23 @@ def flash_attention(
     return flash_forward(q, k, v, causal=causal, window=window)
 
 
+def _shape_args(q, k, v, causal: bool, window: int) -> dict:
+    b, hq, sq, hd = q.shape
+    return dict(b=b, hq=hq, hkv=k.shape[1], sq=sq, sk=k.shape[2], hd=hd, vd=v.shape[3],
+                causal=bool(causal), window=int(window), itemsize=q.element_size())
+
+
+def _meta_forward(q, k, v, causal: bool, window: int, lse: bool):
+    """The forward on the meta device: o in q's layout (and the f32 lse),
+    reported as one call of the kernel."""
+    _meta.record("flash_attention", _kernel.cost(**_shape_args(q, k, v, causal, window),
+                                                 lse=lse))
+    o = _kernel.empty_in_layout(q, v.shape[3])
+    if not lse:
+        return o
+    return o, torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
+
+
 def flash_forward(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool = True, window: int = 0
 ) -> torch.Tensor:
@@ -56,6 +76,8 @@ def flash_forward(
     window = int(window or 0)
     if q.device.type == "cuda":
         return _kernel.flash_attention_call(q, k, v, causal=causal, window=window)
+    if _meta.is_meta(q):
+        return _meta_forward(q, k, v, causal, window, lse=False)
     return attention_ref(q, k, v, causal=causal, window=window)
 
 
@@ -67,6 +89,8 @@ def flash_attention_fwd(
     if q.device.type == "cuda":
         return _kernel.flash_attention_call(
             q, k, v, causal=causal, window=window, return_lse=True)
+    if _meta.is_meta(q):
+        return _meta_forward(q, k, v, causal, window, lse=True)
     return (attention_ref(q, k, v, causal=causal, window=window),
             lse_ref(q, k, causal=causal, window=window))
 
@@ -80,4 +104,8 @@ def flash_attention_bwd(
     if q.device.type == "cuda":
         return _backward.flash_attention_bwd_call(
             q, k, v, o, lse, do, causal=causal, window=window)
+    if _meta.is_meta(q):
+        _meta.record("flash_attention_bwd",
+                     _backward.cost(**_shape_args(q, k, v, causal, window)))
+        return torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     return flash_attention_bwd_ref(q, k, v, o, lse, do, causal=causal, window=window)

@@ -1,5 +1,5 @@
 from repro_torch.kernels.fused_tile.blocks import BlockConfig
-from repro_torch.kernels.fused_tile.kernel import fused_tile_call
+from repro_torch.kernels.fused_tile.kernel import cost, fused_tile_call
 from repro_torch.kernels.fused_tile.matrix import (
     matrix_tile_conv,
     staged_matrix_fns,
@@ -11,6 +11,7 @@ from repro_torch.kernels.fused_tile.ops import (
 )
 
 __all__ = [
+    "cost",
     "BlockConfig",
     "UnsupportedSpec",
     "conv2d_fused_tile",

@@ -375,6 +375,19 @@ def launch_plan(xp, rhs, biases, *, spec: transforms.TileKernelSpec,
     return plan
 
 
+def cost(spec: transforms.TileKernelSpec, n_tiles_h: int, n_tiles_w: int, batch: int,
+         c_in: int, c_out: int, groups: int, xp_elems: int, rhs_elems: int, out_elems: int,
+         itemsize: int = 4) -> tuple:
+    """(FLOPs, bytes) of one call: the tile engine's multiply-adds
+    (`spec.macs_per_tile`) over every tile of the batch; the padded input
+    and the packed transformed weights read once and the output written
+    once, at `itemsize` bytes a value (`out_elems`: the valid output,
+    batch x h_out x w_out x c_out)."""
+    n_tiles = batch * n_tiles_h * n_tiles_w
+    flops = 2 * spec.macs_per_tile(c_in, c_out, groups) * n_tiles
+    return flops, itemsize * (xp_elems + rhs_elems + out_elems)
+
+
 def fused_tile_call(
     xp: torch.Tensor,
     rhs: torch.Tensor,

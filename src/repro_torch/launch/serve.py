@@ -4,13 +4,18 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-1.3b --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve --arch deepseek-v3-671b --reduced \
         --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --trace serve.trace.json
 
 Runs on the CUDA card unless `--device` names another device.  The model
 is the architecture's reduced (smoke) configuration with random weights
 from `--seed` (`--reduced`, the training launcher's flag, says so and
 changes nothing).  The engine takes any stack the port builds: a
 deepseek-v3-671b layer's cache holds MLA's latents (`c_kv`, `k_rope`,
-`pos`) where a GQA layer's holds k and v.
+`pos`) where a GQA layer's holds k and v.  `--trace PATH` writes a
+Chrome / Perfetto trace of the run through the port's obs: a
+``serve:<arch>`` span around the engine's run and one ``request:<rid>``
+instant per request, as the reference's launcher writes it.  `main`
+returns the results, {rid: generated tokens}.
 """
 
 from __future__ import annotations
@@ -36,6 +41,11 @@ def main(argv=None):
                     help="the reduced config (always: this launcher serves no other)")
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda; raises without a card)")
+    ap.add_argument(
+        "--trace", default=None, metavar="PATH",
+        help="write a Chrome/Perfetto trace of the run here "
+        "(e.g. serve.trace.json; view at https://ui.perfetto.dev)",
+    )
     args = ap.parse_args(argv)
 
     cfg = get_arch(args.arch).reduced()
@@ -52,8 +62,18 @@ def main(argv=None):
         )
         for i in range(args.requests)
     ]
+    tracer = None
+    if args.trace:
+        from repro_torch.convserve.obs import Tracer
+
+        tracer = Tracer()
     t0 = time.monotonic()
-    results = eng.run(reqs, seed=args.seed)
+    if tracer is not None:
+        with tracer.span(f"serve:{args.arch}", "request",
+                         requests=len(reqs), max_batch=args.max_batch):
+            results = eng.run(reqs, seed=args.seed)
+    else:
+        results = eng.run(reqs, seed=args.seed)
     dt = time.monotonic() - t0
     n_tok = sum(len(v) for v in results.values())
     print(f"[serve] {args.arch} (reduced) on {model.device}: {len(reqs)} requests, "
@@ -61,6 +81,14 @@ def main(argv=None):
           f"batch={args.max_batch})")
     for rid in sorted(results)[:4]:
         print(f"  req {rid}: {results[rid][:12]}...")
+    if tracer is not None:
+        from repro_torch.convserve.obs import write_trace
+
+        for rid in sorted(results):
+            tracer.instant(f"request:{rid}", "request", tokens=len(results[rid]))
+        n = write_trace(tracer, args.trace)
+        print(f"[serve] wrote {args.trace} ({n} events)")
+    return results
 
 
 if __name__ == "__main__":

@@ -13,6 +13,7 @@ stacks through the flash forward and backward kernels.
 
 from repro_torch.models.lm import (
     LM,
+    init_decode_state,
     init_lm,
     lm_decode_step,
     lm_logits,
@@ -22,5 +23,6 @@ from repro_torch.models.lm import (
 from repro_torch.models.moe import Routing, capacity, init_moe, moe_forward, record_routing
 from repro_torch.models.weights import from_jax
 
-__all__ = ["LM", "Routing", "capacity", "from_jax", "init_lm", "init_moe", "lm_decode_step",
-           "lm_logits", "lm_loss", "lm_prefill", "moe_forward", "record_routing"]
+__all__ = ["LM", "Routing", "capacity", "from_jax", "init_decode_state", "init_lm", "init_moe",
+           "lm_decode_step", "lm_logits", "lm_loss", "lm_prefill", "moe_forward",
+           "record_routing"]

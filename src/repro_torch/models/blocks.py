@@ -235,6 +235,21 @@ def apply_layer(
     return x, aux, cache
 
 
+def init_layer_cache(spec: LayerSpec, cfg: ArchConfig, batch: int, max_len: int, dtype,
+                     device):
+    """A layer's empty decode cache at capacity `max_len`, laid out as
+    `apply_layer` builds it: k / v / pos (a ring of the window's length
+    for a windowed layer), MLA's c_kv / k_rope / pos, or mamba's conv and
+    f32 SSD state."""
+    if spec.mixer in ("attn", "shared_attn"):
+        return attn_mod.init_kv_cache(cfg, batch, max_len, spec.window, dtype, device)
+    if spec.mixer == "mla":
+        return attn_mod.init_mla_cache(cfg, batch, max_len, dtype, device)
+    if spec.mixer == "mamba":
+        return mamba_mod.init_mamba_cache(cfg, batch, dtype, device)
+    raise ValueError(spec.mixer)
+
+
 def super_block_spans(plan: Tuple[GroupSpec, ...]) -> Tuple[Tuple[int, int], ...]:
     """(first layer, layer count) of each super-block, in stack order."""
     spans, start = [], 0

@@ -79,7 +79,11 @@ def truncated_normal(
     inverting the CDF of a uniform draw (the reference's initialiser's
     distribution; the numbers differ from JAX's).  Each step works in
     place, so a draw needs no memory beyond its own f32 tensor (one
-    layer of deepseek-v3's 256 experts is three 15 GB draws)."""
+    layer of deepseek-v3's 256 experts is three 15 GB draws).  On the
+    meta device it draws nothing: `gen` is None there, and the tensor
+    has the shape and dtype alone."""
+    if torch.device(device).type == "meta":
+        return torch.empty(shape, dtype=dtype, device=device)
     lo = 0.5 * (1.0 + math.erf(-2.0 / math.sqrt(2.0)))
     z = torch.rand(shape, generator=gen, dtype=torch.float32, device=device)
     z.mul_(1.0 - 2.0 * lo).add_(lo)  # uniform on [cdf(-2), cdf(2)]

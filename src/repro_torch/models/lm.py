@@ -6,6 +6,7 @@
     logits = lm_logits(model, tokens)                   # (B, S, vocab)
     logits, state = lm_prefill(model, tokens, max_len)  # last-token logits
     logits, state = lm_decode_step(model, token, pos, state)
+    state = init_decode_state(cfg, batch, max_len)      # empty caches
 
 `tokens` are int tensors on the model's device.  Embedding tables are
 padded to a multiple of 2048 rows; padded logits are cut.  The decode
@@ -111,11 +112,15 @@ def init_lm(cfg: ArchConfig, seed: int = 0, device: DeviceLike = None) -> LM:
     """Random weights from `seed`, drawn on `device` (cuda unless the
     caller names another): the reference's initialisers' distributions,
     in `cfg.dtype`.  The same seed gives other numbers than JAX's; tests
-    that compare with the reference load its weights with `from_jax`."""
+    that compare with the reference load its weights with `from_jax`.
+    On ``device="meta"`` nothing is drawn or allocated: the same modules
+    with the same leaf names, shapes and dtypes (the dry run's stand-in)."""
     dev = resolve_device(device)
     dtype = getattr(torch, cfg.dtype)
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(seed)
+    gen = None
+    if dev.type != "meta":  # a generator on meta raises; it would draw nothing
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(seed)
     vpad = pad_vocab(cfg.vocab_size)
     specs = blocks.plan_layer_specs(blocks.build_stack_plan(cfg))
     tree = {
@@ -233,6 +238,30 @@ def lm_logits(
         x, _, _ = blocks.apply_layer(lp, spec, model.cfg, x, pos, model.shared_block,
                                      cross_x=cross_x)
     return _head(model, x)
+
+
+def init_decode_state(
+    cfg: ArchConfig, batch: int, max_len: int, src_len: Optional[int] = None,
+    device: DeviceLike = None,
+) -> State:
+    """Empty decode caches at capacity `max_len` on `device` (cuda unless
+    named), laid out exactly as `lm_prefill` lays them out, in the
+    config's dtype: one cache per layer of the stack, and an
+    encoder-decoder's ``cross_x`` (zeros) / ``cross_pos`` at `src_len`
+    frames (1024 by default).  `lm_decode_step` takes it as it takes a
+    prefill's state.  On ``device="meta"`` nothing is allocated (the dry
+    run's cache shapes)."""
+    dev = resolve_device(device)
+    dtype = getattr(torch, cfg.dtype)
+    specs = blocks.plan_layer_specs(blocks.build_stack_plan(cfg))
+    state: State = {}
+    if cfg.is_encoder_decoder:
+        sl = src_len if src_len is not None else 1024
+        state["cross_x"] = torch.zeros((batch, sl, cfg.d_model), dtype=dtype, device=dev)
+        state["cross_pos"] = _positions(batch, sl, dev)
+    state["layers"] = [blocks.init_layer_cache(s, cfg, batch, max_len, dtype, dev)
+                       for s in specs]
+    return state
 
 
 @f32_accumulation()

@@ -1,5 +1,6 @@
-"""Import guard: the port (`src/repro_torch`) and `chip_smoke.py` import
-nothing of JAX and nothing of the reference package `repro`."""
+"""Import guard: the port (`src/repro_torch`), `chip_smoke.py` and the
+port's examples (`examples/torch_*.py`) import nothing of JAX and nothing
+of the reference package `repro`."""
 
 import ast
 import os
@@ -10,7 +11,8 @@ import sys
 import pytest
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
-FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+FILES = (sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+         + sorted((ROOT / "examples").glob("torch_*.py")))
 
 
 def _forbidden(name: str) -> bool:
@@ -100,6 +102,14 @@ NEW_MODULES = (
     "repro_torch.launch.train",
     "repro_torch.kernels.conv1d_fused.backward",
     "repro_torch.models.moe",
+    # the dry run: specs, meshes, the op counter, the launchers; the
+    # kernels' meta branches
+    "repro_torch.kernels.meta",
+    "repro_torch.launch.specs",
+    "repro_torch.launch.mesh",
+    "repro_torch.launch.hlo_analysis",
+    "repro_torch.launch.dryrun",
+    "repro_torch.launch.inspect_cell",
 )
 
 
