@@ -377,7 +377,40 @@ Phases (any failure exits non-zero):
      backward and conv1d calls equal the card's `LAUNCHES` a step of
      phase 18's run, its state (parameters, gradients, moments) is no
      more than that run's peak, and model FLOPs / the run's warm step
-     time and `t_bound` are printed beside the step.
+     time and `t_bound` are printed beside the step.  The dry run counts
+     under `--impl optimized` (its default is `baseline`).
+ 20. the runtime flags and the compressed all-reduce, at most 90 s (aim
+     60): (a) gemma3-1b at full size in fp32 and bf16, phase 6's six
+     requests in two waves, prefill and 16 decode steps under
+     `set_baseline()` (the chunked loop at S 700, two 512-key chunks; the
+     decode loop over 512-slot chunks) against the same run under
+     `Flags()`, teacher-forced on the default's greedy tokens: logits
+     within rel 1e-4 of max |logits| in fp32, 2e-2 in bf16 (phase 17's
+     rule); no flash launch under the baseline; prefill and decode ms of
+     both.  (b) deepseek-v3-671b's MLA at full width (layer 0's
+     attention), fp32, B 4 over a 700-position latent cache: 4 decode
+     steps with `mla_absorb=False` (one masked pass, and the baseline's
+     chunk loop) against the absorbed form, rel 1e-4.  (c) mamba2-1.3b
+     at full width on 24 layers, fp32: two rounds of a train step with
+     `ssm_chunk_remat` off and on, the first round's loss and every
+     gradient within rel 1e-6, every step's ms and peak memory; wave 1's
+     prefill and every position's logits at `ssm_chunk_override=128`
+     against the config's chunk within rel 1e-3.  (d) `launch.dryrun
+     --impl baseline` on gemma3-1b train_4k: status ok, no flash call.
+     (e) the int8 compressed all-reduce with error feedback on gemma3-1b
+     layer 0's seeded gradient tree, 3 steps, at world 1 over NCCL and at
+     world 4 over gloo (four subprocesses on cuda:0, one FileStore): each
+     bitwise the same reduction computed in one process on the card, and
+     within one quantisation step of the CPU's (CUDA's division by 127
+     multiplies by the reciprocal); the NCCL call's ms beside a plain f32
+     all-reduce's.  `python3 chip_smoke.py --phase 20` runs phases 1, 2
+     and 20 alone and prints no result line.
+
+Two studies run on their own, after phases 1 and 2, and print no result
+line: `--ssm-chunk-gap` (where (c)'s chunk-128 gap comes from: by depth,
+on the card and the CPU, against a float64 recurrence and planted
+faults) and `--chunk-remat-cost` (what the default per-chunk remat costs
+mamba2's train step, bf16 on 48 layers and fp32 on 24, over six rounds).
 
 The line before the last is a JSON object listing the ported kernels; the
 last line is {"ok": true, "device": {...}}.  Imports nothing of JAX and
@@ -386,6 +419,7 @@ nothing of the reference package.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -4917,10 +4951,11 @@ def dryrun_vs_card(run: dict, smi: str) -> dict:
     """Phase 19 (d): the dry run of phase 18's gemma3-1b bf16 step against
     that run's counts, peak and step time."""
     from repro_torch.configs import ShapeConfig
-    from repro_torch.launch.dryrun import lower_cell
+    from repro_torch.launch.dryrun import impl_flags, lower_cell
 
     t0 = time.perf_counter()
-    rec = lower_cell("gemma3-1b", ShapeConfig("phase18_train", TRAIN_SEQ, TRAIN_BATCH, "train"))
+    with impl_flags("optimized"):  # the dry run's `--impl optimized`
+        rec = lower_cell("gemma3-1b", ShapeConfig("phase18_train", TRAIN_SEQ, TRAIN_BATCH, "train"))
     count_s = time.perf_counter() - t0
     steps = len(run["history"])
     card = {k: run["launches"][k] / steps for k in DRYRUN_KERNELS}
@@ -4972,7 +5007,680 @@ def phase_tools(smi: str, gemma3_bf16: dict) -> dict:
     return out
 
 
-def main() -> int:
+# ----------------------------------------------------------------- phase 20
+
+PHASE20_LIMIT_S = 90.0  # the aim is 60 s
+PHASE20_DIR = os.path.join(ROOT, "build", "chip_smoke_phase20")
+REL_TOL_FLAGS = {"float32": 1e-4, "bfloat16": 2e-2}  # baseline vs default logits (phase 17's bf16)
+REL_TOL_MLA_EXPAND = 1e-4  # expanded vs absorbed MLA decode, fp32
+REL_TOL_CHUNK_REMAT = 1e-6  # per-chunk remat on vs off: loss and every gradient
+# mamba2's logits at chunk 128 vs the config's 256, fp32, 24 layers, every
+# position: two summation orders of one function, whose gap grows with
+# depth to 1.089e-4 on the card and 1.130e-4 on the CPU (card vs CPU at one
+# chunk: 1.505e-4); a planted off-by-one in the carried state's decay reads
+# 0.93 (`--ssm-chunk-gap`). Held at the net tolerance of card vs CPU logits
+# (phase 7), between the two.
+REL_TOL_SSM_CHUNK = REL_TOL_LM_CPU
+FLAGS_STEPS = 16  # decode steps a wave under each flag set
+MAMBA_REMAT_ROUNDS = 2  # phase 20's rounds of mamba2's train step, chunk remat off then on
+REMAT_COST_ROUNDS = 6  # `--chunk-remat-cost`'s rounds
+MLA_DECODE_STEPS = 4
+COLL_STEPS = 3  # error-feedback steps of the compressed all-reduce
+COLL_WORLD = 4  # gloo ranks, one process each, all on cuda:0
+COLL_SCALE = 1e-3  # the seeded gradients' std
+
+
+def _wave_tokens(wave) -> np.ndarray:
+    """A wave's prompts right-aligned over token 0, as `Engine` pads them."""
+    n = max(len(r.prompt) for r in wave)
+    toks = np.zeros((len(wave), n), np.int64)
+    for i, r in enumerate(wave):
+        toks[i, n - len(r.prompt):] = r.prompt
+    return toks
+
+
+def _serve_logits(model, waves, forced=None) -> dict:
+    """Each wave prefilled (to LM_MAX_LEN), then FLAGS_STEPS decode steps
+    fed greedily from this run's logits or teacher-forced on `forced`;
+    the logits on the host, the tokens fed, wall ms (after synchronize)
+    of the prefills and of a decode step, and the launches."""
+    from repro_torch.models import lm_decode_step, lm_prefill
+
+    mods = kernel_libraries()
+    for mod in mods.values():
+        mod.LAUNCHES = 0
+    logits, fed, prefill_ms, step_ms = [], [], [], []
+    for w, toks in enumerate(waves):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        y, state = lm_prefill(model, torch.from_numpy(toks).to(DEV), LM_MAX_LEN)
+        torch.cuda.synchronize()
+        prefill_ms.append((time.perf_counter() - t0) * 1e3)
+        out, tok = [y.float().cpu()], []
+        t0 = time.perf_counter()
+        for t in range(FLAGS_STEPS):
+            cur = forced[w][t] if forced is not None else out[-1].argmax(-1).numpy()
+            tok.append(cur)
+            y, state = lm_decode_step(model, torch.from_numpy(np.asarray(cur, np.int64)).to(DEV),
+                                      toks.shape[1] + t, state)
+            out.append(y.float().cpu())
+        step_ms.append((time.perf_counter() - t0) * 1e3 / FLAGS_STEPS)
+        logits.append(torch.stack(out))
+        fed.append(tok)
+    torch.cuda.synchronize()
+    return dict(logits=logits, fed=fed, prefill_ms=prefill_ms, step_ms=step_ms,
+                launches={k: mod.LAUNCHES for k, mod in mods.items()})
+
+
+def flags_gemma3(smi: str) -> dict:
+    """Phase 20 (a): gemma3-1b at full size in fp32 and bf16, phase 6's
+    six requests in two waves, prefill and FLAGS_STEPS decode steps under
+    `set_baseline()` (the chunked loop at S 700, the decode loop over
+    512-slot chunks) against the same run under `Flags()` (the flash
+    kernel, the one-shot decode), teacher-forced on the default run's
+    greedy tokens."""
+    import dataclasses
+
+    from repro_torch.launch.dryrun import impl_flags
+    from repro_torch.models import runtime_flags as rf
+    from repro_torch.configs import get_arch
+    from repro_torch.models import init_lm
+
+    out = {}
+    for dtype in ("float32", "bfloat16"):
+        cfg = dataclasses.replace(get_arch("gemma3-1b"), dtype=dtype)
+        gc_collect()
+        model = init_lm(cfg, seed=0, device=DEV)
+        reqs = lm_requests(cfg, LM_PROMPTS)
+        waves = [_wave_tokens(reqs[i:i + MAX_BATCH]) for i in range(0, len(reqs), MAX_BATCH)]
+        for _ in range(2):  # a warm-up round of both, not read, then the run read
+            with rf.restored():
+                default = _serve_logits(model, waves)
+            with impl_flags("baseline"):
+                base = _serve_logits(model, waves, forced=default["fed"])
+        rel = max(rel_err(b, d) for b, d in zip(base["logits"], default["logits"]))
+        finite = all(bool(torch.isfinite(x).all()) for x in base["logits"] + default["logits"])
+        n_attn = cfg.n_layers
+        steps = FLAGS_STEPS * len(waves)
+        want = {"default": {"flash_attention": n_attn * len(waves), "decode_mlp": n_attn * steps},
+                "baseline": {"flash_attention": 0, "decode_mlp": n_attn * steps}}
+        for label, run in (("default", default), ("baseline", base)):
+            print(f"phase 20 gemma3-1b {dtype} {label:8s}: prefill ms by wave "
+                  f"{[round(x, 3) for x in run['prefill_ms']]} (prompt {[w.shape for w in waves]}), "
+                  f"decode ms/step by wave {[round(x, 3) for x in run['step_ms']]}; launches "
+                  f"{ {k: v for k, v in run['launches'].items() if v} }; card {smi}")
+            for k, n in want[label].items():
+                if run["launches"][k] != n:
+                    raise AssertionError(f"phase 20 gemma3 {dtype} {label}: {k} launched "
+                                         f"{run['launches'][k]}, expected {n}")
+        print(f"phase 20 gemma3-1b {dtype}: baseline vs default logits (prefill and "
+              f"{FLAGS_STEPS} teacher-forced steps, both waves) rel {rel:.3e} "
+              f"(tol {REL_TOL_FLAGS[dtype]:g}), finite {finite}")
+        if not finite or rel > REL_TOL_FLAGS[dtype]:
+            raise AssertionError(f"phase 20 gemma3 {dtype}: baseline vs default rel {rel:.3e}")
+        out[dtype] = dict(rel=rel, default=dict(prefill_ms=default["prefill_ms"],
+                                                step_ms=default["step_ms"]),
+                          baseline=dict(prefill_ms=base["prefill_ms"], step_ms=base["step_ms"]))
+        del model
+    return out
+
+
+def flags_mla(smi: str) -> dict:
+    """Phase 20 (b): deepseek-v3-671b's MLA at full width (layer 0's
+    attention weights), fp32, B 4 over a latent cache filled at 700
+    positions: MLA_DECODE_STEPS decode steps with `mla_absorb` (the
+    absorbed form) against `mla_absorb=False` (the latents expanded every
+    step), the expanded one under "flash" (one masked pass) and under
+    "chunked" (the baseline's 512-slot loop)."""
+    import dataclasses
+
+    from repro_torch.launch.dryrun import impl_flags
+    from repro_torch.models import runtime_flags as rf
+    from repro_torch.configs import get_arch
+    from repro_torch.models import attention as attn_mod
+
+    cfg = dataclasses.replace(get_arch(DS), dtype="float32", n_layers=1)
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(20)
+    p = attn_mod.init_mla(gen, cfg, torch.float32, DEV)
+    b, n = MAX_BATCH, LM_PROMPTS[0]
+    rng = np.random.default_rng(20)
+    pos = torch.arange(n, dtype=torch.int32, device=DEV).expand(b, n)
+    cache0 = attn_mod.init_mla_cache(cfg, b, LM_MAX_LEN, torch.float32, DEV)
+    xs = [_cuda(rng, (b, 1, cfg.d_model)) for _ in range(MLA_DECODE_STEPS)]
+    with torch.inference_mode():
+        c_kv, k_rope = attn_mod._mla_kv_latent(p, _cuda(rng, (b, n, cfg.d_model)), pos, cfg)
+        attn_mod.fill_mla_cache(cache0, c_kv, k_rope, pos)
+    runs = {}
+    for label, under in (("absorbed", rf.overrides()),
+                         ("expanded", rf.overrides(mla_absorb=False)),
+                         ("expanded chunked", impl_flags("baseline"))):
+        cache = {k: v.clone() for k, v in cache0.items()}
+        ys = []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with under, torch.inference_mode():
+            for t, x in enumerate(xs):
+                y, cache = attn_mod.mla_decode(p, x, n + t, cache, cfg)
+                ys.append(y)
+        torch.cuda.synchronize()
+        runs[label] = dict(y=torch.stack(ys), ms=(time.perf_counter() - t0) * 1e3 / len(xs))
+    ref = runs["absorbed"]["y"]
+    rels = {k: rel_err(r["y"], ref) for k, r in runs.items() if k != "absorbed"}
+    print(f"phase 20 {DS} MLA decode (B{b}, cache {n}..{n + len(xs) - 1} of {LM_MAX_LEN}, fp32): "
+          f"ms/step {', '.join(f'{k} {r['ms']:.3f}' for k, r in runs.items())} (host wall, the "
+          f"first step included); vs absorbed rel "
+          f"{', '.join(f'{k} {v:.3e}' for k, v in rels.items())} (tol {REL_TOL_MLA_EXPAND:g}); "
+          f"card {smi}")
+    if not torch.isfinite(ref).all() or max(rels.values()) > REL_TOL_MLA_EXPAND:
+        raise AssertionError(f"phase 20 MLA: expanded vs absorbed {rels}")
+    return dict(rel=rels, ms={k: r["ms"] for k, r in runs.items()})
+
+
+def _remat_steps(cfg, smi: str, rounds: int, tag: str = "phase 20") -> tuple:
+    """One warm-up train step of `cfg` at full width (4 x 1024, `lm_loss`
+    under per-super-block remat, cuBLAS summing in f32), then `rounds`
+    rounds of a step with `ssm_chunk_remat` off and one with it on (the
+    default: a checkpoint per SSD chunk inside each super-block's): every
+    step's host wall ms and peak above what it started from, the first
+    round's loss and gradients held on against off; lines printed under
+    `tag`.  Returns (model, readings)."""
+    from repro_torch.models import init_lm, lm_loss
+    from repro_torch.models import runtime_flags as rf
+    from repro_torch.models.common import f32_accumulation
+
+    gc_collect()
+    model = init_lm(cfg, seed=0, device=DEV)
+    model.requires_grad_(True)
+    params = list(model.parameters())
+    batch = {k: torch.from_numpy(v).to(DEV) for k, v in stream_batch(cfg, 0).items()}
+    mods = kernel_libraries()
+    steps = [("warm-up", True)] + [(label, remat) for _ in range(rounds)
+                                   for label, remat in (("off", False), ("on", True))]
+    read = {"on": dict(ms=[], peak=[]), "off": dict(ms=[], peak=[])}
+    for label, remat in steps:
+        gc_collect()
+        for mod in mods.values():
+            mod.LAUNCHES = 0
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        with rf.overrides(ssm_chunk_remat=remat), f32_accumulation():
+            loss, _ = lm_loss(model, batch)
+            grads = torch.autograd.grad(loss, params)
+        torch.cuda.synchronize()
+        if label == "warm-up":
+            continue
+        r = read[label]
+        r["ms"].append((time.perf_counter() - t0) * 1e3)
+        r["peak"].append(torch.cuda.max_memory_allocated() - base)
+        if "loss" not in r:
+            r.update(loss=loss.detach(), grads=grads,
+                     launches={k: m.LAUNCHES for k, m in mods.items() if m.LAUNCHES})
+        del loss, grads
+    on, off = read["on"], read["off"]
+    rel = max([rel_err(on["loss"].float(), off["loss"].float())]
+              + [rel_err(a.float(), b.float()) for a, b in zip(on["grads"], off["grads"])])
+    finite = all(bool(torch.isfinite(g).all()) for g in on["grads"])
+    what = f"mamba2-1.3b {cfg.dtype} ({cfg.n_layers} layers) train step"
+    for label in ("on", "off"):
+        r = read[label]
+        print(f"{tag} {what}, chunk remat {label}: loss {float(r['loss']):.6f}; ms by round "
+              f"{[round(x, 1) for x in r['ms']]}, median {statistics.median(r['ms']):.1f}; peak "
+              f"above the start {max(r['peak']) / 2**30:.3f} GiB (max_memory_allocated); "
+              f"launches {r['launches']}; card {smi}")
+    print(f"{tag} {what}, chunk remat on vs off: loss and {len(params)} gradients max rel "
+          f"{rel:.3e} (tol {REL_TOL_CHUNK_REMAT:g}), finite {finite}")
+    if not finite or rel > REL_TOL_CHUNK_REMAT or on["launches"] != off["launches"]:
+        raise AssertionError(f"{tag} {what} chunk remat: rel {rel:.3e}, launches "
+                             f"{on['launches']} vs {off['launches']}")
+    model.requires_grad_(False)
+    return model, {k: dict(ms=r["ms"], peak=max(r["peak"])) for k, r in read.items()}
+
+
+def _chunk_runs(model, toks, chunks=(0, 128)) -> dict:
+    """`lm_prefill` (host wall ms, last-token logits) and `lm_logits`
+    (every position) of `toks` at each SSD chunk length of `chunks` (0:
+    the config's)."""
+    from repro_torch.models import lm_logits, lm_prefill
+    from repro_torch.models import runtime_flags as rf
+
+    out = {}
+    for chunk in chunks:
+        with rf.overrides(ssm_chunk_override=chunk), torch.inference_mode():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            y, _ = lm_prefill(model, toks, LM_MAX_LEN)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            out[chunk] = dict(last=y, ms=ms, every=lm_logits(model, toks))
+    return out
+
+
+def flags_mamba(smi: str) -> dict:
+    """Phase 20 (c): mamba2-1.3b at full width on MAMBA_FP32_LAYERS fp32
+    layers, `_remat_steps` over MAMBA_REMAT_ROUNDS rounds; then wave 1's
+    prefill and every position's logits at `ssm_chunk_override=128`
+    against the config's chunk (the last token alone sits hundreds of
+    steps past a chunk boundary, where the carried state has decayed
+    away at these weights: `--ssm-chunk-gap`)."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+
+    cfg = dataclasses.replace(get_arch("mamba2-1.3b"), dtype="float32",
+                              n_layers=MAMBA_FP32_LAYERS)
+    model, fp32 = _remat_steps(cfg, smi, MAMBA_REMAT_ROUNDS)
+    gc_collect()
+    toks = torch.from_numpy(_wave_tokens(lm_requests(cfg, LM_PROMPTS)[:MAX_BATCH])).to(DEV)
+    pre = _chunk_runs(model, toks)
+    rel_last = rel_err(pre[128]["last"], pre[0]["last"])
+    rel_every = rel_err(pre[128]["every"], pre[0]["every"])
+    print(f"phase 20 mamba2 prefill B{toks.shape[0]} S{toks.shape[1]}: chunk {cfg.ssm.chunk} "
+          f"{pre[0]['ms']:.1f} ms, ssm_chunk_override 128 {pre[128]['ms']:.1f} ms (host wall); "
+          f"chunk 128 vs {cfg.ssm.chunk}: last-token logits rel {rel_last:.3e}, every "
+          f"position's rel {rel_every:.3e} (tol {REL_TOL_SSM_CHUNK:g})")
+    finite = all(bool(torch.isfinite(pre[128][k]).all()) for k in ("last", "every"))
+    if not finite or max(rel_last, rel_every) > REL_TOL_SSM_CHUNK:
+        raise AssertionError(f"phase 20 mamba2 chunk override: rel {rel_last:.3e} (last), "
+                             f"{rel_every:.3e} (every position)")
+    return dict(step=fp32, rel_last=rel_last,
+                rel_every=rel_every, prefill_ms={chunk: r["ms"] for chunk, r in pre.items()})
+
+
+def chunk_remat_cost(smi: str) -> int:
+    """`python3 chip_smoke.py --chunk-remat-cost`: what `ssm_chunk_remat`
+    (on in `Flags()`) costs mamba2-1.3b's train step at full width,
+    `_remat_steps` over REMAT_COST_ROUNDS rounds in bf16 on all 48 layers
+    (phase 18's configuration) and in fp32 on MAMBA_FP32_LAYERS."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+
+    arch = get_arch("mamba2-1.3b")
+    for cfg in (dataclasses.replace(arch, dtype="bfloat16"),
+                dataclasses.replace(arch, dtype="float32", n_layers=MAMBA_FP32_LAYERS)):
+        read = _remat_steps(cfg, smi, REMAT_COST_ROUNDS, "chunk remat cost:")[1]
+        on, off = (statistics.median(read[k]["ms"]) for k in ("on", "off"))
+        print(f"chunk remat cost: mamba2-1.3b {cfg.dtype} ({cfg.n_layers} layers): median on "
+              f"{on:.1f} ms, off {off:.1f} ms, on / off {on / off:.3f}; peak on "
+              f"{read['on']['peak'] / 2**30:.3f} GiB, off {read['off']['peak'] / 2**30:.3f} GiB")
+        gc_collect()
+    return 0
+
+
+# Off-by-one faults planted, in memory only, in `models/mamba.py`'s chunk
+# step for `--ssm-chunk-gap`: (what, the line as it is, the line broken).
+SSM_CHUNK_FAULTS = (
+    ("the carried state misses its chunk's last decay step",
+     "return state * torch.exp(last)[:, :, None, None] + sc, y",
+     "return state * torch.exp(lac[:, -2, :])[:, :, None, None] + sc, y"),
+    ("the carried state's contribution skips the chunk's first decay step",
+     'torch.einsum("bthn,bhpn->bthp", ch, state) * torch.exp(lac)[..., None]',
+     'torch.einsum("bthn,bhpn->bthp", ch, state) * torch.exp(lac - lac[:, :1, :])[..., None]'),
+)
+SSM_GAP_DEPTHS = (1, 2, 4, 8, 12, 16, 20, 24)  # layers whose hidden state the study reports
+
+
+@contextlib.contextmanager
+def _planted(old: str, new: str):
+    """`models.mamba.mamba_forward` compiled from its module's source with
+    `old` replaced by `new`, for the block; nothing is written to disk."""
+    import inspect
+
+    from repro_torch.models import mamba as mm
+
+    src = inspect.getsource(mm)
+    if src.count(old) != 1:
+        raise AssertionError(f"the line to break is not in models/mamba.py once: {old}")
+    ns = {"__name__": "mamba_with_a_planted_fault"}
+    exec(compile(src.replace(old, new), "<mamba.py with a planted fault>", "exec"), ns)
+    kept = mm.mamba_forward
+    mm.mamba_forward = ns["mamba_forward"]
+    try:
+        yield
+    finally:
+        mm.mamba_forward = kept
+
+
+def _hidden_states(model, toks, chunk: int) -> tuple:
+    """The hidden state after every layer of `model` on `toks` (B, S) and
+    every position's logits, at SSD chunk length `chunk` (0: the
+    config's), on the model's device."""
+    from repro_torch.models import blocks, lm
+    from repro_torch.models import runtime_flags as rf
+
+    with rf.overrides(ssm_chunk_override=chunk), torch.inference_mode():
+        x = model.embed[toks]
+        pos = lm._positions(toks.shape[0], toks.shape[1], toks.device)
+        hs = []
+        for spec, lp in zip(model.specs, model.layers):
+            x, _, _ = blocks.apply_layer(lp, spec, model.cfg, x, pos, model.shared_block)
+            hs.append(x)
+        return hs, lm._head(model, x)
+
+
+def _mamba_f64(mp, h: torch.Tensor, cfg) -> torch.Tensor:
+    """A mamba2 block's output in float64 by the SSD's step-by-step
+    recurrence (no chunks): state_t = exp(dt_t A) state_{t-1} + dt_t x_t
+    B_t^T, y_t = C_t state_t + D x_t, then the gate, the norm and the out
+    projection; `mp` the block's parameters, `h` its (normed) input."""
+    import torch.nn.functional as F
+
+    from repro_torch.models import mamba as mm
+
+    s, d_inner, nh, _ = mm._dims(cfg)
+    w = {k: mp[k].double() for k in ("in_proj", "conv_w", "conv_b", "dt_bias", "A_log", "D",
+                                      "norm", "out_proj")}
+    bsz, seq, _ = h.shape
+    z, xbc, dt_raw = mm._split(cfg, h.double() @ w["in_proj"])
+    xp = F.pad(xbc, (0, 0, s.d_conv - 1, 0))
+    conv = sum(xp[:, i:i + seq] * w["conv_w"][i] for i in range(s.d_conv)) + w["conv_b"]
+    xs, bm, cm = mm._split_xbc(cfg, F.silu(conv))
+    rep = nh // s.n_groups
+    xs = xs.reshape(bsz, seq, nh, s.head_dim)
+    bh = bm.reshape(bsz, seq, s.n_groups, s.d_state).repeat_interleave(rep, dim=2)
+    ch = cm.reshape(bsz, seq, s.n_groups, s.d_state).repeat_interleave(rep, dim=2)
+    dt = F.softplus(dt_raw + w["dt_bias"])
+    a = -torch.exp(w["A_log"])
+    state = torch.zeros((bsz, nh, s.head_dim, s.d_state), dtype=torch.float64, device=h.device)
+    ys = []
+    for t in range(seq):
+        state = (state * torch.exp(dt[:, t] * a)[:, :, None, None]
+                 + dt[:, t, :, None, None] * xs[:, t, :, :, None] * bh[:, t, :, None, :])
+        ys.append(torch.einsum("bhn,bhpn->bhp", ch[:, t], state))
+    y = (torch.stack(ys, dim=1) + xs * w["D"][:, None]).reshape(bsz, seq, d_inner) * F.silu(z)
+    y = y * torch.rsqrt((y * y).mean(-1, keepdim=True) + cfg.norm_eps) * (1.0 + w["norm"])
+    return y @ w["out_proj"]
+
+
+def ssm_chunk_gap(smi: str) -> int:
+    """`python3 chip_smoke.py --ssm-chunk-gap`: where phase 20's gap between
+    mamba2's chunk 128 and the config's 256 comes from.  mamba2-1.3b at
+    full width on MAMBA_FP32_LAYERS fp32 layers (phase 20's model, seed 0)
+    over wave 1 (B 4, S 700): every position's hidden state after each
+    of SSM_GAP_DEPTHS layers and the logits, chunk 128 against 256 on the
+    card and on the CPU, and the card against the CPU at 256; layer 0's
+    block at each chunk against its float64 step-by-step recurrence on
+    the card; each of SSM_CHUNK_FAULTS planted, chunk 128 against 256 on
+    the card.  Prints a table; holds nothing."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.models import init_lm
+    from repro_torch.models import mamba as mm
+    from repro_torch.models import runtime_flags as rf
+    from repro_torch.models.common import rms_norm
+
+    cfg = dataclasses.replace(get_arch("mamba2-1.3b"), dtype="float32",
+                              n_layers=MAMBA_FP32_LAYERS)
+    model = init_lm(cfg, seed=0, device=DEV)
+    toks = torch.from_numpy(_wave_tokens(lm_requests(cfg, LM_PROMPTS)[:MAX_BATCH])).to(DEV)
+    print(f"ssm chunk gap: mamba2-1.3b fp32, {cfg.n_layers} layers, chunk {cfg.ssm.chunk} vs 128, "
+          f"B{toks.shape[0]} S{toks.shape[1]}; rel = max |a - b| / max |b| over every position; "
+          f"card {smi}")
+
+    def gaps(a, b) -> dict:
+        out = {f"layer {d}": rel_err(a[0][d - 1], b[0][d - 1].to(a[0][d - 1].device))
+               for d in SSM_GAP_DEPTHS}
+        out["logits, every position"] = rel_err(a[1], b[1].to(a[1].device))
+        out["logits, last token"] = rel_err(a[1][:, -1], b[1][:, -1].to(a[1].device))
+        return out
+
+    t0 = time.perf_counter()
+    card = {c: _hidden_states(model, toks, c) for c in (0, 128)}
+    table = {"card, 128 vs 256": gaps(card[128], card[0])}
+    for what, old, new in SSM_CHUNK_FAULTS:
+        with _planted(old, new):
+            broken = {c: _hidden_states(model, toks, c) for c in (0, 128)}
+        table[f"card, 128 vs 256, fault: {what}"] = gaps(broken[128], broken[0])
+        table[f"card, fault at 256 vs none: {what}"] = gaps(broken[0], card[0])
+        del broken
+    with torch.inference_mode():
+        lp = model.layers[0]
+        h = rms_norm(model.embed[toks], lp["ln1"], cfg.norm_eps)
+        exact = _mamba_f64(lp["mamba"], h, cfg)
+        one = {}
+        for c in (0, 128):
+            with rf.overrides(ssm_chunk_override=c):
+                one[c] = mm.mamba_forward(lp["mamba"], h, cfg)
+    print(f"ssm chunk gap: layer 0's block, fp32 on the card against its float64 recurrence: "
+          f"chunk 256 rel {rel_err(one[0], exact):.3e}, chunk 128 rel {rel_err(one[128], exact):.3e}; "
+          f"128 vs 256 rel {rel_err(one[128], one[0]):.3e}")
+    print(f"ssm chunk gap: card runs in {time.perf_counter() - t0:.1f} s")
+    del one, exact, h
+    t0 = time.perf_counter()
+    model = model.to("cpu")
+    cpu = {c: _hidden_states(model, toks.cpu(), c) for c in (0, 128)}
+    table["cpu, 128 vs 256"] = gaps(cpu[128], cpu[0])
+    table["card vs cpu, at 256"] = gaps(card[0], cpu[0])
+    table["card vs cpu, at 128"] = gaps(card[128], cpu[128])
+    print(f"ssm chunk gap: cpu runs ({torch.get_num_threads()} threads) in "
+          f"{time.perf_counter() - t0:.1f} s")
+    cols = list(next(iter(table.values())))
+    print("ssm chunk gap: | pair | " + " | ".join(cols) + " |")
+    for name, row in table.items():
+        print(f"ssm chunk gap: | {name} | " + " | ".join(f"{row[c]:.3e}" for c in cols) + " |")
+    return 0
+
+
+def flags_dryrun() -> dict:
+    """Phase 20 (d): `launch.dryrun --impl baseline` on gemma3-1b train_4k
+    (meta device): status ok, no flash call counted."""
+    from repro_torch.launch import dryrun
+
+    t0 = time.perf_counter()
+    rc = dryrun.main(["--arch", "gemma3-1b", "--shape", "train_4k", "--out", PHASE20_DIR])
+    secs = time.perf_counter() - t0
+    with open(os.path.join(PHASE20_DIR, "gemma3-1b__train_4k__1.json")) as f:
+        rec = json.load(f)
+    rf = rec.get("roofline", {})
+    print(f"phase 20 dryrun --impl baseline gemma3-1b train_4k: rc {rc}, status "
+          f"{rec['status']} in {secs:.2f} s; kernel calls {rec.get('kernel_calls')}; counted "
+          f"{rf.get('hlo_flops', 0):.6e} FLOPs {rf.get('hlo_bytes', 0):.6e} bytes; t_bound "
+          f"{rf.get('t_bound_s', 0):.4f} s ({rf.get('bottleneck')})")
+    if rc != 0 or rec["status"] != "ok" or any(k.startswith("flash") for k in rec["kernel_calls"]):
+        raise AssertionError("phase 20 dry run --impl baseline failed or counted a flash call")
+    return dict(seconds=secs, kernel_calls=rec["kernel_calls"], t_bound_s=rf["t_bound_s"])
+
+
+def _coll_shapes() -> dict:
+    """gemma3-1b's first layer's parameter shapes, by name (meta)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models import init_lm
+
+    model = init_lm(get_arch("gemma3-1b"), device="meta")
+    return {name: tuple(t.shape) for name, t in model.layers[0].named_parameters()}
+
+
+def _coll_tree(shapes: dict, rank: int, step: int) -> dict:
+    """Rank `rank`'s seeded f32 gradient tree of step `step`, on the card."""
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(1000 * step + rank)
+    return {name: torch.randn(shape, generator=gen, device=DEV) * COLL_SCALE
+            for name, shape in shapes.items()}
+
+
+def _coll_blocks(x: torch.Tensor) -> torch.Tensor:
+    """x flattened, zero-padded to whole 256-element blocks."""
+    flat = x.reshape(-1)
+    return torch.nn.functional.pad(flat, (0, (-flat.numel()) % 256)).reshape(-1, 256)
+
+
+def _coll_oracle(grads, residuals) -> list:
+    """Every rank's (mean, new residual) of one compressed all-reduce step
+    in this process, rank i's input being (grads[i], residuals[i]): one
+    scale per 256-block from the ranks' joint |max| / 127, each rank's
+    int8 payload, their int32 sum over the world size times the scale;
+    the residual is the rank's own quantisation error."""
+    gs = [g.float() + r for g, r in zip(grads, residuals)]
+    size, shape = gs[0].numel(), gs[0].shape
+    blocks = [_coll_blocks(g) for g in gs]
+    amax = torch.stack([b.abs().amax(dim=1) for b in blocks]).amax(dim=0)
+    scale = torch.clamp(amax / 127.0, min=1e-20)[:, None]
+    qs = [torch.round(b / scale).to(torch.int8) for b in blocks]
+    qsum = torch.stack([q.to(torch.int32) for q in qs]).sum(dim=0, dtype=torch.int32)
+    mean = ((qsum.float() / float(len(gs))) * scale).reshape(-1)[:size].reshape(shape)
+    return [(mean, g - (q.float() * scale).reshape(-1)[:size].reshape(shape))
+            for g, q in zip(gs, qs)]
+
+
+def _within_one_step(card, cpu, inputs) -> float:
+    """max over blocks of |card - cpu| / the block's quantisation step
+    (the group's |max| / 127 from the CPU's inputs, all ranks')."""
+    amax = torch.stack([_coll_blocks(g).abs().amax(dim=1) for g in inputs]).amax(dim=0)
+    step = torch.clamp(amax / 127.0, min=1e-20)
+    return float((_coll_blocks(card.cpu() - cpu).abs().amax(dim=1) / step).max())
+
+
+def coll_run(rank: int, world: int) -> dict:
+    """COLL_STEPS steps of `make_compressed_allreduce()` over the default
+    process group on gemma3-1b's first layer's gradient tree (rank r's
+    seeded by r and the step), each step's mean and new residuals held
+    bitwise against `_coll_oracle` of every rank's inputs in this process
+    on the card, and (rank 0) within one quantisation step
+    of the same reduction on the CPU from the same inputs."""
+    from repro_torch.distributed import collectives as coll
+
+    shapes = _coll_shapes()
+    allreduce = coll.make_compressed_allreduce()
+    res = [coll.init_residuals(_coll_tree(shapes, r, 0)) for r in range(world)]
+    bitwise, steps_off, ms = True, 0.0, []
+    for step in range(COLL_STEPS):
+        trees = [_coll_tree(shapes, r, step) for r in range(world)]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mean, mine = allreduce(trees[rank], res[rank])
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        new = [dict() for _ in range(world)]
+        for name in shapes:
+            sim = _coll_oracle([t[name] for t in trees], [r[name] for r in res])
+            bitwise &= torch.equal(mean[name], sim[rank][0]) and torch.equal(mine[name],
+                                                                                sim[rank][1])
+            if rank == 0:
+                inputs = [t[name].cpu() for t in trees]
+                cpu = _coll_oracle(inputs, [r[name].cpu() for r in res])
+                carried = [g + r[name].cpu() for g, r in zip(inputs, res)]
+                steps_off = max(steps_off, _within_one_step(mean[name], cpu[0][0], carried),
+                                _within_one_step(mine[name], cpu[0][1], carried))
+            for r in range(world):
+                new[r][name] = sim[r][1]
+        new[rank] = mine
+        res = new
+    n = sum(math.prod(s) for s in shapes.values())
+    return dict(rank=rank, world=world, leaves=len(shapes), elements=n, bitwise=bitwise,
+                steps_off=steps_off, ms=ms)
+
+
+def coll_child(rank: int, world: int, store: str) -> int:
+    """A gloo rank of phase 20 (e): `coll_run` over a FileStore group."""
+    import torch.distributed as dist
+
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    dist.init_process_group("gloo", store=dist.FileStore(store, world), rank=rank,
+                            world_size=world)
+    try:
+        print("COLL " + json.dumps(coll_run(rank, world)), flush=True)
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def flags_collectives(smi: str) -> dict:
+    """Phase 20 (e): the int8 compressed all-reduce with error feedback at
+    world 1 over NCCL in this process, then at world COLL_WORLD over gloo
+    in COLL_WORLD subprocesses (each a rank on cuda:0) sharing a
+    FileStore; each held by `coll_run`.  The NCCL call's time (CUDA
+    events) beside a plain f32 all-reduce of the same tree."""
+    import torch.distributed as dist
+
+    from repro_torch.distributed import collectives as coll
+
+    os.makedirs(PHASE20_DIR, exist_ok=True)
+    store = os.path.join(PHASE20_DIR, "nccl_store")
+    if os.path.exists(store):
+        os.unlink(store)
+    dist.init_process_group("nccl", store=dist.FileStore(store, 1), rank=0, world_size=1,
+                            device_id=torch.device(DEV, 0))
+    try:
+        nccl = coll_run(0, 1)
+        tree = _coll_tree(_coll_shapes(), 0, 0)
+        res = coll.init_residuals(tree)
+        allreduce = coll.make_compressed_allreduce()
+        flat = [t.clone() for t in tree.values()]
+        compressed_ms = time_ms(lambda: allreduce(tree, res), reps=10)
+        plain_ms = time_ms(lambda: [dist.all_reduce(t) for t in flat], reps=10)
+    finally:
+        dist.destroy_process_group()
+    store = os.path.join(PHASE20_DIR, "gloo_store")
+    if os.path.exists(store):
+        os.unlink(store)
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--coll-rank", str(r),
+                               "--coll-world", str(COLL_WORLD), "--coll-store", store],
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+             for r in range(COLL_WORLD)]
+    outs = []
+    try:
+        for p in procs:
+            out, err = p.communicate(timeout=300)
+            outs.append((p.returncode, out, err))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    gloo_s = time.perf_counter() - t0
+    gloo = []
+    for rank, (rc, out, err) in enumerate(outs):
+        lines = [ln for ln in out.splitlines() if ln.startswith("COLL ")]
+        if rc != 0 or not lines:
+            raise AssertionError(f"phase 20 gloo rank {rank} failed (rc {rc}): {err[-2000:]}")
+        gloo.append(json.loads(lines[-1][5:]))
+    print(f"phase 20 compressed all-reduce, gemma3-1b layer 0's gradient tree ({nccl['leaves']} "
+          f"leaves, {nccl['elements']} f32 elements), {COLL_STEPS} error-feedback steps: NCCL "
+          f"world 1 bitwise vs one process {nccl['bitwise']}, vs CPU within "
+          f"{nccl['steps_off']:.3f} quantisation steps; gloo world {COLL_WORLD} on cuda:0 "
+          f"(subprocesses, {gloo_s:.1f} s) bitwise {[g['bitwise'] for g in gloo]}, rank 0 vs CPU "
+          f"within {gloo[0]['steps_off']:.3f} steps, ms/step by rank "
+          f"{[[round(x, 1) for x in g['ms']] for g in gloo]} (host wall)")
+    print(f"phase 20 NCCL world 1: compressed all-reduce of the tree {compressed_ms:.4f} ms, "
+          f"plain f32 all_reduce {plain_ms:.4f} ms (CUDA events, median); card {smi}")
+    ok = nccl["bitwise"] and all(g["bitwise"] for g in gloo)
+    worst = max(nccl["steps_off"], gloo[0]["steps_off"])
+    if not ok or worst > 1.0 + 1e-4 or sorted(g["rank"] for g in gloo) != list(range(COLL_WORLD)):
+        raise AssertionError(f"phase 20 compressed all-reduce: bitwise {ok}, {worst} steps off")
+    return dict(elements=nccl["elements"], compressed_ms=compressed_ms, plain_ms=plain_ms,
+                steps_off=worst, gloo_seconds=gloo_s)
+
+
+def phase_flags(smi: str) -> dict:
+    """Phase 20 (module docstring): the runtime flags and the compressed
+    all-reduce."""
+    t_phase = time.perf_counter()
+    gc_collect()
+    out = {}
+    for part, fn in (("gemma3", lambda: flags_gemma3(smi)), ("mla", lambda: flags_mla(smi)),
+                     ("mamba2", lambda: flags_mamba(smi)), ("dryrun", flags_dryrun),
+                     ("collectives", lambda: flags_collectives(smi))):
+        t0 = time.perf_counter()
+        out[part] = fn()
+        print(f"phase 20: {part} in {time.perf_counter() - t0:.2f} s")
+        gc_collect()
+    wall = time.perf_counter() - t_phase
+    print(f"phase 20: phase wall time {wall:.2f} s (limit {PHASE20_LIMIT_S:g} s)")
+    if wall > PHASE20_LIMIT_S:
+        raise AssertionError(f"phase 20 took {wall:.1f} s > {PHASE20_LIMIT_S:g} s")
+    out["seconds"] = wall
+    return out
+
+
+def main(argv=None) -> int:
+    argv = sys.argv[1:] if argv is None else argv
+    if "--coll-rank" in argv:  # a gloo rank of phase 20, started by phase 20
+        opt = dict(zip(argv[::2], argv[1::2]))
+        return coll_child(int(opt["--coll-rank"]), int(opt["--coll-world"]), opt["--coll-store"])
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the GPU only",
               file=sys.stderr)
@@ -4990,6 +5698,14 @@ def main() -> int:
 
     smi = phase_environment()
     bwd_ptxas = phase_build()
+    if argv == ["--ssm-chunk-gap"]:  # the study behind phase 20's chunk tolerance
+        return ssm_chunk_gap(smi)
+    if argv == ["--chunk-remat-cost"]:  # what the default per-chunk remat costs a step
+        return chunk_remat_cost(smi)
+    if argv == ["--phase", "20"]:  # phase 20 alone, for development: no result lines
+        phase_flags(smi)
+        print(f"chip_smoke: --phase 20 done at {time.perf_counter() - t_start:.1f} s")
+        return 0
     phase_check()
     cases, worst_abs, worst_rel = phase_kernel_vs_plain()
     oracle = phase_winograd_and_oracle()
@@ -5031,7 +5747,9 @@ def main() -> int:
     stamp("18")
     phase_tools(smi, btrain["runs"]["gemma3-1b"])
     stamp("19")
-    print(f"chip_smoke: total {time.perf_counter() - t_start:.1f} s (PR 26's final run: 771 s)")
+    phase_flags(smi)
+    stamp("20")
+    print(f"chip_smoke: total {time.perf_counter() - t_start:.1f} s")
 
     # headline shape: the widest served vgg layer when vgg reaches the
     # kernel (64->64 at bucket 64), else fft_fewchannel's 8->8

@@ -1,2 +1,4 @@
-"""Distributed layout rules: the path-based sharding rule engine and a
-plain device `Mesh` (`distributed.sharding`)."""
+"""Distributed layout rules and collectives: the path-based sharding rule
+engine and a plain device `Mesh` (`distributed.sharding`), and the int8
+compressed gradient all-reduce with error feedback
+(`distributed.collectives`)."""

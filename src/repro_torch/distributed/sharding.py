@@ -23,9 +23,10 @@ The builders (`shard_params`, `shard_params_for_inference`,
 `shard_cache`, `shard_batch`, `replicated`) turn a tree of shapes -- a
 nested mapping of tensors (meta ones in the dry run) -- into one
 `LeafShard` per leaf: its spec and its per-card shape, with the
-reference's choices.  No collective is ported: the compressed all-reduce
-and the placement of shards on several cards wait for a multi-card mesh
-(ROADMAP §1).
+reference's choices; `runtime_flags.FLAGS.fsdp_min_tree_bytes` sets the
+FSDP threshold, as in the reference.  The placement of shards on several
+cards waits for a multi-card mesh (ROADMAP §1); the compressed gradient
+all-reduce is `distributed.collectives`.
 """
 
 from __future__ import annotations
@@ -37,11 +38,10 @@ from typing import Any, Dict, Mapping, Optional, Sequence, Tuple, Union
 
 import torch
 
+from repro_torch.models.runtime_flags import FLAGS
+
 Spec = Tuple[Union[None, str, Tuple[str, ...]], ...]
 
-# adaptive FSDP: parameter trees smaller than this are replicated over the
-# data axes (TP only) -- the reference's default `fsdp_min_tree_bytes`
-FSDP_MIN_TREE_BYTES = 3 << 30
 # inference: TP only while the TP-sharded tree is at most this per card
 INFERENCE_TP_BYTES = 6 << 30
 
@@ -303,8 +303,10 @@ def tree_bytes_per_card(shards: Mapping[str, LeafShard]) -> int:
 
 def shard_params(shapes: Any, mesh: Mesh) -> Dict[str, LeafShard]:
     """Adaptive FSDP: trees small enough to replicate per card skip the
-    data-axis sharding entirely (TP only below `FSDP_MIN_TREE_BYTES`)."""
-    if tree_bytes(shapes) < FSDP_MIN_TREE_BYTES:
+    data-axis sharding entirely (TP only below
+    `FLAGS.fsdp_min_tree_bytes`, 3 GiB by default; the baseline's 0
+    shards every tree)."""
+    if tree_bytes(shapes) < FLAGS.fsdp_min_tree_bytes:
         return _tree_shardings(shapes, mesh, _tp_only_spec)
     return _tree_shardings(shapes, mesh, param_spec)
 
@@ -312,7 +314,11 @@ def shard_params(shapes: Any, mesh: Mesh) -> Dict[str, LeafShard]:
 def shard_params_for_inference(shapes: Any, mesh: Mesh) -> Dict[str, LeafShard]:
     """Inference: no optimizer state to amortise, so TP only whenever the
     TP-sharded tree is at most `INFERENCE_TP_BYTES` per card; 2-D (TP +
-    FSDP) sharding for models that do not fit so (deepseek-v3)."""
+    FSDP) sharding for models that do not fit so (deepseek-v3).  Under
+    the baseline (`FLAGS.fsdp_min_tree_bytes == 0`) every tree takes
+    the 2-D sharding."""
+    if FLAGS.fsdp_min_tree_bytes == 0:  # baseline config: FSDP everything
+        return _tree_shardings(shapes, mesh, param_spec)
     model = mesh.shape.get("model", 1)
     if tree_bytes(shapes) / max(model, 1) <= INFERENCE_TP_BYTES:
         return _tree_shardings(shapes, mesh, _tp_only_spec)

@@ -1,7 +1,8 @@
 """Dry run: every (arch x shape) cell's step on the meta device, counted.
 
     PYTHONPATH=src python -m repro_torch.launch.dryrun --arch gemma3-1b \
-        --shape train_4k [--mesh 1 | --multi-pod | --both-meshes] \
+        --shape train_4k [--impl baseline | optimized] \
+        [--mesh 1 | --multi-pod | --both-meshes] \
         [--out results/dryrun_torch]
 
 For each cell this runs the step the shape names -- the train step for a
@@ -19,14 +20,22 @@ device keeps no allocator.
 take the reference's production meshes (16 x 16, 2 x 16 x 16) as
 logical meshes: per-card bytes follow the reference's sharding rules,
 and the roofline divides the whole step's counts by the cards.  No
-collective is ported, so no collective term is counted.  The port has
-no runtime flags: it behaves as the reference's defaults (the optimized
-implementation), and `--impl baseline` exits naming that decision.
+collective term is counted.
+
+`--impl` sets the runtime flags as the reference's dry run does:
+`baseline` (the default: `set_baseline()`, chunked attention, MLA's
+expanded decode, no SSD chunk remat, FSDP everything) or `optimized`
+(`set_optimized()`: flash attention, the absorbed decode, SSD chunks of
+128 rematted, adaptive FSDP).  `main` restores the flags on return.
+`lower_cell` and `run_cell` count under the flags as they stand;
+`impl_flags(impl)` sets them for a `with` block.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
+import dataclasses
 import json
 import pathlib
 import sys
@@ -54,14 +63,20 @@ from repro_torch.launch.hlo_analysis import (
     model_flops_train,
 )
 from repro_torch.launch.mesh import make_production_mesh
+from repro_torch.models import runtime_flags
 
 MESHES = ("1", "16x16", "2x16x16")
 
-BASELINE_REFUSED = (
-    "--impl baseline: the port has no runtime flags (models/runtime_flags.py is not "
-    "ported, by decision: ROADMAP); it behaves as the reference's defaults, the "
-    "optimized implementation"
-)
+IMPLS = {"baseline": runtime_flags.set_baseline, "optimized": runtime_flags.set_optimized}
+
+
+@contextlib.contextmanager
+def impl_flags(impl: str):
+    """The runtime flags of `impl` ("baseline" or "optimized") inside the
+    block, every flag restored after."""
+    with runtime_flags.restored():
+        IMPLS[impl]()
+        yield
 
 
 def make_mesh(name: str) -> shd.Mesh:
@@ -112,7 +127,7 @@ def run_cell(arch: Union[str, ArchConfig], shape: Union[str, ShapeConfig], *,
         if shape.kind == "prefill":
             batch = S.prefill_specs(cfg, shape)
             with counter:
-                _, state = S.prefill_fn(cfg, shape)(model, batch)
+                _, state = S.prefill_fn(cfg, shape, m.shape.get("model", 1))(model, batch)
             mf = model_flops_infer(cfg, shape, decode=False)
         else:
             batch = S.decode_specs(cfg, shape)
@@ -135,6 +150,7 @@ def run_cell(arch: Union[str, ArchConfig], shape: Union[str, ShapeConfig], *,
         "chips": m.size,
         "kind": shape.kind,
         "dtype": cfg.dtype,
+        "flags": dataclasses.asdict(runtime_flags.FLAGS),
         "count_s": round(seconds, 2),
         "bytes_per_card": card,
         "state_bytes_per_card": state_bytes,
@@ -165,12 +181,14 @@ def main(argv=None) -> int:
     ap.add_argument("--multi-pod", action="store_true", help="the 2x16x16 mesh")
     ap.add_argument("--both-meshes", action="store_true", help="16x16 and 2x16x16")
     ap.add_argument("--out", default="results/dryrun_torch")
-    ap.add_argument("--impl", choices=("baseline", "optimized"), default="optimized",
-                    help="the reference's flag: the port runs its defaults only")
+    ap.add_argument("--impl", choices=tuple(IMPLS), default="baseline",
+                    help="baseline = the plain implementations; optimized = the tuned flags")
     args = ap.parse_args(argv)
-    if args.impl == "baseline":
-        print(BASELINE_REFUSED, file=sys.stderr)
-        return 2
+    with impl_flags(args.impl):
+        return _run(args)
+
+
+def _run(args) -> int:
 
     archs = list_archs() if args.arch == "all" else [args.arch]
     shapes = list(SHAPES) if args.shape == "all" else [args.shape]
@@ -217,7 +235,7 @@ def main(argv=None) -> int:
                            "traceback": traceback.format_exc()[-4000:]}
                     path.write_text(json.dumps(rec, indent=1))
                     print(f"[FAIL] {tag}: {type(e).__name__}: {str(e)[:200]}", flush=True)
-    print(f"[dryrun] {len(archs) * len(shapes) * len(meshes)} cells in "
+    print(f"[dryrun] --impl {args.impl}: {len(archs) * len(shapes) * len(meshes)} cells in "
           f"{time.monotonic() - t_all:.1f}s, {failures} failed")
     return 1 if failures else 0
 

@@ -1,15 +1,16 @@
 """Dry-run profiler: count one cell, print the top FLOP / byte offenders.
 
     PYTHONPATH=src python -m repro_torch.launch.inspect_cell --arch gemma3-1b \
-        --shape train_4k [--multi-pod] [--save-ops build/cell.ops.json] [--top 15]
+        --shape train_4k [--impl optimized | baseline] [--multi-pod] \
+        [--save-ops build/cell.ops.json] [--top 15]
 
 Prints the cell's roofline, then the `--top` costliest ops by FLOPs and by
 bytes from the op counter (`hlo_analysis.OpCounter`): each aten op by its
 signature -- its name and its inputs' shapes and dtypes, in place of the
 reference's HLO line and trip-count multiplier -- with its call count,
 and each hand-written kernel as ``kernel:<name>``.  `--save-ops` writes
-every op with its counts as JSON.  `--impl baseline` exits as the dry
-run's does.
+every op with its counts as JSON.  `--impl` sets the runtime flags as
+the dry run's does, with the reference's default here: `optimized`.
 """
 
 from __future__ import annotations
@@ -29,12 +30,11 @@ def main(argv=None) -> int:
     ap.add_argument("--impl", choices=("baseline", "optimized"), default="optimized")
     args = ap.parse_args(argv)
 
-    from repro_torch.launch.dryrun import BASELINE_REFUSED, run_cell
+    from repro_torch.launch.dryrun import impl_flags, run_cell
 
-    if args.impl == "baseline":
-        print(BASELINE_REFUSED, file=sys.stderr)
-        return 2
-    rec, counter = run_cell(args.arch, args.shape, mesh="2x16x16" if args.multi_pod else "1")
+    with impl_flags(args.impl):
+        rec, counter = run_cell(args.arch, args.shape,
+                                mesh="2x16x16" if args.multi_pod else "1")
     print(json.dumps(rec["roofline"], indent=1))
     print(f"kernel calls: {rec['kernel_calls']}")
     if args.save_ops:

@@ -21,6 +21,7 @@ import torch
 from repro_torch.configs.base import ArchConfig, ShapeConfig
 from repro_torch.models import blocks
 from repro_torch.models import lm as lm_mod
+from repro_torch.models.runtime_flags import FLAGS, overrides
 from repro_torch.optim.adamw import AdamWConfig
 from repro_torch.train.step import TrainConfig, make_train_step, train_state
 
@@ -114,16 +115,27 @@ def train_fn(cfg: ArchConfig, tcfg: TrainConfig):
     return make_train_step(cfg, tcfg)
 
 
-def prefill_fn(cfg: ArchConfig, shape: ShapeConfig):
-    """Plain `lm_prefill` to the cell's length.  The reference's
-    context-parallel prefill (for head counts that do not divide the model
-    axis) needs its runtime flags and a model axis, and the port has
-    neither: one card prefills every arch the same way."""
+def prefill_fn(cfg: ArchConfig, shape: ShapeConfig, model_axis: int = 1):
+    """`lm_prefill` to the cell's length.  As the reference's, it takes
+    context-parallel attention (`attention_cp_axis="model"`, the chunked
+    path) when the head count does not divide the mesh's `model` axis,
+    outside the baseline (`attention_impl == "chunked"`) and the
+    encoder-decoder.  `model_axis` is the mesh's `model` size: 1 on one
+    card, so never there; 16 on the logical 16 x 16.  On the meta
+    device the q stripe is counted whole (no card splits it)."""
+    use_cp = (
+        FLAGS.attention_impl != "chunked"  # only outside the baseline
+        and cfg.n_heads % model_axis != 0
+        and not cfg.is_encoder_decoder
+    )
 
     def fn(model, batch):
         kw = {}
         if cfg.is_encoder_decoder:
             kw["src_embeds"] = batch["src_embeds"]
+        if use_cp:
+            with overrides(attention_cp_axis="model", attention_impl="chunked"):
+                return lm_mod.lm_prefill(model, batch["tokens"], shape.seq_len, **kw)
         return lm_mod.lm_prefill(model, batch["tokens"], shape.seq_len, **kw)
 
     return fn

@@ -2,14 +2,20 @@
 decode; self-attention (causal, or bidirectional in an encoder) and
 cross attention (an encoder-decoder's decoder over the encoder's output).
 
-Full-sequence attention -- training, prefill, the encoder, and cross
-attention at every step, decode included -- runs through the flash
-kernel (its plain version on the CPU) via
-`models.flash_attention.flash_attention`: under grad (training) that is
-`FlashAttention`, whose backward is the flash backward kernel.  Decode
-self-attention attends over the cache in one masked pass (the
-reference's one-shot path of `chunked_attention`), in plain torch.
-Local layers keep a ring buffer of `window` slots, global layers a dense
+`runtime_flags.FLAGS.attention_impl` picks the implementation, as in the
+reference.  Under "flash" (the default) full-sequence attention --
+training, prefill, the encoder, and cross attention at every step,
+decode included -- runs through the flash kernel (its plain version on
+the CPU) via `models.flash_attention.flash_attention`: under grad
+(training) that is `FlashAttention`, whose backward is the flash
+backward kernel.  Under "chunked" (the baseline) it runs through
+`chunked_attention`'s online-softmax loop over 512-key chunks, plain
+torch as the reference's XLA scan, differentiated by autograd.  A
+non-empty `attention_cp_axis` also takes `chunked_attention` (on one
+card the q stripe is not split across cards).  Decode self-attention
+goes through `chunked_attention` over the cache: one masked pass under
+"flash" at any cache length, the chunk loop under "chunked".  Local
+layers keep a ring buffer of `window` slots, global layers a dense
 `max_len` cache; `pos < 0` marks an empty slot.
 
 Cross attention projects q from the decoder's x and k / v from the
@@ -20,10 +26,11 @@ MLA (DeepSeek-V3's multi-head latent attention) projects x to a q
 latent and a kv latent (`c_kv`, kv_lora_rank wide) plus one shared
 rotary key (`k_rope`); prefill and training expand the latent to
 per-head k (nope + rope dims, 192 at full width) and v (128) and run the
-same flash kernel as GQA, at q/k and v head dims apart.  Its decode cache
-holds only the latents (`c_kv`, `k_rope`, `pos`), and decode is the
-weight-absorbed form (`mla_decode_absorbed`): the reference's default
-(`mla_absorb=True`), the only decode the port has.
+same attention as GQA, at q/k and v head dims apart.  Its decode cache
+holds only the latents (`c_kv`, `k_rope`, `pos`).  Decode is the
+weight-absorbed form (`mla_decode_absorbed`) under `mla_absorb` (the
+default); without it (the baseline) the latents of the whole cache are
+expanded every step and attended by `chunked_attention`.
 
 Caches are updated in place at decode (one slot per step), where the
 reference returns a new cache: it saves copying every cache each step.
@@ -34,10 +41,14 @@ from __future__ import annotations
 from typing import Dict, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig, MLAConfig
-from repro_torch.models.flash_attention import flash_attention
 from repro_torch.models.common import apply_rotary, dense_init, rms_norm
+from repro_torch.models.flash_attention import flash_attention
+from repro_torch.models.runtime_flags import FLAGS
+
+KV_CHUNK = 512  # the chunked loop's key block length
 
 Cache = Dict[str, torch.Tensor]
 
@@ -50,31 +61,39 @@ def full_attention(
     window: int = 0,
     causal: bool = True,
 ) -> torch.Tensor:
-    """Full-sequence attention, (B, Sq, Hq, vd), scale hd^-0.5.  A causal
-    or windowed call has Sq == Sk and every row's positions 0..S-1
-    (`lm_prefill` builds them so), so the kernel's index masks are the
-    reference's position masks; a non-causal one without a window masks
-    nothing and takes any Sk.  The (B, H, S, hd) views handed to the
-    kernel are transposes of the model's layout; it reads them in place
-    and writes its output in q's layout.  Under grad the call is
-    `FlashAttention`'s; otherwise (serving) the forward kernel alone
-    runs."""
+    """Full-sequence attention, (B, Sq, Hq, vd), scale hd^-0.5, by
+    `FLAGS` (module docstring).  A causal or windowed call has Sq == Sk
+    and every row's positions 0..S-1 (`lm_prefill` builds them so), so
+    the kernel's index masks are the reference's position masks, and the
+    chunked path gets those positions; a non-causal one without a window
+    masks nothing and takes any Sk.  The (B, H, S, hd) views handed to
+    the kernel are transposes of the model's layout; it reads them in
+    place and writes its output in q's layout.  Under grad the kernel
+    call is `FlashAttention`'s; otherwise (serving) the forward kernel
+    alone runs."""
+    if FLAGS.attention_cp_axis or FLAGS.attention_impl != "flash":
+        b, sq, sk = q.shape[0], q.shape[1], k.shape[1]
+        q_pos = torch.arange(sq, dtype=torch.int32, device=q.device).expand(b, sq)
+        kv_pos = torch.arange(sk, dtype=torch.int32, device=q.device).expand(b, sk)
+        return chunked_attention(q, k, v, q_pos, kv_pos, window=window, causal=causal)
     qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
     return flash_attention(qt, kt, vt, causal=causal, window=window).transpose(1, 2)
 
 
-def _mask(q_pos, kv_pos, window: int) -> torch.Tensor:
-    """(B, Sq, Sk) causal boolean mask. kv_pos < 0 marks empty cache
-    slots."""
+def _mask(q_pos, kv_pos, window: int, causal: bool) -> torch.Tensor:
+    """(B, Sq, Sk) boolean mask. kv_pos < 0 marks empty cache slots;
+    window <= 0 is global."""
     qp = q_pos[..., :, None]
     kp = kv_pos[..., None, :]
-    ok = (kp >= 0) & (kp <= qp)
+    ok = kp >= 0
+    if causal:
+        ok = ok & (kp <= qp)
     if window > 0:
         ok = ok & (qp - kp < window)
     return ok
 
 
-def decode_attention(
+def chunked_attention(
     q: torch.Tensor,  # (B, Sq, Hq, hd)
     k: torch.Tensor,  # (B, Sk, Hkv, hd)
     v: torch.Tensor,  # (B, Sk, Hkv, vd)
@@ -82,27 +101,68 @@ def decode_attention(
     kv_pos: torch.Tensor,  # (B, Sk)
     *,
     window: int = 0,
+    causal: bool = True,
+    chunk: int = KV_CHUNK,
 ) -> torch.Tensor:
-    """One causal masked pass over the whole cache (no KV loop), the
-    reference's one-shot path (which it takes for caches of up to 512
-    slots; a longer one it walks in 512-slot chunks with P in f32): q
-    scaled in its own dtype, f32 scores and statistics, P cast to v's
-    dtype and its products with v summed in f32 (a bf16 product is exact
-    in f32), the row sum divided out in f32, the output in q's dtype; a
-    fully masked row gives 0."""
+    """Masked attention by positions, (B, Sq, Hq, vd), scale hd^-0.5, q
+    scaled in its own dtype, scores and statistics in f32, the output in
+    q's dtype; a fully masked row gives 0.  Plain torch, as the reference
+    leaves it to XLA.  Two branches, as the reference's:
+
+    - the one-shot pass, under `attention_impl == "flash"` when Sq == 1
+      (decode, at any cache length) or one chunk holds every key: one
+      masked softmax over all keys, P cast to v's dtype and its products
+      with v summed in f32 (a bf16 product is exact in f32), the row sum
+      divided out in f32;
+    - otherwise the online-softmax loop over `chunk`-key blocks (keys
+      padded to a multiple of `chunk` at position -1, masked): a running
+      max, row sum and f32 accumulator, each rescaled per block, P and v
+      in f32, rows masked so far guarded.  Under grad autograd
+      differentiates the loop, as XLA differentiates the reference's
+      scan."""
     b, sq, hq, hd = q.shape
-    hkv, vd = k.shape[2], v.shape[3]
+    sk, hkv = k.shape[1], k.shape[2]
+    vd = v.shape[3]
     g = hq // hkv
-    qf = (q * hd ** -0.5).reshape(b, sq, hkv, g, hd)
-    s = torch.einsum("bqhgd,bchd->bhgqc", qf.float(), k.float())
-    msk = _mask(q_pos, kv_pos, window)[:, None, None]
-    s = s.masked_fill(~msk, float("-inf"))
-    m = s.amax(dim=-1, keepdim=True)
-    m = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
-    p = torch.where(msk, torch.exp(s - m), torch.zeros_like(s))
-    l = p.sum(dim=-1, keepdim=True)
-    out = torch.einsum("bhgqc,bchd->bhgqd", p.to(v.dtype).float(), v.float())
-    out = out / torch.clamp(l, min=1e-30)
+    window = int(window or 0)
+    qf = (q * hd ** -0.5).reshape(b, sq, hkv, g, hd).float()
+
+    if (sq == 1 or chunk >= sk) and FLAGS.attention_impl == "flash":
+        s = torch.einsum("bqhgd,bchd->bhgqc", qf, k.float())
+        msk = _mask(q_pos, kv_pos, window, causal)[:, None, None]
+        s = s.masked_fill(~msk, float("-inf"))
+        m = s.amax(dim=-1, keepdim=True)
+        m = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
+        p = torch.where(msk, torch.exp(s - m), torch.zeros_like(s))
+        l = p.sum(dim=-1, keepdim=True)
+        out = torch.einsum("bhgqc,bchd->bhgqd", p.to(v.dtype).float(), v.float())
+        out = out / torch.clamp(l, min=1e-30)
+        return out.permute(0, 3, 1, 2, 4).reshape(b, sq, hq, vd).to(q.dtype)
+
+    pad = (-sk) % chunk
+    k, v = k.float(), v.float()
+    if pad:
+        k = F.pad(k, (0, 0, 0, 0, 0, pad))
+        v = F.pad(v, (0, 0, 0, 0, 0, pad))
+        kv_pos = F.pad(kv_pos, (0, pad), value=-1)
+    m = torch.full((b, hkv, g, sq), float("-inf"), dtype=torch.float32, device=q.device)
+    l = torch.zeros((b, hkv, g, sq), dtype=torch.float32, device=q.device)
+    acc = torch.zeros((b, hkv, g, sq, vd), dtype=torch.float32, device=q.device)
+    for c0 in range(0, sk + pad, chunk):
+        kc, vc, pc = k[:, c0:c0 + chunk], v[:, c0:c0 + chunk], kv_pos[:, c0:c0 + chunk]
+        s = torch.einsum("bqhgd,bchd->bhgqc", qf, kc)  # (B, Hkv, g, Sq, c)
+        msk = _mask(q_pos, pc, window, causal)[:, None, None]  # (B, 1, 1, Sq, c)
+        s = torch.where(msk, s, float("-inf"))
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        # a row masked so far has m == -inf: it is guarded to 0, so a masked
+        # score's exp and a masked row's correction exp(m - 0) are exact zeros
+        m_safe = torch.nan_to_num(m_new, neginf=0.0)
+        p = torch.exp(s - m_safe[..., None])
+        corr = torch.exp(m - m_safe)
+        l = l * corr + p.sum(dim=-1)
+        acc = acc * corr[..., None] + torch.einsum("bhgqc,bchd->bhgqd", p, vc)
+        m = m_new
+    out = acc / torch.clamp(l, min=1e-30)[..., None]
     return out.permute(0, 3, 1, 2, 4).reshape(b, sq, hq, vd).to(q.dtype)
 
 
@@ -242,9 +302,10 @@ def attn_decode(
     cache["k"][:, slot] = k[:, 0]
     cache["v"][:, slot] = v[:, 0]
     cache["pos"][:, slot] = pos
-    out = decode_attention(
+    length = cache["k"].shape[1]
+    out = chunked_attention(
         q, cache["k"], cache["v"], positions, cache["pos"],
-        window=int(window or 0),
+        window=int(window or 0), causal=True, chunk=min(KV_CHUNK, length),
     )
     return out.reshape(b, 1, -1) @ p["wo"], cache
 
@@ -304,9 +365,9 @@ def _mla_expand(p, c_kv: torch.Tensor, k_rope: torch.Tensor, cfg: ArchConfig):
 
 def mla_forward(p, x: torch.Tensor, positions: torch.Tensor, cfg: ArchConfig, *,
                 return_latent: bool = False):
-    """Full-sequence causal MLA (training, prefill): the flash kernel at
-    q/k head dim nope + rope and v head dim v_head_dim, scale (nope +
-    rope)^-0.5."""
+    """Full-sequence causal MLA (training, prefill): `full_attention` (the
+    flash kernel, or the chunked loop) at q/k head dim nope + rope and v
+    head dim v_head_dim, scale (nope + rope)^-0.5."""
     b, s = x.shape[:2]
     q = _mla_q(p, x, positions, cfg)
     c_kv, k_rope = _mla_kv_latent(p, x, positions, cfg)
@@ -339,7 +400,9 @@ def fill_mla_cache(cache: Cache, c_kv: torch.Tensor, k_rope: torch.Tensor,
 def mla_decode(p, x: torch.Tensor, pos: int, cache: Cache,
                cfg: ArchConfig) -> Tuple[torch.Tensor, Cache]:
     """One decode step: the step's latents go to slot `pos`, then the
-    absorbed attention over the cache."""
+    absorbed attention over the cache under `mla_absorb`; without it the
+    whole cache's latents are expanded to per-head k / v and attended by
+    `chunked_attention`."""
     b = x.shape[0]
     positions = torch.full((b, 1), pos, dtype=torch.int32, device=x.device)
     q = _mla_q(p, x, positions, cfg)
@@ -347,7 +410,11 @@ def mla_decode(p, x: torch.Tensor, pos: int, cache: Cache,
     cache["c_kv"][:, pos] = c_kv[:, 0]
     cache["k_rope"][:, pos] = k_rope[:, 0]
     cache["pos"][:, pos] = pos
-    return mla_decode_absorbed(p, q, cache, cfg), cache
+    if FLAGS.mla_absorb:
+        return mla_decode_absorbed(p, q, cache, cfg), cache
+    k, v = _mla_expand(p, cache["c_kv"], cache["k_rope"], cfg)
+    out = chunked_attention(q, k, v, positions, cache["pos"], causal=True)
+    return out.reshape(b, 1, -1) @ p["wo"], cache
 
 
 def mla_decode_absorbed(p, q: torch.Tensor, cache: Cache, cfg: ArchConfig) -> torch.Tensor:

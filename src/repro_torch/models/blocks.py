@@ -56,6 +56,7 @@ from repro_torch.models import mamba as mamba_mod
 from repro_torch.models import mlp as mlp_mod
 from repro_torch.models import moe as moe_mod
 from repro_torch.models.common import rms_norm
+from repro_torch.models.runtime_flags import FLAGS, overrides
 
 
 @dataclasses.dataclass(frozen=True)
@@ -260,6 +261,15 @@ def super_block_spans(plan: Tuple[GroupSpec, ...]) -> Tuple[Tuple[int, int], ...
     return tuple(spans)
 
 
+def _under_flags(body, flags: dict):
+    """`body` run under the runtime flags `flags`, whatever stands when it
+    is called."""
+    def run(*args):
+        with overrides(**flags):
+            return body(*args)
+    return run
+
+
 def apply_stack(
     layers,
     specs: Tuple[LayerSpec, ...],
@@ -278,8 +288,12 @@ def apply_stack(
     `cross_x` (the encoder's output) an input of every body, so the
     backward recomputes a cross attention from it.  Returns (x,
     {moe_aux, moe_z}), the aux losses summed over the MoE layers (zeros
-    without any), carried through each body."""
+    without any), carried through each body.  A checkpointed body runs
+    under the runtime flags of the forward, its recompute included,
+    whatever flags stand when the backward runs (the reference's trace
+    fixes them)."""
     aux = z = torch.zeros((), dtype=torch.float32, device=x.device)
+    flags = dataclasses.asdict(FLAGS) if remat else None
     for start, n in spans:
         def body(x, aux, z, cross_x, start=start, n=n):
             for i in range(start, start + n):
@@ -289,8 +303,11 @@ def apply_stack(
                     aux, z = aux + a["moe_aux"], z + a["moe_z"]
             return x, aux, z
 
-        x, aux, z = (checkpoint(body, x, aux, z, cross_x, use_reentrant=False) if remat
-                     else body(x, aux, z, cross_x))
+        if remat:
+            x, aux, z = checkpoint(_under_flags(body, flags), x, aux, z, cross_x,
+                                   use_reentrant=False)
+        else:
+            x, aux, z = body(x, aux, z, cross_x)
     return x, {"moe_aux": aux, "moe_z": z}
 
 

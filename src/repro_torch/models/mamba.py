@@ -9,10 +9,14 @@ grad it goes through `Conv1dFused`, whose backward is the conv1d
 backward kernel.  The decode step's single-row conv
 stays plain torch, as the reference computes it outside Pallas.
 
-Training remats per super-block (one mamba layer), not per chunk as the
-reference does: one layer's chunk intermediates, (B, H, Q, Q) a tensor,
-are all that its backward holds at once, and at full width and 4 x 1024
-tokens the peak leaves room on the card (PERF.md §5).
+The chunk length is `runtime_flags.FLAGS.ssm_chunk_override`, or the
+config's chunk when that is 0, and at most the sequence, as in the
+reference.  Under grad with `FLAGS.ssm_chunk_remat` (the default) each
+chunk step runs under its own `checkpoint(..., use_reentrant=False)`,
+inside the per-super-block one when the stack remats: the backward
+recomputes a chunk's (B, H, Q, Q) dual-form tensors instead of holding
+every chunk's, as the reference's `jax.checkpoint(chunk_step)` does.
+The gradients are the same either way.
 """
 
 from __future__ import annotations
@@ -21,10 +25,12 @@ from typing import Dict, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig, SSMConfig
 from repro_torch.kernels.conv1d_fused import conv1d_fused
 from repro_torch.models.common import dense_init, rms_norm
+from repro_torch.models.runtime_flags import FLAGS
 
 Cache = Dict[str, torch.Tensor]
 
@@ -75,7 +81,7 @@ def mamba_forward(p, x_in: torch.Tensor, cfg: ArchConfig, *, return_state: bool 
     {conv, ssm} at the end of the sequence."""
     s, d_inner, h, _ = _dims(cfg)
     bsz, seq, _ = x_in.shape
-    q = min(s.chunk, seq)
+    q = min(FLAGS.ssm_chunk_override or s.chunk, seq)
     pad = (-seq) % q
     if pad:
         x_in = F.pad(x_in, (0, 0, 0, pad))
@@ -106,12 +112,9 @@ def mamba_forward(p, x_in: torch.Tensor, cfg: ArchConfig, *, return_state: bool 
     # overflows to inf * 0 = NaN at full-size chunks)
     upper = torch.ones((q, q), dtype=torch.bool, device=dt.device).triu(1)
 
-    state = torch.zeros((bsz, h, hd, n), dtype=f32, device=x_in.device)
-    ys = []
-    for c in range(nc):
-        xc, dtc, lac = xs[:, c], dt[:, c], la[:, c]
-        bh = bmat[:, c].repeat_interleave(rep, dim=2).float()  # (B, Q, H, N)
-        ch = cmat[:, c].repeat_interleave(rep, dim=2).float()
+    def chunk_step(state, xc, bc, cc, dtc, lac):
+        bh = bc.repeat_interleave(rep, dim=2).float()  # (B, Q, H, N)
+        ch = cc.repeat_interleave(rep, dim=2).float()
         # intra-chunk dual (quadratic) form
         scores = torch.einsum("bthn,bshn->bhts", ch, bh)  # (B, H, Q, Q)
         seg = (lac[:, :, None, :] - lac[:, None, :, :]).permute(0, 3, 1, 2)
@@ -125,7 +128,15 @@ def mamba_forward(p, x_in: torch.Tensor, cfg: ArchConfig, *, return_state: bool 
         sc = torch.einsum(
             "bshn,bsh,bshp->bhpn", bh, torch.exp(last[:, None, :] - lac) * dtc, xs_f
         )
-        state = state * torch.exp(last)[:, :, None, None] + sc
+        return state * torch.exp(last)[:, :, None, None] + sc, y
+
+    remat = FLAGS.ssm_chunk_remat and torch.is_grad_enabled()
+    state = torch.zeros((bsz, h, hd, n), dtype=f32, device=x_in.device)
+    ys = []
+    for c in range(nc):
+        blk = (state, xs[:, c], bmat[:, c], cmat[:, c], dt[:, c], la[:, c])
+        state, y = (checkpoint(chunk_step, *blk, use_reentrant=False) if remat
+                    else chunk_step(*blk))
         ys.append(y)
     y = torch.stack(ys, dim=1).reshape(bsz, seq_p, h, hd)
     y = y + xs.reshape(bsz, seq_p, h, hd).float() * p["D"][:, None]

@@ -16,6 +16,7 @@ train cell (the remainder is the reference's whole-tile attention count,
 checked to 1 %); decode logits rel 1e-6.
 """
 
+import dataclasses
 import json
 import math
 import os
@@ -42,6 +43,7 @@ from repro_torch.kernels import meta as kernel_meta
 from repro_torch.launch import dryrun, hlo_analysis, inspect_cell, mesh
 from repro_torch.launch import specs as S
 from repro_torch.models import init_decode_state, init_lm, lm_decode_step, lm_prefill
+from repro_torch.models import runtime_flags
 
 _ROOT = os.path.join(os.path.dirname(__file__), "..")
 ARCHS = list_archs()
@@ -341,7 +343,7 @@ def test_meshes():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError):
             mesh.make_host_mesh(1)
-    assert shd.FSDP_MIN_TREE_BYTES == 3 << 30
+    assert runtime_flags.Flags().fsdp_min_tree_bytes == 3 << 30
 
 
 # ---------------------------------------------------------------- the counter
@@ -391,21 +393,31 @@ def test_op_counter_counts_conv1d_per_mamba_layer():
 
 def test_dryrun_cli(tmp_path, capsys):
     """gemma3-1b's four cells and stablelm-3b's skipped long cell at full
-    size on meta; `--impl baseline` refused with the decision named."""
-    assert dryrun.main(["--arch", "gemma3-1b", "--out", str(tmp_path)]) == 0
+    size on meta under `--impl optimized`; gemma3-1b's train cell under
+    the default `--impl baseline` (chunked attention: no flash call); the
+    flags restored after each run."""
+    before = dataclasses.asdict(runtime_flags.FLAGS)
+    assert dryrun.main(["--arch", "gemma3-1b", "--impl", "optimized", "--out", str(tmp_path)]) == 0
     recs = {p.name: json.loads(p.read_text()) for p in tmp_path.glob("*.json")}
     assert len(recs) == 4 and all(r["status"] == "ok" for r in recs.values())
     train = recs["gemma3-1b__train_4k__1.json"]
     assert train["kernel_calls"] == {"flash_attention": 52, "flash_attention_bwd": 26}
     assert train["fits"] and train["roofline"]["t_collective_s"] is None
     assert train["roofline"]["peak_flops"] == 989e12
-    assert dryrun.main(["--arch", "stablelm-3b", "--shape", "long_500k",
+    assert train["flags"]["ssm_chunk_override"] == 128
+    assert dryrun.main(["--arch", "stablelm-3b", "--shape", "long_500k", "--impl", "optimized",
                         "--out", str(tmp_path)]) == 0
     skip = json.loads((tmp_path / "stablelm-3b__long_500k__1.json").read_text())
     ok, reason = ref_cell_is_defined(ref_get_arch("stablelm-3b"), REF_SHAPES["long_500k"])
     assert skip["status"] == "skipped" and skip["reason"] == reason and not ok
-    assert dryrun.main(["--impl", "baseline", "--out", str(tmp_path)]) == 2
-    assert "runtime_flags" in capsys.readouterr().err
+    base = tmp_path / "baseline"
+    assert dryrun.main(["--arch", "gemma3-1b", "--shape", "train_4k", "--out", str(base)]) == 0
+    rec = json.loads((base / "gemma3-1b__train_4k__1.json").read_text())
+    assert rec["status"] == "ok" and rec["kernel_calls"] == {}
+    assert rec["flags"]["attention_impl"] == "chunked" and rec["flags"]["fsdp_min_tree_bytes"] == 0
+    assert rec["counted"]["flops"] > train["counted"]["flops"]  # the whole padded key blocks
+    assert "--impl baseline" in capsys.readouterr().out
+    assert dataclasses.asdict(runtime_flags.FLAGS) == before
 
 
 def test_inspect_cell_prints_top_ops(tmp_path, capsys):

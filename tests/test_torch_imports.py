@@ -110,6 +110,9 @@ NEW_MODULES = (
     "repro_torch.launch.hlo_analysis",
     "repro_torch.launch.dryrun",
     "repro_torch.launch.inspect_cell",
+    # the runtime flags and the compressed all-reduce
+    "repro_torch.models.runtime_flags",
+    "repro_torch.distributed.collectives",
 )
 
 
