@@ -5,8 +5,11 @@
 Phases (any failure exits non-zero):
   1. environment: torch/CUDA versions, the card's name and power limit,
      TF32 off for matmul and cuDNN;
-  2. build: the five kernel sources (`src/repro_torch/kernels/*/csrc/*.cu`),
-     one nvcc each, started together, with build times; then the static
+  2. build: the seven kernel sources (`src/repro_torch/kernels/*/csrc/*.cu`:
+     the flash forward and backward each an fp32 and a bf16 source), one
+     nvcc each, started together, with build times, and beside them the
+     four flash sources' `-Xptxas -v` registers and spills per
+     instantiation (the bf16 ones on warpgroup `wgmma`); then the static
      checks in-process (`python -m repro_torch.convserve.check --strict`:
      the IR verifier over the benched configs' plans, the lock analyzer,
      the rule linter over `src/repro_torch`), which must be clean;
@@ -191,8 +194,8 @@ Phases (any failure exits non-zero):
      mask; where SDPA refuses a shape the row says so), and the bound
      both ways (five products a band pair, three of 2 hd FLOPs and two of
      2 vd: split-TF32 at the TF32 peak, and the fp32 FMA peak).  Phase 2
-     prints the forward's and the backward's `nvcc -Xptxas -v` registers
-     and spills per instantiation.  (e) conv1d under autograd (`Conv1dFused`: the
+     prints the flash sources' `nvcc -Xptxas -v` registers and spills per
+     instantiation.  (e) conv1d under autograd (`Conv1dFused`: the
      forward kernel, then the conv1d backward kernel) against
      `conv1d_bwd_ref` on the same card tensors, at mamba2's and zamba2's
      training slices (B 4, L 1024), a ragged unaligned one and K 9: dx,
@@ -303,10 +306,13 @@ Phases (any failure exits non-zero):
      model is dropped (less than 1 GiB may stay allocated), the caller's
      cuBLAS setting left at PyTorch's default (the served entry points sum
      bf16 products in f32 themselves, as the reference's dots do):
-     (a) the bf16 instantiations of flash (gemma3-1b's global layer, hd
-     256 GQA 4:1; zamba2-7b's hd 112; moonshot's hd 128 MHA, each B 4 S
-     700 causal; seamless-m4t-medium's encoder, hd 64 S 1024, and its
-     cross attention at Sq 1 over 1,024 frames), of the decode MLP
+     (a) the bf16 flash forward (gemma3-1b's global layer, hd 256 GQA
+     4:1; zamba2-7b's hd 112; moonshot's hd 128 MHA, each B 4 S 700
+     causal; seamless-m4t-medium's encoder, hd 64 S 1024, and its cross
+     attention at Sq 1 over 1,024 frames; and at phase 18's other training
+     layers: deepseek's MLA (192, 128) at S 1024 and MTP hd 56 at S 1023,
+     B 4, 128 heads, and seamless's causal decoder self-attention at S
+     512), the bf16 instantiations of the decode MLP
      (gemma3's, zamba2's and seamless's widths at B 4, 2 and 1) and of
      conv1d (mamba2's and zamba2's xBC slices at B 4 L 768), each against
      its plain version on the same bf16 inputs and both against float64
@@ -546,32 +552,40 @@ def ptxas_report(source: str) -> dict:
 
 def phase_build() -> dict:
     """Every kernel built from the checkout's sources, one nvcc per
-    source, all started together; beside them the flash forward's (fp32
-    and bf16) and backward's ptxas reports, per instantiation (hd / vd).
-    Returns the backward's main kernel's registers and spills at hd
-    256."""
+    source, all started together; beside them the ptxas reports of the
+    flash forward's and backward's fp32 and bf16 sources, per
+    instantiation (hd / vd).  Returns the fp32 backward's main kernel's
+    registers and spills at hd 256."""
     from concurrent.futures import ThreadPoolExecutor
 
     from repro_torch.kernels import _build
 
-    def timed(mod):
+    def timed(lib):
         t0 = time.perf_counter()
-        lib = mod.LIB.build()
-        return lib, time.perf_counter() - t0
+        path = lib.build()
+        return path, time.perf_counter() - t0
 
     # one library a source: the conv1d backward is an entry point of the
-    # conv1d source's library
-    mods = {name: mod for name, mod in kernel_libraries().items() if hasattr(mod, "LIB")}
+    # conv1d source's library; the flash kernels' bf16 instantiations are
+    # sources of their own (`LIB_BF16`)
+    libs = {}
+    for name, mod in kernel_libraries().items():
+        if hasattr(mod, "LIB"):
+            libs[name] = mod.LIB
+        if hasattr(mod, "LIB_BF16"):
+            libs[f"{name}_bf16"] = mod.LIB_BF16
+    sources = (LM_KERNELS["flash_attention"][0], FLASH_BF16_SOURCE, FLASH_BWD_SOURCE,
+               FLASH_BWD_BF16_SOURCE)
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)  # ptxas_report's scratch
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(mods) + 1) as pool:
-        futs = {name: pool.submit(timed, mod) for name, mod in mods.items()}
-        reports = {src: pool.submit(ptxas_report, src)
-                   for src in (LM_KERNELS["flash_attention"][0], FLASH_BWD_SOURCE)}
+    with ThreadPoolExecutor(len(libs) + len(sources)) as pool:
+        futs = {name: pool.submit(timed, lib) for name, lib in libs.items()}
+        reports = {src: pool.submit(ptxas_report, src) for src in sources}
         done = {name: f.result() for name, f in futs.items()}
         reports = {src: f.result() for src, f in reports.items()}
     print(f"build: nvcc {' '.join(_build.NVCC_FLAGS)}")
     for name, (lib, secs) in done.items():
-        print(f"  {name:16s} {os.path.relpath(mods[name].SOURCE, ROOT)} -> "
+        print(f"  {name:24s} {os.path.relpath(libs[name].source, ROOT)} -> "
               f"{os.path.relpath(lib, ROOT)} in {secs:.2f} s")
     print(f"  all {len(done)} kernels built in {time.perf_counter() - t0:.2f} s")
     hd256 = None
@@ -1010,6 +1024,8 @@ FLASH_TIMED = {HD80_LABEL: "flash_attention_hd80", MOON_FLASH_LABEL: "flash_atte
                SEAMLESS_CROSS_TRAIN_LABEL: "flash_attention_seamless_cross_train",
                MLA_FLASH_LABEL: "flash_attention_mla", MTP_FLASH_LABEL: "flash_attention_mtp"}
 STABLELM_CUT = 2  # layers of stablelm-3b at full width in phase 7
+# the flash forward's bf16 instantiation: a source of its own, on wgmma
+FLASH_BF16_SOURCE = "src/repro_torch/kernels/flash_attention/csrc/flash_attention_bf16.cu"
 LM_KERNELS = {
     "conv1d_fused": ("src/repro_torch/kernels/conv1d_fused/csrc/conv1d_fused.cu",
                      "src/repro/kernels/conv1d_fused/kernel.py:24"),
@@ -2322,6 +2338,7 @@ REL_TOL_LSE = 1e-5
 REL_TOL_TRAIN_LOSS = 1e-4  # card vs CPU loss
 REL_TOL_TRAIN_GRAD = 1e-3  # card vs CPU gradient leaves, the reference's net tolerance
 FLASH_BWD_SOURCE = "src/repro_torch/kernels/flash_attention/csrc/flash_attention_bwd.cu"
+FLASH_BWD_BF16_SOURCE = "src/repro_torch/kernels/flash_attention/csrc/flash_attention_bwd_bf16.cu"
 FLASH_BWD_REPLACES = "src/repro/models/flash_attention.py:142"
 DRILL_FAULTS = (12, 21)
 MOON_TRAIN_ATTN = "moonshot train B4 H16 S1024 hd128 causal"
@@ -4158,21 +4175,29 @@ def bf16_kernel_cases(gen) -> list:
     from repro_torch.kernels.flash_attention import attention_ref, flash_forward
 
     cases = []
-    for label, b, hq, hkv, sq, sk, hd, causal, served in (
-        ("gemma3 global B4 H4/1 S700 hd256 causal", 4, 4, 1, 700, 700, 256, True, True),
-        ("zamba2 B4 H32 S700 hd112 causal", 4, 32, 32, 700, 700, 112, True, False),
-        ("moonshot B4 H16 S700 hd128 causal", 4, 16, 16, 700, 700, 128, True, False),
-        ("seamless encoder B4 H16 S1024 hd64", 4, 16, 16, 1024, 1024, 64, False, False),
-        ("seamless cross B4 H16 Sq1 Sk1024 hd64", 4, 16, 16, 1, 1024, 64, False, False),
+    # the served layers, then the forward at the bf16 backward's other
+    # training layers (TRAIN_ATTN_LAYERS): MLA's (192, 128), the MTP
+    # block's 56 and seamless's causal decoder self-attention
+    for label, b, hq, hkv, sq, sk, hd, vd, causal, served in (
+        ("gemma3 global B4 H4/1 S700 hd256 causal", 4, 4, 1, 700, 700, 256, 256, True, True),
+        ("zamba2 B4 H32 S700 hd112 causal", 4, 32, 32, 700, 700, 112, 112, True, False),
+        ("moonshot B4 H16 S700 hd128 causal", 4, 16, 16, 700, 700, 128, 128, True, False),
+        ("seamless encoder B4 H16 S1024 hd64", 4, 16, 16, 1024, 1024, 64, 64, False, False),
+        ("seamless cross B4 H16 Sq1 Sk1024 hd64", 4, 16, 16, 1, 1024, 64, 64, False, False),
+        ("deepseek MLA B4 H128 S1024 hd192/128 causal", 4, 128, 128, 1024, 1024, 192, 128, True,
+         False),
+        ("deepseek MTP B4 H128 S1023 hd56 causal", 4, 128, 128, 1023, 1023, 56, 56, True, False),
+        ("seamless decoder self B4 H16 S512 hd64 causal", 4, 16, 16, 512, 512, 64, 64, True,
+         False),
     ):
         # the model's (B, S, H, hd), viewed as (B, H, S, hd)
         q = _bf16(gen, (b, sq, hq, hd)).transpose(1, 2)
         k = _bf16(gen, (b, sk, hkv, hd)).transpose(1, 2)
-        v = _bf16(gen, (b, sk, hkv, hd)).transpose(1, 2)
+        v = _bf16(gen, (b, sk, hkv, vd)).transpose(1, 2)
         qc = q.contiguous()
         kr = k.repeat_interleave(hq // hkv, 1).contiguous()
         vr = v.repeat_interleave(hq // hkv, 1).contiguous()
-        fc = flash_pkg.cost(b, hq, hkv, sq, sk, hd, hd, causal=causal, window=0, itemsize=2)
+        fc = flash_pkg.cost(b, hq, hkv, sq, sk, hd, vd, causal=causal, window=0, itemsize=2)
         cases.append(dict(
             kernel="flash_attention", label=label, served=served,
             run=lambda q=q, k=k, v=v, c=causal: flash_forward(q, k, v, causal=c),
@@ -4263,7 +4288,12 @@ def bf16_kernels(smi: str) -> dict:
         abs_kp = float((y1.double() - ref.double()).abs().max())
         del y1, y2, ref, f64
         k_ms, p_ms = time_ms(c["run"]), time_ms(c["plain"], reps=5)
-        l_ms = time_ms(c["library"]) if c["library"] is not None else None
+        l_ms, l_note = None, c["library_note"]
+        if c["library"] is not None:
+            try:
+                l_ms = time_ms(c["library"])
+            except RuntimeError as e:  # a shape the library refuses: the row says so
+                l_note += f" (refused: {str(e).splitlines()[0][:100]})"
         d_ms = device_ms(c["run"], c["device_key"])
         b_ms, b_by = c["bound"]
         lib = f"{l_ms:.4f} ms" if l_ms is not None else "-"
@@ -4271,13 +4301,13 @@ def bf16_kernels(smi: str) -> dict:
         print(f"bf16 {c['kernel']:15s} {c['label']:42s} err vs f64 kernel {err_k:.3e} plain "
               f"{err_p:.3e} (limit {2 * err_p + ulp:.3e}: 2x plain + 1 ulp {ulp:.3e}); "
               f"kernel vs plain {abs_kp:.3e}; bitwise twice {twice}; kernel {k_ms:.4f} ms "
-              f"(device {dev})  plain {p_ms:.4f} ms  library {lib} ({c['library_note']})  "
-              f"bound {b_ms:.4f} ms ({b_by})")
+              f"(device {dev})  plain {p_ms:.4f} ms  library {lib} ({l_note})  "
+              f"bound {b_ms:.4f} ms ({b_by}); card {smi}")
         if not (err_k <= 2 * err_p + ulp and twice):
             raise AssertionError(f"bf16 {c['label']}: kernel err {err_k:.3e} vs plain "
                                  f"{err_p:.3e} + ulp {ulp:.3e}, bitwise twice {twice}")
         row = dict(shape=c["label"], ms=k_ms, device_ms=d_ms, plain_ms=p_ms, library_ms=l_ms,
-                   library_note=c["library_note"], bound_ms=b_ms, bound_by=b_by,
+                   library_note=l_note, bound_ms=b_ms, bound_by=b_by,
                    max_abs_err_vs_f64=err_k, plain_max_abs_err_vs_f64=err_p,
                    max_abs_err=abs_kp)
         r = rows.setdefault(c["kernel"], dict(shapes=[], max_abs_err=0.0))
@@ -5800,12 +5830,17 @@ def main(argv=None) -> int:
     bf16_paths.update({f"train {name} bf16": r["launches"] for name, r in btrain["runs"].items()})
     paths.update(bf16_paths)
 
+    bf16_sources = {"flash_attention": FLASH_BF16_SOURCE,
+                    "flash_attention_bwd": FLASH_BWD_BF16_SOURCE,
+                    "conv1d_fused_bwd": LM_KERNELS["conv1d_fused"][0]}
+
     def bf16_entry(kernel):
-        """The kernel's bf16 instantiation: its launches on the bf16 serving
-        runs, its served row's numbers and every bf16 shape's."""
+        """The kernel's bf16 instantiation: its source, its launches on the
+        bf16 serving runs, its served row's numbers and every bf16 shape's."""
         rows = (bf16 if kernel in bf16["kernels"] else btrain)["kernels"][kernel]
         by = {path: n.get(kernel, 0) for path, n in bf16_paths.items() if n.get(kernel, 0)}
-        return dict(launches=sum(by.values()), launches_by_path=by,
+        source = bf16_sources[kernel] if kernel in bf16_sources else LM_KERNELS[kernel][0]
+        return dict(route="cuda", source=source, launches=sum(by.values()), launches_by_path=by,
                     **{**rows.get("served", rows["shapes"][0]), "max_abs_err": rows["max_abs_err"]},
                     shapes=rows["shapes"])
 

@@ -14,6 +14,7 @@ import ctypes
 import hashlib
 import os
 import pathlib
+import re
 import shutil
 import subprocess
 import tempfile
@@ -27,6 +28,9 @@ BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "repro_torch
 # concurrently, and an unguarded read-add-write on a module global can
 # lose counts
 COUNT_LOCK = threading.Lock()
+
+# a quoted include: a header of the repository, relative to the includer
+_INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -45,6 +49,21 @@ def refuse_grad(kernel: str, roadmap: str, *tensors: torch.Tensor) -> None:
             f"{kernel} has no autograd backward: under grad its output would "
             f"carry no gradient ({roadmap})"
         )
+
+
+def source_text(path: pathlib.Path, seen: Optional[set] = None) -> bytes:
+    """A source's bytes followed by those of every header it includes by a
+    quoted path, recursively, each once: what a build depends on."""
+    path = pathlib.Path(path).resolve()
+    seen = set() if seen is None else seen
+    seen.add(path)
+    text = path.read_bytes()
+    out = [text]
+    for name in _INCLUDE.findall(text.decode()):
+        header = (path.parent / name).resolve()
+        if header not in seen:
+            out.append(source_text(header, seen))
+    return b"".join(out)
 
 
 def nvcc() -> str:
@@ -81,10 +100,11 @@ class CudaLibrary:
         self._lock = threading.Lock()
 
     def library_path(self) -> pathlib.Path:
-        """Build output, named by the source's content hash so an edited
-        source never loads a stale library."""
+        """Build output, named by the content hash of the source and the
+        headers it includes, so an edited source or header never loads a
+        stale library."""
         digest = hashlib.sha1(
-            self.source.read_bytes() + " ".join(NVCC_FLAGS).encode()
+            source_text(self.source) + " ".join(NVCC_FLAGS).encode()
         )
         return BUILD_DIR / f"lib{self.stem}-{digest.hexdigest()[:12]}.so"
 

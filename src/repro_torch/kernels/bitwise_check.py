@@ -189,7 +189,9 @@ class _EarlierBwd:
 
     def __init__(self, path: pathlib.Path):
         text = path.read_text()
-        sig = text[text.index('extern "C" int flash_attention_bwd_launch('):]
+        at = text.find('extern "C" int flash_attention_bwd_launch(')
+        # sources whose entry points one macro wrote, one an element type
+        sig = text[at if at >= 0 else text.index('extern "C" int NAME('):]
         self.one_dim = "int vd" not in sig[:sig.index(")")]
         drop = [self._VD] if self.one_dim else []
         self.lib = _build.CudaLibrary(path, "flash_attention_bwd_old", {

@@ -1,23 +1,25 @@
 """The CUDA flash-attention backward kernel's wrapper: build, bind,
 validate, schedule, launch.
 
-`csrc/flash_attention_bwd.cu` is compiled with nvcc for sm_90a on first
-use (`kernels._build`).  `flash_attention_bwd_call` takes CUDA tensors
-only and raises on anything the kernel does not take; the plain version
-of the same function is `ref.flash_attention_bwd_ref`.  `LAUNCHES`
-counts the wrapper's calls that launched the kernel (each launches the
-source's two kernels: delta, then the main kernel).  fp32 inputs launch
-the fp32 instantiation (`flash_attention_bwd_launch`, split-TF32), bf16
-inputs the bf16 one (`flash_attention_bwd_bf16_launch`: bf16 P for dV,
-the gradients rounded once to bf16), as `kernel.ENTRY` selects the
+`csrc/flash_attention_bwd.cu` (fp32) and `csrc/flash_attention_bwd_bf16.cu`
+(bf16, on warpgroup `wgmma`, with `csrc/hopper.cuh`) are compiled with
+nvcc for sm_90a on first use (`kernels._build`).
+`flash_attention_bwd_call` takes CUDA tensors only and raises on
+anything the kernel does not take; the plain version of the same
+function is `ref.flash_attention_bwd_ref`.  `LAUNCHES` counts the
+wrapper's calls that launched the kernel (each launches the source's two
+kernels: delta, then the main kernel).  fp32 inputs launch the fp32
+kernel (`flash_attention_bwd_launch`, `LIB`, split-TF32), bf16 inputs
+the bf16 one (`flash_attention_bwd_bf16_launch`, `LIB_BF16`: bf16 P for
+dV, the gradients rounded once to bf16), as `kernel.ENTRY` selects the
 forward's; nothing else is taken.
 
 The main kernel runs one block per item of `work_list`: a dK/dV item
-(32 keys of one batch and kv head, over its group's q heads) or a dQ
-item (32 q rows of one batch and q head), each with the band of tiles
-it walks.  The list is built here, in plain Python that the CPU tests
-hold against the band mask, memoised per shape and copied to the card
-once per shape and device.
+(`TILES[dtype]` keys of one batch and kv head, over its group's q heads:
+32 at fp32, 64 at bf16) or a dQ item (as many q rows of one batch and q
+head), each with the band of tiles it walks.  The list is built here, in
+plain Python that the CPU tests hold against the band mask, memoised per
+shape and element type and copied to the card once per shape and device.
 
 Like the forward, the kernel addresses every tensor by (batch, head,
 sequence) strides with the head dim contiguous: the model's transposed
@@ -36,16 +38,33 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.flash_attention.kernel import HEAD_DIMS, _check, band_pairs
+from repro_torch.kernels.flash_attention.kernel import (
+    CHECKED,
+    HEAD_DIMS,
+    _check,
+    band_pairs,
+    check_aligned,
+    checked,
+    head_major,
+    signature,
+)
 
 LAUNCHES = 0  # wrapper calls that launched the kernel since import (or a reset)
 
-TILE = 32  # the kernel's kB: keys of a dK/dV item and q rows of a dQ item, at every hd
+# each kernel's kB: keys of a dK/dV item and q rows of a dQ item (and of
+# their steps), at every hd: the fp32 kernel's mma.sync tiles, the bf16
+# kernel's 64-row warpgroup tiles
+TILES = {torch.float32: 32, torch.bfloat16: 64}
+TILE = TILES[torch.float32]
 DKDV, DQ = 0, 1  # item roles
-# products a tile step does: S, dP, dV, dK for a dK/dV item; S, dP, dQ for a dQ item
-PRODUCTS = {DKDV: 4, DQ: 3}
+# products a tile step does: S, dP, dV, dK for a dK/dV item and S, dP, dQ
+# for a dQ item; at bf16 dK and dQ take two each (dS as bf16 hi and lo)
+STEP_PRODUCTS = {torch.float32: {DKDV: 4, DQ: 3}, torch.bfloat16: {DKDV: 5, DQ: 4}}
+PRODUCTS = STEP_PRODUCTS[torch.float32]
+
 
 SOURCE = pathlib.Path(__file__).parent / "csrc" / "flash_attention_bwd.cu"
+SOURCE_BF16 = SOURCE.with_name("flash_attention_bwd_bf16.cu")
 # `flash_attention_bwd_launch`'s C signature, in order (the stream is appended)
 ARGTYPES = (
     [ctypes.c_void_p] * 11  # q, k, v, o, lse, dO, dq, dk, dv, delta scratch, work list
@@ -54,21 +73,26 @@ ARGTYPES = (
     + [ctypes.c_int] * 2  # causal, window
     + [ctypes.c_float, ctypes.c_void_p]  # scale, stream
 )
-LIB = _build.CudaLibrary(
-    SOURCE, "flash_attention_bwd",
-    {"flash_attention_bwd_launch": ARGTYPES, "flash_attention_bwd_bf16_launch": ARGTYPES},
-)
+LIB = _build.CudaLibrary(SOURCE, "flash_attention_bwd", {"flash_attention_bwd_launch": ARGTYPES})
+LIB_BF16 = _build.CudaLibrary(SOURCE_BF16, "flash_attention_bwd_bf16",
+                              {"flash_attention_bwd_bf16_launch": ARGTYPES})
 # the entry point of each element type the kernel takes
 ENTRY = {torch.float32: "flash_attention_bwd_launch",
          torch.bfloat16: "flash_attention_bwd_bf16_launch"}
 
+
+def library(dtype: torch.dtype) -> _build.CudaLibrary:
+    """The library of `dtype`'s entry point (read at call time, so that a
+    caller may swap `LIB` for an earlier source's)."""
+    return LIB if dtype == torch.float32 else LIB_BF16
+
 Item = Tuple[int, int, int, int, int]  # (role, batch * heads + head, block, lo, hi)
 
 
-def _tiles(lo: int, hi: int) -> Tuple[int, int]:
-    """The TILE-row tiles that hold rows [lo, hi), as [first, end); (0, 0)
+def _tiles(lo: int, hi: int, tile: int) -> Tuple[int, int]:
+    """The `tile`-row tiles that hold rows [lo, hi), as [first, end); (0, 0)
     when the range is empty."""
-    return (lo // TILE, -(-hi // TILE)) if hi > lo else (0, 0)
+    return (lo // tile, -(-hi // tile)) if hi > lo else (0, 0)
 
 
 def item_steps(item: Item, group: int) -> int:
@@ -81,9 +105,9 @@ def item_steps(item: Item, group: int) -> int:
 @functools.lru_cache(maxsize=64)
 def work_list(
     b: int, hq: int, hkv: int, sq: int, sk: int, hd: int, causal: bool, window: int,
-    vd: Optional[int] = None,
+    vd: Optional[int] = None, dtype: torch.dtype = torch.float32,
 ) -> Tuple[Item, ...]:
-    """The main kernel's items, longest first.
+    """The main kernel's items for `dtype`'s kernel, longest first.
 
     A dK/dV item (DKDV, b * hkv + kv head, key block, lo, hi) walks q
     tiles [lo, hi) of each of its group's q heads; a dQ item (DQ, b * hq
@@ -92,29 +116,41 @@ def work_list(
     item's block under `ref.band_mask`, so every (q tile, kv tile) pair
     of the band is one step of exactly one item of each role.  Every
     block has an item, also when its range is empty (it writes zeros).
-    Sorted by tile steps times `PRODUCTS` a step, longest first, ties in
-    (role, head, block) order; the tile is TILE at every head dim (`hd`,
-    and v's `vd`, hd when not given, are checked, not used).
+    Sorted by tile steps times `STEP_PRODUCTS[dtype]` a step, longest
+    first, ties in (role, head, block) order -- where `head_major`, within
+    each (batch, kv head), the (batch, kv heads) in that order; the tile is
+    `TILES[dtype]` at every head dim (`hd`, and v's `vd`, hd when not
+    given, are checked, not used).
     """
     vd = hd if vd is None else vd
-    if (hd, vd) not in HEAD_DIMS or hq % hkv or min(b, hq, hkv, sq, sk) < 1:
+    if ((hd, vd) not in HEAD_DIMS or hq % hkv or min(b, hq, hkv, sq, sk) < 1
+            or dtype not in TILES):
         raise ValueError(f"no work list for b {b}, hq {hq}, hkv {hkv}, sq {sq}, sk {sk}, "
-                         f"hd {hd}, vd {vd}")
+                         f"hd {hd}, vd {vd}, {dtype}")
+    tile, products = TILES[dtype], STEP_PRODUCTS[dtype]
     items = []
-    for kb in range(-(-sk // TILE)):
-        k0, k1 = kb * TILE, min(kb * TILE + TILE, sk) - 1  # the block's first and last key
+    for kb in range(-(-sk // tile)):
+        k0, k1 = kb * tile, min(kb * tile + tile, sk) - 1  # the block's first and last key
         r_lo = k0 if causal else 0  # rows that see one of its keys: [r_lo, r_hi)
         r_hi = min(sq, k1 + window) if window > 0 else sq
-        lo, hi = _tiles(r_lo, r_hi)
+        lo, hi = _tiles(r_lo, r_hi, tile)
         items += [(DKDV, bh, kb, lo, hi) for bh in range(b * hkv)]
-    for qb in range(-(-sq // TILE)):
-        r0, r1 = qb * TILE, min(qb * TILE + TILE, sq) - 1  # the block's first and last row
+    for qb in range(-(-sq // tile)):
+        r0, r1 = qb * tile, min(qb * tile + tile, sq) - 1  # the block's first and last row
         k_lo = max(0, r0 - window + 1) if window > 0 else 0  # keys it sees: [k_lo, k_hi)
         k_hi = min(sk, r1 + 1) if causal else sk
-        lo, hi = _tiles(k_lo, k_hi)
+        lo, hi = _tiles(k_lo, k_hi, tile)
         items += [(DQ, bh, qb, lo, hi) for bh in range(b * hq)]
     group = hq // hkv
-    items.sort(key=lambda it: (-item_steps(it, group) * PRODUCTS[it[0]], it[:3]))
+
+    def order(it: Item) -> tuple:
+        return (-item_steps(it, group) * products[it[0]], it[:3])
+
+    def kv_head(it: Item) -> int:  # batch * hkv + kv head
+        return it[1] if it[0] == DKDV else it[1] // hq * hkv + it[1] % hq // group
+
+    grouped = head_major(b, hkv, sk, hd, vd, dtype)
+    items.sort(key=(lambda it: (kv_head(it),) + order(it)) if grouped else order)
     return tuple(items)
 
 
@@ -124,7 +160,8 @@ def flops(b: int, hq: int, sq: int, sk: int, hd: int, causal: bool, window: int,
     pair, per (batch, q head) -- three of 2 hd FLOPs (S, dK, dQ) and two of
     2 vd (dP, dV), vd = hd when not given.  The kernel does seven (S and dP
     again in its dQ items) and computes whole 32 x 32 tiles at the band's
-    edge; a bound counts only these."""
+    edge (the bf16 kernel nine, with dK's and dQ's hi and lo, on 64 x 64
+    tiles); a bound counts only these."""
     vd = hd if vd is None else vd
     return 2 * (3 * hd + 2 * vd) * b * hq * band_pairs(sq, sk, causal, window)
 
@@ -144,7 +181,8 @@ def cost(b: int, hq: int, hkv: int, sq: int, sk: int, hd: int, vd: int, *, causa
 def _device_items(key: tuple, device: torch.device) -> torch.Tensor:
     """`work_list(*key)` as the kernel reads it, (n, 4) int32 rows of
     (role | block << 1, head, lo, hi), copied to `device` once per key
-    (the kernel only reads it)."""
+    (the kernel only reads it); the wrapper's key ends in vd and the
+    element type."""
     rows = [(role | blk << 1, bh, lo, hi) for role, bh, blk, lo, hi in work_list(*key)]
     return torch.tensor(rows, dtype=torch.int32).to(device)
 
@@ -177,33 +215,42 @@ def flash_attention_bwd_call(
     """
     global LAUNCHES
     dev, dtype = q.device, q.dtype
-    if dtype not in ENTRY:
-        raise ValueError(f"q must be float32 or bfloat16, got {dtype}")
-    if do.device == dev and do.dtype == dtype and do.ndim == 4 and not _aligned(do):
-        do = do.contiguous()
-    for name, t in (("q", q), ("k", k), ("v", v), ("o", o), ("do", do)):
-        _check(name, t, dev, dtype)
-    b, hq, sq, hd = q.shape
-    hkv, sk, vd = k.shape[1], k.shape[2], v.shape[3]
-    if tuple(k.shape) != (b, hkv, sk, hd) or tuple(v.shape) != (b, hkv, sk, vd):
-        raise ValueError(f"k {tuple(k.shape)} / v {tuple(v.shape)} do not match q {tuple(q.shape)}")
-    if tuple(o.shape) != (b, hq, sq, vd) or tuple(do.shape) != (b, hq, sq, vd):
-        raise ValueError(f"o {tuple(o.shape)} / do {tuple(do.shape)} do not match q "
-                         f"{tuple(q.shape)} and v {tuple(v.shape)}")
-    if hq % hkv:
-        raise ValueError(f"{hq} q heads are not a multiple of {hkv} kv heads")
-    if (hd, vd) not in HEAD_DIMS:
-        raise ValueError(f"head dims (q/k {hd}, v {vd}) are not one of the kernel's "
-                         f"instantiations {HEAD_DIMS}")
-    if (lse.device != dev or lse.dtype != torch.float32 or tuple(lse.shape) != (b, hq, sq)
-            or not lse.is_contiguous()):
-        raise ValueError(f"lse must be the forward's contiguous f32 (B, Hq, Sq) on {dev}")
-    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    for name, t in (("dq", dq), ("dk", dk), ("dv", dv)):
-        _check(name, t, dev, dtype)
+    sig = signature(q, k, v, o, lse, do)
+    if sig in CHECKED and do.data_ptr() % 16 == 0:
+        check_aligned(q, k, v, o)
+        b, hq, sq, hd = q.shape
+        hkv, sk, vd = k.shape[1], k.shape[2], v.shape[3]
+        dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    else:
+        if dtype not in ENTRY:
+            raise ValueError(f"q must be float32 or bfloat16, got {dtype}")
+        if do.device == dev and do.dtype == dtype and do.ndim == 4 and not _aligned(do):
+            do = do.contiguous()
+        for name, t in (("q", q), ("k", k), ("v", v), ("o", o), ("do", do)):
+            _check(name, t, dev, dtype)
+        b, hq, sq, hd = q.shape
+        hkv, sk, vd = k.shape[1], k.shape[2], v.shape[3]
+        if tuple(k.shape) != (b, hkv, sk, hd) or tuple(v.shape) != (b, hkv, sk, vd):
+            raise ValueError(f"k {tuple(k.shape)} / v {tuple(v.shape)} do not match q "
+                             f"{tuple(q.shape)}")
+        if tuple(o.shape) != (b, hq, sq, vd) or tuple(do.shape) != (b, hq, sq, vd):
+            raise ValueError(f"o {tuple(o.shape)} / do {tuple(do.shape)} do not match q "
+                             f"{tuple(q.shape)} and v {tuple(v.shape)}")
+        if hq % hkv:
+            raise ValueError(f"{hq} q heads are not a multiple of {hkv} kv heads")
+        if (hd, vd) not in HEAD_DIMS:
+            raise ValueError(f"head dims (q/k {hd}, v {vd}) are not one of the kernel's "
+                             f"instantiations {HEAD_DIMS}")
+        if (lse.device != dev or lse.dtype != torch.float32 or tuple(lse.shape) != (b, hq, sq)
+                or not lse.is_contiguous()):
+            raise ValueError(f"lse must be the forward's contiguous f32 (B, Hq, Sq) on {dev}")
+        dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+        for name, t in (("dq", dq), ("dk", dk), ("dv", dv)):
+            _check(name, t, dev, dtype)
+        checked(signature(q, k, v, o, lse, do))
     delta = torch.empty((b, hq, sq), dtype=torch.float32, device=dev)
-    items = _device_items((b, hq, hkv, sq, sk, hd, bool(causal), int(window), vd), dev)
-    LIB.launch(
+    items = _device_items((b, hq, hkv, sq, sk, hd, bool(causal), int(window), vd, dtype), dev)
+    library(dtype).launch(
         ENTRY[dtype], dev,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
         do.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), delta.data_ptr(),

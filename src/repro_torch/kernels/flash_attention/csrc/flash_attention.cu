@@ -72,36 +72,14 @@
 // sequence) strides with hd contiguous, so the model's (B, S, H, hd) layout
 // is read and written in place.
 //
-// bf16 (`flash_attention_bf16_launch`; the element type T is the kernel's
-// third template parameter): the same kernel at bf16 in and out, what the
-// Pallas kernel computes at bf16
-// input (q and k upcast, f32 scores and softmax statistics, P cast to v's
-// dtype for P.V with f32 accumulation, o rounded once).  Both products run
-// on mma.sync.m16n8k16 bf16 with f32 accumulators: a bf16 product is exact
-// in f32, so each is the reference's f32 dot of upcast values up to the
-// order of its sum.  The scale hd^-0.5 multiplies the f32 scores; the
-// reference scales f32 q first, one f32 rounding apart.  P = exp(s - m) is
-// rounded to bf16 (__float2bfloat16_rn) straight from the QK^T accumulators
-// into P.V's A fragments (m16n8k16's C layout of two n-tiles is the A
-// layout of one k-step); l sums the unrounded f32 P, as the reference's.
-// Tiles are bf16 in shared memory (rows padded by 8 values, 16 bytes, so
-// the 8 rows of an ldmatrix phase fall on 8 distinct 16-byte bank groups),
-// fragments come from ldmatrix (V through .trans).  Only the products
-// (`qk_half`, `pv_half`) and the output store (`store_half`) differ by T;
-// the pairs, ring, band skip, mask, online softmax, lse and schedule are one
-// body for both.  A pair's warps split
-// QK^T's 16-wide k-steps and P.V's 16-wide column groups, the first taking
-// the larger half of an odd count (hd 16, 80, 112).  hd 256 takes 117,760 B
-// of shared memory (half the fp32 tiles' plus the score exchange).
+// The bf16 instantiation is a kernel of its own, on warpgroup `wgmma`
+// (`flash_attention_bf16.cu`).
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
 namespace {
-
-using bf16 = __nv_bfloat16;
 
 constexpr int kRowWarps = 4;  // warps along the q rows, 16 rows each
 constexpr int kWarps = 2 * kRowWarps;  // a pair of warps per 16 rows splits hd
@@ -124,47 +102,41 @@ __host__ __device__ constexpr int chunk(int p) {
 __host__ __device__ constexpr int padded(int d) { return (d + 15) / 16 * 16; }
 
 // DK: the head dim of q and K (QK^T's reduction); DV: that of V and the
-// output (MLA's 192 and 128); T: the element type of q, k, v and o (float
-// or bf16).  A width that is not a multiple of 16 (the MTP block's 56) is
-// padded to the next one in shared memory with its columns past D
-// zero-filled, so they add nothing to QK^T, and the output columns past DV
-// are not stored
-template <int DK, int DV, typename T = float>
+// output (MLA's 192 and 128).  A width that is not a multiple of 16 (the
+// MTP block's 56) is padded to the next one in shared memory with its
+// columns past D zero-filled, so they add nothing to QK^T, and the output
+// columns past DV are not stored
+template <int DK, int DV>
 struct Cfg {
   static_assert(DK % 8 == 0 && DV % 8 == 0, "the head dims must be multiples of 8");
-  static constexpr int kU = 16 / (int)sizeof(T);  // values in a 16-byte unit
+  static constexpr int kU = 4;  // floats in a 16-byte unit
   static constexpr int PK = padded(DK), PV = padded(DV);
   static constexpr int LDK = PK + kU, LDV = PV + kU;  // smem rows padded by one unit
-  // fp32, QK^T: chunks of DCK columns, EK floats a thread loads per row and
+  // QK^T: chunks of DCK columns, EK floats a thread loads per row and
   // chunk, NTK k-steps a chunk, NHK chunks for each warp of a pair
   static constexpr int DCK = chunk(PK), EK = DCK / 4, NTK = DCK / 8, NHK = PK / DCK / 2;
-  // fp32, P.V: chunks of DCV columns, NTV n-tiles a chunk, NHV chunks a warp
+  // P.V: chunks of DCV columns, NTV n-tiles a chunk, NHV chunks a warp
   static constexpr int DCV = chunk(PV), NTV = DCV / 8, NHV = PV / DCV / 2;
   static_assert(DV % (2 * NTV) == 0, "a thread's output columns are all stored or none");
-  // bf16, QK^T: NK k-steps of 16 columns, the pair's first warp takes NK0 of
-  // them; P.V: NV groups of 16 output columns (two n-tiles), the first warp NV0
-  static constexpr int NK = PK / 16, NK0 = (NK + 1) / 2;
-  static constexpr int NV = PV / 16, NV0 = (NV + 1) / 2;
   // the P.V accumulator n-tiles a thread holds
-  static constexpr int kAcc = sizeof(T) == 2 ? 2 * NV0 : NHV * NTV;
+  static constexpr int kAcc = NHV * NTV;
   static constexpr int kQ = kBq * LDK;               // values of the q tile
   static constexpr int kK = kBk * LDK;               // values of one K tile
   static constexpr int kV = kBk * LDV;               // values of one V tile
   static constexpr int kX = kWarps * 16 * 32;        // floats of the score exchange
-  // fp32: HD 64, 80 and 112, the padded 56 and MLA's (192, 128) sum each
+  // HD 64, 80 and 112, the padded 56 and MLA's (192, 128) sum each
   // chunk's QK^T and each kv step's P.V in a fresh accumulator and add it to
   // the running one in f32; the other head dims keep their single chains,
   // bit for bit (see Numerics)
   static constexpr bool kFreshAcc =
       DK == 64 || DK == 80 || DK == 112 || DK != DV || DK != PK;
-  static constexpr int kTiles = (int)sizeof(T) * (kQ + kStages * (kK + kV));  // bytes
+  static constexpr int kTiles = (int)sizeof(float) * (kQ + kStages * (kK + kV));  // bytes
   static_assert(kTiles % 16 == 0, "the score exchange starts on a 16-byte boundary");
   static constexpr int smem = kTiles + (int)sizeof(float) * kX;
   static_assert(smem <= 232448, "over sm_90's opt-in shared memory per block");
 };
 
-template <typename T>
-__device__ __forceinline__ void cp_async16(T* dst, const T* src, bool valid) {
+__device__ __forceinline__ void cp_async16(float* dst, const float* src, bool valid) {
   // src-size 0 fills the 16 bytes with zeros (rows past Sq / Sk)
   const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src),
@@ -181,7 +153,7 @@ __device__ __forceinline__ void pair_sync(int row_warp) {
   asm volatile("bar.sync %0, 64;\n" ::"r"(1 + row_warp) : "memory");
 }
 
-// ------------------------------------------------- fp32: split TF32 products
+// ------------------------------------------------------ split TF32 products
 
 __device__ __forceinline__ uint32_t tf32(float x) {
   uint32_t r;
@@ -244,7 +216,7 @@ __device__ __forceinline__ void store_row<2>(float* dst, const float (&src)[2]) 
 template <int DK, int DV>
 __device__ __forceinline__ void qk_half(float (&s)[4][4], const float* qsh, const float* ksh,
                                         int rw, int hf, int lane) {
-  using C = Cfg<DK, DV, float>;
+  using C = Cfg<DK, DV>;
   constexpr int LDK = C::LDK, DCK = C::DCK, EK = C::EK, NTK = C::NTK, NHK = C::NHK;
   const int g = lane >> 2, t = lane & 3;
   const float* qa = qsh + (16 * rw + g) * LDK + hf * NHK * DCK + t * EK;
@@ -284,10 +256,10 @@ __device__ __forceinline__ void qk_half(float (&s)[4][4], const float* qsh, cons
 // k-tile j is s[j] (key 2t -> column t, key 2t + 1 -> column t + 4); V
 // n-tile i of chunk c, column g is V column c * DCV + NTV * g + i
 template <int DK, int DV>
-__device__ __forceinline__ void pv_half(float (&acc)[Cfg<DK, DV, float>::kAcc][4],
+__device__ __forceinline__ void pv_half(float (&acc)[Cfg<DK, DV>::kAcc][4],
                                         const float (&s)[4][4], const float* vsh, int hf,
                                         int lane) {
-  using C = Cfg<DK, DV, float>;
+  using C = Cfg<DK, DV>;
   constexpr int LDV = C::LDV, DCV = C::DCV, NTV = C::NTV, NHV = C::NHV;
   const int g = lane >> 2, t = lane & 3;
   float step[C::kFreshAcc ? NHV * NTV : 1][4];  // this kv step's P.V (kFreshAcc)
@@ -329,9 +301,9 @@ __device__ __forceinline__ void pv_half(float (&acc)[Cfg<DK, DV, float>::kAcc][4
 // thread (g, t) holds, per chunk c of its half, output columns
 // c * DCV + 2t * NTV + [0, 2 NTV) of row g + 8r: stored where they lie below DV
 template <int DK, int DV>
-__device__ __forceinline__ void store_half(float* orow, const float (&acc)[Cfg<DK, DV, float>::kAcc][4],
+__device__ __forceinline__ void store_half(float* orow, const float (&acc)[Cfg<DK, DV>::kAcc][4],
                                            int r, float denom, int hf, int lane) {
-  using C = Cfg<DK, DV, float>;
+  using C = Cfg<DK, DV>;
   constexpr int PV = C::PV, DCV = C::DCV, NTV = C::NTV, NHV = C::NHV;
   const int col = hf * NHV * DCV + 2 * (lane & 3) * NTV;
 #pragma unroll
@@ -347,148 +319,32 @@ __device__ __forceinline__ void store_half(float* orow, const float (&acc)[Cfg<D
   }
 }
 
-// ------------------------------------------------------- bf16: m16n8k16
-
-// four 8 x 8 b16 matrices; lane l gives the address of row l % 8 of matrix
-// l / 8, and register i holds matrix i's (row g, columns 2t, 2t + 1) -- with
-// .trans its (rows 2t, 2t + 1, column g)
-__device__ __forceinline__ void ldsm4(uint32_t (&r)[4], const bf16* p) {
-  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(a)
-               : "memory");
-}
-__device__ __forceinline__ void ldsm4_t(uint32_t (&r)[4], const bf16* p) {
-  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(a)
-               : "memory");
-}
-
-// c += a b, a 16 x 16 and b 16 x 8 bf16, c f32
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, "
-      "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// two f32 rounded to bf16, `lo` in the low half (the smaller column)
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const uint32_t l = __bfloat16_as_ushort(__float2bfloat16_rn(lo));
-  const uint32_t h = __bfloat16_as_ushort(__float2bfloat16_rn(hi));
-  return l | (h << 16);
-}
-
-// s += q k^T for rows (g, g + 8), keys 8j + 2t + {0, 1}, over this warp's
-// k-steps [kk0, kk0 + nkk).  ldmatrix row addresses of this lane: A (q rows
-// 16 rw + l % 16, column half l / 16); B (keys (l % 8) + 8 (l / 16), column
-// half (l / 8) % 2)
-template <int DK, int DV>
-__device__ __forceinline__ void qk_half(float (&s)[4][4], const bf16* qsh, const bf16* ksh,
-                                        int rw, int hf, int lane) {
-  using C = Cfg<DK, DV, bf16>;
-  constexpr int LDK = C::LDK, NK = C::NK, NK0 = C::NK0;
-  const int kk0 = hf ? NK0 : 0, nkk = hf ? NK - NK0 : NK0;
-  const bf16* qa = qsh + (16 * rw + (lane & 15)) * LDK + 8 * (lane >> 4);
-  const bf16* kb = ksh + ((lane & 7) + 8 * (lane >> 4)) * LDK + 8 * ((lane >> 3) & 1);
-#pragma unroll
-  for (int c = 0; c < NK0; ++c) {
-    if (c < nkk) {
-      const int col = 16 * (kk0 + c);
-      uint32_t a[4], b[4];
-      ldsm4(a, qa + col);
-#pragma unroll
-      for (int p = 0; p < 2; ++p) {  // keys 16p .. 16p + 15: n-tiles 2p, 2p + 1
-        ldsm4(b, kb + 16 * p * LDK + col);
-        mma_bf16(s[2 * p], a, b[0], b[1]);
-        mma_bf16(s[2 * p + 1], a, b[2], b[3]);
-      }
-    }
-  }
-}
-
-// acc += bf16(P) V over this warp's column groups [cg0, cg0 + ncg): k-step
-// kk covers keys 16kk .. 16kk + 15, whose A fragment is n-tiles 2kk and
-// 2kk + 1 of s as they stand (rounded to bf16).  B rows of this lane: keys
-// (l % 8) + 8 ((l / 8) % 2), column half l / 16
-template <int DK, int DV>
-__device__ __forceinline__ void pv_half(float (&acc)[Cfg<DK, DV, bf16>::kAcc][4],
-                                        const float (&s)[4][4], const bf16* vsh, int hf,
-                                        int lane) {
-  using C = Cfg<DK, DV, bf16>;
-  constexpr int LDV = C::LDV, NV = C::NV, NV0 = C::NV0;
-  const int cg0 = hf ? NV0 : 0, ncg = hf ? NV - NV0 : NV0;
-  const bf16* v0 = vsh + ((lane & 7) + 8 * ((lane >> 3) & 1)) * LDV + 8 * (lane >> 4);
-#pragma unroll
-  for (int kk = 0; kk < 2; ++kk) {
-    uint32_t a[4];
-    a[0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
-    a[1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
-    a[2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-    a[3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
-    const bf16* vb = v0 + 16 * kk * LDV;
-#pragma unroll
-    for (int c = 0; c < NV0; ++c) {
-      if (c < ncg) {
-        uint32_t b[4];
-        ldsm4_t(b, vb + 16 * (cg0 + c));
-        mma_bf16(acc[2 * c], a, b[0], b[1]);
-        mma_bf16(acc[2 * c + 1], a, b[2], b[3]);
-      }
-    }
-  }
-}
-
-// n-tile 2c + i holds output columns 16 (cg0 + c) + 8i + 2t, + 1 of row
-// g + 8r, each rounded to bf16 once; stored where they lie below DV
-template <int DK, int DV>
-__device__ __forceinline__ void store_half(bf16* orow, const float (&acc)[Cfg<DK, DV, bf16>::kAcc][4],
-                                           int r, float denom, int hf, int lane) {
-  using C = Cfg<DK, DV, bf16>;
-  constexpr int PV = C::PV, NV = C::NV, NV0 = C::NV0;
-  const int cg0 = hf ? NV0 : 0, ncg = hf ? NV - NV0 : NV0;
-#pragma unroll
-  for (int c = 0; c < NV0; ++c) {
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int col = 16 * (cg0 + c) + 8 * i;
-      if (c >= ncg || (DV != PV && col >= DV)) continue;
-      *reinterpret_cast<uint32_t*>(orow + col + 2 * (lane & 3)) =
-          pack_bf16(acc[2 * c + i][2 * r] / denom, acc[2 * c + i][2 * r + 1] / denom);
-    }
-  }
-}
-
 // ------------------------------------------------------------ the kernel
 
-template <int DK, int DV, typename T>
+template <int DK, int DV>
 __global__ void __launch_bounds__(kThreads, 1)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                 T* __restrict__ o, float* __restrict__ lse, int hq, int sq, int sk,
-                 int group, Strides qs, Strides ks, Strides vs, Strides os, int causal,
-                 int window, float scale) {
-  using C = Cfg<DK, DV, T>;
+flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                 const float* __restrict__ v, float* __restrict__ o, float* __restrict__ lse,
+                 int hq, int sq, int sk, int group, Strides qs, Strides ks, Strides vs,
+                 Strides os, int causal, int window, float scale) {
+  using C = Cfg<DK, DV>;
   constexpr int PK = C::PK, PV = C::PV, LDK = C::LDK, LDV = C::LDV, U = C::kU;
   extern __shared__ float4 smem4[];
-  T* qsh = reinterpret_cast<T*>(smem4);  // (kBq, LDK)
-  T* kvsh = qsh + C::kQ;                 // per stage: K (kBk, LDK), V (kBk, LDV)
+  float* qsh = reinterpret_cast<float*>(smem4);  // (kBq, LDK)
+  float* kvsh = qsh + C::kQ;                 // per stage: K (kBk, LDK), V (kBk, LDV)
   // per warp: 16 scores x 32 lanes
   float* xsh = reinterpret_cast<float*>(reinterpret_cast<char*>(smem4) + C::kTiles);
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, t = lane & 3;
   const int rw = warp % kRowWarps;  // the warp's 16 q rows
-  const int hf = warp / kRowWarps;  // its half of the columns (fp32) or k-steps (bf16)
+  const int hf = warp / kRowWarps;  // its half of the columns
   const int h = blockIdx.x % hq, bi = blockIdx.x / hq, hk = h / group;
   const int qb = causal ? gridDim.y - 1 - blockIdx.y : blockIdx.y;
   const int q0 = qb * kBq;
-  const T* qg = q + bi * qs.b + h * qs.h;
-  const T* kg = k + bi * ks.b + hk * ks.h;
-  const T* vg = v + bi * vs.b + hk * vs.h;
+  const float* qg = q + bi * qs.b + h * qs.h;
+  const float* kg = k + bi * ks.b + hk * ks.h;
+  const float* vg = v + bi * vs.b + hk * vs.h;
 
   // band of kv steps this q block can see
   const int kv_end = causal ? min(sk, q0 + kBq) : sk;
@@ -504,8 +360,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
                row_ok && (DK == PK || U * cu < DK));
   }
   auto load_kv = [&](int jb, int st) {
-    T* ksh = kvsh + st * (C::kK + C::kV);
-    T* vsh = ksh + C::kK;
+    float* ksh = kvsh + st * (C::kK + C::kV);
+    float* vsh = ksh + C::kK;
     const int k0 = jb * kBk;
     for (int idx = tid; idx < kBk * PK / U; idx += kThreads) {
       const int r = idx / (PK / U), cu = idx - r * (PK / U);
@@ -540,8 +396,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
     const bool masked_out = k0 >= sk || (causal && k0 > r0 + 15) ||
                             (window > 0 && r0 - (k0 + kBk - 1) >= window);
     if (!masked_out) {  // the same for both warps of the pair
-      const T* ksh = kvsh + st * (C::kK + C::kV);
-      const T* vsh = ksh + C::kK;
+      const float* ksh = kvsh + st * (C::kK + C::kV);
+      const float* vsh = ksh + C::kK;
 
       // s = q k^T for rows (g, g + 8), keys 8j + 2t + {0, 1}: this warp sums
       // its half, then adds the other half from its pair
@@ -635,28 +491,27 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
   }
 }
 
-template <int DK, int DV, typename T>
-int launch(const T* q, const T* k, const T* v, T* o, float* lse, int batch, int hq, int hkv,
-           int sq, int sk, Strides qs, Strides ks, Strides vs, Strides os, int causal,
-           int window, float scale, cudaStream_t stream) {
-  constexpr int smem = Cfg<DK, DV, T>::smem;
+template <int DK, int DV>
+int launch(const float* q, const float* k, const float* v, float* o, float* lse, int batch,
+           int hq, int hkv, int sq, int sk, Strides qs, Strides ks, Strides vs, Strides os,
+           int causal, int window, float scale, cudaStream_t stream) {
+  constexpr int smem = Cfg<DK, DV>::smem;
   // the opt-in above 48 KB is set once per process and instantiation
   static bool opted = false;
   if (!opted) {
     const cudaError_t err = cudaFuncSetAttribute(
-        flash_fwd_kernel<DK, DV, T>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+        flash_fwd_kernel<DK, DV>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return (int)err;
     opted = true;
   }
   const dim3 grid(batch * hq, (sq + kBq - 1) / kBq);
-  flash_fwd_kernel<DK, DV, T><<<grid, kThreads, smem, stream>>>(
+  flash_fwd_kernel<DK, DV><<<grid, kThreads, smem, stream>>>(
       q, k, v, o, lse, hq, sq, sk, hq / hkv, qs, ks, vs, os, causal, window, scale);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-int launch_any(const T* q, const T* k, const T* v, T* o, float* lse, int batch, int hq,
-               int hkv, int sq, int sk, int hd, int vd, long long q_sb, long long q_sh,
+int launch_any(const float* q, const float* k, const float* v, float* o, float* lse, int batch,
+               int hq, int hkv, int sq, int sk, int hd, int vd, long long q_sb, long long q_sh,
                long long q_ss, long long k_sb, long long k_sh, long long k_ss,
                long long v_sb, long long v_sh, long long v_ss, long long o_sb,
                long long o_sh, long long o_ss, int causal, int window, float scale,
@@ -668,7 +523,7 @@ int launch_any(const T* q, const T* k, const T* v, T* o, float* lse, int batch, 
   cudaStream_t s = (cudaStream_t)stream;
 #define FLASH_CASE(DK, DV)                                                            \
   if (hd == DK && vd == DV)                                                           \
-    return launch<DK, DV, T>(q, k, v, o, lse, batch, hq, hkv, sq, sk, qs, ks, vs, os, \
+    return launch<DK, DV>(q, k, v, o, lse, batch, hq, hkv, sq, sk, qs, ks, vs, os, \
                              causal, window, scale, s);
   FLASH_CASE(16, 16)
   FLASH_CASE(32, 32)
@@ -699,19 +554,6 @@ extern "C" int flash_attention_launch(
     long long v_sb, long long v_sh, long long v_ss, long long o_sb,
     long long o_sh, long long o_ss, int causal, int window, float scale,
     void* stream) {
-  return launch_any(q, k, v, o, lse, batch, hq, hkv, sq, sk, hd, vd, q_sb, q_sh, q_ss, k_sb,
-                    k_sh, k_ss, v_sb, v_sh, v_ss, o_sb, o_sh, o_ss, causal, window, scale,
-                    stream);
-}
-
-// The same at bf16: q, k, v and o bf16 (strides in elements, multiples of 8:
-// rows 16-byte aligned), lse f32; the same (hd, vd) pairs.
-extern "C" int flash_attention_bf16_launch(
-    const bf16* q, const bf16* k, const bf16* v, bf16* o, float* lse, int batch, int hq,
-    int hkv, int sq, int sk, int hd, int vd, long long q_sb, long long q_sh, long long q_ss,
-    long long k_sb, long long k_sh, long long k_ss, long long v_sb, long long v_sh,
-    long long v_ss, long long o_sb, long long o_sh, long long o_ss, int causal, int window,
-    float scale, void* stream) {
   return launch_any(q, k, v, o, lse, batch, hq, hkv, sq, sk, hd, vd, q_sb, q_sh, q_ss, k_sb,
                     k_sh, k_ss, v_sb, v_sh, v_ss, o_sb, o_sh, o_ss, causal, window, scale,
                     stream);

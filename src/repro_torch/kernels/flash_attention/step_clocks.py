@@ -41,7 +41,7 @@ COPY = _build.BUILD_DIR.parent / "flash_bwd_step_clocks" / "flash_attention_bwd.
 
 def _edit(text: str, old: str, new: str) -> str:
     if text.count(old) != 1:
-        raise ValueError(f"instrument: the backward source no longer holds {old[:60]!r}")
+        raise ValueError(f"instrument: the source no longer holds {old[:60]!r} once")
     return text.replace(old, new)
 
 

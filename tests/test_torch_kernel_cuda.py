@@ -1073,7 +1073,8 @@ def test_cuda_flash_backward_launches_delta_and_one_main_kernel(cuda_device):
     for e in prof.key_averages():
         if e.device_type == torch.autograd.DeviceType.CUDA and "flash_bwd" in e.key:
             kind = "delta" if "flash_bwd_delta_kernel" in e.key else "main"
-            assert kind == "delta" or "flash_bwd_kernel<float, 256, 256>" in e.key, e.key
+            # the fp32 main kernel: the bf16 one is a source of its own
+            assert kind == "delta" or "flash_bwd_kernel<256, 256>" in e.key, e.key
             counts[kind] = counts.get(kind, 0) + e.count
     assert set(counts) == {"delta", "main"}
     assert all(3 <= c <= 4 for c in counts.values()), counts
@@ -1560,6 +1561,62 @@ def test_cuda_bf16_flash_backward_is_bitwise_over_two_calls(cuda_device):
         one = bwd_kernel.flash_attention_bwd_call(q, k, v, o, lse, do, causal=causal, window=0)
         two = bwd_kernel.flash_attention_bwd_call(q, k, v, o, lse, do, causal=causal, window=0)
         assert all(torch.equal(a, c) for a, c in zip(one, two))
+
+
+# the bf16 kernels' 64-row warpgroup tiles at their edges: Sq and Sk of 1,
+# 63, 65, 127 and 129, causal, windows whose rows see no key, at the head
+# dims that fill a 64-column atom in part (56, 80, 112), GQA g 1, 4 and 8
+BF16_TILE_EDGES = {
+    "Sq1-Sk1": (1, 1, False, 0),
+    "Sq63-Sk65-causal": (63, 65, True, 0),
+    "Sq65-Sk63-causal": (65, 63, True, 0),
+    "Sq127-Sk129": (127, 129, False, 0),
+    "Sq129-Sk127-causal": (129, 127, True, 0),
+    "Sq129-Sk63-w24-no-key-rows": (129, 63, True, 24),
+    "Sq65-Sk129-w70": (65, 129, True, 70),
+}
+
+
+@pytest.mark.parametrize("g", [1, 4, 8])
+@pytest.mark.parametrize("hd", [56, 80, 112])
+@pytest.mark.parametrize("name", sorted(BF16_TILE_EDGES))
+def test_cuda_bf16_flash_tile_edges(cuda_device, name, hd, g):
+    """The bf16 forward and backward at the warpgroup tiles' edges: each
+    output within the bf16 rule against float64 (rows that see no key
+    exactly 0), and bitwise the same twice."""
+    from repro_torch.kernels.flash_attention import attention_ref, flash_attention_bwd_ref
+    from repro_torch.kernels.flash_attention import backward as bwd_kernel
+    from repro_torch.kernels.flash_attention import kernel as flash_kernel
+
+    sq, sk, causal, window = BF16_TILE_EDGES[name]
+    b, hkv = 2, 2
+    hq = hkv * g
+    rng = np.random.default_rng(41)
+    q = _bf16_operand(rng, (b, sq, hq, hd), cuda_device).transpose(1, 2)
+    k = _bf16_operand(rng, (b, sk, hkv, hd), cuda_device).transpose(1, 2)
+    v = _bf16_operand(rng, (b, sk, hkv, hd), cuda_device).transpose(1, 2)
+    do = _bf16_operand(rng, (b, sq, hq, hd), cuda_device).transpose(1, 2)
+    kw = dict(causal=causal, window=window)
+    _bf16_rule(lambda: flash_kernel.flash_attention_call(q, k, v, **kw),
+               lambda: attention_ref(q, k, v, **kw),
+               lambda: _f64_attention(q, k, v, causal, window))
+    o, lse = flash_kernel.flash_attention_call(q, k, v, return_lse=True, **kw)
+    unseen = torch.arange(sq, device=cuda_device) - window + 1 >= sk if window else None
+    if unseen is not None and unseen.any():
+        assert (o[:, :, unseen] == 0).all() and (lse[:, :, unseen] == 0).all()
+    run = lambda: bwd_kernel.flash_attention_bwd_call(q, k, v, o, lse, do, **kw)
+    plain = lambda: flash_attention_bwd_ref(q, k, v, o, lse, do, **kw)
+    exact = lambda: _f64_attention_grads(q, k, v, do, causal, window)
+    if sk > 1:
+        _bf16_grad_rule(run, plain, exact)
+        return
+    # one key: P = 1 and dS = dP - delta = 0 up to f32 rounding of the two
+    # sums, so dQ and dK are zero up to it (the relative rule has no scale
+    # there); dV = sum of dO over the rows is held to the rule
+    dq, dk, dv = run()
+    assert all(torch.equal(a, b) for a, b in zip((dq, dk, dv), run()))
+    assert float(dq.abs().max()) < 1e-5 and float(dk.abs().max()) < 1e-5
+    _bf16_grad_rule(lambda: run()[2:], lambda: plain()[2:], lambda: exact()[2:])
 
 
 def test_cuda_float16_under_grad_still_raises(cuda_device):
