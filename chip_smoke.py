@@ -312,11 +312,13 @@ Phases (any failure exits non-zero):
      attention at Sq 1 over 1,024 frames; and at phase 18's other training
      layers: deepseek's MLA (192, 128) at S 1024 and MTP hd 56 at S 1023,
      B 4, 128 heads, and seamless's causal decoder self-attention at S
-     512), the bf16 instantiations of the decode MLP
-     (gemma3's, zamba2's and seamless's widths at B 4, 2 and 1) and of
-     conv1d (mamba2's and zamba2's xBC slices at B 4 L 768), each against
-     its plain version on the same bf16 inputs and both against float64
-     from those inputs: the kernel's max error at most twice the plain
+     512), the bf16 instantiations of the decode MLP (gemma3's, zamba2's
+     and seamless's widths at B 4, 2 and 1; gemma3's also timed with its
+     weights rotated over 5 copies, read from HBM as a served step over 26
+     layers reads them) and of conv1d (mamba2's and zamba2's xBC slices
+     at B 4 L 768), each against its plain version on the same bf16
+     inputs and both against float64 from those inputs: the kernel's max
+     error at most twice the plain
      version's plus one bf16 ulp of max |out|, and bitwise the same twice;
      each one's time (CUDA events; device time by the profiler), the plain
      version's, the library's (SDPA in bf16, `is_causal` where causal;
@@ -342,11 +344,13 @@ Phases (any failure exits non-zero):
      and g 4 on S 300 with a window, non-causal Sq != Sk, rows that see no
      key, and phase 13's training layers: gemma3's global and local,
      moonshot's hd 128, deepseek's MLA (192, 128) and MTP hd 56,
-     seamless's cross, encoder and decoder) and of the conv1d backward
-     (mamba2's and zamba2's training slices at B 4 L 1024, a ragged one, K
-     9), each against its plain version on the same bf16 inputs (the
-     flash backward fed the bf16 forward kernel's o and lse) and both
-     against float64 from those inputs: every gradient's max error at
+     seamless's cross, encoder and decoder) and the bf16 conv1d backward
+     (`conv1d_fused_bwd_bf16.cu`, a TMA stream; mamba2's and zamba2's
+     training slices at B 4 L 1024, a ragged unaligned one on zero-padded
+     copies, K 9 on the segment-walk kernel it keeps), each against its
+     plain version on the same bf16 inputs (the flash backward fed the
+     bf16 forward kernel's o and lse) and both against float64 from
+     those inputs: every gradient's max error at
      most twice the plain version's plus one bf16 ulp of its max, bitwise
      the same twice; at the training shapes each one's time (events,
      device time), the plain version's, the library's (SDPA's bf16
@@ -358,9 +362,10 @@ Phases (any failure exits non-zero):
      and ms beside this run's fp32 steps (phase 13) and the fp32 steps of
      record (PERF.md), peak memory, every launch count held exactly
      (flash 26 x 2 x 6 and its backward 26 x 6; conv1d 48 x 2 x 6 and its
-     backward 48 x 6), every loss finite and batch 0's loss after the 6
-     steps below its loss at step 0, one profiled warm step (wall, busy,
-     idle share).  (c) each
+     backward 48 x 6), every loss finite and the mean loss of the 6
+     steps' batches after the steps below their mean at init (batch 0's
+     own printed beside it), one profiled warm step (wall, busy, idle
+     share).  (c) each
      cut to its first 2 layers at full width, seed 0, B 1 (gemma3 S 576,
      mamba2 S 512), card against CPU in bf16 under `f32_accumulation` as
      the train step runs: the loss within rel 1e-2 and every gradient leaf
@@ -412,6 +417,13 @@ Phases (any failure exits non-zero):
      all-reduce's.  `python3 chip_smoke.py --phase 20` runs phases 1, 2
      and 20 alone and prints no result line.
 
+`python3 chip_smoke.py --phase 3` runs phase 1 and then phase 3's tile
+kernel cases 20 times, every other round with the caching allocator's
+free blocks filled with NaN, and prints no result line; a failed case,
+here or in the full run, also reports the kernel's and the plain
+version's error against a float64 `conv2d` on the CPU, whether a second
+launch gives the same bits, and where the wrong elements lie.
+
 Two studies run on their own, after phases 1 and 2, and print no result
 line: `--ssm-chunk-gap` (where (c)'s chunk-128 gap comes from: by depth,
 on the card and the CPU, against a float64 recurrence and planted
@@ -426,6 +438,7 @@ nothing of the reference package.
 from __future__ import annotations
 
 import contextlib
+import itertools
 import json
 import math
 import os
@@ -450,6 +463,7 @@ PEAK_TF32 = 495e12  # H100 SXM TF32 tensor cores, dense (data sheet)
 PEAK_BF16 = 989e12  # H100 SXM bf16 tensor cores, dense (data sheet)
 HBM_BW = 3.35e12  # H100 SXM HBM3 bytes/s (data sheet)
 REL_TOL_KERNEL = 1e-5
+PHASE3_ROUNDS = 20  # `--phase 3`: phase 3's tile-kernel cases this many times
 REL_TOL_SERVE = 1e-3  # the reference's own net-level tolerance
 SIZES = (64, 64, 32, 64, 32)  # the example's five requests
 BUCKETS = (32, 64)
@@ -713,6 +727,40 @@ def run_plain(c):
     )
 
 
+def conv_f64(c) -> torch.Tensor:
+    """The case's convolution in float64 on the CPU (`F.conv2d`, padding 1,
+    the bias and ReLU where the case has them): a reference that shares
+    no code with the kernel or its plain version."""
+    import torch.nn.functional as F
+
+    x = c["x"].double().cpu().permute(0, 3, 1, 2)
+    w = c["wk"].double().cpu().permute(3, 2, 0, 1)
+    y = F.conv2d(x, w, padding=1, groups=c["groups"])
+    if c["ep"] is not None:
+        y = torch.relu(y + c["bvec"].double().cpu()[None, :, None, None])
+    return y.permute(0, 2, 3, 1)
+
+
+def diagnose(c, y: torch.Tensor, ref: torch.Tensor) -> str:
+    """Why a case failed: which of the kernel's and the plain version's
+    outputs is wrong (each against float64), whether the kernel gives the
+    same bits on a second launch, and where the wrong elements lie."""
+    want = conv_f64(c)
+    y2 = run_kernel(c)
+    torch.cuda.synchronize()
+    scale = float(want.abs().max())
+    bad = ((y.double().cpu() - want).abs() > 1e-3 * scale).nonzero()
+    where = "none"
+    if len(bad):
+        where = (f"{len(bad)} of {y.numel()} elements, first (b, h, w, c) "
+                 f"{tuple(bad[0].tolist())}, last {tuple(bad[-1].tolist())}")
+    return (f"kernel vs f64 {rel_err(y.double().cpu(), want):.3e}, plain vs f64 "
+            f"{rel_err(ref.double().cpu(), want):.3e}, second launch vs f64 "
+            f"{rel_err(y2.double().cpu(), want):.3e} (same bits as the first: "
+            f"{bool(torch.equal(y, y2))}); kernel elements off f64 by > 1e-3 of "
+            f"max: {where}")
+
+
 def phase_kernel_vs_plain():
     gen = np.random.default_rng(0)
     made, worst_abs, worst_rel = [], 0.0, 0.0
@@ -731,10 +779,40 @@ def phase_kernel_vs_plain():
               f"max_abs_err={abs_err:.3e} max_rel_err={err:.3e}")
         if not err < REL_TOL_KERNEL:
             raise AssertionError(
-                f"{c['label']}: kernel vs plain rel err {err:.3e} >= {REL_TOL_KERNEL}"
+                f"{c['label']}: kernel vs plain rel err {err:.3e} >= {REL_TOL_KERNEL}; "
+                f"{diagnose(c, y, ref)}"
             )
         made.append(c)
     return made, worst_abs, worst_rel
+
+
+def poison_allocator() -> None:
+    """Fill the caching allocator's free blocks with NaN: blocks of both of
+    its pools (small requests up to 1 MB, large ones above) allocated,
+    filled and freed, so that later `torch.empty` tensors start as NaN and
+    an element a kernel leaves unwritten, or a read of memory no one
+    wrote, shows in the output."""
+    torch.cuda.empty_cache()
+    junk = [torch.full((n,), float("nan"), device=DEV)
+            for n, count in ((1 << 16, 256), (1 << 22, 8), (1 << 26, 4)) for _ in range(count)]
+    torch.cuda.synchronize()
+    del junk
+
+
+def phase3_rounds(rounds: int = PHASE3_ROUNDS) -> int:
+    """`python3 chip_smoke.py --phase 3`: phase 3's tile-kernel cases
+    `rounds` times in this process, every other round on an allocator
+    whose free blocks hold NaN (`poison_allocator`).  A failure raises
+    with `diagnose`'s reading; no result line is printed."""
+    for i in range(rounds):
+        poisoned = i % 2 == 1
+        if poisoned:
+            poison_allocator()
+        made, _, worst = phase_kernel_vs_plain()
+        print(f"phase 3 round {i + 1}/{rounds}{' (NaN-filled allocator)' if poisoned else ''}: "
+              f"{len(made)} cases, worst rel err {worst:.3e}")
+        del made
+    return 0
 
 
 def phase_winograd_and_oracle() -> dict:
@@ -1026,6 +1104,11 @@ FLASH_TIMED = {HD80_LABEL: "flash_attention_hd80", MOON_FLASH_LABEL: "flash_atte
 STABLELM_CUT = 2  # layers of stablelm-3b at full width in phase 7
 # the flash forward's bf16 instantiation: a source of its own, on wgmma
 FLASH_BF16_SOURCE = "src/repro_torch/kernels/flash_attention/csrc/flash_attention_bf16.cu"
+# the bf16 conv1d backward: a TMA-fed source of its own
+CONV1D_BWD_BF16_SOURCE = "src/repro_torch/kernels/conv1d_fused/csrc/conv1d_fused_bwd_bf16.cu"
+# copies of gemma3-1b's MLP weights phase 17 rotates the decode MLP over
+# (47.8 MB each in bf16, 239 MB together: more than the 50 MB L2)
+DECODE_MLP_ROTATE = 5
 LM_KERNELS = {
     "conv1d_fused": ("src/repro_torch/kernels/conv1d_fused/csrc/conv1d_fused.cu",
                      "src/repro/kernels/conv1d_fused/kernel.py:24"),
@@ -4223,13 +4306,23 @@ def bf16_kernel_cases(gen) -> list:
             x64 = x.double()
             return (F.silu(x64 @ w1.double()) * (x64 @ w3.double())) @ w2.double()
 
+        rotated = None
+        if served:  # the weights from HBM, as a served step over 26 layers reads them
+            ws = [(w1, w3, w2)] + [
+                (_bf16(gen, (d, f), d ** -0.5), _bf16(gen, (d, f), d ** -0.5),
+                 _bf16(gen, (f, d), f ** -0.5)) for _ in range(DECODE_MLP_ROTATE - 1)]
+            turn = itertools.count()
+
+            def rotated(x=x, ws=ws, turn=turn):
+                return decode_mlp(x, *ws[next(turn) % len(ws)])
+
         cases.append(dict(
             kernel="decode_mlp", label=label, served=served,
             run=lambda x=x, w1=w1, w3=w3, w2=w2: decode_mlp(x, w1, w3, w2),
             plain=lambda x=x, w1=w1, w3=w3, w2=w2: decode_mlp_ref(x, w1, w3, w2),
             f64=mlp64, library=None, library_note="no single call",
             bound=_bound_of(decode_mlp_pkg.cost(b, d, f, itemsize=2), PEAK_BF16),
-            device_key="decode_mlp",
+            device_key="decode_mlp", rotated=rotated,
         ))
     for arch, served in (("mamba2-1.3b", True), ("zamba2-7b", False)):
         cfg = get_arch(arch)
@@ -4295,13 +4388,20 @@ def bf16_kernels(smi: str) -> dict:
             except RuntimeError as e:  # a shape the library refuses: the row says so
                 l_note += f" (refused: {str(e).splitlines()[0][:100]})"
         d_ms = device_ms(c["run"], c["device_key"])
+        r_ms = r_dev = None
+        if c.get("rotated") is not None:
+            r_ms = time_ms(c["rotated"])
+            r_dev = device_ms(c["rotated"], c["device_key"])
         b_ms, b_by = c["bound"]
         lib = f"{l_ms:.4f} ms" if l_ms is not None else "-"
         dev = "not measured" if d_ms is None else f"{d_ms:.4f} ms"
+        rot = "" if r_ms is None else (
+            f"; weights rotated over {DECODE_MLP_ROTATE} copies {r_ms:.4f} ms (device "
+            f"{'not measured' if r_dev is None else f'{r_dev:.4f} ms'})")
         print(f"bf16 {c['kernel']:15s} {c['label']:42s} err vs f64 kernel {err_k:.3e} plain "
               f"{err_p:.3e} (limit {2 * err_p + ulp:.3e}: 2x plain + 1 ulp {ulp:.3e}); "
               f"kernel vs plain {abs_kp:.3e}; bitwise twice {twice}; kernel {k_ms:.4f} ms "
-              f"(device {dev})  plain {p_ms:.4f} ms  library {lib} ({l_note})  "
+              f"(device {dev}){rot}  plain {p_ms:.4f} ms  library {lib} ({l_note})  "
               f"bound {b_ms:.4f} ms ({b_by}); card {smi}")
         if not (err_k <= 2 * err_p + ulp and twice):
             raise AssertionError(f"bf16 {c['label']}: kernel err {err_k:.3e} vs plain "
@@ -4310,6 +4410,9 @@ def bf16_kernels(smi: str) -> dict:
                    library_note=l_note, bound_ms=b_ms, bound_by=b_by,
                    max_abs_err_vs_f64=err_k, plain_max_abs_err_vs_f64=err_p,
                    max_abs_err=abs_kp)
+        if r_ms is not None:
+            row.update(rotated_ms=r_ms, rotated_device_ms=r_dev,
+                       rotated_copies=DECODE_MLP_ROTATE)
         r = rows.setdefault(c["kernel"], dict(shapes=[], max_abs_err=0.0))
         r["shapes"].append(row)
         r["max_abs_err"] = max(r["max_abs_err"], abs_kp)
@@ -4778,8 +4881,12 @@ def phase_bf16_train(smi: str, fp32: dict) -> dict:
 
     from repro_torch.configs import get_arch
     from repro_torch.launch import train as launch_train
-    from repro_torch.models import lm_loss
+    from repro_torch.models import init_lm, lm_loss
     from repro_torch.models.common import f32_accumulation
+
+    def batch_losses(model, batches) -> list:
+        with torch.no_grad(), f32_accumulation():
+            return [float(lm_loss(model, bt)[0]) for bt in batches]
 
     t_phase = time.perf_counter()
     gc_collect()
@@ -4798,22 +4905,32 @@ def phase_bf16_train(smi: str, fp32: dict) -> dict:
         cfg = get_arch(name)
         if cfg.dtype != "bfloat16":
             raise AssertionError(f"{name} is registered in {cfg.dtype}, not bf16")
+        # the steps' six batches, scored at init (the run's weights: seed 0)
+        # and after the steps
+        batches = [{k: torch.as_tensor(v).to(DEV, dtype=torch.long if k in ("tokens", "targets")
+                                              else None)
+                    for k, v in stream_batch(cfg, i).items()} for i in range(TRAIN_STEPS)]
+        init = init_lm(cfg, seed=0, device=DEV)
+        at_init = batch_losses(init, batches)
+        del init
+        gc_collect()
         run = train_run(f"{name} bf16", lambda args=args: launch_train.main(args), smi)
         hist = run["history"]
         model = run["state"]["params"]
-        # the loss falls: batch 0's loss after the 6 steps against step 0's
-        # (the same batch at init; each step's own batch differs, and a
-        # later batch's loss can sit above step 0's while the model learns)
-        batch0 = {k: torch.as_tensor(v).to(DEV, dtype=torch.long if k in ("tokens", "targets")
-                                         else None)
-                  for k, v in stream_batch(cfg, 0).items()}
-        with torch.no_grad(), f32_accumulation():
-            after = float(lm_loss(model, batch0)[0])
-        print(f"bf16 train {name}: batch 0's loss {hist[0]['loss']:.6f} at step 0, {after:.6f} "
-              f"after {len(hist)} steps")
-        if not (math.isfinite(after) and after < hist[0]["loss"]):
+        # the loss falls: the six batches' mean loss after the steps
+        # against at init.  Batch 0's alone is printed, not held: it flips
+        # on rounding (mamba2's moved 9.10-11.37 over dw sums one rounding
+        # apart, `kernels/conv1d_fused/bwd_choices.py`), where the mean fell
+        # in every such run
+        after = batch_losses(model, batches)
+        mean_init, mean_after = statistics.fmean(at_init), statistics.fmean(after)
+        print(f"bf16 train {name}: the {len(batches)} batches' mean loss {mean_init:.6f} at "
+              f"init, {mean_after:.6f} after {len(hist)} steps; batch 0's {hist[0]['loss']:.6f} "
+              f"at step 0, {after[0]:.6f} after")
+        if not (all(map(math.isfinite, after)) and mean_after < mean_init):
             raise AssertionError(f"bf16 train {name}: the loss did not fall over the steps")
-        run["loss_batch0_after"] = after
+        run.update(loss_batch0_after=after[0], loss_mean_at_init=mean_init,
+                   loss_mean_after=mean_after)
         if {p.dtype for p in model.parameters()} - {torch.bfloat16, torch.float32} or not any(
                 p.dtype == torch.bfloat16 for p in model.parameters()):
             raise AssertionError(f"bf16 train {name}: the parameters are not bf16")
@@ -5727,6 +5844,10 @@ def main(argv=None) -> int:
         print(f"chip_smoke: phases {phases} done at {time.perf_counter() - t_start:.1f} s")
 
     smi = phase_environment()
+    if argv == ["--phase", "3"]:  # the tile kernel's checks again and again: no result lines
+        phase3_rounds()
+        print(f"chip_smoke: --phase 3 done at {time.perf_counter() - t_start:.1f} s")
+        return 0
     bwd_ptxas = phase_build()
     if argv == ["--ssm-chunk-gap"]:  # the study behind phase 20's chunk tolerance
         return ssm_chunk_gap(smi)
@@ -5832,7 +5953,7 @@ def main(argv=None) -> int:
 
     bf16_sources = {"flash_attention": FLASH_BF16_SOURCE,
                     "flash_attention_bwd": FLASH_BWD_BF16_SOURCE,
-                    "conv1d_fused_bwd": LM_KERNELS["conv1d_fused"][0]}
+                    "conv1d_fused_bwd": CONV1D_BWD_BF16_SOURCE}
 
     def bf16_entry(kernel):
         """The kernel's bf16 instantiation: its source, its launches on the

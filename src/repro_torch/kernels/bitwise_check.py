@@ -25,6 +25,18 @@ SiLU on and off; the decode MLP at gemma3-1b's, zamba2-7b's and
 seamless-m4t-medium's widths and two ragged shapes); the comparisons
 are at fp32, the instantiations every earlier source has.  An old source
 that lacks a head dim fails that case.
+
+The bf16 conv1d backward, a source of its own since it was redesigned
+(`conv1d_fused_bwd_bf16.cu`), is held and timed against the old bf16
+entry too: when DIR holds an earlier `conv1d_fused.cu` with a bf16
+backward entry, the new backward's dx must be bitwise the old entry's
+(`CONV1D_BWD_BF16`: mamba2-1.3b's and zamba2-7b's training slices, and K
+1..8 at a ragged length; dw and db, summed a block where the old entry
+summed a segment, are reported, not held), and both are timed new, old,
+old, new (`BF16_TIMED`: CUDA events, median of 20 calls, and the
+profiler's device time) at the two training slices.  `check_recorded`'s
+digests are held too.
+
 Every output pair must be bitwise equal; the run exits 1 otherwise.  The
 one exception is a head dim whose accumulation scheme the current source
 changed on purpose (`SCHEME_CHANGED`: hd 64 moved to fresh fragments,
@@ -90,6 +102,21 @@ DECODE_MLP = [
     # (B, d, f): the served widths, a ragged float4 shape and single floats
     (4, 1152, 6912), (2, 3584, 14336), (1, 1024, 4096), (11, 200, 700), (3, 64, 33),
 ]
+
+CONV1D_BWD_BF16 = [
+    # (label, B, L, row stride, column, D, K): the xBC slices of zxbcdt at
+    # mamba2-1.3b's and zamba2-7b's training shapes, then every streamed K
+    # at a length that is no multiple of a chunk
+    ("mamba2 train B4 L1024 D4352", 4, 1024, 8512, 4096, 4352, 4),
+    ("zamba2 train B4 L1024 D7296", 4, 1024, 14576, 7168, 7296, 4),
+] + [(f"K{k} B2 L301 D512", 2, 301, 1024, 256, 512, k) for k in (1, 2, 3, 5, 6, 7, 8)]
+
+# the bf16 conv1d backward's A/B timings: (label, (B, L, row stride,
+# column, D, K))
+BF16_TIMED = (
+    ("mamba2 train B4 L1024 D4352", (4, 1024, 8512, 4096, 4352, 4)),
+    ("zamba2 train B4 L1024 D7296", (4, 1024, 14576, 7168, 7296, 4)),
+)
 
 
 RECORDED = pathlib.Path(__file__).parent / "flash_attention" / "recorded_outputs.json"
@@ -221,6 +248,23 @@ def _both(mod, old_lib, fn):
     return y_new, y_old
 
 
+def _device_ms(fn, key: str, reps: int = 20):
+    """Mean device time a call of the kernels whose names hold `key`,
+    from `torch.profiler`; None if it saw none."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(getattr(e, "self_device_time_total", 0) for e in prof.key_averages()
+             if getattr(e, "device_type", None) == DeviceType.CUDA and key in e.key)
+    return us / 1e3 / reps if us > 0 else None
+
+
 def _event_ms(fn, reps: int = 20) -> float:
     """Median of `reps` calls of `fn`, each between two CUDA events."""
     fn()
@@ -271,6 +315,89 @@ def time_changed(old_flash: _Earlier, dev) -> list:
                   f"{' / '.join(f'{t:.4f}' for t in times['old'])} ms (CUDA events, median of "
                   f"20); max rel err vs plain current {errs['current']:.3e}, old "
                   f"{errs['old']:.3e}")
+    return rows
+
+
+class _OldConvBwdBf16:
+    """The earlier conv1d source's bf16 backward entry (the fp32 forward's
+    geometry, as its wrapper launched it)."""
+
+    def __init__(self, path: pathlib.Path):
+        self.lib = _build.CudaLibrary(path, "conv1d_fused_bf16_bwd_old", {
+            "conv1d_fused_bwd_bf16_launch": [ctypes.c_void_p] * 10})
+
+    def __call__(self, x, w, b, g):
+        from repro_torch.kernels.conv1d_fused import backward
+
+        bsz, length, d = x.shape
+        k = w.shape[0]
+        dx = torch.empty((bsz, length, d), dtype=x.dtype, device=x.device)
+        dw, db = torch.empty_like(w), torch.empty_like(b)
+        part = torch.empty((bsz * backward.n_segments(length), k + 1, d), dtype=torch.float32,
+                           device=x.device)
+        ptrs = (x.data_ptr(), w.data_ptr(), b.data_ptr(), g.data_ptr(), dx.data_ptr(),
+                dw.data_ptr(), db.data_ptr(), part.data_ptr())
+        _, args = backward._launch_args(bsz, length, d, x.stride(1), k, True,
+                                        not any(p % 16 for p in ptrs[:5] + ptrs[7:]))
+        self.lib.launch("conv1d_fused_bwd_bf16_launch", x.device, *ptrs, args)
+        return dx, dw, db
+
+
+def _bf16(gen, shape, scale: float = 1.0) -> torch.Tensor:
+    return torch.tensor(gen.standard_normal(shape) * scale, dtype=torch.float32,
+                        device="cuda").bfloat16()
+
+
+def conv_bwd_bf16_bitwise(old) -> tuple:
+    """The new bf16 backward's dx, dw and db against the old entry's at
+    `CONV1D_BWD_BF16`: (rows, cases where dx differs)."""
+    from repro_torch.kernels.conv1d_fused import backward
+
+    gen = np.random.default_rng(3)
+    rows, bad = [], 0
+    for label, b, length, row, col, d, k in CONV1D_BWD_BF16:
+        x = _bf16(gen, (b, length, row))[..., col:col + d]
+        w, bias, g = _bf16(gen, (k, d), 0.5), _bf16(gen, (d,), 0.1), _bf16(gen, (b, length, d))
+        new = backward.conv1d_fused_bwd_call(x, w, bias, g, activation="silu")
+        was = old(x, w, bias, g)
+        torch.cuda.synchronize()
+        same = [bool(torch.equal(a, c)) for a, c in zip(new, was)]
+        bad += not same[0]
+        rows.append(dict(kernel="conv1d_fused_bwd_bf16", label=label, shape=[b, length, d, row, col],
+                         k=k, dx_bitwise_equal=same[0], dw_bitwise_equal=same[1],
+                         db_bitwise_equal=same[2]))
+        print(f"conv1d bwd bf16 {label} K {k}: dx / dw / db bitwise equal "
+              f"{' / '.join(map(str, same))}")
+    return rows, bad
+
+
+def bf16_times(old_conv) -> list:
+    """The new and old bf16 conv1d backward at `BF16_TIMED`, in the order
+    new, old, old, new: CUDA events (median of 20) and device time a
+    call."""
+    from repro_torch.kernels.conv1d_fused import backward
+
+    gen = np.random.default_rng(4)
+    rows = []
+    for label, shape in BF16_TIMED:
+        b, length, row, col, d, k = shape
+        x = _bf16(gen, (b, length, row))[..., col:col + d]
+        w, bias, g = _bf16(gen, (k, d), 0.5), _bf16(gen, (d,), 0.1), _bf16(gen, (b, length, d))
+        sides = {"new": lambda *a: backward.conv1d_fused_bwd_call(*a, activation="silu"),
+                 "old": old_conv}
+        times = {"new": [], "old": [], "new_device": [], "old_device": []}
+        for side in ("new", "old", "old", "new"):
+            def run(fn=sides[side]):
+                return fn(x, w, bias, g)
+            times[side].append(_event_ms(run))
+            times[f"{side}_device"].append(_device_ms(run, "conv1d_bwd"))
+        rows.append(dict(kernel="conv1d_fused_bwd_bf16_time", label=label, shape=list(shape),
+                         **{f"ms_{k}": v for k, v in times.items()}))
+        fmt = lambda v: " / ".join("none" if t is None else f"{t:.4f}" for t in v)
+        print(f"time bf16 conv1d_fused_bwd {label}: new {fmt(times['new'])} ms (device "
+              f"{fmt(times['new_device'])}), old {fmt(times['old'])} ms (device "
+              f"{fmt(times['old_device'])}); CUDA events, median of 20, in the order new, "
+              f"old, old, new")
     return rows
 
 
@@ -351,6 +478,23 @@ def main(argv=None) -> int:
     n_held = sum(r["kernel"] != "flash_attention_time" for r in rows) - n_changed
     print(f"card: {card}; {n_held - bad}/{n_held} held cases "
           f"bitwise equal ({n_changed} at a changed accumulation scheme not held)")
+    rec = check_recorded()
+    n_rec = rec["cases"] - len(rec["mismatched"]) if rec["comparable"] else 0
+    bad += bool(rec["mismatched"])
+    rows.append(dict(kernel="flash_attention_recorded", **rec))
+    print(f"recorded flash digests ({rec['source']}, nvcc {rec['recorded_nvcc']}): "
+          + (f"{n_rec}/{rec['cases']} equal" if rec["comparable"] else
+             f"not comparable (nvcc here {rec['nvcc']})"))
+    old_conv_bf16 = None
+    if "conv1d_fused_bwd_bf16_launch(" in (args.old / "conv1d_fused.cu").read_text():
+        old_conv_bf16 = _OldConvBwdBf16(args.old / "conv1d_fused.cu")
+        conv_rows, conv_bad = conv_bwd_bf16_bitwise(old_conv_bf16)
+        rows += conv_rows
+        bad += conv_bad
+        print(f"conv1d bwd bf16: dx bitwise equal to the old entry's in "
+              f"{len(conv_rows) - conv_bad}/{len(conv_rows)} cases")
+    if old_conv_bf16 is not None:
+        rows += bf16_times(old_conv_bf16)
     if args.out is not None:
         args.out.parent.mkdir(parents=True, exist_ok=True)
         args.out.write_text(json.dumps(dict(card=card, rows=rows), indent=1))

@@ -3,7 +3,7 @@ over its block widths, beside a device-to-device copy of the same bytes,
 and against an earlier version of its source.
 
     PYTHONPATH=src python -m repro_torch.kernels.conv1d_fused.compare \
-        [--old DIR] [--bwd-widths] [--reps 25] [--out build/conv1d_compare.json]
+        [--old DIR] [--reps 25] [--out build/conv1d_compare.json]
 
 Needs one CUDA card.  The inputs are the served ones: x the xBC slice
 (columns 4096..8447) of a (B, L, 8512) in-projection output, K 4, SiLU,
@@ -25,14 +25,6 @@ at B 4 L 768 and B 2 L 129, from seed 0.  Device times are
    (the wrapper's host path included) and the device time.  The outputs
    of old and new, and of two calls of new, must be bitwise equal; the
    run exits 1 otherwise.
-
-3. With `--bwd-widths`: the bf16 backward at mamba2-1.3b's and zamba2-7b's
-   training slices (B 4, L 1024, bf16) at each channel width a thread its
-   source takes (8, 4, 1), launched straight through the C entry point
-   (`bwd_at_width`) in the order 8, 4, 1, 1, 4, 8: CUDA events (median of
-   `reps`) and device time, the outputs bitwise equal across widths and
-   to the wrapper's; the wrapper's pick is marked.  This is the
-   measurement that picked it.
 
 Rows go to `--out` as JSON with the card's name and power limit.
 """
@@ -146,60 +138,6 @@ def widths(reps: int) -> list:
     return rows
 
 
-def bwd_at_width(x, w, bias, g, vec: int, activation: str = "silu") -> tuple:
-    """(dx, dw, db) of the backward's entry point for x's dtype at `vec`
-    channels a thread (one of the units its source takes: 4 or 1 for
-    fp32, 8, 4 or 1 for bf16), at the wrapper's geometry otherwise; the
-    inputs as `backward.conv1d_fused_bwd_call` takes them, 16-byte
-    aligned."""
-    from repro_torch.kernels.conv1d_fused import backward
-
-    bsz, length, d = x.shape
-    k, row = w.shape[0], x.stride(1)
-    pick = kernel.launch_geometry(bsz, length, d, row)
-    units = -(-d // vec)
-    threads = min(kernel.MAX_THREADS, -(-units // 32) * 32)
-    geo = dataclasses.replace(pick, vec=vec, threads=threads, n_cblocks=-(-units // threads),
-                              n_strips=backward.n_segments(length))
-    args = geo.launch_args(length, d, row, k, activation == "silu")
-    dx = torch.empty((bsz, length, d), dtype=x.dtype, device=x.device)
-    dw, db = torch.empty_like(w), torch.empty_like(bias)
-    part = torch.empty((bsz * geo.n_strips, k + 1, d), dtype=torch.float32, device=x.device)
-    kernel.LIB.launch(backward.ENTRY[x.dtype], x.device, x.data_ptr(), w.data_ptr(),
-                      bias.data_ptr(), g.data_ptr(), dx.data_ptr(), dw.data_ptr(),
-                      db.data_ptr(), part.data_ptr(), ctypes.addressof(args))
-    return dx, dw, db
-
-
-def bwd_widths(reps: int) -> list:
-    from repro_torch.kernels.conv1d_fused import backward
-
-    rows = []
-    for label, (row, col, d) in {"mamba2 train B4 L1024": (ROW, OFFSET, D),
-                                 "zamba2 train B4 L1024": (14576, 7168, 7296)}.items():
-        gen = np.random.default_rng(1)
-        mk = lambda shape, sc: torch.tensor(gen.standard_normal(shape) * sc,
-                                            dtype=torch.float32, device="cuda").bfloat16()
-        x = mk((4, 1024, row), 1.0)[..., col:col + d]
-        w, bias, g = mk((K, d), 0.5), mk((d,), 0.1), mk((4, 1024, d), 1.0)
-        want = backward.conv1d_fused_bwd_call(x, w, bias, g, activation="silu")
-        pick = kernel.launch_geometry(4, 1024, d, row).vec
-        outs = {}
-        for vec in (8, 4, 1, 1, 4, 8):
-            run = lambda vec=vec: bwd_at_width(x, w, bias, g, vec)
-            outs.setdefault(vec, run())
-            ev, dev = events_ms(run, reps), device_ms(run, reps, key="conv1d_bwd")
-            rows.append(dict(shape=label, wide=vec, pick=vec == pick, ms=ev, device_ms=dev))
-            print(f"bwd-width {label} {'pick' if vec == pick else '    '} {vec} channels a "
-                  f"thread: events {ev:.5f} ms  device {dev} ms")
-        same = all(torch.equal(a, b) for o in outs.values() for a, b in zip(o, want))
-        print(f"bwd-width {label}: outputs bitwise equal across widths and to the "
-              f"wrapper's: {same}")
-        if not same:
-            raise AssertionError(f"{label}: the width changes the backward's result")
-    return rows
-
-
 def load_old(path: pathlib.Path):
     """The earlier wrapper in `path`/kernel.py, registered in sys.modules
     before it runs (its dataclasses look their module up)."""
@@ -241,8 +179,6 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--old", type=pathlib.Path, default=None,
                     help="directory with an earlier kernel.py and csrc/conv1d_fused.cu")
-    ap.add_argument("--bwd-widths", action="store_true",
-                    help="time the bf16 backward at each channel width a thread")
     ap.add_argument("--reps", type=int, default=25)
     ap.add_argument("--out", type=pathlib.Path, default=None)
     args = ap.parse_args()
@@ -255,8 +191,6 @@ def main() -> int:
     try:
         if args.old is not None:
             result["ab"] = ab(args.old, args.reps)
-        if args.bwd_widths:
-            result["bwd_widths"] = bwd_widths(args.reps)
     finally:
         if args.out is not None:
             args.out.parent.mkdir(parents=True, exist_ok=True)

@@ -53,7 +53,7 @@
 // row stride and the pointers allow it, else 1; the window is kept in f32
 // registers.  Bytes bound it the same way at half the bytes: mamba2-1.3b's
 // first prefill wave, 2 x 4 x 768 x 4352 x 2 B, is 16.0 us at 3.35 TB/s.
-// The backward has a bf16 entry too (`conv1d_fused_bwd_bf16_launch`, below).
+// The backward's bf16 entry is a source of its own, `conv1d_fused_bwd_bf16.cu`.
 //
 // The backward (conv1d_fused_bwd_launch) is the gradient XLA computes for
 // the reference's silu(conv1d_depthwise_causal(x, w) + b): the reference
@@ -141,33 +141,6 @@ struct Io<bf16, 8> {  // one 16-byte access; the low half of a word is the lower
       w[i] = (int)((uint32_t)__bfloat16_as_ushort(__float2bfloat16_rn(v[2 * i])) |
                    ((uint32_t)__bfloat16_as_ushort(__float2bfloat16_rn(v[2 * i + 1])) << 16));
     __stcs(reinterpret_cast<int4*>(p), make_int4(w[0], w[1], w[2], w[3]));
-  }
-};
-template <>
-struct Io<float, 8> {  // two float4 accesses (the bf16 backward's f32 partial rows)
-  static __device__ __forceinline__ void store(float* p, const float (&v)[8]) {
-    __stcs(reinterpret_cast<float4*>(p), make_float4(v[0], v[1], v[2], v[3]));
-    __stcs(reinterpret_cast<float4*>(p) + 1, make_float4(v[4], v[5], v[6], v[7]));
-  }
-};
-template <>
-struct Io<bf16, 4> {  // one 8-byte access
-  static __device__ __forceinline__ void load(const bf16* __restrict__ p, float (&v)[4]) {
-    const int2 t = __ldg(reinterpret_cast<const int2*>(p));
-    const uint32_t w[2] = {(uint32_t)t.x, (uint32_t)t.y};
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      v[2 * i] = __uint_as_float(w[i] << 16);
-      v[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
-    }
-  }
-  static __device__ __forceinline__ void store(bf16* p, const float (&v)[4]) {
-    int w[2];
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-      w[i] = (int)((uint32_t)__bfloat16_as_ushort(__float2bfloat16_rn(v[2 * i])) |
-                   ((uint32_t)__bfloat16_as_ushort(__float2bfloat16_rn(v[2 * i + 1])) << 16));
-    __stcs(reinterpret_cast<int2*>(p), make_int2(w[0], w[1]));
   }
 };
 template <>
@@ -341,8 +314,8 @@ constexpr int kMaxAnyKBwd = 32;  // taps the backward's any-K instance takes
 
 // KT > 0: K = KT, windows in registers; KT == 0: K = a.k <= kMaxAnyKBwd,
 // windows in local memory.  T: the element type of x, w, bias, g and dx
-// (values upcast as they load, dx rounded once as it stores); the windows,
-// the sums and the partial rows are f32 at both types
+// (f32; the bf16 backward is `conv1d_fused_bwd_bf16.cu`); the windows, the
+// sums and the partial rows are f32
 template <typename T, int KT, int V>
 __global__ void __launch_bounds__(kMaxThreads)
 conv1d_bwd_kernel(const T* __restrict__ x, const T* __restrict__ w,
@@ -441,7 +414,7 @@ conv1d_bwd_kernel(const T* __restrict__ x, const T* __restrict__ w,
 }
 
 // dw, db: the partial rows summed in order (row 0 first), one thread an
-// element, each rounded to T once
+// element
 template <typename T>
 __global__ void __launch_bounds__(kMaxThreads)
 conv1d_bwd_reduce_kernel(const float* __restrict__ part, T* __restrict__ dw,
@@ -452,24 +425,14 @@ conv1d_bwd_reduce_kernel(const float* __restrict__ part, T* __restrict__ dw,
   float acc = 0.f;
   for (int p = 0; p < n_part; ++p) acc += __ldg(part + p * n + e);
   T* out = e < (long long)k * d ? dw + e : db + (e - (long long)k * d);
-  if constexpr (sizeof(T) == 4) {
-    *out = acc;
-  } else {
-    *out = __float2bfloat16_rn(acc);
-  }
+  *out = acc;
 }
 
-// a.vec: 4 or 1 for fp32; 8, 4 or 1 for bf16
+// a.vec: 4 or 1
 template <typename T, int KT>
 void launch_bwd(const T* x, const T* w, const T* b, const T* g, T* dx, float* part,
                 const LaunchArgs& a, cudaStream_t stream) {
   const dim3 grid(a.n_strips, a.n_cblocks, a.batch);
-  if constexpr (sizeof(T) == 2) {
-    if (a.vec == 8) {
-      conv1d_bwd_kernel<T, KT, 8><<<grid, a.threads, 0, stream>>>(x, w, b, g, dx, part, a);
-      return;
-    }
-  }
   if (a.vec == 4) {
     conv1d_bwd_kernel<T, KT, 4><<<grid, a.threads, 0, stream>>>(x, w, b, g, dx, part, a);
   } else {
@@ -477,15 +440,15 @@ void launch_bwd(const T* x, const T* w, const T* b, const T* g, T* dx, float* pa
   }
 }
 
-// the backward's checks (as the forward's; wide units of `a->vec` values,
-// VW or 4, only where the sizes and pointers allow them), the instance of
-// its tap count, then the reduction; cudaGetLastError() after them
+// the backward's checks (as the forward's; wide units of VW values only
+// where the sizes and pointers allow them), the instance of its tap count,
+// then the reduction; cudaGetLastError() after them
 template <typename T, int VW>
 int launch_backward(const T* x, const T* w, const T* b, const T* g, T* dx, T* dw, T* db,
                     float* part, const LaunchArgs* a, cudaStream_t s) {
   const long long span = (long long)a->threads * a->vec;
   const bool vec_ok =
-      a->vec == 1 || ((a->vec == VW || a->vec == 4) && a->d % a->vec == 0 &&
+      a->vec == 1 || (a->vec == VW && a->d % a->vec == 0 &&
                       a->x_row_stride % a->vec == 0 && aligned16(x) && aligned16(w) &&
                       aligned16(b) && aligned16(g) && aligned16(dx) && aligned16(part));
   const bool ok =
@@ -544,15 +507,4 @@ extern "C" int conv1d_fused_bwd_launch(const float* x, const float* w, const flo
                                        const float* g, float* dx, float* dw, float* db,
                                        float* part, const LaunchArgs* a, void* stream) {
   return launch_backward<float, 4>(x, w, b, g, dx, dw, db, part, a, (cudaStream_t)stream);
-}
-
-// The same at bf16: x, w, b, g, dx, dw and db bf16, `part` f32 as above;
-// `a->vec` 8 (16-byte units), 4 (8-byte units) or 1, each only where D,
-// the row stride and the pointers allow it.  Each value is upcast as it
-// loads; pre, silu' and every sum are f32 (the fp32 entry's operations in
-// its order), and dx, dw and db are rounded to bf16 once.
-extern "C" int conv1d_fused_bwd_bf16_launch(const bf16* x, const bf16* w, const bf16* b,
-                                            const bf16* g, bf16* dx, bf16* dw, bf16* db,
-                                            float* part, const LaunchArgs* a, void* stream) {
-  return launch_backward<bf16, 8>(x, w, b, g, dx, dw, db, part, a, (cudaStream_t)stream);
 }

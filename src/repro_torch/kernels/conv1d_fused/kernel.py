@@ -7,8 +7,9 @@ same function is `ref.conv1d_ref`.  `LAUNCHES` counts the kernel's
 launches.  fp32 inputs launch the fp32 instantiation
 (`conv1d_fused_launch`), bf16 inputs the bf16 one
 (`conv1d_fused_bf16_launch`: f32 taps, bias and SiLU, the output rounded
-once); nothing else is taken.  The backward's two entry points
-(`backward.py`) live in the same source and library.
+once); nothing else is taken.  The backward's fp32 entry point
+(`backward.py`) lives in the same source and library; its bf16 entry is
+a source of its own (`backward.LIB_BF16`).
 
 The launch geometry (`Geometry`: channels per thread, threads per block,
 the grid) is computed here, once per (B, L, D, row stride, alignment),
@@ -49,7 +50,6 @@ LIB = _build.CudaLibrary(SOURCE, "conv1d_fused", {
     "conv1d_fused_bf16_launch": [ctypes.c_void_p] * 6,
     # x, w, b, g, dx, dw, db, scratch, &LaunchArgs, stream (`backward.py`)
     "conv1d_fused_bwd_launch": [ctypes.c_void_p] * 10,
-    "conv1d_fused_bwd_bf16_launch": [ctypes.c_void_p] * 10,
 })
 # the forward's entry point of each element type, and its wide unit (16 bytes)
 ENTRY = {torch.float32: "conv1d_fused_launch", torch.bfloat16: "conv1d_fused_bf16_launch"}

@@ -2,7 +2,10 @@
 // (`flash_attention_bf16.cu`, `flash_attention_bwd_bf16.cu`): the swizzled
 // shared-memory tile layout that warpgroup `wgmma` reads, its descriptors,
 // `wgmma.mma_async` for bf16 -> f32 at the n-widths the head dims need, the
-// fences around it, `mbarrier`s, and the TMA copy into the layout.
+// fences around it, `mbarrier`s, and the TMA copy into the layout.  The
+// bf16 conv1d backward (`conv1d_fused_bwd_bf16.cu`) takes the `mbarrier`s
+// and the last section: unswizzled TMA boxes in and out and their tensor
+// maps (`encode_plain`).
 //
 // Tile layout.  A tile of R rows (R a multiple of 8) and W bf16 columns is
 // stored as ceil(W / 64) column atoms of R rows x 64 values (128 bytes a
@@ -207,26 +210,32 @@ __device__ __forceinline__ void tma_tile(uint32_t dst, const CUtensorMap* map, u
   for (int a = 0; a < A; ++a) tma_box(dst + a * (R * 128), map, bar, 64 * a, r0, h, b);
 }
 
-// A tensor map of a (batch, heads, rows, cols) bf16 tensor at `ptr`,
-// addressed by its (batch, head, row) strides in elements with the columns
-// contiguous (16-byte aligned, as the wrappers require): boxes of 64
-// columns x `box_rows` rows, 128-byte swizzled.  Returns a CUDA error code.
-inline int encode_map(CUtensorMap* map, const void* ptr, int batch, int heads, int rows,
-                      int cols, long long sb, long long sh, long long ss, int box_rows) {
-  using Encode = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                              const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                              const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                              CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+using Encode = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                            const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                            const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                            CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+// `cuTensorMapEncodeTiled`, looked up once (null where the entry point is missing)
+inline Encode tensor_map_encoder() {
   static Encode encode = nullptr;
   if (encode == nullptr) {
     void* fn = nullptr;
     cudaDriverEntryPointQueryResult found;
     const cudaError_t err =
         cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &fn, cudaEnableDefault, &found);
-    if (err != cudaSuccess || found != cudaDriverEntryPointSuccess || fn == nullptr)
-      return (int)cudaErrorNotSupported;
-    encode = reinterpret_cast<Encode>(fn);
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      encode = reinterpret_cast<Encode>(fn);
   }
+  return encode;
+}
+
+// A tensor map of a (batch, heads, rows, cols) bf16 tensor at `ptr`,
+// addressed by its (batch, head, row) strides in elements with the columns
+// contiguous (16-byte aligned, as the wrappers require): boxes of 64
+// columns x `box_rows` rows, 128-byte swizzled.  Returns a CUDA error code.
+inline int encode_map(CUtensorMap* map, const void* ptr, int batch, int heads, int rows,
+                      int cols, long long sb, long long sh, long long ss, int box_rows) {
+  const Encode encode = tensor_map_encoder();
+  if (encode == nullptr) return (int)cudaErrorNotSupported;
   const cuuint64_t dims[4] = {(cuuint64_t)cols, (cuuint64_t)rows, (cuuint64_t)heads,
                               (cuuint64_t)batch};
   const cuuint64_t strides[3] = {(cuuint64_t)ss * 2, (cuuint64_t)sh * 2, (cuuint64_t)sb * 2};
@@ -705,5 +714,74 @@ struct Mma<256> {
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d), "n"(TB));
   }
 };
+
+// ------------------------------------------------------------ streams
+//
+// The bf16 stream's copies: boxes of an unswizzled tensor map land in
+// shared memory as dense rows of the box's width (the width's bytes a
+// multiple of 16), boxes past an edge of the tensor -- negative
+// coordinates included -- are filled with zeros and still count their full
+// bytes on the barrier; a store writes a box back, clipped at the edges.
+
+// one plain arrival on an mbarrier
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+// the box at (c0, r0, z) of a 3-d map into shared memory at `dst`, on `bar`
+__device__ __forceinline__ void tma_load3(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                          int c0, int r0, int z) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(r0), "r"(z), "r"(bar)
+      : "memory");
+}
+// the box at (c0, r0, z) of a 3-d map from shared memory at `src`, in this
+// thread's current bulk group (`bulk_commit`)
+__device__ __forceinline__ void tma_store3(const CUtensorMap* map, uint32_t src, int c0, int r0,
+                                           int z) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group [%0, {%1, %2, %3}], [%4];\n" ::"l"(
+          reinterpret_cast<uint64_t>(map)),
+      "r"(c0), "r"(r0), "r"(z), "r"(src)
+      : "memory");
+}
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+// until all but this thread's N newest bulk groups have read their source
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+}
+// until all of this thread's bulk groups have completed
+__device__ __forceinline__ void bulk_wait_all() {
+  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+}
+
+// An unswizzled tensor map of a bf16 tensor at `ptr` (16-byte aligned) of
+// `rank` dims, innermost first (`dims`), the strides of dims 1.. in bytes
+// (multiples of 16), and a box of `box` elements (the first's bytes a
+// multiple of 16, each at most 256); `promotion` widens each of the box's
+// row reads in L2.  Returns a CUDA error code.
+inline int encode_plain(CUtensorMap* map, const void* ptr, int rank, const uint64_t* dims,
+                        const uint64_t* strides, const uint32_t* box,
+                        CUtensorMapL2promotion promotion) {
+  const Encode encode = tensor_map_encoder();
+  if (encode == nullptr) return (int)cudaErrorNotSupported;
+  cuuint64_t d[5], s[4];
+  cuuint32_t b[5], unit[5];
+  for (int i = 0; i < rank; ++i) {
+    d[i] = dims[i];
+    b[i] = box[i];
+    unit[i] = 1;
+    if (i + 1 < rank) s[i] = strides[i];
+  }
+  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, (cuuint32_t)rank,
+                            const_cast<void*>(ptr), d, s, b, unit,
+                            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+                            promotion, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
 
 }  // namespace hopper

@@ -1502,22 +1502,22 @@ def test_cuda_bf16_gradients_match_their_plain_versions(cuda_device, shape):
     assert all(torch.equal(a, b) for a, b in zip(grads, again))
 
 
-@pytest.mark.parametrize("wide", [0, 8, 4, 1])
-def test_cuda_bf16_conv1d_gradient_matches_its_plain_version(cuda_device, wide):
+@pytest.mark.parametrize("route", ["streamed", "padded", "any-k"])
+def test_cuda_bf16_conv1d_gradient_matches_its_plain_version(cuda_device, route):
     """Under grad a bf16 input reaches `Conv1dFused` and the bf16 backward
     entry (one launch a call): dx (read in the slice of the wide
-    activation's gradient), dw and db pass the bf16 rule at every unit
-    width the source takes (0: the wrapper's pick; the others launched
-    through `compare.bwd_at_width`), bitwise the same across widths."""
+    activation's gradient), dw and db pass the bf16 rule on each route of
+    the bf16 source -- the streamed kernel on an aligned slice, the same
+    kernel on zero-padded copies of a slice at an odd column, the segment-walk
+    kernel at K 9 -- and equal the direct call's bits."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.conv1d_fused import backward as conv_backward
-    from repro_torch.kernels.conv1d_fused import compare as conv_compare
     from repro_torch.kernels.conv1d_fused import conv1d_bwd_ref, conv1d_fused
 
+    col, d, k = {"streamed": (16, 64, 4), "padded": (13, 70, 4), "any-k": (16, 64, 9)}[route]
     rng = np.random.default_rng(36)
     wide_x = _bf16_operand(rng, (2, 257, 96), cuda_device).requires_grad_()
-    col, d, k = 16, 64, 4
     w = _bf16_operand(rng, (k, d), cuda_device, 0.5).requires_grad_()
     bias = _bf16_operand(rng, (d,), cuda_device, 0.1).requires_grad_()
     g = _bf16_operand(rng, (2, 257, d), cuda_device)
@@ -1536,11 +1536,62 @@ def test_cuda_bf16_conv1d_gradient_matches_its_plain_version(cuda_device, wide):
         out = F.silu(sum(xp[:, i:i + x.shape[1]] * w64[i] for i in range(k)) + b64)
         return torch.autograd.grad(out, (x64, w64, b64), g.double())
 
-    run = (lambda: conv_compare.bwd_at_width(x, wd, bd, g, wide)) if wide else (
-        lambda: conv_backward.conv1d_fused_bwd_call(x, wd, bd, g, activation="silu"))
+    run = lambda: conv_backward.conv1d_fused_bwd_call(x, wd, bd, g, activation="silu")
     _bf16_grad_rule(run, lambda: conv1d_bwd_ref(g, x, wd, bd), f64)
     assert all(torch.equal(a, b) for a, b in zip(
         run(), (dwide[..., col:col + d].contiguous(), dw, db)))
+
+
+# the bf16 conv1d backward's stream (`conv1d_fused_bwd_bf16.cu`): (B, L, row
+# stride, column, D, K) -- the training slices, L off the 16-row chunks,
+# B 3, x at a row stride, and K 9 / 16 on the segment-walk kernel
+CONV_BWD_BF16_SHAPES = {
+    "mamba2-train": (4, 1024, 8512, 4096, 4352, 4),
+    "zamba2-train": (4, 1024, 14576, 7168, 7296, 4),
+    "B3-L777-strided": (3, 777, 1024, 256, 512, 4),
+    "B2-L5": (2, 5, 64, 0, 64, 3),
+    "B1-L1": (1, 1, 64, 8, 48, 2),
+    "K9": (2, 300, 256, 0, 256, 9),
+    "K16-strided": (2, 130, 512, 128, 256, 16),
+}
+
+
+def _conv_bwd_bf16_check(cuda_device, b, length, row, col, d, k, seed):
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.conv1d_fused import backward as conv_backward
+    from repro_torch.kernels.conv1d_fused import conv1d_bwd_ref
+
+    rng = np.random.default_rng(seed)
+    x = _bf16_operand(rng, (b, length, row), cuda_device)[..., col:col + d]
+    w = _bf16_operand(rng, (k, d), cuda_device, 0.5)
+    bias = _bf16_operand(rng, (d,), cuda_device, 0.1)
+    g = _bf16_operand(rng, (b, length, d), cuda_device)
+
+    def f64():
+        x64, w64, b64 = (t.double().requires_grad_(True) for t in (x, w, bias))
+        xp = F.pad(x64, (0, 0, k - 1, 0))
+        y = F.silu(sum(xp[:, i:i + length] * w64[i] for i in range(k)) + b64)
+        return torch.autograd.grad(y, (x64, w64, b64), g.double())
+
+    run = lambda: conv_backward.conv1d_fused_bwd_call(x, w, bias, g, activation="silu")
+    _, n = _counted(conv_backward, run)
+    assert n == 1
+    _bf16_grad_rule(run, lambda: conv1d_bwd_ref(g, x, w, bias), f64)
+
+
+@pytest.mark.parametrize("name", sorted(CONV_BWD_BF16_SHAPES))
+def test_cuda_conv1d_bwd_bf16_stream_at_served_and_ragged_shapes(cuda_device, name):
+    """dx, dw, db within the bf16 rule against float64, bitwise the same
+    twice, one launch a call."""
+    _conv_bwd_bf16_check(cuda_device, *CONV_BWD_BF16_SHAPES[name], seed=40)
+
+
+@pytest.mark.parametrize("k", range(1, 9))
+def test_cuda_conv1d_bwd_bf16_stream_at_every_tap_count(cuda_device, k):
+    """Every K the streamed kernel instantiates, at a length off the
+    chunks and x at a row stride."""
+    _conv_bwd_bf16_check(cuda_device, 2, 301, 1024, 256, 512, k, seed=41)
 
 
 def test_cuda_bf16_flash_backward_is_bitwise_over_two_calls(cuda_device):
