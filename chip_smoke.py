@@ -5,11 +5,14 @@
 Phases (any failure exits non-zero):
   1. environment: torch/CUDA versions, the card's name and power limit,
      TF32 off for matmul and cuDNN;
-  2. build: the seven kernel sources (`src/repro_torch/kernels/*/csrc/*.cu`:
-     the flash forward and backward each an fp32 and a bf16 source), one
+  2. build: the nine kernel sources (`src/repro_torch/kernels/*/csrc/*.cu`:
+     the flash forward and backward each an fp32 and a bf16 source; the
+     conv1d fp32 forward and backward one source, its bf16 streams one
+     each), one
      nvcc each, started together, with build times, and beside them the
-     four flash sources' `-Xptxas -v` registers and spills per
-     instantiation (the bf16 ones on warpgroup `wgmma`); then the static
+     four flash sources' and the bf16 conv1d forward stream's `-Xptxas -v`
+     registers and spills per instantiation (the bf16 flash ones on
+     warpgroup `wgmma`); then the static
      checks in-process (`python -m repro_torch.convserve.check --strict`:
      the IR verifier over the benched configs' plans, the lock analyzer,
      the rule linter over `src/repro_torch`), which must be clean;
@@ -315,11 +318,15 @@ Phases (any failure exits non-zero):
      512), the bf16 instantiations of the decode MLP (gemma3's, zamba2's
      and seamless's widths at B 4, 2 and 1; gemma3's also timed with its
      weights rotated over 5 copies, read from HBM as a served step over 26
-     layers reads them) and of conv1d (mamba2's and zamba2's xBC slices
-     at B 4 L 768), each against its plain version on the same bf16
-     inputs and both against float64 from those inputs: the kernel's max
-     error at most twice the plain
+     layers reads them) and the bf16 conv1d forward's TMA stream
+     (mamba2's and zamba2's xBC slices at B 4 L 768, mamba2's second wave
+     at B 2 L 129 and its training slice at B 4 L 1024), each against its
+     plain version on the same bf16 inputs and both against float64 from
+     those inputs: the kernel's max error at most twice the plain
      version's plus one bf16 ulp of max |out|, and bitwise the same twice;
+     then the conv1d forward at every K 1..8, SiLU on and off, at a ragged
+     length (B 2 L 301, D 512 of 1024 at column 256), at L 1 and at L 2 <
+     K-1, one launch a call, by the same rule against its plain version;
      each one's time (CUDA events; device time by the profiler), the plain
      version's, the library's (SDPA in bf16, `is_causal` where causal;
      grouped `F.conv1d` + `F.silu` in bf16; none for the MLP) and the bound
@@ -568,7 +575,8 @@ def phase_build() -> dict:
     """Every kernel built from the checkout's sources, one nvcc per
     source, all started together; beside them the ptxas reports of the
     flash forward's and backward's fp32 and bf16 sources, per
-    instantiation (hd / vd).  Returns the fp32 backward's main kernel's
+    instantiation (hd / vd), and of the bf16 conv1d forward stream's (K).
+    Returns the fp32 backward's main kernel's
     registers and spills at hd 256."""
     from concurrent.futures import ThreadPoolExecutor
 
@@ -589,7 +597,7 @@ def phase_build() -> dict:
         if hasattr(mod, "LIB_BF16"):
             libs[f"{name}_bf16"] = mod.LIB_BF16
     sources = (LM_KERNELS["flash_attention"][0], FLASH_BF16_SOURCE, FLASH_BWD_SOURCE,
-               FLASH_BWD_BF16_SOURCE)
+               FLASH_BWD_BF16_SOURCE, CONV1D_FWD_BF16_SOURCE)
     os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)  # ptxas_report's scratch
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(libs) + len(sources)) as pool:
@@ -608,9 +616,12 @@ def phase_build() -> dict:
         for fn, (regs, frame, st, ld) in sorted(ptxas.items()):
             kind = ("delta" if "delta" in fn else "bf16" if "bf16" in fn or "bfloat16" in fn
                     else "main")
-            # the instantiation's template arguments: (hd, vd), or vd alone for delta
+            # the instantiation's template arguments: (hd, vd), or vd alone for
+            # delta; the conv1d stream's tap count K
             dims = "/".join(re.findall(r"Li(\d+)E", fn)) or "?"
-            print(f"  {kind:5s} hd {dims:>7s}: {regs} registers, {frame} / {st} / {ld} bytes")
+            arg = "K" if "conv1d" in fn else "hd"
+            print(f"  {kind:5s} {arg:2s} {dims:>7s}: {regs} registers, {frame} / {st} / {ld} "
+                  "bytes")
             if src == FLASH_BWD_SOURCE and kind == "main" and dims == "256/256":
                 hd256 = dict(registers=regs, stack_frame_bytes=frame, spill_store_bytes=st,
                              spill_load_bytes=ld)
@@ -4241,6 +4252,11 @@ def _attention_f64(q, k, v, causal: bool, window: int) -> torch.Tensor:
     return torch.einsum("bhqk,bhkd->bhqd", p, v)
 
 
+# the bf16 conv1d forward's TMA stream and its kernel's profiler key
+CONV1D_FWD_BF16_SOURCE = "src/repro_torch/kernels/conv1d_fused/csrc/conv1d_fused_fwd_bf16.cu"
+CONV1D_FWD_BF16_KEY = "conv1d_fwd_bf16"
+
+
 def bf16_kernel_cases(gen) -> list:
     """The bf16 instantiations at the shapes the bf16 path gives them: each
     a dict of the kernel, a label, the kernel's and the plain version's
@@ -4324,13 +4340,17 @@ def bf16_kernel_cases(gen) -> list:
             bound=_bound_of(decode_mlp_pkg.cost(b, d, f, itemsize=2), PEAK_BF16),
             device_key="decode_mlp", rotated=rotated,
         ))
-    for arch, served in (("mamba2-1.3b", True), ("zamba2-7b", False)):
+    # the served prefill waves, then mamba2's training forward (and remat)
+    for arch, what, b, length, served in (("mamba2-1.3b", "wave1", 4, 768, True),
+                                          ("zamba2-7b", "wave1", 4, 768, False),
+                                          ("mamba2-1.3b", "wave2", 2, 129, False),
+                                          ("mamba2-1.3b", "train", 4, 1024, False)):
         cfg = get_arch(arch)
         s_ = cfg.ssm
         d_inner = s_.expand * cfg.d_model
         d_xbc = d_inner + 2 * s_.n_groups * s_.d_state
         width = d_inner + d_xbc + d_inner // s_.head_dim
-        b, length, k = 4, 768, s_.d_conv
+        k = s_.d_conv
         x = _bf16(gen, (b, length, width))[..., d_inner:d_inner + d_xbc]
         w, bias = _bf16(gen, (k, d_xbc), 0.5), _bf16(gen, (d_xbc,), 0.1)
         xt = x.transpose(1, 2).contiguous()
@@ -4343,7 +4363,7 @@ def bf16_kernel_cases(gen) -> list:
 
         cases.append(dict(
             kernel="conv1d_fused",
-            label=f"{arch.split('-')[0]} wave1 B4 L768 D{d_xbc} (slice of {width}) silu",
+            label=f"{arch.split('-')[0]} {what} B{b} L{length} D{d_xbc} (slice of {width}) silu",
             served=served,
             run=lambda x=x, w=w, bias=bias: conv1d_fused(x, w, bias, activation="silu"),
             plain=lambda x=x, w=w, bias=bias: conv1d_ref(x, w, bias, activation="silu"),
@@ -4352,9 +4372,51 @@ def bf16_kernel_cases(gen) -> list:
                 xt, wt, bias, padding=k - 1, groups=wt.shape[0])[..., :length]),
             library_note="grouped F.conv1d with bias, + F.silu, bf16",
             bound=_bound_of(conv1d_pkg.cost(b, length, d_xbc, k, itemsize=2), PEAK_BF16),
-            device_key="conv1d_fused_kernel",
+            device_key=CONV1D_FWD_BF16_KEY,
         ))
     return cases
+
+
+def bf16_conv1d_every_k(smi: str) -> dict:
+    """The bf16 conv1d forward at every K the stream takes (1..8), SiLU on
+    and off, at a ragged length of a column slice (B 2, L 301, D 512 of
+    1024 at column 256), and at L 1 and L 2 < K-1 (every row reads the
+    causal pad): one launch a call, by `bf16_kernels`' rule against the
+    plain version and float64, bitwise the same twice.  Returns the worst
+    error against the plain version and the number of cases."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.conv1d_fused import conv1d_fused, conv1d_ref
+    from repro_torch.kernels.conv1d_fused import kernel as conv_kernel
+
+    gen = np.random.default_rng(31)
+    cases = [(k, act, 2, 301, 1024, 256, 512) for k in range(1, 9) for act in ("silu", "none")]
+    cases += [(4, "silu", 1, 1, 64, 8, 48), (8, "none", 2, 2, 1024, 256, 512)]
+    worst = 0.0
+    for k, act, b, length, row, col, d in cases:
+        x = _bf16(gen, (b, length, row))[..., col:col + d]
+        w, bias = _bf16(gen, (k, d), 0.5), _bf16(gen, (d,), 0.1)
+        n0 = conv_kernel.LAUNCHES
+        y1 = conv1d_fused(x, w, bias, activation=act)
+        n = conv_kernel.LAUNCHES - n0
+        y2, ref = conv1d_fused(x, w, bias, activation=act), conv1d_ref(x, w, bias, activation=act)
+        acc = sum(F.pad(x.double(), (0, 0, k - 1, 0))[:, i:i + length] * w[i].double()
+                  for i in range(k)) + bias.double()
+        f64 = F.silu(acc) if act == "silu" else acc
+        torch.cuda.synchronize()
+        err_k = float((y1.double() - f64).abs().max())
+        err_p = float((ref.double() - f64).abs().max())
+        ulp = bf16_ulp(max(float(f64.abs().max()), 2.0 ** -126))
+        abs_kp = float((y1.double() - ref.double()).abs().max())
+        worst = max(worst, abs_kp)
+        if not (n == 1 and err_k <= 2 * err_p + ulp and torch.equal(y1, y2)):
+            raise AssertionError(f"bf16 conv1d K {k} {act} B{b} L{length} D{d}: launches {n}, "
+                                 f"err {err_k:.3e} vs plain {err_p:.3e} + ulp {ulp:.3e}, "
+                                 f"bitwise twice {torch.equal(y1, y2)}")
+    print(f"bf16 conv1d_fused every K 1..8 x SiLU on / off at B2 L301 D512 (slice of 1024 at "
+          f"256), L 1 and L 2: {len(cases)} cases, one launch each, within 2x plain + 1 ulp of "
+          f"float64, bitwise twice; worst kernel vs plain {worst:.3e}; card {smi}")
+    return dict(cases=len(cases), max_abs_err=worst)
 
 
 def bf16_kernels(smi: str) -> dict:
@@ -4617,6 +4679,7 @@ def phase_bf16(smi: str, fp32: dict) -> dict:
         raise AssertionError(f"{left} bytes left allocated before the bf16 phase")
     t0 = time.perf_counter()
     kernels = bf16_kernels(smi)
+    kernels["conv1d_fused"]["every_k"] = bf16_conv1d_every_k(smi)
     print(f"bf16: kernels {time.perf_counter() - t0:.2f} s")
     served, cpu = {}, {}
     for name in BF16_ARCHS:
@@ -4943,7 +5006,7 @@ def phase_bf16_train(smi: str, fp32: dict) -> dict:
               f"{run['peak_bytes'] / 2**30:.2f} GiB; loss {hist[0]['loss']:.6f} -> "
               f"{hist[-1]['loss']:.6f}")
         keys = ((("flash_fwd", ""), ("flash_bwd", "delta")) if name == "gemma3-1b" else
-                (("conv1d_fused_kernel", ""), ("conv1d_bwd", "reduce")))
+                ((CONV1D_FWD_BF16_KEY, ""), ("conv1d_bwd", "reduce")))
         run["profile"] = train_profile(run.pop("state"), cfg, keys=keys)
         run["warm_ms"] = warm
         del model
@@ -5947,12 +6010,14 @@ def main(argv=None) -> int:
     def by_path(kernel):
         return {path: n[kernel] for path, n in paths.items() if n[kernel]}
 
+    # the bf16 runs count under each kernel's `bf16` entry (its bf16 source's
+    # launches), the fp32 runs under the kernel itself
     bf16_paths = {f"serve {arch} bf16": s["launches"] for arch, s in bf16["serve"].items()}
     bf16_paths.update({f"train {name} bf16": r["launches"] for name, r in btrain["runs"].items()})
-    paths.update(bf16_paths)
 
     bf16_sources = {"flash_attention": FLASH_BF16_SOURCE,
                     "flash_attention_bwd": FLASH_BWD_BF16_SOURCE,
+                    "conv1d_fused": CONV1D_FWD_BF16_SOURCE,
                     "conv1d_fused_bwd": CONV1D_BWD_BF16_SOURCE}
 
     def bf16_entry(kernel):

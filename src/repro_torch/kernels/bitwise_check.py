@@ -26,6 +26,17 @@ seamless-m4t-medium's widths and two ragged shapes); the comparisons
 are at fp32, the instantiations every earlier source has.  An old source
 that lacks a head dim fails that case.
 
+The bf16 conv1d forward, a TMA stream of its own since it was redesigned
+(`conv1d_fused_fwd_bf16.cu`), is held and timed against the old bf16
+entry: when DIR's `conv1d_fused.cu` has a bf16 forward entry
+(`conv1d_fused_bf16_launch`, launched as its wrapper launched it), the
+stream's output must be bitwise that entry's at `CONV1D_FWD_BF16`
+(mamba2-1.3b's and zamba2-7b's first prefill waves, mamba2's second wave
+and training slice, every K 1..8 at a ragged length with SiLU on and
+off, L 1 and L 2 < K-1), and both are timed new, old, old, new
+(`BF16_FWD_TIMED`: CUDA events, median of 20 calls, and the profiler's
+device time) at the four served and trained shapes.
+
 The bf16 conv1d backward, a source of its own since it was redesigned
 (`conv1d_fused_bwd_bf16.cu`), is held and timed against the old bf16
 entry too: when DIR holds an earlier `conv1d_fused.cu` with a bf16
@@ -110,6 +121,23 @@ CONV1D_BWD_BF16 = [
     ("mamba2 train B4 L1024 D4352", 4, 1024, 8512, 4096, 4352, 4),
     ("zamba2 train B4 L1024 D7296", 4, 1024, 14576, 7168, 7296, 4),
 ] + [(f"K{k} B2 L301 D512", 2, 301, 1024, 256, 512, k) for k in (1, 2, 3, 5, 6, 7, 8)]
+
+CONV1D_FWD_BF16 = [
+    # (label, B, L, row stride, column, D, K, activation): the xBC slices of
+    # zxbcdt as served and trained, then every K at a length off the
+    # stream's 16-row chunks, and the lengths inside the causal pad
+    ("mamba2 wave1 B4 L768 D4352", 4, 768, 8512, 4096, 4352, 4, "silu"),
+    ("zamba2 wave1 B4 L768 D7296", 4, 768, 14576, 7168, 7296, 4, "silu"),
+    ("mamba2 wave2 B2 L129 D4352", 2, 129, 8512, 4096, 4352, 4, "silu"),
+    ("mamba2 train B4 L1024 D4352", 4, 1024, 8512, 4096, 4352, 4, "silu"),
+] + [(f"K{k} B2 L301 D512 {act}", 2, 301, 1024, 256, 512, k, act)
+     for k in range(1, 9) for act in ("silu", "none")] + [
+    ("L1 B1 D48", 1, 1, 64, 8, 48, 4, "silu"),
+    ("L2 < K-1 B2 D512", 2, 2, 1024, 256, 512, 8, "none"),
+]
+# the bf16 conv1d forward's A/B timings: (label, (B, L, row stride,
+# column, D, K))
+BF16_FWD_TIMED = tuple((c[0], c[1:7]) for c in CONV1D_FWD_BF16[:4])
 
 # the bf16 conv1d backward's A/B timings: (label, (B, L, row stride,
 # column, D, K))
@@ -343,9 +371,77 @@ class _OldConvBwdBf16:
         return dx, dw, db
 
 
+class _OldConvFwdBf16:
+    """The earlier conv1d source's bf16 forward entry, launched as its
+    wrapper launched it (`kernel.launch_geometry`'s bf16 units)."""
+
+    def __init__(self, lib: _build.CudaLibrary):
+        self.lib = lib
+
+    def __call__(self, x, w, b, activation="silu"):
+        bsz, length, d = x.shape
+        out = torch.empty((bsz, length, d), dtype=x.dtype, device=x.device)
+        ptrs = (x.data_ptr(), w.data_ptr(), b.data_ptr(), out.data_ptr())
+        _, args = conv1d_kernel._launch_args(bsz, length, d, x.stride(1), w.shape[0],
+                                             activation == "silu", not any(p % 16 for p in ptrs),
+                                             torch.bfloat16)
+        self.lib.launch("conv1d_fused_bf16_launch", x.device, *ptrs, args)
+        return out
+
+
 def _bf16(gen, shape, scale: float = 1.0) -> torch.Tensor:
     return torch.tensor(gen.standard_normal(shape) * scale, dtype=torch.float32,
                         device="cuda").bfloat16()
+
+
+def conv_fwd_bf16_bitwise(old) -> tuple:
+    """The bf16 forward stream's output against the old entry's at
+    `CONV1D_FWD_BF16`: (rows, cases that differ).  Every case must take the
+    stream (`kernel.takes_stream`)."""
+    gen = np.random.default_rng(5)
+    rows, bad = [], 0
+    for label, b, length, row, col, d, k, act in CONV1D_FWD_BF16:
+        x = _bf16(gen, (b, length, row))[..., col:col + d]
+        w, bias = _bf16(gen, (k, d), 0.5), _bf16(gen, (d,), 0.1)
+        if not conv1d_kernel.takes_stream(d, row, k, x.data_ptr() % 16 == 0):
+            raise AssertionError(f"{label} does not take the bf16 stream")
+        new = conv1d_fused(x, w, bias, activation=act)
+        was = old(x, w, bias, act)
+        torch.cuda.synchronize()
+        same = bool(torch.equal(new, was))
+        bad += not same
+        rows.append(dict(kernel="conv1d_fused_bf16", label=label, shape=[b, length, d, row, col],
+                         k=k, activation=act, bitwise_equal=same))
+        print(f"conv1d fwd bf16 {label} K {k} {act}: bitwise equal {same}")
+    return rows, bad
+
+
+def fwd_bf16_times(old_fwd) -> list:
+    """The bf16 forward stream and the old entry at `BF16_FWD_TIMED`, in
+    the order new, old, old, new: CUDA events (median of 20) and device
+    time a call."""
+    gen = np.random.default_rng(8)
+    rows = []
+    for label, (b, length, row, col, d, k) in BF16_FWD_TIMED:
+        x = _bf16(gen, (b, length, row))[..., col:col + d]
+        w, bias = _bf16(gen, (k, d), 0.5), _bf16(gen, (d,), 0.1)
+        sides = {"new": (lambda: conv1d_fused(x, w, bias), "conv1d_fwd_bf16"),
+                 "old": (lambda: old_fwd(x, w, bias), "conv1d_fused_kernel")}
+        times = {"new": [], "old": [], "new_device": [], "old_device": []}
+        for side in ("new", "old", "old", "new"):
+            run, key = sides[side]
+            times[side].append(_event_ms(run))
+            times[f"{side}_device"].append(_device_ms(run, key))
+        bound = 2 * b * length * d * 2 / 3.35e12 * 1e3
+        rows.append(dict(kernel="conv1d_fused_bf16_time", label=label,
+                         shape=[b, length, row, col, d, k], bound_ms=bound,
+                         **{f"ms_{s}": v for s, v in times.items()}))
+        fmt = lambda v: " / ".join("none" if t is None else f"{t:.4f}" for t in v)
+        print(f"time bf16 conv1d_fused {label}: new {fmt(times['new'])} ms (device "
+              f"{fmt(times['new_device'])}), old {fmt(times['old'])} ms (device "
+              f"{fmt(times['old_device'])}); bound {bound:.4f} ms (bytes at 3.35 TB/s); CUDA "
+              f"events, median of 20, in the order new, old, old, new")
+    return rows
 
 
 def conv_bwd_bf16_bitwise(old) -> tuple:
@@ -412,9 +508,13 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
     dev = torch.device("cuda")
     old_flash = _Earlier(args.old / "flash_attention.cu")
+    # the old conv1d source's fp32 forward, and its bf16 forward where it has one
+    old_conv_text = (args.old / "conv1d_fused.cu").read_text()
+    old_fwd_bf16 = 'extern "C" int conv1d_fused_bf16_launch(' in old_conv_text
     old_conv = _build.CudaLibrary(
         args.old / "conv1d_fused.cu", "conv1d_fused_old",
-        {"conv1d_fused_launch": [ctypes.c_void_p] * 6})
+        {name: [ctypes.c_void_p] * 6 for name in ("conv1d_fused_launch", "conv1d_fused_bf16_launch")
+         if name == "conv1d_fused_launch" or old_fwd_bf16})
     rows, bad, digests = [], 0, []
     for (b, hq, hkv, sq, sk, hd, causal, window), q, k, v in flash_operands(dev):
         y, y_old = _both(flash_kernel, old_flash, lambda: flash_attention(
@@ -485,8 +585,16 @@ def main(argv=None) -> int:
     print(f"recorded flash digests ({rec['source']}, nvcc {rec['recorded_nvcc']}): "
           + (f"{n_rec}/{rec['cases']} equal" if rec["comparable"] else
              f"not comparable (nvcc here {rec['nvcc']})"))
+    if old_fwd_bf16:
+        old_fwd = _OldConvFwdBf16(old_conv)
+        fwd_rows, fwd_bad = conv_fwd_bf16_bitwise(old_fwd)
+        rows += fwd_rows
+        bad += fwd_bad
+        print(f"conv1d fwd bf16: the stream bitwise the old entry in "
+              f"{len(fwd_rows) - fwd_bad}/{len(fwd_rows)} cases")
+        rows += fwd_bf16_times(old_fwd)
     old_conv_bf16 = None
-    if "conv1d_fused_bwd_bf16_launch(" in (args.old / "conv1d_fused.cu").read_text():
+    if "conv1d_fused_bwd_bf16_launch(" in old_conv_text:
         old_conv_bf16 = _OldConvBwdBf16(args.old / "conv1d_fused.cu")
         conv_rows, conv_bad = conv_bwd_bf16_bitwise(old_conv_bf16)
         rows += conv_rows

@@ -44,21 +44,22 @@ from repro_torch.kernels.conv1d_fused import kernel as _kernel
 
 LAUNCHES = 0  # backward calls since import (or since a caller reset it)
 
-SEG_ROWS = 32  # `kSegRows` in the sources
+SEG_ROWS = _kernel.SEG_ROWS  # `kSegRows` in the sources
 MAX_TAPS = 32  # `kMaxAnyKBwd` in the sources
 ENTRY = {torch.float32: "conv1d_fused_bwd_launch", torch.bfloat16: "conv1d_fused_bwd_bf16_launch"}
 
 SOURCE_BF16 = pathlib.Path(__file__).parent / "csrc" / "conv1d_fused_bwd_bf16.cu"
-# the bf16 source's constants (`kMaxTaps`, `kSlab`, `kChunk`, ...)
-STREAM_TAPS = 8  # K up to this runs the streamed kernel
-SLAB = 256
-CHUNK = 16
-HALO_ROWS = 8
+# the bf16 streams' constants, shared with the forward's (`csrc/stream.cuh`:
+# `kMaxTaps`, `kSlab`, `kChunk`, ...), and the backward's own
+STREAM_TAPS = _kernel.STREAM_TAPS  # K up to this runs the streamed kernel
+SLAB = _kernel.SLAB
+CHUNK = _kernel.CHUNK
+HALO_ROWS = _kernel.HALO_ROWS
 STAGE_BYTES = (HALO_ROWS + 2 * CHUNK) * SLAB * 2
 DX_BUFFERS = 3
-BLOCKS_PER_SM = 3  # `__launch_bounds__(kThreads, 3)`
+BLOCKS_PER_SM = _kernel.BLOCKS_PER_SM  # `__launch_bounds__(kThreads, 3)`
 STAGES = 2  # ring stages a block: 3 blocks an SM fit beside each other
-SM_COUNT = 132  # H100 SXM; the wrapper asks the card
+SM_COUNT = _kernel.SM_COUNT  # H100 SXM; the wrapper asks the card
 
 
 class BwdBf16Args(ctypes.Structure):
@@ -94,27 +95,10 @@ def stream_smem_bytes(stages: int) -> int:
 
 
 @dataclasses.dataclass(frozen=True)
-class Bf16Geometry:
-    """One streamed bf16 launch: `n_slabs` channel slabs of `SLAB`, each
-    cut into `per_slab` blocks; block k of a slab walks the slab's
-    flattened (sequence, segment) pairs [k T / per_slab, (k+1) T /
-    per_slab) with T = batch x `segs` (`seg_range`)."""
-
-    batch: int
-    n_slabs: int
-    per_slab: int
-    segs: int
-    stages: int
-    smem: int
-
-    @property
-    def n_blocks(self) -> int:
-        return self.n_slabs * self.per_slab
-
-    def seg_range(self, block: int) -> tuple:
-        """The flattened segments [q0, q1) of the slab's block `block`."""
-        total = self.batch * self.segs
-        return (block * total // self.per_slab, (block + 1) * total // self.per_slab)
+class Bf16Geometry(_kernel.StreamGeometry):
+    """One streamed bf16 backward launch: the forward stream's slabs and
+    block ranges (`kernel.StreamGeometry`), and the partial scratch its
+    dw / db sums take."""
 
     def part_floats(self, k: int, d: int) -> int:
         """The partial scratch the source expects: K + 1 rows of d floats
@@ -125,15 +109,12 @@ class Bf16Geometry:
 
 @functools.lru_cache(maxsize=None)
 def bf16_geometry(batch: int, length: int, d: int, sm_count: int = SM_COUNT) -> Bf16Geometry:
-    """The streamed kernel's geometry for x (batch, length, d): ceil(d /
-    SLAB) slabs, as many blocks a slab as `BLOCKS_PER_SM` blocks on every
-    SM allow (one wave), at most one a segment, `STAGES` ring stages."""
-    if min(batch, length, d) < 1:
-        raise ValueError(f"no geometry for B={batch} L={length} D={d}")
-    n_slabs = -(-d // SLAB)
-    segs = n_segments(length)
-    per_slab = max(1, min(batch * segs, BLOCKS_PER_SM * sm_count // n_slabs))
-    return Bf16Geometry(batch, n_slabs, per_slab, segs, STAGES, stream_smem_bytes(STAGES))
+    """The streamed kernel's geometry for x (batch, length, d): the
+    forward stream's split (`kernel.slab_split`: ceil(d / SLAB) slabs, as
+    many blocks a slab as `BLOCKS_PER_SM` blocks on every SM allow, one
+    wave, at most one a segment), `STAGES` ring stages."""
+    return Bf16Geometry(batch, *_kernel.slab_split(batch, length, d, sm_count), STAGES,
+                        stream_smem_bytes(STAGES))
 
 
 @functools.lru_cache(maxsize=None)
@@ -252,8 +233,8 @@ def _stream_bf16(x, w, b, g, k: int, silu: bool):
     where the TMA copies need it; (dx contiguous, dw, db)."""
     x, w, b, g, d = _tma_operands(x, w, b, g)
     bsz, length, dp = x.shape
-    sm_count = torch.cuda.get_device_properties(x.device).multi_processor_count
-    geo, _, args = _bf16_launch_args(bsz, length, dp, x.stride(1), k, silu, True, sm_count)
+    geo, _, args = _bf16_launch_args(bsz, length, dp, x.stride(1), k, silu, True,
+                                     _kernel.sm_count(x.get_device()))
     dx = torch.empty((bsz, length, dp), dtype=x.dtype, device=x.device)
     dw = torch.empty((k, dp), dtype=x.dtype, device=x.device)
     db = torch.empty((dp,), dtype=x.dtype, device=x.device)

@@ -58,6 +58,7 @@ from repro_torch.kernels.conv1d_fused import backward
 from repro_torch.kernels.conv1d_fused.ref import conv1d_bwd_ref
 
 HEADER = pathlib.Path(__file__).parents[1] / "flash_attention" / "csrc" / "hopper.cuh"
+STREAM = pathlib.Path(__file__).parent / "csrc" / "stream.cuh"  # the streams' shared part
 VARIANTS = _build.BUILD_DIR.parent / "bwd_choices"
 # one partial row set a 32-row segment, summed in segment order by the
 # second kernel (batch x segments sets of scratch: `segment_scratch`)
@@ -99,20 +100,25 @@ def _card() -> str:
     ).stdout.strip().splitlines()[0]
 
 
-def variant(name: str, lines: tuple) -> _build.CudaLibrary:
-    """The committed bf16 source with each `lines` pair's first text (found
-    exactly once) replaced by its second, as a library of its own (the
-    header included by its absolute path)."""
-    text = backward.SOURCE_BF16.read_text()
+def variant(name: str, lines: tuple, lib: _build.CudaLibrary = None,
+            out_dir: pathlib.Path = VARIANTS) -> _build.CudaLibrary:
+    """`lib`'s committed bf16 source (default the backward's) with the
+    streams' shared `stream.cuh` written into it, then each `lines` pair's
+    first text (found exactly once) replaced by its second, as a library
+    of its own under `out_dir` (`hopper.cuh` included by its absolute
+    path)."""
+    lib = backward.LIB_BF16 if lib is None else lib
+    shared = STREAM.read_text().replace("#pragma once\n", "")
+    text = lib.source.read_text().replace('#include "stream.cuh"', shared)
     for old, new in lines:
         if text.count(old) != 1:
-            raise ValueError(f"{backward.SOURCE_BF16.name} holds {old!r} {text.count(old)} times")
+            raise ValueError(f"{lib.source.name} holds {old!r} {text.count(old)} times")
         text = text.replace(old, new)
     text = text.replace('"../../flash_attention/csrc/hopper.cuh"', f'"{HEADER.resolve()}"')
-    VARIANTS.mkdir(parents=True, exist_ok=True)
-    path = VARIANTS / f"{name}.cu"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    path = out_dir / f"{name}.cu"
     path.write_text(text)
-    return _build.CudaLibrary(path, name, backward.LIB_BF16.entry_points)
+    return _build.CudaLibrary(path, name, lib.entry_points)
 
 
 @contextlib.contextmanager

@@ -66,7 +66,7 @@
 
 #include <type_traits>
 
-#include "../../flash_attention/csrc/hopper.cuh"
+#include "stream.cuh"
 
 // one launch's sizes and geometry; `BwdBf16Args` in backward.py mirrors it
 struct BwdBf16Args {
@@ -86,22 +86,17 @@ namespace {
 
 using hopper::bf16;
 using hopper::smem_u32;
+using namespace conv1d_stream;  // kSlab, kChunk, kSegRows, kHaloRows, the range split
 
-constexpr int kMaxTaps = 8;
-constexpr int kSlab = 256;       // channels a block
-constexpr int kChunk = 16;       // rows a chunk
 constexpr int kVec = 1;          // channels a walking thread
 constexpr int kConsumers = kSlab / kVec;  // threads that walk
 constexpr int kThreads = kConsumers + 32;
-constexpr int kHaloRows = 8;     // room for the K-1 rows before / after a range
 constexpr int kMaxStages = 4;
 // a stage: x's halo rows, x's chunk, g's chunk; each 4 boxes of 64 channels
 constexpr int kPreBytes = kHaloRows * kSlab * 2;   // 4096
 constexpr int kRowsBytes = kChunk * kSlab * 2;     // 8192
 constexpr int kStageBytes = kPreBytes + 2 * kRowsBytes;
 constexpr int kDxBuffers = 3;
-// a row of a slab is 4 boxes of 128 bytes, all in one stage: L2 lines of 256
-constexpr CUtensorMapL2promotion kPromotion = CU_TENSOR_MAP_L2_PROMOTION_L2_256B;
 
 __host__ __device__ inline int stream_smem_bytes(int stages) {
   return stages * kStageBytes + kDxBuffers * kRowsBytes + 16 * stages + 1024;
@@ -129,19 +124,6 @@ __device__ __forceinline__ Word pack_word(const float (&v)[kVec]) {
   } else {
     return __bfloat16_as_ushort(__float2bfloat16_rn(v[0]));
   }
-}
-
-constexpr int kSegRows = 32;     // rows of a segment, the unit of a block's range
-static_assert(kSegRows == 2 * kChunk, "a segment is two chunks");
-
-// the piece of a block's segment range that starts at flattened segment q:
-// sequence b, its segments [s0, s0 + n), chunks [j0, j1)
-struct Piece {
-  int b, s0, n, j0, j1;
-};
-__device__ __forceinline__ Piece piece_at(int q, int q1, int segs, int chunks) {
-  const int b = q / segs, s0 = q - b * segs, s1 = min(segs, s0 + (q1 - q));
-  return Piece{b, s0, s1 - s0, 2 * s0, min(2 * s1, chunks)};
 }
 
 // dw, db: the partial rows summed in order (row 0 first), one thread an
@@ -176,8 +158,8 @@ conv1d_bwd_bf16_kernel(const __grid_constant__ CUtensorMap mx, const __grid_cons
   const int slab = blockIdx.x / a.per_slab, kb = blockIdx.x - slab * a.per_slab;
   const int c0 = slab * kSlab;
   const int total = a.batch * a.segs, chunks = (a.seq + kChunk - 1) / kChunk;
-  const int q0 = (int)((long long)kb * total / a.per_slab);
-  const int q1 = (int)((long long)(kb + 1) * total / a.per_slab);
+  const Range range = block_range(kb, total, a.per_slab);
+  const int q0 = range.q0, q1 = range.q1;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
 
   if (tid == 0) {

@@ -4,17 +4,24 @@
 (`kernels._build`).  `conv1d_fused_call` takes CUDA tensors only and
 raises on anything the kernel does not take; the plain version of the
 same function is `ref.conv1d_ref`.  `LAUNCHES` counts the kernel's
-launches.  fp32 inputs launch the fp32 instantiation
-(`conv1d_fused_launch`), bf16 inputs the bf16 one
-(`conv1d_fused_bf16_launch`: f32 taps, bias and SiLU, the output rounded
-once); nothing else is taken.  The backward's fp32 entry point
-(`backward.py`) lives in the same source and library; its bf16 entry is
-a source of its own (`backward.LIB_BF16`).
+launches, one a call.  fp32 inputs launch the fp32 instantiation
+(`conv1d_fused_launch`).  bf16 inputs (f32 taps, bias and SiLU, the
+output rounded once) take one of two routes, by shape alone
+(`takes_stream`): K <= `STREAM_TAPS` with D and the row stride multiples
+of 8 and 16-byte aligned tensors launch the TMA stream
+(`csrc/conv1d_fused_fwd_bf16.cu`, `LIB_BF16`, `stream_geometry`); any
+other bf16 shape launches the fp32 design's bf16 instance
+(`conv1d_fused_bf16_launch`), whose output the stream's is bitwise.
+Nothing else is taken.  The backward's fp32 entry point (`backward.py`)
+lives in the same source and library; its bf16 entry is a source of its
+own (`backward.LIB_BF16`), which shares the stream's slabs, chunks and
+range split (`csrc/stream.cuh`, `slab_split`).
 
 The launch geometry (`Geometry`: channels per thread, threads per block,
-the grid) is computed here, once per (B, L, D, row stride, alignment),
-and passed to the C entry point as one `LaunchArgs` struct; the source
-refuses a geometry that does not cover the work.
+the grid; `StreamGeometry` for the stream) is computed here, once per
+shape, and passed to the C entry point as one struct (`LaunchArgs`,
+`FwdBf16Args`); the sources refuse a geometry that does not cover the
+work.
 """
 
 from __future__ import annotations
@@ -34,6 +41,24 @@ MAX_THREADS = 128  # `kMaxThreads` in the source
 ROWS = 8  # `kRows`: rows of a strip, one thread's
 
 SOURCE = pathlib.Path(__file__).parent / "csrc" / "conv1d_fused.cu"
+SOURCE_BF16 = pathlib.Path(__file__).parent / "csrc" / "conv1d_fused_fwd_bf16.cu"
+
+# the bf16 streams' constants (`csrc/stream.cuh`), the forward's and the
+# backward's: K up to STREAM_TAPS streams, in channel slabs of SLAB, chunks
+# of CHUNK rows, ranges counted in segments of SEG_ROWS rows, the K-1 rows
+# before a piece in a box of at most HALO_ROWS
+STREAM_TAPS = 8
+SLAB = 256
+CHUNK = 16
+SEG_ROWS = 32
+HALO_ROWS = 8
+BLOCKS_PER_SM = 3  # `__launch_bounds__(..., kBlocksPerSm)`: one wave
+SM_COUNT = 132  # H100 SXM; the wrappers ask the card
+# the forward stream's (`conv1d_fused_fwd_bf16.cu`): ring stages (`kMaxStages`),
+# output chunk buffers
+STREAM_STAGES = 4
+OUT_BUFFERS = 2
+FWD_STAGE_BYTES = (HALO_ROWS + CHUNK) * SLAB * 2
 
 
 class LaunchArgs(ctypes.Structure):
@@ -54,6 +79,21 @@ LIB = _build.CudaLibrary(SOURCE, "conv1d_fused", {
 # the forward's entry point of each element type, and its wide unit (16 bytes)
 ENTRY = {torch.float32: "conv1d_fused_launch", torch.bfloat16: "conv1d_fused_bf16_launch"}
 WIDE = {torch.float32: 4, torch.bfloat16: 8}
+
+
+class FwdBf16Args(ctypes.Structure):
+    """`FwdBf16Args` in the stream's source: one launch's sizes and geometry."""
+
+    _fields_ = [("x_row_stride", ctypes.c_longlong)] + [
+        (name, ctypes.c_int) for name in (
+            "batch", "seq", "d", "k", "silu", "n_slabs", "per_slab", "segs", "stages", "smem")]
+
+
+STREAM_ENTRY = "conv1d_fused_fwd_bf16_launch"
+LIB_BF16 = _build.CudaLibrary(SOURCE_BF16, "conv1d_fused_fwd_bf16", {
+    # x, w, b, out, &FwdBf16Args, stream
+    STREAM_ENTRY: [ctypes.c_void_p] * 6,
+})
 
 
 @dataclasses.dataclass(frozen=True)
@@ -112,6 +152,86 @@ def _launch_args(batch: int, length: int, d: int, row: int, k: int, silu: bool,
     return args, ctypes.addressof(args)
 
 
+@dataclasses.dataclass(frozen=True)
+class StreamGeometry:
+    """One bf16 stream launch (forward or backward): `n_slabs` channel
+    slabs of `SLAB`, each cut into `per_slab` blocks; block k of a slab
+    walks the slab's flattened (sequence, segment) pairs [k T / per_slab,
+    (k+1) T / per_slab) with T = batch x `segs` (`seg_range`), through a
+    ring of `stages` stages in `smem` bytes of shared memory."""
+
+    batch: int
+    n_slabs: int
+    per_slab: int
+    segs: int
+    stages: int
+    smem: int
+
+    @property
+    def n_blocks(self) -> int:
+        return self.n_slabs * self.per_slab
+
+    def seg_range(self, block: int) -> tuple:
+        """The flattened segments [q0, q1) of the slab's block `block`
+        (`block_range` in `csrc/stream.cuh`)."""
+        total = self.batch * self.segs
+        return (block * total // self.per_slab, (block + 1) * total // self.per_slab)
+
+
+def slab_split(batch: int, length: int, d: int, sm_count: int = SM_COUNT) -> tuple:
+    """(slabs, blocks a slab, segments a sequence) of a bf16 stream over x
+    (batch, length, d): ceil(d / SLAB) slabs, as many blocks a slab as
+    `BLOCKS_PER_SM` blocks on every SM allow (one wave), at most one a
+    segment."""
+    if min(batch, length, d) < 1:
+        raise ValueError(f"no geometry for B={batch} L={length} D={d}")
+    n_slabs = -(-d // SLAB)
+    segs = -(-length // SEG_ROWS)
+    return n_slabs, max(1, min(batch * segs, BLOCKS_PER_SM * sm_count // n_slabs)), segs
+
+
+def fwd_smem_bytes(stages: int) -> int:
+    """Dynamic shared memory of one forward stream block, `fwd_smem_bytes`
+    in its source: the ring, the output chunk buffers, two mbarriers a
+    stage and 1024 bytes to align the base."""
+    return stages * FWD_STAGE_BYTES + OUT_BUFFERS * CHUNK * SLAB * 2 + 16 * stages + 1024
+
+
+@functools.lru_cache(maxsize=None)
+def stream_geometry(batch: int, length: int, d: int, sm_count: int = SM_COUNT) -> StreamGeometry:
+    """The forward stream's geometry for x (batch, length, d): `slab_split`,
+    `STREAM_STAGES` ring stages.  At mamba2-1.3b's first prefill wave (B 4,
+    L 768, D 4352) 17 slabs x 23 blocks, 4-5 segments (128-160 rows) a
+    block."""
+    return StreamGeometry(batch, *slab_split(batch, length, d, sm_count), STREAM_STAGES,
+                          fwd_smem_bytes(STREAM_STAGES))
+
+
+def takes_stream(d: int, row_stride: int, k: int, aligned: bool) -> bool:
+    """Whether a bf16 forward of D `d`, rows `row_stride` values apart and
+    K `k` launches the stream (else the fp32 design's bf16 instance): K <=
+    `STREAM_TAPS`, D and the row stride multiples of 8 and every pointer
+    16-byte aligned, what its tensor maps need.  Shape alone decides."""
+    return 1 <= k <= STREAM_TAPS and d % 8 == 0 and row_stride % 8 == 0 and aligned
+
+
+@functools.lru_cache(maxsize=None)
+def _stream_args(batch: int, length: int, d: int, row: int, k: int, silu: bool,
+                 sm_count: int = SM_COUNT) -> tuple:
+    """(geometry, `FwdBf16Args`, its address) for a stream shape, made once
+    (the cache keeps the struct alive at that address)."""
+    g = stream_geometry(batch, length, d, sm_count)
+    args = FwdBf16Args(row, batch, length, d, k, int(silu), g.n_slabs, g.per_slab, g.segs,
+                       g.stages, g.smem)
+    return g, args, ctypes.addressof(args)
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(index: int) -> int:
+    """The SMs of card `index`, asked once."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
 def cost(b: int, length: int, d: int, k: int, itemsize: int = 4) -> tuple:
     """(FLOPs, bytes) of the function the forward computes: K
     multiply-adds an output element; x read and y written once, w and the
@@ -158,9 +278,13 @@ def conv1d_fused_call(
         raise ValueError(f"x strides {x.stride()} are not (L*R, R, 1) with R >= D")
     out = torch.empty((bsz, length, d), dtype=dtype, device=x.device)
     ptrs = (x.data_ptr(), w.data_ptr(), b.data_ptr(), out.data_ptr())
-    _, args = _launch_args(bsz, length, d, row, k, activation == "silu",
-                           not any(p % 16 for p in ptrs), dtype)
-    LIB.launch(ENTRY[dtype], x.device, *ptrs, args)
+    aligned, silu = not any(p % 16 for p in ptrs), activation == "silu"
+    if dtype is torch.bfloat16 and takes_stream(d, row, k, aligned):
+        _, _, args = _stream_args(bsz, length, d, row, k, silu, sm_count(index))
+        LIB_BF16.launch(STREAM_ENTRY, x.device, *ptrs, args)
+    else:
+        _, args = _launch_args(bsz, length, d, row, k, silu, aligned, dtype)
+        LIB.launch(ENTRY[dtype], x.device, *ptrs, args)
     with _build.COUNT_LOCK:
         LAUNCHES += 1
     return out

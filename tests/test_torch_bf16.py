@@ -464,10 +464,18 @@ def test_plain_decode_mlp_in_bf16_matches_the_pallas_kernel(b, d, f):
     assert _rel(y, ref) < MODULE_TOL
 
 
-@pytest.mark.parametrize("k,act", [(4, "silu"), (3, "none"), (9, "silu")])
-def test_plain_conv1d_in_bf16_matches_the_pallas_kernel(k, act):
+@pytest.mark.parametrize("k,act,length", [
+    pytest.param(4, "silu", 64, id="4-silu"), pytest.param(3, "none", 64, id="3-none"),
+    pytest.param(9, "silu", 64, id="9-silu"),
+    # the lengths the bf16 stream treats as edges: one row, fewer rows than
+    # K-1 (every window reaches into the causal pad), a length off its
+    # 16-row chunks
+    pytest.param(4, "silu", 1, id="4-silu-L1"), pytest.param(4, "silu", 2, id="4-silu-L2"),
+    pytest.param(8, "none", 2, id="8-none-L2"), pytest.param(4, "silu", 47, id="4-silu-L47"),
+])
+def test_plain_conv1d_in_bf16_matches_the_pallas_kernel(k, act, length):
     rng = np.random.default_rng(12)
-    x, w, bias = _bf16(rng, (2, 64, 24)), _bf16(rng, (k, 24), 0.5), _bf16(rng, (24,), 0.1)
+    x, w, bias = _bf16(rng, (2, length, 24)), _bf16(rng, (k, 24), 0.5), _bf16(rng, (24,), 0.1)
     ref = jax_conv1d_fused(x, w, bias, activation=act, lb=32)
     y = conv1d_fused(_t(x), _t(w), _t(bias), activation=act)
     assert ref.dtype == BF16 and y.dtype == torch.bfloat16

@@ -23,6 +23,7 @@ from repro_torch.kernels.decode_mlp import kernel as mlp_kernel
 from repro_torch.kernels.flash_attention import kernel as flash_kernel
 
 HEADER = flash_kernel.SOURCE.parent / "hopper.cuh"
+STREAM = conv_kernel.SOURCE.parent / "stream.cuh"  # the bf16 streams' shared part
 
 # (B, L, D): mamba2-1.3b's and zamba2-7b's training slices, ragged shapes
 CONV = {"mamba2-train": (4, 1024, 4352), "zamba2-train": (4, 1024, 7296),
@@ -171,15 +172,18 @@ def test_launch_args_structs_mirror_the_sources(source, name, cls):
 
 def test_bf16_sources_stream_by_tma_without_float_atomics():
     """The source copies by TMA on mbarriers (`hopper.cuh`'s stream
-    section), hashes the header with it, and sums without atomics."""
+    section, through the streams' shared `stream.cuh`), hashes both headers
+    with it, and sums without atomics."""
     src = conv_bwd.SOURCE_BF16
     text = src.read_text()
-    assert '#include "../../flash_attention/csrc/hopper.cuh"' in text
+    assert '#include "stream.cuh"' in text
+    assert '#include "../../flash_attention/csrc/hopper.cuh"' in STREAM.read_text()
     assert "hopper::mbar_wait(" in text and "hopper::mbar_expect(" in text
     assert "hopper::tma_load3(" in text and "hopper::tma_store3(" in text
     assert "cp.async.cg" not in text and "__ldg(" not in text.split("K > 8")[0]
     assert not re.search(r"\batomic[A-Z]\w*\(|\bred\.|\batom\.", text)
-    assert _build.source_text(src) == src.read_bytes() + HEADER.read_bytes()
+    assert _build.source_text(src) == (src.read_bytes() + STREAM.read_bytes()
+                                       + HEADER.read_bytes())
     header = HEADER.read_text()
     for fn in ("tma_load3", "tma_store3", "encode_plain"):
         assert re.search(rf"\b{fn}\(", header)
@@ -192,7 +196,7 @@ def test_wrappers_pick_each_element_types_library():
 
 
 def test_conv1d_bwd_bf16_constants_mirror_the_source():
-    text = conv_bwd.SOURCE_BF16.read_text()
+    text = _build.source_text(conv_bwd.SOURCE_BF16).decode()  # with `stream.cuh`
     for line in (f"constexpr int kMaxTaps = {conv_bwd.STREAM_TAPS};",
                  f"constexpr int kSlab = {conv_bwd.SLAB};",
                  f"constexpr int kChunk = {conv_bwd.CHUNK};",

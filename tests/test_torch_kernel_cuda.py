@@ -1412,17 +1412,28 @@ def test_cuda_decode_mlp_bf16(cuda_device, b, d, f):
     _bf16_rule(lambda: decode_mlp(x, w1, w3, w2), lambda: decode_mlp_ref(x, w1, w3, w2), f64)
 
 
-@pytest.mark.parametrize("name", ["mamba2-wave1", "zamba2-wave1", "unaligned-D71", "K9-none"])
+# the bf16 conv1d forward: (B, L, D, K, row stride, column, activation) --
+# the TMA stream at the served waves, the training slice, every K at a
+# ragged length and L 1; PR 25's kernel for an unaligned slice and K 9
+CONV1D_BF16 = {
+    "mamba2-wave1": (4, 768, 4352, 4, 8512, 4096, "silu"),
+    "zamba2-wave1": (4, 768, 7296, 4, 14576, 7168, "silu"),
+    "unaligned-D71": (2, 300, 71, 4, 200, 65, "silu"),  # one channel a thread
+    "K9-none": (2, 300, 256, 9, 256, 0, "none"),  # the any-K instance
+    "mamba2-wave2": (2, 129, 4352, 4, 8512, 4096, "silu"),
+    "mamba2-train": (4, 1024, 4352, 4, 8512, 4096, "silu"),
+    "L1": (1, 1, 48, 4, 64, 8, "silu"),
+    **{f"K{k}-L301-{act}": (2, 301, 512, k, 1024, 256, act)
+       for k in range(1, 9) for act in ("silu", "none")},
+}
+
+
+@pytest.mark.parametrize("name", list(CONV1D_BF16))
 def test_cuda_conv1d_bf16(cuda_device, name):
     from repro_torch.kernels.conv1d_fused import conv1d_fused, conv1d_ref
     from repro_torch.kernels.conv1d_fused import kernel as conv1d_kernel
 
-    b, length, d, k, row, off, act = {
-        "mamba2-wave1": (4, 768, 4352, 4, 8512, 4096, "silu"),
-        "zamba2-wave1": (4, 768, 7296, 4, 14576, 7168, "silu"),
-        "unaligned-D71": (2, 300, 71, 4, 200, 65, "silu"),  # one channel a thread
-        "K9-none": (2, 300, 256, 9, 256, 0, "none"),  # the any-K instance
-    }[name]
+    b, length, d, k, row, off, act = CONV1D_BF16[name]
     rng = np.random.default_rng(33)
     x = _bf16_operand(rng, (b, length, row), cuda_device)[..., off:off + d]
     w = _bf16_operand(rng, (k, d), cuda_device, 0.5)
@@ -1437,6 +1448,31 @@ def test_cuda_conv1d_bf16(cuda_device, name):
     assert n == 1
     _bf16_rule(lambda: conv1d_fused(x, w, bias, activation=act),
                lambda: conv1d_ref(x, w, bias, activation=act), f64)
+
+
+@pytest.mark.parametrize("name", ["mamba2-wave1", "mamba2-wave2", "mamba2-train", "L1",
+                                  "K1-L301-none", "K3-L301-silu", "K8-L301-silu"])
+def test_cuda_conv1d_bf16_stream_is_bitwise_the_kept_kernel(cuda_device, name):
+    """At an aligned shape the wrapper launches the TMA stream; PR 25's
+    kernel, the route kept for every other bf16 shape, launched through
+    its own entry at the same shape gives the same bits."""
+    from repro_torch.kernels.conv1d_fused import conv1d_fused
+    from repro_torch.kernels.conv1d_fused import kernel as conv1d_kernel
+
+    b, length, d, k, row, off, act = CONV1D_BF16[name]
+    rng = np.random.default_rng(34)
+    x = _bf16_operand(rng, (b, length, row), cuda_device)[..., off:off + d]
+    w = _bf16_operand(rng, (k, d), cuda_device, 0.5)
+    bias = _bf16_operand(rng, (d,), cuda_device, 0.1)
+    assert conv1d_kernel.takes_stream(d, row, k, x.data_ptr() % 16 == 0)
+    y = conv1d_fused(x, w, bias, activation=act)
+    kept = torch.empty_like(y)
+    ptrs = (x.data_ptr(), w.data_ptr(), bias.data_ptr(), kept.data_ptr())
+    _, args = conv1d_kernel._launch_args(b, length, d, row, k, act == "silu",
+                                         not any(p % 16 for p in ptrs), torch.bfloat16)
+    conv1d_kernel.LIB.launch(conv1d_kernel.ENTRY[torch.bfloat16], x.device, *ptrs, args)
+    torch.cuda.synchronize()
+    assert torch.equal(y, kept)
 
 
 def _f64_attention_grads(q, k, v, do, causal, window):
