@@ -421,8 +421,39 @@ Phases (any failure exits non-zero):
      bitwise the same reduction computed in one process on the card, and
      within one quantisation step of the CPU's (CUDA's division by 127
      multiplies by the reciprocal); the NCCL call's ms beside a plain f32
-     all-reduce's.  `python3 chip_smoke.py --phase 20` runs phases 1, 2
-     and 20 alone and prints no result line.
+     all-reduce's; with n > 1 visible cards also at world n over NCCL
+     (n more subprocesses started once gloo's have ended, rank i on
+     cuda:i, their seconds outside the phase's limit), each rank's
+     payload bitwise gloo's rank's where the worlds are one size.
+     `python3 chip_smoke.py --phase 20` runs phases 1, 2 and 20 alone and
+     prints no result line.
+ 21. the mesh, at most 90 s (aim 60 on one card): a mesh of 4 entries on
+     cuda:{i % n} over the n visible cards (on one card all four share
+     cuda:0, and the output says so); every card's name and power limit.
+     (a) every kernel source at its largest shape (phase 3's widest vgg
+     layer; zamba2's conv1d wave and decode MLP; deepseek-v3's MLA
+     prefill; gemma3-1b's global training layer and mamba2's training
+     slice for the backwards; fp32 and bf16) on every distinct card,
+     against its plain version there (fp32 rel 1e-5, backwards 5e-5, bf16
+     2e-2) and bitwise the first card's output, its launches counted on
+     that card.  (b) `vgg_mixed_channel(3)` waves of 4, 16 and 64 rows
+     and a ragged 16 through `ShardedWaveExecutor` on data meshes of N =
+     1, 2, 4 entries against the unsharded wave (rel 1e-5, the bitwise
+     count beside it), the tile launches each card made (those of the
+     checked waves at N = 2 and 4, and only those, are the mesh path's
+     count in the kernels line), and each wave's
+     latency (median of 20, CUDA events on cuda:0 and host wall, host
+     input to output on cuda:0).  (c) weight placement on the 4-entry
+     mesh, unplaced, all REPLICATE, all SHARD and the 1 MiB decision:
+     resident transform bytes by card, each position's share, bytes
+     brought from other cards a 64-row wave, the wave's time, the output
+     bitwise the unplaced one.  (d) an `ElasticPool` of 2 replicas x 4
+     shards on the mesh on phase 12's exactness trace against 1 x 1
+     (rel 1e-5; mesh and logical waves counted).  (e) gemma3-1b at full
+     width on 2 layers, fp32, B 4 x S 700: logits with q stripes over a
+     4-entry model axis (`use_mesh`) against the whole chunked attention,
+     rel 1e-5.  `python3 chip_smoke.py --phase 21` runs phases 1, 2 and
+     21 alone and prints no result line.
 
 `python3 chip_smoke.py --phase 3` runs phase 1 and then phase 3's tile
 kernel cases 20 times, every other round with the caching allocator's
@@ -5237,6 +5268,7 @@ REMAT_COST_ROUNDS = 6  # `--chunk-remat-cost`'s rounds
 MLA_DECODE_STEPS = 4
 COLL_STEPS = 3  # error-feedback steps of the compressed all-reduce
 COLL_WORLD = 4  # gloo ranks, one process each, all on cuda:0
+# with more than one card, NCCL ranks too: one process a card, rank i on cuda:i
 COLL_SCALE = 1e-3  # the seeded gradients' std
 
 
@@ -5743,19 +5775,22 @@ def _within_one_step(card, cpu, inputs) -> float:
     return float((_coll_blocks(card.cpu() - cpu).abs().amax(dim=1) / step).max())
 
 
-def coll_run(rank: int, world: int) -> dict:
+def coll_run(rank: int, world: int, cpu_check: bool = True) -> dict:
     """COLL_STEPS steps of `make_compressed_allreduce()` over the default
     process group on gemma3-1b's first layer's gradient tree (rank r's
     seeded by r and the step), each step's mean and new residuals held
     bitwise against `_coll_oracle` of every rank's inputs in this process
-    on the card, and (rank 0) within one quantisation step
-    of the same reduction on the CPU from the same inputs."""
+    on the card, and (rank 0, with `cpu_check`) within one quantisation
+    step of the same reduction on the CPU from the same inputs."""
     from repro_torch.distributed import collectives as coll
+
+    import hashlib
 
     shapes = _coll_shapes()
     allreduce = coll.make_compressed_allreduce()
     res = [coll.init_residuals(_coll_tree(shapes, r, 0)) for r in range(world)]
     bitwise, steps_off, ms = True, 0.0, []
+    digest = hashlib.sha1()  # every step's mean and own residual, by leaf
     for step in range(COLL_STEPS):
         trees = [_coll_tree(shapes, r, step) for r in range(world)]
         torch.cuda.synchronize()
@@ -5765,10 +5800,12 @@ def coll_run(rank: int, world: int) -> dict:
         ms.append((time.perf_counter() - t0) * 1e3)
         new = [dict() for _ in range(world)]
         for name in shapes:
+            for x in (mean[name], mine[name]):
+                digest.update(x.detach().cpu().numpy().tobytes())
             sim = _coll_oracle([t[name] for t in trees], [r[name] for r in res])
             bitwise &= torch.equal(mean[name], sim[rank][0]) and torch.equal(mine[name],
                                                                                 sim[rank][1])
-            if rank == 0:
+            if rank == 0 and cpu_check:
                 inputs = [t[name].cpu() for t in trees]
                 cpu = _coll_oracle(inputs, [r[name].cpu() for r in res])
                 carried = [g + r[name].cpu() for g, r in zip(inputs, res)]
@@ -5780,29 +5817,82 @@ def coll_run(rank: int, world: int) -> dict:
         res = new
     n = sum(math.prod(s) for s in shapes.values())
     return dict(rank=rank, world=world, leaves=len(shapes), elements=n, bitwise=bitwise,
-                steps_off=steps_off, ms=ms)
+                steps_off=steps_off, ms=ms, digest=digest.hexdigest())
 
 
-def coll_child(rank: int, world: int, store: str) -> int:
-    """A gloo rank of phase 20 (e): `coll_run` over a FileStore group."""
+def coll_child(rank: int, world: int, store: str, backend: str = "gloo") -> int:
+    """A rank of phase 20 (e): `coll_run` over a FileStore group; a gloo
+    rank on cuda:0, an NCCL rank on cuda:<rank>, which then times the
+    compressed all-reduce of its tree and a plain f32 all-reduce of it
+    (CUDA events, median of 10, every rank in step).  An NCCL world of
+    gloo's size leaves the CPU check to gloo's: its payload is held
+    bitwise gloo's instead."""
     import torch.distributed as dist
 
     sys.path.insert(0, os.path.join(ROOT, "src"))
-    dist.init_process_group("gloo", store=dist.FileStore(store, world), rank=rank,
-                            world_size=world)
+    from repro_torch.distributed import collectives as coll
+
+    kw = {}
+    if backend == "nccl":
+        torch.cuda.set_device(rank)
+        kw["device_id"] = torch.device(DEV, rank)
+    dist.init_process_group(backend, store=dist.FileStore(store, world), rank=rank,
+                            world_size=world, **kw)
     try:
-        print("COLL " + json.dumps(coll_run(rank, world)), flush=True)
+        out = coll_run(rank, world, cpu_check=backend == "gloo" or world != COLL_WORLD)
+        if backend == "nccl":
+            tree = _coll_tree(_coll_shapes(), rank, 0)
+            res, allreduce = coll.init_residuals(tree), coll.make_compressed_allreduce()
+            flat = [t.clone() for t in tree.values()]
+            out.update(compressed_ms=time_ms(lambda: allreduce(tree, res), reps=10),
+                       plain_ms=time_ms(lambda: [dist.all_reduce(t) for t in flat], reps=10))
+        print("COLL " + json.dumps(out), flush=True)
     finally:
         dist.destroy_process_group()
     return 0
+
+
+def _coll_ranks(backend: str, world: int, store: str) -> list:
+    """Start `world` subprocesses of `chip_smoke.py --coll-rank r` on one
+    FileStore (the caller waits on them)."""
+    if os.path.exists(store):
+        os.unlink(store)
+    return [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--coll-rank", str(r),
+                              "--coll-world", str(world), "--coll-store", store,
+                              "--coll-backend", backend],
+                             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+            for r in range(world)]
+
+
+def _coll_results(label: str, procs: list) -> list:
+    outs = []
+    try:
+        for p in procs:
+            out, err = p.communicate(timeout=300)
+            outs.append((p.returncode, out, err))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    got = []
+    for rank, (rc, out, err) in enumerate(outs):
+        lines = [ln for ln in out.splitlines() if ln.startswith("COLL ")]
+        if rc != 0 or not lines:
+            raise AssertionError(f"phase 20 {label} rank {rank} failed (rc {rc}): {err[-2000:]}")
+        got.append(json.loads(lines[-1][5:]))
+    return got
 
 
 def flags_collectives(smi: str) -> dict:
     """Phase 20 (e): the int8 compressed all-reduce with error feedback at
     world 1 over NCCL in this process, then at world COLL_WORLD over gloo
     in COLL_WORLD subprocesses (each a rank on cuda:0) sharing a
-    FileStore; each held by `coll_run`.  The NCCL call's time (CUDA
-    events) beside a plain f32 all-reduce of the same tree."""
+    FileStore and, with n > 1 cards, at world n over NCCL in n more
+    subprocesses started once those have ended (rank i on cuda:i); each held by
+    `coll_run`, and NCCL's payload at world n bitwise gloo's where the two
+    worlds are one size.  The in-process NCCL call's time (CUDA events)
+    beside a plain f32 all-reduce of the same tree."""
     import torch.distributed as dist
 
     from repro_torch.distributed import collectives as coll
@@ -5823,31 +5913,34 @@ def flags_collectives(smi: str) -> dict:
         plain_ms = time_ms(lambda: [dist.all_reduce(t) for t in flat], reps=10)
     finally:
         dist.destroy_process_group()
-    store = os.path.join(PHASE20_DIR, "gloo_store")
-    if os.path.exists(store):
-        os.unlink(store)
+    n_cards = torch.cuda.device_count()
     t0 = time.perf_counter()
-    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--coll-rank", str(r),
-                               "--coll-world", str(COLL_WORLD), "--coll-store", store],
-                              stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
-             for r in range(COLL_WORLD)]
-    outs = []
-    try:
-        for p in procs:
-            out, err = p.communicate(timeout=300)
-            outs.append((p.returncode, out, err))
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
+    gloo = _coll_results("gloo", _coll_ranks("gloo", COLL_WORLD,
+                                             os.path.join(PHASE20_DIR, "gloo_store")))
     gloo_s = time.perf_counter() - t0
-    gloo = []
-    for rank, (rc, out, err) in enumerate(outs):
-        lines = [ln for ln in out.splitlines() if ln.startswith("COLL ")]
-        if rc != 0 or not lines:
-            raise AssertionError(f"phase 20 gloo rank {rank} failed (rc {rc}): {err[-2000:]}")
-        gloo.append(json.loads(lines[-1][5:]))
+    # NCCL's world n only once gloo's ranks have ended, so the two never
+    # contend for the host; its seconds stand outside the phase's limit
+    t0 = time.perf_counter()
+    wide = (_coll_results("nccl", _coll_ranks("nccl", n_cards,
+                                              os.path.join(PHASE20_DIR, "nccl_world_store")))
+            if n_cards > 1 else [])
+    wide_s = time.perf_counter() - t0
+    if wide:
+        same = (len(wide) == len(gloo)
+                and [w["digest"] for w in wide] == [g["digest"] for g in gloo])
+        print(f"phase 20 compressed all-reduce over NCCL at world {n_cards} (rank i on cuda:i, "
+              f"subprocesses after gloo's, {wide_s:.1f} s): bitwise vs one process {[w['bitwise'] for w in wide]}"
+              + (f", rank 0 vs CPU within {wide[0]['steps_off']:.3f} steps" if len(wide) != len(gloo)
+                 else "") + f"; payload bitwise gloo world {COLL_WORLD}'s "
+              + (f"{same}" if len(wide) == len(gloo) else "not comparable (another world size)")
+              + f"; ms/step by rank {[[round(x, 3) for x in w['ms']] for w in wide]} (host "
+              f"wall, each rank waiting on rank 0's checks); the compressed all-reduce of the "
+              f"tree by rank {[round(w['compressed_ms'], 4) for w in wide]} ms, a plain f32 "
+              f"all_reduce {[round(w['plain_ms'], 4) for w in wide]} ms (CUDA events, median "
+              f"of 10); cards {card_table()}")
+        if not all(w["bitwise"] for w in wide) or (len(wide) == len(gloo) and not same):
+            raise AssertionError("phase 20 compressed all-reduce over NCCL at world "
+                                 f"{n_cards}: not bitwise")
     print(f"phase 20 compressed all-reduce, gemma3-1b layer 0's gradient tree ({nccl['leaves']} "
           f"leaves, {nccl['elements']} f32 elements), {COLL_STEPS} error-feedback steps: NCCL "
           f"world 1 bitwise vs one process {nccl['bitwise']}, vs CPU within "
@@ -5858,11 +5951,13 @@ def flags_collectives(smi: str) -> dict:
     print(f"phase 20 NCCL world 1: compressed all-reduce of the tree {compressed_ms:.4f} ms, "
           f"plain f32 all_reduce {plain_ms:.4f} ms (CUDA events, median); card {smi}")
     ok = nccl["bitwise"] and all(g["bitwise"] for g in gloo)
-    worst = max(nccl["steps_off"], gloo[0]["steps_off"])
+    worst = max([nccl["steps_off"], gloo[0]["steps_off"]] + [w["steps_off"] for w in wide[:1]])
     if not ok or worst > 1.0 + 1e-4 or sorted(g["rank"] for g in gloo) != list(range(COLL_WORLD)):
         raise AssertionError(f"phase 20 compressed all-reduce: bitwise {ok}, {worst} steps off")
     return dict(elements=nccl["elements"], compressed_ms=compressed_ms, plain_ms=plain_ms,
-                steps_off=worst, gloo_seconds=gloo_s)
+                steps_off=worst, gloo_seconds=gloo_s, nccl_world_seconds=wide_s,
+                nccl_world=dict(world=n_cards, compressed_ms=[w["compressed_ms"] for w in wide],
+                                plain_ms=[w["plain_ms"] for w in wide]) if wide else None)
 
 
 def phase_flags(smi: str) -> dict:
@@ -5878,19 +5973,457 @@ def phase_flags(smi: str) -> dict:
         out[part] = fn()
         print(f"phase 20: {part} in {time.perf_counter() - t0:.2f} s")
         gc_collect()
-    wall = time.perf_counter() - t_phase
-    print(f"phase 20: phase wall time {wall:.2f} s (limit {PHASE20_LIMIT_S:g} s)")
+    # NCCL's world n (more than one card only) is timed outside the limit
+    wide_s = out["collectives"]["nccl_world_seconds"]
+    wall = time.perf_counter() - t_phase - wide_s
+    print(f"phase 20: phase wall time {wall:.2f} s (limit {PHASE20_LIMIT_S:g} s), NCCL world n "
+          f"{wide_s:.2f} s beside it")
     if wall > PHASE20_LIMIT_S:
         raise AssertionError(f"phase 20 took {wall:.1f} s > {PHASE20_LIMIT_S:g} s")
     out["seconds"] = wall
     return out
 
 
+# ----------------------------------------------------------------- phase 21
+
+PHASE21_LIMIT_S = 90.0  # the aim is 60 s on one card
+MESH_ENTRIES = 4  # the data (or model) axis: cuda:{i % n} over the n visible cards
+MESH_WAVES = (4, 16, 64)  # rows of the timed vgg waves
+MESH_NS = (1, 2, 4)  # mesh entries of the timed waves
+MESH_REPS = 20  # CUDA-event-timed waves a (rows, N) pair; the median is read
+CP_LAYERS, CP_BATCH, CP_SEQ = 2, 4, 700  # gemma3-1b's cut for (e)
+REL_TOL_CP = 1e-5  # q stripes vs the whole chunked attention, fp32
+REL_TOL_MESH_BF16 = 2e-2  # a bf16 kernel vs its plain version on each card (phase 17's)
+
+
+def mesh_cards(entries: int = MESH_ENTRIES) -> list:
+    """`entries` mesh positions over the visible cards, entry i on cuda:{i % n}."""
+    n = torch.cuda.device_count()
+    return [torch.device("cuda", i % n) for i in range(entries)]
+
+
+def card_table() -> list:
+    """nvidia-smi's name and power limit of every card, one line each."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=index,name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip().splitlines()
+
+
+def _card_launches(stem: str) -> dict:
+    from repro_torch.kernels import _build
+
+    with _build.COUNT_LOCK:
+        return {i: n for (s, i), n in _build.CARD_LAUNCHES.items() if s == stem}
+
+
+def _launch_delta(stem: str, before: dict) -> dict:
+    return {f"cuda:{i}": n - before.get(i, 0) for i, n in sorted(_card_launches(stem).items())
+            if n - before.get(i, 0)}
+
+
+def mesh_kernel_cases(card) -> list:
+    """(a)'s cases on `card`: every kernel source at the largest shape its
+    phase gives it (phase 3's widest vgg layer; phase 4's and 17's zamba2
+    conv1d wave and decode MLP and deepseek-v3's MLA attention; phase 13's
+    and 18's gemma3-1b global training layer and mamba2's training
+    slice), operands drawn on the card from one seed, so every card gets
+    the same inputs.  Each: (name, stem, run, plain, tolerance)."""
+    from repro_torch.kernels.conv1d_fused import backward as conv_bwd
+    from repro_torch.kernels.conv1d_fused import conv1d_bwd_ref, conv1d_fused, conv1d_ref
+    from repro_torch.kernels.decode_mlp import decode_mlp, decode_mlp_ref
+    from repro_torch.kernels.flash_attention import attention_ref, flash_forward
+    from repro_torch.kernels.flash_attention import backward as flash_bwd
+    from repro_torch.kernels.flash_attention import flash_attention_bwd_ref
+    from repro_torch.kernels.flash_attention import kernel as flash_kernel
+
+    gen = torch.Generator(device=card)
+    gen.manual_seed(21)
+
+    def draw(shape, dtype=torch.float32, scale=1.0):
+        return (torch.randn(shape, generator=gen, device=card) * scale).to(dtype)
+
+    tile = max(kernel_cases(), key=lambda c: c[2] * c[3] * c[4] * c[5] * c[6] // c[7])
+    with torch.cuda.device(card):
+        tc = make_case(tile, np.random.default_rng(21))
+    cases = [(f"fused_tile {tile[0]}", "fused_tile", lambda: run_kernel(tc),
+              lambda: run_plain(tc), REL_TOL_KERNEL)]
+    bf = torch.bfloat16
+    for dtype, tol in ((torch.float32, REL_TOL_LM_KERNEL), (bf, REL_TOL_MESH_BF16)):
+        tag = "bf16" if dtype == bf else "fp32"
+        # zamba2-7b's xBC slice at its first prefill wave (phases 4 and 17)
+        x = draw((4, 768, 14576), dtype)[..., 7168:7168 + 7296]
+        w, b = draw((4, 7296), dtype, 0.5), draw((7296,), dtype, 0.1)
+        cases.append((f"conv1d_fused {tag} zamba2 wave 1 B4 L768 D7296",
+                      "conv1d_fused" if dtype != bf else "conv1d_fused_fwd_bf16",
+                      lambda x=x, w=w, b=b: conv1d_fused(x, w, b),
+                      lambda x=x, w=w, b=b: conv1d_ref(x, w, b), tol))
+        # mamba2-1.3b's training slice, the backward (phases 13 and 18)
+        x = draw((4, 1024, 8512), dtype)[..., 4096:4096 + 4352]
+        w, b, g = draw((4, 4352), dtype, 0.5), draw((4352,), dtype, 0.1), draw(
+            (4, 1024, 4352), dtype)
+        cases.append((f"conv1d_fused_bwd {tag} mamba2 train B4 L1024 D4352",
+                      "conv1d_fused" if dtype != bf else "conv1d_fused_bwd_bf16",
+                      lambda x=x, w=w, b=b, g=g: conv_bwd.conv1d_fused_bwd_call(
+                          x, w, b, g, activation="silu"),
+                      lambda x=x, w=w, b=b, g=g: conv1d_bwd_ref(g, x, w, b),
+                      REL_TOL_KERNEL if dtype != bf else REL_TOL_MESH_BF16))
+        # deepseek-v3's MLA prefill (q/k hd 192, v hd 128) in the model's layout
+        q = draw((4, 700, 128, 192), dtype).transpose(1, 2)
+        k = draw((4, 700, 128, 192), dtype).transpose(1, 2)
+        v = draw((4, 700, 128, 128), dtype).transpose(1, 2)
+        cases.append((f"flash_attention {tag} MLA B4 H128 S700 hd192/128",
+                      "flash_attention" if dtype != bf else "flash_attention_bf16",
+                      lambda q=q, k=k, v=v: flash_forward(q, k, v),
+                      lambda q=q, k=k, v=v: attention_ref(q, k, v), tol))
+        # gemma3-1b's global training layer, the backward
+        q, k, v, do = (draw(s, dtype) for s in ((4, 4, 1024, 256), (4, 1, 1024, 256),
+                                                 (4, 1, 1024, 256), (4, 4, 1024, 256)))
+        o, lse = flash_kernel.flash_attention_call(q, k, v, causal=True, window=0,
+                                                   return_lse=True)
+        cases.append((f"flash_attention_bwd {tag} gemma3 train B4 S1024 hd256",
+                      "flash_attention_bwd" if dtype != bf else "flash_attention_bwd_bf16",
+                      lambda q=q, k=k, v=v, o=o, lse=lse, do=do: flash_bwd.flash_attention_bwd_call(
+                          q, k, v, o, lse, do, causal=True, window=0),
+                      lambda q=q, k=k, v=v, o=o, lse=lse, do=do: flash_attention_bwd_ref(
+                          q, k, v, o, lse, do, causal=True, window=0),
+                      REL_TOL_BWD if dtype != bf else REL_TOL_MESH_BF16))
+        # zamba2-7b's decode MLP at B 4 (phases 4 and 17)
+        xm = draw((4, 3584), dtype)
+        w1, w3 = (draw((3584, 14336), dtype, 3584 ** -0.5) for _ in range(2))
+        w2 = draw((14336, 3584), dtype, 14336 ** -0.5)
+        cases.append((f"decode_mlp {tag} zamba2 B4 d3584 f14336", "decode_mlp",
+                      lambda x=xm, a=w1, c=w3, d=w2: decode_mlp(x, a, c, d),
+                      lambda x=xm, a=w1, c=w3, d=w2: decode_mlp_ref(x, a, c, d), tol))
+    return cases
+
+
+def mesh_kernels(cards: list, smi_lines: list) -> dict:
+    """Phase 21 (a): every kernel on every distinct card of the mesh,
+    against its plain version on that card, and bitwise the first card's
+    output; the launches each card counted (comparison launches, not a
+    path's)."""
+    rows, first = [], {}
+    for card in dict.fromkeys(cards):
+        cases = mesh_kernel_cases(card)
+        for name, stem, run, plain, tol in cases:
+            before = _card_launches(stem)
+            with torch.cuda.device(card):
+                got, want = run(), plain()
+            torch.cuda.synchronize(card)
+            got = got if isinstance(got, tuple) else (got,)
+            want = want if isinstance(want, tuple) else (want,)
+            err = max(rel_err(g.float(), w.float()) for g, w in zip(got, want))
+            on_card = all(g.device == card for g in got)
+            host = [g.cpu() for g in got]
+            same = all(torch.equal(a, b) for a, b in zip(host, first.setdefault(name, host)))
+            launched = _launch_delta(stem, before)
+            print(f"phase 21 (a) {card}: {name:52s} rel err vs plain {err:.3e} (tol {tol:g}); "
+                  f"bitwise the first card's {same}; launches {launched}")
+            if not (err < tol and on_card and same and launched.get(str(card), 0) >= 1):
+                raise AssertionError(f"phase 21 (a) {name} on {card}: rel {err:.3e}, on card "
+                                     f"{on_card}, bitwise {same}, launches {launched}")
+            rows.append(dict(card=str(card), kernel=name, rel=err, bitwise=same))
+        del cases
+        gc_collect()
+    print(f"phase 21 (a): {len(rows)} kernel runs on {len(set(cards))} distinct card(s): "
+          f"{smi_lines}")
+    return dict(rows=rows, worst=max(r["rel"] for r in rows))
+
+
+def _vgg_wave(rows: int, seed: int, ragged: bool = False):
+    rng = np.random.default_rng(seed)
+    x = (rng.standard_normal((rows, 64, 64, 3)) * 0.1).astype(np.float32)
+    if not ragged:
+        return x, None
+    sizes = np.array([[64, 64], [48, 48], [32, 32], [64, 48]] * (rows // 4), np.int32)
+    sizes[-1] = 0
+    return x, sizes
+
+
+def _wave_ms(fn, reps: int = MESH_REPS) -> tuple:
+    """(median CUDA-event ms on cuda:0, median host wall ms, median host
+    issue ms: until `fn` returned, before the synchronize) of `reps`
+    waves after two warm ones; the host input and the output's place on
+    the wave's card both inside."""
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    ev, wall, issue = [], [], []
+    for _ in range(reps):
+        t0, t1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        w0 = time.perf_counter()
+        t0.record()
+        fn()
+        issue.append((time.perf_counter() - w0) * 1e3)
+        t1.record()
+        t1.synchronize()
+        wall.append((time.perf_counter() - w0) * 1e3)
+        ev.append(t0.elapsed_time(t1))
+    return statistics.median(ev), statistics.median(wall), statistics.median(issue)
+
+
+def mesh_waves(cards: list, smi: str) -> dict:
+    """Phase 21 (b) and (c): vgg_mixed_channel(3)'s waves on the mesh path
+    against the unsharded wave, their latency at N = 1, 2, 4 entries and
+    the tile launches each card made; then both weight placements."""
+    from repro_torch.configs.convnets import vgg_mixed_channel
+    from repro_torch.convserve import Engine, init_weights
+    from repro_torch.convserve.fleet import (
+        REPLICATE, SHARD, ShardedWaveExecutor, apply_placement, plan_weight_placement)
+    from repro_torch.core import analysis
+    from repro_torch.distributed.sharding import Mesh
+    from repro_torch.kernels.fused_tile import kernel as tile_kernel
+
+    spec = vgg_mixed_channel(3)
+    ws = init_weights(spec, seed=0)
+    engine = Engine(hw=analysis.H100_SXM, device=cards[0])
+    net = engine.compile(spec, ws, input_hw=(64, 64))
+    sharded = {n: ShardedWaveExecutor(engine.compile(spec, ws, plan=net.plan, input_hw=(64, 64)),
+                                      shards=n, mesh=Mesh({"data": n}, devices=cards[:n]))
+               for n in MESH_NS}
+    waves = {rows: _vgg_wave(16 if rows == "ragged 16" else rows, seed=21,
+                             ragged=rows == "ragged 16") for rows in MESH_WAVES + ("ragged 16",)}
+    refs = {rows: net(x, sizes) for rows, (x, sizes) in waves.items()}
+    ys, by_card = {}, {}
+
+    def wave(rows, n):
+        x, sizes = waves[rows]
+        before = _card_launches("fused_tile")
+        ys[rows, n] = sharded[n](x, sizes)
+        torch.cuda.synchronize()
+        if rows != "ragged 16":
+            by_card[f"{rows} rows N={n}"] = _launch_delta("fused_tile", before)
+
+    for rows in waves:  # N = 1: one shard, the replica's own net
+        wave(rows, 1)
+    tile_kernel.LAUNCHES = 0  # main path: count only the mesh path's waves
+    for rows in waves:
+        for n in MESH_NS[1:]:
+            wave(rows, n)
+    launches = tile_kernel.LAUNCHES
+    checks, lat, worst, bitwise, total = {}, {}, 0.0, 0, 0
+    for (rows, n), y in ys.items():
+        err = rel_err(y, refs[rows])
+        worst, total = max(worst, err), total + 1
+        bitwise += bool(torch.equal(y, refs[rows]))
+        checks[f"{rows} rows N={n}"] = err <= REL_TOL_SHARD and y.device == refs[rows].device
+    paths = {n: sh.stats()["sharded_waves"] for n, sh in sharded.items()}
+    for rows in MESH_WAVES:
+        x, _ = _vgg_wave(rows, seed=22)
+        for n, sh in sharded.items():
+            lat[rows, n] = _wave_ms(lambda sh=sh, x=x: sh(x))
+    for rows in MESH_WAVES:
+        print(f"phase 21 (b) vgg wave of {rows} rows: " + "; ".join(
+            f"N={n} {lat[rows, n][0]:.4f} ms events, {lat[rows, n][1]:.4f} ms host wall, "
+            f"{lat[rows, n][2]:.4f} ms host issue, tile launches by card "
+            f"{by_card[f'{rows} rows N={n}']}" for n in MESH_NS))
+    print(f"phase 21 (b): {total} waves (4/16/64 rows and ragged 16 at N = 1, 2, 4) vs the "
+          f"unsharded wave: worst rel {worst:.3e} (tol {REL_TOL_SHARD:g}), bitwise {bitwise} of "
+          f"{total}; tile launches of the mesh path's checked waves (N = 2, 4) {launches}; "
+          f"waves by path {paths}; median of {MESH_REPS} (CUDA events on cuda:0, host input "
+          f"to output on cuda:0); card {smi}")
+    checks["mesh waves counted"] = all(p["mesh"] >= 1 for n, p in paths.items() if n > 1)
+    checks["N=1 never took the mesh path"] = paths[1]["mesh"] == 0
+
+    # (c) placement on the 4-entry mesh: none, REPLICATE, SHARD, the decision
+    sh4, mesh4 = sharded[4], sharded[4].mesh
+    x, _ = _vgg_wave(64, seed=23)
+    y0 = sh4(x)
+    placements = {}
+    for label, threshold in (("unplaced", None), ("replicate", 1 << 40), ("shard", 1),
+                             ("decision 1 MiB", 1 << 20)):
+        counts = None
+        if threshold is not None:
+            decision = plan_weight_placement(sh4.net, threshold_bytes=threshold)
+            counts = apply_placement(sh4.net, mesh4, decision)
+        before = engine.cache.placement_stats()
+        y = sh4(x)
+        torch.cuda.synchronize()
+        after = engine.cache.placement_stats()
+        moved = after["moved_bytes"] - before["moved_bytes"]
+        ms = _wave_ms(lambda: sh4(x))
+        entries = [engine.cache._store[k] for k in sh4.cache_keys()]
+        share = [e.bytes_at(i) / e.nbytes for e in entries if hasattr(e, "bytes_at")
+                 for i in range(mesh4.size)]
+        placements[label] = dict(counts=counts, resident=after["resident_bytes"],
+                                 moved_bytes_a_wave=moved, ms=ms, bitwise=torch.equal(y, y0))
+        print(f"phase 21 (c) {label:14s}: apply_placement {counts}; resident transform bytes "
+              f"by card {after['resident_bytes']}; bytes brought from other cards a 64-row wave "
+              f"{moved} (gathers {after['gathers'] - before['gathers']}, copies "
+              f"{after['copies'] - before['copies']}); per-position share of each entry "
+              f"{sorted(set(round(s, 4) for s in share)) or '-'}; wave {ms[0]:.4f} ms events, "
+              f"{ms[1]:.4f} ms host wall, {ms[2]:.4f} ms host issue; output bitwise the "
+              f"unplaced one {placements[label]['bitwise']}")
+        checks[f"placement {label} leaves the output"] = placements[label]["bitwise"]
+        if label == "shard":
+            checks["SHARD keeps 1/4 a position"] = share and all(abs(s - 0.25) < 1e-9
+                                                                  for s in share)
+        if label == "replicate":
+            checks["REPLICATE keeps the whole a position"] = share and all(s == 1.0 for s in share)
+    dec = plan_weight_placement(sh4.net)
+    checks["the decision shards and replicates"] = {d["placement"] for d in dec.values()} == {
+        SHARD, REPLICATE}
+    return dict(checks=checks, latency={f"{r} rows N={n}": v for (r, n), v in lat.items()},
+                worst=worst, bitwise=bitwise, total=total, placements=placements,
+                launches=launches, by_card=by_card)
+
+
+def mesh_pool(cards: list, smi: str) -> dict:
+    """Phase 21 (d): an `ElasticPool` of 2 replicas on the 4-entry mesh,
+    4 shards each, on phase 12's exactness trace, against 1 replica x 1
+    shard; SimClock, as phase 12."""
+    from repro_torch.configs.convnets import vgg_mixed_channel
+    from repro_torch.convserve import Engine, init_weights
+    from repro_torch.convserve.fleet import ElasticPool, FixedServiceModel, FleetRuntime
+    from repro_torch.convserve.runtime import (
+        RuntimeConfig, SimClock, make_images, poisson_trace)
+    from repro_torch.core import analysis
+    from repro_torch.distributed.sharding import Mesh
+
+    spec = vgg_mixed_channel(3)
+    ws = init_weights(spec, seed=0)
+    trace = poisson_trace(45.0, 60, seed=FLEET_SEED, sizes=(32, 48, 64), deadline_s=0.08)
+    images = make_images(trace, spec.conv_layers()[0][1].c_in, seed=1)
+    cfg = RuntimeConfig(max_batch=4, buckets=(FLEET_SIDE,), queue_depth=128, slo_s=0.1,
+                        service_est_s=0.01)
+    out = {}
+    for label, n, shards, mesh in (("mesh 2x4", 2, 4, Mesh({"data": 4}, devices=cards)),
+                                   ("oracle 1x1", 1, 1, None)):
+        clock = SimClock()
+        pool = ElasticPool.build(Engine(hw=analysis.H100_SXM, device=cards[0]), spec, ws, n=n,
+                                 clock=clock, input_hw=(FLEET_SIDE, FLEET_SIDE), shards=shards,
+                                 mesh=mesh, max_replicas=n, startup_s=1.0,
+                                 service_model=FixedServiceModel(**FLEET_SERVICE))
+        rt = FleetRuntime(pool, cfg, clock=clock)
+        rt.warmup([2, 4])
+        out[label] = (rt.play(trace, images), rt, pool)
+    (got, rt, pool), (want, _, _) = out["mesh 2x4"], out["oracle 1x1"]
+    worst, bitwise = 0.0, 0
+    for rid, ref in want.items():
+        y = got.get(rid)
+        if y is None:
+            worst = float("inf")
+            continue
+        bitwise += bool(np.array_equal(y, ref))
+        worst = max(worst, float(np.abs(y.astype(np.float64) - ref).max()
+                                 / (np.abs(ref).max() + 1e-30)))
+    waves = [r.executor.stats()["sharded_waves"] for r in pool.replicas]
+    mesh_w, logical_w = sum(w["mesh"] for w in waves), sum(w["logical"] for w in waves)
+    print(f"phase 21 (d) ElasticPool of 2 replicas x 4 shards on the mesh, {len(trace)} "
+          f"requests (phase 12's exactness trace): vs 1 replica x 1 shard worst rel "
+          f"{worst:.3e} (tol {REL_TOL_SHARD:g}), bitwise {bitwise} of {len(want)}; waves mesh "
+          f"{mesh_w}, logical {logical_w}; partial waves "
+          f"{rt.stats()['scheduler']['partial_waves']}; errors {len(rt.errors)}; card {smi}")
+    ok = (got.keys() == want.keys() == {a.rid for a in trace} and worst <= REL_TOL_SHARD
+          and mesh_w >= 1 and not rt.errors)
+    return dict(ok=ok, worst=worst, bitwise=bitwise, mesh_waves=mesh_w, logical_waves=logical_w)
+
+
+def mesh_cp(cards: list, smi: str) -> dict:
+    """Phase 21 (e): gemma3-1b at full width on CP_LAYERS layers, fp32,
+    B 4 x S 700, its logits with q stripes over a 4-entry model axis
+    against the whole chunked attention (no mesh in effect)."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.distributed.sharding import Mesh, use_mesh
+    from repro_torch.kernels.flash_attention import kernel as flash_kernel
+    from repro_torch.models import attention as attn_mod
+    from repro_torch.models import init_lm, lm_logits
+    from repro_torch.models import runtime_flags as rf
+
+    cfg = dataclasses.replace(get_arch("gemma3-1b"), n_layers=CP_LAYERS, dtype="float32")
+    published_width(cfg, (1152, 4, 256, 6912))
+    model = init_lm(cfg, seed=0, device=cards[0])
+    toks = torch.from_numpy(np.random.default_rng(21).integers(
+        0, cfg.vocab_size, (CP_BATCH, CP_SEQ))).to(cards[0])
+    calls = []
+    real = attn_mod.chunked_attention
+
+    def counted(q, *a, **kw):
+        calls.append((str(q.device), int(q.shape[1])))
+        return real(q, *a, **kw)
+
+    runs = {}
+    attn_mod.chunked_attention = counted
+    try:
+        with rf.overrides(attention_cp_axis="model"):
+            for label, mesh in (("whole", None),
+                                ("q stripes", Mesh({"data": 1, "model": MESH_ENTRIES},
+                                                   devices=cards))):
+                calls.clear()
+                flash_kernel.LAUNCHES = 0
+                with torch.no_grad(), use_mesh(mesh):
+                    lm_logits(model, toks)  # warm
+                    torch.cuda.synchronize()
+                    w0 = time.perf_counter()
+                    y = lm_logits(model, toks)
+                    torch.cuda.synchronize()
+                runs[label] = dict(y=y, ms=(time.perf_counter() - w0) * 1e3,
+                                   calls=list(calls[len(calls) // 2:]),
+                                   flash=flash_kernel.LAUNCHES)
+    finally:
+        attn_mod.chunked_attention = real
+    rel = rel_err(runs["q stripes"]["y"], runs["whole"]["y"])
+    finite = bool(torch.isfinite(runs["q stripes"]["y"]).all())
+    stripes = runs["q stripes"]["calls"]
+    print(f"phase 21 (e) gemma3-1b CP, full width, {CP_LAYERS} layers, fp32, B {CP_BATCH} x S "
+          f"{CP_SEQ}: q stripes over {MESH_ENTRIES} entries vs whole rel {rel:.3e} (tol "
+          f"{REL_TOL_CP:g}), finite {finite}; stripes (card, rows) of layer 0 "
+          f"{stripes[:MESH_ENTRIES]}; flash launches {runs['q stripes']['flash']}; host wall "
+          f"{runs['q stripes']['ms']:.3f} ms split vs {runs['whole']['ms']:.3f} ms whole; "
+          f"card {smi}")
+    ok = (rel <= REL_TOL_CP and finite and len(stripes) == MESH_ENTRIES * CP_LAYERS
+          and len(runs["whole"]["calls"]) == CP_LAYERS and runs["q stripes"]["flash"] == 0
+          and [c for c, _ in stripes[:MESH_ENTRIES]] == [str(c) for c in cards])
+    del model, runs
+    return dict(ok=ok, rel=rel)
+
+
+def phase_mesh(smi: str) -> dict:
+    """Phase 21 (module docstring): the multi-card mesh."""
+    t_phase = time.perf_counter()
+    gc_collect()
+    n = torch.cuda.device_count()
+    cards = mesh_cards()
+    smi_lines = card_table()
+    shared = len(set(cards)) < len(cards)
+    print(f"phase 21: {n} visible card(s); mesh of {MESH_ENTRIES} entries on "
+          f"{[str(c) for c in cards]}"
+          + (f" -- entries SHARE cards ({len(set(cards))} distinct): placements and waves are "
+             "exercised, not spread" if shared else " -- every entry its own card"))
+    for line in smi_lines:
+        print(f"phase 21 nvidia-smi: {line}")
+    out = {}
+    for part, fn in (("kernels", lambda: mesh_kernels(cards, smi_lines)),
+                     ("waves", lambda: mesh_waves(cards, smi)),
+                     ("pool", lambda: mesh_pool(cards, smi)),
+                     ("cp", lambda: mesh_cp(cards, smi))):
+        t0 = time.perf_counter()
+        out[part] = fn()
+        print(f"phase 21: {part} in {time.perf_counter() - t0:.2f} s")
+        gc_collect()
+    checks = dict(out["waves"]["checks"])
+    checks["the pool on the mesh within 1e-5 of one replica"] = out["pool"]["ok"]
+    checks["CP q stripes within 1e-5 of the whole"] = out["cp"]["ok"]
+    failed = [k for k, ok in checks.items() if not ok]
+    wall = time.perf_counter() - t_phase
+    print(f"phase 21: phase wall time {wall:.2f} s (limit {PHASE21_LIMIT_S:g} s); checks "
+          f"{'all pass' if not failed else 'FAILED: ' + ', '.join(failed)}")
+    if failed:
+        raise AssertionError(f"phase 21 failed: {failed}")
+    if wall > PHASE21_LIMIT_S:
+        raise AssertionError(f"phase 21 took {wall:.1f} s > {PHASE21_LIMIT_S:g} s")
+    out.update(seconds=wall, cards=n, distinct=len(set(cards)))
+    return out
+
+
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
-    if "--coll-rank" in argv:  # a gloo rank of phase 20, started by phase 20
+    if "--coll-rank" in argv:  # a rank of phase 20 (e), started by phase 20
         opt = dict(zip(argv[::2], argv[1::2]))
-        return coll_child(int(opt["--coll-rank"]), int(opt["--coll-world"]), opt["--coll-store"])
+        return coll_child(int(opt["--coll-rank"]), int(opt["--coll-world"]), opt["--coll-store"],
+                          opt.get("--coll-backend", "gloo"))
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the GPU only",
               file=sys.stderr)
@@ -5919,6 +6452,10 @@ def main(argv=None) -> int:
     if argv == ["--phase", "20"]:  # phase 20 alone, for development: no result lines
         phase_flags(smi)
         print(f"chip_smoke: --phase 20 done at {time.perf_counter() - t_start:.1f} s")
+        return 0
+    if argv == ["--phase", "21"]:  # phase 21 alone (a four-card call): no result lines
+        phase_mesh(smi)
+        print(f"chip_smoke: --phase 21 done at {time.perf_counter() - t_start:.1f} s")
         return 0
     phase_check()
     cases, worst_abs, worst_rel = phase_kernel_vs_plain()
@@ -5963,6 +6500,8 @@ def main(argv=None) -> int:
     stamp("19")
     phase_flags(smi)
     stamp("20")
+    mesh = phase_mesh(smi)
+    stamp("21")
     print(f"chip_smoke: total {time.perf_counter() - t_start:.1f} s")
 
     # headline shape: the widest served vgg layer when vgg reaches the
@@ -5976,11 +6515,12 @@ def main(argv=None) -> int:
         "source": KERNEL_SOURCE,
         "replaces": REPLACES,
         "launches": (sum(s["launches"] for s in served.values()) + online["launches"]
-                     + adapt["launches"] + fleet["launches"]),
+                     + adapt["launches"] + fleet["launches"] + mesh["waves"]["launches"]),
         "launches_by_path": {**{k: s["launches"] for k, s in served.items()},
                              "online vgg-mixed (ServeRuntime)": online["launches"],
                              "adapt fft-fewchannel (AdaptController)": adapt["launches"],
-                             "fleet vgg-mixed (ElasticPool)": fleet["launches"]},
+                             "fleet vgg-mixed (ElasticPool)": fleet["launches"],
+                             "mesh vgg-mixed (ShardedWaveExecutor)": mesh["waves"]["launches"]},
         "launches_per_wave": {k: s["per_wave"] for k, s in served.items()},
         "max_abs_err": worst_abs,
         "max_rel_err": worst_rel,

@@ -278,11 +278,13 @@ class NetExecutor:
 
     # -------------------------------------------------------- public API
 
-    def _fetch_transforms(self) -> Dict[int, torch.Tensor]:
-        """Per-request cache fetch: first request per layer transforms and
-        stores; later requests (any bucket) count as hits.  The cache
-        itself knows (via the registry) which algorithms have nothing to
-        prepare and returns None for those."""
+    def transforms(self) -> Dict[int, torch.Tensor]:
+        """Per-request cache fetch, on this executor's device: first
+        request per layer transforms and stores; later requests (any
+        bucket) count as hits.  The cache itself knows (via the registry)
+        which algorithms have nothing to prepare and returns None for
+        those.  A caller that fetches ahead (a sharded wave, before it
+        issues any card's kernels) hands the result to `__call__`."""
         wts = {}
         for i, _ in self.spec.conv_layers():
             wt = self.cache.get(
@@ -306,16 +308,17 @@ class NetExecutor:
                 )
         return x, sizes
 
-    def __call__(self, x, sizes=None) -> torch.Tensor:
+    def __call__(self, x, sizes=None, transforms=None) -> torch.Tensor:
         """Run one batch on the executor's device.
 
         x: (B, H, W, C); defines the bucket.  sizes: optional (B, 2)
         integer true (h, w) per sample for ragged batches -- samples are
         zeroed beyond their true extent stage by stage so padded serving
-        is exact (see module docstring).
+        is exact (see module docstring).  transforms: this call's
+        `transforms()`, when the caller fetched them already.
         """
         x, sizes = self._prepare_call(x, sizes)
-        wts = self._fetch_transforms()
+        wts = self.transforms() if transforms is None else transforms
         self._shapes.add((tuple(x.shape), sizes is not None))
         self.calls += 1
         self.images += int(x.shape[0])
@@ -336,7 +339,7 @@ class NetExecutor:
         tile engine's phases as instants inside its stage span (served
         waves announce none)."""
         x, sizes = self._prepare_call(x, sizes)
-        wts = self._fetch_transforms()
+        wts = self.transforms()
         b_h, b_w, b_c = int(x.shape[1]), int(x.shape[2]), int(x.shape[3])
         x, ext = self._prologue(x, sizes)
         cuda = self.device.type == "cuda"

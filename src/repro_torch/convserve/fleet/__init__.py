@@ -3,10 +3,10 @@
 The fleet subsystem turns the single-pool serving runtime into a
 distributed one:
 
-  * `sharding` -- split one wave's rows into shards (on one card, row
-    groups through the replica's one program; a multi-card mesh raises)
-    and decide, per layer, whether pre-transformed kernels replicate or
-    shard;
+  * `sharding` -- split one wave's rows into shards (over a mesh's
+    data axis, each shard on its card; otherwise row groups through the
+    replica's one program) and decide, per layer, whether
+    pre-transformed kernels replicate or shard over the mesh's cards;
   * `pool` -- an elastic replica pool with lifecycle states, a
     discrete-event simulation core, injectable faults, and health
     probes that detect (and repair) shared-cache corruption;

@@ -41,7 +41,11 @@ The health probe stays bitwise, as the reference's rule is.  On the card
 that holds because every replica runs the probe at the same shape with
 the same plan, the same shared cache and the same launch geometry, and
 the tile kernel has no atomics; and because `KernelCache.invalidate`
-followed by a fresh transform rebuilds an entry bit for bit.
+followed by a fresh transform rebuilds an entry bit for bit.  A probe
+is one image, so a replica built on a mesh (`build(..., mesh=)`) runs it
+whole on its own card; a cache repair drops the entry's placement with
+the entry, and the fresh transform serves unplaced until the caller
+places it again (`apply_placement`).
 """
 
 from __future__ import annotations
@@ -245,8 +249,13 @@ class ElasticPool:
               **kwargs):
         """Compile `n` sharded replicas of one net on one engine (hence
         one shared cache), planning ONCE, and keep the factory so
-        `grow()` can mint identical replicas later.  Extra engine
-        compile knobs (e.g. ``input_hw``) ride through `compile_kwargs`.
+        `grow()` can mint identical replicas later.  With a `mesh`
+        whose data axis is larger than 1, each replica runs its waves
+        over the mesh's cards (`ShardedWaveExecutor`'s mesh path); its
+        transforms stay unplaced, each copied to another mesh card at
+        its first read there and the copy kept, until the caller places
+        them (`apply_placement`).  Extra engine compile knobs (e.g.
+        ``input_hw``) ride through `compile_kwargs`.
         """
         compile_kwargs = {
             k: kwargs.pop(k)

@@ -1,4 +1,4 @@
-"""Sharded wave execution.
+"""Sharded wave execution over a mesh's data axis.
 
 A wave is a batch of like-bucketed images; its rows are independent, so
 the fleet splits them into shards and reassembles the outputs in request
@@ -9,36 +9,63 @@ launch geometry for it and the library convolutions another algorithm,
 so a sharded wave equals the unsharded one within the kernels' own
 tolerance, not bit for bit.
 
-**What a mesh means on one card.**  With ``mesh=None``, or a mesh whose
-``data`` axis has size 1, every wave takes the **logical path**: the rows
-are split into `shards` contiguous groups run back to back through the
-replica's one program on its one device, then concatenated.  On one card
-this buys nothing in wall time, but the fleet's discrete-event simulation
-charges a sharded wave ``~service/shards`` of *simulated* time, which is
-what the scale-out curve measures.  A mesh whose ``data`` axis is larger
-than 1 (rows on ``cuda:i``, transforms placed per layer) raises
-`NotImplementedError`: that path waits for ROADMAP §1, the multi-card
-mesh, and never quietly falls back to the logical one.
+Two execution paths, picked per wave, as the reference's are, and each
+counted in `ShardedWaveExecutor.stats()`:
+
+  * **mesh path** -- when the mesh's ``data`` axis is larger than 1 and
+    the wave's rows divide by it: the rows are split as
+    `distributed.sharding.batch_spec` splits a batch (over (pod, data)
+    when they divide, else over data), and each shard runs on the first
+    card of its group (`shard_devices`), through a net compiled from the
+    replica's one plan for that card, sharing its weights and kernel
+    cache.  Every shard's rows, extents and transforms reach its card
+    before any card's kernels are issued; then every shard is issued
+    before any is waited on, each on a stream of its card, from the
+    caller's one thread (a thread a card was measured slower: the
+    executor's Python holds the GIL); the outputs are copied back to the
+    wave's card (``mesh.devices[0]``) and concatenated in request order.
+    A failure on any card raises: it never falls back to the logical
+    path.
+  * **logical path** -- otherwise (no mesh, a ``data`` axis of 1, or
+    rows that do not divide) the rows are split into `shards`
+    contiguous groups run back to back through the replica's one
+    program on its own device, then concatenated.  On one card this
+    buys nothing in wall time, but the fleet's discrete-event
+    simulation charges a sharded wave ``~service/shards`` of *simulated*
+    time, which is what the scale-out curve measures.
 
 Weight-cache **replication vs. sharding** is a planner decision, not a
 default (`plan_weight_placement`): a small pre-transformed kernel is
 cheapest replicated on every device; a large transformed kernel stack
 (the paper's 4 C C' T^2 matrices at high channel counts) is sharded
 over the mesh so the fleet's resident-transform footprint stays flat as
-devices grow.  On one card there is nothing to move: `apply_placement`
-counts every layer as skipped.  Carrying the decision out on the
-resident cache entries (`KernelCache.place` per layer) comes with the
-multi-card mesh.
+devices grow.  `apply_placement` carries the decision out on the
+resident cache entries (`KernelCache.place` with a `PlacedTransform`):
+REPLICATE keeps a whole copy on every mesh card, SHARD one slice of the
+last dim that divides by the ``data`` axis on each, gathered from the
+peers at every read (the reference's divisibility fallback replicates a
+layer whose dims do not divide).  Neither changes what is served.  With
+no mesh or a ``data`` axis of 1 placement moves nothing: every layer
+counts as skipped.
 """
 
 from __future__ import annotations
 
+import threading
 from typing import Dict, List, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch.core import registry
+from repro_torch.core.device import canonical, thread_stream
+from repro_torch.convserve.cache import PlacedTransform
+from repro_torch.convserve.executor import NetExecutor
+from repro_torch.distributed.sharding import (
+    axis_coordinates,
+    batch_spec,
+    shard_devices,
+)
 
 REPLICATE = "replicate"
 SHARD = "shard"
@@ -47,11 +74,6 @@ SHARD = "shard"
 # all-gather it would cost sharded (the mesh analogue of the planner's
 # shared-level residency gate)
 DEFAULT_SHARD_THRESHOLD_BYTES = 1 << 20
-
-MULTI_CARD = (
-    "a mesh whose data axis is larger than 1 (rows on cuda:i, transforms "
-    "placed per layer) is not ported: ROADMAP §1, the multi-card mesh"
-)
 
 
 def shard_bounds(n: int, shards: int) -> List[Tuple[int, int]]:
@@ -77,12 +99,6 @@ def _data_axis_size(mesh) -> int:
     return int(mesh.shape.get("data", 1))
 
 
-def _one_card(mesh) -> None:
-    """Refuse a mesh this port cannot execute (see the module docstring)."""
-    if _data_axis_size(mesh) > 1:
-        raise NotImplementedError(MULTI_CARD)
-
-
 def plan_weight_placement(
     net,
     *,
@@ -95,7 +111,9 @@ def plan_weight_placement(
     entries); falls back to the closed-form t^2 C C' estimate per
     transform family when a layer has not been prepared yet.  Layers
     whose algorithm consumes no pre-transform (direct) have nothing to
-    place and replicate trivially."""
+    place and replicate trivially.  The decision is the layer's alone,
+    whatever the mesh (the reference's takes one and reads nothing of
+    it); `apply_placement` carries it out over a mesh."""
     resident = {k[1]: k for k in net.cache_keys()}
     out: Dict[int, dict] = {}
     for p in net.plan.layers:
@@ -125,16 +143,50 @@ def plan_weight_placement(
 
 def apply_placement(net, mesh, placement: Dict[int, dict]) -> dict:
     """Carry a `plan_weight_placement` decision out on the resident
-    cache entries.  On one card (no mesh, or a ``data`` axis of 1)
-    placement moves no bytes: every layer counts as skipped.  A larger
-    ``data`` axis raises `NotImplementedError`.  Returns ``{sharded,
-    replicated, skipped}`` counts."""
-    _one_card(mesh)
-    return {"sharded": 0, "replicated": 0, "skipped": len(placement)}
+    cache entries over the mesh's cards: a SHARD layer keeps one slice of
+    its last dim that divides by the ``data`` axis on each card (the
+    slice of the card's ``data`` coordinate; a layer with no such dim is
+    replicated, as the reference's divisibility fallback does), a
+    REPLICATE layer a whole copy on each.  With no mesh, or a ``data``
+    axis of 1, placement moves nothing.  Returns ``{sharded, replicated,
+    skipped}`` counts (a SHARD decision counts as sharded, as in the
+    reference, whether or not a dim divided)."""
+    counts = {"sharded": 0, "replicated": 0, "skipped": 0}
+    ndata = _data_axis_size(mesh)
+    if mesh is None or ndata <= 1:
+        counts["skipped"] = len(placement)
+        return counts
+    shard_devices(mesh, None)  # a logical mesh holds no card: raises
+    coords = axis_coordinates(mesh, "data")
+    resident = {k[1]: k for k in net.cache_keys()}
+    for layer, decision in placement.items():
+        key = resident.get(layer)
+        if key is None:
+            counts["skipped"] += 1
+            continue
+        want_shard = decision["placement"] == SHARD
+
+        def put(wt, want_shard=want_shard):
+            # the last dim divisible by the data axis -- transform families
+            # lay kernels out differently, but all keep channel-like dims
+            # trailing
+            dim = None
+            if want_shard:
+                dim = next((d for d in range(wt.ndim - 1, -1, -1)
+                            if wt.shape[d] % ndata == 0 and wt.shape[d] >= ndata), None)
+            slices = coords if dim is not None else (0,) * mesh.size
+            return PlacedTransform(wt, mesh.devices, slices, dim)
+
+        if net.cache.place(key, put):
+            counts["sharded" if want_shard else "replicated"] += 1
+        else:
+            counts["skipped"] += 1
+    return counts
 
 
 class ShardedWaveExecutor:
-    """One replica's executor, wave-sharded into row groups.
+    """One replica's executor, wave-sharded over a mesh's data axis (the
+    module docstring's two paths).
 
     Duck-types `CompiledNet` everywhere the pool and the hot-swap path
     care (`spec`/`cache`/`plan`/`program`/`hw`/`compile_count`/
@@ -150,10 +202,16 @@ class ShardedWaveExecutor:
     ):
         if shards < 1:
             raise ValueError(f"shards must be >= 1, got {shards}")
-        _one_card(mesh)
+        if _data_axis_size(mesh) > 1:
+            shard_devices(mesh, None)  # a logical mesh holds no card: raises
         self.net = net
         self.shards = shards
         self.mesh = mesh
+        self._lock = threading.Lock()
+        # waves by path: "mesh", "logical", and "whole" (one shard or one
+        # row: the replica's own net) -- guarded-by: _lock
+        self.waves = {"mesh": 0, "logical": 0, "whole": 0}
+        self._card_nets: Dict[torch.device, NetExecutor] = {}  # guarded-by: _lock
 
     # --------------------------------------------------- passthroughs
 
@@ -194,17 +252,91 @@ class ShardedWaveExecutor:
         return self.net.cache_keys()
 
     def stats(self) -> dict:
-        return self.net.stats()
+        """The replica's net's counters, with the waves each path served
+        (``sharded_waves``) and the mesh cards' own net calls."""
+        with self._lock:
+            waves = dict(self.waves)
+            cards = {str(card): ex.calls for card, ex in self._card_nets.items()}
+        return {**self.net.stats(), "sharded_waves": waves, "card_calls": cards}
+
+    def _count(self, path: str) -> None:
+        with self._lock:
+            self.waves[path] += 1
 
     # ------------------------------------------------------ execution
+
+    def _card_net(self, card):
+        """The net that runs this replica's shards on `card`: the
+        replica's own where it runs there, else one compiled from its
+        plan for that card (made once), with its weights, cache, dtype,
+        clock and tracer."""
+        inner = self.executor
+        card = canonical(card)
+        if card == canonical(inner.device):
+            return inner
+        with self._lock:
+            ex = self._card_nets.get(card)
+            if ex is None:
+                ex = self._card_nets[card] = NetExecutor(
+                    inner.spec, inner.weights, inner.plan, cache=inner.cache,
+                    dtype=inner.dtype, clock=inner.clock, device=card,
+                    tracer=inner.tracer,
+                )
+        ex.tracer = inner.tracer
+        return ex
+
+    @staticmethod
+    def _stream(card: torch.device):
+        """The stream a shard on `card` runs on: the current one where the
+        caller runs (a pool worker's own), else this thread's own there."""
+        if card.type != "cuda" or card.index == torch.cuda.current_device():
+            return None
+        return thread_stream(card)
+
+    def _mesh_wave(self, x, sizes):
+        """The mesh path (module docstring)."""
+        spec = batch_spec("wave", tuple(x.shape), self.mesh)
+        cards = [canonical(d) for d in shard_devices(self.mesh, spec[0])]
+        home = canonical(self.mesh.devices[0])
+        bounds = shard_bounds(int(x.shape[0]), len(cards))
+        x = torch.as_tensor(x)
+        sizes = None if sizes is None else torch.as_tensor(sizes)
+        nets = [self._card_net(card) for card in cards]
+        streams = [self._stream(card) for card in cards]
+        # every shard's rows, extents and transforms on its card first: a
+        # copy between cards is queued on the source card's current stream,
+        # so one queued after another card's kernels would wait for them
+        staged = []
+        for (lo, hi), card, net, s in zip(bounds, cards, nets, streams):
+            with torch.cuda.stream(s):
+                staged.append((x[lo:hi].to(card),
+                               None if sizes is None else sizes[lo:hi].to(card),
+                               net.transforms()))
+        ys = []
+        for net, (xs, ss, wts), s in zip(nets, staged, streams):
+            with torch.cuda.stream(s):
+                ys.append(net(xs, ss, transforms=wts))
+        # back to the wave's card in request order; each copy is queued on
+        # its shard's stream, and the wave card's current stream waits on it
+        out = []
+        for y, s in zip(ys, streams):
+            with torch.cuda.stream(s):
+                out.append(y.to(home))
+        return torch.cat(out, dim=0)
 
     def __call__(self, x, sizes=None):
         n = int(x.shape[0])
         if self.shards <= 1 or n <= 1:
+            self._count("whole")
             return self.net(x, sizes)
+        ndata = _data_axis_size(self.mesh)
+        if ndata > 1 and n % ndata == 0:
+            self._count("mesh")
+            return self._mesh_wave(x, sizes)
         # logical path: contiguous row groups through the same program on
         # the replica's device, reassembled in order; extents ride their
         # rows, so every shard masks exactly what the whole wave would
+        self._count("logical")
         ys = []
         for lo, hi in shard_bounds(n, self.shards):
             ss = None if sizes is None else sizes[lo:hi]

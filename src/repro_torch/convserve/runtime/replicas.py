@@ -10,8 +10,9 @@ thread -- the deterministic mode the simulated-clock tests use (no
 thread interleaving, same results, same counters).
 
 On the card each worker thread runs its waves on a CUDA stream of its
-own and copies the result to the host on that stream, so replicas
-overlap on the device.  The shared state they read -- cached kernel
+own on the replica's card (one stream per thread and card) and copies
+the result to the host on that stream, so replicas overlap on the
+device.  The shared state they read -- cached kernel
 transforms, packed right-hand matrices, basis matrices -- is prepared in
 `warmup` on the caller's thread, which then synchronizes the device
 before any wave is served; an entry first made during serving is
@@ -32,7 +33,7 @@ import torch
 
 from repro_torch.convserve.runtime.clock import Clock, RealClock
 from repro_torch.convserve.runtime.scheduler import Wave
-from repro_torch.core.device import host_array
+from repro_torch.core.device import host_array, thread_stream
 
 
 @dataclasses.dataclass
@@ -85,7 +86,6 @@ class ReplicaPool:
             else None
         )
         self._lock = threading.Lock()
-        self._streams = threading.local()  # a worker thread's CUDA stream
         self.executors = list(executors)  # guarded-by: _lock
         self.in_flight = [0] * len(executors)  # guarded-by: _lock
         self.dispatched = [0] * len(executors)  # guarded-by: _lock
@@ -124,13 +124,6 @@ class ReplicaPool:
             self.dispatched[i] += 1
             return i, self.executors[i]
 
-    def _stream(self, device: torch.device):
-        """This worker thread's own CUDA stream (made on first use)."""
-        s = getattr(self._streams, "stream", None)
-        if s is None:
-            s = self._streams.stream = torch.cuda.Stream(device=device)
-        return s
-
     def _forward(self, ex, batch, sizes) -> np.ndarray:
         """One wave through `ex`, its output on the host.  A threaded
         pool runs a card replica on the worker's own stream: the input
@@ -139,7 +132,7 @@ class ReplicaPool:
         dev = replica_device(ex)
         if self._pool is None or dev is None or dev.type != "cuda":
             return _host(ex(batch, sizes))
-        stream = self._stream(dev)
+        stream = thread_stream(dev)
         with torch.cuda.stream(stream):
             y = _host(ex(batch, sizes))
         stream.synchronize()

@@ -24,14 +24,21 @@ The builders (`shard_params`, `shard_params_for_inference`,
 nested mapping of tensors (meta ones in the dry run) -- into one
 `LeafShard` per leaf: its spec and its per-card shape, with the
 reference's choices; `runtime_flags.FLAGS.fsdp_min_tree_bytes` sets the
-FSDP threshold, as in the reference.  The placement of shards on several
-cards waits for a multi-card mesh (ROADMAP §1); the compressed gradient
-all-reduce is `distributed.collectives`.
+FSDP threshold, as in the reference.  The builders compute placements;
+the tensors that the port does place across cards are a ConvNet wave's
+rows and its transform stacks (`convserve.fleet.sharding`) and the
+context-parallel q stripes (`models.attention`), each on the cards
+`shard_devices` names.  `use_mesh(mesh)` puts a mesh in effect for a
+block, the counterpart of the reference's ambient ``with mesh:``; the
+compressed gradient all-reduce is `distributed.collectives`.
 """
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import dataclasses
+import itertools
 import math
 import re
 from typing import Any, Dict, Mapping, Optional, Sequence, Tuple, Union
@@ -114,6 +121,57 @@ class Mesh:
         if self.logical:
             return f"Mesh({self.shape}, logical)"
         return f"Mesh({self.shape}, devices={[str(d) for d in self.devices]})"
+
+
+_MESH: contextvars.ContextVar = contextvars.ContextVar("mesh", default=None)
+
+
+@contextlib.contextmanager
+def use_mesh(mesh: Optional[Mesh]):
+    """Put `mesh` in effect for the block (this thread's, as the
+    reference's ``with mesh:``): code that places tensors by a mesh
+    axis, such as the context-parallel attention, reads it through
+    `current_mesh`."""
+    token = _MESH.set(mesh)
+    try:
+        yield mesh
+    finally:
+        _MESH.reset(token)
+
+
+def current_mesh() -> Optional[Mesh]:
+    """The mesh `use_mesh` put in effect, None outside one."""
+    return _MESH.get()
+
+
+def shard_devices(mesh: Mesh, entry) -> Tuple[torch.device, ...]:
+    """The cards that hold the pieces of a dim split by the spec entry
+    `entry` (None, an axis name, or a tuple of them): one per piece, in
+    the order of the pieces (row-major over the entry's axes), each the
+    mesh's device at the piece's coordinates on those axes and 0 on every
+    other axis -- the first card of its group.  A logical mesh holds no
+    device, so it raises."""
+    if mesh.logical:
+        raise ValueError(f"{mesh} holds no device: nothing can be placed on it")
+    names = () if entry is None else (entry if isinstance(entry, tuple) else (entry,))
+    axes = list(mesh.shape)
+    out = []
+    for idx in itertools.product(*(range(mesh.shape[a]) for a in names)):
+        coord = dict(zip(names, idx))
+        flat = 0
+        for a in axes:
+            flat = flat * mesh.shape[a] + coord.get(a, 0)
+        out.append(mesh.devices[flat])
+    return tuple(out)
+
+
+def axis_coordinates(mesh: Mesh, name: str) -> Tuple[int, ...]:
+    """Each mesh position's coordinate on axis `name`, in the order of
+    `mesh.devices` (0 everywhere when the mesh has no such axis)."""
+    if name not in mesh.shape:
+        return (0,) * mesh.size
+    after = math.prod(v for a, v in list(mesh.shape.items())[list(mesh.shape).index(name) + 1:])
+    return tuple((i // after) % mesh.shape[name] for i in range(mesh.size))
 
 
 def _axis_size(mesh: Mesh, name: str) -> int:

@@ -19,7 +19,7 @@ import shutil
 import subprocess
 import tempfile
 import threading
-from typing import Dict, Optional, Sequence
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 
@@ -28,13 +28,18 @@ BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "repro_torch
 # concurrently, and an unguarded read-add-write on a module global can
 # lose counts
 COUNT_LOCK = threading.Lock()
+# entry-point calls by (library stem, card index), beside each wrapper's own
+# `LAUNCHES`: where a run on several cards launched its kernels
+CARD_LAUNCHES: Dict[Tuple[str, int], int] = {}  # guarded-by: COUNT_LOCK
 
-# a quoted include: a header of the repository, relative to the includer
+# a quoted include: a header of the repository, relative to the includer,
+# else one of the headers every kernel source shares (INCLUDE_DIR)
 _INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
+INCLUDE_DIR = pathlib.Path(__file__).resolve().parent / "csrc"
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-I", str(INCLUDE_DIR),
 )
 
 
@@ -60,7 +65,10 @@ def source_text(path: pathlib.Path, seen: Optional[set] = None) -> bytes:
     text = path.read_bytes()
     out = [text]
     for name in _INCLUDE.findall(text.decode()):
-        header = (path.parent / name).resolve()
+        header = path.parent / name
+        if not header.exists():  # nvcc's -I: a shared header
+            header = INCLUDE_DIR / name
+        header = header.resolve()
         if header not in seen:
             out.append(source_text(header, seen))
     return b"".join(out)
@@ -148,9 +156,9 @@ class CudaLibrary:
 
     def launch(self, name: str, device, *args) -> None:
         """Call entry point `name` with `args` and the current stream of
-        `device` (appended last), then raise if it returned a CUDA error:
-        a refused launch never runs, and a later synchronize would not
-        report it."""
+        `device` (appended last), on that card, then raise if it returned
+        a CUDA error: a refused launch never runs, and a later synchronize
+        would not report it.  Counts the call in `CARD_LAUNCHES`."""
         fn = self.fn(name)
         index = device.index if device.index is not None else torch.cuda.current_device()
         # the current stream's cudaStream_t, without building a Stream object
@@ -161,3 +169,5 @@ class CudaLibrary:
                 err = fn(*args, torch._C._cuda_getCurrentRawStream(index))
         if err != 0:
             raise RuntimeError(f"{name} failed: CUDA error {err}")
+        with COUNT_LOCK:
+            CARD_LAUNCHES[self.stem, index] = CARD_LAUNCHES.get((self.stem, index), 0) + 1

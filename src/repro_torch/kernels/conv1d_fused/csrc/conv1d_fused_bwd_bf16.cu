@@ -67,6 +67,7 @@
 #include <type_traits>
 
 #include "stream.cuh"
+#include "smem_opt_in.cuh"
 
 // one launch's sizes and geometry; `BwdBf16Args` in backward.py mirrors it
 struct BwdBf16Args {
@@ -566,13 +567,8 @@ template <int K>
 int launch_stream(const CUtensorMap (&maps)[5], const bf16* w, const bf16* b, bf16* dw,
                   bf16* db, float* part, const BwdBf16Args& a, cudaStream_t s) {
   auto* kernel = conv1d_bwd_bf16_kernel<K>;
-  static bool opted = false;  // the opt-in above 48 KB, once per instantiation
-  if (!opted) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, stream_smem_bytes(kMaxStages));
-    if (err != cudaSuccess) return (int)err;
-    opted = true;
-  }
+  static OptIn opted;  // the opt-in above 48 KB, per device
+  if (const int err = opt_in_smem(kernel, stream_smem_bytes(kMaxStages), opted)) return err;
   kernel<<<a.n_slabs * a.per_slab, kThreads, a.smem, s>>>(maps[0], maps[1], maps[2], maps[3],
                                                          maps[4], w, b, part, a);
   const cudaError_t err = cudaGetLastError();

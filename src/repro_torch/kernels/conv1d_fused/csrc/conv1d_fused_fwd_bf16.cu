@@ -52,6 +52,7 @@
 #include <stdint.h>
 
 #include "stream.cuh"
+#include "smem_opt_in.cuh"
 
 // one launch's sizes and geometry; `FwdBf16Args` in kernel.py mirrors it
 struct FwdBf16Args {
@@ -267,13 +268,8 @@ template <int K>
 int launch_stream(const CUtensorMap (&maps)[3], const bf16* w, const bf16* b,
                   const FwdBf16Args& a, cudaStream_t s) {
   auto* kernel = conv1d_fwd_bf16_kernel<K>;
-  static bool opted = false;  // the opt-in above 48 KB, once per instantiation
-  if (!opted) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, fwd_smem_bytes(kMaxStages));
-    if (err != cudaSuccess) return (int)err;
-    opted = true;
-  }
+  static OptIn opted;  // the opt-in above 48 KB, per device
+  if (const int err = opt_in_smem(kernel, fwd_smem_bytes(kMaxStages), opted)) return err;
   kernel<<<a.n_slabs * a.per_slab, kThreads, a.smem, s>>>(maps[0], maps[1], maps[2], w, b, a);
   return (int)cudaGetLastError();
 }

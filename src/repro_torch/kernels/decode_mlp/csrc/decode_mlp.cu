@@ -48,6 +48,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "smem_opt_in.cuh"
+
 namespace {
 
 using bf16 = __nv_bfloat16;
@@ -377,15 +379,8 @@ decode_mlp_reduce(const float* __restrict__ part, T* __restrict__ out, int n_blo
 template <typename T, int RB, int V, int DEPTH>
 int launch(const T* x, const T* w1, const T* w3, const T* w2, float* part, T* out,
            const Geo& g, int smem, cudaStream_t stream) {
-  // the opt-in above 48 KB is set once per instantiation and size, not per launch
-  static int opted = 48 * 1024;
-  if (smem > opted) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        decode_mlp_partial<T, RB, V, DEPTH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        smem);
-    if (err != cudaSuccess) return (int)err;
-    opted = smem;
-  }
+  static OptIn opted;  // per device, never per launch
+  if (const int err = opt_in_smem(decode_mlp_partial<T, RB, V, DEPTH>, smem, opted)) return err;
   decode_mlp_partial<T, RB, V, DEPTH><<<g.n_blocks, g.threads, smem, stream>>>(
       x, w1, w3, w2, part, g);
   cudaError_t err = cudaGetLastError();

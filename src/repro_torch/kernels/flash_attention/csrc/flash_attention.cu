@@ -79,6 +79,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "smem_opt_in.cuh"
+
 namespace {
 
 constexpr int kRowWarps = 4;  // warps along the q rows, 16 rows each
@@ -496,14 +498,8 @@ int launch(const float* q, const float* k, const float* v, float* o, float* lse,
            int hq, int hkv, int sq, int sk, Strides qs, Strides ks, Strides vs, Strides os,
            int causal, int window, float scale, cudaStream_t stream) {
   constexpr int smem = Cfg<DK, DV>::smem;
-  // the opt-in above 48 KB is set once per process and instantiation
-  static bool opted = false;
-  if (!opted) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        flash_fwd_kernel<DK, DV>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return (int)err;
-    opted = true;
-  }
+  static OptIn opted;  // per device, never per launch
+  if (const int err = opt_in_smem(flash_fwd_kernel<DK, DV>, smem, opted)) return err;
   const dim3 grid(batch * hq, (sq + kBq - 1) / kBq);
   flash_fwd_kernel<DK, DV><<<grid, kThreads, smem, stream>>>(
       q, k, v, o, lse, hq, sq, sk, hq / hkv, qs, ks, vs, os, causal, window, scale);

@@ -60,6 +60,7 @@
 #include <math.h>
 
 #include "hopper.cuh"
+#include "smem_opt_in.cuh"
 
 namespace {
 
@@ -296,14 +297,8 @@ int launch(const bf16* q, const bf16* k, const bf16* v, bf16* o, float* lse, int
            int window, int head_major, float scale, cudaStream_t stream) {
   using C = Cfg<DK, DV>;
   constexpr int smem = C::smem;
-  // the opt-in above 48 KB is set once per process and instantiation
-  static bool opted = false;
-  if (!opted) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        flash_fwd_bf16_kernel<DK, DV>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return (int)err;
-    opted = true;
-  }
+  static OptIn opted;  // per device, never per launch
+  if (const int err = opt_in_smem(flash_fwd_bf16_kernel<DK, DV>, smem, opted)) return err;
   CUtensorMap tq, tk, tv;
   int err = encode_map(&tq, q, batch, hq, sq, DK, qs.b, qs.h, qs.s, C::kQR);
   if (!err) err = encode_map(&tk, k, batch, hkv, sk, DK, ks.b, ks.h, ks.s, kBk);

@@ -86,6 +86,7 @@
 #include <math.h>
 
 #include "hopper.cuh"
+#include "smem_opt_in.cuh"
 
 namespace {
 
@@ -752,14 +753,8 @@ template <int DK, int DV>
 int launch(const Params& p, const bf16* o, Strides os, float* delta, int batch, int n_items,
            cudaStream_t stream) {
   constexpr int smem = Cfg<DK, DV>::smem;
-  // the opt-in above 48 KB is set once per process and instantiation
-  static bool opted = false;
-  if (!opted) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        flash_bwd_bf16_kernel<DK, DV>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return (int)err;
-    opted = true;
-  }
+  static OptIn opted;  // per device, never per launch
+  if (const int err = opt_in_smem(flash_bwd_bf16_kernel<DK, DV>, smem, opted)) return err;
   const long long rows = (long long)batch * p.hq * p.sq;
   flash_bwd_delta_bf16_kernel<DV><<<(unsigned)((rows + 7) / 8), kThreads, 0, stream>>>(
       o, p.dout, delta, p.hq, p.sq, rows, os, p.dos);

@@ -53,6 +53,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "smem_opt_in.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
@@ -469,14 +471,8 @@ __global__ void __launch_bounds__(kThreads) tile_reduce_kernel(const Geo g) {
 
 template <int P, int NA, bool STAGE_RHS>
 int launch_t(const Geo& g, dim3 grid, int smem, cudaStream_t stream) {
-  // the opt-in above 48 KB is set once per instantiation and size, not per launch
-  static int opted = 48 * 1024;
-  if (smem > opted) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        fused_tile_kernel<P, NA, STAGE_RHS>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    opted = smem;
-  }
+  static OptIn opted;  // per device, never per launch
+  if (const int err = opt_in_smem(fused_tile_kernel<P, NA, STAGE_RHS>, smem, opted)) return err;
   fused_tile_kernel<P, NA, STAGE_RHS><<<grid, kThreads, smem, stream>>>(g);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || g.n_split == 1) return static_cast<int>(err);

@@ -20,7 +20,7 @@ from typing import Optional
 import torch
 
 from repro_torch.core import registry, tiling, transforms
-from repro_torch.core.device import DeviceLike, publish, resolve_device
+from repro_torch.core.device import DeviceLike, is_transient, publish, resolve_device
 from repro_torch.kernels.fused_tile import kernel as _kernel
 from repro_torch.kernels.fused_tile import matrix as _matrix
 from repro_torch.kernels.fused_tile.blocks import BlockConfig
@@ -70,6 +70,8 @@ _ZERO_BIAS: dict = {}
 
 
 def _packed_rhs(spec: transforms.TileKernelSpec, wt: torch.Tensor, groups: int):
+    if is_transient(wt):  # one wave's gathered transform: packed for this call
+        return spec.pack_rhs(wt, groups)
     key = (spec.family, spec.t, spec.k, groups, wt._version)
     hit = _PACKED.get(id(wt))
     if hit is None or hit[0]() is not wt or hit[1] != key:

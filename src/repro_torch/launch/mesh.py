@@ -3,9 +3,11 @@
 `make_production_mesh` is the reference's production mesh, single-pod
 16 x 16 or 2-pod 2 x 16 x 16, as a logical `Mesh`: it is used only for
 per-card accounting and never places a tensor.  `make_host_mesh` spans
-the visible CUDA cards (one on a one-card machine); tests pass a device
-list.  Functions, not module constants: importing this module touches
-no device.
+the visible CUDA cards as a (data, model) mesh, one on a one-card
+machine: the mesh a fleet's sharded waves and weight placement, and the
+context-parallel attention under `distributed.sharding.use_mesh`, place
+tensors on.  Tests pass a device list (``["cpu"] * n``).  Functions, not
+module constants: importing this module touches no device.
 """
 
 from __future__ import annotations

@@ -11,8 +11,14 @@ the CPU) via `models.flash_attention.flash_attention`: under grad
 backward kernel.  Under "chunked" (the baseline) it runs through
 `chunked_attention`'s online-softmax loop over 512-key chunks, plain
 torch as the reference's XLA scan, differentiated by autograd.  A
-non-empty `attention_cp_axis` also takes `chunked_attention` (on one
-card the q stripe is not split across cards).  Decode self-attention
+non-empty `attention_cp_axis` also takes `chunked_attention`; while a
+device mesh is in effect (`distributed.sharding.use_mesh`) and its
+`attention_cp_axis` axis M is larger than 1, that is context
+parallelism, as the reference's: q and its positions in M contiguous
+sequence stripes, the batch over ``data``, each stripe run on its card
+with a whole copy of K, V and their positions, the outputs brought back
+to q's card in order (`cp_attention`).  Without a mesh in effect, with
+a logical one or with M of 1 it runs whole on q's card.  Decode self-attention
 goes through `chunked_attention` over the cache: one masked pass under
 "flash" at any cache length, the chunk loop under "chunked".  Local
 layers keep a ring buffer of `window` slots, global layers a dense
@@ -44,6 +50,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig, MLAConfig
+from repro_torch.distributed import sharding as mesh_rules  # module: a cycle through FLAGS
 from repro_torch.models.common import apply_rotary, dense_init, rms_norm
 from repro_torch.models.flash_attention import flash_attention
 from repro_torch.models.runtime_flags import FLAGS
@@ -75,9 +82,42 @@ def full_attention(
         b, sq, sk = q.shape[0], q.shape[1], k.shape[1]
         q_pos = torch.arange(sq, dtype=torch.int32, device=q.device).expand(b, sq)
         kv_pos = torch.arange(sk, dtype=torch.int32, device=q.device).expand(b, sk)
+        mesh = mesh_rules.current_mesh() if FLAGS.attention_cp_axis else None
+        if mesh is not None and not mesh.logical and mesh.shape.get(FLAGS.attention_cp_axis, 1) > 1:
+            return cp_attention(q, k, v, q_pos, kv_pos, mesh, FLAGS.attention_cp_axis,
+                                window=window, causal=causal)
         return chunked_attention(q, k, v, q_pos, kv_pos, window=window, causal=causal)
     qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
     return flash_attention(qt, kt, vt, causal=causal, window=window).transpose(1, 2)
+
+
+def cp_attention(q, k, v, q_pos, kv_pos, mesh, axis: str, *, window: int = 0,
+                 causal: bool = True) -> torch.Tensor:
+    """Context-parallel attention, the reference's ``P("data", axis, None,
+    None)`` on q: the batch split over ``data`` where it divides (else
+    whole on every data group), q's sequence into ``mesh.shape[axis]``
+    contiguous stripes, each (batch block, stripe) on its card
+    (`shard_devices`) with a whole copy of its batch block's K, V and
+    `kv_pos`, run by `chunked_attention` (stripes as `tensor_split` cuts,
+    the earlier ones a row longer).  Every stripe is issued before any
+    output is read; the outputs come back to q's card in order."""
+    nd = mesh.shape.get("data", 1)
+    nd = nd if nd > 1 and q.shape[0] % nd == 0 else 1
+    m = mesh.shape[axis]
+    cards = mesh_rules.shard_devices(mesh, ("data", axis) if nd > 1 else axis)
+    # every stripe's inputs on its card first: a copy between cards is
+    # queued on the source card's stream, so one queued after a stripe's
+    # kernels there would wait for them
+    staged = []
+    blocks = zip(*(t.tensor_split(nd) for t in (q, q_pos, k, v, kv_pos)))
+    for i, (qb, pb, kb, vb, kpb) in enumerate(blocks):
+        for j, (qs, ps) in enumerate(zip(qb.tensor_split(m, dim=1), pb.tensor_split(m, dim=1))):
+            if qs.shape[1]:
+                staged.append((i, [t.to(cards[i * m + j]) for t in (qs, ps, kb, vb, kpb)]))
+    outs = [(i, chunked_attention(qs, ks, vs, qp, kp, window=window, causal=causal))
+            for i, (qs, qp, ks, vs, kp) in staged]
+    return torch.cat([torch.cat([o.to(q.device) for j, o in outs if j == i], dim=1)
+                      for i in range(nd)], dim=0)
 
 
 def _mask(q_pos, kv_pos, window: int, causal: bool) -> torch.Tensor:

@@ -22,7 +22,10 @@ Fields the port reads:
   (0 keeps the config's), and, under grad, one checkpoint per chunk
   step inside the per-super-block one (`models.mamba`).
 - `attention_cp_axis`: a non-empty axis sends full-sequence attention to
-  `chunked_attention`; on one card the q stripe is not split.
+  `chunked_attention`; under a device mesh in effect
+  (`distributed.sharding.use_mesh`) whose axis of that name is larger
+  than 1, q's sequence stripes run on that axis's cards
+  (`attention.cp_attention`), else the call runs whole on q's card.
 - `fsdp_min_tree_bytes`: the sharding builders' FSDP threshold; 0
   shards every tree (`distributed.sharding`).
 

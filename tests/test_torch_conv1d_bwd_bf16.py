@@ -24,6 +24,7 @@ from repro_torch.kernels.flash_attention import kernel as flash_kernel
 
 HEADER = flash_kernel.SOURCE.parent / "hopper.cuh"
 STREAM = conv_kernel.SOURCE.parent / "stream.cuh"  # the bf16 streams' shared part
+OPT_IN = _build.INCLUDE_DIR / "smem_opt_in.cuh"  # every source's shared-memory opt-in
 
 # (B, L, D): mamba2-1.3b's and zamba2-7b's training slices, ragged shapes
 CONV = {"mamba2-train": (4, 1024, 4352), "zamba2-train": (4, 1024, 7296),
@@ -183,7 +184,7 @@ def test_bf16_sources_stream_by_tma_without_float_atomics():
     assert "cp.async.cg" not in text and "__ldg(" not in text.split("K > 8")[0]
     assert not re.search(r"\batomic[A-Z]\w*\(|\bred\.|\batom\.", text)
     assert _build.source_text(src) == (src.read_bytes() + STREAM.read_bytes()
-                                       + HEADER.read_bytes())
+                                       + HEADER.read_bytes() + OPT_IN.read_bytes())
     header = HEADER.read_text()
     for fn in ("tma_load3", "tma_store3", "encode_plain"):
         assert re.search(rf"\b{fn}\(", header)

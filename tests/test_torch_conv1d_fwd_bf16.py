@@ -19,7 +19,7 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels.conv1d_fused import backward as conv_bwd
 from repro_torch.kernels.conv1d_fused import kernel as conv_kernel
-from test_torch_conv1d_bwd_bf16 import HEADER, STREAM, _c_argtypes, _c_struct_fields
+from test_torch_conv1d_bwd_bf16 import HEADER, OPT_IN, STREAM, _c_argtypes, _c_struct_fields
 
 # (B, L, D): the served prefill waves and the training slice of mamba2-1.3b
 # and zamba2-7b's xBC, and ragged lengths
@@ -184,7 +184,8 @@ def test_conv1d_fwd_bf16_source_streams_by_tma():
     assert "hopper::mbar_wait(" in text and "hopper::mbar_expect(" in text
     assert "hopper::tma_load3(" in text and "hopper::tma_store3(" in text
     assert "__ldg(" not in text and "cp.async.cg" not in text
-    assert _build.source_text(src) == src.read_bytes() + STREAM.read_bytes() + HEADER.read_bytes()
+    assert _build.source_text(src) == (src.read_bytes() + STREAM.read_bytes()
+                                       + HEADER.read_bytes() + OPT_IN.read_bytes())
     chain = ("acc = fmaf(xw[i][v], taps[i][v], acc);", "acc += bv[v];",
              "if (a.silu) acc = acc * (1.f / (1.f + expf(-acc)));")
     old = conv_kernel.SOURCE.read_text()

@@ -24,6 +24,7 @@ from repro_torch.kernels.flash_attention import kernel as fk
 
 CSRC = fk.SOURCE.parent
 HEADER = CSRC / "hopper.cuh"
+OPT_IN = _build.INCLUDE_DIR / "smem_opt_in.cuh"  # every source's shared-memory opt-in
 BF16_SOURCES = {"forward": fk.SOURCE_BF16, "backward": bk.SOURCE_BF16}
 
 
@@ -99,8 +100,9 @@ def test_build_key_covers_the_included_header(tmp_path, monkeypatch):
 
 def test_the_committed_bf16_sources_hash_their_header():
     for src in BF16_SOURCES.values():
-        assert _build.source_text(src) == src.read_bytes() + HEADER.read_bytes()
-    assert _build.source_text(fk.SOURCE) == fk.SOURCE.read_bytes()
+        assert _build.source_text(src) == (src.read_bytes() + HEADER.read_bytes()
+                                           + OPT_IN.read_bytes())
+    assert _build.source_text(fk.SOURCE) == fk.SOURCE.read_bytes() + OPT_IN.read_bytes()
 
 
 @pytest.mark.parametrize("mod", [fk, bk], ids=["forward", "backward"])

@@ -31,6 +31,7 @@ from repro.core import analysis as ref_analysis
 from repro.runtime import fault as ref_fault
 from repro_torch import convserve as cs
 from repro_torch.configs.convnets import tiny_testnet
+from repro_torch.convserve import cache as cache_mod
 from repro_torch.convserve import fleet
 from repro_torch.convserve import runtime as rt_mod
 from repro_torch.core import analysis
@@ -304,7 +305,12 @@ def test_weight_placement_on_vgg_matches_the_reference(warm):
     at the default 1 MiB threshold, from the closed-form estimate before
     the transforms are prepared and from the resident bytes after.  The
     port stores every transform in the reference's layout (t^2 x C x C'
-    fp32), so no layer's bytes differ."""
+    fp32), so no layer's bytes differ.  The reference's decision under a
+    mesh (of its one device) is the same: it is each layer's alone, and
+    the port's takes no mesh."""
+    import jax
+    from jax.sharding import Mesh as JaxMesh
+
     from repro.configs.convnets import vgg_mixed_channel as ref_vgg
     from repro_torch.configs.convnets import vgg_mixed_channel
 
@@ -315,11 +321,15 @@ def test_weight_placement_on_vgg_matches_the_reference(warm):
             spec, m.cs.init_weights(spec, seed=0), input_hw=(64, 64))
         if warm:
             net(np.zeros((1, 64, 64, 3), np.float32))
-        return list(net.plan.algos()), m.fleet.plan_weight_placement(net)
+        if side == "port":
+            return list(net.plan.algos()), m.fleet.plan_weight_placement(net)
+        mesh = JaxMesh(np.array(jax.devices()[:1]), ("data",))
+        return (list(net.plan.algos()), m.fleet.plan_weight_placement(net),
+                m.fleet.plan_weight_placement(net, mesh=mesh))
 
-    (algos, got), (ref_algos, want) = placement("port"), placement("reference")
+    (algos, got), (ref_algos, want, want_mesh) = placement("port"), placement("reference")
     assert algos == ref_algos
-    assert got == want
+    assert got == want == want_mesh
     assert {d["placement"] for d in got.values()} == {fleet.SHARD, fleet.REPLICATE}
     why = "resident transform bytes" if warm else "estimated (not yet prepared)"
     assert all(d["why"] == why for d in got.values())
@@ -685,7 +695,7 @@ def test_fleet_stats_sections_are_json_clean():
                                                 tick_interval_s=0.01)))
 
 
-# --------------------------------------------- the one-card mesh rule
+# ------------------------------------------------- the mesh's data axis
 
 
 def _net():
@@ -693,19 +703,56 @@ def _net():
     return PKGS["port"].engine().compile(SPEC, ws, input_hw=(16, 16))
 
 
-@pytest.mark.parametrize("shape", [{"data": 8}, {"data": 2, "model": 4},
-                                   {"pod": 2, "data": 2, "model": 2}])
-def test_data_axis_beyond_one_card_raises(shape):
-    """The counterpart of `test_sharded_wave_on_forced_8_device_mesh`:
-    a mesh whose data axis is larger than 1 is refused, never served on
-    the logical path."""
-    mesh = Mesh(shape, devices=["cpu"] * math.prod(shape.values()))
-    net = _net()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        fleet.ShardedWaveExecutor(net, shards=8, mesh=mesh)
-    placement = fleet.plan_weight_placement(net, threshold_bytes=1)
-    with pytest.raises(NotImplementedError, match="multi-card mesh"):
-        fleet.apply_placement(net, mesh, placement)
+# each mesh with the shards an 8-row wave splits into: over (pod, data)
+# where the rows divide their product, else over data (`batch_spec`)
+MESH_SHAPES = [({"data": 8}, 8), ({"data": 2, "model": 4}, 2),
+               ({"pod": 2, "data": 2, "model": 2}, 4)]
+
+
+def _cpu_mesh(shape):
+    """A mesh of CPU entries, the counterpart of the reference's forced
+    host devices (`test_sharded_wave_on_forced_8_device_mesh`)."""
+    return Mesh(shape, devices=["cpu"] * math.prod(shape.values()))
+
+
+def _ragged_wave_of(n):
+    """`n` seeded rows (any n), ragged extents among them."""
+    rng = np.random.default_rng(0)
+    x = (rng.standard_normal((n, 16, 16, 4)) * 0.1).astype(np.float32)
+    ext = np.array([[16, 16], [12, 12], [16, 14], [8, 16]] * (n // 4 + 1), np.int32)[:n]
+    return x, ext
+
+
+@pytest.mark.parametrize("shape,n_shards", MESH_SHAPES)
+def test_data_axis_beyond_one_card_takes_the_mesh_path(shape, n_shards):
+    """The counterpart of `test_sharded_wave_on_forced_8_device_mesh`: a
+    wave whose rows divide the data axis runs on the mesh path (counted),
+    within SHARD_TOL of the unsharded wave and of the reference's
+    unsharded wave at the same weights and input; a wave whose rows do
+    not divide takes the logical path (counted too)."""
+    mesh = _cpu_mesh(shape)
+    engine = PKGS["port"].engine()
+    ws = cs.init_weights(SPEC, seed=5)
+    net = engine.compile(SPEC, ws, input_hw=(16, 16))
+    x, ext = _ragged_wave_of(8)
+    y_ref = net(x, ext).numpy()
+    sh = fleet.ShardedWaveExecutor(
+        engine.compile(SPEC, ws, plan=net.plan, input_hw=(16, 16)), shards=8, mesh=mesh)
+    y = sh(x, ext)
+    assert isinstance(y, torch.Tensor) and y.shape == y_ref.shape
+    assert sh.stats()["sharded_waves"] == {"mesh": 1, "logical": 0, "whole": 0}
+    assert _rel(y.numpy(), y_ref) <= SHARD_TOL
+    ref_net = PKGS["reference"].engine().compile(
+        REF_SPEC, ref_cs.init_weights(REF_SPEC, seed=5), input_hw=(16, 16))
+    assert _rel(y.numpy(), np.asarray(ref_net(x, ext))) <= SHARD_TOL
+    x5, ext5 = _ragged_wave_of(5)
+    assert _rel(sh(x5, ext5).numpy(), net(x5, ext5).numpy()) <= SHARD_TOL
+    assert sh.stats()["sharded_waves"] == {"mesh": 1, "logical": 1, "whole": 0}
+    # one call a shard: the mesh wave's n_shards, then the logical wave's
+    # five rows in five shards; on a mesh of CPU entries every group's
+    # first card is the replica's own, so no card net was made
+    assert sh.executor.calls == n_shards + 5
+    assert sh.stats()["card_calls"] == {}
 
 
 def test_one_card_mesh_takes_the_logical_path():
@@ -725,6 +772,130 @@ def test_one_card_mesh_takes_the_logical_path():
     assert fleet.apply_placement(net, None, placement) == counts
     with pytest.raises(ValueError, match="shards must be >= 1"):
         fleet.ShardedWaveExecutor(net, shards=0)
+
+
+@pytest.mark.parametrize("shape,n_shards", MESH_SHAPES)
+def test_placement_on_a_cpu_mesh_moves_bytes_and_keeps_the_outputs(shape, n_shards):
+    """The placement half of `test_sharded_wave_on_forced_8_device_mesh`:
+    at threshold 1 every transform layer is placed (sharded + replicated
+    >= 1), the mesh wave's outputs do not change, and under SHARD every
+    mesh position keeps 1/N of the layer's bytes (N the data axis); a
+    REPLICATE placement keeps the whole layer at every position.  Reads
+    hand back the whole transform, bitwise the unplaced one."""
+    mesh = _cpu_mesh(shape)
+    ndata = shape["data"]
+    engine = PKGS["port"].engine()
+    ws = cs.init_weights(SPEC, seed=5)
+    net = engine.compile(SPEC, ws, input_hw=(16, 16))
+    x, ext = _ragged_wave_of(8)
+    y_ref = net(x, ext).numpy()
+    sh = fleet.ShardedWaveExecutor(
+        engine.compile(SPEC, ws, plan=net.plan, input_hw=(16, 16)), shards=8, mesh=mesh)
+    y0 = sh(x, ext).numpy()
+    before = {k: net.cache._store[k].clone() for k in net.cache_keys()}
+    for threshold, kind in ((1, fleet.SHARD), (1 << 40, fleet.REPLICATE)):
+        placement = fleet.plan_weight_placement(net, threshold_bytes=threshold)
+        counts = fleet.apply_placement(net, mesh, placement)
+        assert counts["sharded"] + counts["replicated"] >= 1, counts
+        assert counts["sharded" if kind == fleet.SHARD else "replicated"] == len(before)
+        assert np.array_equal(sh(x, ext).numpy(), y0)
+        assert _rel(y0, y_ref) <= SHARD_TOL
+        for key, whole in before.items():
+            entry = net.cache._store[key]
+            assert isinstance(entry, cache_mod.PlacedTransform)
+            assert entry.sharded == (kind == fleet.SHARD)
+            share = whole.nbytes // ndata if kind == fleet.SHARD else whole.nbytes
+            assert [entry.bytes_at(i) for i in range(mesh.size)] == [share] * mesh.size
+            assert torch.equal(entry.on("cpu"), whole)
+            assert net.cache.entry_nbytes(key) == whole.nbytes
+        stats = net.cache.placement_stats()
+        assert stats["sharded" if kind == fleet.SHARD else "replicated"] == len(before)
+        # positions on one card share what they hold: the CPU keeps every
+        # slice once, the whole stack's bytes
+        assert stats["resident_bytes"] == {"cpu": sum(w.nbytes for w in before.values())}
+        assert stats["gathers"] == stats["copies"] == 0
+
+
+def test_sharded_placement_gathers_slices_from_their_cards():
+    """A transform sharded over entries on two devices (the CPU and the
+    meta device, which holds no values) keeps each slice on its own
+    device and counts a read that must fetch another device's slice as a
+    gather of that slice's bytes; a read on a device outside the mesh
+    raises."""
+    net, cache = _warm_cache()
+    key = net.cache_keys()[-1]
+    whole = cache._store[key]
+    dim = whole.ndim - 1
+    entry = cache_mod.PlacedTransform(whole, ["cpu", "meta"], [0, 1], dim)
+    assert entry.resident_bytes() == {"cpu": whole.nbytes // 2, "meta": whole.nbytes // 2}
+    assert entry.gathered_bytes("cpu") == whole.nbytes // 2
+    assert entry.cards == {torch.device("cpu"), torch.device("meta")}
+    with pytest.raises(ValueError, match="not cuda"):
+        entry.on("cuda:3")
+    replicated = cache_mod.PlacedTransform(whole, ["cpu", "cpu"], [0, 0], None)
+    assert replicated.on("cpu") is whole and replicated.gathered_bytes("cpu") == 0
+    with pytest.raises(ValueError):
+        cache_mod.PlacedTransform(whole, ["cpu", "cpu"], [0, 1], None)
+
+
+def test_a_sharded_read_is_a_transient_buffer():
+    """A sharded entry read whole is a fresh buffer marked transient (the
+    tile engine packs it for that call alone), bitwise the whole; a
+    replicated entry's read is its resident copy, not transient."""
+    from repro_torch.core.device import is_transient
+
+    net, cache = _warm_cache()
+    whole = cache._store[net.cache_keys()[-1]]
+    sharded = cache_mod.PlacedTransform(whole, ["cpu", "cpu"], [0, 1], whole.ndim - 1)
+    got = sharded.on("cpu")
+    assert is_transient(got) and torch.equal(got, whole) and got is not sharded.on("cpu")
+    replicated = cache_mod.PlacedTransform(whole, ["cpu", "cpu"], [0, 0], None)
+    assert not is_transient(replicated.on("cpu"))
+
+
+def test_unplaced_entry_is_copied_once_to_another_card():
+    """An unplaced entry read on another device than its own (the meta
+    device here) is copied there once and the copy kept beside it: a
+    second read returns that copy and counts nothing; the resident bytes
+    show it; placing or dropping the entry drops the copy."""
+    net, cache = _warm_cache()
+    key = net.cache_keys()[-1]
+    whole = cache._store[key]
+    first = cache._serve(key, whole, "meta")
+    assert first.device.type == "meta" and first.shape == whole.shape
+    assert cache._serve(key, whole, "meta") is first
+    stats = cache.placement_stats()
+    assert stats["copies"] == 1 and stats["moved_bytes"] == whole.nbytes
+    assert stats["resident_bytes"]["meta"] == whole.nbytes
+    assert cache.place(key, lambda wt: wt.clone())
+    assert "meta" not in cache.placement_stats()["resident_bytes"]
+    again = cache._serve(key, cache._store[key], "meta")
+    assert again is not first and cache.placement_stats()["copies"] == 2
+    assert cache.invalidate_keys([key]) == 1
+    assert "meta" not in cache.placement_stats()["resident_bytes"]
+
+
+def test_elastic_pool_on_a_cpu_mesh_matches_one_replica_with_one_shard():
+    """Two replicas built with a 4-entry data mesh serve a ragged trace:
+    full waves take the mesh path, partial ones the logical path, and
+    every request is within SHARD_TOL of one replica with one shard."""
+    trace = rt_mod.poisson_trace(45.0, 40, seed=7, sizes=(8, 12, 16), deadline_s=0.08)
+    images = rt_mod.make_images(trace, 4, seed=1)
+    cfg = dict(buckets=(16,), max_batch=4, queue_depth=128, slo_s=0.1,
+               service_est_s=0.01)
+    mesh = _cpu_mesh({"data": 4})
+    runs = {}
+    for n, shards, kw in ((2, 4, {"mesh": mesh}), (1, 1, {})):
+        rt, _ = _fleet("port", n, shards=shards, cfg=cfg, **kw)
+        rt.warmup([2, 4])
+        runs[n] = (rt, rt.play(trace, images))
+    (rt, out), (_, oracle) = runs[2], runs[1]
+    assert out.keys() == oracle.keys() == {a.rid for a in trace} and not rt.errors
+    for rid in oracle:
+        assert _rel(out[rid], oracle[rid]) <= SHARD_TOL, rid
+    waves = [ex.stats()["sharded_waves"] for ex in rt.pool.executors]
+    assert sum(w["mesh"] for w in waves) >= 1 and sum(w["logical"] for w in waves) >= 1
+    assert rt.stats()["scheduler"]["partial_waves"] >= 1
 
 
 # ------------------------------------------------ the cache's fleet surface
@@ -748,6 +919,10 @@ def test_cache_entry_nbytes_matches_the_reference():
 
 
 def test_cache_place_refuses_shape_dtype_and_device_changes():
+    """Placement never changes what is served: a plain tensor must keep
+    shape, dtype and device; a device change is taken only as a mesh
+    placement (`PlacedTransform`) whose whole transform is bitwise the
+    entry's, and an entry placed so is placed again from its whole."""
     net, cache = _warm_cache()
     key = net.cache_keys()[-1]
     before = cache._store[key]
@@ -755,9 +930,22 @@ def test_cache_place_refuses_shape_dtype_and_device_changes():
     assert torch.equal(cache._store[key], before)
     assert not cache.place(("no", "such", "key"), lambda wt: wt)
     for bad in (lambda wt: wt.reshape(-1), lambda wt: wt.to(torch.float64),
-                lambda wt: wt.to("meta")):
+                lambda wt: wt.to("meta"),
+                lambda wt: cache_mod.PlacedTransform(wt.to("meta"), ["meta"], [0], None)):
         with pytest.raises(ValueError, match="placement changed entry"):
             cache.place(key, bad)
+    dim = before.ndim - 1
+
+    def tampered(wt):
+        placed = cache_mod.PlacedTransform(wt, ["cpu", "cpu"], [0, 1], dim)
+        placed._held[(torch.device("cpu"), 1)] += 1.0
+        return placed
+
+    with pytest.raises(ValueError, match="values"):
+        cache.place(key, tampered)
+    assert cache.place(key, lambda wt: cache_mod.PlacedTransform(wt, ["cpu"] * 2, [0, 1], dim))
+    assert cache.place(key, lambda wt: torch.equal(wt, before) and wt.clone())
+    assert torch.equal(cache._store[key], before)
 
 
 def test_cache_corrupt_entry_negates_a_new_tensor():

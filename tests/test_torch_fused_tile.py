@@ -291,3 +291,23 @@ def test_packed_rhs_follows_in_place_weight_updates():
     wt.mul_(2.0)
     y2 = ft.conv2d_fused_tile(x, None, tr, pad=1, wt=wt, device="cpu")
     torch.testing.assert_close(y2, 2 * y1)
+
+
+def test_a_transient_transform_is_packed_for_its_call_alone():
+    """A transformed kernel marked transient (a sharded cache entry
+    gathered for one wave) is packed for its call and nothing of it is
+    kept, so no pack is published; an ordinary one is packed once and
+    kept.  Both give the same output."""
+    from repro_torch.core.device import transient
+    from repro_torch.kernels.fused_tile import ops
+
+    tr = transforms.WinogradTransform(m=3, k=3)
+    rng = np.random.default_rng(9)
+    x = torch.tensor(rng.standard_normal((1, 9, 9, 4)), dtype=torch.float32)
+    wt = tr.kernel_transform(torch.tensor(rng.standard_normal((3, 3, 4, 5)),
+                                          dtype=torch.float32))
+    before = len(ops._PACKED)
+    y = ft.conv2d_fused_tile(x, None, tr, pad=1, wt=transient(wt.clone()), device="cpu")
+    assert len(ops._PACKED) == before
+    assert torch.equal(ft.conv2d_fused_tile(x, None, tr, pad=1, wt=wt, device="cpu"), y)
+    assert len(ops._PACKED) == before + 1

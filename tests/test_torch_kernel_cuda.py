@@ -2,9 +2,10 @@
 the tile kernel, and the LM path's conv1d, flash-attention and decode-MLP
 kernels; and the mixture-of-experts layer on the card against the CPU.
 
-Skips on a host without a CUDA card (the kernels have no CPU mode).  It
-imports neither JAX nor the reference package, so on the GPU machine it
-runs without them:
+Skips on a host without a CUDA card (the kernels have no CPU mode); the
+tests that launch on cuda:1 after cuda:0 (`two_cards`) skip with fewer
+than two cards.  It imports neither JAX nor the reference package, so on
+the GPU machine it runs without them:
 
     PYTHONPATH=src python -m pytest --noconftest -q tests/test_torch_kernel_cuda.py
 
@@ -1740,3 +1741,200 @@ def test_cuda_bf16_kernels_refuse_what_they_do_not_take(cuda_device):
     w1, w3 = _bf16_operand(rng, (64, 33), cuda_device), _bf16_operand(rng, (64, 33), cuda_device)
     with pytest.raises(ValueError, match="multiples of 8"):
         decode_mlp(x, w1, w3, _bf16_operand(rng, (33, 64), cuda_device))
+
+
+# ------------------------------------------- a second card in one process
+
+
+@pytest.fixture
+def two_cards():
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA cards: what a second card of one process launches")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda:0"), torch.device("cuda:1")
+
+
+def _on_card_tile(dev):
+    tr, b, h, w, c_in, c_out, groups, bias_relu = SERVED["vgg-64to64-at64"]  # 71,616 B
+    x, wk, ep = _served_operands(tr, b, h, w, c_in, c_out, groups, bias_relu, dev, seed=6)
+    spec = tr.kernel_spec()
+    plan = tiling.TilePlan.build(h, w, tr.k, 1, tr.t)
+    ref = ft.matrix_tile_conv(tiling.pad_input(x, plan), spec.pack_rhs(tr.kernel_transform(wk), 1),
+                              plan, spec, groups=1, epilogue=ep)
+    return (ft.conv2d_fused_tile(x, wk, tr, pad=1, device=dev),), (ref,), 1e-5
+
+
+def _on_card_conv1d(dtype, backward=False):
+    def run(dev):
+        from repro_torch.kernels.conv1d_fused import (
+            backward as conv_backward, conv1d_bwd_ref, conv1d_fused, conv1d_ref)
+
+        rng = np.random.default_rng(50)
+        mk = lambda shape, s=1.0: torch.tensor(  # noqa: E731
+            rng.standard_normal(shape) * s, dtype=torch.float32).to(dev, dtype)
+        x = mk((4, 768, 8512))[..., 4096:4096 + 4352]  # mamba2's first prefill wave
+        w, b, g = mk((4, 4352), 0.5), mk((4352,), 0.1), mk((4, 768, 4352))
+        if backward:
+            got = conv_backward.conv1d_fused_bwd_call(x, w, b, g, activation="silu")
+            return got, conv1d_bwd_ref(g, x, w, b), 2e-2
+        tol = 1e-5 if dtype == torch.float32 else 1e-2
+        return (conv1d_fused(x, w, b),), (conv1d_ref(x, w, b),), tol
+    return run
+
+
+def _on_card_flash(dtype, backward=False):
+    def run(dev):
+        from repro_torch.kernels.flash_attention import (
+            attention_ref, flash_attention_bwd_ref, flash_forward)
+        from repro_torch.kernels.flash_attention import backward as bwd_kernel
+        from repro_torch.kernels.flash_attention import kernel as flash_kernel
+
+        rng = np.random.default_rng(51)
+        mk = lambda shape: torch.tensor(  # noqa: E731
+            rng.standard_normal(shape), dtype=torch.float32).to(dev, dtype)
+        q, k, v, do = mk((1, 4, 700, 256)), mk((1, 1, 700, 256)), mk((1, 1, 700, 256)), mk(
+            (1, 4, 700, 256))  # gemma3-1b's global layer, hd 256
+        if not backward:
+            tol = 1e-5 if dtype == torch.float32 else 1e-2
+            return (flash_forward(q, k, v),), (attention_ref(q, k, v),), tol
+        o, lse = flash_kernel.flash_attention_call(q, k, v, causal=True, window=0,
+                                                   return_lse=True)
+        got = bwd_kernel.flash_attention_bwd_call(q, k, v, o, lse, do, causal=True, window=0)
+        want = flash_attention_bwd_ref(q, k, v, o, lse, do, causal=True, window=0)
+        return got, want, (FLASH_BWD_REL if dtype == torch.float32 else 2e-2)
+    return run
+
+
+def _on_card_mlp(dtype):
+    def run(dev):
+        from repro_torch.kernels.decode_mlp import decode_mlp, decode_mlp_ref
+
+        rng = np.random.default_rng(52)
+        mk = lambda shape, s: torch.tensor(  # noqa: E731
+            rng.standard_normal(shape) * s, dtype=torch.float32).to(dev, dtype)
+        x, w1, w3, w2 = (mk((4, 1152), 1.0), mk((1152, 6912), 1152 ** -0.5),
+                         mk((1152, 6912), 1152 ** -0.5), mk((6912, 1152), 6912 ** -0.5))
+        tol = 1e-5 if dtype == torch.float32 else 1e-2
+        return (decode_mlp(x, w1, w3, w2),), (decode_mlp_ref(x, w1, w3, w2),), tol
+    return run
+
+
+# every kernel source at a shape whose block asks for more than 48 KB of
+# shared memory (the fp32 conv1d asks for none; it runs for its launch)
+ON_A_SECOND_CARD = {
+    "fused_tile": (_on_card_tile, "fused_tile"),
+    "conv1d_fused": (_on_card_conv1d(torch.float32), "conv1d_fused"),
+    "conv1d_fused_fwd_bf16": (_on_card_conv1d(BF16), "conv1d_fused_fwd_bf16"),
+    "conv1d_fused_bwd_bf16": (_on_card_conv1d(BF16, backward=True), "conv1d_fused_bwd_bf16"),
+    "flash_attention": (_on_card_flash(torch.float32), "flash_attention"),
+    "flash_attention_bf16": (_on_card_flash(BF16), "flash_attention_bf16"),
+    "flash_attention_bwd": (_on_card_flash(torch.float32, backward=True), "flash_attention_bwd"),
+    "flash_attention_bwd_bf16": (_on_card_flash(BF16, backward=True),
+                                 "flash_attention_bwd_bf16"),
+    "decode_mlp": (_on_card_mlp(torch.float32), "decode_mlp"),
+    "decode_mlp_bf16": (_on_card_mlp(BF16), "decode_mlp"),
+}
+
+
+@pytest.mark.parametrize("name", list(ON_A_SECOND_CARD))
+def test_cuda_every_kernel_launches_on_cuda1_after_cuda0(two_cards, name):
+    """The shared-memory opt-in holds per card: after a launch on cuda:0
+    the same kernel launches on cuda:1 (counted there), each card's
+    output matches its plain version, and cuda:1's is bitwise cuda:0's."""
+    from repro_torch.kernels import _build
+
+    run, stem = ON_A_SECOND_CARD[name]
+    outs = []
+    for dev in two_cards:
+        before = _build.CARD_LAUNCHES.get((stem, dev.index), 0)
+        got, want, tol = run(dev)
+        torch.cuda.synchronize(dev)
+        assert _build.CARD_LAUNCHES.get((stem, dev.index), 0) > before, dev
+        for g, w in zip(got, want):
+            assert g.device == dev and g.shape == w.shape
+            assert _rel(g.float(), w.float()) < tol, (dev, _rel(g.float(), w.float()))
+        outs.append([g.cpu() for g in got])
+    assert all(torch.equal(a, b) for a, b in zip(*outs))
+
+
+def test_cuda_replica_pool_worker_serves_two_cards_on_their_streams(two_cards):
+    """One `ReplicaPool` worker thread serves a vgg replica on cuda:0 and
+    one on cuda:1 (one engine a card, one shared cache): it keeps a stream
+    on each card, so each wave waits on its own card's stream, and every
+    output is bitwise the one cuda:0's replica gives running the waves
+    serially."""
+    from repro_torch.configs.convnets import vgg_mixed_channel
+    from repro_torch.convserve import Engine, KernelCache, init_weights
+    from repro_torch.convserve.runtime import (
+        ReplicaPool, Request, RuntimeConfig, WaveScheduler, make_images, poisson_trace,
+    )
+    from repro_torch.core import analysis
+
+    spec, ws = vgg_mixed_channel(3), init_weights(vgg_mixed_channel(3), seed=0)
+    cache = KernelCache()
+    nets = []
+    for dev in two_cards:
+        engine = Engine(hw=analysis.H100_SXM, device=dev, cache=cache)
+        plan = nets[0].plan if nets else None
+        nets.append(engine.compile(spec, ws, input_hw=(64, 64), plan=plan, fuse=None)
+                    if plan else engine.compile(spec, ws, input_hw=(64, 64)))
+    pool = ReplicaPool(nets, workers=1)
+    pool.warmup((32, 64), (4,))
+    trace = poisson_trace(40.0, 24, seed=7, sizes=(32, 48, 64))
+    images = make_images(trace, 3, seed=8)
+    sched = WaveScheduler(spec, RuntimeConfig(max_batch=4, buckets=(32, 64), queue_depth=64))
+    for a in trace:
+        assert sched.admit(Request(rid=a.rid, image=images[a.rid]), now=0.0) is None
+    waves = []
+    while (w := sched.drain_wave()) is not None:
+        waves.append(w)
+    results = [f.result() for f in [pool.submit(w) for w in waves]]
+    assert [d > 0 for d in pool.stats()["dispatched"]] == [True, True]
+    assert {r.replica for r in results} == {0, 1}
+    for w, res in zip(waves, results):
+        serial = w.crop(spec, nets[0](*w.assemble()).cpu().numpy())
+        for rid, y in serial.items():
+            assert np.array_equal(res.outputs[rid], y), rid
+    pool.shutdown()
+
+
+def test_cuda_sharded_vgg_wave_over_two_cards(two_cards):
+    """A ragged vgg wave of 8 on a data mesh of cuda:0 and cuda:1: the
+    mesh path (counted), a shard a card, each on a stream of its card (the
+    tile kernel launched on both), within rel 1e-5 of the unsharded wave and
+    on cuda:0; SHARD placement keeps half of each stack on each card,
+    gathers the other half at every read and leaves the output bitwise."""
+    from repro_torch.configs.convnets import vgg_mixed_channel
+    from repro_torch.convserve import Engine, init_weights
+    from repro_torch.convserve.fleet import (
+        ShardedWaveExecutor, apply_placement, plan_weight_placement)
+    from repro_torch.core import analysis
+    from repro_torch.distributed.sharding import Mesh
+    from repro_torch.kernels import _build
+
+    spec, ws = vgg_mixed_channel(3), init_weights(vgg_mixed_channel(3), seed=0)
+    engine = Engine(hw=analysis.H100_SXM, device=two_cards[0])
+    net = engine.compile(spec, ws, input_hw=(64, 64))
+    mesh = Mesh({"data": 2}, devices=list(two_cards))
+    sh = ShardedWaveExecutor(engine.compile(spec, ws, plan=net.plan, input_hw=(64, 64)),
+                             shards=2, mesh=mesh)
+    rng = np.random.default_rng(4)
+    x = (rng.standard_normal((8, 64, 64, 3)) * 0.1).astype(np.float32)
+    sizes = np.array([[64, 64], [48, 48], [64, 64], [32, 32], [48, 48], [64, 64],
+                      [64, 48], [0, 0]], np.int32)
+    y = net(x, sizes)
+    before = _build.CARD_LAUNCHES.get(("fused_tile", 1), 0)
+    ys = sh(x, sizes)
+    torch.cuda.synchronize()
+    assert sh.stats()["sharded_waves"]["mesh"] == 1
+    assert _build.CARD_LAUNCHES.get(("fused_tile", 1), 0) > before
+    assert ys.device == y.device and ys.shape == y.shape
+    assert _rel(ys, y) <= 1e-5 and not ys[7].any()
+    counts = apply_placement(net, mesh, plan_weight_placement(net, threshold_bytes=1))
+    assert counts["sharded"] >= 1
+    stats = engine.cache.placement_stats()
+    assert stats["resident_bytes"]["cuda:0"] == stats["resident_bytes"]["cuda:1"] > 0
+    placed = sh(x, sizes)
+    torch.cuda.synchronize()
+    assert torch.equal(placed, ys)
+    assert engine.cache.placement_stats()["gathers"] > stats["gathers"]
